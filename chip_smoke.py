@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`faceoff_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
-Phases, each printing one line with its seconds:
+Phases, each printing lines with their seconds:
 
-  1. build   — compile and load the bilinear-warp kernel (csrc/warp.cu)
-               with nvcc into faceoff_tpu_torch/_build/;
+  1. build   — compile the kernel sources (csrc/warp.cu, csrc/vq.cu), one
+               nvcc each, started together, into faceoff_tpu_torch/_build/,
+               and load them;
   2. kernel  — the kernel against its plain torch version on the card at
-               (1,256,256,3), (16,256,256,3) and one case whose output
-               grid differs from the source; max |diff| <= 1e-5; kernel,
-               plain, grid_sample and bound times;
+               (1,256,256,3), (16,256,256,3), one case whose output
+               grid differs from the source, and the training step's own
+               call: 128 frames (b16 x T8) of 256x256x3 at the grids of
+               `perturbation_grids`; max |diff| <= 1e-5; kernel, plain,
+               grid_sample and bound times;
   3. slice   — a SwapSession at the flagship widths (random weights from a
                seed), 256x256, serves two 16-frame streams (push, then
                push_many) in float32 without TF32; every pushed frame comes
@@ -18,6 +21,30 @@ Phases, each printing one line with its seconds:
                frames match the port's offline forward of the same
                composites (atol 2e-4, rtol 1e-3). Then the bfloat16 path
                is timed: frames/s, per-push latency and a per-stage split.
+  4. vq      — the VQ kernels against their plain version at the training
+               step's shapes (N=524288 and 131072 rows, D=64, K=512) and at
+               K=4096 (the regime of the TPU's K-tiled kernels): indices
+               equal except within the float32 rounding margin of a tie,
+               quant an exact copy of the picked codes, counts exact, sums
+               within the rounding bound of their row counts.
+  5. warp_bwd — the warp's backward kernel against autograd through the
+               plain version at (128,256,256,3).
+  6. train   — the perceptual training step at full width: flagship
+               ModelConfig, b16, T8, 256 px, random VGG16 LPIPS, Adam at
+               lr 3e-4 with the one-cycle schedule, a resident corpus of
+               16 synthetic videos x 24 frames; 2 warm-up and 5 timed bf16
+               steps: step ms, frames/s, peak memory, the losses (finite;
+               the MSE of one held batch, prepared before the steps, not
+               higher after them) and the launch counts (2 VQ and 1 warp
+               per step; each VQ launch is one assignment and one
+               statistics kernel). With --profile, one more step under
+               torch.profiler (the device's busy share, device time by
+               operator and by kernel), then LPIPS and the VQVAE forward
+               and backward alone at the step's shapes.
+  7. train_check — a small configuration (channel 32, b2, T4, 64 px) takes
+               3 float32 steps without TF32 on CUDA and on the CPU from the
+               same weights and prepared batches; losses, parameters and
+               codebooks must agree within the stated tolerances.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 {"kernels": [...]}, and last {"ok": true, "device": {...}}. Any failure
@@ -27,6 +54,8 @@ torch, numpy, the standard library and faceoff_tpu_torch only.
 
 from __future__ import annotations
 
+import argparse
+import concurrent.futures
 import json
 import statistics
 import subprocess
@@ -38,13 +67,21 @@ import numpy as np
 import torch
 
 from faceoff_tpu_torch.config import ModelConfig
-from faceoff_tpu_torch.data.synthetic import draw_face, face_landmarks
+from faceoff_tpu_torch.data.resident import (build_resident_corpus,
+                                             make_resident_prepare)
+from faceoff_tpu_torch.data.synthetic import (draw_face, face_landmarks,
+                                              synthetic_corpus)
 from faceoff_tpu_torch.models import VQVAE
+from faceoff_tpu_torch.models.lpips import init_lpips
+from faceoff_tpu_torch.ops import vq as V
+from faceoff_tpu_torch.ops import vq_cuda
 from faceoff_tpu_torch.ops import warp as W
 from faceoff_tpu_torch.ops import warp_cuda
 from faceoff_tpu_torch.ops.swap import prepare_swap_batch
 from faceoff_tpu_torch.serve import SwapSession
 from faceoff_tpu_torch.serve.streaming import _postnet_stream
+from faceoff_tpu_torch.train.state import create_train_state, make_optimizer
+from faceoff_tpu_torch.train.train_step import make_eval_step, make_train_step
 
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -53,6 +90,16 @@ KERNEL_TOL = 1e-5
 STREAM_TOL = dict(atol=2e-4, rtol=1e-3)  # tests/test_streaming.py
 SIZE, FRAMES = 256, 16
 DEV = "cuda"
+U32 = 2.0 ** -24  # float32 unit roundoff
+# the training phase: b16, T8, 256 px at the flagship widths
+TRAIN_B, TRAIN_T, TRAIN_SIZE = 16, 8, 256
+CORPUS_VIDEOS, CORPUS_FRAMES = 16, 24
+WARMUP_STEPS, TIMED_STEPS = 2, 5
+# the one-cycle schedule spans the run (5% warmup rounds to no warmup)
+TRAIN_LR, TRAIN_N_ITER = 3e-4, WARMUP_STEPS + TIMED_STEPS
+VQ_SHAPES = [(524288, 64, 512), (131072, 64, 512), (65536, 64, 4096)]
+WARP_BWD_SHAPE = (128, 256, 256, 3, 256, 256)
+WARP_BWD_TOL = 1e-4
 
 
 def say(phase: str, t0: float, msg: str) -> None:
@@ -143,13 +190,31 @@ def bound_ms(n, h, w, c, oh, ow):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def perturb_inputs(gen):
+    """The warp's inputs on the training step: B x T = 128 frames of
+    256x256x3 in [0, 1], sampled at the grids `perturb_clip` builds from
+    a fresh draw (eye centres near the middle of the frame)."""
+    t, size = TRAIN_B * TRAIN_T, TRAIN_SIZE
+    imgs = torch.rand((t, size, size, 3), generator=gen)
+    eyes = size * (0.4 + 0.2 * torch.rand((t, 2), generator=gen))
+    xs, ys, _ = W.perturbation_grids(W.draw_perturbation(gen, t), size,
+                                     size, eyes)
+    return imgs, xs.contiguous(), ys.contiguous()
+
+
 def kernel_phase(t0):
     gen = torch.Generator().manual_seed(1)
+    cases = [("affine", shape, lambda shape=shape: warp_inputs(*shape, gen))
+             for shape in [(1, 256, 256, 3, 256, 256),
+                           (16, 256, 256, 3, 256, 256),
+                           (4, 192, 320, 3, 256, 256)]]
+    cases.append(("perturbation", (TRAIN_B * TRAIN_T, TRAIN_SIZE, TRAIN_SIZE,
+                                   3, TRAIN_SIZE, TRAIN_SIZE),
+                  lambda: perturb_inputs(gen)))
     rows = []
-    for shape in [(1, 256, 256, 3, 256, 256), (16, 256, 256, 3, 256, 256),
-                  (4, 192, 320, 3, 256, 256)]:
+    for grids, shape, make in cases:
         n, h, w, c, oh, ow = shape
-        imgs, xs, ys = (t.to(DEV) for t in warp_inputs(*shape, gen))
+        imgs, xs, ys = (t.to(DEV) for t in make())
         out = warp_cuda.bilinear_warp(imgs, xs, ys)
         torch.cuda.synchronize()
         ref = W._bilinear_sample(imgs, xs, ys)
@@ -174,6 +239,7 @@ def kernel_phase(t0):
         b_ms, b_by = bound_ms(*shape)
         row = {
             "shape": list(shape),
+            "grids": grids,
             "max_abs_err": err,
             "kernel_ms": device_ms(kernel),
             "plain_ms": device_ms(plain),
@@ -322,7 +388,404 @@ def serve_bf16(t0, streams):
     return result, split
 
 
+# -- phase 4: the VQ kernels against their plain version ---------------
+
+
+def vq_bound_ms(n, d, k):
+    """Least time for assignment + statistics: x, E read once; idx, quant,
+    counts, sums written once; 2 N D K float32 FMA operations for the
+    scores and N D adds for the sums."""
+    nbytes = 4 * (2 * n * d + 2 * d * k + n + k)
+    ops = 2 * n * d * k + n * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def assign_bound_ms(n, d, k):
+    nbytes = 4 * (2 * n * d + d * k + n)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * n * d * k / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def stats_bound_ms(n, d, k):
+    nbytes = 4 * (n * d + n + k + d * k)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n * d / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_vq(x, e, out):
+    """Hold vq_assign's outputs against the plain version on the same
+    inputs; returns a dict of what was compared.
+
+    Indices: a float32 dot product of D terms is within D u sum|x_d e_d|
+    of the exact value, so the kernel's and the plain version's scores of
+    one code differ by at most margin = 2 (D + 1) u (|x| @ |E| + ||E||^2/2)
+    (u = 2^-24; the +1 covers the half-norm's subtraction). A row may
+    pick another code than the plain version only where the plain
+    version's two best scores lie within that row's margin, and the
+    kernel's pick must score within the margin of the best.
+    Quant: an exact copy of E[:, idx]. Counts: exactly the rows per code
+    of the kernel's own indices. Sums: against the plain sums of the same
+    indices, within the rounding bound of two summations of c_k terms,
+    2 c_k u sum|x| per entry."""
+    idx, quant, counts, sums = out
+    n, d = x.shape
+    k = e.shape[1]
+    ref_idx, _, _, _ = V.vq_assign_plain(x, e)
+    hn = 0.5 * (e * e).sum(0)
+    scores = x @ e - hn
+    margin = 2 * (d + 1) * U32 * (x.abs() @ e.abs() + hn).amax(1)
+    top2 = scores.topk(2, dim=1).values
+    li = idx.long()
+    picked = scores.gather(1, li[:, None])[:, 0]
+    differ = idx != ref_idx
+    near = (top2[:, 0] - top2[:, 1]) <= margin
+    shortfall = top2[:, 0] - picked
+    if bool((differ & ~near).any()) or bool((shortfall > margin).any()):
+        raise AssertionError(
+            f"vq {n}x{d}x{k}: {int(differ.sum())} rows differ, "
+            f"{int((differ & ~near).sum())} outside the tie margin; worst "
+            f"shortfall {float(shortfall.max()):.3e}")
+    if not torch.equal(quant, e.t()[li]):
+        raise AssertionError(f"vq {n}x{d}x{k}: quant is not E[:, idx]")
+    own_counts, own_sums = V.vq_stats(x, idx, k)
+    if not torch.equal(counts, own_counts) or counts.sum().item() != n:
+        raise AssertionError(f"vq {n}x{d}x{k}: counts differ")
+    _, abs_sums = V.vq_stats(x.abs(), idx, k)
+    tol = 2 * counts[None, :] * U32 * abs_sums + 1e-30
+    err = (sums - own_sums).abs()
+    if bool((err > tol).any()):
+        raise AssertionError(
+            f"vq {n}x{d}x{k}: sums off by {float(err.max()):.3e} "
+            f"(worst share of its bound {float((err / tol).max()):.3f})")
+    return {"rows_differing_from_plain": int(differ.sum()),
+            "rows_within_tie_margin": int(near.sum()),
+            "max_score_shortfall": float(shortfall.max()),
+            "max_sums_err_share_of_bound": float((err / tol).max()),
+            # quant and counts are exact; the sums carry the error
+            "max_abs_err": float(err.max())}
+
+
+def vq_phase(t0):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    rows = []
+    for n, d, k in VQ_SHAPES:
+        x = torch.randn((n, d), generator=gen, device=DEV)
+        e = torch.randn((d, k), generator=gen, device=DEV)
+        out = vq_cuda.vq_assign(x, e)
+        torch.cuda.synchronize()
+        row = {"shape": [n, d, k], **check_vq(x, e, out)}
+        idx = out[0]
+        b_ms, b_by = vq_bound_ms(n, d, k)
+        a_ms, a_by = assign_bound_ms(n, d, k)
+        s_ms, s_by = stats_bound_ms(n, d, k)
+        idx64 = idx.long()
+        xt = x.t().contiguous()
+
+        def index_add():
+            return torch.zeros((d, k), device=DEV).index_add_(1, idx64, xt)
+
+        reps = dict(reps=7, inner=3, warmup=2)
+        row.update({
+            "kernel_ms": cuda_ms(lambda: vq_cuda.vq_assign(x, e), **reps),
+            "plain_ms": cuda_ms(lambda: V.vq_assign_plain(x, e), **reps),
+            "library_ms": cuda_ms(lambda: x @ e, **reps),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "assign_ms": cuda_ms(lambda: vq_cuda.assign_rows(x, e), **reps),
+            "assign_plain_ms": cuda_ms(
+                lambda: V.codebook_lookup(V.nearest_code(x, e), e), **reps),
+            "assign_bound_ms": a_ms, "assign_bound_by": a_by,
+            "stats_ms": cuda_ms(lambda: vq_cuda.code_stats(x, idx, k), **reps),
+            "stats_plain_ms": cuda_ms(lambda: V.vq_stats(x, idx, k), **reps),
+            "stats_library_ms": cuda_ms(index_add, **reps),
+            "stats_bound_ms": s_ms, "stats_bound_by": s_by,
+            "codes_used": int((out[2] > 0).sum()),
+            "largest_code_share": float(out[2].max() / n),
+        })
+        rows.append(row)
+        say("vq", t0, json.dumps(row))
+        del x, e, out, idx, idx64, xt
+        torch.cuda.empty_cache()
+    return rows
+
+
+# -- phase 5: the warp's backward kernel ----------------------------------
+
+
+def warp_bwd_bound_ms(n, h, w, c, oh, ow):
+    """g, imgs, xs, ys read once; d_imgs, d_xs, d_ys written once; about
+    30 float32 operations per output value. The zeroing of d_imgs that
+    the scatter with atomics needs is the design's cost, not the
+    function's, and is not in the bound."""
+    nbytes = 4 * (n * oh * ow * c + 2 * n * h * w * c + 4 * n * oh * ow)
+    ops = 30 * n * oh * ow * c
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def warp_bwd_phase(t0):
+    n, h, w, c, oh, ow = WARP_BWD_SHAPE
+    gen = torch.Generator().manual_seed(4)
+    imgs, xs, ys = (t.to(DEV) for t in warp_inputs(*WARP_BWD_SHAPE, gen))
+    g = torch.randn((n, oh, ow, c), generator=gen).to(DEV)
+    got = warp_cuda.bilinear_warp_backward(g, imgs, xs, ys)
+    torch.cuda.synchronize()
+    leaves = [t.clone().requires_grad_(True) for t in (imgs, xs, ys)]
+    out = W._bilinear_sample(*leaves)
+    ref = torch.autograd.grad(out, leaves, g, retain_graph=True)
+    errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
+    say("warp_bwd", t0, "max |kernel - autograd| d_imgs %.3e d_xs %.3e "
+        "d_ys %.3e (limit %g)" % (*errs, WARP_BWD_TOL))
+    if not max(errs) <= WARP_BWD_TOL:
+        raise AssertionError(f"warp backward differs from autograd: {errs}")
+
+    nchw = imgs.permute(0, 3, 1, 2).contiguous()
+    grid = torch.stack([xs / (w - 1) * 2 - 1, ys / (h - 1) * 2 - 1], -1)
+    g_nchw = g.permute(0, 3, 1, 2).contiguous()
+
+    def library():
+        return torch.ops.aten.grid_sampler_2d_backward(
+            g_nchw, nchw, grid, 0, 0, True, [True, True])
+
+    b_ms, b_by = warp_bwd_bound_ms(*WARP_BWD_SHAPE)
+    row = {
+        "shape": list(WARP_BWD_SHAPE),
+        "max_abs_err": max(errs),
+        "kernel_ms": device_ms(
+            lambda: warp_cuda.bilinear_warp_backward(g, imgs, xs, ys)),
+        "plain_ms": cuda_ms(lambda: torch.autograd.grad(
+            out, leaves, g, retain_graph=True), reps=7, inner=3),
+        "library_ms": device_ms(library),
+        "bound_ms": b_ms, "bound_by": b_by,
+        # the design's own cost beside the bound: zeroing d_imgs
+        "zeroing_ms": device_ms(lambda: torch.zeros_like(imgs)),
+        "zeroing_bound_ms": 4 * n * h * w * c / HBM_BYTES_PER_S * 1e3,
+    }
+    say("warp_bwd", t0, json.dumps(row))
+    return row
+
+
+# -- phase 6: the training step at full width ----------------------------
+
+
+def zero_counts():
+    vq_cuda.assign_launches = vq_cuda.stats_launches = 0
+    warp_cuda.launches = warp_cuda.backward_launches = 0
+
+
+def read_counts():
+    return {"vq_assign": vq_cuda.assign_launches,
+            "vq_stats": vq_cuda.stats_launches,
+            "warp": warp_cuda.launches,
+            "warp_backward": warp_cuda.backward_launches}
+
+
+def train_phase(t0, profile):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True  # the bf16 step; as PyTorch sets it
+    frames, lms, n_frames = synthetic_corpus(
+        CORPUS_VIDEOS, CORPUS_FRAMES, TRAIN_SIZE, seed=3, device=DEV)
+    corpus = build_resident_corpus(frames, lms, n_frames, device=DEV)
+    del frames
+    model = VQVAE(ModelConfig(), dtype=torch.float32, device=DEV,
+                  generator=torch.Generator().manual_seed(0))
+    lpips = init_lpips(torch.Generator().manual_seed(1), device=DEV)
+    opt = make_optimizer(model.parameters(), TRAIN_LR, "cycle",
+                         n_iter=TRAIN_N_ITER)
+    state = create_train_state(model, opt)
+    prepare = make_resident_prepare(corpus, TRAIN_B, TRAIN_T)
+    step = make_train_step(model, lpips=lpips, prepare_fn=prepare)
+    raw = {"frames": corpus.frames, "landmarks": corpus.landmarks}
+    # a held batch: each step samples other clips, so the steps' own MSE
+    # moves with the clips; the held batch's MSE shows what training did
+    with torch.no_grad():
+        held = prepare(torch.Generator(device=DEV).manual_seed(11),
+                       corpus.frames, corpus.landmarks)
+    evaluate = make_eval_step(model)
+    held_before = evaluate(state, held)[1]["mse"].item()
+    torch.cuda.synchronize()
+    say("train", t0, f"corpus {corpus.n_videos} videos x "
+        f"{corpus.frames.shape[1]} frames, {corpus.nbytes / 2**20:.1f} MiB "
+        f"on the card; flagship VQVAE, LPIPS-VGG16 built")
+
+    # the main path: counts from 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, times = [], []
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        t = time.perf_counter()
+        state, metrics = step(state, raw, seed=0)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append({k: float(v) for k, v in metrics.items()})
+        say("train", t0, f"step {i}: {times[-1]:.2f} ms "
+            + json.dumps(losses[-1]))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = WARMUP_STEPS + TIMED_STEPS
+    step_ms = statistics.median(times[WARMUP_STEPS:])
+    held_after = evaluate(state, held)[1]["mse"].item()
+    result = {
+        "step_ms_median": step_ms,
+        "step_ms": times,
+        "frames_per_s": TRAIN_B * TRAIN_T / (step_ms / 1e3),
+        "max_memory_allocated_bytes": peak,
+        "launches": counts,
+        "held_batch_mse_before": held_before,
+        "held_batch_mse_after": held_after,
+    }
+    say("train", t0, json.dumps(result))
+    for m in losses:
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"non-finite losses {m}")
+    if not held_after <= held_before:
+        raise AssertionError(
+            f"the held batch's MSE rose over {n_steps} steps: "
+            f"{held_before} -> {held_after}")
+    if (counts["vq_assign"] != 2 * n_steps
+            or counts["vq_stats"] != 2 * n_steps
+            or counts["warp"] != n_steps):
+        raise AssertionError(f"launches {counts} for {n_steps} steps")
+    if profile:
+        result["profile"] = profile_step(t0, step, state, raw)
+        result["modules"] = module_split(t0, model, lpips, held)
+    return result, counts
+
+
+def profile_step(t0, step, state, raw):
+    """One more step under torch.profiler: the device's busy share of the
+    step's wall time, device time by operator (the time of the kernels
+    each aten operator launched itself) and by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(state, raw, seed=0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    averages = prof.key_averages()
+    # kernels, copies and fills: the events that ran on the card
+    kernels = sorted((e for e in averages if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    ops = sorted((e for e in averages if e.device_type == DeviceType.CPU
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+
+    def rows(events, n, width):
+        return [{"name": e.key[:width], "count": e.count,
+                 "device_ms": e.self_device_time_total / 1e3}
+                for e in events[:n]]
+
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_busy_share": busy_ms / wall_ms,
+           "ops": rows(ops, 25, 60), "kernels": rows(kernels, 15, 160)}
+    say("profile", t0, json.dumps(out))
+    return out
+
+
+def module_split(t0, model, lpips, batch):
+    """Forward + backward of the VQVAE and of LPIPS alone at the step's
+    shapes, bf16 autocast as in the step (CUDA events, median of 5): which
+    module the step's device time belongs to. The VQVAE runs in
+    evaluation mode here, so the codebooks do not move."""
+    gt = batch["gt"].reshape(-1, *batch["gt"].shape[2:])
+    pred = gt.detach().clone().requires_grad_(True)
+
+    def lpips_step():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            loss = lpips(gt, pred)
+        loss.backward()
+
+    def model_step():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            dec, lat = model(batch["input"])
+            loss = dec.to(torch.float32).square().mean() + lat
+        loss.backward()
+
+    out = {"lpips_fwd_bwd_ms": cuda_ms(lpips_step, reps=5, inner=1),
+           "vqvae_fwd_bwd_ms": cuda_ms(model_step, reps=5, inner=1)}
+    model.zero_grad(set_to_none=True)
+    say("profile", t0, json.dumps(out))
+    return out
+
+
+# -- phase 7: a small step on CUDA against the same step on the CPU -------
+
+
+CHECK_CFG = ModelConfig(channel=32)
+CHECK_B, CHECK_T, CHECK_SIZE, CHECK_STEPS, CHECK_LR = 2, 4, 64, 3, 3e-4
+
+
+def train_check_phase(t0):
+    """Float32 without TF32 on both devices, the same weights (drawn on the
+    CPU from one seed) and the same prepared batches (made once on the
+    CPU). Tolerances: losses 1e-3 relative (float32 convolutions summed in
+    another order by cuDNN and by the CPU); Adam moves an entry by about
+    lr per step, and by up to 2 lr against the other device's where a
+    gradient is at rounding level and its sign flips, so every parameter
+    must agree within 2 lr per step, and 99% of entries within 1e-5;
+    codebooks within 1e-3 (EMA statistics of the same assignments)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    frames, lms, n_frames = synthetic_corpus(3, 8, CHECK_SIZE, seed=6)
+    corpus = build_resident_corpus(frames, lms, n_frames, device="cpu")
+    prepare = make_resident_prepare(corpus, CHECK_B, CHECK_T)
+    gen = torch.Generator().manual_seed(7)
+    batches = [prepare(gen, corpus.frames, corpus.landmarks)
+               for _ in range(CHECK_STEPS)]
+    runs = {}
+    for dev in ("cpu", DEV):
+        model = VQVAE(CHECK_CFG, dtype=torch.float32, device=dev,
+                      generator=torch.Generator().manual_seed(8))
+        lpips = init_lpips(torch.Generator().manual_seed(9), device=dev)
+        opt = make_optimizer(model.parameters(), CHECK_LR, "cycle",
+                             n_iter=100)
+        state = create_train_state(model, opt)
+        step = make_train_step(model, lpips=lpips,
+                               compute_dtype=torch.float32)
+        before = (vq_cuda.assign_launches, vq_cuda.stats_launches)
+        losses = []
+        for batch in batches:
+            state, m = step(state, {k: v.to(dev) for k, v in batch.items()})
+            losses.append({k: float(v) for k, v in m.items()})
+        after = (vq_cuda.assign_launches, vq_cuda.stats_launches)
+        if dev != "cpu" and any(a - b != 2 * CHECK_STEPS
+                                for a, b in zip(after, before)):
+            raise AssertionError("the CUDA check step did not use the VQ kernels")
+        runs[dev] = (losses, {k: v.detach().cpu() for k, v in
+                              model.state_dict().items()},
+                     {n for n, _ in model.named_parameters()})
+    (l_cpu, sd_cpu, names), (l_gpu, sd_gpu, _) = runs["cpu"], runs[DEV]
+    loss_err = max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-12)
+                   for a, b in zip(l_gpu, l_cpu) for k in a)
+    param_diffs = torch.cat([(sd_gpu[k] - sd_cpu[k]).abs().ravel()
+                             for k in names])
+    cb_err = max(float((sd_gpu[k] - sd_cpu[k]).abs().max())
+                 for k in sd_cpu if k not in names)
+    result = {"max_loss_rel_err": loss_err,
+              "max_param_diff": float(param_diffs.max()),
+              "share_params_within_1e-5": float((param_diffs <= 1e-5)
+                                                .float().mean()),
+              "max_codebook_diff": cb_err,
+              "losses_cuda": l_gpu, "losses_cpu": l_cpu}
+    say("train_check", t0, json.dumps(result))
+    if not (loss_err <= 1e-3
+            and result["max_param_diff"] <= 2 * CHECK_LR * CHECK_STEPS + 1e-6
+            and result["share_params_within_1e-5"] >= 0.99
+            and cb_err <= 1e-3):
+        raise AssertionError("CUDA and CPU training steps disagree")
+    return result
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="profile one more training step")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
               file=sys.stderr)
@@ -330,9 +793,13 @@ def main() -> int:
     t_all = time.perf_counter()
 
     t0 = time.perf_counter()
-    lib = warp_cuda.build()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        libs = [f.result() for f in [pool.submit(warp_cuda.build),
+                                     pool.submit(vq_cuda.build)]]
     warp_cuda.load()
-    say("build", t0, f"{lib.relative_to(REPO)} loaded")
+    vq_cuda.load()
+    say("build", t0, ", ".join(str(p.relative_to(REPO)) for p in libs)
+        + " loaded")
 
     t0 = time.perf_counter()
     rows = kernel_phase(t0)
@@ -342,19 +809,81 @@ def main() -> int:
     launches = serve_f32(t0, streams)
     serve_bf16(t0, streams)
 
+    t0 = time.perf_counter()
+    vq_rows = vq_phase(t0)
+    t0 = time.perf_counter()
+    bwd = warp_bwd_phase(t0)
+    t0 = time.perf_counter()
+    _, train_counts = train_phase(t0, args.profile)
+    t0 = time.perf_counter()
+    train_check_phase(t0)
+
+    say("launches", t_all, json.dumps({"serving": {"warp": launches},
+                                       "training": train_counts}))
     main_row = rows[0]
+    vq_main, vq_big = vq_rows[0], vq_rows[-1]
     kernels = [{
         "name": "bilinear_warp",
         "route": "cuda",
         "source": "faceoff_tpu_torch/csrc/warp.cu",
         "replaces": "faceoff_tpu/ops/warp_pallas.py:54",
-        "launches": launches,
+        "launches": launches + train_counts["warp"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+    }, {
+        "name": "vq_assign",
+        "route": "cuda",
+        "source": "faceoff_tpu_torch/csrc/vq.cu",
+        "replaces": "faceoff_tpu/ops/vq_pallas.py:44",
+        # the pair: each call launches both kernels once
+        "launches": min(train_counts["vq_assign"], train_counts["vq_stats"]),
+        "max_abs_err": max(r["max_abs_err"] for r in vq_rows[:-1]),
+        "ms": vq_main["kernel_ms"],
+        "plain_ms": vq_main["plain_ms"],
+        "bound_ms": vq_main["bound_ms"],
+        "bound_by": vq_main["bound_by"],
+        "library_ms": vq_main["library_ms"],
+    }, {
+        "name": "vq_assign_rows",
+        "route": "cuda",
+        "source": "faceoff_tpu_torch/csrc/vq.cu",
+        "replaces": "faceoff_tpu/ops/vq_pallas.py:90",
+        "launches": train_counts["vq_assign"],
+        # quant is an exact copy; the pick's score short of the best
+        "max_abs_err": vq_big["max_score_shortfall"],
+        "ms": vq_big["assign_ms"],
+        "plain_ms": vq_big["assign_plain_ms"],
+        "bound_ms": vq_big["assign_bound_ms"],
+        "bound_by": vq_big["assign_bound_by"],
+        "library_ms": vq_big["library_ms"],
+    }, {
+        "name": "vq_code_stats",
+        "route": "cuda",
+        "source": "faceoff_tpu_torch/csrc/vq.cu",
+        "replaces": "faceoff_tpu/ops/vq_pallas.py:147",
+        "launches": train_counts["vq_stats"],
+        "max_abs_err": vq_big["max_abs_err"],
+        "ms": vq_big["stats_ms"],
+        "plain_ms": vq_big["stats_plain_ms"],
+        "bound_ms": vq_big["stats_bound_ms"],
+        "bound_by": vq_big["stats_bound_by"],
+        "library_ms": vq_big["stats_library_ms"],
+    }, {
+        "name": "bilinear_warp_backward",
+        "route": "cuda",
+        "source": "faceoff_tpu_torch/csrc/warp.cu",
+        "replaces": "faceoff_tpu/ops/warp_pallas.py:204",
+        "launches": train_counts["warp_backward"],
+        "max_abs_err": bwd["max_abs_err"],
+        "ms": bwd["kernel_ms"],
+        "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"],
+        "library_ms": bwd["library_ms"],
     }]
     print(f"[total] {time.perf_counter() - t_all:.2f} s", flush=True)
     smi = subprocess.run(

@@ -28,9 +28,12 @@ class ModelConfig:
     vq_decay: float = 0.99
     vq_eps: float = 1e-5
     commitment_beta: float = 1.0  # scales the commitment (latent) term
-    # backward-pass rematerialization; the serving slice has no backward
+    # recompute encoder/postnet/decoder activations in the backward
+    # (torch.utils.checkpoint); remat_scope: "all", "encoder" or "decoder"
     remat: bool = False
     remat_scope: str = "all"
     temporal_postnet_layers: int = 3  # Conv3D stack depth per level
     temporal_kernel: int = 3
+    # kept so that the config is the JAX package's: the port sends every
+    # codebook size on CUDA to its VQ kernels and reads no flag
     use_pallas_vq: bool = True

@@ -1,1 +1,2 @@
-"""Synthetic inputs for the port's tests and smoke run."""
+"""Training data on the device: synthetic corpora, the resident corpus and
+the training-input pipeline."""

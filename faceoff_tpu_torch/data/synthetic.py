@@ -3,7 +3,9 @@
 `face_landmarks` is a copy of `faceoff_tpu.data.synthetic.face_landmarks`
 (pure numpy). `draw_face` paints a face consistent with the landmarks by
 rasterising convex hulls with the port's `ops.warp.convex_mask`, so no
-image library is needed.
+image library is needed. `synthetic_corpus` makes a whole corpus of
+moving faces in memory, the counterpart of `generate_dataset` for a
+corpus staged on the device.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+import torch.nn.functional as F
 
 from faceoff_tpu_torch.ops.warp import convex_mask
 
@@ -60,21 +64,64 @@ def face_landmarks(
     return pts
 
 
+def draw_faces(
+    imgs: torch.Tensor, lms: torch.Tensor, skin: Tuple[int, int, int]
+) -> torch.Tensor:
+    """Copies of imgs (N, H, W, 3) uint8 with cartoon faces painted over
+    them from lms (N, 68, 2): the skin hull of all 68 points, white eye
+    hulls and a dark mouth hull, each rasterised with `convex_mask`."""
+    h, w = imgs.shape[1:3]
+    lms = torch.as_tensor(lms, dtype=torch.float32, device=imgs.device)
+    out = imgs.clone()
+    for pts, color in (
+        (lms, skin),
+        (lms[:, 36:42], (250, 250, 250)),
+        (lms[:, 42:48], (250, 250, 250)),
+        (lms[:, 48:68], (120, 40, 50)),
+    ):
+        mask = convex_mask(pts, h, w, n_directions=64).bool()
+        out[mask] = torch.tensor(color, dtype=imgs.dtype, device=imgs.device)
+    return out
+
+
 def draw_face(
     img: torch.Tensor, lms: torch.Tensor, skin: Tuple[int, int, int]
 ) -> torch.Tensor:
-    """A copy of img (H, W, 3) uint8 with a cartoon face painted over it:
-    the skin hull of all 68 points, white eye hulls and a dark mouth hull,
-    each rasterised with `convex_mask`."""
-    h, w = img.shape[:2]
+    """`draw_faces` for one image (H, W, 3) and its landmarks (68, 2)."""
     lms = torch.as_tensor(lms, dtype=torch.float32, device=img.device)
-    out = img.clone()
-    for pts, color in (
-        (lms, skin),
-        (lms[36:42], (250, 250, 250)),
-        (lms[42:48], (250, 250, 250)),
-        (lms[48:68], (120, 40, 50)),
-    ):
-        mask = convex_mask(pts, h, w, n_directions=64).bool()
-        out[mask] = torch.tensor(color, dtype=img.dtype, device=img.device)
-    return out
+    return draw_faces(img[None], lms[None], skin)[0]
+
+
+def synthetic_corpus(
+    n_videos: int, n_frames: int, size: int = 256, *, seed: int = 0,
+    device: torch.device = torch.device("cpu"),
+) -> Tuple[torch.Tensor, np.ndarray, np.ndarray]:
+    """A corpus of `n_videos` videos of `n_frames` frames at size x size:
+    a cartoon face drifting and turning over a textured background, as in
+    the JAX package's `generate_dataset` (per-video skin tones, the same
+    motion), made from `seed`. Returns (frames (V, F, S, S, 3) uint8 on
+    `device`, landmarks (V, F, 68, 2) float32, n_frames (V,) int64)."""
+    frames = torch.empty((n_videos, n_frames, size, size, 3),
+                         dtype=torch.uint8, device=device)
+    lms_all = np.zeros((n_videos, n_frames, 68, 2), np.float32)
+    for v in range(n_videos):
+        rng = np.random.default_rng(seed * 1000 + v)
+        skin = (180 + 15 * (v % 4), 150 + 10 * ((v + 1) % 5),
+                120 + 12 * ((v + 2) % 6))
+        noise = rng.integers(0, 255, (1, 3, max(size // 8, 1),
+                                      max(size // 8, 1))).astype(np.float32)
+        bg = F.interpolate(torch.from_numpy(noise).to(device), size=(size, size),
+                           mode="bicubic", align_corners=False)
+        bg = bg.clamp(0, 255).round().to(torch.uint8)[0].permute(1, 2, 0)
+        cx0 = size / 2 + rng.uniform(-20, 20) * size / 256
+        cy0 = size / 2 + rng.uniform(-20, 20) * size / 256
+        scale = size * rng.uniform(0.22, 0.3)
+        phase = rng.uniform(0, 2 * np.pi)
+        for f in range(n_frames):
+            cx = cx0 + 10 * size / 256 * np.sin(0.2 * f + phase)
+            cy = cy0 + 6 * size / 256 * np.cos(0.15 * f + phase)
+            ang = 5 * np.sin(0.1 * f + phase)
+            lms_all[v, f] = face_landmarks((cx, cy), scale, ang)
+        frames[v] = draw_faces(bg.expand(n_frames, -1, -1, -1),
+                               torch.from_numpy(lms_all[v]).to(device), skin)
+    return frames, lms_all, np.full((n_videos,), n_frames, np.int64)

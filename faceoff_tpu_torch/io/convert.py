@@ -1,10 +1,14 @@
-"""Weight bridge: the JAX package's VQVAE variables -> the port's state_dict.
+"""Weight bridge between the JAX package's variables and the port.
 
 `from_jax_variables(params, vq)` takes `variables["params"]` and
 `variables["vq"]` of a `faceoff_tpu` VQVAE as nested dicts of numpy
 arrays (codebooks as any object or dict with `embed`, `cluster_size` and
 `embed_avg`) and returns the state_dict that `models.vqvae.VQVAE` loads
-with `strict=True`. Layout transforms:
+with `strict=True`. `to_jax_variables(state_dict)` goes the other way,
+EMA codebook state included, so that a JAX `TrainState`'s params/vq and
+the port's model can be made to hold the same numbers in either
+direction. `lpips_from_jax_variables(params)` does the same for
+`models.lpips.LPIPS`. Layout transforms:
 
   Conv2d          HWIO        -> OIHW           transpose(3, 2, 0, 1)
   Conv3d          DHWIO       -> OIDHW          transpose(4, 3, 0, 1, 2)
@@ -22,6 +26,8 @@ from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from faceoff_tpu_torch.models.lpips import state_dict_from_arrays
 
 _CONV2D, _CONV3D, _CONVT2D = "conv2d", "conv3d", "convT2d"
 
@@ -86,6 +92,16 @@ def _to_torch(k: np.ndarray, kind: str) -> np.ndarray:
     raise ValueError(kind)
 
 
+def _from_torch(k: np.ndarray, kind: str) -> np.ndarray:
+    if kind == _CONV2D:
+        return np.transpose(k, (2, 3, 1, 0))
+    if kind == _CONV3D:
+        return np.transpose(k, (2, 3, 4, 1, 0))
+    if kind == _CONVT2D:
+        return np.transpose(k, (2, 3, 0, 1))[::-1, ::-1]
+    raise ValueError(kind)
+
+
 def _count(tree: Mapping, prefix: str) -> int:
     return sum(1 for k in tree if k.startswith(prefix))
 
@@ -120,3 +136,48 @@ def from_jax_variables(params: Mapping, vq: Mapping) -> Dict[str, torch.Tensor]:
                 np.array(_field(cb, name), np.float32)
             )
     return sd
+
+
+_LEVELS = ("quantize_t", "quantize_b")
+_CODEBOOK = ("embed", "cluster_size", "embed_avg")
+
+
+def to_jax_variables(
+    state_dict: Mapping[str, torch.Tensor],
+) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The port's VQVAE state_dict -> (params, vq) as nested dicts of
+    float32 numpy arrays in the JAX package's layout; vq maps each level
+    to {"codebook": {"embed", "cluster_size", "embed_avg"}}, the fields of
+    the JAX package's `VQCodebook`."""
+    sd = {k: v.detach().to("cpu", torch.float32).numpy()
+          for k, v in state_dict.items()}
+    n_res_block = len({k.split(".")[2] for k in sd
+                       if k.startswith("enc_b.blocks.") and ".conv." in k})
+    n_post = len({k.split(".")[2] for k in sd
+                  if k.startswith("conv3d_encoded_b.conv3d.")})
+    params: Dict[str, Any] = {}
+    for t_name, f_path, kind in layer_map(n_res_block, n_post):
+        node = params
+        for p in f_path:
+            node = node.setdefault(p, {})
+        node["kernel"] = np.ascontiguousarray(
+            _from_torch(sd[f"{t_name}.weight"], kind))
+        node["bias"] = sd[f"{t_name}.bias"]
+    vq = {level: {"codebook": {name: sd[f"{level}.{name}"]
+                               for name in _CODEBOOK}}
+          for level in _LEVELS}
+    return params, vq
+
+
+def lpips_from_jax_variables(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX LPIPS `variables["params"]` (`vgg/convB_C`, `linK`) -> the
+    state_dict entries of `models.lpips.LPIPS` (its weights; the input
+    standardisation buffers are constants)."""
+    arrays = {}
+    for name, node in params["vgg"].items():
+        arrays[f"vgg/{name}/kernel"] = node["kernel"]
+        arrays[f"vgg/{name}/bias"] = node["bias"]
+    for name, node in params.items():
+        if name.startswith("lin"):
+            arrays[f"{name}/kernel"] = node["kernel"]
+    return state_dict_from_arrays(arrays)

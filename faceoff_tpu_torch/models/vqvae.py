@@ -1,6 +1,6 @@
-"""Hierarchical VQVAE-2 generator with Conv3D temporal postnets (evaluation).
+"""Hierarchical VQVAE-2 generator with Conv3D temporal postnets.
 
-Counterpart of `faceoff_tpu/models/vqvae.py` for serving: a two-level
+Counterpart of `faceoff_tpu/models/vqvae.py`: a two-level
 VQ-VAE (bottom latent at stride 4, top at stride 8) whose encoder outputs
 pass through Conv3D postnets that blend latents across frames before
 quantization.
@@ -13,8 +13,16 @@ builds one from the JAX package's variables).
 
 The public methods keep the JAX package's channels-last layouts (frames
 NHWC, clips NTHWC); the convolutions inside run NCHW / NCDHW. Conv
-parameters are stored in the model dtype (bf16 on the card, float32 in
-tests); codebooks stay float32 and the nearest-code scores are float32.
+parameters are stored in the model dtype (bf16 for serving on the card,
+float32 for training, which computes in bf16 under `torch.autocast`, and
+in tests); codebooks stay float32 and the nearest-code scores are float32.
+
+Training (`forward(video, train=True)`) runs both quantizers through
+`ops/vq.vq_quantize_train` and writes the EMA-updated codebooks into their
+buffers. With `ModelConfig.remat` the encoders, postnets and decoders
+(as `remat_scope` selects) recompute their activations in the backward
+(`torch.utils.checkpoint`); the quantizers stay outside the recomputed
+regions, as in the JAX model, so the EMA update runs once per step.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from faceoff_tpu_torch.config import ModelConfig
 from faceoff_tpu_torch.device import DeviceLike, resolve_device
@@ -136,10 +145,15 @@ class TemporalPostnet(nn.Module):
 
 
 class EmaQuantizer(nn.Module):
-    """One codebook held as float32 buffers; evaluation only looks up."""
+    """One codebook held as float32 buffers. Evaluation looks up; training
+    also advances the EMA state in the buffers."""
 
-    def __init__(self, embed_dim: int, n_embed: int):
+    def __init__(self, embed_dim: int, n_embed: int, decay: float = 0.99,
+                 eps: float = 1e-5):
         super().__init__()
+        self.embed_dim = embed_dim
+        self.decay = decay
+        self.eps = eps
         self.register_buffer("embed", torch.zeros(embed_dim, n_embed))
         self.register_buffer("cluster_size", torch.zeros(n_embed))
         self.register_buffer("embed_avg", torch.zeros(embed_dim, n_embed))
@@ -148,14 +162,32 @@ class EmaQuantizer(nn.Module):
     def codebook(self) -> vq_ops.VQCodebook:
         return vq_ops.VQCodebook(self.embed, self.cluster_size, self.embed_avg)
 
+    @torch.no_grad()
+    def _store(self, codebook: vq_ops.VQCodebook) -> None:
+        self.embed.copy_(codebook.embed)
+        self.cluster_size.copy_(codebook.cluster_size)
+        self.embed_avg.copy_(codebook.embed_avg)
+
     def forward(
-        self, x: torch.Tensor
+        self, x: torch.Tensor, train: bool = False
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """x (..., embed_dim) channels-last -> (quant, indices, diff)."""
-        return vq_ops.vq_lookup(self.codebook, x)
+        if not train:
+            return vq_ops.vq_lookup(self.codebook, x)
+        quant, indices, diff, new = vq_ops.vq_quantize_train(
+            self.codebook, x, decay=self.decay, eps=self.eps)
+        self._store(new)
+        return quant, indices, diff
 
     def lookup_codes(self, codes: torch.Tensor) -> torch.Tensor:
         return vq_ops.codebook_lookup(codes, self.embed)
+
+    def revive(self, x: torch.Tensor, generator: torch.Generator,
+               usage_threshold: float = 1e-3) -> None:
+        """Re-seed EMA-dead codes from the activations x (..., embed_dim)."""
+        flat = x.detach().to(torch.float32).reshape(-1, self.embed_dim)
+        self._store(vq_ops.revive_dead_codes(
+            self.codebook, flat, generator, usage_threshold=usage_threshold))
 
 
 def _init_(module: nn.Module, generator: torch.Generator) -> None:
@@ -176,10 +208,11 @@ def _init_(module: nn.Module, generator: torch.Generator) -> None:
 
 
 class VQVAE(nn.Module):
-    """Two-level VQVAE-2 with temporal postnets (evaluation).
+    """Two-level VQVAE-2 with temporal postnets.
 
-    forward(video) -> (reconstruction float32, latent diff float32)
-      video: (B, T, H, W, in_channels) in [-1, 1].
+    forward(video, train=False) -> (reconstruction float32, latent diff
+    float32); video (B, T, H, W, in_channels) in [-1, 1]. With train=True
+    the codebooks take one EMA step.
 
     Built on `device` (CUDA unless named; without CUDA and without a named
     device it raises) with random weights drawn on the CPU from
@@ -206,15 +239,19 @@ class VQVAE(nn.Module):
         self.temporal_kernel = c.temporal_kernel
         self.commitment_beta = c.commitment_beta
         self.dtype = dtype
+        self.remat_encoder = c.remat and c.remat_scope in ("all", "encoder")
+        self.remat_decoder = c.remat and c.remat_scope in ("all", "decoder")
+        if c.remat and c.remat_scope not in ("all", "encoder", "decoder"):
+            raise ValueError(f"unknown remat_scope {c.remat_scope!r}")
         ch, rb, rc, ed = c.channel, c.n_res_block, c.n_res_channel, c.embed_dim
         with torch.device("meta"):
             self.enc_b = Encoder(c.in_channels, ch, rb, rc, 4)
             self.enc_t = Encoder(ch, ch, rb, rc, 2)
             self.quantize_conv_t = nn.Conv2d(ch, ed, 1)
-            self.quantize_t = EmaQuantizer(ed, c.n_embed)
+            self.quantize_t = EmaQuantizer(ed, c.n_embed, c.vq_decay, c.vq_eps)
             self.dec_t = Decoder(ed, ed, ch, rb, rc, 2)
             self.quantize_conv_b = nn.Conv2d(ed + ch, ed, 1)
-            self.quantize_b = EmaQuantizer(ed, c.n_embed)
+            self.quantize_b = EmaQuantizer(ed, c.n_embed, c.vq_decay, c.vq_eps)
             self.upsample_t = nn.ConvTranspose2d(ed, ed, 4, stride=2, padding=1)
             self.dec = Decoder(ed + ed, self.out_channels, ch, rb, rc, 4)
             self.conv3d_encoded_b = TemporalPostnet(
@@ -236,30 +273,52 @@ class VQVAE(nn.Module):
 
     # -- internal, channels-first -----------------------------------------
 
+    @staticmethod
+    def _run(module: nn.Module, x: torch.Tensor, remat: bool) -> torch.Tensor:
+        """module(x), recomputed in the backward when `remat` is set and
+        autograd records."""
+        if remat and torch.is_grad_enabled():
+            return checkpoint(module, x, use_reentrant=False)
+        return module(x)
+
     def _encode_frames(
         self, frames: torch.Tensor
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """frames (N, C, H, W) -> (enc_b (N, ch, H/4, W/4),
         enc_t (N, ch, H/8, W/8))."""
-        enc_b = self.enc_b(frames.to(self.dtype))
-        return enc_b, self.enc_t(enc_b)
+        enc_b = self._run(self.enc_b, frames.to(self.dtype), self.remat_encoder)
+        return enc_b, self._run(self.enc_t, enc_b, self.remat_encoder)
 
-    def _encode_quantized(self, enc_b: torch.Tensor, enc_t: torch.Tensor):
+    def _quantize_conv_b(self, quant_t: torch.Tensor, enc_b: torch.Tensor):
+        dec_t = self._run(self.dec_t, quant_t, self.remat_decoder)
+        return self.quantize_conv_b(torch.cat([dec_t, enc_b], dim=1))
+
+    def _encode_quantized(self, enc_b: torch.Tensor, enc_t: torch.Tensor,
+                          train: bool = False):
         """enc_b/enc_t (N, ch, h, w) -> (quant_t, quant_b (N, D, h, w),
         diff, id_t, id_b)."""
         qt_in = self.quantize_conv_t(enc_t)
-        quant_t, id_t, diff_t = self.quantize_t(_nhwc(qt_in))
+        quant_t, id_t, diff_t = self.quantize_t(_nhwc(qt_in), train)
         quant_t = _nchw(quant_t)
-        dec_t = self.dec_t(quant_t)
-        qb_in = self.quantize_conv_b(torch.cat([dec_t, enc_b], dim=1))
-        quant_b, id_b, diff_b = self.quantize_b(_nhwc(qb_in))
+        qb_in = self._quantize_conv_b(quant_t, enc_b)
+        quant_b, id_b, diff_b = self.quantize_b(_nhwc(qb_in), train)
         diff = (diff_t + diff_b) * self.commitment_beta
         return quant_t, _nchw(quant_b), diff, id_t, id_b
 
     def _decode(self, quant_t: torch.Tensor, quant_b: torch.Tensor):
         """(N, D, h8, w8), (N, D, h4, w4) -> (N, out, H, W) in self.dtype."""
         up_t = self.upsample_t(quant_t)
-        return self.dec(torch.cat([up_t, quant_b], dim=1))
+        return self._run(self.dec, torch.cat([up_t, quant_b], dim=1),
+                         self.remat_decoder)
+
+    def _blended_frames(
+        self, video: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """video (B,T,H,W,C) -> encoded and temporally blended latents,
+        frame-folded channels-first (N, ch, h, w)."""
+        enc_b, enc_t = self.temporal_blend(*self.only_encode(video))
+        return (_nchw(video_ops.fold_time(enc_b)),
+                _nchw(video_ops.fold_time(enc_t)))
 
     # -- public, channels-last (the JAX package's layouts) ----------------
 
@@ -279,18 +338,21 @@ class VQVAE(nn.Module):
         """Conv3D postnets on both levels; (B,T,h,w,ch) in and out."""
 
         def run(postnet, x):
-            return postnet(x.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
+            y = self._run(postnet, x.permute(0, 4, 1, 2, 3),
+                          self.remat_encoder)
+            return y.permute(0, 2, 3, 4, 1)
 
         return run(self.conv3d_encoded_b, enc_b), run(self.conv3d_encoded_t, enc_t)
 
-    def encode_quantized(self, enc_b: torch.Tensor, enc_t: torch.Tensor):
-        """Project to embed_dim and quantize both levels (evaluation).
+    def encode_quantized(self, enc_b: torch.Tensor, enc_t: torch.Tensor,
+                         train: bool = False):
+        """Project to embed_dim and quantize both levels.
 
         enc_b/enc_t: (N, h, w, channel) frame-folded. Returns
         (quant_t, quant_b, diff, id_t, id_b), channels-last.
         """
         quant_t, quant_b, diff, id_t, id_b = self._encode_quantized(
-            _nchw(enc_b), _nchw(enc_t)
+            _nchw(enc_b), _nchw(enc_t), train
         )
         return _nhwc(quant_t), _nhwc(quant_b), diff, id_t, id_b
 
@@ -304,12 +366,33 @@ class VQVAE(nn.Module):
         quant_b = self.quantize_b.lookup_codes(code_b).to(self.dtype)
         return self.decode(quant_t, quant_b)
 
-    def forward(self, video: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def encode_codes(
+        self, video: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Video -> discrete (code_t, code_b) maps, frame-folded."""
+        _, _, _, id_t, id_b = self._encode_quantized(
+            *self._blended_frames(video))
+        return id_t, id_b
+
+    @torch.no_grad()
+    def revive_codes(self, video: torch.Tensor, generator: torch.Generator,
+                     usage_threshold: float = 1e-3) -> None:
+        """Re-seed dead codebook entries of both levels from this batch's
+        pre-quantization latents; the top level first, then the bottom
+        level from latents built with the revived top codebook."""
+        enc_b, enc_t = self._blended_frames(video)
+        qt_in = self.quantize_conv_t(enc_t)
+        self.quantize_t.revive(_nhwc(qt_in), generator, usage_threshold)
+        quant_t, _, _ = self.quantize_t(_nhwc(qt_in))
+        qb_in = self._quantize_conv_b(_nchw(quant_t), enc_b)
+        self.quantize_b.revive(_nhwc(qb_in), generator, usage_threshold)
+
+    def forward(
+        self, video: torch.Tensor, train: bool = False
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
         b = video.shape[0]
-        enc_b, enc_t = self.temporal_blend(*self.only_encode(video))
         quant_t, quant_b, diff, _, _ = self._encode_quantized(
-            _nchw(video_ops.fold_time(enc_b)), _nchw(video_ops.fold_time(enc_t))
-        )
+            *self._blended_frames(video), train)
         dec = _nhwc(self._decode(quant_t, quant_b))
         return (video_ops.unfold_time(dec, b).to(torch.float32),
                 diff.to(torch.float32))

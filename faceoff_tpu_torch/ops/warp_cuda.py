@@ -1,91 +1,43 @@
-"""The bilinear warp kernel (`csrc/warp.cu`): build, load and launch.
+"""The bilinear warp kernels (`csrc/warp.cu`): build, load and launch.
 
-The source is compiled at first use with plain `nvcc` into a shared
-library with a C interface and loaded with ctypes; no PyTorch headers are
-involved, so the build takes seconds. The library lands in
-`faceoff_tpu_torch/_build/`, named by a hash of the source and the flags,
-so an edited `.cu` rebuilds. A failed build or load raises: there is no
-fallback to the plain version.
+The source is compiled at first use by `ops/cuda_build.py` (plain `nvcc`,
+a C interface, seconds) and loaded with ctypes. A failed build or load
+raises: there is no fallback to the plain version.
 
-`bilinear_warp` is the wrapper: it checks its inputs, allocates the output,
-launches on PyTorch's current stream and counts its launches in
-`launches`. The plain reference is `ops/warp._bilinear_sample`.
+`bilinear_warp` launches the forward and `bilinear_warp_backward` the
+backward; each checks its inputs, allocates its outputs, launches on
+PyTorch's current stream and counts its launches (`launches`,
+`backward_launches`). The plain reference is `ops/warp._bilinear_sample`
+and autograd through it.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import sys
-import time
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "warp.cu"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
-BUILD_TIMEOUT_S = 300
+from faceoff_tpu_torch.ops import cuda_build
 
-# kernel launches made through `bilinear_warp` in this process
+SOURCE = cuda_build.CSRC / "warp.cu"
+
+# kernel launches made through the wrappers in this process
 launches = 0
+backward_launches = 0
 
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    candidates = [Path(cuda_home) / "bin" / "nvcc"] if cuda_home else []
-    found = shutil.which("nvcc")
-    if found:
-        candidates.append(Path(found))
-    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
-    for c in candidates:
-        if c.is_file():
-            return str(c)
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
-
-
 def library_path() -> Path:
     """Where the build for the current source and flags lives."""
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"libfaceoff_warp_{digest}.so"
+    return cuda_build.library_path(SOURCE, "faceoff_warp")
 
 
 def build() -> Path:
-    """Compile the kernel library unless this source is already built.
-
-    Prints the build's seconds to stderr when it compiles."""
-    out = library_path()
-    if out.is_file():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"tmp{os.getpid()}_{out.name}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    print(
-        f"built {out.name} in {time.perf_counter() - t0:.2f} s",
-        file=sys.stderr, flush=True,
-    )
-    return out
+    """Compile the kernel library unless this source is already built."""
+    return cuda_build.build(SOURCE, "faceoff_warp")
 
 
 def load() -> ctypes.CDLL:
@@ -98,17 +50,18 @@ def load() -> ctypes.CDLL:
             ctypes.c_void_p
         ]
         fn.restype = ctypes.c_int
+        bwd = lib.faceoff_bilinear_warp_backward
+        bwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p
+        ]
+        bwd.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def bilinear_warp(
-    imgs: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor
-) -> torch.Tensor:
-    """Launch the warp: imgs (N, H, W, C), xs/ys (N, OH, OW), all float32,
-    contiguous and on one CUDA device -> (N, OH, OW, C) float32."""
-    global launches
-    for name, t in (("imgs", imgs), ("xs", xs), ("ys", ys)):
+def _check(imgs: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
+           *extra: Tuple[str, torch.Tensor]) -> None:
+    for name, t in (("imgs", imgs), ("xs", xs), ("ys", ys), *extra):
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
         if t.device != imgs.device:
@@ -125,10 +78,21 @@ def bilinear_warp(
     n, h, w, c = imgs.shape
     if xs.shape[0] != n:
         raise ValueError(f"{xs.shape[0]} grids for {n} images")
-    oh, ow = xs.shape[1:]
+    oh = xs.shape[1]
     if min(n, h, w, c) < 1 or not (1 <= n <= 65535 and 1 <= oh <= 65535):
         raise ValueError(f"unsupported sizes imgs {tuple(imgs.shape)}, "
                          f"grid {tuple(xs.shape)}")
+
+
+def bilinear_warp(
+    imgs: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor
+) -> torch.Tensor:
+    """Launch the warp: imgs (N, H, W, C), xs/ys (N, OH, OW), all float32,
+    contiguous and on one CUDA device -> (N, OH, OW, C) float32."""
+    global launches
+    _check(imgs, xs, ys)
+    n, h, w, c = imgs.shape
+    oh, ow = xs.shape[1:]
     out = torch.empty((n, oh, ow, c), dtype=torch.float32, device=imgs.device)
     if ow == 0:
         return out
@@ -143,3 +107,60 @@ def bilinear_warp(
         raise RuntimeError(f"bilinear warp launch failed: cudaError {err}")
     launches += 1
     return out
+
+
+def bilinear_warp_backward(
+    g: torch.Tensor, imgs: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
+    *, need_imgs: bool = True, need_coords: bool = True,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
+           Optional[torch.Tensor]]:
+    """Launch the backward of `bilinear_warp` for the output gradient g
+    (N, OH, OW, C) -> (d_imgs (N, H, W, C), d_xs, d_ys (N, OH, OW)), each
+    None where it is not asked for. All float32, contiguous, on one CUDA
+    device."""
+    global backward_launches
+    _check(imgs, xs, ys, ("g", g))
+    n, h, w, c = imgs.shape
+    oh, ow = xs.shape[1:]
+    if tuple(g.shape) != (n, oh, ow, c):
+        raise ValueError(f"g is {tuple(g.shape)}, want {(n, oh, ow, c)}")
+    dev = imgs.device
+    d_imgs = torch.zeros_like(imgs) if need_imgs else None
+    d_xs = torch.empty_like(xs) if need_coords else None
+    d_ys = torch.empty_like(ys) if need_coords else None
+    if ow == 0 or not (need_imgs or need_coords):
+        return d_imgs, d_xs, d_ys
+    lib = load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.faceoff_bilinear_warp_backward(
+            imgs.data_ptr(), xs.data_ptr(), ys.data_ptr(), g.data_ptr(),
+            d_imgs.data_ptr() if need_imgs else None,
+            d_xs.data_ptr() if need_coords else None,
+            d_ys.data_ptr() if need_coords else None,
+            n, h, w, c, oh, ow, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"bilinear warp backward launch failed: cudaError {err}")
+    backward_launches += 1
+    return d_imgs, d_xs, d_ys
+
+
+class BilinearWarp(torch.autograd.Function):
+    """`bilinear_warp` with its backward kernel as the gradient."""
+
+    @staticmethod
+    def forward(ctx, imgs, xs, ys):
+        ctx.save_for_backward(imgs, xs, ys)
+        return bilinear_warp(imgs, xs, ys)
+
+    @staticmethod
+    def backward(ctx, g):
+        imgs, xs, ys = ctx.saved_tensors
+        need_img, need_x, need_y = ctx.needs_input_grad
+        d_imgs, d_xs, d_ys = bilinear_warp_backward(
+            g.contiguous(), imgs, xs, ys,
+            need_imgs=need_img, need_coords=need_x or need_y,
+        )
+        return d_imgs, d_xs if need_x else None, d_ys if need_y else None

@@ -1,5 +1,6 @@
-"""The port on the card: the warp kernel against its plain version, and
-the serving path on CUDA against the same path on the CPU.
+"""The port on the card: the warp kernels (forward and backward) and the
+VQ kernels against their plain versions, and the serving path and a
+training step on CUDA against the same on the CPU.
 
 Marked `cuda`; each test skips where there is no CUDA device. The file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -13,11 +14,19 @@ import pytest
 import torch
 
 from faceoff_tpu_torch.config import ModelConfig
-from faceoff_tpu_torch.data.synthetic import draw_face, face_landmarks
+from faceoff_tpu_torch.data.resident import (build_resident_corpus,
+                                             make_resident_prepare)
+from faceoff_tpu_torch.data.synthetic import (draw_face, face_landmarks,
+                                              synthetic_corpus)
 from faceoff_tpu_torch.models import VQVAE
+from faceoff_tpu_torch.models.lpips import init_lpips
+from faceoff_tpu_torch.ops import vq as V
+from faceoff_tpu_torch.ops import vq_cuda
 from faceoff_tpu_torch.ops import warp as W
 from faceoff_tpu_torch.ops import warp_cuda
 from faceoff_tpu_torch.serve import SwapSession
+from faceoff_tpu_torch.train.state import create_train_state, make_optimizer
+from faceoff_tpu_torch.train.train_step import make_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -84,3 +93,132 @@ def test_swap_session_on_card_matches_cpu(cuda):
             assert warp_cuda.launches == before + 5
         outs[name] = torch.stack(got).cpu()
     torch.testing.assert_close(outs["cuda"], outs["cpu"], atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("n,d,k", [(524288, 64, 512), (1001, 8, 16),
+                                   (3000, 64, 2500)])
+def test_vq_kernels_match_plain(cuda, n, d, k):
+    """Indices equal except within float32 rounding of a tie (margin
+    2 (D+1) u (|x|@|E| + ||E||^2/2) per row, u = 2^-24); quant an exact
+    copy of the picked codes; counts exact; sums within 2 c_k u sum|x| of
+    the plain sums of the same indices. A ragged N and a K above one
+    statistics tile are among the shapes."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((n, d), generator=gen, device=cuda)
+    e = torch.randn((d, k), generator=gen, device=cuda)
+    before = (vq_cuda.assign_launches, vq_cuda.stats_launches)
+    idx, quant, counts, sums = V.vq_assign(x, e)
+    torch.cuda.synchronize()
+    assert (vq_cuda.assign_launches, vq_cuda.stats_launches) == (
+        before[0] + 1, before[1] + 1)
+    ref_idx = V.vq_assign_plain(x, e)[0]
+    hn = 0.5 * (e * e).sum(0)
+    scores = x @ e - hn
+    margin = 2 * (d + 1) * 2.0 ** -24 * (x.abs() @ e.abs() + hn).amax(1)
+    top2 = scores.topk(2, dim=1).values
+    picked = scores.gather(1, idx.long()[:, None])[:, 0]
+    differ = idx != ref_idx
+    assert not bool((differ & (top2[:, 0] - top2[:, 1] > margin)).any())
+    assert bool((top2[:, 0] - picked <= margin).all())
+    assert torch.equal(quant, e.t()[idx.long()])
+    own_counts, own_sums = V.vq_stats(x, idx, k)
+    assert torch.equal(counts, own_counts)
+    _, abs_sums = V.vq_stats(x.abs(), idx, k)
+    assert bool(((sums - own_sums).abs()
+                 <= 2 * counts * 2.0 ** -24 * abs_sums + 1e-30).all())
+
+
+def test_vq_kernel_refuses_what_it_cannot_take(cuda):
+    x = torch.zeros((4, 8), device=cuda)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        vq_cuda.vq_assign(x.cpu(), torch.zeros((8, 3), device=cuda))
+    with pytest.raises(ValueError, match="unsupported sizes"):
+        vq_cuda.vq_assign(torch.zeros((4, 300), device=cuda),
+                          torch.zeros((300, 3), device=cuda))
+    with pytest.raises(ValueError, match="want flat"):
+        vq_cuda.vq_assign(x, torch.zeros((5, 3), device=cuda))
+
+
+def test_warp_on_perturbation_grids_matches_plain(cuda):
+    """The training step's warp: 8 frames at the grids `perturb_clip`
+    builds from one draw, through `warp_with_grid` (the kernel on the
+    card) and through the plain version: 1e-5, the kernel phase's limit
+    in chip_smoke.py."""
+    gen = torch.Generator().manual_seed(5)
+    faces = torch.rand((8, 64, 64, 3), generator=gen)
+    eyes = 64 * (0.4 + 0.2 * torch.rand((8, 2), generator=gen))
+    xs, ys, _ = W.perturbation_grids(W.draw_perturbation(gen, 8), 64, 64,
+                                     eyes)
+    xs, ys = xs.contiguous(), ys.contiguous()
+    before = warp_cuda.launches
+    out = W.warp_with_grid(faces.to(cuda), xs.to(cuda), ys.to(cuda))
+    torch.cuda.synchronize()
+    assert warp_cuda.launches == before + 1
+    ref = W._bilinear_sample(faces, xs, ys)
+    assert (out.cpu() - ref).abs().max().item() <= 1e-5
+
+
+def test_warp_backward_matches_autograd(cuda):
+    """The backward kernel's three gradients against autograd through the
+    plain warp, at coordinates reaching past every border: 1e-4 (atomic
+    adds of a few float32 terms in another order)."""
+    rng = np.random.default_rng(6)
+    n, h, w, c, oh, ow = 3, 40, 56, 3, 48, 44
+    imgs = rng.uniform(-1, 1, (n, h, w, c)).astype(np.float32)
+    xs = rng.uniform(-3, w + 2, (n, oh, ow)).astype(np.float32)
+    ys = rng.uniform(-3, h + 2, (n, oh, ow)).astype(np.float32)
+    xs[:, ::4] = np.round(xs[:, ::4])
+    g = rng.normal(size=(n, oh, ow, c)).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda).requires_grad_(True)
+            for a in (imgs, xs, ys)]
+    gt = torch.from_numpy(g).to(cuda)
+    before = warp_cuda.backward_launches
+    W.batched_bilinear_warp(*args).backward(gt)
+    torch.cuda.synchronize()
+    assert warp_cuda.backward_launches == before + 1
+    leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    ref = torch.autograd.grad(W._bilinear_sample(*leaves), leaves, gt)
+    for a, r in zip(args, ref):
+        assert (a.grad - r).abs().max().item() <= 1e-4
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """Two float32 steps without TF32 of a tiny VQVAE with LPIPS, from the
+    same weights and prepared batches, on both devices: losses 1e-3
+    relative; parameters within Adam's 2 lr per step of each other and
+    99% of them within 1e-5; the VQ kernels ran on the card. The batches
+    are prepared once on the CPU, so the warp kernel does not run here."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ModelConfig(channel=16, n_res_block=1, n_res_channel=8,
+                      embed_dim=8, n_embed=32)
+    frames, lms, n_frames = synthetic_corpus(2, 6, 32, seed=1)
+    prep = make_resident_prepare(
+        build_resident_corpus(frames, lms, n_frames, device="cpu"), 1, 2)
+    gen = torch.Generator().manual_seed(0)
+    batches = [prep(gen, torch.as_tensor(frames), torch.as_tensor(lms))
+               for _ in range(2)]
+    results = {}
+    for dev in ("cpu", cuda):
+        model = VQVAE(cfg, dtype=torch.float32, device=dev)
+        lpips = init_lpips(device=dev)
+        state = create_train_state(
+            model, make_optimizer(model.parameters(), 1e-3))
+        step = make_train_step(model, lpips=lpips,
+                               compute_dtype=torch.float32)
+        before = (vq_cuda.assign_launches, vq_cuda.stats_launches)
+        losses = []
+        for b in batches:
+            state, m = step(state, {k: v.to(dev) for k, v in b.items()})
+            losses.append(m["loss"].item())
+        if dev != "cpu":
+            assert (vq_cuda.assign_launches, vq_cuda.stats_launches) == (
+                before[0] + 4, before[1] + 4)
+        results[str(dev)] = (losses, {n: p.detach().cpu() for n, p in
+                                      model.named_parameters()})
+    (l_cpu, p_cpu), (l_gpu, p_gpu) = results["cpu"], results[str(cuda)]
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-3)
+    diffs = torch.cat([(p_gpu[k] - p_cpu[k]).abs().ravel() for k in p_cpu])
+    assert diffs.max().item() <= 2 * 1e-3 * 2 + 1e-6
+    assert (diffs <= 1e-5).float().mean().item() >= 0.99
