@@ -26,11 +26,17 @@ Phases, each printing lines with their seconds:
                K=4096 (the regime of the TPU's K-tiled kernels): indices
                equal except within the float32 rounding margin of a tie,
                quant an exact copy of the picked codes, counts exact, sums
-               within the rounding bound of their row counts.
+               within the rounding bound of their row counts. Each row
+               also prints how many rows the assignment left to its
+               float32 re-score, its bound in the units it executes (a TF32
+               and a bf16 tensor-core product) beside the float32
+               CUDA-core bound, and the
+               bytes the statistics read (x once).
   5. warp_bwd — the warp's backward kernel against autograd through the
                plain version at (128,256,256,3).
   6. train   — the perceptual training step at full width: flagship
-               ModelConfig, b16, T8, 256 px, random VGG16 LPIPS, Adam at
+               ModelConfig, b16, T8, 256 px, random VGG16 LPIPS in bf16
+               (as the JAX trainer builds it on its accelerator), Adam at
                lr 3e-4 with the one-cycle schedule, a resident corpus of
                16 synthetic videos x 24 frames; 2 warm-up and 5 timed bf16
                steps: step ms, frames/s, peak memory, the losses (finite;
@@ -42,9 +48,10 @@ Phases, each printing lines with their seconds:
                operator and by kernel), then LPIPS and the VQVAE forward
                and backward alone at the step's shapes.
   7. train_check — a small configuration (channel 32, b2, T4, 64 px) takes
-               3 float32 steps without TF32 on CUDA and on the CPU from the
-               same weights and prepared batches; losses, parameters and
-               codebooks must agree within the stated tolerances.
+               3 float32 steps without TF32 (LPIPS in float32) on CUDA and
+               on the CPU from the same weights and prepared batches;
+               losses, parameters and codebooks must agree within the
+               stated tolerances.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 {"kernels": [...]}, and last {"ok": true, "device": {...}}. Any failure
@@ -86,6 +93,8 @@ from faceoff_tpu_torch.train.train_step import make_eval_step, make_train_step
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+TF32_FLOPS = 495e12  # H100 SXM TF32 tensor cores, dense
+BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 KERNEL_TOL = 1e-5
 STREAM_TOL = dict(atol=2e-4, rtol=1e-3)  # tests/test_streaming.py
 SIZE, FRAMES = 256, 16
@@ -391,26 +400,51 @@ def serve_bf16(t0, streams):
 # -- phase 4: the VQ kernels against their plain version ---------------
 
 
-def vq_bound_ms(n, d, k):
+def assign_ops_s(n, d, k, flagged):
+    """Seconds of arithmetic of the assignment as the kernel does it on
+    the tensor cores: x_hi e_hi, a TF32 product of 2 N D K operations, and
+    the two cross terms, one bf16 product of depth 2 D (4 N D K); then the
+    flagged rows' float32 re-score, 2 D K operations each, on the CUDA
+    cores."""
+    return (2 * n * d * k / TF32_FLOPS + 4 * n * d * k / BF16_FLOPS
+            + flagged * 2 * d * k / F32_FLOPS)
+
+
+def vq_bound_ms(n, d, k, flagged):
     """Least time for assignment + statistics: x, E read once; idx, quant,
-    counts, sums written once; 2 N D K float32 FMA operations for the
-    scores and N D adds for the sums."""
+    counts, sums written once; the assignment's operations
+    (`assign_ops_s`) and N D float32 adds for the sums."""
     nbytes = 4 * (2 * n * d + 2 * d * k + n + k)
-    ops = 2 * n * d * k + n * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = assign_ops_s(n, d, k, flagged) + n * d / F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def assign_bound_ms(n, d, k):
+def assign_bound_ms(n, d, k, flagged):
     nbytes = 4 * (2 * n * d + d * k + n)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * n * d * k / F32_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = assign_ops_s(n, d, k, flagged)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def assign_bound_f32_ms(n, d, k):
+    """The same scores as float32 FMA on the CUDA cores: the bound of the
+    earlier one-row-per-thread kernel's arithmetic."""
+    return 2 * n * d * k / F32_FLOPS * 1e3
 
 
 def stats_bound_ms(n, d, k):
     nbytes = 4 * (n * d + n + k + d * k)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n * d / F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def stats_bytes_read(n, d, k):
+    """Bytes the statistics kernels read by their design: x once, idx
+    three times (the histogram and the scatter's two passes), the sorted
+    row ids once and the per-code tables; beside them, x alone."""
+    return {"stats_bytes_read": 4 * (n * d + 3 * n + n + 3 * k),
+            "stats_x_bytes": 4 * n * d}
 
 
 def check_vq(x, e, out):
@@ -477,8 +511,11 @@ def vq_phase(t0):
         torch.cuda.synchronize()
         row = {"shape": [n, d, k], **check_vq(x, e, out)}
         idx = out[0]
-        b_ms, b_by = vq_bound_ms(n, d, k)
-        a_ms, a_by = assign_bound_ms(n, d, k)
+        # rows whose split-TF32 pick could not be certified (re-scored in
+        # float32); the same inputs give the same count
+        flagged = int(vq_cuda.assign_rows_flagged(x, e)[2])
+        b_ms, b_by = vq_bound_ms(n, d, k, flagged)
+        a_ms, a_by = assign_bound_ms(n, d, k, flagged)
         s_ms, s_by = stats_bound_ms(n, d, k)
         idx64 = idx.long()
         xt = x.t().contiguous()
@@ -486,20 +523,36 @@ def vq_phase(t0):
         def index_add():
             return torch.zeros((d, k), device=DEV).index_add_(1, idx64, xt)
 
+        # device times are CUDA-graph replays (no host dispatch: the step
+        # is device-bound, so the host's share is not the kernels');
+        # eager times beside them; the plain versions synchronise inside
+        # and are timed eagerly
         reps = dict(reps=7, inner=3, warmup=2)
+        graph = dict(reps=7, inner=3)
         row.update({
-            "kernel_ms": cuda_ms(lambda: vq_cuda.vq_assign(x, e), **reps),
+            "kernel_ms": device_ms(lambda: vq_cuda.vq_assign(x, e), **graph),
             "plain_ms": cuda_ms(lambda: V.vq_assign_plain(x, e), **reps),
-            "library_ms": cuda_ms(lambda: x @ e, **reps),
+            "library_ms": device_ms(lambda: x @ e, **graph),
             "bound_ms": b_ms, "bound_by": b_by,
-            "assign_ms": cuda_ms(lambda: vq_cuda.assign_rows(x, e), **reps),
+            "assign_ms": device_ms(lambda: vq_cuda.assign_rows(x, e), **graph),
             "assign_plain_ms": cuda_ms(
                 lambda: V.codebook_lookup(V.nearest_code(x, e), e), **reps),
             "assign_bound_ms": a_ms, "assign_bound_by": a_by,
-            "stats_ms": cuda_ms(lambda: vq_cuda.code_stats(x, idx, k), **reps),
+            "assign_bound_f32_ms": assign_bound_f32_ms(n, d, k),
+            "flagged_rows": flagged,
+            "stats_ms": device_ms(lambda: vq_cuda.code_stats(x, idx, k),
+                                  **graph),
             "stats_plain_ms": cuda_ms(lambda: V.vq_stats(x, idx, k), **reps),
-            "stats_library_ms": cuda_ms(index_add, **reps),
+            "stats_library_ms": device_ms(index_add, **graph),
             "stats_bound_ms": s_ms, "stats_bound_by": s_by,
+            **stats_bytes_read(n, d, k),
+            "eager_kernel_ms": cuda_ms(lambda: vq_cuda.vq_assign(x, e), **reps),
+            "eager_library_ms": cuda_ms(lambda: x @ e, **reps),
+            "eager_assign_ms": cuda_ms(lambda: vq_cuda.assign_rows(x, e),
+                                       **reps),
+            "eager_stats_ms": cuda_ms(lambda: vq_cuda.code_stats(x, idx, k),
+                                      **reps),
+            "eager_stats_library_ms": cuda_ms(index_add, **reps),
             "codes_used": int((out[2] > 0).sum()),
             "largest_code_share": float(out[2].max() / n),
         })
@@ -741,7 +794,8 @@ def train_check_phase(t0):
     for dev in ("cpu", DEV):
         model = VQVAE(CHECK_CFG, dtype=torch.float32, device=dev,
                       generator=torch.Generator().manual_seed(8))
-        lpips = init_lpips(torch.Generator().manual_seed(9), device=dev)
+        lpips = init_lpips(torch.Generator().manual_seed(9), device=dev,
+                           dtype=torch.float32)
         opt = make_optimizer(model.parameters(), CHECK_LR, "cycle",
                              n_iter=100)
         state = create_train_state(model, opt)

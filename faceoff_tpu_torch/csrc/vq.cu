@@ -5,310 +5,1024 @@
 //                          counts and sums carried across the TPU grid),
 //   _assign_kernel_tiled  (K > 2048: running argmax over K tiles),
 //   _stats_kernel_tiled   (K > 2048: counts and sums one K tile at a time).
-// Two kernels here serve every K:
+// On Hopper the blocks run in parallel and nothing carries from one to the
+// next, so the work splits into an assignment and a statistics pass, each
+// serving every K:
 //
-//   vq_assign_kernel   scores = x . e_k - 0.5 ||e_k||^2, idx = argmax with
-//                      the lowest index winning ties, quant = E[:, idx]^T.
-//   vq_stats_kernel    counts[k] = #rows with idx k, sums[:, k] = sum of
-//                      those rows, over rows < N only.
+//   assignment   idx = argmax_k (x . e_k - 0.5 ||e_k||^2), the lowest index
+//                winning a tie; quant = E[:, idx]^T.
+//   statistics   counts[k] = #rows with idx k, sums[:, k] = sum of those
+//                rows, over rows < N only.
 //
-// What bounds them. At the flagship bottom quantizer (N = 524288 rows,
-// D = 64, K = 512) the assignment is 2 N D K = 34.4 GFLOP of float32 FMA,
-// 0.51 ms at the card's 67 TFLOP/s outside the tensor cores, against
-// 270 MB of traffic (x in, quant out, idx out), 0.08 ms at 3.35 TB/s: the
-// arithmetic bounds it. The statistics are N D adds over 134 MB of x:
-// bytes bound them.
+// Assignment: split operands on the tensor cores, then an exact re-score
+// of near ties. At the flagship bottom quantizer (N = 524288, D = 64,
+// K = 512) the scores are 2 N D K = 34.4 GFLOP: 0.51 ms of float32 FMA at
+// the 67 TFLOP/s of the CUDA cores, against 0.08 ms for its bytes (x in,
+// quant and idx out). The tensor cores do TF32 (10-bit mantissa) at
+// 495 TFLOP/s and bf16 (7-bit) at 989; one TF32 product would pick
+// another code than float32 wherever two scores lie within about 2^-11 of
+// each other. So each operand is split, v = hi + lo with hi = rna(v) in
+// TF32 (cvt.rna.tf32.f32) and lo = v - hi exactly, and the score is
+//   x_hi . e_hi                         one m16n8k8 TF32 product, exact
+//                                       products,
+// + bf16(x_hi) . bf16(e_lo) + bf16(x_lo) . bf16(e_hi)
+//                                       one m16n8k16 bf16 product of twice
+//                                       the depth (the cross terms are
+//                                       2^-11 of the score, so bf16's 2^-9
+//                                       rounding costs 2^-19 of it),
+// with float32 accumulators: 0.14 ms of tensor-core work at the flagship
+// shape; operations bound it. What it drops ((x - x_hi)(e - e_hi) and the
+// cross terms' bf16 rounding) is at most 17.1 2^-22 of sum |x_d e_d|; what
+// the tensor core's accumulation may lose (its rounding is not promised)
+// is taken as at most 32 (TF32 step) and 64 (bf16 step) ulps of the
+// largest addend (`vq_cuda.MMA_ULPS_TF32`, `MMA_ULPS_BF16`). The wrapper
+// turns that into a per-row bound
+//   eps_row = c1(D) ||x||_2 max_k ||e_k||_2 + c2 max_k ||e_k||^2
+// (`ops/vq_cuda.split_score_eps`; ||x||_2 max ||e_k||_2 >= sum |x_d e_d|),
+// and a row whose best and second-best split scores lie more than
+// 2 eps_row apart has the exact argmax. Every other row is flagged and
+// re-scored over all K by the plain float32 FMA loop (ascending d, strict
+// '>', lowest index wins a tie), the arithmetic the earlier CUDA-core
+// kernel ran for every row; with random data under one row in a hundred is
+// flagged.
 //
-// Design. The TPU kernels lean on the sequential grid: the statistics are
-// one output block that every grid step adds into. On Hopper the blocks
-// run in parallel, so nothing carries from one block to the next; each
-// kernel is its own pass.
+//   vq_prep_kernel     per code, 0.5 ||e_k||^2 by float32 FMA in ascending d
+//                      (+inf for the padding codes); E^T split into hi/lo
+//                      (float32), code-major and zero-padded to (Kp, Dp) =
+//                      (64-, 8-multiples); E^T (K, D) for the quant rows;
+//                      and max ||e_k||^2 by an atomic max.
+//   vq_assign_kernel   32 rows a warp (two m16 fragments), 16 warps a block
+//                      up to D = 72 (so each codebook tile read from L2
+//                      serves 512 rows), else 4;
+//                      x staged once in shared memory (float32, split and
+//                      rounded as the fragments load); E hi/lo streamed in
+//                      tiles of 64 codes x 32 depths by cp.async, three
+//                      stages. Within a k8 step the depths are permuted so
+//                      that each fragment pair is one 8-byte shared load.
+//                      Each thread keeps, for its 4 rows, the best and
+//                      second-best score and the best index across K tiles;
+//                      the quad of lanes that shares a row merges them with
+//                      __shfl_xor_sync (the lower index wins a tie at every
+//                      step). Writes idx and the coalesced quant rows, and
+//                      appends flagged rows to a list.
+//   vq_rescore_kernel  eight flagged rows and one slice of 1024 codes a
+//                      block, exact float32 scores; slices meet in a 64-bit
+//                      atomic max of (score, ~index) per row.
+//   vq_rescore_finish_kernel  the flagged rows' idx and quant.
 //
-// The assignment gives each thread one row. A block stages its 128 rows
-// in shared memory, transposed and padded so that both the staging stores
-// and the per-thread reads are free of bank conflicts, then streams the
-// codebook through shared memory in tiles of 128 codes (32 KB at D = 64),
-// computing each tile's half squared norms once. Inside a tile a thread
-// keeps 32 scores in registers: for every d it reads its x_d once and the
-// 32 codes' d-th components as eight float4 broadcasts, so there is one
-// shared load for every four FMAs. The running argmax takes codes in
-// ascending order with a strict '>', so the earliest code wins a tie, as
-// in the TPU kernels. Padded codes of the last tile score -inf. The
-// arithmetic is plain float32 FMA: TF32 or bf16 tensor cores would change
-// which code wins. quant is written by the whole block, row after row,
-// so the stores coalesce; the codebook reads hit L2.
+// Statistics: a counting sort by code, so x is read once at every K. The
+// sums are N D adds over N D 4 bytes of x: bytes bound them (0.04 ms at the
+// flagship shape). The earlier kernel held a K tile of sums in shared
+// memory and read every row once per tile (5 times at K = 4096), with one
+// row load in flight per warp.
 //
-// The statistics kernel gives each block one K tile of codes (all K when
-// K (D + 1) floats fit in shared memory, as at K = 512, D = 64: 133 KB)
-// and a contiguous run of rows; each warp walks a sub-run, one row per
-// step with its lanes over d, and keeps the sum of the current code in
-// registers until the code changes. Neighbouring pixels mostly share a
-// code, and with random weights a few codes take most rows, so this run
-// accumulation is what keeps contention off the shared-memory atomics.
-// At the end the block adds its nonzero codes into the global outputs
-// with atomics. Rows are read once per K tile: once at the flagship K.
-// Float sums are added in an order that changes from run to run; counts
-// are integers, exact below 2^24.
+//   stats_hist_kernel     int histogram of idx, per block in shared memory,
+//                         then added into the global one.
+//   stats_scan_kernel     one block: exclusive scans over K of the counts
+//                         (segment offsets) and of ceil(count / 128) (chunk
+//                         offsets); writes the float counts.
+//   stats_scatter_kernel  row ids into code order: a block reserves one
+//                         range per code it holds with one global atomic,
+//                         then places its rows with shared atomics.
+//   stats_segsum_kernel   one warp per chunk of at most 128 rows of one
+//                         code: its row ids read once into shared memory;
+//                         16-byte loads where D % 4 == 0, groups of lanes on
+//                         different rows and eight rows a group in flight,
+//                         sums in registers; the chunk's sum goes into
+//                         sums[:, k] with one atomic add per entry (onto zero
+//                         for a code of one chunk). Hot codes are many
+//                         chunks; their float sums are added in an order that
+//                         may change from run to run.
+// Where K is too large for the per-block tables in shared memory, the
+// histogram and scatter count in global memory, one atomic per distinct
+// code in a warp (__match_any_sync). Counts are integers, exact below 2^24
+// rows a code.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kRows = 128;          // rows per assignment block (= threads)
-constexpr int kRowStride = kRows + 1;
-constexpr int kTileK = 128;         // codes per shared-memory tile
-constexpr int kChunk = 32;          // scores a thread keeps in registers
-constexpr int kStatsThreads = 1024;
-constexpr int kMaxLaneSlots = 8;    // D <= 32 * kMaxLaneSlots in the stats
-static_assert(kTileK == kRows, "one thread computes each code's norm");
-static_assert(kTileK % kChunk == 0 && kChunk % 4 == 0, "float4 chunks");
+// -- assignment -------------------------------------------------------------
 
-__global__ void __launch_bounds__(kRows)
-vq_assign_kernel(const float* __restrict__ x, const float* __restrict__ embed,
+constexpr int kTileN = 64;           // codes per tile: 8 n8 fragments
+constexpr int kTileD = 32;           // depths per pipeline stage: 4 k8 steps
+constexpr int kStages = 3;
+constexpr int kSD = kTileD + 8;      // code row stride in a stage (floats)
+constexpr int kStageFloats = 2 * kTileN * kSD;  // hi, then lo
+constexpr int kHnBufs = 4;           // half-norm tiles in flight
+constexpr int kNFrag = kTileN / 8;
+
+// The k8 step's depths are permuted so that each lane's two depths are
+// adjacent: fragment slot tig holds depth 2 tig, slot tig + 4 depth
+// 2 tig + 1 (for A and B alike, so the product is unchanged), and one
+// 8-byte shared load gives both. Row strides that are odd multiples of 8
+// floats keep those loads free of bank conflicts.
+__host__ __device__ constexpr int x_stride(int dp) {
+  return (dp / 8) % 2 ? dp : dp + 8;
+}
+
+__device__ __forceinline__ float to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return __uint_as_float(r);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// m16n8k16 bf16 with float32 accumulators: A (16 x 16) and B (16 x 8) as
+// bf16 pairs, the lower k in the low half.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 (nearest even) in one register, `lo` in the
+// low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Block of 32 codes x 8 depth lanes: E^T split into its TF32 head and the
+// exact rest, code-major and zero-padded (Kp, Dp); E^T (K, D) for the
+// quant rows; the half squared norms by float32 FMA in ascending d (+inf
+// for the padding codes); and the largest squared norm.
+__global__ void __launch_bounds__(256)
+vq_prep_kernel(const float* __restrict__ embed, float* __restrict__ eh,
+               float* __restrict__ el, float* __restrict__ et,
+               float* __restrict__ hn, unsigned* __restrict__ emax2, int d,
+               int dp, int k) {
+  extern __shared__ float sv[];  // [dp][33]
+  const int tx = threadIdx.x & 31;
+  const int ty = threadIdx.x >> 5;
+  const int j0 = blockIdx.x * 32;
+  const int j = j0 + tx;
+  for (int c = ty; c < dp; c += 8) {
+    sv[c * 33 + tx] =
+        (j < k && c < d) ? embed[static_cast<long long>(c) * k + j] : 0.0f;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 32 * dp; i += blockDim.x) {
+    const int jj = i / dp;
+    const int c = i - jj * dp;
+    const float v = sv[c * 33 + jj];
+    const float h = to_tf32(v);
+    const long long o = static_cast<long long>(j0 + jj) * dp + c;
+    eh[o] = h;
+    el[o] = v - h;  // exact
+    if (j0 + jj < k && c < d) {
+      et[static_cast<long long>(j0 + jj) * d + c] = v;
+    }
+  }
+  if (ty == 0) {
+    float s = 0.0f;
+    for (int c = 0; c < d; ++c) {
+      const float v = sv[c * 33 + tx];
+      s = fmaf(v, v, s);
+    }
+    hn[j] = j < k ? 0.5f * s : CUDART_INF_F;
+    if (j < k) atomicMax(emax2, __float_as_uint(s));
+  }
+}
+
+struct Top2 {
+  float best, second;
+  int idx;
+};
+
+// Codes arrive in ascending order, so a strict '>' keeps the lowest index
+// of equal scores. A NaN score leaves best alone and sets second to best,
+// so its row goes to the re-score.
+__device__ __forceinline__ void top2_take(Top2& t, float s, int j) {
+  t.idx = s > t.best ? j : t.idx;
+  t.second = fmaxf(t.second, fminf(s, t.best));
+  t.best = fmaxf(t.best, s);
+}
+
+// Merge with the quad partner `lane ^ mask`; the lower index wins a tie.
+__device__ __forceinline__ void top2_merge(Top2& t, int mask) {
+  const float ob = __shfl_xor_sync(0xffffffffu, t.best, mask);
+  const float os = __shfl_xor_sync(0xffffffffu, t.second, mask);
+  const int oi = __shfl_xor_sync(0xffffffffu, t.idx, mask);
+  if (ob > t.best || (ob == t.best && oi < t.idx)) {
+    t.second = fmaxf(os, t.best);
+    t.best = ob;
+    t.idx = oi;
+  } else {
+    t.second = fmaxf(t.second, ob);
+  }
+}
+
+// kWarps warps of 32 rows each: 16 where they fit in shared memory (up to
+// D = 72), so that each codebook tile streamed from L2 serves 512 rows;
+// else 4.
+template <int kWarps>
+__global__ void __launch_bounds__(kWarps * 32, kWarps == 4 ? 3 : 1)
+vq_assign_kernel(const float* __restrict__ x, const float* __restrict__ et,
+                 const float* __restrict__ eh, const float* __restrict__ el,
+                 const float* __restrict__ hn,
+                 const unsigned* __restrict__ emax2,
                  int* __restrict__ idx_out, float* __restrict__ quant,
-                 int n, int d, int k) {
-  // the codebook tile comes first so that its float4 reads are aligned
+                 int* __restrict__ flag_count, int* __restrict__ flag_list,
+                 unsigned long long* __restrict__ keys, int n, int d, int dp,
+                 int kp, float c1, float c2) {
+  constexpr int kRows = kWarps * 32;
+  constexpr int kThreads = kWarps * 32;
   extern __shared__ __align__(16) float smem[];
-  float* se = smem;                          // [d][kTileK]
-  float* shn = se + d * kTileK;              // [kTileK]
-  float* sx = shn + kTileK;                  // [d][kRowStride]
-  int* sidx = reinterpret_cast<int*>(sx + d * kRowStride);  // [kRows]
+  const int xs = x_stride(dp);
+  float* se = smem;                          // [kStages][hi, lo][kTileN][kSD]
+  float* shn = se + kStages * kStageFloats;  // [kHnBufs][kTileN]
+  float* sx = shn + kHnBufs * kTileN;        // [kRows][xs]
+  int* sidx = reinterpret_cast<int*>(se);    // [kRows], after the main loop
 
   const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
   const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
+  const int n_tiles = kp / kTileN;
+  const int nd = (dp + kTileD - 1) / kTileD;
+  const int total = n_tiles * nd;
 
-  for (int i = tid; i < kRows * d; i += kRows) {
-    const int r = i / d;
-    const int c = i - r * d;
-    const long long row = row0 + r;
-    sx[c * kRowStride + r] = row < n ? x[row * d + c] : 0.0f;
-  }
-
-  float best = -CUDART_INF_F;
-  int best_idx = 0;
-  for (int k0 = 0; k0 < k; k0 += kTileK) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = tid; i < d * kTileK; i += kRows) {
-      const int c = i / kTileK;
-      const int kk = i - c * kTileK;
-      se[i] = (k0 + kk < k) ? embed[static_cast<long long>(c) * k + k0 + kk]
-                            : 0.0f;
+  auto load_stage = [&](int it) {
+    if (it >= total) return;
+    const int t = it / nd;
+    const int c0 = (it - t * nd) * kTileD;
+    const int q_per_code = min(kTileD, dp - c0) / 4;
+    const int n0 = t * kTileN;
+    float* dst = se + (it % kStages) * kStageFloats;
+    const int per = kTileN * q_per_code;
+    for (int i = tid; i < 2 * per; i += kThreads) {
+      const int which = i >= per;
+      const int rem = i - which * per;
+      const int code = rem / q_per_code;
+      const int q = rem - code * q_per_code;
+      const float* src = (which ? el : eh) +
+                         static_cast<long long>(n0 + code) * dp + c0 + 4 * q;
+      cp_async16(dst + which * kTileN * kSD + code * kSD + 4 * q, src);
     }
-    __syncthreads();
-    {
-      float s = 0.0f;
-      for (int c = 0; c < d; ++c) {
-        const float v = se[c * kTileK + tid];
-        s = fmaf(v, v, s);
-      }
-      shn[tid] = (k0 + tid < k) ? 0.5f * s : CUDART_INF_F;
+    if (c0 == 0 && tid < kTileN / 4) {
+      cp_async16(shn + (t % kHnBufs) * kTileN + 4 * tid, hn + n0 + 4 * tid);
     }
-    __syncthreads();
+  };
 
-    for (int c0 = 0; c0 < kTileK; c0 += kChunk) {
-      float acc[kChunk];
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) acc[j] = 0.0f;
-#pragma unroll 4
-      for (int c = 0; c < d; ++c) {
-        const float xv = sx[c * kRowStride + tid];
-        const float4* e4 =
-            reinterpret_cast<const float4*>(se + c * kTileK + c0);
-#pragma unroll
-        for (int j = 0; j < kChunk / 4; ++j) {
-          const float4 e = e4[j];
-          acc[4 * j + 0] = fmaf(xv, e.x, acc[4 * j + 0]);
-          acc[4 * j + 1] = fmaf(xv, e.y, acc[4 * j + 1]);
-          acc[4 * j + 2] = fmaf(xv, e.z, acc[4 * j + 2]);
-          acc[4 * j + 3] = fmaf(xv, e.w, acc[4 * j + 3]);
-        }
+  // x rows, zero-padded to dp columns, in the first group with stage 0
+  if ((d & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
+    const int qrow = dp / 4;
+    for (int i = tid; i < kRows * qrow; i += kThreads) {
+      const int r = i / qrow;
+      const int c = 4 * (i - r * qrow);
+      const long long row = row0 + r;
+      float* dst = sx + r * xs + c;
+      if (row < n && c < d) {
+        cp_async16(dst, x + row * d + c);
+      } else {
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
       }
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const float s = acc[j] - shn[c0 + j];
-        if (s > best) {
-          best = s;
-          best_idx = k0 + c0 + j;
-        }
-      }
+    }
+  } else {
+    for (int i = tid; i < kRows * dp; i += kThreads) {
+      const int r = i / dp;
+      const int c = i - r * dp;
+      const long long row = row0 + r;
+      sx[r * xs + c] = (row < n && c < d) ? x[row * d + c] : 0.0f;
     }
   }
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    load_stage(st);
+    cp_async_commit();
+  }
 
-  sidx[tid] = best_idx;
-  if (row0 + tid < n) idx_out[row0 + tid] = best_idx;
+  Top2 top[2][2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) top[mi][h] = {-CUDART_INF_F, -CUDART_INF_F, 0};
+
+  float acc[2][kNFrag][4];
+  const float* xw = sx + (warp * 32 + gid) * xs + 2 * tig;
+  for (int it = 0; it < total; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage it has landed; stage it - 1 is free
+    load_stage(it + kStages - 1);
+    cp_async_commit();
+
+    const int t = it / nd;
+    const int c0 = (it - t * nd) * kTileD;
+    if (c0 == 0) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < kNFrag; ++ni)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[mi][ni][v] = 0.0f;
+    }
+    const int ksteps = min(kTileD, dp - c0) / 8;
+    const float* seh =
+        se + (it % kStages) * kStageFloats + gid * kSD + 2 * tig;
+    const float* sel = seh + kTileN * kSD;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      // A: the TF32 heads for x_hi.e_hi; bf16 pairs for the cross terms,
+      // x_hi at k = 2 tig, 2 tig + 1 and x_lo = x - x_hi at k + 8
+      uint32_t ah[2][4], as[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const float* p = xw + mi * 16 * xs + c0 + ks * 8;
+        const float2 v0 = *reinterpret_cast<const float2*>(p);
+        const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * xs);
+        const float h00 = to_tf32(v0.x), h01 = to_tf32(v0.y);
+        const float h10 = to_tf32(v1.x), h11 = to_tf32(v1.y);
+        ah[mi][0] = __float_as_uint(h00);
+        ah[mi][1] = __float_as_uint(h10);
+        ah[mi][2] = __float_as_uint(h01);
+        ah[mi][3] = __float_as_uint(h11);
+        as[mi][0] = pack_bf16(h00, h01);
+        as[mi][1] = pack_bf16(h10, h11);
+        as[mi][2] = pack_bf16(v0.x - h00, v0.y - h01);
+        as[mi][3] = pack_bf16(v1.x - h10, v1.y - h11);
+      }
+      // B: e_hi as TF32; bf16 pairs of e_lo (with x_hi) and e_hi (with x_lo)
+      uint32_t bh[kNFrag][2], bs[kNFrag][2];
+#pragma unroll
+      for (int ni = 0; ni < kNFrag; ++ni) {
+        const float2 h =
+            *reinterpret_cast<const float2*>(seh + ni * 8 * kSD + ks * 8);
+        const float2 l =
+            *reinterpret_cast<const float2*>(sel + ni * 8 * kSD + ks * 8);
+        bh[ni][0] = __float_as_uint(h.x);
+        bh[ni][1] = __float_as_uint(h.y);
+        bs[ni][0] = pack_bf16(l.x, l.y);
+        bs[ni][1] = pack_bf16(h.x, h.y);
+      }
+      // the cross terms first, then the large product; 16 independent
+      // accumulators between two products into the same one
+#pragma unroll
+      for (int ni = 0; ni < kNFrag; ++ni)
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          mma_bf16(acc[mi][ni], as[mi], bs[ni][0], bs[ni][1]);
+#pragma unroll
+      for (int ni = 0; ni < kNFrag; ++ni)
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          mma_tf32(acc[mi][ni], ah[mi], bh[ni][0], bh[ni][1]);
+    }
+
+    if (c0 + kTileD >= dp) {  // the tile's last depth chunk: its epilogue
+      const float* th = shn + (t % kHnBufs) * kTileN;
+#pragma unroll
+      for (int ni = 0; ni < kNFrag; ++ni) {
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const int col = ni * 8 + tig * 2 + v;
+          const float h = th[col];
+          const int j = t * kTileN + col;
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            top2_take(top[mi][0], acc[mi][ni][v] - h, j);
+            top2_take(top[mi][1], acc[mi][ni][2 + v] - h, j);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the stages are free for sidx
+
+  const float emax_sq = __uint_as_float(*emax2);
+  const float emax = sqrtf(emax_sq);
+  const unsigned lt_mask = (1u << lane) - 1u;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      Top2 tp = top[mi][h];
+      top2_merge(tp, 1);
+      top2_merge(tp, 2);
+      const int r = warp * 32 + mi * 16 + h * 8 + gid;
+      float ss = 0.0f;
+      for (int c = tig; c < dp; c += 4) {
+        const float v = sx[r * xs + c];
+        ss = fmaf(v, v, ss);
+      }
+      ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+      ss += __shfl_xor_sync(0xffffffffu, ss, 2);
+      const float eps = c1 * sqrtf(ss) * emax + c2 * emax_sq;
+      const long long row = row0 + r;
+      const bool mine = tig == 0 && row < n;
+      // NaN or infinite inputs fail the test and go to the re-score
+      const bool flagged = mine && !(tp.best - tp.second > 2.0f * eps);
+      if (tig == 0) sidx[r] = tp.idx;
+      if (mine) idx_out[row] = tp.idx;
+      const unsigned fm = __ballot_sync(0xffffffffu, flagged);
+      if (fm) {
+        const int leader = __ffs(fm) - 1;
+        int base = 0;
+        if (lane == leader) base = atomicAdd(flag_count, __popc(fm));
+        base = __shfl_sync(0xffffffffu, base, leader);
+        if (flagged) {
+          const int pos = base + __popc(fm & lt_mask);
+          flag_list[pos] = static_cast<int>(row);
+          keys[pos] = 0ull;  // below every score's key
+        }
+      }
+    }
+  }
   __syncthreads();
-  for (int i = tid; i < kRows * d; i += kRows) {
+  for (int i = tid; i < kRows * d; i += kThreads) {
     const int r = i / d;
     const int c = i - r * d;
     const long long row = row0 + r;
     if (row < n) {
-      quant[row * d + c] = embed[static_cast<long long>(c) * k + sidx[r]];
+      quant[row * d + c] = et[static_cast<long long>(sidx[r]) * d + c];
     }
   }
 }
 
-// Adds a warp's run of rows of one code into the block's shared sums.
-__device__ __forceinline__ void flush_run(float* ssum, unsigned* scnt,
-                                          int code, int d, int lane,
-                                          float (&acc)[kMaxLaneSlots],
-                                          unsigned& cnt) {
-  if (code < 0) return;
-#pragma unroll
-  for (int j = 0; j < kMaxLaneSlots; ++j) {
-    const int c = lane + 32 * j;
-    if (c < d) atomicAdd(&ssum[code * (d + 1) + c], acc[j]);
-    acc[j] = 0.0f;
-  }
-  if (lane == 0) atomicAdd(&scnt[code], cnt);
-  cnt = 0;
+// The re-score of the flagged rows: exact float32 scores over all K, as
+// the plain float32 kernel computes them (FMA in ascending d, then minus
+// the half norm), and each row's argmax, the lowest index winning a tie.
+// A block takes kRescoreRows flagged rows and one slice of kSliceCodes
+// codes: the rows sit in shared memory, and a thread scores its codes
+// (kRescoreThreads apart) for all of them, so each codebook entry read from
+// L2 serves kRescoreRows rows. Slices meet in a 64-bit atomic max of
+// (order-preserving score bits, ~index) per row: the higher score wins, then
+// the lower index. A second kernel decodes the winners and writes idx and
+// quant.
+constexpr int kRescoreThreads = 256;
+constexpr int kRescoreRows = 8;
+constexpr int kSliceCodes = 1024;
+constexpr int kMaxDim = 224;
+
+// Score bits that order as the scores do, NaN taken as -inf (it never wins
+// a strict '>'); the low word is ~index, so a lower index is a larger key.
+__device__ __forceinline__ unsigned long long rescore_key(float s, int j) {
+  if (s != s) s = -CUDART_INF_F;
+  const unsigned u = __float_as_uint(s);
+  const unsigned ord = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<unsigned long long>(ord) << 32) |
+         static_cast<unsigned>(~j);
 }
 
-__global__ void __launch_bounds__(kStatsThreads)
-vq_stats_kernel(const float* __restrict__ x, const int* __restrict__ idx,
-                float* __restrict__ counts, float* __restrict__ sums,
-                int n, int d, int k, int tile_k, int rows_per_block) {
-  extern __shared__ __align__(16) float smem[];
-  float* ssum = smem;                                      // [tile_k][d + 1]
-  unsigned* scnt = reinterpret_cast<unsigned*>(ssum + tile_k * (d + 1));
-
-  const int k0 = blockIdx.y * tile_k;
-  const int tk = min(tile_k, k - k0);
-  for (int i = threadIdx.x; i < tile_k * (d + 1); i += blockDim.x) {
-    ssum[i] = 0.0f;
+__global__ void __launch_bounds__(kRescoreThreads)
+vq_rescore_kernel(const float* __restrict__ x, const float* __restrict__ embed,
+                  const float* __restrict__ hn,
+                  const int* __restrict__ flag_count,
+                  const int* __restrict__ flag_list,
+                  unsigned long long* __restrict__ keys, int d, int k) {
+  __shared__ float xr[kRescoreRows][kMaxDim];
+  __shared__ int wrow[kRescoreRows];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int count = *flag_count;
+  const int j_end = min(k, static_cast<int>(blockIdx.y + 1) * kSliceCodes);
+  for (int f0 = blockIdx.x * kRescoreRows; f0 < count;
+       f0 += gridDim.x * kRescoreRows) {
+    const int rows = min(kRescoreRows, count - f0);
+    __syncthreads();  // the previous group is done with xr and wrow
+    if (tid < kRescoreRows) wrow[tid] = tid < rows ? flag_list[f0 + tid] : 0;
+    __syncthreads();
+    for (int i = tid; i < kRescoreRows * d; i += kRescoreThreads) {
+      const int r = i / d;
+      const int c = i - r * d;
+      xr[r][c] = x[static_cast<long long>(wrow[r]) * d + c];
+    }
+    __syncthreads();
+    float best[kRescoreRows];
+    int bi[kRescoreRows];
+#pragma unroll
+    for (int r = 0; r < kRescoreRows; ++r) {
+      best[r] = -CUDART_INF_F;
+      bi[r] = 0;
+    }
+    for (int j = blockIdx.y * kSliceCodes + tid; j < j_end;
+         j += kRescoreThreads) {
+      float acc[kRescoreRows];
+#pragma unroll
+      for (int r = 0; r < kRescoreRows; ++r) acc[r] = 0.0f;
+      for (int c = 0; c < d; ++c) {
+        const float e = __ldg(embed + static_cast<long long>(c) * k + j);
+#pragma unroll
+        for (int r = 0; r < kRescoreRows; ++r) {
+          acc[r] = fmaf(xr[r][c], e, acc[r]);
+        }
+      }
+      const float h = hn[j];
+#pragma unroll
+      for (int r = 0; r < kRescoreRows; ++r) {
+        const float s = acc[r] - h;
+        if (s > best[r]) {
+          best[r] = s;
+          bi[r] = j;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRescoreRows; ++r) {
+      unsigned long long key = rescore_key(best[r], bi[r]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const unsigned long long o = __shfl_xor_sync(0xffffffffu, key, off);
+        key = o > key ? o : key;
+      }
+      if (lane == 0 && r < rows) atomicMax(&keys[f0 + r], key);
+    }
   }
-  for (int i = threadIdx.x; i < tile_k; i += blockDim.x) scnt[i] = 0u;
-  __syncthreads();
+}
 
+// One warp per flagged row: the winner's index and quant row.
+__global__ void __launch_bounds__(kRescoreThreads)
+vq_rescore_finish_kernel(const float* __restrict__ et,
+                         const int* __restrict__ flag_count,
+                         const int* __restrict__ flag_list,
+                         const unsigned long long* __restrict__ keys,
+                         int* __restrict__ idx_out, float* __restrict__ quant,
+                         int d) {
+  const int lane = threadIdx.x & 31;
+  const int gw = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int nw = (gridDim.x * blockDim.x) >> 5;
+  const int count = *flag_count;
+  for (int f = gw; f < count; f += nw) {
+    const long long row = flag_list[f];
+    const int i = static_cast<int>(~static_cast<unsigned>(keys[f]));
+    if (lane == 0) idx_out[row] = i;
+    for (int c = lane; c < d; c += 32) {
+      quant[row * d + c] = et[static_cast<long long>(i) * d + c];
+    }
+  }
+}
+
+// -- statistics -------------------------------------------------------------
+
+constexpr int kChunkRows = 128;   // rows of one code summed by one warp
+constexpr int kSortThreads = 512;
+constexpr int kScanThreads = 1024;
+constexpr int kSumThreads = 256;
+
+// Adds one to counter[key] for every valid lane, one atomic per distinct
+// key in the warp; returns the counter's value before this lane's add.
+__device__ __forceinline__ int aggregated_add(int* counter, int key,
+                                              unsigned active) {
+  const unsigned peers = __match_any_sync(active, key);
+  const int lane = threadIdx.x & 31;
+  const int leader = __ffs(peers) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(&counter[key], __popc(peers));
+  base = __shfl_sync(peers, base, leader);
+  return base + __popc(peers & ((1u << lane) - 1u));
+}
+
+__global__ void __launch_bounds__(kSortThreads)
+stats_hist_kernel(const int* __restrict__ idx, int* __restrict__ cnt, int n,
+                  int k, int rows_per_block, int use_shared) {
+  extern __shared__ int sh[];  // [k] when use_shared
+  if (use_shared) {
+    for (int i = threadIdx.x; i < k; i += blockDim.x) sh[i] = 0;
+    __syncthreads();
+  }
   const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_block;
   const long long r1 = min(static_cast<long long>(n), r0 + rows_per_block);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  const long long span = r1 > r0 ? r1 - r0 : 0;
-  const long long per_warp = (span + warps - 1) / warps;
-  const long long w0 = r0 + warp * per_warp;
-  const long long w1 = min(r1, w0 + per_warp);
-
-  float acc[kMaxLaneSlots];
-#pragma unroll
-  for (int j = 0; j < kMaxLaneSlots; ++j) acc[j] = 0.0f;
-  unsigned cnt = 0;
-  int cur = -1;
-  for (long long base = w0; base < w1; base += 32) {
-    // one coalesced load of the next 32 codes, then a broadcast per row
-    const long long mine = base + lane;
-    const int my_code = mine < w1 ? idx[mine] - k0 : -1;
-    const int steps = static_cast<int>(min(32LL, w1 - base));
-    for (int t = 0; t < steps; ++t) {
-      const int code = __shfl_sync(0xffffffffu, my_code, t);
-      if (code < 0 || code >= tk) continue;
-      if (code != cur) {
-        flush_run(ssum, scnt, cur, d, lane, acc, cnt);
-        cur = code;
-      }
-      const float* xr = x + (base + t) * d;
-#pragma unroll
-      for (int j = 0; j < kMaxLaneSlots; ++j) {
-        const int c = lane + 32 * j;
-        if (c < d) acc[j] += xr[c];
-      }
-      ++cnt;
+  if (use_shared) {
+    for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
+      atomicAdd(&sh[idx[r]], 1);
+    }
+  } else {
+    const int lane = threadIdx.x & 31;
+    for (long long b = r0 + (threadIdx.x & ~31); b < r1; b += blockDim.x) {
+      const long long r = b + lane;
+      const bool valid = r < r1;
+      const unsigned active = __ballot_sync(0xffffffffu, valid);
+      if (valid) aggregated_add(cnt, idx[r], active);
     }
   }
-  flush_run(ssum, scnt, cur, d, lane, acc, cnt);
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < tk; i += blockDim.x) {
-    if (scnt[i]) atomicAdd(&counts[k0 + i], static_cast<float>(scnt[i]));
-  }
-  for (int i = threadIdx.x; i < tk * d; i += blockDim.x) {
-    const int c = i / tk;
-    const int kk = i - c * tk;
-    if (scnt[kk]) {
-      atomicAdd(&sums[static_cast<long long>(c) * k + k0 + kk],
-                ssum[kk * (d + 1) + c]);
+  if (use_shared) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < k; i += blockDim.x) {
+      if (sh[i]) atomicAdd(&cnt[i], sh[i]);
     }
   }
 }
+
+// Exclusive block scan of two ints; returns the block totals.
+__device__ __forceinline__ int2 block_scan2(int a, int b, int& ex_a,
+                                            int& ex_b) {
+  __shared__ int wa[32], wb[32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int ia = a, ib = b;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int ta = __shfl_up_sync(0xffffffffu, ia, off);
+    const int tb = __shfl_up_sync(0xffffffffu, ib, off);
+    if (lane >= off) {
+      ia += ta;
+      ib += tb;
+    }
+  }
+  if (lane == 31) {
+    wa[warp] = ia;
+    wb[warp] = ib;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int nwarps = blockDim.x >> 5;
+    int va = lane < nwarps ? wa[lane] : 0;
+    int vb = lane < nwarps ? wb[lane] : 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int ta = __shfl_up_sync(0xffffffffu, va, off);
+      const int tb = __shfl_up_sync(0xffffffffu, vb, off);
+      if (lane >= off) {
+        va += ta;
+        vb += tb;
+      }
+    }
+    wa[lane] = va;  // inclusive scan of the warp totals
+    wb[lane] = vb;
+  }
+  __syncthreads();
+  const int pa = warp > 0 ? wa[warp - 1] : 0;
+  const int pb = warp > 0 ? wb[warp - 1] : 0;
+  ex_a = pa + ia - a;
+  ex_b = pb + ib - b;
+  const int2 tot = make_int2(wa[(blockDim.x >> 5) - 1],
+                             wb[(blockDim.x >> 5) - 1]);
+  __syncthreads();  // the next call rewrites wa, wb
+  return tot;
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+stats_scan_kernel(const int* __restrict__ cnt, int* __restrict__ offsets,
+                  int* __restrict__ chunk_off, int* __restrict__ cursor,
+                  float* __restrict__ counts, int k) {
+  int carry_rows = 0, carry_chunks = 0;
+  for (int base = 0; base < k; base += blockDim.x) {
+    const int j = base + threadIdx.x;
+    const int c = j < k ? cnt[j] : 0;
+    const int ch = (c + kChunkRows - 1) / kChunkRows;
+    int ex_c, ex_ch;
+    const int2 tot = block_scan2(c, ch, ex_c, ex_ch);
+    if (j < k) {
+      offsets[j] = carry_rows + ex_c;
+      cursor[j] = carry_rows + ex_c;
+      chunk_off[j] = carry_chunks + ex_ch;
+      counts[j] = static_cast<float>(c);
+    }
+    carry_rows += tot.x;
+    carry_chunks += tot.y;
+  }
+  if (threadIdx.x == 0) {
+    offsets[k] = carry_rows;
+    chunk_off[k] = carry_chunks;
+  }
+}
+
+__global__ void __launch_bounds__(kSortThreads)
+stats_scatter_kernel(const int* __restrict__ idx, int* __restrict__ cursor,
+                     int* __restrict__ order, int n, int k,
+                     int rows_per_block, int use_shared) {
+  extern __shared__ int sh[];  // [2][k] when use_shared: count, then base
+  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_block;
+  const long long r1 = min(static_cast<long long>(n), r0 + rows_per_block);
+  const int lane = threadIdx.x & 31;
+  const long long first = r0 + (threadIdx.x & ~31);
+  if (!use_shared) {
+    for (long long b = first; b < r1; b += blockDim.x) {
+      const long long r = b + lane;
+      const bool valid = r < r1;
+      const unsigned active = __ballot_sync(0xffffffffu, valid);
+      if (valid) {
+        const int pos = aggregated_add(cursor, idx[r], active);
+        order[pos] = static_cast<int>(r);
+      }
+    }
+    return;
+  }
+  int* lcnt = sh;
+  int* lbase = sh + k;
+  for (int i = threadIdx.x; i < k; i += blockDim.x) lcnt[i] = 0;
+  __syncthreads();
+  for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
+    atomicAdd(&lcnt[idx[r]], 1);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < k; i += blockDim.x) {
+    lbase[i] = lcnt[i] ? atomicAdd(&cursor[i], lcnt[i]) : 0;
+    lcnt[i] = 0;
+  }
+  __syncthreads();
+  for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
+    const int code = idx[r];
+    order[lbase[code] + atomicAdd(&lcnt[code], 1)] = static_cast<int>(r);
+  }
+}
+
+template <int VEC> struct Vec;
+template <> struct Vec<1> {
+  static __device__ __forceinline__ void add(float* a, const float* p) {
+    a[0] += __ldg(p);
+  }
+};
+template <> struct Vec<4> {
+  static __device__ __forceinline__ void add(float* a, const float* p) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    a[0] += v.x;
+    a[1] += v.y;
+    a[2] += v.z;
+    a[3] += v.w;
+  }
+};
+
+// The code whose chunks hold chunk `ch`: the last j < k with
+// chunk_off[j] <= ch, by a 32-way search of the warp (chunk_off is
+// nondecreasing and chunk_off[0] = 0).
+__device__ __forceinline__ int find_code(const int* __restrict__ chunk_off,
+                                         int k, int ch) {
+  const int lane = threadIdx.x & 31;
+  int lo = 0, hi = k;
+  while (hi - lo > 1) {
+    const int step = (hi - lo + 31) / 32;
+    const int j = lo + lane * step;
+    const bool ok = j < hi && __ldg(chunk_off + j) <= ch;
+    const unsigned m = __ballot_sync(0xffffffffu, ok);
+    lo += (31 - __clz(m)) * step;
+    hi = min(hi, lo + step);
+  }
+  return lo;
+}
+
+// One warp per chunk. Lanes form 32 / P groups of P lanes (P the power of
+// two >= D / VEC, at most 32); a group sums every (32 / P)-th row of the
+// chunk, kUnroll rows in flight, lane q of the group columns
+// VEC (q + P s) .. + VEC - 1 for slots s < SLOTS. The chunk's row ids are
+// read once, coalesced, into shared memory.
+template <int VEC, int SLOTS>
+__global__ void __launch_bounds__(kSumThreads)
+stats_segsum_kernel(const float* __restrict__ x, const int* __restrict__ order,
+                    const int* __restrict__ offsets,
+                    const int* __restrict__ chunk_off,
+                    float* __restrict__ sums, int d, int k, int p) {
+  constexpr int kUnroll = 8;
+  __shared__ int srows[kSumThreads / 32][kChunkRows];
+  const int lane = threadIdx.x & 31;
+  int* rows = srows[threadIdx.x >> 5];
+  const int gw = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int nw = (gridDim.x * blockDim.x) >> 5;
+  const int nq = d / VEC;
+  const int groups = 32 / p;
+  const int g = lane / p;
+  const int q0 = lane - g * p;
+  const int total = chunk_off[k];
+  for (int ch = gw; ch < total; ch += nw) {
+    const int code = find_code(chunk_off, k, ch);
+    const int start = offsets[code] + (ch - chunk_off[code]) * kChunkRows;
+    const int cnt = min(kChunkRows, offsets[code + 1] - start);
+    __syncwarp();
+    for (int i = lane; i < cnt; i += 32) rows[i] = __ldg(order + start + i);
+    __syncwarp();
+    float acc[SLOTS][VEC];
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s)
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) acc[s][v] = 0.0f;
+    for (int i0 = g; i0 < cnt; i0 += groups * kUnroll) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int i = i0 + u * groups;
+        if (i < cnt) {
+          const float* xr = x + static_cast<long long>(rows[i]) * d;
+#pragma unroll
+          for (int s = 0; s < SLOTS; ++s) {
+            const int q = q0 + s * p;
+            if (q < nq) Vec<VEC>::add(acc[s], xr + q * VEC);
+          }
+        }
+      }
+    }
+    for (int off = p; off < 32; off <<= 1) {
+#pragma unroll
+      for (int s = 0; s < SLOTS; ++s)
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+          acc[s][v] += __shfl_xor_sync(0xffffffffu, acc[s][v], off);
+    }
+    if (g == 0) {
+#pragma unroll
+      for (int s = 0; s < SLOTS; ++s) {
+        const int q = q0 + s * p;
+        if (q < nq) {
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) {
+            atomicAdd(&sums[static_cast<long long>(q * VEC + v) * k + code],
+                      acc[s][v]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// Device attributes and kernel shared-memory limits, cached per device:
+// querying and setting them on every call costs more host time than the
+// small statistics launches themselves, and a call captured in a CUDA
+// graph after a first call sets nothing.
+constexpr int kMaxDevices = 64;
+
+struct DeviceInfo {
+  int sms = 0;
+  int optin = 0;
+  int smem_set[4] = {0, 0, 0, 0};  // assign 16 and 4 warps, hist, scatter
+};
+
+DeviceInfo& device_info() {
+  static DeviceInfo info[kMaxDevices];
+  static thread_local DeviceInfo uncached;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  DeviceInfo& di = dev < kMaxDevices ? info[dev] : (uncached = DeviceInfo());
+  if (di.sms == 0) {
+    cudaDeviceGetAttribute(&di.sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaDeviceGetAttribute(&di.optin,
+                           cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  return di;
+}
+
+// Raises `fn`'s dynamic shared-memory limit to `bytes` unless it is there.
+template <typename F>
+void allow_smem(DeviceInfo& di, int slot, F fn, int bytes) {
+  if (bytes > di.smem_set[slot]) {
+    cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         bytes);
+    di.smem_set[slot] = bytes;
+  }
+}
+
+int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 }  // namespace
 
-// Shared-memory bytes of an assignment block for width d.
-static long long assign_smem_bytes(int d) {
+// Shared-memory bytes of an assignment block of `warps` warps, width d.
+static long long assign_smem_bytes(int d, int warps) {
+  const int dp = round_up(d, 8);
   return static_cast<long long>(sizeof(float)) *
-             (static_cast<long long>(d) * (kRowStride + kTileK) + kTileK) +
-         static_cast<long long>(sizeof(int)) * kRows;
+         (kStages * kStageFloats + kHnBufs * kTileN +
+          32LL * warps * x_stride(dp));
 }
 
-// The largest statistics tile of codes for width d that fits in
-// `smem_bytes` of shared memory (0 when not even one code fits).
-static int stats_tile(int d, int k, long long smem_bytes) {
-  const long long per_code =
-      static_cast<long long>(sizeof(float)) * (d + 1) + sizeof(unsigned);
-  long long t = smem_bytes / per_code;
-  if (t > k) t = k;
-  return static_cast<int>(t);
-}
-
-static int smem_optin_bytes() {
-  int dev = 0;
-  cudaGetDevice(&dev);
-  int bytes = 0;
-  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  return bytes;
+// Floats of the assignment's scratch for (d, k): E^T hi and lo, the half
+// norms, the largest squared norm and E^T.
+extern "C" long long faceoff_vq_assign_scratch_floats(int d, int k) {
+  const long long dp = round_up(d, 8);
+  const long long kp = round_up(k, kTileN);
+  return 2 * kp * dp + kp + 4 + static_cast<long long>(k) * d;
 }
 
 // Launches the assignment on `stream` (a cudaStream_t passed as void*):
 // x (n, d) and embed (d, k) float32, contiguous; writes idx (n,) int32 and
-// quant (n, d). Returns cudaGetLastError() as an int, 0 when the launch
-// was accepted; cudaErrorInvalidValue when d is too wide for the block's
-// shared memory. The Python wrapper checks n >= 1, 1 <= d <= 224, k >= 1.
+// quant (n, d). fwork holds faceoff_vq_assign_scratch_floats(d, k) floats;
+// iwork n + 1 ints (the flagged-row count, then the flagged rows); keys n
+// 64-bit words (the re-score's running winners). c1, c2
+// are the coefficients of the per-row error bound. Returns
+// cudaGetLastError() as an int, 0 when every launch was accepted;
+// cudaErrorInvalidValue when d is too wide for the block's shared memory.
+// The Python wrapper checks n >= 1, 1 <= d <= 224, k >= 1.
 extern "C" int faceoff_vq_assign_rows(const float* x, const float* embed,
-                                      int* idx, float* quant, int n, int d,
-                                      int k, void* stream) {
-  const long long smem = assign_smem_bytes(d);
-  if (smem > smem_optin_bytes()) {
+                                      int* idx, float* quant, float* fwork,
+                                      int* iwork, unsigned long long* keys,
+                                      int n, int d, int k, float c1, float c2,
+                                      void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  DeviceInfo& di = device_info();
+  const int warps = assign_smem_bytes(d, 16) <= di.optin ? 16 : 4;
+  if (d > kMaxDim || assign_smem_bytes(d, warps) > di.optin) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaFuncSetAttribute(vq_assign_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem));
-  const int blocks = (n + kRows - 1) / kRows;
-  vq_assign_kernel<<<blocks, kRows, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, embed, idx, quant, n, d, k);
+  const long long smem = assign_smem_bytes(d, warps);
+  const int dp = round_up(d, 8);
+  const int kp = round_up(k, kTileN);
+  float* eh = fwork;
+  float* el = eh + static_cast<long long>(kp) * dp;
+  float* hn = el + static_cast<long long>(kp) * dp;
+  unsigned* emax2 = reinterpret_cast<unsigned*>(hn + kp);
+  float* et = hn + kp + 4;
+  cudaMemsetAsync(emax2, 0, sizeof(unsigned), st);
+  cudaMemsetAsync(iwork, 0, sizeof(int), st);
+  vq_prep_kernel<<<kp / 32, 256, dp * 33 * sizeof(float), st>>>(
+      embed, eh, el, et, hn, emax2, d, dp, k);
+  const int rows = 32 * warps;
+  const int blocks_a = (n + rows - 1) / rows;
+  if (warps == 16) {
+    allow_smem(di, 0, vq_assign_kernel<16>, static_cast<int>(smem));
+    vq_assign_kernel<16><<<blocks_a, rows, smem, st>>>(
+        x, et, eh, el, hn, emax2, idx, quant, iwork, iwork + 1, keys, n, d, dp,
+        kp, c1, c2);
+  } else {
+    allow_smem(di, 1, vq_assign_kernel<4>, static_cast<int>(smem));
+    vq_assign_kernel<4><<<blocks_a, rows, smem, st>>>(
+        x, et, eh, el, hn, emax2, idx, quant, iwork, iwork + 1, keys, n, d, dp,
+        kp, c1, c2);
+  }
+  const int slices = (k + kSliceCodes - 1) / kSliceCodes;
+  const int groups = (n + kRescoreRows - 1) / kRescoreRows;
+  int gx = (4 * di.sms + slices - 1) / slices;
+  if (gx > groups) gx = groups;
+  vq_rescore_kernel<<<dim3(gx, slices), kRescoreThreads, 0, st>>>(
+      x, embed, hn, iwork, iwork + 1, keys, d, k);
+  const int fin = (n + 7) / 8 < 4 * di.sms ? (n + 7) / 8 : 4 * di.sms;
+  vq_rescore_finish_kernel<<<fin, kRescoreThreads, 0, st>>>(
+      et, iwork, iwork + 1, keys, idx, quant, d);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Ints of the statistics' scratch for (n, k).
+extern "C" long long faceoff_vq_stats_scratch_ints(int n, int k) {
+  return static_cast<long long>(n) + 4LL * k + 2;
+}
+
 // Launches the statistics on `stream`: x (n, d) float32 and idx (n,)
-// int32 in [0, k); counts (k,) and sums (d, k) must be zero and are added
-// into. Returns cudaGetLastError() as an int; cudaErrorInvalidValue when
-// not one code fits in shared memory. The wrapper checks d <= 224.
+// int32 in [0, k), contiguous; writes counts (k,) and sums (d, k). iwork
+// holds faceoff_vq_stats_scratch_ints(n, k) ints. Returns
+// cudaGetLastError() as an int. The wrapper checks 1 <= d <= 224.
 extern "C" int faceoff_vq_stats(const float* x, const int* idx,
-                                float* counts, float* sums, int n, int d,
-                                int k, void* stream) {
-  int dev = 0;
-  cudaGetDevice(&dev);
-  int sms = 0;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int tile_k = stats_tile(d, k, smem_optin_bytes());
-  if (tile_k < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int k_tiles = (k + tile_k - 1) / tile_k;
-  const long long smem = static_cast<long long>(tile_k) *
-                         ((d + 1) * sizeof(float) + sizeof(unsigned));
-  cudaFuncSetAttribute(vq_stats_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem));
-  // one block per SM per K tile, unless rows run out first
-  int row_blocks = sms > 0 ? sms : 132;
-  const int min_rows = kStatsThreads / 32 * 8;  // 8 rows a warp at least
-  const int most = (n + min_rows - 1) / min_rows;
-  if (row_blocks > most) row_blocks = most > 0 ? most : 1;
-  const int rows_per_block = (n + row_blocks - 1) / row_blocks;
-  const dim3 grid(row_blocks, k_tiles);
-  vq_stats_kernel<<<grid, kStatsThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      x, idx, counts, sums, n, d, k, tile_k, rows_per_block);
+                                float* counts, float* sums, int* iwork, int n,
+                                int d, int k, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  DeviceInfo& di = device_info();
+  int* cnt = iwork;
+  int* offsets = cnt + k;
+  int* chunk_off = offsets + k + 1;
+  int* cursor = chunk_off + k + 1;
+  int* order = cursor + k;
+  const int sms = di.sms;
+  const long long sort_smem = 2LL * k * sizeof(int);
+  const int use_shared = sort_smem <= di.optin;
+  cudaMemsetAsync(cnt, 0, sizeof(int) * k, st);
+  cudaMemsetAsync(sums, 0, sizeof(float) * d * static_cast<long long>(k), st);
+
+  int blocks = (n + 1023) / 1024;
+  if (blocks > 2 * sms) blocks = 2 * sms;
+  const int rows_per_block = (n + blocks - 1) / blocks;
+  const int hist_smem = use_shared ? static_cast<int>(sort_smem / 2) : 0;
+  const int scatter_smem = use_shared ? static_cast<int>(sort_smem) : 0;
+  allow_smem(di, 2, stats_hist_kernel, hist_smem);
+  allow_smem(di, 3, stats_scatter_kernel, scatter_smem);
+  stats_hist_kernel<<<blocks, kSortThreads, hist_smem, st>>>(
+      idx, cnt, n, k, rows_per_block, use_shared);
+  stats_scan_kernel<<<1, kScanThreads, 0, st>>>(cnt, offsets, chunk_off,
+                                                cursor, counts, k);
+  stats_scatter_kernel<<<blocks, kSortThreads, scatter_smem, st>>>(
+      idx, cursor, order, n, k, rows_per_block, use_shared);
+
+  const bool vec4 = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int nq = vec4 ? d / 4 : d;
+  int p = 1;
+  while (p < nq && p < 32) p <<= 1;
+  const long long max_chunks = (n + kChunkRows - 1) / kChunkRows + k;
+  const int warps_per_block = kSumThreads / 32;
+  long long sum_blocks = (max_chunks + warps_per_block - 1) / warps_per_block;
+  if (sum_blocks > 32LL * sms) sum_blocks = 32LL * sms;
+  const int grid = static_cast<int>(sum_blocks);
+  if (vec4) {
+    if (nq <= 32) {
+      stats_segsum_kernel<4, 1><<<grid, kSumThreads, 0, st>>>(
+          x, order, offsets, chunk_off, sums, d, k, p);
+    } else {
+      stats_segsum_kernel<4, 2><<<grid, kSumThreads, 0, st>>>(
+          x, order, offsets, chunk_off, sums, d, k, p);
+    }
+  } else {
+    stats_segsum_kernel<1, 7><<<grid, kSumThreads, 0, st>>>(
+        x, order, offsets, chunk_off, sums, d, k, p);
+  }
   return static_cast<int>(cudaGetLastError());
 }

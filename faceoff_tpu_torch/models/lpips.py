@@ -6,12 +6,18 @@ normalisation, a 1x1 'lin' head per tap, spatial mean, summed over taps
 and averaged over the batch. Inputs are (N, H, W, 3) in [-1, 1],
 channels-last as in the JAX package; the convolutions run NCHW.
 
-The weights are frozen (`requires_grad_(False)`), so autograd keeps only
-the tower of the prediction. Learned weights load from the `.npz` layout
-the JAX package reads (`vgg/convB_C/kernel|bias` HWIO, `linK/kernel`) with
-`load_lpips_weights`, or from JAX variables through
-`io.convert.lpips_from_jax_variables`; without them `init_lpips` builds a
-random VGG from a seed, as the JAX trainer does when it finds no weights.
+Two towers, as in the reference: the target's runs under
+`torch.no_grad()`, so autograd saves and differentiates only the tower of
+the prediction; the weights are frozen (`requires_grad_(False)`).
+`dtype` is the JAX module's knob: the input standardisation, the
+convolutions and the per-tap normalisation and head run in it (bf16 is
+what the JAX trainer builds on its accelerator), and each tap's spatial
+mean is taken in float32, as in the JAX package. Learned weights load
+from the `.npz` layout the JAX package reads (`vgg/convB_C/kernel|bias`
+HWIO, `linK/kernel`) with `load_lpips_weights`, or from JAX variables
+through `io.convert.lpips_from_jax_variables`; without them `init_lpips`
+builds a random VGG from a seed, as the JAX trainer does when it finds no
+weights.
 """
 
 from __future__ import annotations
@@ -58,35 +64,50 @@ class VGG16Slices(nn.Module):
 
 
 def _normalize_tensor(x: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
-    """Unit-normalise over the channel axis (dim 1, NCHW)."""
+    """Unit-normalise over the channel axis (dim 1, NCHW), in x's dtype
+    when autocast is off."""
     norm = torch.sqrt(torch.sum(x * x, dim=1, keepdim=True))
     return x / (norm + eps)
 
 
 class LPIPS(nn.Module):
     """forward(target, pred) -> scalar: the batch mean of the summed
-    per-tap scores. Both (N, H, W, 3) in [-1, 1]."""
+    per-tap scores. Both (N, H, W, 3) in [-1, 1]; weights and buffers are
+    held in `dtype`."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.vgg = VGG16Slices()
         self.lins = nn.ModuleList(
             nn.Conv2d(ch, 1, 1, bias=False) for ch in _CHNS)
         self.register_buffer("shift", torch.tensor(_SHIFT).view(1, 3, 1, 1))
         self.register_buffer("scale", torch.tensor(_SCALE).view(1, 3, 1, 1))
+        self.to(dtype)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The dtype the module computes in: that of its buffers and
+        weights, so `.to(dtype)` moves it."""
+        return self.shift.dtype
+
+    def _tower(self, x: torch.Tensor) -> List[torch.Tensor]:
+        x = x.permute(0, 3, 1, 2).to(self.dtype)
+        return self.vgg((x - self.shift) / self.scale)
 
     def forward(self, target: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
-        n = target.shape[0]
-        # one pass of the trunk over both stacks; the convolutions act on
-        # each image alone, so this is the JAX package's two passes
-        x = torch.cat([target, pred], dim=0).permute(0, 3, 1, 2)
-        x = (x.to(self.shift.dtype) - self.shift) / self.scale
+        with torch.no_grad():
+            feats0 = self._tower(target)
+        feats1 = self._tower(pred)
         total = 0.0
-        for k, feats in enumerate(self.vgg(x)):
-            d = (_normalize_tensor(feats[:n])
-                 - _normalize_tensor(feats[n:])) ** 2
-            score = self.lins[k](d)
-            total = total + torch.mean(score.to(torch.float32), dim=(1, 2, 3))
+        # autocast would send sum and pow to float32: the head computes
+        # in the model's dtype, as the JAX module does
+        with torch.autocast(pred.device.type, enabled=False):
+            for k, (f0, f1) in enumerate(zip(feats0, feats1)):
+                d = (_normalize_tensor(f0.to(self.dtype))
+                     - _normalize_tensor(f1.to(self.dtype))) ** 2
+                score = self.lins[k](d)
+                total = total + torch.mean(score.to(torch.float32),
+                                           dim=(1, 2, 3))
         return torch.mean(total)
 
 
@@ -107,11 +128,16 @@ def init_lpips(
     weights_npz: Optional[str] = None,
     *,
     device: DeviceLike = None,
+    dtype: Optional[torch.dtype] = None,
 ) -> LPIPS:
     """A frozen LPIPS on `device` (CUDA unless named): random weights from
     `generator` (seed 0 if None), overlaid with `weights_npz` when
-    given."""
+    given. `dtype` None is bfloat16 on CUDA and float32 on the CPU, as
+    the JAX trainer builds its LPIPS in bf16 on its accelerator; the
+    weights are drawn in float32 and then cast."""
     dev = resolve_device(device)
+    if dtype is None:
+        dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     model = LPIPS()
     if generator is None:
         generator = torch.Generator().manual_seed(0)
@@ -120,7 +146,7 @@ def init_lpips(
     if weights_npz is not None:
         load_lpips_weights(model, weights_npz)
     model.requires_grad_(False)
-    return model.to(dev).eval()
+    return model.to(dev, dtype).eval()
 
 
 def state_dict_from_arrays(arrays) -> dict:

@@ -68,6 +68,11 @@ def make_train_step(
     """Build `train_step(state, batch, seed=0) -> (state, metrics)`.
 
     lpips: a frozen `models.lpips.LPIPS`, or None for no perceptual term.
+    Its input standardisation and per-tap head run in its own dtype
+    whatever the autocast (its convolutions follow the autocast): `init_lpips`
+    builds it in bf16 on CUDA and float32 on the CPU, as the JAX trainer
+    builds its LPIPS, so it matches the default compute dtype; a float32
+    step on CUDA wants `init_lpips(dtype=torch.float32)`.
     prepare_fn: `(generator, frames, landmarks) -> batch` run on the raw
     batch first (`data.resident.make_resident_prepare`,
     `data.device_pipeline.prepare_train_batch`).

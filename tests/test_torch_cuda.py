@@ -95,23 +95,13 @@ def test_swap_session_on_card_matches_cpu(cuda):
     torch.testing.assert_close(outs["cuda"], outs["cpu"], atol=2e-4, rtol=1e-3)
 
 
-@pytest.mark.parametrize("n,d,k", [(524288, 64, 512), (1001, 8, 16),
-                                   (3000, 64, 2500)])
-def test_vq_kernels_match_plain(cuda, n, d, k):
-    """Indices equal except within float32 rounding of a tie (margin
-    2 (D+1) u (|x|@|E| + ||E||^2/2) per row, u = 2^-24); quant an exact
-    copy of the picked codes; counts exact; sums within 2 c_k u sum|x| of
-    the plain sums of the same indices. A ragged N and a K above one
-    statistics tile are among the shapes."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    gen = torch.Generator(device=cuda).manual_seed(n)
-    x = torch.randn((n, d), generator=gen, device=cuda)
-    e = torch.randn((d, k), generator=gen, device=cuda)
-    before = (vq_cuda.assign_launches, vq_cuda.stats_launches)
-    idx, quant, counts, sums = V.vq_assign(x, e)
-    torch.cuda.synchronize()
-    assert (vq_cuda.assign_launches, vq_cuda.stats_launches) == (
-        before[0] + 1, before[1] + 1)
+def _check_vq(x, e, out):
+    """Indices equal to the plain version's except within float32 rounding
+    of a tie (margin 2 (D+1) u (|x|@|E| + ||E||^2/2) per row,
+    u = 2^-24); quant an exact copy of the picked codes; counts exact;
+    sums within 2 c_k u sum|x| of the plain sums of the same indices."""
+    idx, quant, counts, sums = out
+    d, k = e.shape
     ref_idx = V.vq_assign_plain(x, e)[0]
     hn = 0.5 * (e * e).sum(0)
     scores = x @ e - hn
@@ -127,6 +117,60 @@ def test_vq_kernels_match_plain(cuda, n, d, k):
     _, abs_sums = V.vq_stats(x.abs(), idx, k)
     assert bool(((sums - own_sums).abs()
                  <= 2 * counts * 2.0 ** -24 * abs_sums + 1e-30).all())
+
+
+@pytest.mark.parametrize("n,d,k", [(524288, 64, 512), (1001, 8, 16),
+                                   (3000, 64, 2500), (777, 13, 300),
+                                   (4096, 224, 64)])
+def test_vq_kernels_match_plain(cuda, n, d, k):
+    """`_check_vq` at the training step's bottom shape, a ragged N, K
+    above one tile of the earlier kernels, D not a multiple of 8 with K
+    not a multiple of the 64-code tile, and the widest D."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((n, d), generator=gen, device=cuda)
+    e = torch.randn((d, k), generator=gen, device=cuda)
+    before = (vq_cuda.assign_launches, vq_cuda.stats_launches)
+    out = V.vq_assign(x, e)
+    torch.cuda.synchronize()
+    assert (vq_cuda.assign_launches, vq_cuda.stats_launches) == (
+        before[0] + 1, before[1] + 1)
+    _check_vq(x, e, out)
+
+
+def test_vq_exact_tie_goes_to_the_lower_index_by_the_rescore(cuda):
+    """Codes 5 and 300 are equal: every row nearest to them scores both
+    the same, so the split product cannot certify it, the float32
+    re-score takes it, and the lower index, 5, wins."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    d, k = 64, 512
+    e = torch.randn((d, k), generator=gen, device=cuda)
+    e[:, 300] = e[:, 5]
+    near = e[:, 5][None] + 1e-3 * torch.randn((200, d), generator=gen,
+                                               device=cuda)
+    x = torch.cat([near, torch.randn((4000, d), generator=gen, device=cuda)])
+    idx, quant, flagged = vq_cuda.assign_rows_flagged(x, e)
+    torch.cuda.synchronize()
+    assert int(flagged) >= 200
+    assert bool((idx[:200] == 5).all()) and not bool((idx == 300).any())
+    _check_vq(x, e, (idx, quant, *vq_cuda.code_stats(x, idx, k)))
+
+
+def test_vq_hot_code_statistics(cuda):
+    """90 % of the rows sit on one code, so its segment is thousands of
+    chunks long: counts exact, sums within the rounding bound."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    n, d, k = 200000, 64, 512
+    e = torch.randn((d, k), generator=gen, device=cuda)
+    x = torch.randn((n, d), generator=gen, device=cuda)
+    hot = torch.rand((n,), generator=gen, device=cuda) < 0.9
+    x[hot] = e[:, 17][None] + 1e-2 * x[hot]
+    out = V.vq_assign(x, e)
+    torch.cuda.synchronize()
+    assert out[2][17].item() >= 0.85 * n
+    _check_vq(x, e, out)
 
 
 def test_vq_kernel_refuses_what_it_cannot_take(cuda):
@@ -202,7 +246,7 @@ def test_train_step_on_card_matches_cpu(cuda):
     results = {}
     for dev in ("cpu", cuda):
         model = VQVAE(cfg, dtype=torch.float32, device=dev)
-        lpips = init_lpips(device=dev)
+        lpips = init_lpips(device=dev, dtype=torch.float32)
         state = create_train_state(
             model, make_optimizer(model.parameters(), 1e-3))
         step = make_train_step(model, lpips=lpips,

@@ -82,3 +82,51 @@ def test_load_lpips_weights_from_npz(tmp_path, jax_lpips):
     np.savez(path, **arrays)
     with pytest.raises(ValueError, match="lins.0.weight"):
         tlpips.init_lpips(device="cpu", weights_npz=str(path))
+
+
+def test_target_tower_carries_no_graph(jax_lpips):
+    """Two towers: every VGG convolution sees the N target images without
+    a graph and the N predictions with one, never a 2N stack; the
+    gradient reaches the prediction only."""
+    model = _bridged(jax_lpips[1])
+    seen = []
+    for conv in model.vgg.convs.values():
+        conv.register_forward_hook(
+            lambda m, i, o: seen.append((o.shape[0], o.requires_grad)))
+    target = (torch.rand(3, 32, 32, 3) * 2 - 1).requires_grad_(True)
+    pred = (torch.rand(3, 32, 32, 3) * 2 - 1).requires_grad_(True)
+    model(target, pred).backward()
+    n_convs = len(model.vgg.convs)
+    assert seen == [(3, False)] * n_convs + [(3, True)] * n_convs
+    assert target.grad is None and pred.grad is not None
+
+
+def test_lpips_bf16_matches_jax_bf16(jax_lpips):
+    """`LPIPS(dtype=bfloat16)` against the JAX `LPIPS(dtype=bfloat16)` on
+    the same bridged weights and inputs, on the CPU: 5e-3 relative. Both
+    round the input standardisation, all 13 convolutions and the
+    normalisation to bf16 (unit roundoff 2^-9 = 2.0e-3), but each library
+    accumulates inside a convolution or a sum its own way, so a rounding
+    may fall on either side; the distance averages many such terms and
+    stayed within 2.7e-3 over eight seeded draws. The same inputs through
+    the JAX float32 module differ by about 1.5e-2, so the bound also
+    tells a bf16 computation from a float32 one."""
+    jmodel32, variables = jax_lpips
+    jmodel = jlpips.LPIPS(dtype=jnp.bfloat16)
+    rng = np.random.default_rng(1)
+    a = rng.uniform(-1, 1, (3, 32, 32, 3)).astype(np.float32)
+    model = _bridged(variables).to(torch.bfloat16)
+    assert model.dtype == torch.bfloat16
+    for sigma in (0.3, 0.6):
+        b = np.clip(a + rng.normal(0, sigma, a.shape), -1, 1
+                    ).astype(np.float32)
+        ref = float(jax.jit(lambda x, y: jmodel.apply(variables, x, y))(
+            jnp.asarray(a), jnp.asarray(b)))
+        ref32 = float(jax.jit(lambda x, y: jmodel32.apply(variables, x, y))(
+            jnp.asarray(a), jnp.asarray(b)))
+        got = model(torch.from_numpy(a), torch.from_numpy(b)).item()
+        np.testing.assert_allclose(got, ref, rtol=5e-3)
+        assert abs(got - ref32) > 5e-3 * abs(ref32)
+    assert tlpips.init_lpips(device="cpu").dtype == torch.float32
+    assert tlpips.init_lpips(device="cpu",
+                             dtype=torch.bfloat16).dtype == torch.bfloat16
