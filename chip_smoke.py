@@ -13,7 +13,9 @@ Phases, each printing lines with their seconds:
                grid differs from the source, and the training step's own
                call: 128 frames (b16 x T8) of 256x256x3 at the grids of
                `perturbation_grids`; max |diff| <= 1e-5; kernel, plain,
-               grid_sample and bound times;
+               grid_sample and bound times, and the share of 16x16 tiles
+               that the backward would splat through shared memory on the
+               same grids (the forward gathers every pixel);
   3. slice   — a SwapSession at the flagship widths (random weights from a
                seed), 256x256, serves two 16-frame streams (push, then
                push_many) in float32 without TF32; every pushed frame comes
@@ -33,7 +35,12 @@ Phases, each printing lines with their seconds:
                CUDA-core bound, and the
                bytes the statistics read (x once).
   5. warp_bwd — the warp's backward kernel against autograd through the
-               plain version at (128,256,256,3).
+               plain version (1e-4) and timed beside
+               grid_sampler_2d_backward: at (128,256,256,3) on affine
+               grids and on the training step's perturbation grids, and
+               at (16,768,768,3)->256x256 on a grid that shrinks 2.6-2.8x,
+               where every tile takes the direct path; each row with its
+               share of tiles on the shared-memory path.
   6. train   — the perceptual training step at full width: flagship
                ModelConfig, b16, T8, 256 px, random VGG16 LPIPS in bf16
                (as the JAX trainer builds it on its accelerator), Adam at
@@ -108,6 +115,10 @@ WARMUP_STEPS, TIMED_STEPS = 2, 5
 TRAIN_LR, TRAIN_N_ITER = 3e-4, WARMUP_STEPS + TIMED_STEPS
 VQ_SHAPES = [(524288, 64, 512), (131072, 64, 512), (65536, 64, 4096)]
 WARP_BWD_SHAPE = (128, 256, 256, 3, 256, 256)
+MINIFY_SHAPE = (16, 768, 768, 3, 256, 256)
+# the backward sums g w_tap of the taps that land on a source value per
+# output tile, then adds the tiles' sums with global atomics: another order
+# than autograd's, varying from run to run; float32 rounding of those terms
 WARP_BWD_TOL = 1e-4
 
 
@@ -211,6 +222,33 @@ def perturb_inputs(gen):
     return imgs, xs.contiguous(), ys.contiguous()
 
 
+def shared_tile_share(xs, ys, h, w, c):
+    """The share of the backward's 16x16 output tiles that splat through
+    shared memory (`warp_cuda.tile_footprints`); the others add their
+    taps into d_imgs directly."""
+    return float(warp_cuda.tile_footprints(xs, ys, h, w, c)[1].float().mean())
+
+
+def minify_inputs(gen):
+    """Images of 768x768x3 sampled into 256x256 grids that shrink them
+    2.6-2.8x, rotated up to 0.03 rad about the centre, so that the grid
+    stays inside the image: every 16x16 output tile reaches at least
+    43x43 source pixels, more than the backward splats through shared
+    memory."""
+    n, h, w, c, oh, ow = MINIFY_SHAPE
+    imgs = torch.rand((n, h, w, c), generator=gen)
+    ang = (torch.rand(n, generator=gen) - 0.5) * 0.06
+    s = 2.6 + 0.2 * torch.rand(n, generator=gen)
+    cos, sin = torch.cos(ang) * s, torch.sin(ang) * s
+    m = torch.zeros((n, 2, 3))
+    m[:, 0, 0], m[:, 0, 1] = cos, -sin
+    m[:, 1, 0], m[:, 1, 1] = sin, cos
+    m[:, 0, 2] = w / 2 - (cos * ow / 2 - sin * oh / 2)
+    m[:, 1, 2] = h / 2 - (sin * ow / 2 + cos * oh / 2)
+    xs, ys = W.affine_grid(m, oh, ow)
+    return imgs, xs.contiguous(), ys.contiguous()
+
+
 def kernel_phase(t0):
     gen = torch.Generator().manual_seed(1)
     cases = [("affine", shape, lambda shape=shape: warp_inputs(*shape, gen))
@@ -259,6 +297,9 @@ def kernel_phase(t0):
             "eager_plain_ms": cuda_ms(plain),
             "eager_library_ms": cuda_ms(library),
             "share_x_outside": frac_out,
+            # the forward gathers every pixel; the backward on these grids
+            # would splat this share of its tiles through shared memory
+            "backward_share_tiles_shared": shared_tile_share(xs, ys, h, w, c),
         }
         rows.append(row)
         say("kernel", t0, json.dumps(row))
@@ -577,21 +618,19 @@ def warp_bwd_bound_ms(n, h, w, c, oh, ow):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def warp_bwd_phase(t0):
-    n, h, w, c, oh, ow = WARP_BWD_SHAPE
-    gen = torch.Generator().manual_seed(4)
-    imgs, xs, ys = (t.to(DEV) for t in warp_inputs(*WARP_BWD_SHAPE, gen))
-    g = torch.randn((n, oh, ow, c), generator=gen).to(DEV)
+def warp_bwd_row(t0, grids, shape, imgs, xs, ys, g):
+    n, h, w, c, oh, ow = shape
     got = warp_cuda.bilinear_warp_backward(g, imgs, xs, ys)
     torch.cuda.synchronize()
     leaves = [t.clone().requires_grad_(True) for t in (imgs, xs, ys)]
     out = W._bilinear_sample(*leaves)
     ref = torch.autograd.grad(out, leaves, g, retain_graph=True)
     errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
-    say("warp_bwd", t0, "max |kernel - autograd| d_imgs %.3e d_xs %.3e "
-        "d_ys %.3e (limit %g)" % (*errs, WARP_BWD_TOL))
+    say("warp_bwd", t0, "%s %s: max |kernel - autograd| d_imgs %.3e d_xs "
+        "%.3e d_ys %.3e (limit %g)" % (grids, shape, *errs, WARP_BWD_TOL))
     if not max(errs) <= WARP_BWD_TOL:
         raise AssertionError(f"warp backward differs from autograd: {errs}")
+    del got
 
     nchw = imgs.permute(0, 3, 1, 2).contiguous()
     grid = torch.stack([xs / (w - 1) * 2 - 1, ys / (h - 1) * 2 - 1], -1)
@@ -601,9 +640,10 @@ def warp_bwd_phase(t0):
         return torch.ops.aten.grid_sampler_2d_backward(
             g_nchw, nchw, grid, 0, 0, True, [True, True])
 
-    b_ms, b_by = warp_bwd_bound_ms(*WARP_BWD_SHAPE)
+    b_ms, b_by = warp_bwd_bound_ms(*shape)
     row = {
-        "shape": list(WARP_BWD_SHAPE),
+        "shape": list(shape),
+        "grids": grids,
         "max_abs_err": max(errs),
         "kernel_ms": device_ms(
             lambda: warp_cuda.bilinear_warp_backward(g, imgs, xs, ys)),
@@ -614,9 +654,32 @@ def warp_bwd_phase(t0):
         # the design's own cost beside the bound: zeroing d_imgs
         "zeroing_ms": device_ms(lambda: torch.zeros_like(imgs)),
         "zeroing_bound_ms": 4 * n * h * w * c / HBM_BYTES_PER_S * 1e3,
+        "share_tiles_shared": shared_tile_share(xs, ys, h, w, c),
     }
     say("warp_bwd", t0, json.dumps(row))
     return row
+
+
+def warp_bwd_phase(t0):
+    gen = torch.Generator().manual_seed(4)
+    step = (TRAIN_B * TRAIN_T, TRAIN_SIZE, TRAIN_SIZE, 3, TRAIN_SIZE,
+            TRAIN_SIZE)
+    cases = [("affine", WARP_BWD_SHAPE,
+              lambda: warp_inputs(*WARP_BWD_SHAPE, gen)),
+             ("perturbation", step, lambda: perturb_inputs(gen)),
+             ("minify", MINIFY_SHAPE, lambda: minify_inputs(gen))]
+    rows = []
+    for grids, shape, make in cases:
+        n, h, w, c, oh, ow = shape
+        imgs, xs, ys = (t.to(DEV) for t in make())
+        g = torch.randn((n, oh, ow, c), generator=gen).to(DEV)
+        rows.append(warp_bwd_row(t0, grids, shape, imgs, xs, ys, g))
+        del imgs, xs, ys, g
+        torch.cuda.empty_cache()
+    if rows[-1]["share_tiles_shared"] != 0.0:
+        raise AssertionError("the minifying grid put tiles on the shared-"
+                             f"memory path: {rows[-1]['share_tiles_shared']}")
+    return rows
 
 
 # -- phase 6: the training step at full width ----------------------------
@@ -866,7 +929,7 @@ def main() -> int:
     t0 = time.perf_counter()
     vq_rows = vq_phase(t0)
     t0 = time.perf_counter()
-    bwd = warp_bwd_phase(t0)
+    bwd = warp_bwd_phase(t0)[0]
     t0 = time.perf_counter()
     _, train_counts = train_phase(t0, args.profile)
     t0 = time.perf_counter()

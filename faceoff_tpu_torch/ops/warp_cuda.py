@@ -9,6 +9,12 @@ backward; each checks its inputs, allocates its outputs, launches on
 PyTorch's current stream and counts its launches (`launches`,
 `backward_launches`). The plain reference is `ops/warp._bilinear_sample`
 and autograd through it.
+
+The forward gathers one output pixel a thread. The backward works on
+16 x 16 tiles of output pixels: a tile whose source footprint has at most
+WINDOW_CELLS pixels splats through shared memory, the others add their
+taps into d_imgs directly; `tile_footprints` is the plain twin of that
+rule.
 """
 
 from __future__ import annotations
@@ -22,6 +28,12 @@ import torch
 from faceoff_tpu_torch.ops import cuda_build
 
 SOURCE = cuda_build.CSRC / "warp.cu"
+# the backward's tile side, largest footprint in pixels and most channels
+# that it splats through shared memory (kTile, kWindowCells and
+# kStageChannels in warp.cu)
+TILE = 16
+WINDOW_CELLS = 1024
+STAGE_CHANNELS = 4
 
 # kernel launches made through the wrappers in this process
 launches = 0
@@ -57,6 +69,43 @@ def load() -> ctypes.CDLL:
         bwd.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def tile_origins(v: torch.Tensor, n: int) -> torch.Tensor:
+    """floor(v) clipped to [-2, n], NaN to -2, as int64: the kernels' tap
+    origins. Both taps of a clipped origin are inside the image exactly
+    where those of the unclipped one are."""
+    f = torch.floor(v).clamp(-2, n)
+    return torch.where(torch.isnan(f), torch.full_like(f, -2.0), f).long()
+
+
+def tile_footprints(
+    xs: torch.Tensor, ys: torch.Tensor, h: int, w: int, c: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel's footprint rule in plain torch, for grids xs/ys
+    (N, OH, OW) over (h, w, c) images.
+
+    Returns boxes (N, TY, TX, 4) int64: per TILE x TILE output tile (the
+    last row and column of tiles may be partial), the source box
+    (x_min, y_min, x_max + 1, y_max + 1) that its taps reach, from the
+    clipped tap origins of its pixels (`tile_origins`). Also returns
+    fits (N, TY, TX) bool: whether the box has at most WINDOW_CELLS
+    pixels and c <= STAGE_CHANNELS. Those tiles splat through shared
+    memory; the others add their taps into d_imgs directly."""
+    n, oh, ow = xs.shape
+    th, tw = -(-oh // TILE), -(-ow // TILE)
+
+    def reduce(v, fill, fn):
+        full = v.new_full((n, th * TILE, tw * TILE), fill)
+        full[:, :oh, :ow] = v
+        return fn(full.view(n, th, TILE, tw, TILE), dim=(2, 4))
+
+    xi, yi = tile_origins(xs, w), tile_origins(ys, h)
+    x_min, x_max = reduce(xi, w, torch.amin), reduce(xi, -2, torch.amax)
+    y_min, y_max = reduce(yi, h, torch.amin), reduce(yi, -2, torch.amax)
+    fits = ((x_max - x_min + 2) * (y_max - y_min + 2) <= WINDOW_CELLS) & (
+        c <= STAGE_CHANNELS)
+    return torch.stack([x_min, y_min, x_max + 1, y_max + 1], -1), fits
 
 
 def _check(imgs: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
@@ -117,7 +166,15 @@ def bilinear_warp_backward(
     """Launch the backward of `bilinear_warp` for the output gradient g
     (N, OH, OW, C) -> (d_imgs (N, H, W, C), d_xs, d_ys (N, OH, OW)), each
     None where it is not asked for. All float32, contiguous, on one CUDA
-    device."""
+    device.
+
+    Each value of d_imgs is a sum of g w_tap over the taps that land on
+    it: summed per 16 x 16 output tile, then added into d_imgs with one
+    atomic per tile (or one per tap where the tile's footprint is too
+    large). The order of the additions differs from autograd's and, across
+    tiles, from run to run, so the result agrees with autograd through
+    `ops/warp._bilinear_sample` to float32 rounding of those terms
+    (chip_smoke.py and the card tests hold it to 1e-4), not bit for bit."""
     global backward_launches
     _check(imgs, xs, ys, ("g", g))
     n, h, w, c = imgs.shape

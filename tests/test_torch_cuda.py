@@ -227,6 +227,68 @@ def test_warp_backward_matches_autograd(cuda):
         assert (a.grad - r).abs().max().item() <= 1e-4
 
 
+def _tile_grids(kind, n, h, w, oh, ow, seed):
+    """Sampling grids for the backward's tile paths: "mixed" are affine
+    grids (scale 0.8-1.25, rotation up to 0.3 rad) with one tile
+    stretched past two corners of the image, so that fitting and
+    direct tiles mix; "direct" shrinks the image 3.2x, so that no tile's
+    footprint fits."""
+    rng = np.random.default_rng(seed)
+    oy, ox = np.mgrid[0:oh, 0:ow].astype(np.float32)
+    xs = np.empty((n, oh, ow), np.float32)
+    ys = np.empty((n, oh, ow), np.float32)
+    for f in range(n):
+        if kind == "direct":
+            xs[f], ys[f] = 3.2 * ox + 1.0, 3.2 * oy + 0.5
+            continue
+        ang, s = rng.uniform(-0.3, 0.3), rng.uniform(0.8, 1.25)
+        tx, ty = rng.uniform(-0.2, 0.2, 2) * (w, h)
+        xs[f] = s * (np.cos(ang) * ox - np.sin(ang) * oy) + tx + 2
+        ys[f] = s * (np.sin(ang) * ox + np.cos(ang) * oy) + ty + 2
+    if kind == "mixed":
+        xs[-1, 16, 16], ys[-1, 16, 16] = -40.0, -40.0
+        xs[-1, 17, 17], ys[-1, 17, 17] = w + 40.0, h + 40.0
+        edges = np.array([-1.0, -0.5, 0.0, w - 1.0, w - 0.5, w], np.float32)
+        xs[0, 0, :len(edges)] = edges
+    return xs, ys
+
+
+@pytest.mark.parametrize("kind", ["mixed", "direct"])
+@pytest.mark.parametrize("c", [1, 3, 4])
+def test_warp_tile_paths_match_plain(cuda, kind, c):
+    """Forward (1e-5 against the plain version) and backward (1e-4 against
+    autograd) with C = 1, 3, 4, on grids where the backward's tiles mix
+    shared-memory and direct splats ("mixed": 2 x 64 x 80 images into
+    40 x 56 grids) or all splat directly ("direct": 100 x 100 into
+    30 x 30); neither output width is a multiple of the 16-pixel tile and
+    both output grids differ in size from the source."""
+    n, h, w, oh, ow = (2, 64, 80, 40, 56) if kind == "mixed" else (
+        1, 100, 100, 30, 30)
+    rng = np.random.default_rng(c)
+    xs, ys = _tile_grids(kind, n, h, w, oh, ow, seed=c)
+    imgs = rng.uniform(-1, 1, (n, h, w, c)).astype(np.float32)
+    g = rng.normal(size=(n, oh, ow, c)).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda).requires_grad_(True)
+            for a in (imgs, xs, ys)]
+    fits = warp_cuda.tile_footprints(args[1], args[2], h, w, c)[1]
+    if kind == "mixed":
+        assert bool(fits.any()) and not bool(fits.all())
+    else:
+        assert not bool(fits.any())
+    gt = torch.from_numpy(g).to(cuda)
+    before = (warp_cuda.launches, warp_cuda.backward_launches)
+    out = W.batched_bilinear_warp(*args)
+    out.backward(gt)
+    torch.cuda.synchronize()
+    assert (warp_cuda.launches, warp_cuda.backward_launches) == (
+        before[0] + 1, before[1] + 1)
+    leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    ref = W._bilinear_sample(*leaves)
+    assert (out - ref).abs().max().item() <= 1e-5
+    for a, r in zip(args, torch.autograd.grad(ref, leaves, gt)):
+        assert (a.grad - r).abs().max().item() <= 1e-4
+
+
 def test_train_step_on_card_matches_cpu(cuda):
     """Two float32 steps without TF32 of a tiny VQVAE with LPIPS, from the
     same weights and prepared batches, on both devices: losses 1e-3
