@@ -5,9 +5,9 @@
 
 Phases, each printing lines with their seconds:
 
-  1. build   — compile the kernel sources (csrc/warp.cu, csrc/vq.cu), one
-               nvcc each, started together, into faceoff_tpu_torch/_build/,
-               and load them;
+  1. build   — compile the kernel sources (csrc/warp.cu, csrc/vq.cu) and
+               the nvJPEG shim (csrc/jpeg.cu), one nvcc each, started
+               together, into faceoff_tpu_torch/_build/, and load them;
   2. kernel  — the kernel against its plain torch version on the card at
                (1,256,256,3), (16,256,256,3), one case whose output
                grid differs from the source, and the training step's own
@@ -28,12 +28,13 @@ Phases, each printing lines with their seconds:
                K=4096 (the regime of the TPU's K-tiled kernels): indices
                equal except within the float32 rounding margin of a tie,
                quant an exact copy of the picked codes, counts exact, sums
-               within the rounding bound of their row counts. Each row
-               also prints how many rows the assignment left to its
+               within the rounding bound of their row counts, and a second
+               launch of the statistics on the same inputs bitwise equal to
+               the first. Each row also prints how many rows the assignment left to its
                float32 re-score, its bound in the units it executes (a TF32
                and a bf16 tensor-core product) beside the float32
                CUDA-core bound, and the
-               bytes the statistics read (x once).
+               bytes the statistics move (x once, and their tables).
   5. warp_bwd — the warp's backward kernel against autograd through the
                plain version (1e-4) and timed beside
                grid_sampler_2d_backward: at (128,256,256,3) on affine
@@ -59,6 +60,24 @@ Phases, each printing lines with their seconds:
                on the CPU from the same weights and prepared batches;
                losses, parameters and codebooks must agree within the
                stated tolerances.
+  8. trainer — the command line's main() (cli/train_faceoff_perceptual)
+               in this process on PNG datasets written to disk: the corpus
+               decoded and staged (timed, and equal to the frames written),
+               then --resident_data at b16/T8/256, flagship widths, the
+               one-cycle schedule: an unbroken 8-step run (timed: the
+               trainer's frames/s over steps 2-6 beside the train phase's),
+               a run validating and checkpointing every 3 steps, and a
+               resume of that run's step-6 checkpoint to step 8, which must
+               equal that run's own step 8 bit for bit and agree with the
+               unbroken run within train_check's tolerances; metrics,
+               checkpoints, sample streams and launch counts checked; a
+               checkpoint's save and restore timed.
+  9. jpeg    — the committed JPEG fixtures (4:2:0, 4:4:4) decoded by nvJPEG
+               against cv2's decodes (max and mean |diff| in levels, within
+               the stated tolerance), and a JPEG dataset of the trainer
+               phase's size (16 videos x 24 frames at 256 px) staged by
+               build_resident_corpus with nvJPEG decoding into the tensor
+               on the card, every frame equal to its own decode.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 {"kernels": [...]}, and last {"ok": true, "device": {...}}. Any failure
@@ -71,9 +90,12 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -81,10 +103,17 @@ import numpy as np
 import torch
 
 from faceoff_tpu_torch.config import ModelConfig
+from faceoff_tpu_torch.cli import train_faceoff_perceptual as trainer_cli
+from faceoff_tpu_torch.data.dataset import TemporalAlignmentDataset
 from faceoff_tpu_torch.data.resident import (build_resident_corpus,
+                                             corpus_from_arrays,
                                              make_resident_prepare)
 from faceoff_tpu_torch.data.synthetic import (draw_face, face_landmarks,
+                                              generate_dataset,
                                               synthetic_corpus)
+from faceoff_tpu_torch.io import image as image_io
+from faceoff_tpu_torch.io.checkpoint import CheckpointManager
+from faceoff_tpu_torch.io.video import read_video_frames
 from faceoff_tpu_torch.models import VQVAE
 from faceoff_tpu_torch.models.lpips import init_lpips
 from faceoff_tpu_torch.ops import vq as V
@@ -481,10 +510,15 @@ def stats_bound_ms(n, d, k):
 
 
 def stats_bytes_read(n, d, k):
-    """Bytes the statistics kernels read by their design: x once, idx
-    three times (the histogram and the scatter's two passes), the sorted
-    row ids once and the per-code tables; beside them, x alone."""
-    return {"stats_bytes_read": 4 * (n * d + 3 * n + n + 3 * k),
+    """Bytes the statistics kernels move by their design: x once, idx
+    twice (the count and the placement), the sorted row ids written and
+    read, the sort segments' prefixes written and read, and the chunks'
+    partial sums written and read; beside them, x alone. The segment
+    count is `csrc/vq.cu` stats_segments'."""
+    segments = max(1, min(-(-n // 512), 1024, (1 << 22) // k))
+    chunks = -(-n // 128) + k
+    return {"stats_bytes_read": 4 * (n * d + 2 * n + 2 * n + 2 * segments * k
+                                     + 2 * chunks * d + 3 * k),
             "stats_x_bytes": 4 * n * d}
 
 
@@ -552,6 +586,12 @@ def vq_phase(t0):
         torch.cuda.synchronize()
         row = {"shape": [n, d, k], **check_vq(x, e, out)}
         idx = out[0]
+        # the statistics add in a fixed order: a second launch on the same
+        # inputs gives the same bits
+        again = vq_cuda.code_stats(x, idx, k)
+        if not (torch.equal(again[0], out[2]) and torch.equal(again[1], out[3])):
+            raise AssertionError(f"vq {n}x{d}x{k}: two launches of the "
+                                 f"statistics on the same inputs differ")
         # rows whose split-TF32 pick could not be certified (re-scored in
         # float32); the same inputs give the same count
         flagged = int(vq_cuda.assign_rows_flagged(x, e)[2])
@@ -702,7 +742,7 @@ def train_phase(t0, profile):
     torch.backends.cudnn.allow_tf32 = True  # the bf16 step; as PyTorch sets it
     frames, lms, n_frames = synthetic_corpus(
         CORPUS_VIDEOS, CORPUS_FRAMES, TRAIN_SIZE, seed=3, device=DEV)
-    corpus = build_resident_corpus(frames, lms, n_frames, device=DEV)
+    corpus = corpus_from_arrays(frames, lms, n_frames, device=DEV)
     del frames
     model = VQVAE(ModelConfig(), dtype=torch.float32, device=DEV,
                   generator=torch.Generator().manual_seed(0))
@@ -848,7 +888,7 @@ def train_check_phase(t0):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     frames, lms, n_frames = synthetic_corpus(3, 8, CHECK_SIZE, seed=6)
-    corpus = build_resident_corpus(frames, lms, n_frames, device="cpu")
+    corpus = corpus_from_arrays(frames, lms, n_frames, device="cpu")
     prepare = make_resident_prepare(corpus, CHECK_B, CHECK_T)
     gen = torch.Generator().manual_seed(7)
     batches = [prepare(gen, corpus.frames, corpus.landmarks)
@@ -898,6 +938,299 @@ def train_check_phase(t0):
     return result
 
 
+# -- phase 8: the trainer, through the command line, on a dataset on disk -
+
+
+TRAINER_VIDEOS, TRAINER_FRAMES, VAL_VIDEOS, VAL_FRAMES = 16, 24, 4, 12
+TRAINER_STEPS, TRAINER_RESUME_AT, TRAINER_VALIDATE_AT = 8, 6, 3
+# steps whose records time the loop: (first, last)
+TRAINER_TIMED = (2, 6)
+
+
+def _records(path):
+    with open(path) as f:
+        return {r["step"]: r for r in map(json.loads, f)}
+
+
+def _run_dir(root: Path, stem: str) -> Path:
+    """The directory the CLI made from `stem` and its random run suffix."""
+    found = sorted(root.glob(f"{stem}_*"))
+    if len(found) != 1:
+        raise AssertionError(f"expected one {stem}_* directory, got {found}")
+    return found[0]
+
+
+def _compare(run_a, run_b, rec_a, rec_b, steps):
+    """train_check's measures between two CLI runs: the largest relative
+    difference of their losses over `steps`, of their parameters at the
+    end (largest, and the share within 1e-5) and of their codebook
+    buffers; and whether all of these are bitwise equal."""
+    sd_a = {k: v.detach().cpu() for k, v in
+            run_a.state.model.state_dict().items()}
+    sd_b = {k: v.detach().cpu() for k, v in
+            run_b.state.model.state_dict().items()}
+    names = {n for n, _ in run_a.state.model.named_parameters()}
+    diffs = torch.cat([(sd_a[k] - sd_b[k]).abs().ravel() for k in names])
+    keys = ("loss", "mse", "latent", "perceptual", "lr")
+    return {
+        "bitwise_equal": all(torch.equal(sd_a[k], sd_b[k]) for k in sd_a)
+        and all(rec_a[s][k] == rec_b[s][k] for s in steps for k in keys),
+        "max_loss_rel_err": max(
+            abs(rec_a[s][k] - rec_b[s][k]) / max(abs(rec_b[s][k]), 1e-12)
+            for s in steps for k in keys),
+        "max_param_diff": float(diffs.max()),
+        "share_params_within_1e-5": float((diffs <= 1e-5).float().mean()),
+        "max_codebook_diff": max(float((sd_a[k] - sd_b[k]).abs().max())
+                                 for k in sd_a if k not in names),
+        # |a - b| / max(1, |b|): the EMA sums (embed_avg) reach 1e4 and
+        # more at the flagship's 524288 rows a step, where one float32
+        # step is already 2^-8; 1e-3 absolute below magnitude 1
+        "max_codebook_scaled_diff": max(
+            float(((sd_a[k] - sd_b[k]).abs() / sd_b[k].abs().clamp_min(1))
+                  .max()) for k in sd_a if k not in names),
+        "codebook_magnitude": max(float(sd_b[k].abs().max())
+                                  for k in sd_b if k not in names),
+    }
+
+
+def trainer_phase(t0, work: Path):
+    """The CLI twin's main() in this process on the card, on PNG datasets
+    written by `generate_dataset`: --resident_data at b16, T8, 256 px,
+    flagship widths, the one-cycle schedule over 8 steps (--epoch 8, one
+    step an epoch). Three runs:
+
+      U  8 steps, validation only at the end (never: 1000 steps), timed;
+      V  8 steps validating and checkpointing every 3 steps (3, 6, 8);
+      R  a copy of V's checkpoints up to step 6, resumed with --ckpt
+         latest to step 8.
+
+    Checks: a finite metrics line per step; at most `keep` checkpoints;
+    V's sample streams read back with the frames and shape written; R
+    reaches step 8; R equals V, the same run continued without a break,
+    bit for bit at step 8 (parameters, codebook buffers, and the losses
+    and learning rate of steps 7 and 8: every kernel of the step adds in
+    a fixed order, so a resume that restores all of the state changes
+    nothing); R agrees with U, a separate run without a break, within
+    train_check's tolerances (losses within 1e-3 relative, parameters
+    within 2 lr a step with 99 % within 1e-5, the codebook buffers within
+    1e-3 of their magnitude where it exceeds 1, since the EMA sums are
+    large at the flagship's size); the corpus decoded from disk equals the
+    frames written. Reported beside it: U against V. Prints the trainer's
+    frames/s over steps 2-6 from U's records: each record's time is taken
+    after its step was launched, and the loop reads the metrics of every
+    epoch (here one step) at the epoch's end, so the span from record 2
+    to record 6 covers four steps that each end in a read of a metric."""
+    data, val = work / "data", work / "val"
+    t = time.perf_counter()
+    generate_dataset(str(data), TRAINER_VIDEOS, TRAINER_FRAMES, TRAIN_SIZE,
+                     seed=5, device=DEV)
+    generate_dataset(str(val), VAL_VIDEOS, VAL_FRAMES, TRAIN_SIZE, seed=6,
+                     device=DEV)
+    write_s = time.perf_counter() - t
+    ds = TemporalAlignmentDataset(str(data), "train", TRAIN_T,
+                                  resolution=TRAIN_SIZE)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    corpus = build_resident_corpus(ds, device=DEV)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t
+    # the first two videos as generate_dataset drew them
+    want, _, _ = synthetic_corpus(2, TRAINER_FRAMES, TRAIN_SIZE, seed=5,
+                                  device=DEV)
+    if not torch.equal(corpus.frames[:2], want):
+        raise AssertionError("the corpus decoded from PNG differs from the "
+                             "frames written")
+    del corpus, want
+    say("trainer", t0, f"datasets written in {write_s:.2f} s; corpus "
+        f"decoded and staged in {stage_s:.2f} s")
+
+    def argv(name, *extra):
+        return ["--data_root", str(data), "--validation_folder", str(val),
+                "--resident_data", "--batch_size", str(TRAIN_B),
+                "--train_frames", str(TRAIN_T), "--val_frames", str(TRAIN_T),
+                "--size", str(TRAIN_SIZE), "--sched", "cycle",
+                "--epoch", str(TRAINER_STEPS),
+                "--metrics_path", str(work / f"metrics_{name}.jsonl"),
+                "--sample_folder", str(work / f"samples_{name}"), *extra]
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    zero_counts()
+    run_u = trainer_cli.main(argv("u", "--validate_at", "1000",
+                                  "--checkpoint_dir", str(work / "ckpt_u")),
+                             device=DEV)
+    run_v = trainer_cli.main(argv("v", "--validate_at",
+                                  str(TRAINER_VALIDATE_AT),
+                                  "--checkpoint_dir", str(work / "ckpt_v")),
+                             device=DEV)
+    ckpt_v = _run_dir(work, "ckpt_v")
+    ckpt_r = work / "ckpt_r"
+    ckpt_r.mkdir()
+    for step in CheckpointManager(str(ckpt_v)).all_steps():
+        if step <= TRAINER_RESUME_AT:
+            shutil.copy(ckpt_v / f"ckpt_{step:08d}.pt", ckpt_r)
+    run_r = trainer_cli.main(argv("r", "--validate_at",
+                                  str(TRAINER_VALIDATE_AT), "--ckpt",
+                                  "latest", "--checkpoint_dir", str(ckpt_r)),
+                             device=DEV)
+    counts = read_counts()
+    n_steps = 2 * TRAINER_STEPS + (TRAINER_STEPS - TRAINER_RESUME_AT)
+
+    rec_u = _records(work / "metrics_u.jsonl")
+    rec_r = _records(work / "metrics_r.jsonl")
+    for name, rec, steps in (
+            ("u", rec_u, range(1, TRAINER_STEPS + 1)),
+            ("v", _records(work / "metrics_v.jsonl"),
+             range(1, TRAINER_STEPS + 1)),
+            ("r", rec_r, range(TRAINER_RESUME_AT + 1, TRAINER_STEPS + 1))):
+        if sorted(rec) != list(steps):
+            raise AssertionError(f"run {name}: metrics of steps "
+                                 f"{sorted(rec)}, expected {list(steps)}")
+        for r in rec.values():
+            if not all(math.isfinite(r[k]) for k in
+                       ("loss", "mse", "latent", "perceptual", "lr")):
+                raise AssertionError(f"run {name}: non-finite record {r}")
+    keep = run_v.ckpt.keep
+    kept = {n: CheckpointManager(str(d)).all_steps() for n, d in
+            (("u", _run_dir(work, "ckpt_u")), ("v", ckpt_v), ("r", ckpt_r))}
+    if kept["v"] != [TRAINER_VALIDATE_AT, 2 * TRAINER_VALIDATE_AT,
+                     TRAINER_STEPS] or any(len(v) > keep
+                                           for v in kept.values()):
+        raise AssertionError(f"checkpoints kept {kept} (keep {keep})")
+    if run_r.global_step != TRAINER_STEPS or kept["r"][-1] != TRAINER_STEPS:
+        raise AssertionError(f"the resumed run ended at step "
+                             f"{run_r.global_step}, checkpoints {kept['r']}")
+    streams = sorted(_run_dir(work, "samples_v").glob("*.avi"))
+    n_expected = 2 * VAL_VIDEOS * 4  # validations x batches x streams
+    if len(streams) != n_expected:
+        raise AssertionError(f"{len(streams)} sample streams, expected "
+                             f"{n_expected}")
+    for path in streams:
+        frames = read_video_frames(str(path))
+        if len(frames) != TRAIN_T or any(
+                f.shape != (TRAIN_SIZE, TRAIN_SIZE, 3) for f in frames):
+            raise AssertionError(f"{path.name}: {len(frames)} frames of "
+                                 f"{frames[0].shape if frames else None}")
+
+    # the resumed run against the runs without a break, at step 8
+    rec_v = _records(work / "metrics_v.jsonl")
+    after = range(TRAINER_RESUME_AT + 1, TRAINER_STEPS + 1)
+    first, last = TRAINER_TIMED
+    span = rec_u[last]["time"] - rec_u[first]["time"]
+    result = {
+        "trainer_frames_per_s": (last - first) * TRAIN_B * TRAIN_T / span,
+        "dataset_write_s": write_s,
+        "corpus_stage_s": stage_s,
+        # R against V: the same run continued with and without a resume
+        "resumed_vs_continued": _compare(run_r, run_v, rec_r, rec_v, after),
+        # R against U: against a separate run without a break
+        "resumed_vs_unbroken": _compare(run_r, run_u, rec_r, rec_u, after),
+        "unbroken_u_vs_v": _compare(run_u, run_v, rec_u, rec_v,
+                                    range(1, TRAINER_STEPS + 1)),
+        "checkpoints": kept,
+        "sample_streams": len(streams),
+        "launches": counts,
+    }
+
+    # a checkpoint's save and restore at the flagship widths
+    manager = CheckpointManager(str(work / "ckpt_timing"), keep=1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    manager.save(TRAINER_STEPS, run_u.state, seed=0)
+    result["checkpoint_save_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    manager.restore(run_u.state, TRAINER_STEPS, seed=0)
+    torch.cuda.synchronize()
+    result["checkpoint_restore_s"] = time.perf_counter() - t
+    result["checkpoint_bytes"] = Path(manager.path(TRAINER_STEPS)
+                                      ).stat().st_size
+    say("trainer", t0, json.dumps(result))
+    if (counts["vq_assign"] != 2 * n_steps or counts["vq_stats"] != 2 * n_steps
+            or counts["warp"] != n_steps or counts["warp_backward"] != 0):
+        raise AssertionError(f"launches {counts} for {n_steps} steps")
+    if not result["resumed_vs_continued"]["bitwise_equal"]:
+        raise AssertionError("the resumed run differs from the same run "
+                             "continued without a break")
+    lr = trainer_cli.build_parser().get_default("lr")
+    unbroken = result["resumed_vs_unbroken"]
+    if not (unbroken["max_loss_rel_err"] <= 1e-3
+            and unbroken["max_param_diff"] <= 2 * lr * TRAINER_STEPS + 1e-6
+            and unbroken["share_params_within_1e-5"] >= 0.99
+            and unbroken["max_codebook_scaled_diff"] <= 1e-3):
+        raise AssertionError("the resumed run disagrees with the unbroken one")
+    return result
+
+
+# -- phase 9: JPEG frames through nvJPEG ----------------------------------
+
+
+JPEG_FIXTURES = REPO / "tests" / "data_torch"
+
+
+def jpeg_phase(t0, work: Path):
+    """The committed JPEG fixtures (tools/make_jpeg_fixture.py), 4:2:0 and
+    4:4:4, decoded by nvJPEG on the card against cv2's decodes; then a
+    JPEG dataset of the trainer phase's size (16 videos x 24 frames at
+    256 px, copies of six 256-pixel fixtures so that consecutive frames
+    differ everywhere) staged by build_resident_corpus, whose frames
+    nvJPEG decodes one after another straight into the tensor on the
+    card: every staged frame must equal its own fixture's decode by
+    decode_jpeg_batch."""
+    image_io.build_jpeg()
+    names = ("420", "444")
+    paths = [JPEG_FIXTURES / f"face_{n}.jpg" for n in names]
+    decoded = image_io.decode_jpeg_batch(paths, DEV)
+    result = {}
+    for n, img in zip(names, decoded):
+        ref = np.load(JPEG_FIXTURES / f"face_{n}.npy").astype(np.int64)
+        diff = np.abs(img.cpu().numpy().astype(np.int64) - ref)
+        result[n] = {"max_abs_diff": int(diff.max()),
+                     "mean_abs_diff": float(diff.mean()),
+                     "p99_abs_diff": float(np.percentile(diff, 99)),
+                     "shape": list(img.shape)}
+
+    frames256 = sorted(JPEG_FIXTURES.glob("face256_*.jpg"))
+    refs = image_io.decode_jpeg_batch(frames256, DEV)
+    lms = face_landmarks((TRAIN_SIZE / 2, TRAIN_SIZE / 2), TRAIN_SIZE * 0.25)
+    root = work / "jpeg_data"
+    for v in range(TRAINER_VIDEOS):
+        video = root / f"video_{v:03d}"
+        video.mkdir(parents=True)
+        for f in range(TRAINER_FRAMES):
+            shutil.copy(frames256[(v + f) % len(frames256)],
+                        video / f"{f:05d}.jpg")
+            np.savez(video / f"{f:05d}_landmarks.npz", landmark=lms)
+    before = image_io.jpeg_decodes
+    ds = TemporalAlignmentDataset(str(root), "train", TRAIN_T,
+                                  resolution=TRAIN_SIZE, device=DEV)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    corpus = build_resident_corpus(ds, device=DEV)
+    torch.cuda.synchronize()
+    result["jpeg_corpus_stage_s"] = time.perf_counter() - t
+    staged = image_io.jpeg_decodes - before
+    # ds.videos is sorted: video_000, video_001, ...
+    wrong = [(v, f) for v in range(TRAINER_VIDEOS)
+             for f in range(TRAINER_FRAMES)
+             if not torch.equal(corpus.frames[v, f],
+                                refs[(v + f) % len(frames256)])]
+    result["jpeg_corpus_frames"] = TRAINER_VIDEOS * TRAINER_FRAMES
+    result["jpeg_corpus_frames_decoded_on_card"] = staged
+    result["jpeg_corpus_frames_wrong"] = len(wrong)
+    say("jpeg", t0, json.dumps(result))
+    if staged != TRAINER_VIDEOS * TRAINER_FRAMES or wrong:
+        raise AssertionError(f"the JPEG corpus: {staged} frames decoded by "
+                             f"nvJPEG into the card's tensor, wrong frames "
+                             f"{wrong[:8]}")
+    for n in names:
+        max_tol, mean_tol = image_io.JPEG_TOL[n]
+        if (result[n]["max_abs_diff"] > max_tol
+                or result[n]["mean_abs_diff"] > mean_tol):
+            raise AssertionError(f"nvJPEG's decode of face_{n}.jpg differs "
+                                 f"from cv2's beyond the tolerance")
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -910,11 +1243,13 @@ def main() -> int:
     t_all = time.perf_counter()
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         libs = [f.result() for f in [pool.submit(warp_cuda.build),
-                                     pool.submit(vq_cuda.build)]]
+                                     pool.submit(vq_cuda.build),
+                                     pool.submit(image_io.build_jpeg)]]
     warp_cuda.load()
     vq_cuda.load()
+    image_io.load_jpeg()
     say("build", t0, ", ".join(str(p.relative_to(REPO)) for p in libs)
         + " loaded")
 
@@ -931,12 +1266,34 @@ def main() -> int:
     t0 = time.perf_counter()
     bwd = warp_bwd_phase(t0)[0]
     t0 = time.perf_counter()
-    _, train_counts = train_phase(t0, args.profile)
+    train_result, train_counts = train_phase(t0, args.profile)
     t0 = time.perf_counter()
     train_check_phase(t0)
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        trainer = trainer_phase(t0, Path(work))
+        t0 = time.perf_counter()
+        jpeg_phase(t0, Path(work))
+    trainer_counts = trainer["launches"]
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[torch.cuda.current_device()]
+    say("trainer", t_all, json.dumps({
+        "card": card,
+        "trainer_frames_per_s": trainer["trainer_frames_per_s"],
+        "step_phase_frames_per_s": train_result["frames_per_s"],
+        "corpus_stage_s": trainer["corpus_stage_s"],
+        "checkpoint_save_s": trainer["checkpoint_save_s"],
+        "checkpoint_restore_s": trainer["checkpoint_restore_s"],
+        "launches": trainer_counts}))
 
     say("launches", t_all, json.dumps({"serving": {"warp": launches},
-                                       "training": train_counts}))
+                                       "training": train_counts,
+                                       "trainer": trainer_counts}))
+    for k in train_counts:
+        train_counts[k] += trainer_counts[k]
     main_row = rows[0]
     vq_main, vq_big = vq_rows[0], vq_rows[-1]
     kernels = [{
@@ -1003,12 +1360,7 @@ def main() -> int:
         "library_ms": bwd["library_ms"],
     }]
     print(f"[total] {time.perf_counter() - t_all:.2f} s", flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()
-    print(smi[torch.cuda.current_device()], flush=True)
+    print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,11 @@
-"""Model configuration: a copy of `faceoff_tpu.config.ModelConfig`.
+"""Configuration: copies of `faceoff_tpu.config`'s ModelConfig and of the
+part of its TrainConfig that the perceptual trainer uses, and a Config
+holding the two (the data settings stay on the command line's `args`;
+the mesh configuration waits for the multi-device port).
 
 The port keeps its own copy so that it never imports the JAX package.
-The defaults are the flagship operating point.
+The defaults are the flagship operating point; the GAN stage's weights
+wait for that stage's port.
 """
 
 from __future__ import annotations
@@ -37,3 +41,26 @@ class ModelConfig:
     # kept so that the config is the JAX package's: the port sends every
     # codebook size on CUDA to its VQ kernels and reads no flag
     use_pallas_vq: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization configuration of the perceptual trainer."""
+
+    lr: float = 3e-4
+    epochs: int = 560
+    validate_at: int = 1024
+    sched: str = ""  # '' or 'cycle'
+    latent_loss_weight: float = 1.0
+    perceptual_loss_weight: float = 1.0
+    seed: int = 0
+    revive_codes_every: int = 0  # 0 = off; else re-seed dead VQ codes
+    checkpoint_dir: str = "checkpoints"
+    sample_folder: str = "samples"
+    keep_checkpoints: int = 5
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)

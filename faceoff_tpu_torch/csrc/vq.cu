@@ -70,33 +70,39 @@
 //                      atomic max of (score, ~index) per row.
 //   vq_rescore_finish_kernel  the flagged rows' idx and quant.
 //
-// Statistics: a counting sort by code, so x is read once at every K. The
-// sums are N D adds over N D 4 bytes of x: bytes bound them (0.04 ms at the
-// flagship shape). The earlier kernel held a K tile of sums in shared
-// memory and read every row once per tile (5 times at K = 4096), with one
-// row load in flight per warp.
+// Statistics: a stable counting sort by code, so x is read once at every
+// K, and every sum is added in an order fixed by the inputs alone: equal
+// inputs give bitwise equal counts and sums in every run (the EMA
+// codebook, and so a resumed training run, does not depend on the order
+// in which the card schedules warps). The sums are N D adds over N D 4
+// bytes of x: bytes bound them (0.04 ms at the flagship shape).
 //
-//   stats_hist_kernel     int histogram of idx, per block in shared memory,
-//                         then added into the global one.
+//   stats_sort_kernel<true>   one warp per segment of about 512 rows (at
+//                         most 1024 segments), up to 8 a block: per-warp
+//                         counts of each code in shared memory, then each
+//                         warp's prefix within its block and the block's
+//                         counts.
+//   stats_segscan_kernel  one warp per code: the exclusive scan of its
+//                         blocks' counts, in block order.
 //   stats_scan_kernel     one block: exclusive scans over K of the counts
-//                         (segment offsets) and of ceil(count / 128) (chunk
+//                         (code offsets) and of ceil(count / 128) (chunk
 //                         offsets); writes the float counts.
-//   stats_scatter_kernel  row ids into code order: a block reserves one
-//                         range per code it holds with one global atomic,
-//                         then places its rows with shared atomics.
+//   stats_sort_kernel<false>  row ids into code order, each code's rows in
+//                         ascending row order (a lane's rank among the
+//                         lanes of its group holding its code, by
+//                         __match_any_sync).
 //   stats_segsum_kernel   one warp per chunk of at most 128 rows of one
 //                         code: its row ids read once into shared memory;
 //                         16-byte loads where D % 4 == 0, groups of lanes on
 //                         different rows and eight rows a group in flight,
-//                         sums in registers; the chunk's sum goes into
-//                         sums[:, k] with one atomic add per entry (onto zero
-//                         for a code of one chunk). Hot codes are many
-//                         chunks; their float sums are added in an order that
-//                         may change from run to run.
-// Where K is too large for the per-block tables in shared memory, the
-// histogram and scatter count in global memory, one atomic per distinct
-// code in a warp (__match_any_sync). Counts are integers, exact below 2^24
-// rows a code.
+//                         sums in registers, written to the chunk's own
+//                         partial sums.
+//   stats_reduce_kernel   one thread per (code, d): the code's chunks'
+//                         partial sums added in chunk order.
+// Why the fixed order: with rows placed and chunk sums added by atomics,
+// hot codes' sums changed in their last bits from run to run, and two
+// training runs from one seed drifted apart (PERF.md). Counts are
+// integers, exact below 2^24 rows a code.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -584,52 +590,131 @@ vq_rescore_finish_kernel(const float* __restrict__ et,
 // -- statistics -------------------------------------------------------------
 
 constexpr int kChunkRows = 128;   // rows of one code summed by one warp
-constexpr int kSortThreads = 512;
+constexpr int kSegRows = 512;     // rows of one sort segment (one warp)
+constexpr int kMaxSegments = 1024;
+constexpr long long kMaxSegCounters = 1LL << 22;  // segments x codes
+constexpr int kSortThreads = 256;
+constexpr int kSortBatch = 16;    // groups of 32 rows whose ids load at once
 constexpr int kScanThreads = 1024;
 constexpr int kSumThreads = 256;
 
-// Adds one to counter[key] for every valid lane, one atomic per distinct
-// key in the warp; returns the counter's value before this lane's add.
-__device__ __forceinline__ int aggregated_add(int* counter, int key,
-                                              unsigned active) {
-  const unsigned peers = __match_any_sync(active, key);
-  const int lane = threadIdx.x & 31;
-  const int leader = __ffs(peers) - 1;
-  int base = 0;
-  if (lane == leader) base = atomicAdd(&counter[key], __popc(peers));
-  base = __shfl_sync(peers, base, leader);
-  return base + __popc(peers & ((1u << lane) - 1u));
+// Segments of the stable sort for (n, k): about kSegRows rows each, at
+// most kMaxSegments, and at most kMaxSegCounters / k so that the
+// per-segment counters stay small at a large K.
+__host__ int stats_segments(long long n, int k) {
+  long long s = (n + kSegRows - 1) / kSegRows;
+  if (s > kMaxSegments) s = kMaxSegments;
+  const long long cap = kMaxSegCounters / k;
+  if (s > cap) s = cap;
+  return s < 1 ? 1 : static_cast<int>(s);
 }
 
+// The stable sort's two passes. Block b holds warps w < W, warp w the rows
+// of segment s = b W + w, 32 at a time in row order (kSortBatch groups of
+// ids loaded at once). For each code present in a group the lowest lane
+// holding it reads and advances the warp's own counter ctr[code] (no other
+// warp touches it, so no atomics) and hands the old value to its peers,
+// each of which adds its rank among the lower lanes holding the same code.
+//
+// COUNT: the warps count their segments; then, in shared memory, the
+// block turns its warps' counts into each warp's exclusive prefix within
+// the block (seg_pre[s]) and the block's totals (blk[b]).
+// Placement: each warp starts its counters at blk[b] (by then the
+// block's first position within each code, stats_segscan_kernel) plus
+// seg_pre[s], and each row goes to order[offsets[code] + counter + rank]:
+// the rows of every code land in ascending row order.
+// With use_shared the counters are W x k ints of shared memory; else
+// W = 1 and the warp counts straight into blk[b] in global memory (zeroed
+// before the count), where seg_pre is not used.
+template <bool COUNT>
 __global__ void __launch_bounds__(kSortThreads)
-stats_hist_kernel(const int* __restrict__ idx, int* __restrict__ cnt, int n,
-                  int k, int rows_per_block, int use_shared) {
-  extern __shared__ int sh[];  // [k] when use_shared
+stats_sort_kernel(const int* __restrict__ idx, int* __restrict__ seg_pre,
+                  int* __restrict__ blk, const int* __restrict__ offsets,
+                  int* __restrict__ order, int n, int k, int seg_rows,
+                  int use_shared) {
+  extern __shared__ int sh[];  // [W][k] with use_shared
+  const int nw = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long seg = static_cast<long long>(blockIdx.x) * nw + warp;
+  int* brow = blk + static_cast<long long>(blockIdx.x) * k;
+  int* ctr = use_shared ? sh + static_cast<long long>(warp) * k : brow;
   if (use_shared) {
-    for (int i = threadIdx.x; i < k; i += blockDim.x) sh[i] = 0;
-    __syncthreads();
+    const int* pre = seg_pre + seg * k;
+    for (int c = lane; c < k; c += 32) ctr[c] = COUNT ? 0 : brow[c] + pre[c];
+    __syncwarp();
   }
-  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_block;
-  const long long r1 = min(static_cast<long long>(n), r0 + rows_per_block);
-  if (use_shared) {
-    for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-      atomicAdd(&sh[idx[r]], 1);
+  const long long r0 = seg * seg_rows;
+  const long long r1 = min(static_cast<long long>(n), r0 + seg_rows);
+  for (long long b0 = r0; b0 < r1; b0 += 32 * kSortBatch) {
+    int codes[kSortBatch];  // kSortBatch loads in flight at once
+#pragma unroll
+    for (int u = 0; u < kSortBatch; ++u) {
+      const long long r = b0 + u * 32 + lane;
+      codes[u] = r < r1 ? __ldg(idx + r) : 0;
     }
-  } else {
-    const int lane = threadIdx.x & 31;
-    for (long long b = r0 + (threadIdx.x & ~31); b < r1; b += blockDim.x) {
-      const long long r = b + lane;
+#pragma unroll
+    for (int u = 0; u < kSortBatch; ++u) {
+      const long long r = b0 + u * 32 + lane;
       const bool valid = r < r1;
       const unsigned active = __ballot_sync(0xffffffffu, valid);
-      if (valid) aggregated_add(cnt, idx[r], active);
+      if (valid) {
+        const int code = codes[u];
+        const unsigned peers = __match_any_sync(active, code);
+        const int leader = __ffs(peers) - 1;
+        int base = 0;
+        if (lane == leader) {
+          base = ctr[code];
+          ctr[code] = base + __popc(peers);
+        }
+        if (!COUNT) {
+          base = __shfl_sync(peers, base, leader);
+          order[offsets[code] + base +
+                __popc(peers & ((1u << lane) - 1u))] = static_cast<int>(r);
+        }
+      }
+      __syncwarp();  // the counters' updates are seen by the next group
     }
   }
-  if (use_shared) {
+  if (COUNT && use_shared) {
     __syncthreads();
-    for (int i = threadIdx.x; i < k; i += blockDim.x) {
-      if (sh[i]) atomicAdd(&cnt[i], sh[i]);
+    int* pre0 = seg_pre + static_cast<long long>(blockIdx.x) * nw * k;
+    for (int c = threadIdx.x; c < k; c += blockDim.x) {
+      int run = 0;
+      for (int w = 0; w < nw; ++w) {
+        const int t = sh[w * k + c];
+        pre0[static_cast<long long>(w) * k + c] = run;
+        run += t;
+      }
+      brow[c] = run;
     }
   }
+}
+
+// One warp per code: the exclusive scan of the blocks' counts of the code
+// (blk, `blocks` rows of k), in block order, written back as each block's
+// first position within the code; the code's total into cnt.
+__global__ void __launch_bounds__(kSortThreads)
+stats_segscan_kernel(int* __restrict__ blk, int* __restrict__ cnt, int k,
+                     int blocks) {
+  const int code = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (code >= k) return;
+  const int lane = threadIdx.x & 31;
+  int carry = 0;
+  for (int b0 = 0; b0 < blocks; b0 += 32) {
+    const int b = b0 + lane;
+    int* p = blk + static_cast<long long>(b) * k + code;
+    const int v = b < blocks ? *p : 0;
+    int inc = v;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, inc, off);
+      if (lane >= off) inc += t;
+    }
+    if (b < blocks) *p = carry + inc - v;
+    carry += __shfl_sync(0xffffffffu, inc, 31);
+  }
+  if (lane == 0) cnt[code] = carry;
 }
 
 // Exclusive block scan of two ints; returns the block totals.
@@ -682,8 +767,8 @@ __device__ __forceinline__ int2 block_scan2(int a, int b, int& ex_a,
 
 __global__ void __launch_bounds__(kScanThreads)
 stats_scan_kernel(const int* __restrict__ cnt, int* __restrict__ offsets,
-                  int* __restrict__ chunk_off, int* __restrict__ cursor,
-                  float* __restrict__ counts, int k) {
+                  int* __restrict__ chunk_off, float* __restrict__ counts,
+                  int k) {
   int carry_rows = 0, carry_chunks = 0;
   for (int base = 0; base < k; base += blockDim.x) {
     const int j = base + threadIdx.x;
@@ -693,7 +778,6 @@ stats_scan_kernel(const int* __restrict__ cnt, int* __restrict__ offsets,
     const int2 tot = block_scan2(c, ch, ex_c, ex_ch);
     if (j < k) {
       offsets[j] = carry_rows + ex_c;
-      cursor[j] = carry_rows + ex_c;
       chunk_off[j] = carry_chunks + ex_ch;
       counts[j] = static_cast<float>(c);
     }
@@ -703,46 +787,6 @@ stats_scan_kernel(const int* __restrict__ cnt, int* __restrict__ offsets,
   if (threadIdx.x == 0) {
     offsets[k] = carry_rows;
     chunk_off[k] = carry_chunks;
-  }
-}
-
-__global__ void __launch_bounds__(kSortThreads)
-stats_scatter_kernel(const int* __restrict__ idx, int* __restrict__ cursor,
-                     int* __restrict__ order, int n, int k,
-                     int rows_per_block, int use_shared) {
-  extern __shared__ int sh[];  // [2][k] when use_shared: count, then base
-  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_block;
-  const long long r1 = min(static_cast<long long>(n), r0 + rows_per_block);
-  const int lane = threadIdx.x & 31;
-  const long long first = r0 + (threadIdx.x & ~31);
-  if (!use_shared) {
-    for (long long b = first; b < r1; b += blockDim.x) {
-      const long long r = b + lane;
-      const bool valid = r < r1;
-      const unsigned active = __ballot_sync(0xffffffffu, valid);
-      if (valid) {
-        const int pos = aggregated_add(cursor, idx[r], active);
-        order[pos] = static_cast<int>(r);
-      }
-    }
-    return;
-  }
-  int* lcnt = sh;
-  int* lbase = sh + k;
-  for (int i = threadIdx.x; i < k; i += blockDim.x) lcnt[i] = 0;
-  __syncthreads();
-  for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-    atomicAdd(&lcnt[idx[r]], 1);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < k; i += blockDim.x) {
-    lbase[i] = lcnt[i] ? atomicAdd(&cursor[i], lcnt[i]) : 0;
-    lcnt[i] = 0;
-  }
-  __syncthreads();
-  for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-    const int code = idx[r];
-    order[lbase[code] + atomicAdd(&lcnt[code], 1)] = static_cast<int>(r);
   }
 }
 
@@ -784,13 +828,15 @@ __device__ __forceinline__ int find_code(const int* __restrict__ chunk_off,
 // two >= D / VEC, at most 32); a group sums every (32 / P)-th row of the
 // chunk, kUnroll rows in flight, lane q of the group columns
 // VEC (q + P s) .. + VEC - 1 for slots s < SLOTS. The chunk's row ids are
-// read once, coalesced, into shared memory.
+// read once, coalesced, into shared memory. The chunk's sum goes to
+// partial[ch] (D floats); the rows of a chunk and the order of its adds
+// are fixed, so the partial sums are the same in every run.
 template <int VEC, int SLOTS>
 __global__ void __launch_bounds__(kSumThreads)
 stats_segsum_kernel(const float* __restrict__ x, const int* __restrict__ order,
                     const int* __restrict__ offsets,
                     const int* __restrict__ chunk_off,
-                    float* __restrict__ sums, int d, int k, int p) {
+                    float* __restrict__ partial, int d, int k, int p) {
   constexpr int kUnroll = 8;
   __shared__ int srows[kSumThreads / 32][kChunkRows];
   const int lane = threadIdx.x & 31;
@@ -836,19 +882,36 @@ stats_segsum_kernel(const float* __restrict__ x, const int* __restrict__ order,
           acc[s][v] += __shfl_xor_sync(0xffffffffu, acc[s][v], off);
     }
     if (g == 0) {
+      float* out = partial + static_cast<long long>(ch) * d;
 #pragma unroll
       for (int s = 0; s < SLOTS; ++s) {
         const int q = q0 + s * p;
         if (q < nq) {
 #pragma unroll
-          for (int v = 0; v < VEC; ++v) {
-            atomicAdd(&sums[static_cast<long long>(q * VEC + v) * k + code],
-                      acc[s][v]);
-          }
+          for (int v = 0; v < VEC; ++v) out[q * VEC + v] = acc[s][v];
         }
       }
     }
   }
+}
+
+// sums[j, code] = the code's chunk sums in chunk order (0 for a code of no
+// rows), one thread per (code, j).
+__global__ void __launch_bounds__(kSumThreads)
+stats_reduce_kernel(const float* __restrict__ partial,
+                    const int* __restrict__ chunk_off,
+                    float* __restrict__ sums, int d, int k) {
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (t >= static_cast<long long>(k) * d) return;
+  const int code = static_cast<int>(t / d);
+  const int j = static_cast<int>(t - static_cast<long long>(code) * d);
+  const int c1 = chunk_off[code + 1];
+  float acc = 0.0f;
+  for (int ch = chunk_off[code]; ch < c1; ++ch) {
+    acc += partial[static_cast<long long>(ch) * d + j];
+  }
+  sums[static_cast<long long>(j) * k + code] = acc;
 }
 
 // Device attributes and kernel shared-memory limits, cached per device:
@@ -860,7 +923,7 @@ constexpr int kMaxDevices = 64;
 struct DeviceInfo {
   int sms = 0;
   int optin = 0;
-  int smem_set[4] = {0, 0, 0, 0};  // assign 16 and 4 warps, hist, scatter
+  int smem_set[4] = {0, 0, 0, 0};  // assign (16, 4 warps), sort (2 passes)
 };
 
 DeviceInfo& device_info() {
@@ -964,65 +1027,88 @@ extern "C" int faceoff_vq_assign_rows(const float* x, const float* embed,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Ints of the statistics' scratch for (n, k).
-extern "C" long long faceoff_vq_stats_scratch_ints(int n, int k) {
-  return static_cast<long long>(n) + 4LL * k + 2;
+// Ints of the statistics' scratch for (n, d, k): the code counts,
+// offsets and chunk offsets, the rows in code order, the sort's
+// per-segment prefixes (up to 7 segments of padding in the last block)
+// and per-block counts, and the chunks' partial sums (floats).
+extern "C" long long faceoff_vq_stats_scratch_ints(int n, int d, int k) {
+  const long long segments = stats_segments(n, k);
+  const long long max_chunks = (n + kChunkRows - 1) / kChunkRows + k;
+  return static_cast<long long>(n) + 3LL * k + 2 +
+         (2 * segments + kSortThreads / 32 - 1) * k + max_chunks * d;
 }
 
 // Launches the statistics on `stream`: x (n, d) float32 and idx (n,)
 // int32 in [0, k), contiguous; writes counts (k,) and sums (d, k). iwork
-// holds faceoff_vq_stats_scratch_ints(n, k) ints. Returns
+// holds faceoff_vq_stats_scratch_ints(n, d, k) ints. Every launch adds
+// in a fixed order, so equal inputs give bitwise equal sums. Returns
 // cudaGetLastError() as an int. The wrapper checks 1 <= d <= 224.
 extern "C" int faceoff_vq_stats(const float* x, const int* idx,
                                 float* counts, float* sums, int* iwork, int n,
                                 int d, int k, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   DeviceInfo& di = device_info();
+  const int segments = stats_segments(n, k);
+  const int seg_rows = (n + segments - 1) / segments;
+  const long long max_chunks = (n + kChunkRows - 1) / kChunkRows + k;
+  // the sort's counters in shared memory, as many warps a block as fit
+  // (at least one), else in global memory, one warp a block
+  const long long ctr_bytes = static_cast<long long>(k) * sizeof(int);
+  const int use_shared = ctr_bytes <= di.optin;
+  int sort_warps = kSortThreads / 32;
+  while (sort_warps > 1 && (!use_shared || sort_warps * ctr_bytes > di.optin)) {
+    sort_warps /= 2;
+  }
+  const int sort_blocks = (segments + sort_warps - 1) / sort_warps;
+  const int sort_smem =
+      use_shared ? static_cast<int>(sort_warps * ctr_bytes) : 0;
   int* cnt = iwork;
   int* offsets = cnt + k;
   int* chunk_off = offsets + k + 1;
-  int* cursor = chunk_off + k + 1;
-  int* order = cursor + k;
-  const int sms = di.sms;
-  const long long sort_smem = 2LL * k * sizeof(int);
-  const int use_shared = sort_smem <= di.optin;
-  cudaMemsetAsync(cnt, 0, sizeof(int) * k, st);
-  cudaMemsetAsync(sums, 0, sizeof(float) * d * static_cast<long long>(k), st);
+  int* order = chunk_off + k + 1;
+  int* seg_pre = order + n;
+  int* blk = seg_pre + static_cast<long long>(sort_blocks) * sort_warps * k;
+  float* partial =
+      reinterpret_cast<float*>(blk + static_cast<long long>(sort_blocks) * k);
+  if (!use_shared) {
+    cudaMemsetAsync(blk, 0, ctr_bytes * sort_blocks, st);
+  }
 
-  int blocks = (n + 1023) / 1024;
-  if (blocks > 2 * sms) blocks = 2 * sms;
-  const int rows_per_block = (n + blocks - 1) / blocks;
-  const int hist_smem = use_shared ? static_cast<int>(sort_smem / 2) : 0;
-  const int scatter_smem = use_shared ? static_cast<int>(sort_smem) : 0;
-  allow_smem(di, 2, stats_hist_kernel, hist_smem);
-  allow_smem(di, 3, stats_scatter_kernel, scatter_smem);
-  stats_hist_kernel<<<blocks, kSortThreads, hist_smem, st>>>(
-      idx, cnt, n, k, rows_per_block, use_shared);
+  allow_smem(di, 2, stats_sort_kernel<true>, sort_smem);
+  allow_smem(di, 3, stats_sort_kernel<false>, sort_smem);
+  stats_sort_kernel<true><<<sort_blocks, sort_warps * 32, sort_smem, st>>>(
+      idx, seg_pre, blk, nullptr, nullptr, n, k, seg_rows, use_shared);
+  const int scan_warps = kSortThreads / 32;
+  stats_segscan_kernel<<<(k + scan_warps - 1) / scan_warps, kSortThreads, 0,
+                         st>>>(blk, cnt, k, sort_blocks);
   stats_scan_kernel<<<1, kScanThreads, 0, st>>>(cnt, offsets, chunk_off,
-                                                cursor, counts, k);
-  stats_scatter_kernel<<<blocks, kSortThreads, scatter_smem, st>>>(
-      idx, cursor, order, n, k, rows_per_block, use_shared);
+                                                counts, k);
+  stats_sort_kernel<false><<<sort_blocks, sort_warps * 32, sort_smem, st>>>(
+      idx, seg_pre, blk, offsets, order, n, k, seg_rows, use_shared);
 
   const bool vec4 = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const int nq = vec4 ? d / 4 : d;
   int p = 1;
   while (p < nq && p < 32) p <<= 1;
-  const long long max_chunks = (n + kChunkRows - 1) / kChunkRows + k;
   const int warps_per_block = kSumThreads / 32;
   long long sum_blocks = (max_chunks + warps_per_block - 1) / warps_per_block;
-  if (sum_blocks > 32LL * sms) sum_blocks = 32LL * sms;
+  if (sum_blocks > 32LL * di.sms) sum_blocks = 32LL * di.sms;
   const int grid = static_cast<int>(sum_blocks);
   if (vec4) {
     if (nq <= 32) {
       stats_segsum_kernel<4, 1><<<grid, kSumThreads, 0, st>>>(
-          x, order, offsets, chunk_off, sums, d, k, p);
+          x, order, offsets, chunk_off, partial, d, k, p);
     } else {
       stats_segsum_kernel<4, 2><<<grid, kSumThreads, 0, st>>>(
-          x, order, offsets, chunk_off, sums, d, k, p);
+          x, order, offsets, chunk_off, partial, d, k, p);
     }
   } else {
     stats_segsum_kernel<1, 7><<<grid, kSumThreads, 0, st>>>(
-        x, order, offsets, chunk_off, sums, d, k, p);
+        x, order, offsets, chunk_off, partial, d, k, p);
   }
+  const long long outs = static_cast<long long>(k) * d;
+  stats_reduce_kernel<<<static_cast<int>((outs + kSumThreads - 1) /
+                                         kSumThreads),
+                        kSumThreads, 0, st>>>(partial, chunk_off, sums, d, k);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,2 +1,3 @@
-"""Training data on the device: synthetic corpora, the resident corpus and
-the training-input pipeline."""
+"""Training data: the dataset on disk and its host geometry and
+perturbations, the loaders, synthetic data, the resident corpus and the
+training input on the device."""

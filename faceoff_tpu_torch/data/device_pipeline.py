@@ -9,13 +9,15 @@ batched warp of all B*T frames), the colour jitter and the normalisation
 all run where the frames lie. Randomness comes from an explicit
 `torch.Generator` on that device; `draw_train_batch` draws it, and
 `prepare_train_batch` takes the draws as an argument so that a test can
-hand it the JAX package's.
+hand it the JAX package's. `RawClipLoader` feeds it from disk
+(--device_pipeline).
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from faceoff_tpu_torch.ops import warp as W
@@ -98,3 +100,53 @@ def prepare_train_batch(
     source = perturbed * 2.0 - 1.0
     inputs = torch.cat([source, background], dim=-1)
     return {"input": inputs.reshape(b, t, h, w, 6), "gt": imgs}
+
+
+class _RawView:
+    """A dataset view whose items are raw clip windows: decoded frames and
+    landmarks, no geometry."""
+
+    def __init__(self, dataset):
+        self.ds = dataset
+
+    def __len__(self):
+        return len(self.ds)
+
+    def get_item(self, index, rng):
+        from faceoff_tpu_torch.data.dataset import (_landmark_paths,
+                                                    load_window_frames)
+
+        paths = _landmark_paths(self.ds.videos[index])
+        window = self.ds._sample_window(paths, rng)
+        frames, lms = load_window_frames(window, self.ds.resolution,
+                                         self.ds.device)
+        return {"frames": frames, "landmarks": lms}
+
+
+def _pack_raw(items):
+    return {"frames": np.stack([it["frames"] for it in items]),
+            "landmarks": np.stack([it["landmarks"] for it in items])}
+
+
+class RawClipLoader:
+    """Host loader of raw (frames uint8, landmarks) batches for
+    `prepare_train_batch` on the device: the host only decodes frames and
+    reads landmarks. The windows are the DataLoader's, seeded alike."""
+
+    def __init__(
+        self, dataset, batch_clips: int = 1, *, num_workers: int = 8,
+        prefetch: int = 2, seed: int = 0, shuffle: bool = True,
+        shard_index: int = 0, shard_count: int = 1,
+    ):
+        from faceoff_tpu_torch.data.pipeline import DataLoader
+
+        self.loader = DataLoader(
+            _RawView(dataset), batch_clips, shuffle=shuffle,
+            num_workers=num_workers, prefetch=prefetch, seed=seed,
+            pack=_pack_raw, shard_index=shard_index, shard_count=shard_count)
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        return iter(self.loader)

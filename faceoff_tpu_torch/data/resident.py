@@ -7,17 +7,22 @@ the training input built inside each step, counterpart of
     every step:  sample B clip windows, hull/perturb/composite on the
                  device; the host only launches.
 
-This slice builds the corpus from arrays in memory
-(`build_resident_corpus`); decoding a dataset from disk comes with the
-trainer's data loading. Sampling follows the dataset's policy: a uniform
-video, a uniform start clamped to the video's length, short videos
-repeating their last frame.
+`build_resident_corpus` decodes every frame of a dataset on disk
+(`data/dataset.py`): PNG frames on the host, JPEG frames with nvJPEG
+straight into the tensor on the card. `corpus_from_arrays` stages frames
+already in memory (`data/synthetic.synthetic_corpus`). Sampling follows
+the dataset's policy: a uniform video, a uniform start clamped to the
+video's length, short videos repeating their last frame.
 """
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from faceoff_tpu_torch.data.device_pipeline import prepare_train_batch
@@ -50,7 +55,18 @@ def estimate_corpus_bytes(n_videos: int, max_frames: int,
     return n_videos * max_frames * (resolution * resolution * 3 + 68 * 2 * 4)
 
 
-def build_resident_corpus(
+def _budget_check(n_videos: int, fmax: int, h: int, w: int,
+                  budget_bytes: Optional[int]) -> None:
+    est = estimate_corpus_bytes(n_videos, fmax, max(h, w))
+    if budget_bytes is not None and est > budget_bytes:
+        raise MemoryError(
+            f"resident corpus would need ~{est / 2**30:.2f} GiB ({n_videos} "
+            f"videos x {fmax} frames at {h}x{w}) > budget "
+            f"{budget_bytes / 2**30:.2f} GiB; cap max_frames_per_video or "
+            f"fall back to --device_pipeline")
+
+
+def corpus_from_arrays(
     frames,
     landmarks,
     n_frames,
@@ -68,12 +84,7 @@ def build_resident_corpus(
         raise ValueError(f"frames must be (V, F, H, W, 3) uint8, got "
                          f"{tuple(frames.shape)} {frames.dtype}")
     v, fmax, h, w = frames.shape[:4]
-    est = estimate_corpus_bytes(v, fmax, max(h, w))
-    if budget_bytes is not None and est > budget_bytes:
-        raise MemoryError(
-            f"resident corpus would need ~{est / 2**30:.2f} GiB ({v} videos "
-            f"x {fmax} frames at {h}x{w}) > budget "
-            f"{budget_bytes / 2**30:.2f} GiB; keep fewer frames per video")
+    _budget_check(v, fmax, h, w, budget_bytes)
     lms = torch.as_tensor(landmarks, dtype=torch.float32)
     counts = torch.as_tensor(n_frames, dtype=torch.int64)
     if tuple(lms.shape) != (v, fmax, 68, 2) or tuple(counts.shape) != (v,):
@@ -81,6 +92,74 @@ def build_resident_corpus(
                          f"{tuple(counts.shape)} do not fit frames "
                          f"{tuple(frames.shape)}")
     return ResidentCorpus(frames.to(dev), lms.to(dev), counts.to(dev))
+
+
+def _stage_video(paths, res: int, out: torch.Tensor,
+                 pool: ThreadPoolExecutor) -> None:
+    """Decode the frames of one video into out (F, res, res, 3) uint8:
+    JPEG frames of the right size with nvJPEG straight into `out` on the
+    card, every other frame on the host."""
+    from faceoff_tpu_torch.data.dataset import _image_for_landmark, load_frame
+    from faceoff_tpu_torch.io import image
+
+    images = [_image_for_landmark(p) for p in paths]
+    host = []
+    for f, img in enumerate(images):
+        if img.endswith(".jpg") and out.device.type == "cuda":
+            data = Path(img).read_bytes()
+            info = image.jpeg_info(data)
+            if (info["height"], info["width"]) == (res, res):
+                image.decode_jpeg_into(data, out[f])
+                continue
+        host.append(f)
+    if host:
+        decoded = list(pool.map(
+            lambda f: load_frame(paths[f], res, out.device)[0], host))
+        idx = torch.as_tensor(host, device=out.device)
+        out[idx] = torch.from_numpy(np.stack(decoded)).to(out.device)
+
+
+def build_resident_corpus(
+    dataset,
+    *,
+    max_frames_per_video: Optional[int] = None,
+    hbm_budget_bytes: Optional[int] = 8 << 30,
+    device: DeviceLike = None,
+) -> ResidentCorpus:
+    """Decode every frame of every video of `dataset`
+    (`data.dataset.TemporalAlignmentDataset`) at its resolution and stage
+    the padded stacks on `device` (CUDA unless named).
+
+    max_frames_per_video keeps a prefix of long videos. Raises MemoryError
+    before staging when the estimate exceeds hbm_budget_bytes (None
+    disables the guard)."""
+    from faceoff_tpu_torch.data.dataset import _landmark_paths, _landmarks
+
+    dev = resolve_device(device)
+    per_video = []
+    for vdir in dataset.videos:
+        paths = _landmark_paths(vdir)
+        if max_frames_per_video is not None:
+            paths = paths[:max_frames_per_video]
+        per_video.append(paths)
+    fmax = max(len(p) for p in per_video)
+    res = dataset.resolution
+    _budget_check(len(per_video), fmax, res, res, hbm_budget_bytes)
+
+    frames = torch.zeros((len(per_video), fmax, res, res, 3),
+                         dtype=torch.uint8, device=dev)
+    landmarks = np.zeros((len(per_video), fmax, 68, 2), np.float32)
+    n_frames = np.zeros((len(per_video),), np.int64)
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        for v, paths in enumerate(per_video):
+            _stage_video(paths, res, frames[v], pool)
+            landmarks[v, : len(paths)] = np.stack(
+                [_landmarks(p) for p in paths])
+            n_frames[v] = len(paths)
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+    return ResidentCorpus(frames, torch.from_numpy(landmarks).to(dev),
+                          torch.from_numpy(n_frames).to(dev))
 
 
 def sample_clip_windows(

@@ -4,19 +4,21 @@
 (pure numpy). `draw_face` paints a face consistent with the landmarks by
 rasterising convex hulls with the port's `ops.warp.convex_mask`, so no
 image library is needed. `synthetic_corpus` makes a whole corpus of
-moving faces in memory, the counterpart of `generate_dataset` for a
-corpus staged on the device.
+moving faces in memory; `generate_dataset` writes the same videos to disk
+in the dataset contract (`data/dataset.py`), as PNG.
 """
 
 from __future__ import annotations
 
+import os
+import os.path as osp
 from typing import Tuple
 
 import numpy as np
 import torch
-
 import torch.nn.functional as F
 
+from faceoff_tpu_torch.io.image import write_png
 from faceoff_tpu_torch.ops.warp import convex_mask
 
 
@@ -92,36 +94,87 @@ def draw_face(
     return draw_faces(img[None], lms[None], skin)[0]
 
 
+def _skin(v: int) -> Tuple[int, int, int]:
+    """The skin tone of video v, as the JAX package's generate_dataset."""
+    return (180 + 15 * (v % 4), 150 + 10 * ((v + 1) % 5),
+            120 + 12 * ((v + 2) % 6))
+
+
+def video_frames(
+    n_frames: int, size: int = 256, *, seed: int = 0,
+    skin: Tuple[int, int, int] = (210, 170, 140),
+    device: torch.device = torch.device("cpu"),
+) -> Tuple[torch.Tensor, np.ndarray]:
+    """One synthetic video: a cartoon face drifting and turning over a
+    textured background, made from `seed`. Returns (frames (F, S, S, 3)
+    uint8 on `device`, landmarks (F, 68, 2) float32)."""
+    rng = np.random.default_rng(seed)
+    noise = rng.integers(0, 255, (1, 3, max(size // 8, 1),
+                                  max(size // 8, 1))).astype(np.float32)
+    bg = F.interpolate(torch.from_numpy(noise).to(device), size=(size, size),
+                       mode="bicubic", align_corners=False)
+    bg = bg.clamp(0, 255).round().to(torch.uint8)[0].permute(1, 2, 0)
+    cx0 = size / 2 + rng.uniform(-20, 20) * size / 256
+    cy0 = size / 2 + rng.uniform(-20, 20) * size / 256
+    scale = size * rng.uniform(0.22, 0.3)
+    phase = rng.uniform(0, 2 * np.pi)
+    lms = np.zeros((n_frames, 68, 2), np.float32)
+    for f in range(n_frames):
+        cx = cx0 + 10 * size / 256 * np.sin(0.2 * f + phase)
+        cy = cy0 + 6 * size / 256 * np.cos(0.15 * f + phase)
+        ang = 5 * np.sin(0.1 * f + phase)
+        lms[f] = face_landmarks((cx, cy), scale, ang)
+    frames = draw_faces(bg.expand(n_frames, -1, -1, -1),
+                        torch.from_numpy(lms).to(device), skin)
+    return frames, lms
+
+
 def synthetic_corpus(
     n_videos: int, n_frames: int, size: int = 256, *, seed: int = 0,
     device: torch.device = torch.device("cpu"),
 ) -> Tuple[torch.Tensor, np.ndarray, np.ndarray]:
-    """A corpus of `n_videos` videos of `n_frames` frames at size x size:
-    a cartoon face drifting and turning over a textured background, as in
-    the JAX package's `generate_dataset` (per-video skin tones, the same
-    motion), made from `seed`. Returns (frames (V, F, S, S, 3) uint8 on
-    `device`, landmarks (V, F, 68, 2) float32, n_frames (V,) int64)."""
+    """A corpus of `n_videos` videos of `n_frames` frames at size x size
+    (`video_frames` with the seed and skin tone of each video, as the JAX
+    package's `generate_dataset` picks them). Returns (frames
+    (V, F, S, S, 3) uint8 on `device`, landmarks (V, F, 68, 2) float32,
+    n_frames (V,) int64). `generate_dataset` writes the same frames to
+    disk."""
     frames = torch.empty((n_videos, n_frames, size, size, 3),
                          dtype=torch.uint8, device=device)
     lms_all = np.zeros((n_videos, n_frames, 68, 2), np.float32)
     for v in range(n_videos):
-        rng = np.random.default_rng(seed * 1000 + v)
-        skin = (180 + 15 * (v % 4), 150 + 10 * ((v + 1) % 5),
-                120 + 12 * ((v + 2) % 6))
-        noise = rng.integers(0, 255, (1, 3, max(size // 8, 1),
-                                      max(size // 8, 1))).astype(np.float32)
-        bg = F.interpolate(torch.from_numpy(noise).to(device), size=(size, size),
-                           mode="bicubic", align_corners=False)
-        bg = bg.clamp(0, 255).round().to(torch.uint8)[0].permute(1, 2, 0)
-        cx0 = size / 2 + rng.uniform(-20, 20) * size / 256
-        cy0 = size / 2 + rng.uniform(-20, 20) * size / 256
-        scale = size * rng.uniform(0.22, 0.3)
-        phase = rng.uniform(0, 2 * np.pi)
-        for f in range(n_frames):
-            cx = cx0 + 10 * size / 256 * np.sin(0.2 * f + phase)
-            cy = cy0 + 6 * size / 256 * np.cos(0.15 * f + phase)
-            ang = 5 * np.sin(0.1 * f + phase)
-            lms_all[v, f] = face_landmarks((cx, cy), scale, ang)
-        frames[v] = draw_faces(bg.expand(n_frames, -1, -1, -1),
-                               torch.from_numpy(lms_all[v]).to(device), skin)
+        frames[v], lms_all[v] = video_frames(
+            n_frames, size, seed=seed * 1000 + v, skin=_skin(v),
+            device=device)
     return frames, lms_all, np.full((n_videos,), n_frames, np.int64)
+
+
+def generate_video(
+    out_dir: str, n_frames: int, *, size: int = 256, seed: int = 0,
+    skin: Tuple[int, int, int] = (210, 170, 140),
+    device: torch.device = torch.device("cpu"),
+) -> None:
+    """Write one `video_frames` video (drawn on `device`) in the dataset
+    contract: `{f:05d}.png` frames beside `{f:05d}_landmarks.npz` (key
+    'landmark', (68, 2) float32). The JAX generator writes JPEG through
+    cv2; the port has no JPEG encoder, so it writes PNG."""
+    os.makedirs(out_dir, exist_ok=True)
+    frames, lms = video_frames(n_frames, size, seed=seed, skin=skin,
+                               device=device)
+    frames = frames.cpu().numpy()
+    for f in range(n_frames):
+        write_png(osp.join(out_dir, f"{f:05d}.png"), frames[f])
+        np.savez(osp.join(out_dir, f"{f:05d}_landmarks.npz"), landmark=lms[f])
+
+
+def generate_dataset(
+    root: str, n_videos: int = 2, n_frames: int = 12, size: int = 256,
+    seed: int = 0, *, device: torch.device = torch.device("cpu"),
+) -> str:
+    """Write a synthetic dataset of `n_videos` directories `video_{v:03d}`
+    (the frames of `synthetic_corpus` with the same arguments, drawn on
+    `device`); returns `root`."""
+    for v in range(n_videos):
+        generate_video(osp.join(root, f"video_{v:03d}"), n_frames, size=size,
+                       seed=seed * 1000 + v, skin=_skin(v), device=device)
+    return root

@@ -1,1 +1,2 @@
-"""Weight bridges into the port."""
+"""Files: weight bridges into the port, images, sample videos and
+checkpoints."""

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from faceoff_tpu_torch.device import DeviceLike, resolve_device
 
@@ -182,3 +183,17 @@ def load_lpips_weights(model: LPIPS, npz_path: str) -> LPIPS:
                              f"expected {tuple(own[k].shape)}")
     model.load_state_dict(sd, strict=False)
     return model
+
+
+class RematLPIPS(nn.Module):
+    """An LPIPS whose activations are recomputed in the backward
+    (`torch.utils.checkpoint`): less memory for more compute, the
+    --remat_lpips flag."""
+
+    def __init__(self, lpips: LPIPS):
+        super().__init__()
+        self.lpips = lpips
+
+    def forward(self, target: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+        return torch.utils.checkpoint.checkpoint(self.lpips, target, pred,
+                                                 use_reentrant=False)

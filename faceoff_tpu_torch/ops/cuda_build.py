@@ -17,6 +17,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import List, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -40,24 +41,36 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(source: Path, stem: str) -> Path:
+def link_flags(libs: Sequence[str]) -> List[str]:
+    """Flags that link the CUDA toolkit's libraries `libs` (e.g. "nvjpeg")
+    and find them again at load time."""
+    if not libs:
+        return []
+    lib_dir = Path(nvcc()).resolve().parent.parent / "lib64"
+    return [f"-L{lib_dir}", *(f"-l{name}" for name in libs),
+            "-Xlinker", f"-rpath,{lib_dir}"]
+
+
+def library_path(source: Path, stem: str, libs: Sequence[str] = ()) -> Path:
     """Where the build of `source` with the current flags lives."""
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        source.read_bytes() + " ".join((*NVCC_FLAGS, *libs)).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{stem}_{digest}.so"
 
 
-def build(source: Path, stem: str) -> Path:
-    """Compile `source` unless this version is already built.
+def build(source: Path, stem: str, libs: Sequence[str] = ()) -> Path:
+    """Compile `source` unless this version is already built, linking the
+    CUDA toolkit's libraries `libs`.
 
     Prints the build's seconds to stderr when it compiles."""
-    out = library_path(source, stem)
+    out = library_path(source, stem, libs)
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"tmp{os.getpid()}_{out.name}"
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source),
+           *link_flags(libs)]
     t0 = time.perf_counter()
     proc = subprocess.run(
         cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S

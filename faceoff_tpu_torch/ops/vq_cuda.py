@@ -20,10 +20,11 @@ The designs (the header of `csrc/vq.cu` has the details):
   A row whose two best split scores lie within 2 eps_row of each other
   (`split_score_eps`) is re-scored exactly in float32; every other row's
   pick is the exact argmax. Bound: operations.
-- Statistics: a counting sort of the rows by code (histogram, scan,
-  scatter of row ids), then one warp per chunk of at most 128 rows of
-  one code sums them in registers: x is read once at every K. Bound:
-  bytes.
+- Statistics: a stable counting sort of the rows by code (per-segment
+  counts, scans, placement of row ids), then one warp per chunk of at
+  most 128 rows of one code sums them in registers, and the chunks of a
+  code are added in order: x is read once at every K, and equal inputs
+  give bitwise equal results in every run. Bound: bytes.
 """
 
 from __future__ import annotations
@@ -79,7 +80,7 @@ def load() -> ctypes.CDLL:
         for fn in (lib.faceoff_vq_assign_rows, lib.faceoff_vq_stats):
             fn.restype = i32
         lib.faceoff_vq_assign_scratch_floats.argtypes = [i32, i32]
-        lib.faceoff_vq_stats_scratch_ints.argtypes = [i32, i32]
+        lib.faceoff_vq_stats_scratch_ints.argtypes = [i32, i32, i32]
         lib.faceoff_vq_assign_scratch_floats.restype = ctypes.c_longlong
         lib.faceoff_vq_stats_scratch_ints.restype = ctypes.c_longlong
         _lib = lib
@@ -197,7 +198,7 @@ def code_stats(
     counts = torch.empty((k,), dtype=torch.float32, device=flat.device)
     sums = torch.empty((d, k), dtype=torch.float32, device=flat.device)
     lib = load()
-    iwork = torch.empty((lib.faceoff_vq_stats_scratch_ints(n, k),),
+    iwork = torch.empty((lib.faceoff_vq_stats_scratch_ints(n, d, k),),
                         dtype=torch.int32, device=flat.device)
     _launch(lib.faceoff_vq_stats, flat, idx, counts, sums, iwork, n, d, k)
     stats_launches += 1

@@ -1,1 +1,2 @@
-"""Training: schedules, the train state and the train step."""
+"""Training: schedules, the train state, the train step, the trainer's
+loop and its observability."""

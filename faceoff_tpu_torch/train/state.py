@@ -36,6 +36,8 @@ class ScheduledAdam:
         momentum: Tuple[float, float] = (0.95, 0.85),
         eps: float = 1e-8,
     ):
+        self.sched_name = sched_name
+        self.n_iter = n_iter
         sched = schedules.make_schedule(sched_name, lr, n_iter,
                                         warmup_proportion)
         self.lr_fn = sched if sched is not None else (lambda step: lr)
@@ -61,6 +63,26 @@ class ScheduledAdam:
 
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
+
+    def state_dict(self) -> dict:
+        """Adam's state (moments, per-parameter step counts, the group's
+        lr and betas), the lr of the last update and the schedule's name
+        and length."""
+        return {"adam": self.optimizer.state_dict(), "lr": self.lr,
+                "sched_name": self.sched_name, "n_iter": self.n_iter}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore `state_dict()`'s output. The schedule stays this
+        optimizer's, as the JAX package's resume takes its optimizer from
+        the command line; a different saved schedule is reported."""
+        if (state["sched_name"], state["n_iter"]) != (self.sched_name,
+                                                       self.n_iter):
+            print(f"restored optimizer state was scheduled "
+                  f"{state['sched_name']!r} over {state['n_iter']} steps; "
+                  f"continuing with {self.sched_name!r} over {self.n_iter}",
+                  flush=True)
+        self.optimizer.load_state_dict(state["adam"])
+        self.lr = float(state["lr"])
 
 
 def make_optimizer(

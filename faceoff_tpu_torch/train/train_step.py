@@ -119,6 +119,48 @@ def make_train_step(
     return train_step
 
 
+def make_multi_step(
+    model: nn.Module,
+    steps_per_call: int,
+    *,
+    latent_loss_weight: float = 1.0,
+    perceptual_loss_weight: float = 1.0,
+    lpips: Optional[nn.Module] = None,
+    prepare_fn: Optional[Callable] = None,
+    compute_dtype: Optional[torch.dtype] = None,
+    scan_batches: bool = True,
+) -> Callable:
+    """`multi_step(state, batches, seed=0) -> (state, metrics)`: K =
+    steps_per_call optimizer steps in one call, the counterpart of the JAX
+    package's `lax.scan` over the step; here a Python loop of
+    `make_train_step`'s step, each seeded from (seed, its own step count),
+    so K steps in one call are K single calls.
+
+    batches carry a leading K axis of distinct micro-batches; with
+    scan_batches=False every step takes the same batch (the resident
+    corpus, from which prepare_fn samples fresh clips each step). Returns
+    the last step's metrics and "loss_mean" over the K steps.
+    """
+    step = make_train_step(
+        model, latent_loss_weight=latent_loss_weight,
+        perceptual_loss_weight=perceptual_loss_weight, lpips=lpips,
+        prepare_fn=prepare_fn, compute_dtype=compute_dtype)
+
+    def multi_step(state: TrainState, batches: Dict[str, torch.Tensor],
+                   seed: int = 0) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        losses = []
+        for k in range(steps_per_call):
+            batch = ({key: v[k] for key, v in batches.items()}
+                     if scan_batches else batches)
+            state, metrics = step(state, batch, seed)
+            losses.append(metrics["loss"])
+        metrics = dict(metrics)
+        metrics["loss_mean"] = torch.stack(losses).mean()
+        return state, metrics
+
+    return multi_step
+
+
 def make_eval_step(model: nn.Module,
                    compute_dtype: Optional[torch.dtype] = None) -> Callable:
     """`eval_step(state, batch) -> (reconstruction (B,T,H,W,3), metrics)`:

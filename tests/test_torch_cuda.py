@@ -1,6 +1,7 @@
 """The port on the card: the warp kernels (forward and backward) and the
-VQ kernels against their plain versions, and the serving path and a
-training step on CUDA against the same on the CPU.
+VQ kernels against their plain versions, the serving path and a training
+step on CUDA against the same on the CPU, nvJPEG on the committed
+fixtures, the copy to the card, and a resume through the command line.
 
 Marked `cuda`; each test skips where there is no CUDA device. The file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 from faceoff_tpu_torch.config import ModelConfig
-from faceoff_tpu_torch.data.resident import (build_resident_corpus,
+from faceoff_tpu_torch.data.resident import (corpus_from_arrays,
                                              make_resident_prepare)
 from faceoff_tpu_torch.data.synthetic import (draw_face, face_landmarks,
                                               synthetic_corpus)
@@ -173,6 +174,32 @@ def test_vq_hot_code_statistics(cuda):
     _check_vq(x, e, out)
 
 
+def test_vq_statistics_are_the_same_in_every_launch(cuda):
+    """The statistics add in an order fixed by their inputs: repeated
+    launches on the same rows, with a hot code of thousands of chunks, a
+    K of the tiled regime, and a K whose sort counters do not fit in
+    shared memory, give bitwise equal counts and sums."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    for n, d, k in ((200000, 64, 512), (65536, 64, 4096), (5000, 7, 33),
+                    (20000, 8, 70000)):
+        x = torch.randn((n, d), generator=gen, device=cuda)
+        idx = torch.randint(0, k, (n,), generator=gen, device=cuda)
+        idx[: n // 2] = 3
+        idx = idx.to(torch.int32)
+        first = vq_cuda.code_stats(x, idx, k)
+        for _ in range(3):
+            again = vq_cuda.code_stats(x, idx, k)
+            assert torch.equal(again[0], first[0])
+            assert torch.equal(again[1], first[1])
+        # against the plain sums within the rounding bound of two
+        # summations of c_k terms, 2 c_k u sum|x| per entry
+        counts, sums = V.vq_stats(x, idx, k)
+        _, abs_sums = V.vq_stats(x.abs(), idx, k)
+        assert torch.equal(first[0], counts)
+        tol = 2 * counts[None, :] * 2.0 ** -24 * abs_sums + 1e-30
+        assert bool(((first[1] - sums).abs() <= tol).all())
+
+
 def test_vq_kernel_refuses_what_it_cannot_take(cuda):
     x = torch.zeros((4, 8), device=cuda)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -301,7 +328,7 @@ def test_train_step_on_card_matches_cpu(cuda):
                       embed_dim=8, n_embed=32)
     frames, lms, n_frames = synthetic_corpus(2, 6, 32, seed=1)
     prep = make_resident_prepare(
-        build_resident_corpus(frames, lms, n_frames, device="cpu"), 1, 2)
+        corpus_from_arrays(frames, lms, n_frames, device="cpu"), 1, 2)
     gen = torch.Generator().manual_seed(0)
     batches = [prep(gen, torch.as_tensor(frames), torch.as_tensor(lms))
                for _ in range(2)]
@@ -328,3 +355,67 @@ def test_train_step_on_card_matches_cpu(cuda):
     diffs = torch.cat([(p_gpu[k] - p_cpu[k]).abs().ravel() for k in p_cpu])
     assert diffs.max().item() <= 2 * 1e-3 * 2 + 1e-6
     assert (diffs <= 1e-5).float().mean().item() >= 0.99
+
+
+def test_nvjpeg_decodes_the_fixtures(cuda):
+    from pathlib import Path
+
+    from faceoff_tpu_torch.io import image
+
+    data = Path(__file__).resolve().parent / "data_torch"
+    # |nvJPEG - cv2| in levels, (max, mean): io/image.py states and
+    # explains the tolerance
+    for name, (max_tol, mean_tol) in image.JPEG_TOL.items():
+        got = image.decode_jpeg_batch([data / f"face_{name}.jpg"], cuda)[0]
+        ref = np.load(data / f"face_{name}.npy").astype(np.int64)
+        assert got.device.type == "cuda" and got.dtype == torch.uint8
+        diff = np.abs(got.cpu().numpy().astype(np.int64) - ref)
+        assert diff.max() <= max_tol and diff.mean() <= mean_tol, name
+
+
+def test_prefetch_to_device_on_card(cuda):
+    from faceoff_tpu_torch.data.pipeline import prefetch_to_device
+
+    batches = [{"x": np.arange(12, dtype=np.float32).reshape(3, 4) + i}
+               for i in range(5)]
+    got = list(prefetch_to_device(iter(batches), cuda))
+    assert len(got) == 5
+    for b, g in zip(batches, got):
+        assert g["x"].device.type == "cuda"
+        np.testing.assert_array_equal(g["x"].cpu().numpy(), b["x"])
+
+
+def test_cli_resume_on_card(cuda, tmp_path):
+    """The command line on the card at 32 px, narrow widths: a run
+    checkpointing every 2 steps, and its step-4 checkpoint resumed to
+    step 6, are equal at step 6 bit for bit, parameters and buffers
+    (every kernel of the step adds in a fixed order)."""
+    import shutil
+
+    from faceoff_tpu_torch.cli.train_faceoff_perceptual import main
+    from faceoff_tpu_torch.data.synthetic import generate_dataset
+
+    root = str(tmp_path / "ds")
+    generate_dataset(root, n_videos=4, n_frames=6, size=32, seed=4)
+
+    def run(name, *extra):
+        return main(["--data_root", root, "--resident_data", "--size", "32",
+                     "--batch_size", "2", "--train_frames", "3",
+                     "--val_frames", "3", "--channel", "16",
+                     "--n_res_channel", "8", "--embed_dim", "8",
+                     "--n_embed", "16", "--epoch", "3", "--validate_at", "2",
+                     "--sched", "cycle", "--num_workers", "2",
+                     "--sample_folder", str(tmp_path / f"s_{name}"), *extra],
+                    device=cuda)
+
+    straight = run("a", "--checkpoint_dir", str(tmp_path / "ck_a"))
+    ck_a = next(tmp_path.glob("ck_a_*"))
+    ck_b = tmp_path / "ck_b"
+    ck_b.mkdir()
+    shutil.copy(ck_a / "ckpt_00000004.pt", ck_b)
+    resumed = run("b", "--ckpt", "latest", "--checkpoint_dir", str(ck_b))
+    assert resumed.global_step == straight.global_step == 6
+    sa = straight.state.model.state_dict()
+    sb = resumed.state.model.state_dict()
+    for k in sa:
+        assert torch.equal(sa[k], sb[k]), k

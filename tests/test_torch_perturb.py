@@ -243,12 +243,12 @@ def test_sample_clip_windows_matches_jax():
 
 def test_resident_corpus_and_batches():
     frames, lms, n = synthetic_corpus(3, 5, 32, seed=1)
-    corpus = tres.build_resident_corpus(frames, lms, n, device="cpu")
+    corpus = tres.corpus_from_arrays(frames, lms, n, device="cpu")
     assert corpus.n_videos == 3
     assert corpus.nbytes == frames.numel() + lms.size * 4
     assert tres.estimate_corpus_bytes(3, 5, 32) == corpus.nbytes
     with pytest.raises(MemoryError):
-        tres.build_resident_corpus(frames, lms, n, device="cpu",
+        tres.corpus_from_arrays(frames, lms, n, device="cpu",
                                    budget_bytes=1000)
     prep = tres.make_resident_prepare(corpus, 2, 4, color_jitter="const")
     batch = prep(torch.Generator().manual_seed(0), corpus.frames,

@@ -229,13 +229,14 @@ def test_session_refuses_model_on_another_device(swap_pair):
 
 
 _BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "scipy",
-            "faceoff_tpu")
+            "faceoff_tpu", "PIL", "torchvision", "imageio")
 
 
 def test_port_imports_no_jax_no_cv2_no_reference_package():
     """In a fresh interpreter where importing JAX, flax, optax, orbax,
-    cv2, scipy or the faceoff_tpu package raises, every module of the port
-    and chip_smoke (without running it) still import."""
+    cv2, scipy, PIL, torchvision, imageio or the faceoff_tpu package
+    raises, every module of the port, chip_smoke and bench_torch (without
+    running them) still import."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "faceoff_tpu_torch").rglob("*.py")
@@ -256,16 +257,16 @@ def test_port_imports_no_jax_no_cv2_no_reference_package():
             if name.split(".")[0] in blocked:
                 del sys.modules[name]
         sys.meta_path.insert(0, Block())
-        for m in {modules!r} + ["chip_smoke"]:
+        for m in {modules!r} + ["chip_smoke", "bench_torch"]:
             importlib.import_module(m)
         loaded = sorted(n for n in sys.modules if n.split(".")[0] in blocked)
         assert not loaded, loaded
-        print("ok", len({modules!r}) + 1)
+        print("ok", len({modules!r}) + 2)
     """)
     proc = subprocess.run(
         [sys.executable, "-c", script], cwd=REPO, capture_output=True,
         text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.strip() == f"ok {len(modules) + 1}"
+    assert proc.stdout.strip() == f"ok {len(modules) + 2}"
     assert "faceoff_tpu_torch.ops.warp_cuda" in modules

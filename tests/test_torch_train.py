@@ -16,7 +16,7 @@ from faceoff_tpu.train import schedule as jsched
 from faceoff_tpu.train import state as jstate
 from faceoff_tpu.train.train_step import make_train_step as jax_train_step
 from faceoff_tpu_torch.config import ModelConfig
-from faceoff_tpu_torch.data.resident import (build_resident_corpus,
+from faceoff_tpu_torch.data.resident import (corpus_from_arrays,
                                              make_resident_prepare)
 from faceoff_tpu_torch.data.synthetic import synthetic_corpus
 from faceoff_tpu_torch.io.convert import (from_jax_variables,
@@ -210,7 +210,7 @@ def test_resident_train_steps_and_eval():
     rerun from the same weights and seed repeats the losses exactly, and
     eval leaves the codebooks alone."""
     frames, lms, n = synthetic_corpus(2, 6, 32, seed=2)
-    corpus = build_resident_corpus(frames, lms, n, device="cpu")
+    corpus = corpus_from_arrays(frames, lms, n, device="cpu")
     prep = make_resident_prepare(corpus, 1, 2)
     raw = {"frames": corpus.frames, "landmarks": corpus.landmarks}
 

@@ -34,7 +34,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import chip_smoke as cs  # noqa: E402
 from faceoff_tpu_torch.config import ModelConfig  # noqa: E402
-from faceoff_tpu_torch.data.resident import (build_resident_corpus,  # noqa: E402
+from faceoff_tpu_torch.data.resident import (corpus_from_arrays,  # noqa: E402
                                              make_resident_prepare)
 from faceoff_tpu_torch.data.synthetic import synthetic_corpus  # noqa: E402
 from faceoff_tpu_torch.models import VQVAE  # noqa: E402
@@ -62,7 +62,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = True
     frames, lms, n_frames = synthetic_corpus(
         cs.CORPUS_VIDEOS, cs.CORPUS_FRAMES, cs.TRAIN_SIZE, seed=3, device=dev)
-    corpus = build_resident_corpus(frames, lms, n_frames, device=dev)
+    corpus = corpus_from_arrays(frames, lms, n_frames, device=dev)
     del frames
     model = VQVAE(ModelConfig(), dtype=torch.float32, device=dev,
                   generator=torch.Generator().manual_seed(0))
