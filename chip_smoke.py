@@ -10,9 +10,11 @@ Phases, each printing lines with their seconds:
                together, into faceoff_tpu_torch/_build/, and load them;
   2. kernel  — the kernel against its plain torch version on the card at
                (1,256,256,3), (16,256,256,3), one case whose output
-               grid differs from the source, and the training step's own
+               grid differs from the source, the training step's own
                call: 128 frames (b16 x T8) of 256x256x3 at the grids of
-               `perturbation_grids`; max |diff| <= 1e-5; kernel, plain,
+               `perturbation_grids`, and the swap's chunk: 32 frames at
+               the grids of Umeyama similarities between synthetic
+               faces; max |diff| <= 1e-5; kernel, plain,
                grid_sample and bound times, and the share of 16x16 tiles
                that the backward would splat through shared memory on the
                same grids (the forward gathers every pixel);
@@ -78,6 +80,18 @@ Phases, each printing lines with their seconds:
                phase's size (16 videos x 24 frames at 256 px) staged by
                build_resident_corpus with nvJPEG decoding into the tensor
                on the card, every frame equal to its own decode.
+ 10. swap    — the swap command line's main() (cli/swap) on two 48-frame
+               synthetic videos at 256 px with the trainer phase's step-8
+               checkpoint: the host geometry; --device_pipeline (2 K4
+               launches, its streams against the host path's);
+               --streaming with 1 and 4 frames a call against the
+               chunked frames; --blend poisson at 1024 iterations (the
+               naive stream's non-finite share printed) and the device
+               Poisson blend against the host twin; then cli/evaluate's
+               main() on the trainer phase's validation set,
+               self-supervised and --crossid --naive_baseline paste.
+               Frames/s of each path, the push p50 and the Poisson
+               chunk's seconds.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 {"kernels": [...]}, and last {"ok": true, "device": {...}}. Any failure
@@ -103,7 +117,11 @@ import numpy as np
 import torch
 
 from faceoff_tpu_torch.config import ModelConfig
+from faceoff_tpu_torch.cli import evaluate as evaluate_cli
+from faceoff_tpu_torch.cli import swap as swap_cli
 from faceoff_tpu_torch.cli import train_faceoff_perceptual as trainer_cli
+from faceoff_tpu_torch.data import geometry
+from faceoff_tpu_torch.data.dataset import _landmark_paths, load_frame
 from faceoff_tpu_torch.data.dataset import TemporalAlignmentDataset
 from faceoff_tpu_torch.data.resident import (build_resident_corpus,
                                              corpus_from_arrays,
@@ -120,7 +138,7 @@ from faceoff_tpu_torch.ops import vq as V
 from faceoff_tpu_torch.ops import vq_cuda
 from faceoff_tpu_torch.ops import warp as W
 from faceoff_tpu_torch.ops import warp_cuda
-from faceoff_tpu_torch.ops.swap import prepare_swap_batch
+from faceoff_tpu_torch.ops.swap import _STABLE, poisson_blend, prepare_swap_batch
 from faceoff_tpu_torch.serve import SwapSession
 from faceoff_tpu_torch.serve.streaming import _postnet_stream
 from faceoff_tpu_torch.train.state import create_train_state, make_optimizer
@@ -134,6 +152,7 @@ BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 KERNEL_TOL = 1e-5
 STREAM_TOL = dict(atol=2e-4, rtol=1e-3)  # tests/test_streaming.py
 SIZE, FRAMES = 256, 16
+SWAP_CHUNK = 32  # cli/swap.py's default --chunk
 DEV = "cuda"
 U32 = 2.0 ** -24  # float32 unit roundoff
 # the training phase: b16, T8, 256 px at the flagship widths
@@ -251,6 +270,24 @@ def perturb_inputs(gen):
     return imgs, xs.contiguous(), ys.contiguous()
 
 
+def swap_inputs(gen):
+    """The warp's inputs in a swap chunk (`cli/swap.py --device_pipeline`,
+    `--chunk 32`): 32 segmented faces of 256x256x3 in [0, 1], sampled at
+    the grids of the Umeyama similarities between two synthetic faces
+    that drift, scale and turn apart (`prepare_swap_batch`)."""
+    n, size = SWAP_CHUNK, SIZE
+    imgs = torch.rand((n, size, size, 3), generator=gen)
+    draw = torch.rand((n, 2, 4), generator=gen).numpy()
+    lms = [[face_landmarks((size * (0.35 + 0.3 * d[0]),
+                            size * (0.35 + 0.3 * d[1])),
+                           size * (0.18 + 0.1 * d[2]), 20 * (d[3] - 0.5))
+            for d in pair] for pair in draw]
+    lms = torch.from_numpy(np.asarray(lms, np.float32))
+    ms = W.umeyama_similarity(lms[:, 0, _STABLE], lms[:, 1, _STABLE])
+    xs, ys = W.affine_grid(W.invert_affine(ms), size, size)
+    return imgs, xs.contiguous(), ys.contiguous()
+
+
 def shared_tile_share(xs, ys, h, w, c):
     """The share of the backward's 16x16 output tiles that splat through
     shared memory (`warp_cuda.tile_footprints`); the others add their
@@ -287,6 +324,8 @@ def kernel_phase(t0):
     cases.append(("perturbation", (TRAIN_B * TRAIN_T, TRAIN_SIZE, TRAIN_SIZE,
                                    3, TRAIN_SIZE, TRAIN_SIZE),
                   lambda: perturb_inputs(gen)))
+    cases.append(("swap", (SWAP_CHUNK, SIZE, SIZE, 3, SIZE, SIZE),
+                  lambda: swap_inputs(gen)))
     rows = []
     for grids, shape, make in cases:
         n, h, w, c, oh, ow = shape
@@ -1231,6 +1270,242 @@ def jpeg_phase(t0, work: Path):
     return result
 
 
+# -- phase 10: the cross-identity swap and its evaluation, by the CLIs ----
+
+
+SWAP_FRAMES, SWAP_POISSON_CHECK_ITERS = 48, 48
+# tests/test_swap_device.py::test_streams_match_host_path
+STREAM_MAD, STREAM_BIG, STREAM_BIG_SHARE = 0.04, 0.25, 0.03
+# streaming against chunked, both bf16 (below, swap_phase)
+BF16_MEAN_LEVELS, BF16_FAR_LEVELS, BF16_FAR_SHARE = 1.0, 8, 0.01
+
+
+def _frame_diff(a, b):
+    """(max, mean, share > BF16_FAR_LEVELS) of |a - b| in uint8 levels
+    over two lists of frames."""
+    d = np.abs(np.stack(a).astype(np.int64) - np.stack(b).astype(np.int64))
+    return int(d.max()), float(d.mean()), float((d > BF16_FAR_LEVELS).mean())
+
+
+def same_neighbours(n, chunk, reach):
+    """The frames that `cli/swap.py` computes from the same inputs chunked
+    (chunks of `chunk` frames, the tail padded with zero frames) and
+    streamed: all of a frame's neighbours within the postnets' `reach`
+    lie in its own chunk, or beyond the video's ends where both see zero
+    features (the start; the end when the last chunk is full)."""
+    keep = []
+    for f in range(n):
+        lo = f // chunk * chunk
+        hi = min(lo + chunk, n) - 1
+        start_ok = f - reach >= lo or lo == 0
+        end_ok = f + reach <= hi or (hi == n - 1 and hi - lo + 1 == chunk)
+        if start_ok and end_ok:
+            keep.append(f)
+    return keep
+
+
+def swap_phase(t0, work: Path):
+    """`cli/swap.main` in this process on the card, with the trainer
+    phase's step-8 checkpoint (run V: flagship widths, 256 px) on two
+    synthetic 48-frame videos at 256 px (one chunk of 32 and a padded
+    tail of 16):
+
+      host       the host geometry per frame pair, the model in chunks;
+      device     --device_pipeline: the geometry in chunks on the card,
+                 exactly one K4 launch a chunk (2), and its source and
+                 background streams against the host path's, as the JAX
+                 test holds its device path to the host (mean |diff| <
+                 0.04, < 3 % of pixels over 0.25);
+      streaming  --streaming, and with --frames_per_call 4: as many
+                 frames as the chunked run, and within the bf16
+                 tolerance of it on the frames both compute from the
+                 same inputs: the chunked run sees each chunk as a clip
+                 of its own (zero features before and after it, and zero
+                 frames in the padded tail), so a frame within the
+                 postnets' reach (3 frames) of a chunk's edge, or of the
+                 padding, has other neighbours than in the stream; those
+                 are reported, not held. On the others both run the same
+                 bf16 weights on the same inputs, the convolutions
+                 batched 32 frames or one at a time, so activations round
+                 to bf16 (2^-8 relative) at other places; that moves a
+                 frame by about a level, and where a latent lies within
+                 that of a tie between two codes it takes the other code
+                 and its patch moves further. So: mean |diff| <= 1 level,
+                 and at most 1 % of the values more than 8 levels apart;
+      poisson    --device_pipeline --blend poisson --save_streams at the
+                 default 1024 iterations: the share of non-finite values
+                 in the naive stream is printed (the iteration diverges,
+                 as in the JAX package: ROADMAP.md, Queue 3), not
+                 checked; one chunk's `prepare_swap_batch` on the card
+                 timed with the Poisson blend and with the paste; then
+                 the device poisson_blend against the host
+                 float64 twin on one frame pair at 48 iterations, atol
+                 2e-4, as the JAX test holds them;
+      evaluate   `cli/evaluate.main` on the trainer phase's validation
+                 set, self-supervised and --crossid --naive_baseline
+                 paste: every value finite, the keys tagged _random_vgg.
+
+    Frames/s of the geometry and of the whole swap are from the CLI's
+    own clocks, which end in reads of the results on the host."""
+    videos = work / "swap_videos"
+    # drawn on the CPU: the frames the CPU tests measure (host and device
+    # streams 2.83 % apart there, against the 3 % limit)
+    generate_dataset(str(videos), 2, SWAP_FRAMES, SIZE, seed=7)
+    ckpt = _run_dir(work, "ckpt_v")
+
+    def run(name, *extra):
+        argv = ["--source", str(videos / "video_000"),
+                "--target", str(videos / "video_001"),
+                "--checkpoint_dir", str(ckpt), "--ckpt", str(TRAINER_STEPS),
+                "--out", str(work / f"swap_{name}.avi"),
+                "--size", str(SIZE), "--chunk", str(SWAP_CHUNK), *extra]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = swap_cli.main(argv, device=DEV)
+        res["wall_s"] = time.perf_counter() - t
+        if len(res["frames"]) != SWAP_FRAMES or res["step"] != TRAINER_STEPS:
+            raise AssertionError(f"swap {name}: {len(res['frames'])} frames "
+                                 f"from step {res['step']}")
+        frames = read_video_frames(str(work / f"swap_{name}.avi"))
+        if len(frames) != SWAP_FRAMES or not np.array_equal(
+                frames[-1], res["frames"][-1]):
+            raise AssertionError(f"swap {name}: the video written differs")
+        return res
+
+    def rate(res):
+        sec = res["seconds"]
+        return {"geometry_frames_per_s": SWAP_FRAMES / sec["prepare"],
+                "frames_per_s": SWAP_FRAMES / (sec["prepare"] + sec["model"]),
+                **{f"{k}_s": v for k, v in sec.items()},
+                "wall_s": res["wall_s"]}
+
+    n_chunks = -(-SWAP_FRAMES // SWAP_CHUNK)
+    result = {}
+    host = run("host")
+    result["host"] = rate(host)
+    zero_counts()
+    device = run("device", "--device_pipeline")
+    counts = read_counts()
+    result["device_pipeline"] = {**rate(device), "launches": counts}
+    if counts["warp"] != n_chunks or counts["warp_backward"] != 0:
+        raise AssertionError(f"--device_pipeline launches {counts} for "
+                             f"{n_chunks} chunks")
+    for key in ("sources", "backgrounds"):
+        d = np.abs(np.stack(device[key]) - np.stack(host[key]))
+        mad, big = float(d.mean()), float((d.max(-1) > STREAM_BIG).mean())
+        result["device_pipeline"][f"{key}_vs_host"] = {
+            "mean_abs_diff": mad, "share_over_0.25": big}
+        if not (mad < STREAM_MAD and big < STREAM_BIG_SHARE):
+            raise AssertionError(f"--device_pipeline {key} differ from the "
+                                 f"host path: {mad}, {big}")
+    chunked = _frame_diff(device["frames"], host["frames"])
+    result["device_pipeline"]["frames_vs_host"] = chunked
+    say("swap", t0, json.dumps({"host": result["host"],
+                                "device_pipeline": result["device_pipeline"]}))
+
+    same = same_neighbours(SWAP_FRAMES, SWAP_CHUNK,
+                           ModelConfig().temporal_postnet_layers
+                           * (ModelConfig().temporal_kernel // 2))
+    for name, extra in (("streaming", ()),
+                        ("streaming_k4", ("--frames_per_call", "4"))):
+        res = run(name, "--streaming", *extra)
+        lat = res["latency_ms"][1:]
+        diff = _frame_diff([res["frames"][f] for f in same],
+                           [host["frames"][f] for f in same])
+        edge = _frame_diff(res["frames"], host["frames"])
+        result[name] = {**rate(res), "push_ms_p50": statistics.median(lat),
+                        "push_ms_max": max(lat),
+                        "frames_vs_chunked": {"frames": len(same),
+                                              "max": diff[0], "mean": diff[1],
+                                              "share_far": diff[2]},
+                        "all_frames_vs_chunked": {"max": edge[0],
+                                                  "mean": edge[1],
+                                                  "share_far": edge[2]}}
+        say("swap", t0, f"{name} " + json.dumps(result[name]))
+        if not (diff[1] <= BF16_MEAN_LEVELS and diff[2] <= BF16_FAR_SHARE):
+            raise AssertionError(f"{name}: frames differ from the chunked "
+                                 f"run beyond the bf16 tolerance: {diff}")
+
+    poisson = run("poisson", "--device_pipeline", "--blend", "poisson",
+                  "--save_streams")
+    streams = sorted(p.name for p in work.glob("swap_poisson_*.avi"))
+    if streams != ["swap_poisson_background.avi", "swap_poisson_composite.avi",
+                   "swap_poisson_naive_poisson.avi"]:
+        raise AssertionError(f"--save_streams wrote {streams}")
+    cli_counts = read_counts()
+    # one chunk of the swap's geometry on the card, paste and Poisson,
+    # frames and landmarks already there (median of 3, after the runs;
+    # these launches are not the main path's)
+    src_paths = _landmark_paths(str(videos / "video_000"))
+    tgt_paths = _landmark_paths(str(videos / "video_001"))
+    pairs = [load_frame(p, SIZE) for p in src_paths[:SWAP_CHUNK]]
+    pairs_t = [load_frame(p, SIZE) for p in tgt_paths[:SWAP_CHUNK]]
+    chunk = [torch.from_numpy(np.stack([f[i] for f in fs])).to(DEV)
+             for fs in (pairs, pairs_t) for i in (0, 1)]
+
+    def chunk_s(**kw):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            prepare_swap_batch(*chunk, **kw)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return statistics.median(times)
+
+    result["poisson"] = {
+        **rate(poisson),
+        "cli_prepare_s_per_chunk": poisson["seconds"]["prepare"] / n_chunks,
+        "chunk_s": chunk_s(poisson=True),
+        "paste_chunk_s": chunk_s(),
+        "naive_nonfinite_share": poisson["naive_nonfinite_share"]}
+
+    # the device blend against the host float64 twin on one frame pair
+    s_img, s_lms = pairs[0]
+    t_img, t_lms = pairs_t[0]
+    face = geometry.generate_warped_image(
+        s_lms, t_lms, s_img, t_img)["source_face_transformed"]
+    t01, s01, m01 = t_img / 255.0, s_img / 255.0, face / 255.0
+    want = geometry.poisson_blend(t01, s01, m01, SWAP_POISSON_CHECK_ITERS)
+    got = poisson_blend(*(torch.from_numpy(a).to(DEV, torch.float32)
+                          for a in (t01, s01, m01)),
+                        iters=SWAP_POISSON_CHECK_ITERS).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    result["poisson"]["device_vs_host_48_max_abs_err"] = err
+    say("swap", t0, "poisson " + json.dumps(result["poisson"]))
+    if not err <= 2e-4:
+        raise AssertionError(f"poisson_blend on the card differs from the "
+                             f"host twin: {err}")
+
+    zero_counts()
+    evals = {}
+    for name, extra in (("self_supervised", ()),
+                        ("crossid", ("--crossid", "--naive_baseline",
+                                     "paste"))):
+        t = time.perf_counter()
+        rep = evaluate_cli.main(
+            ["--data_root", str(work / "val"), "--checkpoint_dir", str(ckpt),
+             "--ckpt", str(TRAINER_STEPS), "--frames", str(TRAIN_T),
+             "--size", str(TRAIN_SIZE),
+             *extra], device=DEV)
+        metrics = {k: v for k, v in rep.items()
+                   if k not in ("n_clips", "checkpoint_step")}
+        if (rep["n_clips"] != VAL_VIDEOS or not metrics
+                or not all(math.isfinite(v) for v in metrics.values())
+                or not all(k.endswith("_random_vgg") for k in metrics
+                           if k.startswith(("lpips", "fd_")))):
+            raise AssertionError(f"evaluate {name}: {rep}")
+        evals[name] = {"report": rep, "wall_s": time.perf_counter() - t}
+    if not {"fd_vgg_random_vgg", "fd_vgg_motion_random_vgg",
+            "fd_vgg_naive_paste_random_vgg"} <= set(evals["crossid"]["report"]):
+        raise AssertionError(f"evaluate --crossid: {evals['crossid']}")
+    result["evaluate"] = evals
+    result["launches"] = {k: v + cli_counts[k]
+                          for k, v in read_counts().items()}
+    say("swap", t0, "evaluate " + json.dumps(evals))
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1274,7 +1549,10 @@ def main() -> int:
         trainer = trainer_phase(t0, Path(work))
         t0 = time.perf_counter()
         jpeg_phase(t0, Path(work))
+        t0 = time.perf_counter()
+        swap = swap_phase(t0, Path(work))
     trainer_counts = trainer["launches"]
+    swap_counts = swap["launches"]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -1289,9 +1567,24 @@ def main() -> int:
         "checkpoint_restore_s": trainer["checkpoint_restore_s"],
         "launches": trainer_counts}))
 
+    say("swap", t_all, json.dumps({
+        "card": card,
+        "host_frames_per_s": swap["host"]["frames_per_s"],
+        "host_geometry_frames_per_s": swap["host"]["geometry_frames_per_s"],
+        "device_pipeline_frames_per_s":
+            swap["device_pipeline"]["frames_per_s"],
+        "device_geometry_frames_per_s":
+            swap["device_pipeline"]["geometry_frames_per_s"],
+        "streaming_push_ms_p50": swap["streaming"]["push_ms_p50"],
+        "streaming_k4_push_ms_p50": swap["streaming_k4"]["push_ms_p50"],
+        "poisson_chunk_s": swap["poisson"]["chunk_s"],
+        "poisson_naive_nonfinite_share":
+            swap["poisson"]["naive_nonfinite_share"],
+        "launches": swap_counts}))
     say("launches", t_all, json.dumps({"serving": {"warp": launches},
                                        "training": train_counts,
-                                       "trainer": trainer_counts}))
+                                       "trainer": trainer_counts,
+                                       "swap": swap_counts}))
     for k in train_counts:
         train_counts[k] += trainer_counts[k]
     main_row = rows[0]
@@ -1301,7 +1594,7 @@ def main() -> int:
         "route": "cuda",
         "source": "faceoff_tpu_torch/csrc/warp.cu",
         "replaces": "faceoff_tpu/ops/warp_pallas.py:54",
-        "launches": launches + train_counts["warp"],
+        "launches": launches + train_counts["warp"] + swap_counts["warp"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],

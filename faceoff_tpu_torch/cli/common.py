@@ -1,6 +1,6 @@
 """Shared CLI plumbing, counterpart of `faceoff_tpu/cli/common.py`: the
-model-size, curation and multi-host flags, and the VQVAE built from
-them."""
+model-size, curation and multi-host flags, the VQVAE built from them, and
+the model of an inference CLI restored from a checkpoint."""
 
 from __future__ import annotations
 
@@ -9,8 +9,10 @@ from typing import Optional
 import torch
 
 from faceoff_tpu_torch.config import ModelConfig
-from faceoff_tpu_torch.device import DeviceLike
+from faceoff_tpu_torch.device import DeviceLike, resolve_device
+from faceoff_tpu_torch.io.checkpoint import CheckpointManager
 from faceoff_tpu_torch.models import VQVAE
+from faceoff_tpu_torch.train.state import TrainState, create_train_state
 
 
 def add_model_flags(p) -> None:
@@ -68,12 +70,35 @@ def model_config(args, in_channels: int = 6) -> ModelConfig:
     )
 
 
+def refuse_no_pallas(parser, args) -> None:
+    """Exit with an error for --no_pallas: the port has no path around
+    its CUDA kernels on the card."""
+    if args.no_pallas:
+        parser.error("--no_pallas: the port has no path around its CUDA "
+                     "kernels on the card (ROADMAP.md, North star)")
+
+
 def build_vqvae(args, in_channels: int = 6, *, device: DeviceLike = None,
-                seed: Optional[int] = None) -> VQVAE:
-    """The VQVAE of the flags on `device` (CUDA unless named), float32
-    parameters (the step computes in bf16 on CUDA), random weights from
-    `seed` (args.seed by default)."""
+                seed: Optional[int] = None,
+                dtype: torch.dtype = torch.float32) -> VQVAE:
+    """The VQVAE of the flags on `device` (CUDA unless named), parameters
+    in `dtype` (float32 for training, whose step computes in bf16 on
+    CUDA), random weights from `seed` (args.seed by default)."""
     seed = getattr(args, "seed", 0) if seed is None else seed
-    return VQVAE(model_config(args, in_channels), dtype=torch.float32,
+    return VQVAE(model_config(args, in_channels), dtype=dtype,
                  device=device,
                  generator=torch.Generator().manual_seed(seed))
+
+
+def restore_for_inference(args, device: DeviceLike = None) -> TrainState:
+    """The VQVAE of the flags on `device`, in bf16 on CUDA and float32 on
+    the CPU (as the JAX CLIs build it in bf16 on their accelerator), with
+    the weights and EMA codebooks of checkpoint --ckpt (the latest when
+    None or 'latest') from --checkpoint_dir."""
+    dev = resolve_device(device)
+    dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    state = create_train_state(build_vqvae(args, device=dev, dtype=dtype))
+    step = None if args.ckpt in (None, "latest") else int(args.ckpt)
+    CheckpointManager(args.checkpoint_dir).restore_weights(state, step)
+    print(f"restored checkpoint step {state.step}", flush=True)
+    return state

@@ -13,7 +13,7 @@ CUDA; `main(argv, device="cpu")` runs on the CPU (the tests).
 
 Flags whose function the port does not have yet parse, then exit with an
 error naming the ROADMAP.md item that brings it: --multihost and its
-coordination flags, --crossid, --custom_validation, --lpips_weights auto.
+coordination flags, --lpips_weights auto.
 --no_pallas is refused too: on the card the port always runs its CUDA
 kernels. Checkpoints are `torch.save` files of the full train state;
 sample streams are AVI files.
@@ -34,7 +34,8 @@ from faceoff_tpu_torch.cli import common
 from faceoff_tpu_torch.data.dataset import TemporalAlignmentDataset
 from faceoff_tpu_torch.data.pipeline import DataLoader
 from faceoff_tpu_torch.device import DeviceLike, resolve_device
-from faceoff_tpu_torch.models.lpips import RematLPIPS, init_lpips
+from faceoff_tpu_torch.models.lpips import (RematLPIPS, init_lpips,
+                                            resolve_lpips_weights)
 from faceoff_tpu_torch.train.state import create_train_state, make_optimizer
 from faceoff_tpu_torch.train.train_step import (make_eval_step,
                                                 make_multi_step,
@@ -112,16 +113,11 @@ def refuse_unported(parser: argparse.ArgumentParser, args) -> None:
             ("coordinator_address", "num_processes", "process_id")):
         parser.error("--multihost and its coordination flags wait for the "
                      "multi-device port (ROADMAP.md, Queue 1 item 6)")
-    if args.crossid or args.custom_validation:
-        parser.error("--crossid and --custom_validation need "
-                     "generate_warped_image and poisson_blend (ROADMAP.md, "
-                     "Queue 1 item 2)")
-    if args.lpips_weights == "auto":
-        parser.error("--lpips_weights auto needs discover_lpips_weights "
-                     "(ROADMAP.md, Queue 1 item 7); pass an .npz path")
-    if args.no_pallas:
-        parser.error("--no_pallas: the port has no path around its CUDA "
-                     "kernels on the card (ROADMAP.md, North star)")
+    try:
+        resolve_lpips_weights(args.lpips_weights)
+    except ValueError as e:
+        parser.error(str(e))
+    common.refuse_no_pallas(parser, args)
 
 
 def random_run_name(n: int = 5) -> str:
@@ -154,7 +150,10 @@ def build_everything(args, device: DeviceLike = None):
     val_ds = TemporalAlignmentDataset(
         args.validation_folder or args.data_root, "val",
         args.val_frames, resolution=args.size,
-        color_jitter_type=args.colorjit, grayscale=args.gray,
+        color_jitter_type=args.colorjit, cross_identity=args.crossid,
+        grayscale=args.gray,
+        custom_validation_source=(args.data_root if args.custom_validation
+                                  else None),
         exclude_list=args.exclude_list, device=dev)
     prepare_fn = None
     if args.resident_data:

@@ -15,11 +15,18 @@ PNG frames decode on the host (`io/image.py`); JPEG frames need CUDA
 drawn in the JAX package's order, so one seed gives the same windows and
 perturbations in both packages.
 
-This slice has the self-supervised items of the train and val modes
-(`get_item_jitter`). Cross-identity validation, custom validation
-sources, alignment items and the naive-blend baseline need
-`generate_warped_image` and `poisson_blend`, which the port does not
-have yet (ROADMAP.md, Queue 1 item 2); asking for them raises.
+Item modes, as in the JAX package:
+  * self-supervised (`get_item_jitter`): the video's own face, segmented
+    by its hull and perturbed, over its background; the frame is the
+    target;
+  * cross-identity (`cross_identity`): a random other video's face warped
+    onto this video's frames (`geometry.generate_warped_image`), with the
+    source frames as `source_original` and, with `naive_blend` "paste" or
+    "poisson", the naive composite as `naive`;
+  * custom validation (`custom_validation_source`): the same with a fixed
+    pairing of this dataset's videos to those under another root;
+  * alignment (`alignment`): self-supervised items with the negated
+    ground-truth rotation and translations as `transforms`.
 """
 
 from __future__ import annotations
@@ -34,10 +41,6 @@ import numpy as np
 from faceoff_tpu_torch.data import geometry, perturbations
 from faceoff_tpu_torch.device import DeviceLike
 from faceoff_tpu_torch.io.image import read_image
-
-_QUEUED = ("needs generate_warped_image and poisson_blend, not ported yet "
-           "(ROADMAP.md, Queue 1 item 2)")
-
 
 def _frame_index(path: str) -> int:
     return int(osp.basename(path).split("_")[0])
@@ -136,10 +139,8 @@ def color_jitter(img: np.ndarray, brightness: float,
 
 
 class TemporalAlignmentDataset:
-    """Clips of the videos under `root`; `mode` in {'train', 'val'}.
-    Items are self-supervised: each frame's face, segmented by its
-    landmark hull (or bounding box) and perturbed, over its own
-    background, with the frame as the target."""
+    """Clips of the videos under `root`; `mode` in {'train', 'val'}. See
+    the module docstring for the item modes."""
 
     def __init__(
         self,
@@ -162,14 +163,6 @@ class TemporalAlignmentDataset:
         naive_blend: str = "",
         device: DeviceLike = None,
     ):
-        if cross_identity:
-            raise NotImplementedError(f"cross-identity items {_QUEUED}")
-        if custom_validation_source is not None:
-            raise NotImplementedError(f"custom validation {_QUEUED}")
-        if alignment:
-            raise NotImplementedError(f"alignment items {_QUEUED}")
-        if naive_blend:
-            raise NotImplementedError(f"naive_blend {_QUEUED}")
         self.mode = mode
         self.alignment = alignment
         self.max_len = max_frame_len
@@ -179,13 +172,19 @@ class TemporalAlignmentDataset:
         self.hull_slice = slice(hull_start, hull_end)
         self.mask_enlargement = mask_enlargement
         self.use_bb_mask = use_bb_mask
-        self.color_jitter_type = color_jitter_type
+        # cross-identity items take no colour jitter
+        self.color_jitter_type = "" if cross_identity else color_jitter_type
+        if naive_blend not in ("", "paste", "poisson"):
+            raise ValueError(f"unknown naive_blend '{naive_blend}'")
         self.naive_blend = naive_blend
         self.device = device  # where JPEG frames decode (io.image)
         self.videos = list_videos(root, min_landmark_files, exclude_list)
         if not self.videos:
             raise FileNotFoundError(f"no usable videos under {root}")
         self.source_videos: Optional[List[str]] = None
+        if custom_validation_source is not None:
+            self.source_videos = list_videos(custom_validation_source,
+                                             min_landmark_files)
 
     def __len__(self) -> int:
         return len(self.videos)
@@ -251,10 +250,96 @@ class TemporalAlignmentDataset:
             "gt": np.stack(originals),
         }
 
+    def get_item_alignment(
+        self, index: int, rng: np.random.Generator
+    ) -> Dict[str, np.ndarray]:
+        """A self-supervised item without colour jitter, with the negated
+        rotation and translations that perturbed each frame as
+        `transforms` (T, 3): what the alignment head regresses."""
+        video_dir = self.videos[index]
+        window = self._sample_window(_landmark_paths(video_dir), rng)
+        sources, backgrounds, originals, gts = [], [], [], []
+        for lm_path in window:
+            img, lms = load_frame(lm_path, self.resolution, self.device)
+            mask = self._face_mask(img, lms)
+            face = geometry.apply_mask(mask, img)
+            background = geometry.apply_mask(255 - mask, img)
+            perturbed, gt_t = perturbations.perturb_image_composite(
+                face, lms, rng)
+            sources.append(normalize(perturbed))
+            backgrounds.append(normalize(background))
+            originals.append(normalize(img))
+            gts.append([-gt_t["rotate_image"], -gt_t["translate_horizontal"],
+                        -gt_t["translate_vertical"]])
+        return {
+            "source": np.stack(sources),
+            "background": np.stack(backgrounds),
+            "gt": np.stack(originals),
+            "transforms": np.asarray(gts, np.float32),
+        }
+
+    def get_item_cross_identity(
+        self,
+        index: int,
+        rng: np.random.Generator,
+        target_index: Optional[int] = None,
+        keep_same_index: bool = False,
+    ) -> Dict[str, np.ndarray]:
+        """This video's face warped onto another video's frames: the
+        target video drawn from `rng` (or `target_index`, or the paired
+        custom source), then the two window starts, each clamped and a
+        short window padded with its last frame."""
+        source_dir = self.videos[index]
+        if self.source_videos is not None:
+            target_dir = self.source_videos[index % len(self.source_videos)]
+        elif target_index is not None:
+            target_dir = self.videos[target_index]
+        else:
+            target_dir = self.videos[int(rng.integers(0, len(self.videos)))]
+
+        src_paths = _landmark_paths(source_dir)
+        tgt_paths = _landmark_paths(target_dir)
+        if keep_same_index or self.source_videos is not None:
+            s0 = t0 = 0
+        else:
+            s0 = int(rng.integers(
+                0, max(5, len(src_paths) - self.max_len - 1) + 1))
+            t0 = int(rng.integers(
+                0, max(5, len(tgt_paths) - self.max_len - 1) + 1))
+        s0 = min(s0, max(0, len(src_paths) - self.max_len))
+        t0 = min(t0, max(0, len(tgt_paths) - self.max_len))
+        src_w = list(src_paths[s0: s0 + self.max_len])
+        tgt_w = list(tgt_paths[t0: t0 + self.max_len])
+        for w in (src_w, tgt_w):
+            while w and len(w) < self.max_len:
+                w.append(w[-1])
+
+        streams = {k: [] for k in ("source", "background", "gt",
+                                   "source_original", "naive")}
+        for sp, tp in zip(src_w, tgt_w):
+            s_img, s_lms = load_frame(sp, self.resolution, self.device)
+            t_img, t_lms = load_frame(tp, self.resolution, self.device)
+            out = geometry.generate_warped_image(
+                s_lms, t_lms, s_img, t_img,
+                enlargement=self.mask_enlargement,
+                poisson=self.naive_blend == "poisson")
+            streams["source"].append(normalize(out["source_face_transformed"]))
+            streams["background"].append(
+                normalize(out["target_without_face_features"]))
+            streams["gt"].append(normalize(out["target_image"]))
+            streams["source_original"].append(normalize(out["source_image"]))
+            if self.naive_blend:
+                streams["naive"].append(normalize(out["combined"]))
+        return {k: np.stack(v) for k, v in streams.items() if v}
+
     def __getitem__(self, index: int, rng=None) -> Dict[str, np.ndarray]:
         return self.get_item(index, rng or np.random.default_rng(index))
 
     def get_item(self, index: int, rng: np.random.Generator):
+        if self.alignment:
+            return self.get_item_alignment(index, rng)
+        if self.cross_identity or self.source_videos is not None:
+            return self.get_item_cross_identity(index, rng)
         return self.get_item_jitter(index, rng)
 
 

@@ -1,12 +1,16 @@
-"""Host-side landmark geometry for the training items, counterpart of the
-part of `faceoff_tpu/data/geometry.py` that they use, without OpenCV.
+"""Host-side landmark geometry of the training items and of the swap,
+counterpart of `faceoff_tpu/data/geometry.py`, without OpenCV.
 
-The JAX package resamples with cv2. Here the same functions run as torch
-CPU ops on uint8 images, following what the installed OpenCV computes:
+The JAX package resamples and draws with cv2. Here the same functions run
+as numpy and torch CPU ops on uint8 images, following what the installed
+OpenCV computes:
 
   * `warp_affine` and `remap` (bilinear, constant-0 border): the source
     position in float32, the two linear blends and the final blend in
     float32, rounded half to even to uint8.
+  * `warp_affine` with "cubic" (INTER_CUBIC, constant-0 border): the same
+    float32 positions, Keys' weights (A = -0.75) of the fractions in
+    float32, each row of four taps summed in float32, then the rows.
   * `resize` with "linear": cv2's fixed-point path, 11-bit weights, the
     horizontal sums kept as integers, the vertical blend on the sums
     shifted right by 4 with 16-bit weight products, then (v + 2) >> 2.
@@ -20,17 +24,25 @@ lands on the other side of a half.
 
 `convex_hull_mask` reproduces cv2's `convexHull` + `fillConvexPoly` for
 integer vertices: the scanline fill with 16.16 fixed-point edges and the
-8-connected Bresenham lines drawn along every edge.
+8-connected Bresenham lines drawn along every edge. `enlarge_mask`
+reproduces cv2's thick contour (`drawContours` with a thickness): per
+hull segment a quadrilateral with 16.16 fixed-point corners, filled by
+the same rule, and a round cap by cv2's integer circle.
+
+The swap's host path (`generate_warped_image`, `generate_aligned_image`,
+`poisson_blend`) is the JAX package's, float64 where it computes in
+float64 (the Umeyama fit, the Poisson iteration).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import math
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from faceoff_tpu_torch.ops.warp import umeyama_similarity  # noqa: F401
+from faceoff_tpu_torch.ops.swap import STABLE_POINTS
 
 _XY_SHIFT = 16
 _XY_ONE = 1 << _XY_SHIFT
@@ -95,11 +107,46 @@ def _invert_affine(m: np.ndarray) -> np.ndarray:
     return m
 
 
+def _bicubic(image: np.ndarray, sx: torch.Tensor,
+             sy: torch.Tensor) -> np.ndarray:
+    """Keys' cubic (A = -0.75) over the 4x4 taps around float32 positions
+    (sx, sy) of a uint8 image, taps outside the image reading 0: float32
+    weights of the fractions, each row's horizontal sum in float32, then
+    the rows' weighted sum, rounded half to even."""
+    img = np.asarray(image)
+    if img.dtype != np.uint8:
+        raise ValueError(f"expected a uint8 image, got {img.dtype}")
+    flat = img.ndim == 2
+    t = torch.from_numpy(np.ascontiguousarray(img))
+    if flat:
+        t = t[..., None]
+    padded = torch.nn.functional.pad(t.to(torch.float32), (0, 0, 2, 2, 2, 2))
+    hp, wp = padded.shape[:2]
+    x0f = torch.floor(sx)
+    y0f = torch.floor(sy)
+    wx = torch.from_numpy(_cubic_weights((sx - x0f).numpy()))
+    wy = torch.from_numpy(_cubic_weights((sy - y0f).numpy()))
+    # tap j of x0 - 1 .. x0 + 2 sits at x0 + 1 + j in the padded image;
+    # every tap beyond the border of 2 lands on it
+    x0 = x0f.clamp(-8, wp + 8).long() + 1
+    y0 = y0f.clamp(-8, hp + 8).long() + 1
+    out = torch.zeros(tuple(sx.shape) + (padded.shape[2],))
+    for i in range(4):
+        yy = (y0 + i).clamp(0, hp - 1)
+        row = torch.zeros_like(out)
+        for j in range(4):
+            row = row + padded[yy, (x0 + j).clamp(0, wp - 1)] * wx[..., j, None]
+        out = out + row * wy[..., i, None]
+    return _to_uint8(out, flat)
+
+
 def warp_affine(image: np.ndarray, M: np.ndarray,
-                out_size: Optional[Tuple[int, int]] = None) -> np.ndarray:
+                out_size: Optional[Tuple[int, int]] = None,
+                interpolation: str = "linear") -> np.ndarray:
     """Apply the 2x3 affine `M` (source -> output) to a uint8 image with
-    bilinear sampling and zeros outside, as `cv2.warpAffine`. out_size is
-    (height, width), the input's by default."""
+    zeros outside, as `cv2.warpAffine`: "linear" (bilinear) or "cubic"
+    (INTER_CUBIC). out_size is (height, width), the input's by
+    default."""
     h, w = np.asarray(image).shape[:2]
     oh, ow = out_size if out_size is not None else (h, w)
     inv = torch.from_numpy(_invert_affine(M).astype(np.float32))
@@ -107,6 +154,10 @@ def warp_affine(image: np.ndarray, M: np.ndarray,
     y = torch.arange(oh, dtype=torch.float32)[:, None]
     sx = x * inv[0] + (y * inv[1] + inv[2])
     sy = x * inv[3] + (y * inv[4] + inv[5])
+    if interpolation == "cubic":
+        return _bicubic(image, sx, sy)
+    if interpolation != "linear":
+        raise ValueError(f"unknown interpolation {interpolation!r}")
     padded, flat = _as_hwc(image)
     return _bilinear(padded, sx, sy, flat)
 
@@ -307,22 +358,70 @@ def _draw_line(mask: np.ndarray, p0, p1, value) -> None:
             y += sy if step else 0
 
 
-def fill_convex_poly(mask: np.ndarray, vertices: np.ndarray, value) -> None:
-    """cv2's `fillConvexPoly` (8-connected, shift 0) in place: the edges
-    drawn as lines, then the rows between the left and right edges
-    filled, with edges stepped in 16.16 fixed point."""
+def _line2(mask: np.ndarray, p0, p1, value) -> None:
+    """cv2's `Line2`: the 8-connected line between two 16.16 fixed-point
+    points, clipped to the mask, its pixels at the rounded positions."""
+    h, w = mask.shape[:2]
+    clipped = _clip_line(w << _XY_SHIFT, h << _XY_SHIFT, p0, p1)
+    if clipped is None:
+        return
+    (x1, y1), (x2, y2) = clipped
+    dx, dy = x2 - x1, y2 - y1
+    ax, ay = abs(dx), abs(dy)
+    half = _XY_ONE >> 1
+    if ax > ay:
+        if dx < 0:
+            dy = -dy
+            x1, y1, x2, y2 = x2, y2, x1, y1
+        step = _c_div(dy << _XY_SHIFT, ax | 1)
+        k = np.arange(((x2 - x1) >> _XY_SHIFT) + 1, dtype=np.int64)
+        xs = ((x1 + half) >> _XY_SHIFT) + k
+        ys = (y1 + half + k * step) >> _XY_SHIFT
+    else:
+        if dy < 0:
+            dx = -dx
+            x1, y1, x2, y2 = x2, y2, x1, y1
+        step = _c_div(dx << _XY_SHIFT, ay | 1)
+        k = np.arange(((y2 - y1) >> _XY_SHIFT) + 1, dtype=np.int64)
+        xs = (x1 + half + k * step) >> _XY_SHIFT
+        ys = ((y1 + half) >> _XY_SHIFT) + k
+    xs = np.append(xs, (x2 + half) >> _XY_SHIFT)
+    ys = np.append(ys, (y2 + half) >> _XY_SHIFT)
+    keep = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    mask[ys[keep], xs[keep]] = value
+
+
+def _c_div(a: int, b: int) -> int:
+    """C's integer division, toward zero."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b >= 0) else -q
+
+
+def fill_convex_poly(mask: np.ndarray, vertices: np.ndarray, value,
+                     shift: int = 0) -> None:
+    """cv2's `fillConvexPoly` (8-connected) in place, vertices with
+    `shift` fractional bits: the edges drawn as lines, then the rows
+    between the left and right edges filled, with edges stepped in 16.16
+    fixed point."""
     v = [(int(x), int(y)) for x, y in np.asarray(vertices).reshape(-1, 2)]
     npts = len(v)
     if npts == 0:
         return
     h, w = mask.shape[:2]
+    up = _XY_SHIFT - shift
     for i in range(npts):
-        _draw_line(mask, v[i - 1], v[i], value)
+        if shift == 0:
+            _draw_line(mask, v[i - 1], v[i], value)
+        else:
+            _line2(mask, (v[i - 1][0] << up, v[i - 1][1] << up),
+                   (v[i][0] << up, v[i][1] << up), value)
+    delta = (1 << shift) >> 1
     xs = [p[0] for p in v]
     ys = [p[1] for p in v]
-    ymin, ymax = min(ys), max(ys)
-    imin = ys.index(ymin)
-    if npts < 3 or max(xs) < 0 or ymax < 0 or min(xs) >= w or ymin >= h:
+    imin = ys.index(min(ys))
+    xmin, xmax = (min(xs) + delta) >> shift, (max(xs) + delta) >> shift
+    ymin, ymax = (min(ys) + delta) >> shift, (max(ys) + delta) >> shift
+    if npts < 3 or xmax < 0 or ymax < 0 or xmin >= w or ymin >= h:
         return
     ymax = min(ymax, h - 1)
     half = _XY_ONE >> 1
@@ -337,15 +436,12 @@ def fill_convex_poly(mask: np.ndarray, vertices: np.ndarray, value) -> None:
                 idx = (idx0 + di) % npts
                 while remaining > 0:
                     remaining -= 1
-                    ty = v[idx][1]
+                    ty = (v[idx][1] + delta) >> shift
                     if ty > y:
-                        xs0 = v[idx0][0] << _XY_SHIFT
-                        xe = v[idx][0] << _XY_SHIFT
+                        xs0 = v[idx0][0] << up
+                        xe = v[idx][0] << up
                         e[4] = ty
-                        num = (xe - xs0) * 2 + (ty - y)
-                        den = 2 * (ty - y)
-                        # integer division toward zero, as C's
-                        e[3] = abs(num) // den * (1 if num >= 0 else -1)
+                        e[3] = _c_div((xe - xs0) * 2 + (ty - y), 2 * (ty - y))
                         e[2] = xs0
                         e[0] = idx
                         break
@@ -368,6 +464,58 @@ def fill_convex_poly(mask: np.ndarray, vertices: np.ndarray, value) -> None:
             break
 
 
+def _fill_circle(mask: np.ndarray, cx: int, cy: int, radius: int,
+                 value) -> None:
+    """cv2's integer `Circle` with fill: rows of the midpoint circle's
+    octants, clipped to the mask."""
+    h, w = mask.shape[:2]
+    err, dx, dy, plus, minus = 0, radius, 0, 1, (radius << 1) - 1
+    inside = radius <= cx < w - radius and radius <= cy < h - radius
+
+    def row(y, x1, x2):
+        if 0 <= y < h:
+            mask[y, max(x1, 0): min(x2, w - 1) + 1] = value
+
+    while dx >= dy:
+        x11, x12, x21, x22 = cx - dx, cx + dx, cx - dy, cx + dy
+        if inside or (x11 < w and x12 >= 0 and cy - dx < h and cy + dx >= 0):
+            row(cy - dy, x11, x12)
+            row(cy + dy, x11, x12)
+            if x21 < w and x22 >= 0:
+                row(cy - dx, x21, x22)
+                row(cy + dx, x21, x22)
+        dy += 1
+        err += plus
+        plus += 2
+        if err > 0:
+            err -= minus
+            dx -= 1
+            minus -= 2
+
+
+def thick_line(mask: np.ndarray, p0, p1, thickness: int, value) -> None:
+    """cv2's `ThickLine` between integer points with thickness > 1, as
+    `drawContours` and `polylines` draw each segment of a closed contour:
+    the segment's quadrilateral, its corners offset by the rounded half
+    thickness in 16.16 fixed point, filled by `fill_convex_poly`; and a
+    round cap of radius (thickness + 1) // 2 at p1."""
+    x0, y0 = int(p0[0]) << _XY_SHIFT, int(p0[1]) << _XY_SHIFT
+    x1, y1 = int(p1[0]) << _XY_SHIFT, int(p1[1]) << _XY_SHIFT
+    dx = (x0 - x1) / _XY_ONE
+    dy = (y1 - y0) / _XY_ONE
+    r = dx * dx + dy * dy
+    half_width = thickness << (_XY_SHIFT - 1)
+    if abs(r) > np.finfo(np.float64).eps:
+        r = (half_width + (thickness & 1) * _XY_ONE * 0.5) / math.sqrt(r)
+        px, py = round(dy * r), round(dx * r)  # half to even, as cvRound
+        quad = [(x0 + px, y0 + py), (x0 - px, y0 - py),
+                (x1 - px, y1 - py), (x1 + px, y1 + py)]
+        fill_convex_poly(mask, np.asarray(quad, np.int64), value,
+                         shift=_XY_SHIFT)
+    _fill_circle(mask, int(p1[0]), int(p1[1]),
+                 (half_width + (_XY_ONE >> 1)) >> _XY_SHIFT, value)
+
+
 def convex_hull_mask(shape: Tuple[int, ...], points: np.ndarray) -> np.ndarray:
     """The filled convex hull of landmark points as a uint8 {0, 255} mask
     of `shape` (H, W) or (H, W, C); points are truncated to integers
@@ -378,6 +526,48 @@ def convex_hull_mask(shape: Tuple[int, ...], points: np.ndarray) -> np.ndarray:
     if len(shape) == 3:
         mask = np.repeat(mask[..., None], shape[2], axis=2)
     return mask
+
+
+def _gray(image: np.ndarray) -> np.ndarray:
+    """cv2's BGR2GRAY for uint8 (14-bit fixed-point weights); a 2-D
+    image as it is."""
+    if image.ndim == 2:
+        return image
+    c = image.astype(np.int32)
+    return ((c[..., 0] * 1868 + c[..., 1] * 9617 + c[..., 2] * 4899
+             + (1 << 13)) >> 14).astype(np.uint8)
+
+
+def enlarge_mask(mask: np.ndarray, enlargement: int = 10) -> np.ndarray:
+    """Grow a mask by stroking the convex hull of its region with a pen
+    `enlargement` pixels thick, as cv2's threshold (> 50), findContours,
+    convexHull and drawContours do for a mask of one region, such as
+    `convex_hull_mask`'s: the hull of the region's pixels is the hull of
+    its outer contour. cv2 also strokes the hulls of holes; the only
+    holes such masks have are the single pixels near the frame's edge
+    that the fill of a clipped hull leaves, and their strokes lie inside
+    the outer one (equal to cv2's bit for bit on such hulls in
+    tests/test_torch_swap.py)."""
+    out = mask.copy()
+    fg = _gray(mask) > 50
+    rows = np.nonzero(fg.any(axis=1))[0]
+    if len(rows) == 0:
+        return out
+    # the hull of each row's outermost pixels is the hull of them all
+    first = fg[rows].argmax(axis=1)
+    last = fg.shape[1] - 1 - fg[rows, ::-1].argmax(axis=1)
+    hull = convex_hull(np.concatenate([np.stack([first, rows], 1),
+                                       np.stack([last, rows], 1)]))
+    stroke = np.zeros(mask.shape[:2], np.uint8)
+    n = len(hull)
+    for i in range(n):
+        p0, p1 = hull[i], hull[(i + 1) % n]
+        if enlargement > 1:
+            thick_line(stroke, p0, p1, enlargement, 1)
+        else:
+            _draw_line(stroke, tuple(p0), tuple(p1), 1)
+    out[stroke > 0] = 255
+    return out
 
 
 def bounding_box_mask(shape: Tuple[int, ...], points: np.ndarray) -> np.ndarray:
@@ -407,3 +597,186 @@ def rotation_matrix(center: Sequence[float], angle_deg: float,
     alpha, beta = np.cos(a) * scale, np.sin(a) * scale
     return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
                      [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+# -- the host swap geometry --------------------------------------------------
+
+
+def umeyama_similarity(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    """The least-squares similarity (rotation, scale, translation) mapping
+    src points (N, 2) onto dst, as a float64 2x3 affine: Umeyama's closed
+    form through the SVD of the cross-covariance, with the reflection
+    fix. (`ops/warp.umeyama_similarity` is the device's float32 twin.)"""
+    src = np.asarray(src, np.float64)
+    dst = np.asarray(dst, np.float64)
+    n = src.shape[0]
+    mu_s, mu_d = src.mean(0), dst.mean(0)
+    sc, dc = src - mu_s, dst - mu_d
+    cov = dc.T @ sc / n
+    u, sv, vt = np.linalg.svd(cov)
+    d = np.sign(np.linalg.det(u) * np.linalg.det(vt))
+    dm = np.diag([1.0, d])
+    rot = u @ dm @ vt
+    var_s = (sc ** 2).sum() / n
+    scale = np.trace(np.diag(sv) @ dm) / var_s if var_s > 0 else 1.0
+    t = mu_d - scale * (rot @ mu_s)
+    m = np.zeros((2, 3))
+    m[:2, :2] = scale * rot
+    m[:, 2] = t
+    return m
+
+
+def warp_to_landmarks(
+    src_points: np.ndarray, dst_points: np.ndarray, image: np.ndarray,
+    out_size: Tuple[int, int] = (256, 256),
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Similarity-warp `image` so that src_points land on dst_points:
+    (the warped image, the 2x3 matrix)."""
+    m = umeyama_similarity(src_points, dst_points)
+    return warp_affine(image, m, out_size), m
+
+
+def eye_geometry(
+    landmarks: np.ndarray,
+) -> Tuple[float, Tuple[float, float], float]:
+    """(roll angle in degrees, the eyes' centre, the distance between the
+    eyes) from the means of points 36:41 and 42:47, truncated to
+    integers."""
+    left = landmarks[36:41].mean(axis=0).astype(int)
+    right = landmarks[42:47].mean(axis=0).astype(int)
+    dy = float(right[1] - left[1])
+    dx = float(right[0] - left[0])
+    angle = float(np.degrees(np.arctan2(dy, dx)))
+    center = ((left[0] + right[0]) / 2.0, (left[1] + right[1]) / 2.0)
+    return angle, center, float(np.hypot(dx, dy))
+
+
+def combine_images(background: np.ndarray, foreground: np.ndarray,
+                   generate_mask: bool = True) -> np.ndarray:
+    """The naive paste: the background zeroed where the foreground's first
+    channel is not 0, plus the foreground (uint8 arithmetic)."""
+    bg = background.copy()
+    if generate_mask:
+        bg[foreground[..., 0] != 0] = 0
+    return bg + foreground
+
+
+def _laplace_reflect(x: np.ndarray) -> np.ndarray:
+    """The discrete Laplacian over every axis with the edge repeated, in
+    the order of operations of `scipy.ndimage.laplace(x, mode="reflect")`:
+    per axis x * -2 + (x[i-1] + x[i+1]), the axes added in turn."""
+    out = None
+    for ax in range(x.ndim):
+        first = np.take(x, [0], axis=ax)
+        last = np.take(x, [x.shape[ax] - 1], axis=ax)
+        p = np.concatenate([first, x, last], axis=ax)
+        n = x.shape[ax]
+        d2 = x * -2.0 + (np.take(p, range(0, n), axis=ax)
+                         + np.take(p, range(2, n + 2), axis=ax))
+        out = d2 if out is None else out + d2
+    return out
+
+
+def poisson_blend(target: np.ndarray, src: np.ndarray, mask: np.ndarray,
+                  iters: int = 1024) -> np.ndarray:
+    """The iterative Laplacian blend on the host, float64 images in
+    [0, 1]: `iters` steps of out += 0.25 mask laplace(out - src), then one
+    clip to [0, 1]. The step is unstable where mask exceeds about 0.73
+    (ROADMAP.md, Queue 3), as in the JAX package, whose iteration this
+    is."""
+    out = target.astype(np.float64)
+    src = src.astype(np.float64)
+    m = mask.astype(np.float64)
+    for _ in range(iters):
+        out = out + 0.25 * m * _laplace_reflect(out - src)
+    return np.clip(out, 0.0, 1.0)
+
+
+def generate_aligned_image(
+    source_landmarks: np.ndarray, target_landmarks: np.ndarray,
+    source_image: np.ndarray, target_image: np.ndarray, *,
+    enlargement: int = 5, require_full_mask: bool = False,
+) -> Dict[str, np.ndarray]:
+    """The eye-geometry variant of the face transfer: the source face
+    rotated by the difference of the eye rolls, scaled by the ratio of
+    the eye distances and moved to the target's eye centre (one rotation
+    matrix with the translation added), resampled bicubically."""
+    src_rot, src_center, src_dist = eye_geometry(source_landmarks)
+    tgt_rot, tgt_center, tgt_dist = eye_geometry(target_landmarks)
+    m = rotation_matrix(src_center, src_rot - tgt_rot,
+                        tgt_dist / max(src_dist, 1e-6))
+    m[0, 2] += tgt_center[0] - src_center[0]
+    m[1, 2] += tgt_center[1] - src_center[1]
+
+    if require_full_mask:
+        src_mask = convex_hull_mask(source_image.shape, source_landmarks)
+    else:
+        src_mask = enlarge_mask(
+            convex_hull_mask(source_image.shape, source_landmarks[17:]),
+            enlargement)
+    hw = source_image.shape[:2]
+    warped_face = warp_affine(apply_mask(src_mask, source_image), m, hw,
+                              "cubic")
+    tgt_mask_full = convex_hull_mask(target_image.shape, target_landmarks)
+    return {
+        "source_face_transformed": warped_face,
+        "source_mask_transformed": warp_affine(src_mask, m, hw, "cubic"),
+        "source_image_transformed": warp_affine(source_image, m, hw, "cubic"),
+        "target_image": target_image,
+        "target_mask_inv": 255 - tgt_mask_full,
+        "combined": combine_images(
+            apply_mask(255 - tgt_mask_full, target_image), warped_face),
+        "transform": m,
+    }
+
+
+def generate_warped_image(
+    source_landmarks: np.ndarray, target_landmarks: np.ndarray,
+    source_image: np.ndarray, target_image: np.ndarray, *,
+    enlargement: int = 10, require_full_mask: bool = False,
+    poisson: bool = False,
+) -> Dict[str, np.ndarray]:
+    """The source -> target face transfer of one frame pair on the host:
+    the source's no-jaw hull mask, enlarged; the face it segments,
+    similarity-warped so that the five stable landmarks land on the
+    target's; the target without its face (full hull) and without its
+    face features (enlarged no-jaw hull); and the naive composite, a
+    paste or (`poisson`) the Laplacian blend of the source into the
+    target modulated by the warped face. Images at the same size,
+    landmarks in their pixels."""
+    if require_full_mask:
+        src_mask = convex_hull_mask(source_image.shape, source_landmarks)
+        src_mask_tight = src_mask.copy()
+    else:
+        src_mask_tight = convex_hull_mask(source_image.shape,
+                                          source_landmarks[17:])
+        src_mask = enlarge_mask(src_mask_tight, enlargement)
+
+    src_face = apply_mask(src_mask, source_image)
+    sp = np.asarray(STABLE_POINTS)
+    hw = source_image.shape[:2]
+    warped_face, m = warp_to_landmarks(source_landmarks[sp],
+                                       target_landmarks[sp], src_face, hw)
+    tgt_mask_full = convex_hull_mask(target_image.shape, target_landmarks)
+    tgt_mask_nojaw = enlarge_mask(
+        convex_hull_mask(target_image.shape, target_landmarks[17:]),
+        enlargement)
+    if poisson:
+        combined = (poisson_blend(target_image / 255.0, source_image / 255.0,
+                                  warped_face / 255.0) * 255).astype(np.uint8)
+    else:
+        combined = combine_images(
+            apply_mask(255 - tgt_mask_full, target_image), warped_face)
+    return {
+        "source_face_transformed": warped_face,
+        "source_mask_transformed": warp_affine(src_mask, m, hw),
+        "source_mask_tight": warp_affine(src_mask_tight, m, hw),
+        "source_image_transformed": warp_affine(source_image, m, hw),
+        "target_image": target_image,
+        "target_mask_inv": 255 - tgt_mask_full,
+        "combined": combined,
+        "target_without_face_features": apply_mask(255 - tgt_mask_nojaw,
+                                                   target_image),
+        "source_image": source_image,
+        "transform": m,
+    }

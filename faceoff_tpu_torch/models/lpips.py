@@ -124,6 +124,26 @@ def _lecun_normal_(module: nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
 
 
+def resolve_lpips_weights(arg: Optional[str]) -> Optional[str]:
+    """A `--lpips_weights` value as it is; 'auto', the JAX package's probe
+    of local paths, is not ported (ROADMAP.md, Queue 1 item 7) and
+    raises."""
+    if arg == "auto":
+        raise ValueError("--lpips_weights auto needs discover_lpips_weights "
+                         "(ROADMAP.md, Queue 1 item 7); pass an .npz path")
+    return arg
+
+
+def lpips_weights_trunk_only(npz_path: Optional[str]) -> bool:
+    """Whether converted weights carry the VGG trunk without the learned
+    lin heads (a bare VGG16 checkpoint): the heads then stay random and
+    metrics computed with them are tagged `_untrained_lin`."""
+    if npz_path is None:
+        return False
+    with np.load(npz_path) as data:
+        return not any(k.startswith("lin") for k in data.files)
+
+
 def init_lpips(
     generator: Optional[torch.Generator] = None,
     weights_npz: Optional[str] = None,

@@ -40,8 +40,9 @@ def _bilinear_sample(
     batch = torch.arange(n, device=imgs.device).view(n, 1, 1)
 
     def gather(xi, yi):
-        xi_c = xi.clamp(0, w - 1).long()
-        yi_c = yi.clamp(0, h - 1).long()
+        # a NaN coordinate (a singular affine) reads column 0, then 0
+        xi_c = torch.nan_to_num(xi).clamp(0, w - 1).long()
+        yi_c = torch.nan_to_num(yi).clamp(0, h - 1).long()
         val = imgs[batch, yi_c, xi_c]
         inside = ((xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1))
         return val * inside[..., None]

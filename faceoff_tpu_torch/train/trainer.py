@@ -84,8 +84,10 @@ def run_validation(
     step: int,
     max_batches: Optional[int] = None,
 ) -> Dict[str, float]:
-    """Write the four sample streams of every validation batch (the first
-    clip of each) and return the mean reconstruction metrics."""
+    """Write the sample streams of every validation batch (the first clip
+    of each: source, background, prediction, source_images, and
+    source_original and naive where the batch has them) and return the
+    mean reconstruction metrics."""
     os.makedirs(sample_folder, exist_ok=True)
     device = _device_of(state)
     reports = []
@@ -103,6 +105,10 @@ def run_validation(
             "prediction": out.to(torch.float32).cpu().numpy(),
             "source_images": host["gt"],
         }
+        # cross-identity batches: the source frames and the naive blend
+        for name in ("source_original", "naive"):
+            if name in host:
+                saves[name] = host[name]
         for name, clip in saves.items():
             frames = [denormalize(f) for f in clip[0]]
             save_frames_as_video(frames, osp.join(

@@ -1,7 +1,9 @@
 """The port on the card: the warp kernels (forward and backward) and the
 VQ kernels against their plain versions, the serving path and a training
 step on CUDA against the same on the CPU, nvJPEG on the committed
-fixtures, the copy to the card, and a resume through the command line.
+fixtures, the copy to the card, a resume through the command line, and
+the swap: the warp of a swap chunk and the swap command line's device
+pipeline.
 
 Marked `cuda`; each test skips where there is no CUDA device. The file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -419,3 +421,60 @@ def test_cli_resume_on_card(cuda, tmp_path):
     sb = resumed.state.model.state_dict()
     for k in sa:
         assert torch.equal(sa[k], sb[k]), k
+
+
+def test_swap_chunk_warp_matches_plain(cuda):
+    """The warp of a swap chunk (`cli/swap.py --device_pipeline`, 32
+    frames at 256 px) at the grids of Umeyama similarities between two
+    synthetic faces, against the plain version (1e-5)."""
+    from faceoff_tpu_torch.ops.swap import _STABLE
+
+    rng = np.random.default_rng(9)
+    lms = np.stack([np.stack([
+        face_landmarks(tuple(rng.uniform(90, 166, 2)), rng.uniform(46, 72),
+                       rng.uniform(-10, 10)) for _ in range(2)])
+        for _ in range(32)]).astype(np.float32)
+    lms = torch.from_numpy(lms)
+    ms = W.umeyama_similarity(lms[:, 0, _STABLE], lms[:, 1, _STABLE])
+    xs, ys = (t.contiguous().to(cuda) for t in
+              W.affine_grid(W.invert_affine(ms), 256, 256))
+    imgs = torch.from_numpy(rng.uniform(0, 1, (32, 256, 256, 3))
+                            .astype(np.float32)).to(cuda)
+    before = warp_cuda.launches
+    got = W.batched_bilinear_warp(imgs, xs, ys)
+    torch.cuda.synchronize()
+    assert warp_cuda.launches == before + 1
+    assert (got - W._bilinear_sample(imgs, xs, ys)).abs().max().item() <= 1e-5
+
+
+def test_swap_cli_device_pipeline_on_card(cuda, tmp_path):
+    """`cli/swap.py --device_pipeline` on the card at 32 px, narrow widths:
+    one warp launch a chunk (12 frames in chunks of 8: 2), and its source
+    and background streams equal the CPU run's within the kernel's
+    tolerance (1e-5) except where the composite's hull masks round a
+    pixel differently (at most 1 % of the values)."""
+    from faceoff_tpu_torch.cli import swap
+    from faceoff_tpu_torch.data.synthetic import generate_dataset
+    from faceoff_tpu_torch.io.checkpoint import CheckpointManager
+    from faceoff_tpu_torch.train.state import create_train_state
+
+    generate_dataset(str(tmp_path / "ds"), 2, 12, 32, seed=3)
+    model = VQVAE(ModelConfig(channel=16, n_res_channel=8, embed_dim=8,
+                              n_embed=16), dtype=torch.float32, device="cpu")
+    CheckpointManager(str(tmp_path / "ck")).save(1, create_train_state(model))
+    runs = {}
+    for name, dev in (("cpu", "cpu"), ("cuda", cuda)):
+        before = warp_cuda.launches
+        runs[name] = swap.main(
+            ["--source", str(tmp_path / "ds" / "video_000"),
+             "--target", str(tmp_path / "ds" / "video_001"),
+             "--checkpoint_dir", str(tmp_path / "ck"), "--size", "32",
+             "--chunk", "8", "--device_pipeline", "--channel", "16",
+             "--n_res_channel", "8", "--embed_dim", "8", "--n_embed", "16",
+             "--out", str(tmp_path / f"o_{name}.avi")], device=dev)
+        if name == "cuda":
+            assert warp_cuda.launches == before + 2
+    for key in ("sources", "backgrounds"):
+        a = np.stack(runs["cpu"][key])
+        b = np.stack(runs["cuda"][key])
+        assert (np.abs(a - b) > 1e-5).mean() <= 0.01, key

@@ -247,5 +247,53 @@ def test_build_resident_corpus_matches_jax(png_root):
                                 {"alignment": True},
                                 {"naive_blend": "paste"}])
 def test_dataset_refuses_unported_items(png_root, kw):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        tds.TemporalAlignmentDataset(png_root, "val", 4, **kw)
+    """These item kinds were refused until the port had the host swap
+    geometry; now none is, and each builds its item with its own streams
+    (naive_blend alone leaves the self-supervised item as it is, as in
+    the JAX package). "." stands for the dataset's own root; an unknown
+    naive_blend is still refused."""
+    kw = {k: png_root if v == "." else v for k, v in kw.items()}
+    ds = tds.TemporalAlignmentDataset(png_root, "val", 4, **kw)
+    item = ds.get_item(0, np.random.default_rng(0))
+    extra = {"cross_identity": {"source_original"},
+             "custom_validation_source": {"source_original"},
+             "alignment": {"transforms"}}.get(next(iter(kw)), set())
+    assert set(item) == {"source", "background", "gt"} | extra
+    with pytest.raises(ValueError, match="naive_blend"):
+        tds.TemporalAlignmentDataset(png_root, "val", 4, naive_blend="soft")
+
+
+@pytest.mark.parametrize("kw", [
+    {"cross_identity": True},
+    {"cross_identity": True, "naive_blend": "paste"},
+    {"cross_identity": True, "naive_blend": "poisson"},
+    {"custom_validation_source": "."},
+    {"alignment": True}])
+def test_swap_and_alignment_items_match_jax(png_root, kw):
+    """Cross-identity (with no naive stream, a paste or a Poisson blend),
+    custom-validation and alignment items from the same seeds as the JAX
+    package's: the same windows and target videos (the targets' frames
+    and the source frames equal), the regressed transforms equal, the
+    other streams within one resampling's tolerance (the host geometry's,
+    tests/test_torch_swap.py); the alignment item's perturbed source
+    within the composite tolerance. Colour jitter is off for
+    cross-identity items."""
+    kw = {k: png_root if v == "." else v for k, v in kw.items()}
+    kw = dict(kw, resolution=SIZE, color_jitter_type="random")
+    t_ds = tds.TemporalAlignmentDataset(png_root, "val", 3, **kw)
+    j_ds = jds.TemporalAlignmentDataset(png_root, "val", 3, **kw)
+    assert t_ds.color_jitter_type == j_ds.color_jitter_type
+    for index in range(len(t_ds)):
+        r_t, r_j = (np.random.default_rng(10 + index) for _ in range(2))
+        got, want = t_ds.get_item(index, r_t), j_ds.get_item(index, r_j)
+        assert list(got) == list(want)
+        assert r_t.integers(0, 1 << 30) == r_j.integers(0, 1 << 30)
+        for k in want:
+            if k in ("gt", "source_original", "transforms"):
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+            elif k == "source" and "alignment" in kw:
+                _close(tds.denormalize(got[k]), jds.denormalize(want[k]),
+                       **COMPOSITE)
+            else:
+                _close(tds.denormalize(got[k]), jds.denormalize(want[k]),
+                       **ONE_OP)

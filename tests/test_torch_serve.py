@@ -270,3 +270,5 @@ def test_port_imports_no_jax_no_cv2_no_reference_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip() == f"ok {len(modules) + 2}"
     assert "faceoff_tpu_torch.ops.warp_cuda" in modules
+    assert {"faceoff_tpu_torch.cli.swap", "faceoff_tpu_torch.cli.evaluate",
+            "faceoff_tpu_torch.evaluation.frechet"} <= set(modules)

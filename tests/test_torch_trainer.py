@@ -241,6 +241,24 @@ def test_fit_writes_metrics_streams_and_keeps_checkpoints(tmp_path,
     assert len(frames) == 3 and frames[0].shape == (32, 32, 3)
 
 
+@pytest.mark.parametrize("flag", ["--crossid", "--custom_validation"])
+def test_cross_identity_validation_writes_its_streams(tmp_path, data_root,
+                                                      flag):
+    """With --crossid (another video's face on each validation clip) or
+    --custom_validation (the videos paired with the training root's),
+    validation writes the source_original stream beside the four, with
+    the frames of the clip."""
+    tcli.main(_argv(data_root, tmp_path, "--resident_data", "--epoch", "1",
+                    "--validate_at", "2", flag), device="cpu")
+    streams = sorted(_only(tmp_path, "samples").glob("*.avi"))
+    assert len(streams) == 4 * 5  # batches x streams
+    assert {p.name.split("_", 3)[3] for p in streams} == {
+        "source.avi", "background.avi", "prediction.avi",
+        "source_images.avi", "source_original.avi"}
+    frames = read_video_frames(str(streams[-1]))
+    assert len(frames) == 3 and frames[0].shape == (32, 32, 3)
+
+
 @pytest.mark.parametrize("resume_from", [2, 4])
 def test_resume_equals_unbroken_run_through_the_cli(tmp_path, data_root,
                                                     resume_from):
@@ -348,6 +366,14 @@ def test_parser_matches_jax():
     (["--lpips_weights", "auto"], "Queue 1 item 7"),
     (["--no_pallas"], "North star")])
 def test_refused_flags_exit_naming_their_item(capsys, flags, item):
+    """Flags whose function the port lacks exit naming their item.
+    --crossid and --custom_validation were refused until Queue 1 item 2
+    was ported; now they pass the check (and train: the test below)."""
+    parser = tcli.build_parser()
+    if item == "Queue 1 item 2":
+        tcli.refuse_unported(parser, parser.parse_args(
+            ["--data_root", "unused", *flags]))
+        return
     with pytest.raises(SystemExit) as exc:
         tcli.main(["--data_root", "unused", *flags], device="cpu")
     assert exc.value.code == 2
