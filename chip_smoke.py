@@ -92,6 +92,20 @@ Phases, each printing lines with their seconds:
                self-supervised and --crossid --naive_baseline paste.
                Frames/s of each path, the push p50 and the Poisson
                chunk's seconds.
+ 11. gan     — the GAN fine-tuning stage: mocoganhd gen/disc pairs at
+               bench.py's bench_gan point (B 1, T 16, a 16-frame window,
+               256 px; the flagship VQVAE in bf16, MultiscaleDiscriminator
+               2D/3D at ndf 64 in float32) on the train phase's corpus, 2
+               warm-up and 6 timed pairs: pair ms, frames/s as bench.py
+               counts them, peak memory, 4 assignment, 2 statistics and
+               2 warp launches a pair, the codebooks bitwise unchanged by
+               the disc steps; the pair's parts alone; the kernels at the
+               path's own calls against their plain versions; a float32
+               pair on CUDA against the CPU; then the GAN CLI's main()
+               warm-started from the trainer phase's step-8 checkpoint:
+               mocoganhd for 8 steps and resumed at 4 (bitwise equal),
+               then mocogan, vqgan and mocoganhd --perceptual, each with
+               its steps/s and fd_vgg / fd_vgg_motion.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 {"kernels": [...]}, and last {"ok": true, "device": {...}}. Any failure
@@ -119,6 +133,7 @@ import torch
 from faceoff_tpu_torch.config import ModelConfig
 from faceoff_tpu_torch.cli import evaluate as evaluate_cli
 from faceoff_tpu_torch.cli import swap as swap_cli
+from faceoff_tpu_torch.cli import train_faceoff_gan as gan_cli
 from faceoff_tpu_torch.cli import train_faceoff_perceptual as trainer_cli
 from faceoff_tpu_torch.data import geometry
 from faceoff_tpu_torch.data.dataset import _landmark_paths, load_frame
@@ -133,6 +148,8 @@ from faceoff_tpu_torch.io import image as image_io
 from faceoff_tpu_torch.io.checkpoint import CheckpointManager
 from faceoff_tpu_torch.io.video import read_video_frames
 from faceoff_tpu_torch.models import VQVAE
+from faceoff_tpu_torch.models.discriminators import (MultiscaleDiscriminator2D,
+                                                     MultiscaleDiscriminator3D)
 from faceoff_tpu_torch.models.lpips import init_lpips
 from faceoff_tpu_torch.ops import vq as V
 from faceoff_tpu_torch.ops import vq_cuda
@@ -141,6 +158,7 @@ from faceoff_tpu_torch.ops import warp_cuda
 from faceoff_tpu_torch.ops.swap import _STABLE, poisson_blend, prepare_swap_batch
 from faceoff_tpu_torch.serve import SwapSession
 from faceoff_tpu_torch.serve.streaming import _postnet_stream
+from faceoff_tpu_torch.train import gan
 from faceoff_tpu_torch.train.state import create_train_state, make_optimizer
 from faceoff_tpu_torch.train.train_step import make_eval_step, make_train_step
 
@@ -1506,6 +1524,495 @@ def swap_phase(t0, work: Path):
     return result
 
 
+# -- phase 11: the GAN fine-tuning stage ----------------------------------
+
+
+# bench.py's bench_gan point: B 1, T 16, a 16-frame window, 256 px
+GAN_B, GAN_T, GAN_SF, GAN_NDF = 1, 16, 16, 64
+GAN_WARMUP, GAN_TIMED = 2, 6
+GAN_CHECK_SIZE, GAN_CHECK_T, GAN_CHECK_SF, GAN_CHECK_NDF = 64, 6, 4, 8
+GAN_LR = 3e-4  # the GAN CLI's --lr and --disc_lr
+GAN_CLI_STEPS, GAN_CLI_RESUME_AT, GAN_CLI_OTHER_STEPS = 8, 4, 4
+
+
+def conv_gflop(module, x):
+    """Multiply-adds x 2 of every convolution in one forward of `module`
+    on x, counted from the shapes (GFLOP)."""
+    total = [0]
+
+    def hook(m, args, out):
+        k = m.weight[0].numel()  # in_channels x kernel volume
+        total[0] += 2 * out.numel() * k
+
+    hooks = [m.register_forward_hook(hook) for m in module.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d))]
+    with torch.no_grad():
+        module(x)
+    for h in hooks:
+        h.remove()
+    return total[0] / 1e9
+
+
+def _codebook_state(model):
+    return {k: v.clone() for k, v in model.state_dict().items()
+            if k.startswith("quantize_")}
+
+
+def _same_codebooks(model, before):
+    return all(torch.equal(v, before[k])
+               for k, v in _codebook_state(model).items())
+
+
+def _recorded(module, name, calls):
+    """Replace module.name by a wrapper that records its arguments."""
+    original = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        calls.append(args)
+        return original(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    return original
+
+
+def gan_kernel_rows(t0, gen_step, state, raw):
+    """The kernels at the GAN path's own calls: one more gen step records
+    the VQ kernels' and the warp kernel's inputs, then each is held
+    against its plain version (check_vq's rules; the warp within
+    KERNEL_TOL) and timed beside it, its library call and its bound."""
+    vq_calls, warp_calls = [], []
+    originals = (_recorded(vq_cuda, "vq_assign", vq_calls),
+                 _recorded(warp_cuda, "bilinear_warp", warp_calls))
+    try:
+        gen_step(state, raw, 0)
+        torch.cuda.synchronize()
+    finally:
+        vq_cuda.vq_assign, warp_cuda.bilinear_warp = originals
+    rows = []
+    reps = dict(reps=7, inner=3, warmup=2)
+    graph = dict(reps=7, inner=3)
+    for flat, embed in vq_calls:
+        x = flat.detach().to(torch.float32).contiguous()
+        e = embed.detach().to(torch.float32).contiguous()
+        n, d = x.shape
+        k = e.shape[1]
+        row = {"kernel": "vq_assign", "shape": [n, d, k],
+               **check_vq(x, e, vq_cuda.vq_assign(x, e))}
+        flagged = int(vq_cuda.assign_rows_flagged(x, e)[2])
+        b_ms, b_by = vq_bound_ms(n, d, k, flagged)
+        row.update({
+            "flagged_rows": flagged,
+            "kernel_ms": device_ms(lambda: vq_cuda.vq_assign(x, e), **graph),
+            "plain_ms": cuda_ms(lambda: V.vq_assign_plain(x, e), **reps),
+            "library_ms": device_ms(lambda: x @ e, **graph),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "assign_ms": device_ms(lambda: vq_cuda.assign_rows(x, e), **graph),
+            "stats_ms": device_ms(
+                lambda: vq_cuda.code_stats(x, vq_cuda.assign_rows(x, e)[0], k),
+                **graph)})
+        rows.append(row)
+        say("gan", t0, json.dumps(row))
+    for imgs, xs, ys in warp_calls:
+        n, h, w, c = imgs.shape
+        oh, ow = xs.shape[1:]
+        out = warp_cuda.bilinear_warp(imgs, xs, ys)
+        err = (out - W._bilinear_sample(imgs, xs, ys)).abs().max().item()
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"warp kernel at the GAN path's call "
+                                 f"{tuple(imgs.shape)}: max |diff| {err}")
+        nchw = imgs.permute(0, 3, 1, 2).contiguous()
+        grid = torch.stack([xs / (w - 1) * 2 - 1, ys / (h - 1) * 2 - 1], -1)
+        b_ms, b_by = bound_ms(n, h, w, c, oh, ow)
+        row = {"kernel": "bilinear_warp", "shape": [n, h, w, c, oh, ow],
+               "max_abs_err": err,
+               "kernel_ms": device_ms(lambda: warp_cuda.bilinear_warp(
+                   imgs, xs, ys)),
+               "plain_ms": device_ms(lambda: W._bilinear_sample(imgs, xs, ys)),
+               "library_ms": device_ms(lambda: torch.nn.functional.grid_sample(
+                   nchw, grid, mode="bilinear", padding_mode="zeros",
+                   align_corners=True)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        rows.append(row)
+        say("gan", t0, json.dumps(row))
+    if len(vq_calls) != 2 or len(warp_calls) != 1:
+        raise AssertionError(f"a gen step made {len(vq_calls)} VQ and "
+                             f"{len(warp_calls)} warp calls, expected 2, 1")
+    return rows
+
+
+def gan_split(t0, model, d_img, d_3d, batch):
+    """The pair's parts alone at its shapes (CUDA events, median of 5):
+    the generator's forward and backward in bf16, each discriminator's
+    forward and backward in float32 on one real input; and each
+    discriminator's convolution GFLOP a forward."""
+    stack = gan._pair_stack(batch["gt"][:, :GAN_SF])
+    pair = gan._frame_pair(batch["gt"][:, :GAN_SF], 1)
+    gen_params = [p for p in model.parameters()]
+
+    def generator():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            dec, lat = model(batch["input"], train=True,
+                             update_codebooks=False)
+            loss = dec.square().mean() + lat
+        loss.backward(inputs=gen_params)
+
+    def disc(module, x):
+        def run():
+            loss = sum(f[-1].mean() for f in module(x))
+            loss.backward()
+        return run
+
+    out = {"generator_fwd_bwd_ms": cuda_ms(generator, reps=5, inner=1),
+           "d_3d_fwd_bwd_ms": cuda_ms(disc(d_3d, stack), reps=5, inner=1),
+           "d_3d_fwd_ms": cuda_ms(lambda: d_3d(stack), reps=5, inner=1),
+           "d_img_fwd_bwd_ms": cuda_ms(disc(d_img, pair), reps=5, inner=1),
+           "d_3d_gflop_per_forward": conv_gflop(d_3d, stack),
+           "d_img_gflop_per_forward": conv_gflop(d_img, pair)}
+    for m in (model, d_img, d_3d):
+        m.zero_grad(set_to_none=True)
+    say("gan", t0, json.dumps(out))
+    return out
+
+
+def gan_step_part(t0):
+    """bench_gan's point at full width: the flagship VQVAE (bf16
+    autocast), MultiscaleDiscriminator2D/3D at ndf 64, three layers, two
+    scales (float32, cuDNN's default TF32), Adam at lr 3e-4 for all three;
+    clips sampled and prepared on the card from the train phase's corpus.
+    2 warm-up and 6 timed gen/disc pairs. Checks: finite losses; the
+    codebooks bitwise unchanged by every disc step; 4 assignment, 2
+    statistics and 2 warp launches a pair, no warp backward."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    frames, lms, n_frames = synthetic_corpus(
+        CORPUS_VIDEOS, CORPUS_FRAMES, TRAIN_SIZE, seed=3, device=DEV)
+    corpus = corpus_from_arrays(frames, lms, n_frames, device=DEV)
+    del frames
+    model = VQVAE(ModelConfig(), dtype=torch.float32, device=DEV,
+                  generator=torch.Generator().manual_seed(0))
+    disc_gen = torch.Generator().manual_seed(2)
+    d_img = MultiscaleDiscriminator2D(ndf=GAN_NDF, device=DEV,
+                                      generator=disc_gen)
+    d_3d = MultiscaleDiscriminator3D(ndf=GAN_NDF, n_frames=GAN_SF, device=DEV,
+                                     generator=disc_gen)
+    state = gan.create_gan_state(create_train_state(model, lr=GAN_LR), d_img,
+                                 d_3d, disc_lr=GAN_LR)
+    prepare = make_resident_prepare(corpus, GAN_B, GAN_T)
+    gen_step, disc_step = gan.make_gan_steps(model, d_img, d_3d,
+                                             sample_frames=GAN_SF,
+                                             prepare_fn=prepare)
+    raw = {"frames": corpus.frames, "landmarks": corpus.landmarks}
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times, losses, unchanged = [], [], []
+    for i in range(GAN_WARMUP + GAN_TIMED):
+        t = time.perf_counter()
+        state, gm = gen_step(state, raw, 0)
+        # the warm-up pairs check the disc step's codebooks
+        before = _codebook_state(model) if i < GAN_WARMUP else None
+        state, dm = disc_step(state, raw, 0)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        if before is not None:
+            unchanged.append(_same_codebooks(model, before))
+        losses.append({k: float(v) for k, v in {**gm, **dm}.items()})
+        say("gan", t0, f"pair {i}: {times[-1]:.2f} ms " + json.dumps(losses[-1]))
+    counts = read_counts()
+    pairs = GAN_WARMUP + GAN_TIMED
+    timed_s = sum(times[GAN_WARMUP:]) / 1e3
+    result = {
+        "pair_ms_median": statistics.median(times[GAN_WARMUP:]),
+        "pair_ms": times,
+        # counted as bench.py counts: B T frames, two steps a pair
+        "frames_per_s": GAN_B * GAN_T * 2 * GAN_TIMED / timed_s,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "launches": counts,
+        "launches_per_pair": {k: v / pairs for k, v in counts.items()},
+        "disc_step_left_codebooks_unchanged": unchanged,
+    }
+    say("gan", t0, json.dumps(result))
+    for m in losses:
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"non-finite GAN losses {m}")
+    if not all(unchanged):
+        raise AssertionError("a disc step moved the codebooks")
+    if (counts["vq_assign"] != 4 * pairs or counts["vq_stats"] != 2 * pairs
+            or counts["warp"] != 2 * pairs or counts["warp_backward"] != 0):
+        raise AssertionError(f"launches {counts} for {pairs} GAN pairs")
+    with torch.no_grad():
+        held = prepare(torch.Generator(device=DEV).manual_seed(11),
+                       corpus.frames, corpus.landmarks)
+    result["split"] = gan_split(t0, model, d_img, d_3d, held)
+
+    def pair(state, raw, seed=0):
+        state, _ = gen_step(state, raw, seed)
+        return disc_step(state, raw, seed)
+
+    # one more pair under torch.profiler: the device's busy share
+    result["profile"] = profile_step(t0, pair, state, raw)
+    result["kernels"] = gan_kernel_rows(t0, gen_step, state, raw)
+    return result, counts
+
+
+def _disc_state(disc):
+    return {k: v.detach().cpu() for k, v in disc.state_dict().items()}
+
+
+def _param_diffs(a, b):
+    """|a - b| of every entry of two dicts of CPU tensors, flattened."""
+    return torch.cat([(a[k] - b[k]).abs().ravel() for k in a])
+
+
+def _named_params(module):
+    return {k: v.detach().cpu().clone() for k, v in module.named_parameters()}
+
+
+def gan_check_part(t0):
+    """A float32 mocoganhd pair without TF32 on CUDA and on the CPU from the
+    same weights (drawn on the CPU), batches (prepared once on the CPU)
+    and random bits: channel 32, b1, T6, 64 px, a 4-frame window,
+    discriminators at ndf 8. Each step is held on its own: the disc step
+    starts on both devices from the CPU's generator after the gen step,
+    so that a difference the gen step is allowed does not enter the disc
+    step's inputs. Tolerances as train_check's: losses 1e-3 relative;
+    parameters within 2 lr (one Adam step each) everywhere and 99 %
+    within 1e-5, leaving out of that share the generator's entries whose
+    CPU gradient was exactly zero (dead ReLUs of the narrow random
+    model, about 5 % of its entries: the CPU's step leaves them as they
+    were, while the card's convolution algorithms may leave a rounding
+    residue that Adam moves by up to lr); codebooks within 1e-3. On CUDA
+    the disc step must leave the codebooks bitwise as they were.
+
+    A conv bias right before an InstanceNorm has no gradient but its
+    rounding, so Adam moves it +-lr in a direction either device may
+    flip: those entries count in the 1 %."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    frames, lms, n_frames = synthetic_corpus(3, 8, GAN_CHECK_SIZE, seed=6)
+    corpus = corpus_from_arrays(frames, lms, n_frames, device="cpu")
+    prepare = make_resident_prepare(corpus, 1, GAN_CHECK_T)
+    g = torch.Generator().manual_seed(7)
+    batches = [prepare(g, corpus.frames, corpus.landmarks) for _ in range(2)]
+    bits = [(1, 2, True), (2, 1, False)]
+    runs = {}
+    gen_after = None  # the CPU's generator after its gen step
+    for dev in ("cpu", DEV):
+        model = VQVAE(CHECK_CFG, dtype=torch.float32, device=dev,
+                      generator=torch.Generator().manual_seed(8))
+        dg = torch.Generator().manual_seed(9)
+        d_img = MultiscaleDiscriminator2D(ndf=GAN_CHECK_NDF, device=dev,
+                                          generator=dg)
+        d_3d = MultiscaleDiscriminator3D(ndf=GAN_CHECK_NDF,
+                                         n_frames=GAN_CHECK_SF, device=dev,
+                                         generator=dg)
+        state = gan.create_gan_state(create_train_state(model, lr=GAN_LR),
+                                     d_img, d_3d, disc_lr=GAN_LR)
+        gen_step, disc_step = gan.make_gan_steps(
+            model, d_img, d_3d, sample_frames=GAN_CHECK_SF,
+            compute_dtype=torch.float32)
+        start = _named_params(model)
+        state, gm = gen_step(state, {k: v.to(dev) for k, v in
+                                     batches[0].items()}, bits=bits[0])
+        after_gen = {k: v.detach().cpu().clone()
+                     for k, v in model.state_dict().items()}
+        # entries whose gradient was exactly zero (Adam left them as
+        # they were): a dead ReLU's weights and biases
+        unmoved = {k: after_gen[k] == v for k, v in start.items()}
+        if gen_after is None:
+            gen_after = after_gen
+        else:
+            model.load_state_dict(gen_after)
+        before = _codebook_state(model)
+        state, dm = disc_step(state, {k: v.to(dev) for k, v in
+                                      batches[1].items()}, bits=bits[1])
+        runs[dev] = {"losses": {k: float(v) for k, v in {**gm, **dm}.items()},
+                     "gen": after_gen, "unmoved": unmoved,
+                     "names": {n for n, _ in model.named_parameters()},
+                     "d_img": _named_params(d_img),
+                     "d_3d": _named_params(d_3d),
+                     "unchanged": _same_codebooks(model, before)}
+    cpu, gpu = runs["cpu"], runs[DEV]
+    names = cpu["names"]
+    loss_err = max(abs(gpu["losses"][k] - cpu["losses"][k])
+                   / max(abs(cpu["losses"][k]), 1e-12) for k in cpu["losses"])
+    # the generator's entries that the CPU's step moved: where the CPU's
+    # gradient is exactly zero the card's may be a rounding residue
+    # (another convolution algorithm), which Adam moves by up to lr
+    moved = torch.cat([~cpu["unmoved"][k].ravel() for k in sorted(names)])
+    gen_diffs = _param_diffs({k: gpu["gen"][k] for k in sorted(names)},
+                             {k: cpu["gen"][k] for k in sorted(names)})
+    parts = {
+        "gen": gen_diffs[moved],
+        "d_img": _param_diffs(gpu["d_img"], cpu["d_img"]),
+        "d_3d": _param_diffs(gpu["d_3d"], cpu["d_3d"])}
+    diffs = torch.cat([gen_diffs] + list(parts.values())[1:])
+    # the generator's tensors with the largest share of entries apart
+    worst = sorted(((float(((gpu["gen"][k] - cpu["gen"][k]).abs() > 1e-5)
+                            .float().mean()), k, gpu["gen"][k].numel())
+                    for k in names), reverse=True)[:6]
+    cb_err = max(float((gpu["gen"][k] - cpu["gen"][k]).abs().max())
+                 for k in cpu["gen"] if k not in names)
+    held = torch.cat(list(parts.values()))
+    result = {"max_loss_rel_err": loss_err,
+              "max_param_diff": float(diffs.max()),
+              "share_params_within_1e-5": float((held <= 1e-5).float()
+                                                .mean()),
+              "share_gen_unmoved_on_cpu": float((~moved).float().mean()),
+              "share_within_1e-5_by_part": {
+                  k: float((v <= 1e-5).float().mean())
+                  for k, v in parts.items()},
+              "gen_tensors_most_apart": worst,
+              "max_codebook_diff": cb_err,
+              "disc_step_left_codebooks_unchanged": gpu["unchanged"],
+              "losses_cuda": gpu["losses"], "losses_cpu": cpu["losses"]}
+    say("gan", t0, "check " + json.dumps(result))
+    if not (loss_err <= 1e-3 and result["max_param_diff"] <= 2 * GAN_LR + 1e-6
+            and result["share_params_within_1e-5"] >= 0.99
+            and cb_err <= 1e-3 and gpu["unchanged"]):
+        raise AssertionError("CUDA and CPU GAN pairs disagree")
+    return result
+
+
+def _flatten(tree, prefix=""):
+    """(dotted path, leaf) of nested dicts and lists."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flatten(v, f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flatten(v, f"{prefix}{i}.")
+    else:
+        yield prefix, tree
+
+
+def _gan_states_equal(a, b):
+    """Every parameter, buffer and optimizer moment of two GAN states,
+    bit for bit."""
+    def leaves(state):
+        return dict(_flatten({"model": state.gen.model.state_dict(),
+                              "opt": state.gen.optimizer.state_dict(),
+                              "disc": gan_cli.disc_bundle(state)}))
+
+    la, lb = leaves(a), leaves(b)
+    return la.keys() == lb.keys() and all(
+        torch.equal(la[k], lb[k]) if torch.is_tensor(la[k]) else la[k] == lb[k]
+        for k in la)
+
+
+def _gan_records(path):
+    """({step: the step's record}, {step: a validation's fd record})."""
+    steps, fds = {}, {}
+    with open(path) as f:
+        for r in map(json.loads, f):
+            (fds if "fd_vgg" in r else steps)[r["step"]] = r
+    return steps, fds
+
+
+def gan_cli_part(t0, work: Path):
+    """The GAN CLI's main() in this process on the trainer phase's PNG
+    dataset (16 videos x 24 frames at 256 px), warm-started from the
+    trainer phase's step-8 checkpoint (run V), --resident_data, flagship
+    widths, --train_frames 16:
+
+      V  mocoganhd, 8 steps, validating and checkpointing at 4 and 8;
+      R  V's step-4 checkpoints (generator and discriminators) resumed
+         with --resume latest to step 8: bitwise equal to V (every
+         parameter, buffer and optimizer moment, and the metrics of steps
+         5-8);
+      then mocogan, vqgan and mocoganhd --perceptual for 4 steps each,
+      validating at step 4.
+
+    Each run's records are finite and its validation prints fd_vgg and
+    fd_vgg_motion; steps/s from the records' times (each written after a
+    read of its step's metrics) over the steps after the first
+    validation, or after step 2."""
+    data = work / "data"
+    ckpt_gen = _run_dir(work, "ckpt_v")
+
+    def run(name, gan_kind, steps, *extra):
+        argv = ["--data_root", str(data), "--gan", gan_kind,
+                "--resident_data", "--train_frames", str(GAN_T),
+                "--val_frames", str(GAN_T), "--size", str(TRAIN_SIZE),
+                "--epoch", "1000", "--steps", str(steps), "--log_every", "1",
+                "--ckpt", "latest", "--gen_checkpoint_dir", str(ckpt_gen),
+                "--checkpoint_dir", str(work / f"gan_ckpt_{name}"),
+                "--sample_folder", str(work / f"gan_samples_{name}"),
+                "--metrics_path", str(work / f"gan_metrics_{name}.jsonl"),
+                *extra]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = gan_cli.main(argv, device=DEV)
+        res["wall_s"] = time.perf_counter() - t
+        steps_rec, fds = _gan_records(work / f"gan_metrics_{name}.jsonl")
+        for r in list(steps_rec.values()) + list(fds.values()):
+            vals = [v for k, v in r.items() if k not in ("step", "epoch")]
+            if not all(math.isfinite(v) for v in vals):
+                raise AssertionError(f"GAN {name}: non-finite record {r}")
+        if res["step"] != steps or res["fd"] is None or not all(
+                math.isfinite(v) for v in res["fd"].values()):
+            raise AssertionError(f"GAN {name}: step {res['step']}, "
+                                 f"fd {res['fd']}")
+        return res, steps_rec
+
+    def rate(steps_rec, first):
+        last = max(steps_rec)
+        return (last - first) / (steps_rec[last]["time"]
+                                 - steps_rec[first]["time"])
+
+    result = {}
+    zero_counts()
+    v, steps_v = run("v", "mocoganhd", GAN_CLI_STEPS, "--validate_at",
+                            str(GAN_CLI_RESUME_AT))
+    ckpt_r = work / "gan_ckpt_r"
+    (ckpt_r / "disc").mkdir(parents=True)
+    for sub in ("", "disc"):
+        shutil.copy(work / "gan_ckpt_v" / sub /
+                    f"ckpt_{GAN_CLI_RESUME_AT:08d}.pt", ckpt_r / sub)
+    r, steps_r = run("r", "mocoganhd", GAN_CLI_STEPS, "--validate_at",
+                            str(GAN_CLI_RESUME_AT), "--resume", "latest")
+    # the metrics of steps 5-8 (not their clock times, nor the epoch
+    # index: a resumed run counts its first epoch from the restored step)
+    records_equal = all(
+        {k: x for k, x in steps_r[s].items() if k not in ("time", "epoch")}
+        == {k: x for k, x in steps_v[s].items() if k not in ("time", "epoch")}
+        for s in range(GAN_CLI_RESUME_AT + 1, GAN_CLI_STEPS + 1))
+    result["mocoganhd"] = {
+        "steps_per_s": rate(steps_v, GAN_CLI_RESUME_AT + 1),
+        "wall_s": v["wall_s"], "fd": v["fd"],
+        "resumed_wall_s": r["wall_s"],
+        "resumed_records_steps": sorted(steps_r),
+        "resume_bitwise_equal": _gan_states_equal(r["state"], v["state"])
+        and records_equal and sorted(steps_r) == list(
+            range(GAN_CLI_RESUME_AT + 1, GAN_CLI_STEPS + 1)),
+        "resumed_fd_equal": r["fd"] == v["fd"]}
+    say("gan", t0, "cli " + json.dumps(result["mocoganhd"]))
+    for name, extra in (("mocogan", ("--gan", "mocogan")),
+                        ("vqgan", ("--gan", "vqgan")),
+                        ("perceptual", ("--gan", "mocoganhd",
+                                        "--perceptual"))):
+        res, steps_rec = run(name, extra[1], GAN_CLI_OTHER_STEPS,
+                                "--validate_at", str(GAN_CLI_OTHER_STEPS),
+                                *extra[2:])
+        result[name] = {"steps_per_s": rate(steps_rec, 2),
+                        "wall_s": res["wall_s"], "fd": res["fd"]}
+        say("gan", t0, f"cli {name} " + json.dumps(result[name]))
+    result["launches"] = read_counts()
+    if not result["mocoganhd"]["resume_bitwise_equal"]:
+        raise AssertionError("the resumed GAN run differs from the same run "
+                             "continued without a break")
+    return result
+
+
+def gan_phase(t0, work: Path):
+    step, step_counts = gan_step_part(t0)
+    check = gan_check_part(t0)
+    cli = gan_cli_part(t0, work)
+    launches = {k: step_counts[k] + cli["launches"][k] for k in step_counts}
+    return {"step": step, "check": check, "cli": cli, "launches": launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1551,8 +2058,11 @@ def main() -> int:
         jpeg_phase(t0, Path(work))
         t0 = time.perf_counter()
         swap = swap_phase(t0, Path(work))
+        t0 = time.perf_counter()
+        gan_result = gan_phase(t0, Path(work))
     trainer_counts = trainer["launches"]
     swap_counts = swap["launches"]
+    gan_counts = gan_result["launches"]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -1581,12 +2091,34 @@ def main() -> int:
         "poisson_naive_nonfinite_share":
             swap["poisson"]["naive_nonfinite_share"],
         "launches": swap_counts}))
+    gan_step = gan_result["step"]
+    say("gan", t_all, json.dumps({
+        "card": card,
+        "pair_ms_median": gan_step["pair_ms_median"],
+        "device_busy_share": gan_step["profile"]["device_busy_share"],
+        "frames_per_s": gan_step["frames_per_s"],
+        "max_memory_allocated_bytes": gan_step["max_memory_allocated_bytes"],
+        "launches_per_pair": gan_step["launches_per_pair"],
+        "check": {k: gan_result["check"][k] for k in (
+            "max_loss_rel_err", "max_param_diff", "share_params_within_1e-5",
+            "max_codebook_diff", "disc_step_left_codebooks_unchanged")},
+        "cli_steps_per_s": {k: v["steps_per_s"] for k, v in
+                            gan_result["cli"].items() if k != "launches"},
+        "cli_fd": {k: v["fd"] for k, v in gan_result["cli"].items()
+                   if k != "launches"},
+        "resume_bitwise_equal":
+            gan_result["cli"]["mocoganhd"]["resume_bitwise_equal"],
+        "launches": gan_counts}))
     say("launches", t_all, json.dumps({"serving": {"warp": launches},
                                        "training": train_counts,
                                        "trainer": trainer_counts,
-                                       "swap": swap_counts}))
+                                       "swap": swap_counts,
+                                       "gan": gan_counts}))
     for k in train_counts:
         train_counts[k] += trainer_counts[k]
+    # the GAN path: its assignment-only calls count in the assignment
+    # row; each of its statistics launches is one call of the pair
+    gan_pairs = gan_counts["vq_stats"]
     main_row = rows[0]
     vq_main, vq_big = vq_rows[0], vq_rows[-1]
     kernels = [{
@@ -1594,7 +2126,8 @@ def main() -> int:
         "route": "cuda",
         "source": "faceoff_tpu_torch/csrc/warp.cu",
         "replaces": "faceoff_tpu/ops/warp_pallas.py:54",
-        "launches": launches + train_counts["warp"] + swap_counts["warp"],
+        "launches": (launches + train_counts["warp"] + swap_counts["warp"]
+                     + gan_counts["warp"]),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -1607,7 +2140,8 @@ def main() -> int:
         "source": "faceoff_tpu_torch/csrc/vq.cu",
         "replaces": "faceoff_tpu/ops/vq_pallas.py:44",
         # the pair: each call launches both kernels once
-        "launches": min(train_counts["vq_assign"], train_counts["vq_stats"]),
+        "launches": (min(train_counts["vq_assign"], train_counts["vq_stats"])
+                     + gan_pairs),
         "max_abs_err": max(r["max_abs_err"] for r in vq_rows[:-1]),
         "ms": vq_main["kernel_ms"],
         "plain_ms": vq_main["plain_ms"],
@@ -1619,7 +2153,7 @@ def main() -> int:
         "route": "cuda",
         "source": "faceoff_tpu_torch/csrc/vq.cu",
         "replaces": "faceoff_tpu/ops/vq_pallas.py:90",
-        "launches": train_counts["vq_assign"],
+        "launches": train_counts["vq_assign"] + gan_counts["vq_assign"],
         # quant is an exact copy; the pick's score short of the best
         "max_abs_err": vq_big["max_score_shortfall"],
         "ms": vq_big["assign_ms"],
@@ -1632,7 +2166,7 @@ def main() -> int:
         "route": "cuda",
         "source": "faceoff_tpu_torch/csrc/vq.cu",
         "replaces": "faceoff_tpu/ops/vq_pallas.py:147",
-        "launches": train_counts["vq_stats"],
+        "launches": train_counts["vq_stats"] + gan_counts["vq_stats"],
         "max_abs_err": vq_big["max_abs_err"],
         "ms": vq_big["stats_ms"],
         "plain_ms": vq_big["stats_plain_ms"],
@@ -1644,7 +2178,7 @@ def main() -> int:
         "route": "cuda",
         "source": "faceoff_tpu_torch/csrc/warp.cu",
         "replaces": "faceoff_tpu/ops/warp_pallas.py:204",
-        "launches": train_counts["warp_backward"],
+        "launches": train_counts["warp_backward"] + gan_counts["warp_backward"],
         "max_abs_err": bwd["max_abs_err"],
         "ms": bwd["kernel_ms"],
         "plain_ms": bwd["plain_ms"],

@@ -41,18 +41,27 @@ class CheckpointManager:
                       map(_NAME.match, os.listdir(self.directory)) if m)
 
     def save(self, step: int, state: TrainState, *, seed: int = 0) -> None:
-        payload = {
+        self.save_tree(step, {
             "step": int(state.step),
             "seed": int(seed),
             "model": state.model.state_dict(),
             "optimizer": state.optimizer.state_dict(),
-        }
+        })
+
+    def save_tree(self, step: int, payload: dict) -> None:
+        """Write any dict of tensors, numbers and strings as the file of
+        `step` (the GAN stage's discriminator bundle)."""
         final = self.path(step)
         tmp = f"{final}.tmp{os.getpid()}"
         torch.save(payload, tmp)
         os.replace(tmp, final)
         for old in self.all_steps()[:-self.keep]:
             os.remove(self.path(old))
+
+    def restore_tree(self, step: Optional[int] = None) -> dict:
+        """The dict `save_tree` wrote for `step` (the latest by default),
+        on the CPU."""
+        return self._load(step)
 
     def _load(self, step: Optional[int]) -> dict:
         if step is None:

@@ -8,13 +8,19 @@ with `strict=True`. `to_jax_variables(state_dict)` goes the other way,
 EMA codebook state included, so that a JAX `TrainState`'s params/vq and
 the port's model can be made to hold the same numbers in either
 direction. `lpips_from_jax_variables(params)` does the same for
-`models.lpips.LPIPS`. Layout transforms:
+`models.lpips.LPIPS`, and `discriminator_from_jax_variables(variables,
+module)` / `discriminator_to_jax_variables(state_dict, module)` for the
+discriminators of `models.discriminators` (params and, where there is
+BatchNorm, `batch_stats`). Layout transforms:
 
   Conv2d          HWIO        -> OIHW           transpose(3, 2, 0, 1)
   Conv3d          DHWIO       -> OIDHW          transpose(4, 3, 0, 1, 2)
   ConvTranspose2d (kH,kW,I,O) -> (I,O,kH,kW)    spatial flip, then
                                                 transpose(2, 3, 0, 1)
   codebooks       (dim, n_embed) buffers, unchanged
+  BatchNorm       scale, bias, mean, var -> weight, bias, running_mean,
+                  running_var
+  ActNorm         loc, scale, unchanged
 
 Flax's ConvTranspose does not flip its kernel; torch's ConvTranspose2d is
 the gradient of a convolution, which does, hence the flip.
@@ -26,7 +32,9 @@ from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
+from faceoff_tpu_torch.models import discriminators as D
 from faceoff_tpu_torch.models.lpips import state_dict_from_arrays
 
 _CONV2D, _CONV3D, _CONVT2D = "conv2d", "conv3d", "convT2d"
@@ -181,3 +189,86 @@ def lpips_from_jax_variables(params: Mapping) -> Dict[str, torch.Tensor]:
         if name.startswith("lin"):
             arrays[f"{name}/kernel"] = node["kernel"]
     return state_dict_from_arrays(arrays)
+
+
+def _disc_stacks(module: nn.Module) -> List[Tuple[str, tuple, nn.Module]]:
+    """(state_dict prefix, Flax path, module holding `convs` and `norms`)
+    for each conv stack of a discriminator."""
+    if isinstance(module, D._Multiscale):
+        return [(f"scales.{i}.", (f"scale{module.num_D - 1 - i}",), s)
+                for i, s in enumerate(module.scales)]
+    return [("", (), module)]
+
+
+def _norm_entries(norm: nn.Module, j: int) -> List[Tuple[str, str, str, str]]:
+    """(Flax module, collection, Flax name, torch name) of norm j."""
+    if isinstance(norm, D.BatchNorm):
+        f = f"BatchNorm_{j}"
+        return [(f, "params", "scale", "weight"), (f, "params", "bias", "bias"),
+                (f, "batch_stats", "mean", "running_mean"),
+                (f, "batch_stats", "var", "running_var")]
+    if isinstance(norm, D.ActNorm):
+        f = f"ActNorm_{j}"
+        return [(f, "params", "loc", "loc"), (f, "params", "scale", "scale")]
+    return []  # InstanceNorm: nothing to carry
+
+
+def _walk(tree: Mapping, path: tuple) -> Mapping:
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def discriminator_from_jax_variables(
+    variables: Mapping, module: nn.Module,
+) -> Dict[str, torch.Tensor]:
+    """A Flax discriminator's `variables` ({"params"[, "batch_stats"]}, nested
+    dicts of arrays) -> the state_dict of `module`, the port's
+    discriminator of the same class and widths (float32, CPU)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for prefix, path, stack in _disc_stacks(module):
+        trees = {c: _walk(variables[c], path) for c in ("params",
+                                                         "batch_stats")
+                 if c in variables}
+        for j, conv in enumerate(stack.convs):
+            node = trees["params"][f"Conv_{j}"]
+            kind = _CONV2D if isinstance(conv, nn.Conv2d) else _CONV3D
+            kernel = _to_torch(np.asarray(node["kernel"], np.float32), kind)
+            sd[f"{prefix}convs.{j}.weight"] = torch.from_numpy(
+                np.array(kernel, order="C"))
+            if conv.bias is not None:
+                sd[f"{prefix}convs.{j}.bias"] = torch.from_numpy(
+                    np.array(node["bias"], np.float32))
+        for j, norm in enumerate(stack.norms):
+            for fmod, coll, fname, tname in _norm_entries(norm, j):
+                sd[f"{prefix}norms.{j}.{tname}"] = torch.from_numpy(
+                    np.array(trees[coll][fmod][fname], np.float32))
+    return sd
+
+
+def discriminator_to_jax_variables(
+    state_dict: Mapping[str, torch.Tensor], module: nn.Module,
+) -> Dict[str, Any]:
+    """The port's discriminator state_dict -> Flax variables
+    {"params"[, "batch_stats"]} of float32 numpy arrays."""
+    sd = {k: v.detach().to("cpu", torch.float32).numpy()
+          for k, v in state_dict.items()}
+    out: Dict[str, Any] = {"params": {}}
+    for prefix, path, stack in _disc_stacks(module):
+        def node(coll, *names):
+            tree = out.setdefault(coll, {})
+            for p in path + names:
+                tree = tree.setdefault(p, {})
+            return tree
+
+        for j, conv in enumerate(stack.convs):
+            kind = _CONV2D if isinstance(conv, nn.Conv2d) else _CONV3D
+            n = node("params", f"Conv_{j}")
+            n["kernel"] = np.ascontiguousarray(
+                _from_torch(sd[f"{prefix}convs.{j}.weight"], kind))
+            if conv.bias is not None:
+                n["bias"] = sd[f"{prefix}convs.{j}.bias"]
+        for j, norm in enumerate(stack.norms):
+            for fmod, coll, fname, tname in _norm_entries(norm, j):
+                node(coll, fmod)[fname] = sd[f"{prefix}norms.{j}.{tname}"]
+    return out

@@ -169,14 +169,17 @@ class EmaQuantizer(nn.Module):
         self.embed_avg.copy_(codebook.embed_avg)
 
     def forward(
-        self, x: torch.Tensor, train: bool = False
+        self, x: torch.Tensor, train: bool = False, update: bool = True
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """x (..., embed_dim) channels-last -> (quant, indices, diff)."""
+        """x (..., embed_dim) channels-last -> (quant, indices, diff).
+        Training mode assigns through the VQ kernels and, with `update`,
+        stores the EMA step."""
         if not train:
             return vq_ops.vq_lookup(self.codebook, x)
         quant, indices, diff, new = vq_ops.vq_quantize_train(
-            self.codebook, x, decay=self.decay, eps=self.eps)
-        self._store(new)
+            self.codebook, x, decay=self.decay, eps=self.eps, update=update)
+        if update:
+            self._store(new)
         return quant, indices, diff
 
     def lookup_codes(self, codes: torch.Tensor) -> torch.Tensor:
@@ -210,9 +213,12 @@ def _init_(module: nn.Module, generator: torch.Generator) -> None:
 class VQVAE(nn.Module):
     """Two-level VQVAE-2 with temporal postnets.
 
-    forward(video, train=False) -> (reconstruction float32, latent diff
-    float32); video (B, T, H, W, in_channels) in [-1, 1]. With train=True
-    the codebooks take one EMA step.
+    forward(video, train=False, update_codebooks=True) -> (reconstruction
+    float32, latent diff float32); video (B, T, H, W, in_channels) in
+    [-1, 1]. With train=True the quantizers assign through the VQ kernels
+    and the codebooks take one EMA step, unless update_codebooks=False
+    (the discriminator steps of the GAN stage, whose JAX counterparts
+    drop the EMA update).
 
     Built on `device` (CUDA unless named; without CUDA and without a named
     device it raises) with random weights drawn on the CPU from
@@ -294,14 +300,14 @@ class VQVAE(nn.Module):
         return self.quantize_conv_b(torch.cat([dec_t, enc_b], dim=1))
 
     def _encode_quantized(self, enc_b: torch.Tensor, enc_t: torch.Tensor,
-                          train: bool = False):
+                          train: bool = False, update: bool = True):
         """enc_b/enc_t (N, ch, h, w) -> (quant_t, quant_b (N, D, h, w),
         diff, id_t, id_b)."""
         qt_in = self.quantize_conv_t(enc_t)
-        quant_t, id_t, diff_t = self.quantize_t(_nhwc(qt_in), train)
+        quant_t, id_t, diff_t = self.quantize_t(_nhwc(qt_in), train, update)
         quant_t = _nchw(quant_t)
         qb_in = self._quantize_conv_b(quant_t, enc_b)
-        quant_b, id_b, diff_b = self.quantize_b(_nhwc(qb_in), train)
+        quant_b, id_b, diff_b = self.quantize_b(_nhwc(qb_in), train, update)
         diff = (diff_t + diff_b) * self.commitment_beta
         return quant_t, _nchw(quant_b), diff, id_t, id_b
 
@@ -388,11 +394,12 @@ class VQVAE(nn.Module):
         self.quantize_b.revive(_nhwc(qb_in), generator, usage_threshold)
 
     def forward(
-        self, video: torch.Tensor, train: bool = False
+        self, video: torch.Tensor, train: bool = False,
+        update_codebooks: bool = True,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         b = video.shape[0]
         quant_t, quant_b, diff, _, _ = self._encode_quantized(
-            *self._blended_frames(video), train)
+            *self._blended_frames(video), train, update_codebooks)
         dec = _nhwc(self._decode(quant_t, quant_b))
         return (video_ops.unfold_time(dec, b).to(torch.float32),
                 diff.to(torch.float32))

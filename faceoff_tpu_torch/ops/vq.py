@@ -130,6 +130,20 @@ def vq_assign(
     return vq_cuda.vq_assign(flat, embed)
 
 
+def vq_assign_rows(
+    flat: torch.Tensor, embed: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The assignment half of `vq_assign` alone: (idx (N,) int32, quant
+    (N, D) f32), for a training-mode forward whose statistics would be
+    thrown away. A CPU tensor takes the plain version, any other device
+    the assignment kernel."""
+    if flat.device.type == "cpu":
+        idx, quant, _, _ = vq_assign_plain(flat, embed)
+        return idx, quant
+    return vq_cuda.assign_rows(flat.detach().to(torch.float32).contiguous(),
+                               embed.detach().to(torch.float32).contiguous())
+
+
 def vq_ema_update(
     codebook: VQCodebook,
     counts: torch.Tensor,
@@ -181,12 +195,23 @@ def vq_quantize_train(
     *,
     decay: float = 0.99,
     eps: float = 1e-5,
+    update: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, VQCodebook]:
     """Training-mode quantization of x (..., dim): lookup, straight-through
     gradient and EMA update. Returns (quantized in x's dtype, indices,
     diff, new codebook); diff = mean((q - x)^2) in float32 carries the
-    commitment gradient to x."""
+    commitment gradient to x. With update=False the statistics are not
+    gathered and the codebook comes back as it was: the quantized values
+    are the same, as the JAX package's are when its caller drops the EMA
+    update."""
     flat = x.reshape(-1, codebook.dim)
+    if not update:
+        indices, quant_flat = vq_assign_rows(flat, codebook.embed)
+        quant = quant_flat.reshape(x.shape).to(x.dtype)
+        diff = torch.mean((quant.to(torch.float32)
+                           - x.to(torch.float32)) ** 2)
+        return (x + (quant - x).detach(), indices.reshape(x.shape[:-1]),
+                diff, codebook)
     indices, quant_flat, counts, sums = vq_assign(flat, codebook.embed)
     quant = quant_flat.reshape(x.shape).to(x.dtype)
     indices = indices.reshape(x.shape[:-1])

@@ -3,7 +3,8 @@ VQ kernels against their plain versions, the serving path and a training
 step on CUDA against the same on the CPU, nvJPEG on the committed
 fixtures, the copy to the card, a resume through the command line, and
 the swap: the warp of a swap chunk and the swap command line's device
-pipeline.
+pipeline; the GAN stage: its kernels at the path's shapes and a
+mocoganhd pair's launches.
 
 Marked `cuda`; each test skips where there is no CUDA device. The file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -478,3 +479,101 @@ def test_swap_cli_device_pipeline_on_card(cuda, tmp_path):
         a = np.stack(runs["cpu"][key])
         b = np.stack(runs["cuda"][key])
         assert (np.abs(a - b) > 1e-5).mean() <= 0.01, key
+
+
+def test_gan_path_kernels_match_plain(cuda):
+    """The kernels at the GAN path's shapes (B 1, T 16, 256 px): the
+    assignment and statistics at (65536, 64, 512) and (16384, 64, 512),
+    the assignment alone (the disc step's forward) equal to the pair's
+    assignment, and the perturbation warp of 16 frames at 256 px."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    e = torch.randn((64, 512), generator=gen, device=cuda)
+    for n in (65536, 16384):
+        x = torch.randn((n, 64), generator=gen, device=cuda)
+        out = V.vq_assign(x, e)
+        idx, quant = V.vq_assign_rows(x, e)
+        torch.cuda.synchronize()
+        _check_vq(x, e, out)
+        assert torch.equal(idx, out[0]) and torch.equal(quant, out[1])
+    g = torch.Generator().manual_seed(15)
+    faces = torch.rand((16, 256, 256, 3), generator=g)
+    eyes = 256 * (0.4 + 0.2 * torch.rand((16, 2), generator=g))
+    xs, ys, _ = W.perturbation_grids(W.draw_perturbation(g, 16), 256, 256,
+                                     eyes)
+    xs, ys = xs.contiguous(), ys.contiguous()
+    out = W.warp_with_grid(faces.to(cuda), xs.to(cuda), ys.to(cuda))
+    torch.cuda.synchronize()
+    assert (out.cpu() - W._bilinear_sample(faces, xs, ys)).abs().max() <= 1e-5
+
+
+def test_gan_pair_launches_on_card(cuda):
+    """One mocoganhd gen/disc pair on a resident corpus at narrow widths:
+    4 assignment, 2 statistics and 2 warp launches, finite losses, and
+    the disc step leaves the codebooks bitwise as they were."""
+    from faceoff_tpu_torch.models.discriminators import (
+        MultiscaleDiscriminator2D, MultiscaleDiscriminator3D)
+    from faceoff_tpu_torch.train import gan
+
+    frames, lms, n = synthetic_corpus(2, 10, 64, seed=3, device=cuda)
+    corpus = corpus_from_arrays(frames, lms, n, device=cuda)
+    model = VQVAE(ModelConfig(channel=32), dtype=torch.float32, device=cuda)
+    g = torch.Generator().manual_seed(4)
+    d_img = MultiscaleDiscriminator2D(ndf=8, device=cuda, generator=g)
+    d_3d = MultiscaleDiscriminator3D(ndf=8, n_frames=6, device=cuda,
+                                     generator=g)
+    state = gan.create_gan_state(create_train_state(model), d_img, d_3d)
+    gen_step, disc_step = gan.make_gan_steps(
+        model, d_img, d_3d, sample_frames=6,
+        prepare_fn=make_resident_prepare(corpus, 1, 8))
+    raw = {"frames": corpus.frames, "landmarks": corpus.landmarks}
+    before = (vq_cuda.assign_launches, vq_cuda.stats_launches,
+              warp_cuda.launches)
+    state, gm = gen_step(state, raw)
+    codebooks = {k: v.clone() for k, v in model.state_dict().items()
+                 if k.startswith("quantize_")}
+    state, dm = disc_step(state, raw)
+    torch.cuda.synchronize()
+    after = (vq_cuda.assign_launches, vq_cuda.stats_launches,
+             warp_cuda.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (4, 2, 2)
+    assert all(np.isfinite(float(v)) for v in {**gm, **dm}.values())
+    for k, v in codebooks.items():
+        assert torch.equal(model.state_dict()[k], v), k
+
+
+@pytest.mark.parametrize("kind", ["2d", "3d"])
+def test_multiscale_discriminator_input_gradient_matches_cpu(cuda, kind):
+    """The multiscale discriminators' gradient with respect to their
+    channels-last input, float32 without TF32, on the card against the
+    CPU: 1e-5 of its largest magnitude; and a second backward on the card
+    (cuDNN's deterministic algorithms, as the GAN steps run) is bitwise
+    equal to the first. (CUDA's avg_pool2d backward on a
+    channels-last input is wrong in PyTorch 2.11, and its avg_pool3d
+    backward adds with atomics; the discriminators pool with
+    `avg_pool3`.)"""
+    from faceoff_tpu_torch.models.discriminators import (
+        MultiscaleDiscriminator2D, MultiscaleDiscriminator3D)
+    from faceoff_tpu_torch.train.gan import cudnn_deterministic
+
+    torch.backends.cudnn.allow_tf32 = False
+    shape = (1, 64, 64, 6) if kind == "2d" else (1, 3, 64, 64, 6)
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(16))
+    grads = []
+    for dev in ("cpu", cuda, cuda):
+        cls = (MultiscaleDiscriminator2D if kind == "2d"
+               else MultiscaleDiscriminator3D)
+        disc = cls(ndf=8, device=dev,
+                   generator=torch.Generator().manual_seed(17))
+        xx = x.detach().to(dev).requires_grad_(True)
+
+        @cudnn_deterministic
+        def backward():
+            out = disc(xx)
+            torch.stack([(f[-1] ** 2).mean() for f in out]).sum().backward()
+
+        backward()
+        grads.append(xx.grad.cpu())
+    err = float((grads[1] - grads[0]).abs().max() / grads[0].abs().max())
+    assert err <= 1e-5, err
+    assert torch.equal(grads[1], grads[2])

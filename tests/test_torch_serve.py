@@ -272,3 +272,7 @@ def test_port_imports_no_jax_no_cv2_no_reference_package():
     assert "faceoff_tpu_torch.ops.warp_cuda" in modules
     assert {"faceoff_tpu_torch.cli.swap", "faceoff_tpu_torch.cli.evaluate",
             "faceoff_tpu_torch.evaluation.frechet"} <= set(modules)
+    assert {"faceoff_tpu_torch.models.discriminators",
+            "faceoff_tpu_torch.losses.gan", "faceoff_tpu_torch.train.gan",
+            "faceoff_tpu_torch.train.mocogan", "faceoff_tpu_torch.train.vqgan",
+            "faceoff_tpu_torch.cli.train_faceoff_gan"} <= set(modules)
