@@ -20,11 +20,15 @@ Phases, each printing lines with their seconds:
                same grids (the forward gathers every pixel);
   3. slice   — a SwapSession at the flagship widths (random weights from a
                seed), 256x256, serves two 16-frame streams (push, then
-               push_many) in float32 without TF32; every pushed frame comes
-               back finite, the warp kernel ran once per push, and the
-               frames match the port's offline forward of the same
+               push_many) in float32 without TF32, through the functional
+               streaming steps (`make_stream_steps`); every pushed frame
+               comes back finite, the warp kernel ran once per push, and
+               the frames match the port's offline forward of the same
                composites (atol 2e-4, rtol 1e-3). Then the bfloat16 path
-               is timed: frames/s, per-push latency and a per-stage split.
+               is timed: frames/s, per-push latency and a per-stage split;
+               and four `push_step`s on a prepared frame run under
+               `torch.cuda.set_sync_debug_mode("error")`: no
+               device-to-host sync.
   4. vq      — the VQ kernels against their plain version at the training
                step's shapes (N=524288 and 131072 rows, D=64, K=512) and at
                K=4096 (the regime of the TPU's K-tiled kernels): indices
@@ -92,7 +96,16 @@ Phases, each printing lines with their seconds:
                self-supervised and --crossid --naive_baseline paste.
                Frames/s of each path, the push p50 and the Poisson
                chunk's seconds.
- 11. gan     — the GAN fine-tuning stage: mocoganhd gen/disc pairs at
+ 11. export  — cli/export's main() on the trainer phase's step-8
+               checkpoint (flagship widths, 256 px, bf16): each program's
+               export seconds and the bundle's bytes; the bundle run from
+               its files in a fresh interpreter that cannot import the
+               port or JAX (offline on 8 composites, init/push/flush over
+               the slice phase's first stream, prepared frame by frame),
+               held within the slice's tolerance against the eager
+               restored model and a SwapSession on the same stream; the
+               exported and the eager push timed in turns (p50).
+ 12. gan     — the GAN fine-tuning stage: mocoganhd gen/disc pairs at
                bench.py's bench_gan point (B 1, T 16, a 16-frame window,
                256 px; the flagship VQVAE in bf16, MultiscaleDiscriminator
                2D/3D at ndf 64 in float32) on the train phase's corpus, 2
@@ -101,7 +114,10 @@ Phases, each printing lines with their seconds:
                2 warp launches a pair, the codebooks bitwise unchanged by
                the disc steps; the pair's parts alone; the kernels at the
                path's own calls against their plain versions; a float32
-               pair on CUDA against the CPU; then the GAN CLI's main()
+               pair on CUDA against the CPU (with the card's gradient at
+               the generator entries whose CPU gradient is exactly zero,
+               beside float32 rounding of its tensor's norm); then the
+               GAN CLI's main()
                warm-started from the trainer phase's step-8 checkpoint:
                mocoganhd for 8 steps and resumed at 4 (bitwise equal),
                then mocogan, vqgan and mocoganhd --perceptual, each with
@@ -131,7 +147,9 @@ import numpy as np
 import torch
 
 from faceoff_tpu_torch.config import ModelConfig
+from faceoff_tpu_torch.cli import common as cli_common
 from faceoff_tpu_torch.cli import evaluate as evaluate_cli
+from faceoff_tpu_torch.cli import export as export_cli
 from faceoff_tpu_torch.cli import swap as swap_cli
 from faceoff_tpu_torch.cli import train_faceoff_gan as gan_cli
 from faceoff_tpu_torch.cli import train_faceoff_perceptual as trainer_cli
@@ -157,7 +175,9 @@ from faceoff_tpu_torch.ops import warp as W
 from faceoff_tpu_torch.ops import warp_cuda
 from faceoff_tpu_torch.ops.swap import _STABLE, poisson_blend, prepare_swap_batch
 from faceoff_tpu_torch.serve import SwapSession
-from faceoff_tpu_torch.serve.streaming import _postnet_stream
+from faceoff_tpu_torch.serve.export import load_bundle
+from faceoff_tpu_torch.serve.streaming import (_postnet_stream,
+                                              make_stream_steps)
 from faceoff_tpu_torch.train import gan
 from faceoff_tpu_torch.train.state import create_train_state, make_optimizer
 from faceoff_tpu_torch.train.train_step import make_eval_step, make_train_step
@@ -499,26 +519,45 @@ def serve_bf16(t0, streams):
     src, tgt = sf[0][None], tf[0][None]
     x = prepare_swap_batch(src, lms[0], tgt, lms[1])["input"]
     frame = x.permute(0, 3, 1, 2)
+    s = torch.tensor(5, dtype=torch.int32, device=DEV)
+    total = torch.tensor(2**31 - 1, dtype=torch.int32, device=DEV)
     with torch.no_grad():
         enc_b, enc_t = model._encode_frames(frame)
         bufs_b = [torch.zeros_like(enc_b[:, :, None]).expand(-1, -1, 2, -1, -1)
                   for _ in range(model.temporal_postnet_layers)]
         bufs_t = [torch.zeros_like(enc_t[:, :, None]).expand(-1, -1, 2, -1, -1)
                   for _ in range(model.temporal_postnet_layers)]
-        _, pb = _postnet_stream(model.conv3d_encoded_b, bufs_b, enc_b, 5, 10**9)
-        _, pt = _postnet_stream(model.conv3d_encoded_t, bufs_t, enc_t, 5, 10**9)
+        _, pb = _postnet_stream(model.conv3d_encoded_b, bufs_b, enc_b, s, total)
+        _, pt = _postnet_stream(model.conv3d_encoded_t, bufs_t, enc_t, s, total)
         quant_t, quant_b = model._encode_quantized(pb, pt)[:2]
         stages = {
             "geometry": lambda: prepare_swap_batch(src, lms[0], tgt, lms[1]),
             "encode": lambda: model._encode_frames(frame),
             "postnets": lambda: (
-                _postnet_stream(model.conv3d_encoded_b, bufs_b, enc_b, 5, 10**9),
-                _postnet_stream(model.conv3d_encoded_t, bufs_t, enc_t, 5, 10**9)),
+                _postnet_stream(model.conv3d_encoded_b, bufs_b, enc_b, s, total),
+                _postnet_stream(model.conv3d_encoded_t, bufs_t, enc_t, s, total)),
             "quantize": lambda: model._encode_quantized(pb, pt),
             "decode": lambda: model._decode(quant_t, quant_b),
         }
         split = {k: device_ms(fn, reps=9, inner=5) for k, fn in stages.items()}
         eager = {k: cuda_ms(fn, reps=9, inner=5) for k, fn in stages.items()}
+
+    # the functional push on a prepared frame reads nothing back to the
+    # host: CUDA's sync debug mode raises on any synchronizing call
+    init, push, _, _, _ = make_stream_steps(model, device=DEV)
+    state, _ = push(init(1, SIZE, SIZE), x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            state, out = push(state, x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("push_step under sync debug mode: not finite")
+    say("slice", t0, "push_step on a prepared frame: no device-to-host sync "
+        "in 4 pushes under torch.cuda.set_sync_debug_mode('error')")
     say("slice", t0, "bf16 stage device ms " + json.dumps(split))
     say("slice", t0, "bf16 stage eager ms " + json.dumps(eager))
     return result, split
@@ -1524,7 +1563,167 @@ def swap_phase(t0, work: Path):
     return result
 
 
-# -- phase 11: the GAN fine-tuning stage ----------------------------------
+# -- phase 11: the serving bundle -----------------------------------------
+
+
+EXPORT_TIMED = 30  # pushes of each kind, in turns
+
+# Runs a bundle from its files in an interpreter where importing the port,
+# the JAX package or JAX raises: argv[1] the bundle, argv[2] the directory
+# of its inputs (clip.npy, frames.npy) and outputs.
+_BUNDLE_SCRIPT = """
+import importlib.abc, json, os, sys
+blocked = ("faceoff_tpu_torch", "faceoff_tpu", "jax", "jaxlib")
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in blocked:
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+import numpy as np
+import torch
+
+bundle, work = sys.argv[1], sys.argv[2]
+meta = json.load(open(os.path.join(bundle, "meta.json")))
+dev = torch.device(meta["platforms"][0])
+sm = meta["streaming"]
+
+def load(name):
+    return torch.export.load(os.path.join(bundle, name)).module()
+
+def arg(name):
+    return torch.from_numpy(np.load(os.path.join(work, name))).to(dev)
+
+with torch.no_grad():
+    offline = load(meta["offline"]["file"])(arg("clip.npy"))
+    np.save(os.path.join(work, "bundle_offline.npy"), offline.cpu().numpy())
+    frames = arg("frames.npy")
+    push, flush = load(sm["push_file"]), load(sm["flush_file"])
+    state = load(sm["init_file"])()
+    outs = []
+    for t in range(frames.shape[0]):
+        state, out = push(state, frames[t:t + 1])
+        outs.append(out)
+    total = torch.tensor(frames.shape[0], dtype=torch.int32, device=dev)
+    for _ in range(sm["delay"]):
+        state, out = flush(state, total)
+        outs.append(out)
+np.save(os.path.join(work, "bundle_stream.npy"),
+        torch.stack(outs).cpu().numpy())
+loaded = sorted(n for n in sys.modules if n.split(".")[0] in blocked)
+assert not loaded, loaded
+print("bundle ran on", dev, "torch", torch.__version__)
+"""
+
+
+def _held(name, got, want):
+    """Max |diff| of got against want, raising outside STREAM_TOL."""
+    err = (got - want).abs()
+    bad = err > STREAM_TOL["atol"] + STREAM_TOL["rtol"] * want.abs()
+    if got.shape != want.shape or bool(bad.any()):
+        raise AssertionError(f"{name}: {tuple(got.shape)} against "
+                             f"{tuple(want.shape)}, {int(bad.sum())} values "
+                             f"outside {STREAM_TOL}")
+    return float(err.max())
+
+
+def export_phase(t0, work: Path, streams):
+    """`cli/export.main` on the card with the trainer phase's step-8
+    checkpoint (flagship widths, 256 px, bf16): each program's export
+    seconds and the bundle's bytes; then the bundle run from its files in
+    a fresh interpreter that cannot import the port or JAX: offline on the
+    first 8 composites of the slice phase's first stream, init, push and
+    flush over its 16 frames, prepared one at a time by
+    `prepare_swap_batch` as the session prepares them. Offline is held
+    against the eager restored model, the streamed frames against a
+    `SwapSession` on the same streams (16 K4 launches, counted with the
+    serving path), both within STREAM_TOL; then the exported push and the
+    eager `push_step` timed in turns, each push synchronized."""
+    ckpt = _run_dir(work, "ckpt_v")
+    out_dir = work / "bundle"
+    argv = ["--checkpoint_dir", str(ckpt), "--ckpt", str(TRAINER_STEPS),
+            "--out", str(out_dir), "--size", str(SIZE)]
+    t = time.perf_counter()
+    res = export_cli.main(argv, device=DEV)
+    wall = time.perf_counter() - t
+    meta = res["meta"]
+    if (res["step"] != TRAINER_STEPS
+            or meta["platforms"] != [torch.device(DEV).type]):
+        raise AssertionError(f"export: step {res['step']}, {meta}")
+    result = {"export_s": res["seconds"], "export_wall_s": wall,
+              "bundle_bytes": res["bytes"],
+              "torch_version": meta["torch_version"]}
+    say("export", t0, json.dumps(result))
+
+    model = cli_common.restore_for_inference(
+        export_cli.build_parser().parse_args(argv), DEV).model
+    sf, sl, tf, tl = streams[0]
+    zero_counts()
+    sess = SwapSession(model, height=SIZE, width=SIZE, device=DEV)
+    swapped = [o for o in (sess.push(sf[i], sl[i], tf[i], tl[i])
+                           for i in range(FRAMES)) if o is not None]
+    swapped += sess.flush()
+    torch.cuda.synchronize()
+    result["launches"] = read_counts()
+    if result["launches"]["warp"] != FRAMES or len(swapped) != FRAMES:
+        raise AssertionError(f"export: {len(swapped)} session frames, "
+                             f"launches {result['launches']}")
+
+    def lms(a):
+        return torch.as_tensor(np.stack([a]), dtype=torch.float32).to(DEV)
+
+    with torch.no_grad():
+        frames = torch.cat([prepare_swap_batch(
+            sf[i][None], lms(sl[i]), tf[i][None], lms(tl[i]))["input"]
+            for i in range(FRAMES)])
+        clip = frames[None, :meta["offline"]["input_shape"][1]]
+        offline = model(clip)[0][..., :3]
+    np.save(work / "clip.npy", clip.cpu().numpy())
+    np.save(work / "frames.npy", frames.cpu().numpy())
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _BUNDLE_SCRIPT, str(out_dir), str(work)],
+        cwd=work, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError("the bundle did not run without the port:\n"
+                             + proc.stdout + proc.stderr)
+    result["fresh_interpreter_s"] = time.perf_counter() - t
+    say("export", t0, proc.stdout.strip())
+    got_off = torch.from_numpy(np.load(work / "bundle_offline.npy")).to(DEV)
+    got_stream = torch.from_numpy(np.load(work / "bundle_stream.npy")).to(DEV)
+    delay = meta["streaming"]["delay"]
+    result["offline_vs_eager_max_abs_diff"] = _held(
+        "bundle offline", got_off, offline)
+    result["stream_vs_session_max_abs_diff"] = _held(
+        "bundle push/flush", got_stream[delay:, 0, ..., :3],
+        torch.stack(swapped))
+
+    bundle = load_bundle(str(out_dir))
+    init, push, _, _, _ = make_stream_steps(model, device=DEV)
+    states = {"eager": init(1, SIZE, SIZE), "exported": bundle.init_state()}
+    pushes = {"eager": push, "exported": bundle.push}
+    lat = {"eager": [], "exported": []}
+    for r in range(5 + EXPORT_TIMED):
+        x = frames[r % FRAMES][None]
+        for name in (("eager", "exported") if r % 2 == 0
+                     else ("exported", "eager")):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            states[name], _ = pushes[name](states[name], x)
+            torch.cuda.synchronize()
+            if r >= 5:
+                lat[name].append((time.perf_counter() - t) * 1e3)
+    result["push_ms_p50"] = {k: statistics.median(v) for k, v in lat.items()}
+    result["push_ms_max"] = {k: max(v) for k, v in lat.items()}
+    say("export", t0, json.dumps(result))
+    if wall > 60:
+        say("export", t0, f"the export took {wall:.1f} s, over a minute")
+    return result
+
+
+# -- phase 12: the GAN fine-tuning stage ----------------------------------
 
 
 # bench.py's bench_gan point: B 1, T 16, a 16-frame window, 256 px
@@ -1817,6 +2016,12 @@ def gan_check_part(t0):
                                      batches[0].items()}, bits=bits[0])
         after_gen = {k: v.detach().cpu().clone()
                      for k, v in model.state_dict().items()}
+        # the gen step's gradient from Adam's first moment: after one
+        # step exp_avg = (1 - b1) g
+        adam = state.gen.optimizer.optimizer
+        b1 = adam.param_groups[0]["betas"][0]
+        grads = {k: (adam.state[p]["exp_avg"] / (1 - b1)).detach().cpu()
+                 for k, p in model.named_parameters()}
         # entries whose gradient was exactly zero (Adam left them as
         # they were): a dead ReLU's weights and biases
         unmoved = {k: after_gen[k] == v for k, v in start.items()}
@@ -1828,7 +2033,7 @@ def gan_check_part(t0):
         state, dm = disc_step(state, {k: v.to(dev) for k, v in
                                       batches[1].items()}, bits=bits[1])
         runs[dev] = {"losses": {k: float(v) for k, v in {**gm, **dm}.items()},
-                     "gen": after_gen, "unmoved": unmoved,
+                     "gen": after_gen, "unmoved": unmoved, "grads": grads,
                      "names": {n for n, _ in model.named_parameters()},
                      "d_img": _named_params(d_img),
                      "d_3d": _named_params(d_3d),
@@ -1855,7 +2060,30 @@ def gan_check_part(t0):
     cb_err = max(float((gpu["gen"][k] - cpu["gen"][k]).abs().max())
                  for k in cpu["gen"] if k not in names)
     held = torch.cat(list(parts.values()))
-    result = {"max_loss_rel_err": loss_err,
+    # the entries left out of the 99 % share: the card's gradient there
+    # beside the float32 rounding of its tensor's gradient norm
+    residue = []
+    for k in sorted(names):
+        left = cpu["unmoved"][k]
+        if bool(left.any()):
+            g = gpu["grads"][k]
+            norm = float(g.norm())
+            top = float(g[left].abs().max())
+            residue.append({
+                "tensor": k, "left_out": int(left.sum()), "numel": g.numel(),
+                "card_max_abs_g": top, "cpu_max_abs_g": float(
+                    cpu["grads"][k][left].abs().max()),
+                "grad_norm": norm, "grad_norm_u32": norm * U32,
+                "ratio": top / (norm * U32) if norm > 0 else None})
+    residue.sort(key=lambda r: -(r["ratio"] or 0.0))
+    left_out = {
+        "card_max_abs_g": max(r["card_max_abs_g"] for r in residue),
+        "cpu_max_abs_g": max(r["cpu_max_abs_g"] for r in residue),
+        "max_ratio_to_norm_u32": max(r["ratio"] or 0.0 for r in residue),
+        "tensors": len(residue), "worst": residue[:8]}
+    say("gan", t0, "left-out residue " + json.dumps(left_out))
+    result = {"left_out_residue": left_out,
+              "max_loss_rel_err": loss_err,
               "max_param_diff": float(diffs.max()),
               "share_params_within_1e-5": float((held <= 1e-5).float()
                                                 .mean()),
@@ -2059,6 +2287,8 @@ def main() -> int:
         t0 = time.perf_counter()
         swap = swap_phase(t0, Path(work))
         t0 = time.perf_counter()
+        exported = export_phase(t0, Path(work), streams)
+        t0 = time.perf_counter()
         gan_result = gan_phase(t0, Path(work))
     trainer_counts = trainer["launches"]
     swap_counts = swap["launches"]
@@ -2102,6 +2332,9 @@ def main() -> int:
         "check": {k: gan_result["check"][k] for k in (
             "max_loss_rel_err", "max_param_diff", "share_params_within_1e-5",
             "max_codebook_diff", "disc_step_left_codebooks_unchanged")},
+        "left_out_residue": {
+            k: v for k, v in gan_result["check"]["left_out_residue"].items()
+            if k != "worst"},
         "cli_steps_per_s": {k: v["steps_per_s"] for k, v in
                             gan_result["cli"].items() if k != "launches"},
         "cli_fd": {k: v["fd"] for k, v in gan_result["cli"].items()
@@ -2109,6 +2342,18 @@ def main() -> int:
         "resume_bitwise_equal":
             gan_result["cli"]["mocoganhd"]["resume_bitwise_equal"],
         "launches": gan_counts}))
+    say("export", t_all, json.dumps({
+        "card": card,
+        "export_s": exported["export_s"],
+        "bundle_bytes": exported["bundle_bytes"],
+        "offline_vs_eager_max_abs_diff":
+            exported["offline_vs_eager_max_abs_diff"],
+        "stream_vs_session_max_abs_diff":
+            exported["stream_vs_session_max_abs_diff"],
+        "push_ms_p50": exported["push_ms_p50"],
+        "launches": exported["launches"]}))
+    # the serving path: the slice phase's sessions and the export phase's
+    launches += exported["launches"]["warp"]
     say("launches", t_all, json.dumps({"serving": {"warp": launches},
                                        "training": train_counts,
                                        "trainer": trainer_counts,

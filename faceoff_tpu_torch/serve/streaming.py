@@ -13,16 +13,19 @@ slice once. Outputs equal the offline clip forward's:
   * 'same' pads every layer's input independently, so slices whose time
     index falls outside [0, T) are zeroed at each layer boundary.
 
-Everything after the postnets is per-frame 2D work. The port runs eagerly
-(no jit); `push_many` is a loop over `push` with the same outputs. The
-stream position is kept on the host, so the masking is a host decision
-and needs no device sync; frames that the stream will not emit (warm-up)
-skip the quantize and decode.
+Everything after the postnets is per-frame 2D work. `make_stream_steps`
+returns the primitives as pure functions of an explicit state dict
+(`bufs_b`, `bufs_t`, `s`), as the JAX package's do. The stream position
+`s` and the end `total` are device tensors and the masking is a
+`torch.where`, so a push reads nothing back to the host. The port runs
+eagerly (no jit): `push_many_step` is a loop over `push_step` with the
+same outputs. `StreamingSwapper` wraps the functions and tracks on the
+host which outputs are valid.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,24 +34,35 @@ from faceoff_tpu_torch.device import DeviceLike, check_on_device, resolve_device
 from faceoff_tpu_torch.models.vqvae import VQVAE, TemporalPostnet, _nchw, _nhwc
 from faceoff_tpu_torch.ops.swap import prepare_swap_batch
 
-_FAR_FUTURE = 2**31 - 1  # 'total' while the stream is open
+_FAR_FUTURE = 2**31 - 1  # int32 'total' while the stream is open
+
+State = Dict[str, Any]
 
 
 def _postnet_stream(
     postnet: TemporalPostnet,
     bufs: Sequence[torch.Tensor],
     x: torch.Tensor,
-    s: int,
-    total: int,
-) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    s: torch.Tensor,
+    total: torch.Tensor,
+) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
     """One streaming step through a TemporalPostnet conv stack.
 
     bufs[i]: (B, C, kernel-1, H, W) — layer i's most recent input slices.
     x: (B, C, H, W) — the new layer-0 input slice, for time index `s`.
+    s, total: 0-dim int32 tensors on x's device.
     Returns (new_bufs, emitted slice for time s - n_layers*(kernel//2)).
     """
     d = postnet.kernel // 2
     n_layers = len(postnet.conv3d)
+    # layer i emits time s - (i+1)*d; all layers' validity in one vector,
+    # a few launches a step whatever the depth
+    t_out = s - d * torch.arange(1, n_layers + 1, dtype=s.dtype,
+                                 device=s.device)
+    valid = (t_out >= 0) & (t_out < total)
+    # one zero for the stack: a Python 0.0 would be filled on the device
+    # at every layer
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
     new_bufs = []
     h = x
     for i, layer in enumerate(postnet.conv3d):
@@ -59,9 +73,93 @@ def _postnet_stream(
         out = out[:, :, 0]  # the window centre: time s - (i+1)*d
         if i < n_layers - 1:
             out = F.relu(out)
-        t_i = s - (i + 1) * d
-        h = out if 0 <= t_i < total else torch.zeros_like(out)
-    return new_bufs, h
+        h = torch.where(valid[i], out, zero)
+    return tuple(new_bufs), h
+
+
+def make_stream_steps(model: VQVAE, prepare_fn: Optional[Callable] = None,
+                      device: DeviceLike = None):
+    """Build the streaming primitives for a VQVAE on `device` (CUDA unless
+    named), where `model` must already live.
+
+    Returns (init_state, push_step, flush_step, delay, push_many_step):
+      init_state(batch, height, width) -> state: zero ring buffers
+          `bufs_b` (n_layers x (B, C, k-1, H/4, W/4)) and `bufs_t` (at
+          H/8 x W/8) in the model's dtype, and `s`, a 0-dim int32 0;
+      push_step(state, frame) -> (state, out), frame (B, H, W, in_ch);
+      flush_step(state, total) -> (state, out), zero encoder slices,
+          `total` (the stream's length) a 0-dim int32 tensor;
+      push_many_step(state, frames) -> (state, outs (K, B, H, W, out_ch)):
+          push_step over the leading K axis of every leaf of `frames`.
+    `out` is the decoded (B, H, W, out_ch) float32 slice for input time
+    `state["s"] - delay` (garbage while that index is out of range:
+    StreamingSwapper tracks validity on the host). The functions are pure:
+    they write into no tensor of the state they are given.
+
+    prepare_fn: an optional `raw -> (B, H, W, in_ch) frame` input pipeline
+    that push_step runs first (the cross-identity swap geometry).
+    """
+    if model.temporal_kernel % 2 != 1:
+        raise ValueError("streaming requires an odd temporal kernel")
+    dev = resolve_device(device)
+    check_on_device(model, dev)
+    n_layers = model.temporal_postnet_layers
+    kernel = model.temporal_kernel
+    delay = n_layers * (kernel // 2)
+
+    def init_state(batch: int, height: int, width: int) -> State:
+        if height % 8 or width % 8:
+            raise ValueError("height/width must be multiples of 8")
+
+        def bufs(h, w):
+            return tuple(
+                torch.zeros((batch, model.channel, kernel - 1, h, w),
+                            dtype=model.dtype, device=dev)
+                for _ in range(n_layers))
+
+        return {"bufs_b": bufs(height // 4, width // 4),
+                "bufs_t": bufs(height // 8, width // 8),
+                "s": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def _blend_decode(state: State, enc_b, enc_t, total):
+        s = state["s"]
+        bufs_b, pb = _postnet_stream(model.conv3d_encoded_b, state["bufs_b"],
+                                     enc_b, s, total)
+        bufs_t, pt = _postnet_stream(model.conv3d_encoded_t, state["bufs_t"],
+                                     enc_t, s, total)
+        quant_t, quant_b = model._encode_quantized(pb, pt)[:2]
+        out = _nhwc(model._decode(quant_t, quant_b)).to(torch.float32)
+        return {"bufs_b": bufs_b, "bufs_t": bufs_t, "s": s + 1}, out
+
+    @torch.no_grad()
+    def push_step(state: State, frame) -> Tuple[State, torch.Tensor]:
+        if prepare_fn is not None:
+            frame = prepare_fn(frame)
+        enc_b, enc_t = model._encode_frames(_nchw(frame))
+        far = torch.full_like(state["s"], _FAR_FUTURE)
+        return _blend_decode(state, enc_b, enc_t, far)
+
+    def push_many_step(state: State, frames) -> Tuple[State, torch.Tensor]:
+        if isinstance(frames, dict):
+            k = len(next(iter(frames.values())))
+            items = [{key: v[j] for key, v in frames.items()}
+                     for j in range(k)]
+        else:
+            items = list(frames)
+        outs = []
+        for item in items:
+            state, out = push_step(state, item)
+            outs.append(out)
+        return state, torch.stack(outs)
+
+    @torch.no_grad()
+    def flush_step(state: State, total: torch.Tensor
+                   ) -> Tuple[State, torch.Tensor]:
+        enc_b = torch.zeros_like(state["bufs_b"][0][:, :, 0])
+        enc_t = torch.zeros_like(state["bufs_t"][0][:, :, 0])
+        return _blend_decode(state, enc_b, enc_t, total)
+
+    return init_state, push_step, flush_step, delay, push_many_step
 
 
 class StreamingSwapper:
@@ -73,8 +171,10 @@ class StreamingSwapper:
     ...     out = sw.push(frame)            # (B, H, W, out_ch) or None
     >>> tail = sw.flush()                   # the last `delay` frames
 
-    Runs on `device` (CUDA unless named; raises without CUDA and without a
-    named device), where `model` must already live.
+    A thin wrapper over `make_stream_steps`: it holds the state dict and,
+    on the host, how many frames were pushed. Runs on `device` (CUDA
+    unless named; raises without CUDA and without a named device), where
+    `model` must already live.
     """
 
     def __init__(
@@ -87,63 +187,17 @@ class StreamingSwapper:
         prepare_fn: Optional[Callable[[Any], torch.Tensor]] = None,
         device: DeviceLike = None,
     ):
-        if model.temporal_kernel % 2 != 1:
-            raise ValueError("streaming requires an odd temporal kernel")
-        if height % 8 or width % 8:
-            raise ValueError("height/width must be multiples of 8")
         self.device = resolve_device(device)
-        check_on_device(model, self.device)
-        self.model = model
+        (self._init_state, self._push, self._flush, self.delay,
+         self._push_many) = make_stream_steps(model, prepare_fn, self.device)
         self.prepare_fn = prepare_fn
-        self.delay = model.temporal_postnet_layers * (model.temporal_kernel // 2)
         self._shape = (batch, height, width)
         self.reset()
 
     def reset(self) -> None:
-        b, h, w = self._shape
-        m = self.model
-
-        def bufs(hh, ww):
-            return [
-                torch.zeros((b, m.channel, m.temporal_kernel - 1, hh, ww),
-                            dtype=m.dtype, device=self.device)
-                for _ in range(m.temporal_postnet_layers)
-            ]
-
-        self._bufs_b = bufs(h // 4, w // 4)
-        self._bufs_t = bufs(h // 8, w // 8)
-        self._s = 0  # postnet input slices consumed (pushes + flushes)
+        self._state = self._init_state(*self._shape)
         self._n_pushed = 0
         self._flushed = False
-
-    @torch.no_grad()
-    def _step(self, enc_b, enc_t, total: int, emit: bool):
-        """Advance the postnets by one slice; decode the emitted slice if
-        `emit`. enc_b/enc_t are (B, ch, h, w)."""
-        m = self.model
-        self._bufs_b, pb = _postnet_stream(
-            m.conv3d_encoded_b, self._bufs_b, enc_b, self._s, total
-        )
-        self._bufs_t, pt = _postnet_stream(
-            m.conv3d_encoded_t, self._bufs_t, enc_t, self._s, total
-        )
-        self._s += 1
-        if not emit:
-            return None
-        quant_t, quant_b, _, _, _ = m._encode_quantized(pb, pt)
-        return _nhwc(m._decode(quant_t, quant_b)).to(torch.float32)
-
-    @torch.no_grad()
-    def _push_one(self, frame) -> Optional[torch.Tensor]:
-        if self.prepare_fn is not None:
-            frame = self.prepare_fn(frame)
-        else:
-            frame = torch.as_tensor(frame, device=self.device)
-        enc_b, enc_t = self.model._encode_frames(_nchw(frame))
-        emit = self._n_pushed - self.delay >= 0
-        out = self._step(enc_b, enc_t, _FAR_FUTURE, emit)
-        self._n_pushed += 1
-        return out
 
     def _check_open(self) -> None:
         if self._flushed:
@@ -154,12 +208,19 @@ class StreamingSwapper:
                 "first frames)"
             )
 
+    def _as_input(self, frames):
+        if self.prepare_fn is not None:
+            return frames
+        return torch.as_tensor(frames, device=self.device)
+
     def push(self, frame) -> Optional[torch.Tensor]:
         """Feed one input frame (B, H, W, in_ch), or what `prepare_fn`
         takes; returns the decoded float32 frame for input time
         `n_pushed - delay` once the pipeline is warm, else None."""
         self._check_open()
-        return self._push_one(frame)
+        self._state, out = self._push(self._state, self._as_input(frame))
+        self._n_pushed += 1
+        return out if self._n_pushed - 1 - self.delay >= 0 else None
 
     def push_many(self, frames) -> List[torch.Tensor]:
         """Feed K frames: `frames` is what push() takes with a leading K
@@ -167,13 +228,12 @@ class StreamingSwapper:
         prepare_fn). Returns the frames that became valid, in order —
         the same as K push() calls."""
         self._check_open()
-        if isinstance(frames, dict):
-            k = len(next(iter(frames.values())))
-            items = [{key: v[j] for key, v in frames.items()} for j in range(k)]
-        else:
-            items = list(frames)
-        outs = [self._push_one(item) for item in items]
-        return [o for o in outs if o is not None]
+        frames = self._as_input(frames)
+        prev = self._n_pushed
+        self._state, outs = self._push_many(self._state, frames)
+        self._n_pushed += len(outs)
+        # output slice j carries input time prev + j - delay
+        return list(outs[max(0, self.delay - prev):])
 
     def flush(self) -> List[torch.Tensor]:
         """End the stream: emit the final frames held in the pipeline.
@@ -181,15 +241,12 @@ class StreamingSwapper:
         if self._flushed:
             raise RuntimeError("stream already flushed — call reset()")
         self._flushed = True
-        total = self._n_pushed
-        ref_b, ref_t = self._bufs_b[0], self._bufs_t[0]
-        zeros_b = torch.zeros_like(ref_b[:, :, 0])
-        zeros_t = torch.zeros_like(ref_t[:, :, 0])
+        n = self._n_pushed
+        total = torch.full((), n, dtype=torch.int32, device=self.device)
         outs = []
         for j in range(self.delay):
-            t_out = self._n_pushed + j - self.delay
-            out = self._step(zeros_b, zeros_t, total, 0 <= t_out < total)
-            if out is not None:
+            self._state, out = self._flush(self._state, total)
+            if 0 <= n + j - self.delay < n:
                 outs.append(out)
         return outs
 

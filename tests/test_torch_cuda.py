@@ -4,7 +4,8 @@ step on CUDA against the same on the CPU, nvJPEG on the committed
 fixtures, the copy to the card, a resume through the command line, and
 the swap: the warp of a swap chunk and the swap command line's device
 pipeline; the GAN stage: its kernels at the path's shapes and a
-mocoganhd pair's launches.
+mocoganhd pair's launches; the functional streaming push and a serving
+bundle exported for the card.
 
 Marked `cuda`; each test skips where there is no CUDA device. The file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -28,7 +29,9 @@ from faceoff_tpu_torch.ops import vq as V
 from faceoff_tpu_torch.ops import vq_cuda
 from faceoff_tpu_torch.ops import warp as W
 from faceoff_tpu_torch.ops import warp_cuda
-from faceoff_tpu_torch.serve import SwapSession
+from faceoff_tpu_torch.serve import (StreamingSwapper, SwapSession,
+                                     load_bundle, make_stream_steps,
+                                     save_bundle)
 from faceoff_tpu_torch.train.state import create_train_state, make_optimizer
 from faceoff_tpu_torch.train.train_step import make_train_step
 
@@ -97,6 +100,49 @@ def test_swap_session_on_card_matches_cpu(cuda):
             assert warp_cuda.launches == before + 5
         outs[name] = torch.stack(got).cpu()
     torch.testing.assert_close(outs["cuda"], outs["cpu"], atol=2e-4, rtol=1e-3)
+
+
+def test_functional_push_and_export_on_card(cuda, tmp_path):
+    """On the card: make_stream_steps' push equals StreamingSwapper.push
+    bitwise, a push under CUDA's sync debug mode reads nothing back, and
+    a tiny bf16 bundle exported for cuda reproduces the eager model."""
+    cfg = ModelConfig(channel=16, n_res_block=1, n_res_channel=8,
+                      embed_dim=8, n_embed=32)
+    model = VQVAE(cfg, dtype=torch.bfloat16, device=cuda)
+    video = torch.rand((1, 5, 32, 32, 6), generator=torch.Generator()
+                       .manual_seed(3)).to(cuda) * 2 - 1
+    init, push, flush, delay, _ = make_stream_steps(model, device=cuda)
+    sw = StreamingSwapper(model, height=32, width=32, device=cuda)
+    state, outs = init(1, 32, 32), []
+    for t in range(5):
+        state, out = push(state, video[:, t])
+        got = sw.push(video[:, t])
+        if t >= delay:
+            assert torch.equal(got, out)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        push(state, video[:, 0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+    meta = save_bundle(str(tmp_path), model, frames=5, size=32)
+    assert meta["platforms"] == ["cuda"]
+    bundle = load_bundle(str(tmp_path))
+    with torch.no_grad():
+        want = model(video)[0][..., :3]
+    torch.testing.assert_close(bundle.offline(video), want, atol=2e-4,
+                               rtol=1e-3)
+    state_a, state_b = init(1, 32, 32), bundle.init_state()
+    for t in range(5):
+        state_a, a = push(state_a, video[:, t])
+        state_b, b = bundle.push(state_b, video[:, t])
+        torch.testing.assert_close(b, a, atol=2e-4, rtol=1e-3)
+    for _ in range(delay):
+        state_a, a = flush(state_a, torch.tensor(5, dtype=torch.int32,
+                                                 device=cuda))
+        state_b, b = bundle.flush(state_b, 5)
+        torch.testing.assert_close(b, a, atol=2e-4, rtol=1e-3)
 
 
 def _check_vq(x, e, out):

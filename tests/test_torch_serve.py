@@ -21,10 +21,12 @@ import torch
 from faceoff_tpu.data import synthetic as jsynthetic
 from faceoff_tpu.models import VQVAE as JaxVQVAE
 from faceoff_tpu.serve import SwapSession as JaxSwapSession
+from faceoff_tpu.serve import make_stream_steps as jax_make_stream_steps
 from faceoff_tpu_torch.config import ModelConfig
 from faceoff_tpu_torch.io.convert import from_jax_variables
 from faceoff_tpu_torch.models import VQVAE
-from faceoff_tpu_torch.serve import StreamingSwapper, SwapSession, stream_video
+from faceoff_tpu_torch.serve import (StreamingSwapper, SwapSession,
+                                     make_stream_steps, stream_video)
 
 REPO = Path(__file__).resolve().parent.parent
 TINY = dict(in_channels=6, channel=16, n_res_block=1, n_res_channel=8,
@@ -149,6 +151,87 @@ def test_push_many_matches_push():
     assert len(got) == len(ref) == 9
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
+
+
+def _jax_layout(state):
+    """The port's state as numpy in the JAX package's layout: ring buffers
+    (B, C, k-1, H, W) -> (B, k-1, H, W, C)."""
+    return {"bufs_b": [b.permute(0, 2, 3, 4, 1).numpy()
+                       for b in state["bufs_b"]],
+            "bufs_t": [b.permute(0, 2, 3, 4, 1).numpy()
+                       for b in state["bufs_t"]],
+            "s": int(state["s"])}
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_stream_steps_match_jax(b):
+    """Every push and flush of the functional steps, valid or warm-up
+    output, and the state after it, against JAX's make_stream_steps on
+    the same weights."""
+    jmodel, variables, tmodel, video = _pair(b, 5, 32, seed=20 + b)
+    j_init, j_push, j_flush, j_delay, _ = jax_make_stream_steps(
+        jmodel, variables)
+    t_init, t_push, t_flush, t_delay, _ = make_stream_steps(
+        tmodel, device="cpu")
+    assert t_delay == j_delay == 3
+    jstate, tstate = j_init(b, 32, 32), t_init(b, 32, 32)
+    assert tstate["s"].dtype == torch.int32 and tstate["s"].shape == ()
+    assert all(t.dtype == torch.float32 for t in tstate["bufs_b"])
+    calls = [("push", i) for i in range(5)] + [("flush", 5)] * j_delay
+    for kind, i in calls:
+        if kind == "push":
+            jstate, jout = j_push(jstate, jnp.asarray(video[:, i]))
+            tstate, tout = t_push(tstate, torch.from_numpy(video[:, i]))
+        else:
+            jstate, jout = j_flush(jstate, jnp.int32(i))
+            tstate, tout = t_flush(tstate, torch.tensor(i, dtype=torch.int32))
+        np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL)
+        got = _jax_layout(tstate)
+        assert got["s"] == int(jstate["s"])
+        for key in ("bufs_b", "bufs_t"):
+            assert len(got[key]) == len(jstate[key])
+            for g, w in zip(got[key], jstate[key]):
+                np.testing.assert_allclose(g, np.asarray(w), **TOL)
+
+
+def test_push_step_leaves_its_state_unchanged():
+    """push_step and flush_step are pure: the state passed in stays
+    bitwise as it was, so a caller may keep it and push again."""
+    _, _, model, video = _pair(1, 4, 32, seed=30)
+    init, push, flush, _, _ = make_stream_steps(model, device="cpu")
+    state = init(1, 32, 32)
+    for i in range(3):
+        state, _ = push(state, torch.from_numpy(video[:, i]))
+    kept = {k: ([t.clone() for t in v] if isinstance(v, tuple) else v.clone())
+            for k, v in state.items()}
+    new, out = push(state, torch.from_numpy(video[:, 3]))
+    again, out2 = push(state, torch.from_numpy(video[:, 3]))
+    flush(state, torch.tensor(4, dtype=torch.int32))
+    for key in ("bufs_b", "bufs_t"):
+        for t, k in zip(state[key], kept[key]):
+            assert torch.equal(t, k)
+        for t, k in zip(new[key], again[key]):
+            assert torch.equal(t, k)
+    assert torch.equal(state["s"], kept["s"]) and int(new["s"]) == 4
+    assert torch.equal(out, out2)
+
+
+def test_push_many_step_equals_push_steps():
+    _, _, model, video = _pair(2, 5, 32, seed=31)
+    init, push, _, _, push_many = make_stream_steps(model, device="cpu")
+    v = torch.from_numpy(video)
+    s1 = init(2, 32, 32)
+    outs = []
+    for i in range(5):
+        s1, out = push(s1, v[:, i])
+        outs.append(out)
+    s2, many = push_many(init(2, 32, 32), v.transpose(0, 1))
+    assert many.shape == (5, 2, 32, 32, 6)
+    assert torch.equal(many, torch.stack(outs))
+    for key in ("bufs_b", "bufs_t"):
+        for a, b in zip(s1[key], s2[key]):
+            assert torch.equal(a, b)
+    assert int(s1["s"]) == int(s2["s"]) == 5
 
 
 def _swap_frames(hw=32, t=5):
@@ -276,3 +359,5 @@ def test_port_imports_no_jax_no_cv2_no_reference_package():
             "faceoff_tpu_torch.losses.gan", "faceoff_tpu_torch.train.gan",
             "faceoff_tpu_torch.train.mocogan", "faceoff_tpu_torch.train.vqgan",
             "faceoff_tpu_torch.cli.train_faceoff_gan"} <= set(modules)
+    assert {"faceoff_tpu_torch.serve.export",
+            "faceoff_tpu_torch.cli.export"} <= set(modules)
