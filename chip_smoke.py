@@ -122,6 +122,26 @@ Phases, each printing lines with their seconds:
                mocoganhd for 8 steps and resumed at 4 (bitwise equal),
                then mocogan, vqgan and mocoganhd --perceptual, each with
                its steps/s and fd_vgg / fd_vgg_motion.
+ 13. b2f     — VQVAE_B2F at the flagship widths, three 16-frame streams
+               at 256 px, bf16 under autocast: 2 warm-up and 5 timed
+               training steps (step ms, peak memory, 6 assignment and 6
+               statistics launches a step, finite losses and codebooks),
+               a tower's bottom call (65536, 64, 512) held against the
+               plain version and timed, and a float32 training forward at
+               narrow widths on CUDA against the CPU.
+ 14. aux     — cli/train_faceoff (the vanilla trainer: no LPIPS built,
+               2 + 2 VQ launches a step, frames/s) on a PNG dataset at
+               flagship widths, 256 px, b2, T8, 4 steps; cli/encode on the
+               trainer phase's step-8 checkpoint over 32 frames (the codes
+               equal the restored model's encode_codes; the --decode AVI
+               round trip's PSNR); cli/train_alignment for 20 steps at
+               256 px, 8 frames (first and last loss, steps/s).
+ 15. dist    — in a child process with a one-rank NCCL group: the
+               perceptual CLI with --multihost against the same run
+               without it (3 steps at the trainer phase's setting), and
+               make_shardmap_train_step against make_train_step at the
+               train phase's setting (5 steps); both pairs bitwise equal;
+               the two steps' ms beside the train phase's.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 {"kernels": [...]}, and last {"ok": true, "device": {...}}. Any failure
@@ -148,13 +168,17 @@ import torch
 
 from faceoff_tpu_torch.config import ModelConfig
 from faceoff_tpu_torch.cli import common as cli_common
+from faceoff_tpu_torch.cli import encode as encode_cli
 from faceoff_tpu_torch.cli import evaluate as evaluate_cli
 from faceoff_tpu_torch.cli import export as export_cli
 from faceoff_tpu_torch.cli import swap as swap_cli
+from faceoff_tpu_torch.cli import train_alignment as align_cli
+from faceoff_tpu_torch.cli import train_faceoff as vanilla_cli
 from faceoff_tpu_torch.cli import train_faceoff_gan as gan_cli
 from faceoff_tpu_torch.cli import train_faceoff_perceptual as trainer_cli
 from faceoff_tpu_torch.data import geometry
-from faceoff_tpu_torch.data.dataset import _landmark_paths, load_frame
+from faceoff_tpu_torch.data.dataset import (_landmark_paths, denormalize,
+                                            load_frame)
 from faceoff_tpu_torch.data.dataset import TemporalAlignmentDataset
 from faceoff_tpu_torch.data.resident import (build_resident_corpus,
                                              corpus_from_arrays,
@@ -165,7 +189,9 @@ from faceoff_tpu_torch.data.synthetic import (draw_face, face_landmarks,
 from faceoff_tpu_torch.io import image as image_io
 from faceoff_tpu_torch.io.checkpoint import CheckpointManager
 from faceoff_tpu_torch.io.video import read_video_frames
+from faceoff_tpu_torch.losses import mse_loss
 from faceoff_tpu_torch.models import VQVAE
+from faceoff_tpu_torch.models.vqvae_b2f import VQVAE_B2F
 from faceoff_tpu_torch.models.discriminators import (MultiscaleDiscriminator2D,
                                                      MultiscaleDiscriminator3D)
 from faceoff_tpu_torch.models.lpips import init_lpips
@@ -2241,15 +2267,472 @@ def gan_phase(t0, work: Path):
     return {"step": step, "check": check, "cli": cli, "launches": launches}
 
 
+# -- phase 13: the three-stream b2f model ---------------------------------
+
+B2F_FRAMES = 16  # frames a stream, at TRAIN_SIZE
+B2F_CHECK = dict(channel=32, n_res_block=1, n_res_channel=8, embed_dim=16,
+                 n_embed=64)
+B2F_CHECK_TOL = 1e-4  # of the largest magnitude; float32, TF32 off
+
+
+def _b2f_codebooks(model):
+    return {k: v for k, v in model.state_dict().items()
+            if k.split(".")[-1] in ("embed", "cluster_size", "embed_avg")}
+
+
+def b2f_phase(t0):
+    """VQVAE_B2F at the flagship widths (channel 128, 2 res blocks of 32,
+    six 512x64 codebooks), three streams of 16 frames at 256 px (three
+    synthetic videos as the face and hand streams, the face stream the
+    target), computing in bf16 under autocast with float32 parameters and
+    Adam at lr 3e-4: 2 warm-up and 5 timed training steps (forward,
+    backward, Adam): step ms, peak memory, exactly 6 assignment and 6
+    statistics launches a step, finite losses and codebooks. Then the
+    face tower's bottom quantizer call, (65536, 64, 512), captured from
+    one more forward, held against the plain version and timed; and a
+    float32 training forward at narrow widths on CUDA against the CPU
+    from the same weights (reconstruction and latent loss within
+    B2F_CHECK_TOL of their largest magnitude, codebooks rtol 1e-4 atol
+    1e-5)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    frames, _, _ = synthetic_corpus(3, B2F_FRAMES, TRAIN_SIZE, seed=9,
+                                    device=DEV)
+    xs = tuple(frames[i].to(torch.float32) / 127.5 - 1.0 for i in range(3))
+    del frames
+    model = VQVAE_B2F(dtype=torch.float32, device=DEV,
+                      generator=torch.Generator().manual_seed(0))
+    opt = torch.optim.Adam(model.parameters(), lr=TRAIN_LR)
+
+    dev_type = torch.device(DEV).type
+
+    def step():
+        with torch.autocast(dev_type, dtype=torch.bfloat16):
+            dec, diff = model(xs, train=True)
+            loss = mse_loss(dec, xs[0]) + diff
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.detach(), diff.detach()
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times, losses = [], []
+    for _ in range(WARMUP_STEPS + TIMED_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, diff = step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append([float(loss), float(diff)])
+    counts = read_counts()
+    n_steps = WARMUP_STEPS + TIMED_STEPS
+    step_ms = statistics.median(times[WARMUP_STEPS:])
+    result = {"step_ms_median": step_ms, "step_ms": times,
+              "frames_per_s": 3 * B2F_FRAMES / (step_ms / 1e3),
+              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+              "losses": losses, "launches": counts}
+    if (counts["vq_assign"] != 6 * n_steps or counts["vq_stats"] != 6 * n_steps
+            or counts["warp"] or counts["warp_backward"]):
+        raise AssertionError(f"b2f launches {counts} for {n_steps} steps")
+    if not all(math.isfinite(v) for pair in losses for v in pair) or not all(
+            bool(torch.isfinite(v).all()) for v in
+            _b2f_codebooks(model).values()):
+        raise AssertionError("b2f: non-finite losses or codebooks")
+
+    # the face tower's bottom call, as the step makes it
+    calls = []
+    plain_assign = V.vq_assign
+
+    def capture(flat, embed):
+        calls.append((flat.detach().to(torch.float32).contiguous(),
+                      embed.detach().clone()))
+        return plain_assign(flat, embed)
+
+    V.vq_assign = capture
+    try:
+        with torch.no_grad(), torch.autocast(dev_type, dtype=torch.bfloat16):
+            model(xs, train=True, update_codebooks=True)
+    finally:
+        V.vq_assign = plain_assign
+    x, e = calls[1]
+    out = vq_cuda.vq_assign(x, e)
+    torch.cuda.synchronize()
+    n, d = x.shape
+    k = e.shape[1]
+    flagged = int(vq_cuda.assign_rows_flagged(x, e)[2])
+    b_ms, b_by = vq_bound_ms(n, d, k, flagged)
+    graph = dict(reps=7, inner=3)
+    result["bottom_call"] = {
+        "shape": [n, d, k], **check_vq(x, e, out),
+        "kernel_ms": device_ms(lambda: vq_cuda.vq_assign(x, e), **graph),
+        "plain_ms": cuda_ms(lambda: V.vq_assign_plain(x, e), reps=7,
+                            inner=3, warmup=2),
+        "library_ms": device_ms(lambda: x @ e, **graph),
+        "bound_ms": b_ms, "bound_by": b_by, "flagged_rows": flagged}
+    del x, e, out, calls, model, opt, xs
+    torch.cuda.empty_cache()
+
+    # float32 at narrow widths: the card against the CPU
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = VQVAE_B2F(dtype=torch.float32, device="cpu",
+                    generator=torch.Generator().manual_seed(1), **B2F_CHECK)
+    card = VQVAE_B2F(dtype=torch.float32, device=DEV, **B2F_CHECK)
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(5)
+    small = tuple(torch.rand((4, 64, 64, 3), generator=g) * 2 - 1
+                  for _ in range(3))
+    with torch.no_grad():
+        dec, diff = card(tuple(s.to(DEV) for s in small), train=True)
+        ref_dec, ref_diff = cpu(small, train=True)
+    scale = float(ref_dec.abs().max())
+    check = {"dec_max_abs_err": float((dec.cpu() - ref_dec).abs().max()),
+             "dec_scale": scale,
+             "latent_rel_err": abs(float(diff) - float(ref_diff))
+             / abs(float(ref_diff)),
+             "codebook_max_abs_err": max(
+                 float((v.cpu() - _b2f_codebooks(cpu)[kk]).abs().max())
+                 for kk, v in _b2f_codebooks(card).items())}
+    result["float32_check"] = check
+    torch.backends.cudnn.allow_tf32 = True
+    say("b2f", t0, json.dumps(result))
+    if not (check["dec_max_abs_err"] <= B2F_CHECK_TOL * scale
+            and check["latent_rel_err"] <= B2F_CHECK_TOL):
+        raise AssertionError(f"b2f float32 forward on the card against the "
+                             f"CPU: {check}")
+    for kk, v in _b2f_codebooks(card).items():
+        ref = _b2f_codebooks(cpu)[kk]
+        if not torch.allclose(v.cpu(), ref, rtol=1e-4, atol=1e-5):
+            raise AssertionError(f"b2f codebook {kk} on the card differs "
+                                 f"from the CPU's")
+    return result, counts
+
+
+# -- phase 14: the tokenizer, the vanilla and the alignment trainers ------
+
+AUX_VIDEOS, AUX_FRAMES, AUX_B = 8, 10, 2  # 4 steps an epoch at b2
+AUX_ENCODE_FRAMES, AUX_ALIGN_STEPS = 32, 20
+
+
+def aux_phase(t0, work: Path):
+    """Three command lines' main() in this process on the card:
+
+      cli/train_faceoff   the vanilla trainer (MSE + latent) on a PNG
+                          dataset of 8 videos x 10 frames written by
+                          generate_dataset: flagship widths, 256 px, b2,
+                          T8, one epoch of 4 steps through the host
+                          loader; no LPIPS may be built (init_lpips is
+                          replaced by a function that raises), every
+                          record's perceptual term is 0, and each step
+                          launches 2 assignment and 2 statistics kernels
+                          and no warp; frames/s over records 2-4 (the
+                          step is wrapped to end in a read of its loss,
+                          so each record follows its step's end);
+      cli/encode          the trainer phase's step-8 checkpoint on a
+                          32-frame video: the written codes equal
+                          `encode_codes` of the model restored apart
+                          (cli.common.restore_for_inference); --decode's
+                          AVI reads back as the decoded frames, and its
+                          PSNR against the input frames is printed;
+      cli/train_alignment 20 steps at 256 px, 8 frames a clip, on the
+                          vanilla run's dataset: first and last loss,
+                          steps/s from the CLI's clock."""
+    data = work / "aux_data"
+    generate_dataset(str(data), AUX_VIDEOS, AUX_FRAMES, TRAIN_SIZE, seed=8,
+                     device=DEV)
+
+    def no_lpips(*args, **kwargs):
+        raise AssertionError("the vanilla trainer built an LPIPS")
+
+    make_step = vanilla_cli.make_train_step
+
+    def read_each_step(*args, **kwargs):
+        # each step ends in a read of its loss, so that the next record's
+        # clock time follows the step's end
+        step = make_step(*args, **kwargs)
+
+        def run_step(state, batch, seed=0):
+            state, m = step(state, batch, seed)
+            float(m["loss"])
+            return state, m
+
+        return run_step
+
+    built = trainer_cli.init_lpips
+    trainer_cli.init_lpips = no_lpips
+    vanilla_cli.make_train_step = read_each_step
+    zero_counts()
+    try:
+        run = vanilla_cli.main(
+            ["--data_root", str(data), "--batch_size", str(AUX_B),
+             "--train_frames", str(TRAIN_T), "--val_frames", str(TRAIN_T),
+             "--size", str(TRAIN_SIZE), "--epoch", "1", "--validate_at",
+             "1000", "--metrics_path", str(work / "metrics_vanilla.jsonl"),
+             "--checkpoint_dir", str(work / "ckpt_vanilla"),
+             "--sample_folder", str(work / "samples_vanilla")], device=DEV)
+    finally:
+        trainer_cli.init_lpips = built
+        vanilla_cli.make_train_step = make_step
+    counts = read_counts()
+    n_steps = AUX_VIDEOS // AUX_B
+    rec = _records(work / "metrics_vanilla.jsonl")
+    if run.global_step != n_steps or sorted(rec) != list(
+            range(1, n_steps + 1)):
+        raise AssertionError(f"vanilla trainer: {run.global_step} steps, "
+                             f"records {sorted(rec)}")
+    if any(r["perceptual"] != 0.0 or not math.isfinite(r["loss"])
+           for r in rec.values()):
+        raise AssertionError(f"vanilla trainer records {rec}")
+    if (counts["vq_assign"] != 2 * n_steps or counts["vq_stats"] != 2 * n_steps
+            or counts["warp"] or counts["warp_backward"]):
+        raise AssertionError(f"vanilla launches {counts} for {n_steps} steps")
+    span = rec[n_steps]["time"] - rec[2]["time"]
+    result = {"vanilla": {
+        "steps": n_steps, "frames_per_s": (n_steps - 2) * AUX_B * TRAIN_T
+        / span, "losses": [rec[s]["loss"] for s in sorted(rec)],
+        "launches": counts}}
+    say("aux", t0, "vanilla " + json.dumps(result["vanilla"]))
+
+    # the tokenizer on the trainer phase's step-8 checkpoint
+    enc_root = work / "aux_encode"
+    generate_dataset(str(enc_root), 1, AUX_ENCODE_FRAMES, TRAIN_SIZE, seed=12,
+                     device=DEV)
+    video_dir = enc_root / "video_000"
+    argv = ["--video_dir", str(video_dir), "--checkpoint_dir",
+            str(_run_dir(work, "ckpt_v")), "--ckpt", str(TRAINER_STEPS),
+            "--out", str(work / "codes.npz"), "--decode",
+            str(work / "recon.avi"), "--size", str(TRAIN_SIZE),
+            "--max_frames", str(AUX_ENCODE_FRAMES)]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = encode_cli.main(argv, device=DEV)
+    enc_s = time.perf_counter() - t
+    saved = np.load(work / "codes.npz")
+    restored = cli_common.restore_for_inference(
+        encode_cli.build_parser().parse_args(argv), DEV).model
+    with torch.no_grad():
+        ref_t, ref_b = restored.encode_codes(res["video6"])
+    codes_equal = (np.array_equal(saved["codes_top"], ref_t.cpu().numpy())
+                   and np.array_equal(saved["codes_bottom"],
+                                      ref_b.cpu().numpy()))
+    recon = read_video_frames(str(work / "recon.avi"))
+    avi_equal = len(recon) == AUX_ENCODE_FRAMES and all(
+        np.array_equal(a, denormalize(b)) for a, b in zip(recon, res["recon"]))
+    src = np.stack([load_frame(p, TRAIN_SIZE)[0]
+                    for p in _landmark_paths(str(video_dir))])
+    mse = float(np.mean((np.stack(recon).astype(np.float64)
+                         - src.astype(np.float64)) ** 2))
+    result["encode"] = {
+        "codes_top": list(saved["codes_top"].shape),
+        "codes_bottom": list(saved["codes_bottom"].shape),
+        "codes_equal_encode_codes": codes_equal,
+        "avi_equal_decoded": avi_equal, "wall_s": enc_s,
+        "decode_psnr_db": 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))}
+    say("aux", t0, "encode " + json.dumps(result["encode"]))
+    if not (codes_equal and avi_equal):
+        raise AssertionError(f"encode: {result['encode']}")
+
+    # the alignment trainer
+    out = align_cli.main(["--data_root", str(data), "--size", str(TRAIN_SIZE),
+                          "--frames", str(TRAIN_T), "--steps",
+                          str(AUX_ALIGN_STEPS), "--log_every", "10",
+                          "--checkpoint_dir", str(work / "ckpt_align")],
+                         device=DEV)
+    result["alignment"] = {"steps": out["steps"],
+                           "first_loss": out["first"]["loss"],
+                           "last_loss": out["last"]["loss"],
+                           "steps_per_s": out["steps"] / out["seconds"]}
+    say("aux", t0, "alignment " + json.dumps(result["alignment"]))
+    if out["steps"] != AUX_ALIGN_STEPS or not all(
+            math.isfinite(v) for v in out["last"].values()):
+        raise AssertionError(f"alignment trainer: {out['steps']} steps, "
+                             f"{out['last']}")
+    return result, counts
+
+
+# -- phase 15: one NCCL rank -----------------------------------------------
+
+DIST_CLI_STEPS = 3
+DIST_STEPS, DIST_COMPARED = 5, 2  # steps a variant; bitwise after 2 and 5
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_child(work: Path) -> int:
+    """The dist phase's body, in a process of its own (`--dist-child
+    WORK`), so that its NCCL group ends with it. Writes WORK/dist.json."""
+    from faceoff_tpu_torch.parallel import collectives
+    from faceoff_tpu_torch.parallel.mesh import make_mesh
+    from faceoff_tpu_torch.train.shardmap_step import make_shardmap_train_step
+
+    warp_cuda.build()
+    vq_cuda.build()
+    warp_cuda.load()
+    vq_cuda.load()
+    t0 = time.perf_counter()
+    out = {}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+
+    # the CLI: without --multihost, then with it (the group from its flags)
+    def argv(name, *extra):
+        return ["--data_root", str(work / "data"), "--validation_folder",
+                str(work / "val"), "--resident_data", "--batch_size",
+                str(TRAIN_B), "--train_frames", str(TRAIN_T), "--val_frames",
+                str(TRAIN_T), "--size", str(TRAIN_SIZE), "--sched", "cycle",
+                "--epoch", str(DIST_CLI_STEPS), "--validate_at", "1000",
+                "--metrics_path", str(work / f"metrics_{name}.jsonl"),
+                "--checkpoint_dir", str(work / f"ckpt_{name}"),
+                "--sample_folder", str(work / f"samples_{name}"), *extra]
+
+    zero_counts()
+    single = trainer_cli.main(argv("dist_single"), device=DEV)
+    counts_single = read_counts()
+    zero_counts()
+    multi = trainer_cli.main(argv(
+        "dist_multihost", "--multihost", "--num_processes", "1",
+        "--process_id", "0", "--coordinator_address",
+        f"127.0.0.1:{_free_port()}"), device=DEV)
+    counts_multi = read_counts()
+    steps = range(1, DIST_CLI_STEPS + 1)
+    out["cli"] = {
+        "backend": torch.distributed.get_backend(),
+        "world_size": collectives.get_world_size(),
+        "multihost_reduces": multi.model.quantize_t.process_group is not None,
+        "checkpoint_dir": Path(multi.ckpt.directory).name,
+        "vs_single": _compare(multi, single, _records(
+            work / "metrics_dist_multihost.jsonl"), _records(
+            work / "metrics_dist_single.jsonl"), steps),
+        "launches_single": counts_single, "launches_multihost": counts_multi}
+    say("dist", t0, "cli " + json.dumps(out["cli"]))
+    del single, multi
+    torch.cuda.empty_cache()
+
+    # the shardmap step against the plain step, the train phase's setting
+    frames, lms, n_frames = synthetic_corpus(
+        CORPUS_VIDEOS, CORPUS_FRAMES, TRAIN_SIZE, seed=3, device=DEV)
+    corpus = corpus_from_arrays(frames, lms, n_frames, device=DEV)
+    del frames
+    raw = {"frames": corpus.frames, "landmarks": corpus.landmarks}
+    prepare = make_resident_prepare(corpus, TRAIN_B, TRAIN_T)
+    runs = {}
+    zero_counts()
+    for name in ("plain", "shardmap"):
+        model = VQVAE(ModelConfig(), dtype=torch.float32, device=DEV,
+                      generator=torch.Generator().manual_seed(0))
+        lpips = init_lpips(torch.Generator().manual_seed(1), device=DEV)
+        state = create_train_state(model, make_optimizer(
+            model.parameters(), TRAIN_LR, "cycle", n_iter=TRAIN_N_ITER))
+        if name == "plain":
+            step = make_train_step(model, lpips=lpips, prepare_fn=prepare)
+        else:
+            step = make_shardmap_train_step(model, make_mesh(), lpips=lpips,
+                                            prepare_fn=prepare)
+        times, metrics, snaps = [], [], []
+        for i in range(DIST_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, raw, seed=0)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if i + 1 in (DIST_COMPARED, DIST_STEPS):
+                snaps.append({k: v.detach().clone()
+                              for k, v in model.state_dict().items()})
+        runs[name] = (times, metrics, snaps)
+        del model, lpips, state, step
+        torch.cuda.empty_cache()
+    counts = read_counts()
+    (pt, pm, ps), (st, sm, ss) = runs["plain"], runs["shardmap"]
+    out["step"] = {
+        "plain_step_ms": statistics.median(pt[DIST_COMPARED:]),
+        "shardmap_step_ms": statistics.median(st[DIST_COMPARED:]),
+        "plain_step_ms_all": pt, "shardmap_step_ms_all": st,
+        "bitwise_equal": pm == sm and all(
+            all(torch.equal(a[k], b[k]) for k in a) for a, b in zip(ps, ss)),
+        "launches": counts}
+    say("dist", t0, "step " + json.dumps(out["step"]))
+    out["launches"] = {k: counts_single[k] + counts_multi[k] + counts[k]
+                       for k in counts}
+    with open(work / "dist.json", "w") as f:
+        json.dump(out, f)
+    collectives.destroy()
+    return 0
+
+
+def dist_phase(t0, work: Path):
+    """One NCCL rank, in a child process (`--dist-child`):
+
+      cli   cli/train_faceoff_perceptual.main() at the trainer phase's
+            setting (flagship, b16, T8, 256 px, --resident_data, the
+            one-cycle schedule), 3 steps without --multihost, then with
+            --multihost --num_processes 1 --process_id 0
+            --coordinator_address 127.0.0.1:<free port> (the CLI joins an
+            NCCL group and trains through the shardmap step): the two
+            runs bitwise equal (parameters, codebooks, every record's
+            losses and lr);
+      step  make_shardmap_train_step against make_train_step from the
+            same weights, the train phase's setting (LPIPS in bf16,
+            resident prepared batches), 5 steps each: bitwise equal after
+            2 and after 5 steps, metrics too; step ms (median of steps
+            3-5) of both, printed beside the train phase's.
+
+    A one-rank all-reduce is the identity and the card's step repeats bit
+    for bit (its kernels add in a fixed order), so any difference is a
+    fault. NCCL refuses two ranks on one GPU: two ranks are tested on the
+    CPU over gloo (tests/test_torch_parallel.py), several GPUs by
+    tools/dist_check_torch.py."""
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--dist-child",
+         str(work)], capture_output=True, text=True, timeout=900)
+    for line in proc.stdout.splitlines():
+        if line.startswith("[dist]"):
+            print(line, flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"dist child exited {proc.returncode}:\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    with open(work / "dist.json") as f:
+        res = json.load(f)
+    cli = res["cli"]
+    if not (cli["backend"] == "nccl" and cli["world_size"] == 1
+            and cli["multihost_reduces"]
+            and cli["checkpoint_dir"].startswith("ckpt_dist_multihost_mh")):
+        raise AssertionError(f"dist: the --multihost run {cli}")
+    if not cli["vs_single"]["bitwise_equal"]:
+        raise AssertionError("dist: the --multihost run differs from the run "
+                             "without it")
+    if not res["step"]["bitwise_equal"]:
+        raise AssertionError("dist: the shardmap step differs from the plain "
+                             "step")
+    n = 2 * DIST_CLI_STEPS + 2 * DIST_STEPS
+    got = res["launches"]
+    if (got["vq_assign"] != 2 * n or got["vq_stats"] != 2 * n
+            or got["warp"] != n or got["warp_backward"]):
+        raise AssertionError(f"dist launches {got} for {n} steps")
+    say("dist", t0, json.dumps({k: res["step"][k] for k in (
+        "plain_step_ms", "shardmap_step_ms", "bitwise_equal")}))
+    return res, got
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="profile one more training step")
+    parser.add_argument("--dist-child", metavar="WORK", default=None,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
               file=sys.stderr)
         return 1
+    if args.dist_child:
+        return dist_child(Path(args.dist_child))
     t_all = time.perf_counter()
 
     t0 = time.perf_counter()
@@ -2290,6 +2773,12 @@ def main() -> int:
         exported = export_phase(t0, Path(work), streams)
         t0 = time.perf_counter()
         gan_result = gan_phase(t0, Path(work))
+        t0 = time.perf_counter()
+        b2f, b2f_counts = b2f_phase(t0)
+        t0 = time.perf_counter()
+        aux, aux_counts = aux_phase(t0, Path(work))
+        t0 = time.perf_counter()
+        dist, dist_counts = dist_phase(t0, Path(work))
     trainer_counts = trainer["launches"]
     swap_counts = swap["launches"]
     gan_counts = gan_result["launches"]
@@ -2352,18 +2841,50 @@ def main() -> int:
             exported["stream_vs_session_max_abs_diff"],
         "push_ms_p50": exported["push_ms_p50"],
         "launches": exported["launches"]}))
+    say("b2f", t_all, json.dumps({
+        "card": card, "step_ms_median": b2f["step_ms_median"],
+        "frames_per_s": b2f["frames_per_s"],
+        "max_memory_allocated_bytes": b2f["max_memory_allocated_bytes"],
+        "bottom_call": {k: b2f["bottom_call"][k] for k in (
+            "shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "flagged_rows", "max_abs_err")},
+        "float32_check": b2f["float32_check"], "launches": b2f_counts}))
+    say("aux", t_all, json.dumps({
+        "card": card,
+        "vanilla_frames_per_s": aux["vanilla"]["frames_per_s"],
+        "encode_psnr_db": aux["encode"]["decode_psnr_db"],
+        "alignment_first_last_loss": [aux["alignment"]["first_loss"],
+                                      aux["alignment"]["last_loss"]],
+        "alignment_steps_per_s": aux["alignment"]["steps_per_s"],
+        "launches": aux_counts}))
+    say("dist", t_all, json.dumps({
+        "card": card,
+        "shardmap_step_ms": dist["step"]["shardmap_step_ms"],
+        "plain_step_ms": dist["step"]["plain_step_ms"],
+        "train_phase_step_ms": train_result["step_ms_median"],
+        "step_bitwise_equal": dist["step"]["bitwise_equal"],
+        "multihost_cli_bitwise_equal": dist["cli"]["vs_single"][
+            "bitwise_equal"],
+        "launches": dist_counts}))
     # the serving path: the slice phase's sessions and the export phase's
     launches += exported["launches"]["warp"]
-    say("launches", t_all, json.dumps({"serving": {"warp": launches},
-                                       "training": train_counts,
-                                       "trainer": trainer_counts,
-                                       "swap": swap_counts,
-                                       "gan": gan_counts}))
-    for k in train_counts:
-        train_counts[k] += trainer_counts[k]
-    # the GAN path: its assignment-only calls count in the assignment
-    # row; each of its statistics launches is one call of the pair
-    gan_pairs = gan_counts["vq_stats"]
+    paths = {"serving": {"vq_assign": 0, "vq_stats": 0, "warp": launches,
+                         "warp_backward": 0},
+             "training": dict(train_counts), "trainer": trainer_counts,
+             "swap": swap_counts, "gan": gan_counts, "b2f": b2f_counts,
+             "vanilla_trainer": aux_counts, "dist": dist_counts}
+    say("launches", t_all, json.dumps(paths))
+
+    def by_path(key):
+        return {p: c[key] for p, c in paths.items()}
+
+    def total(key):
+        return sum(c[key] for c in paths.values())
+
+    # each statistics launch is one call of the pair (assignment and
+    # statistics); the GAN's assignment-only calls count in the
+    # assignment row
+    pairs = {p: c["vq_stats"] for p, c in paths.items()}
     main_row = rows[0]
     vq_main, vq_big = vq_rows[0], vq_rows[-1]
     kernels = [{
@@ -2371,8 +2892,8 @@ def main() -> int:
         "route": "cuda",
         "source": "faceoff_tpu_torch/csrc/warp.cu",
         "replaces": "faceoff_tpu/ops/warp_pallas.py:54",
-        "launches": (launches + train_counts["warp"] + swap_counts["warp"]
-                     + gan_counts["warp"]),
+        "launches": total("warp"),
+        "launches_by_path": by_path("warp"),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -2385,8 +2906,8 @@ def main() -> int:
         "source": "faceoff_tpu_torch/csrc/vq.cu",
         "replaces": "faceoff_tpu/ops/vq_pallas.py:44",
         # the pair: each call launches both kernels once
-        "launches": (min(train_counts["vq_assign"], train_counts["vq_stats"])
-                     + gan_pairs),
+        "launches": sum(pairs.values()),
+        "launches_by_path": pairs,
         "max_abs_err": max(r["max_abs_err"] for r in vq_rows[:-1]),
         "ms": vq_main["kernel_ms"],
         "plain_ms": vq_main["plain_ms"],
@@ -2398,7 +2919,8 @@ def main() -> int:
         "route": "cuda",
         "source": "faceoff_tpu_torch/csrc/vq.cu",
         "replaces": "faceoff_tpu/ops/vq_pallas.py:90",
-        "launches": train_counts["vq_assign"] + gan_counts["vq_assign"],
+        "launches": total("vq_assign"),
+        "launches_by_path": by_path("vq_assign"),
         # quant is an exact copy; the pick's score short of the best
         "max_abs_err": vq_big["max_score_shortfall"],
         "ms": vq_big["assign_ms"],
@@ -2411,7 +2933,8 @@ def main() -> int:
         "route": "cuda",
         "source": "faceoff_tpu_torch/csrc/vq.cu",
         "replaces": "faceoff_tpu/ops/vq_pallas.py:147",
-        "launches": train_counts["vq_stats"] + gan_counts["vq_stats"],
+        "launches": total("vq_stats"),
+        "launches_by_path": by_path("vq_stats"),
         "max_abs_err": vq_big["max_abs_err"],
         "ms": vq_big["stats_ms"],
         "plain_ms": vq_big["stats_plain_ms"],
@@ -2423,7 +2946,8 @@ def main() -> int:
         "route": "cuda",
         "source": "faceoff_tpu_torch/csrc/warp.cu",
         "replaces": "faceoff_tpu/ops/warp_pallas.py:204",
-        "launches": train_counts["warp_backward"] + gan_counts["warp_backward"],
+        "launches": total("warp_backward"),
+        "launches_by_path": by_path("warp_backward"),
         "max_abs_err": bwd["max_abs_err"],
         "ms": bwd["kernel_ms"],
         "plain_ms": bwd["plain_ms"],

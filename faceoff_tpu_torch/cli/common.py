@@ -45,8 +45,9 @@ def add_curation_flags(p) -> None:
 
 
 def add_multihost_flags(p) -> None:
-    """The JAX package's process-coordination flags; the port refuses them
-    until its multi-device slice (ROADMAP.md, Queue 1 item 6)."""
+    """Explicit process-coordination flags for --multihost, the JAX
+    package's: without them the torchrun environment is read
+    (`parallel.collectives.initialize_distributed`)."""
     g = p.add_argument_group("multi-host coordination (with --multihost)")
     g.add_argument("--coordinator_address", default=None,
                    help="host:port of process 0")
@@ -54,6 +55,45 @@ def add_multihost_flags(p) -> None:
                    help="total process count")
     g.add_argument("--process_id", type=int, default=None,
                    help="this process's rank")
+
+
+def multihost_kwargs(args) -> dict:
+    """The coordination flags given, for
+    `collectives.initialize_distributed`; a partial set exits."""
+    flags = {k: getattr(args, k, None) for k in
+             ("coordinator_address", "num_processes", "process_id")}
+    given = {k: v for k, v in flags.items() if v is not None}
+    if given and len(given) != len(flags):
+        missing = sorted(set(flags) - set(given))
+        raise SystemExit("explicit multi-host coordination needs all three "
+                         "flags; missing: "
+                         + ", ".join("--" + m for m in missing))
+    return given
+
+
+def init_multihost(args, device: DeviceLike = None) -> None:
+    """With --multihost, join the process group before anything else
+    touches the device (flags, else the torchrun environment, else one
+    process)."""
+    if not getattr(args, "multihost", False):
+        return
+    from faceoff_tpu_torch.parallel import collectives
+
+    collectives.initialize_distributed(**multihost_kwargs(args),
+                                       device=device)
+    print(f"multihost: process {collectives.get_rank()} of "
+          f"{collectives.get_world_size()}", flush=True)
+
+
+def shared_run_name() -> str:
+    """A run directory suffix that every process shares: process 0's
+    random nonce, broadcast (a seed-derived one would make reruns of a
+    seed collide)."""
+    import os
+
+    from faceoff_tpu_torch.parallel import collectives
+
+    return "mh" + collectives.broadcast_object(os.urandom(4).hex())[:5]
 
 
 def model_config(args, in_channels: int = 6) -> ModelConfig:

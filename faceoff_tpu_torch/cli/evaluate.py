@@ -49,8 +49,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--frames", type=int, default=8)
     p.add_argument("--max_batches", type=int, default=16)
     p.add_argument("--lpips_weights", default=None,
-                   help=".npz from tools/convert_lpips.py ('auto' is "
-                        "refused)")
+                   help=".npz from tools/convert_lpips.py, or 'auto' to "
+                        "probe local paths")
     p.add_argument("--num_workers", type=int, default=4)
     p.add_argument("--naive_baseline", choices=["paste", "poisson"],
                    default=None,
@@ -89,10 +89,7 @@ def main(argv=None, device: DeviceLike = None) -> Dict:
     parser = build_parser()
     args = parser.parse_args(argv)
     common.refuse_no_pallas(parser, args)
-    try:
-        lpips_npz = resolve_lpips_weights(args.lpips_weights)
-    except ValueError as e:
-        parser.error(str(e))
+    lpips_npz = resolve_lpips_weights(args.lpips_weights)
     dev = resolve_device(device)
     state = common.restore_for_inference(args, dev)
     eval_step = make_eval_step(state.model)

@@ -13,7 +13,7 @@ streams beside it (`{stem}_composite.avi`, `{stem}_background.avi`,
 The same options and defaults as the JAX CLI, but for --out: videos are
 uncompressed AVI (`io/video.py`), so the default is swapped.avi and
 another suffix is refused (mp4 waits for an encoder: ROADMAP.md, Queue 1
-item 7). The swap geometry runs per frame pair on the host
+item 7b). The swap geometry runs per frame pair on the host
 (`data/geometry.generate_warped_image`) or, with --device_pipeline, on
 the device in chunks of --chunk frames (`ops/swap.prepare_swap_batch`,
 one launch of the warp kernel a chunk on the card). The model runs in
@@ -142,7 +142,7 @@ def main(argv=None, device: DeviceLike = None) -> Dict:
     if osp.splitext(args.out)[1].lower() != ".avi":
         parser.error(f"--out {args.out}: the port writes uncompressed AVI; "
                      "mp4 needs a video encoder (ROADMAP.md, Queue 1 item "
-                     "7, mp4 sample videos); name an .avi file")
+                     "7b, mp4 sample videos); name an .avi file")
     dev = resolve_device(device)
 
     src_paths = _landmark_paths(args.source)

@@ -24,8 +24,15 @@ directories are used as given. Validation writes the sample streams (AVI)
 and prints fd_vgg and fd_vgg_motion. Runs on CUDA; `main(argv,
 device="cpu")` runs on the CPU (the tests).
 
---multihost and its coordination flags exit naming ROADMAP.md Queue 1
-item 6, --lpips_weights auto item 7; --no_pallas is refused.
+--multihost trains one process a GPU over torch.distributed (NCCL on
+CUDA, gloo on the CPU; the perceptual CLI's flags): each process takes
+--batch_size clips of its shard a step, every step is one step on the
+global batch (gradients and metrics averaged, VQ statistics summed,
+BatchNorm statistics and the RaLSGAN batch means the global batch's,
+the Fréchet features gathered), only process 0 writes checkpoints and
+samples, and a preemption stops every process by consensus at the log
+cadence. --lpips_weights auto probes local paths; --no_pallas is
+refused.
 """
 
 from __future__ import annotations
@@ -48,9 +55,12 @@ from faceoff_tpu_torch.models.discriminators import (MultiscaleDiscriminator2D,
                                                      MultiscaleDiscriminator3D,
                                                      NLayerDiscriminator,
                                                      PatchImageDiscriminator,
-                                                     PatchVideoDiscriminator)
+                                                     PatchVideoDiscriminator,
+                                                     set_process_group)
 from faceoff_tpu_torch.models.lpips import (RematLPIPS, init_lpips,
                                             resolve_lpips_weights)
+from faceoff_tpu_torch.parallel import collectives
+from faceoff_tpu_torch.parallel.mesh import make_mesh
 from faceoff_tpu_torch.train.gan import (adv_scale_schedule,
                                          create_gan_state,
                                          make_gan_multi_step, make_gan_steps)
@@ -123,8 +133,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--val_batches", type=int, default=2)
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--lpips_weights", default=None,
-                   help=".npz from tools/convert_lpips.py ('auto' is "
-                        "refused)")
+                   help=".npz from tools/convert_lpips.py, or 'auto' to "
+                        "probe local paths")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--steps", type=int, default=None,
                    help="optional cap on total steps (smoke runs); with "
@@ -170,23 +180,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "0->1 over this many steps after "
                         "--adversarial_start (0 = hard switch)")
     p.add_argument("--multihost", action="store_true",
-                   help="refused until the multi-device slice")
+                   help="one process a GPU over torch.distributed")
     common.add_curation_flags(p)
     common.add_multihost_flags(p)
     return p
 
 
 def refuse_unported(parser: argparse.ArgumentParser, args) -> None:
-    """Exit with an error for a flag whose function the port lacks."""
-    if args.multihost or any(
-            getattr(args, k) is not None for k in
-            ("coordinator_address", "num_processes", "process_id")):
-        parser.error("--multihost and its coordination flags wait for the "
-                     "multi-device port (ROADMAP.md, Queue 1 item 6)")
-    try:
-        resolve_lpips_weights(args.lpips_weights)
-    except ValueError as e:
-        parser.error(str(e))
+    """Exit with an error for a flag whose function the port lacks
+    (--no_pallas) or a combination the steps do not take."""
     common.refuse_no_pallas(parser, args)
     if args.steps_per_call > 1 and args.gan != "mocoganhd":
         parser.error("--steps_per_call supports --gan mocoganhd only")
@@ -198,8 +200,10 @@ def refuse_unported(parser: argparse.ArgumentParser, args) -> None:
                      "samples and prepares its own clips on the card)")
 
 
-def _loaders(args, ds, dev):
-    """(train loader, prepare_fn) for the three input paths."""
+def _loaders(args, ds, dev, local_clips):
+    """(train loader, prepare_fn) for the three input paths, each process
+    taking `local_clips` clips of its own shard a step."""
+    rank, world = collectives.get_rank(), collectives.get_world_size()
     if args.resident_data:
         from faceoff_tpu_torch.data.resident import (ResidentBatches,
                                                      build_resident_corpus,
@@ -211,34 +215,41 @@ def _loaders(args, ds, dev):
             device=dev)
         print(f"resident corpus staged: {corpus.n_videos} videos, "
               f"{corpus.nbytes / 2**20:.0f} MiB on {dev}", flush=True)
-        return (ResidentBatches(corpus, max(1, len(ds) // args.batch_size),
-                                clips_per_step=args.batch_size,
+        return (ResidentBatches(corpus, max(1, len(ds) // local_clips),
+                                clips_per_step=local_clips,
                                 clip_len=args.train_frames),
-                make_resident_prepare(corpus, args.batch_size,
+                make_resident_prepare(corpus, local_clips,
                                       args.train_frames))
     if args.device_pipeline:
         from faceoff_tpu_torch.data.device_pipeline import (
             RawClipLoader, prepare_train_batch)
 
-        return (RawClipLoader(ds, batch_clips=args.batch_size,
-                              num_workers=args.num_workers, seed=args.seed),
+        return (RawClipLoader(ds, batch_clips=local_clips,
+                              num_workers=args.num_workers, seed=args.seed,
+                              shard_index=rank, shard_count=world),
                 prepare_train_batch)
-    return DataLoader(ds, batch_clips=args.batch_size,
-                      num_workers=args.num_workers, seed=args.seed), None
+    return DataLoader(ds, batch_clips=local_clips,
+                      num_workers=args.num_workers, seed=args.seed,
+                      shard_index=rank, shard_count=world), None
 
 
-def _recipe(args, model, gen_state, lpips, prepare_fn, dev):
-    """(state, run_step(state, batch, step_count), multi_step or None)."""
+def _recipe(args, model, gen_state, lpips, prepare_fn, dev, group=None):
+    """(state, run_step(state, batch, step_count), multi_step or None);
+    across processes the discriminators and every step reduce over
+    `group`."""
     disc_gen = torch.Generator().manual_seed(args.seed + 2)
     seed = args.seed
     lpips_kw = dict(lpips=lpips, prepare_fn=prepare_fn,
-                    perceptual_loss_weight=1.0 if args.perceptual else 0.0)
+                    perceptual_loss_weight=1.0 if args.perceptual else 0.0,
+                    process_group=group)
     if args.gan == "mocoganhd":
         d_img = MultiscaleDiscriminator2D(ndf=args.ndf, device=dev,
                                           generator=disc_gen)
         d_3d = MultiscaleDiscriminator3D(ndf=args.ndf,
                                          n_frames=args.sample_frames,
                                          device=dev, generator=disc_gen)
+        for d in (d_img, d_3d):
+            set_process_group(d, group)
         state = create_gan_state(gen_state, d_img, d_3d,
                                  disc_lr=args.disc_lr)
         step_kwargs = dict(sample_frames=args.sample_frames,
@@ -267,6 +278,8 @@ def _recipe(args, model, gen_state, lpips, prepare_fn, dev):
                      generator=disc_gen)
         d_img = PatchImageDiscriminator(ndf=args.ndf, **noise)
         d_vid = PatchVideoDiscriminator(ndf=args.ndf, **noise)
+        for d in (d_img, d_vid):
+            set_process_group(d, group)
         state = create_mocogan_state(gen_state, d_img, d_vid,
                                      disc_lr=args.disc_lr)
         step = make_mocogan_step(model, d_img, d_vid,
@@ -276,9 +289,11 @@ def _recipe(args, model, gen_state, lpips, prepare_fn, dev):
         return state, lambda st, b, n: step(st, b, seed), None
 
     disc = NLayerDiscriminator(ndf=args.ndf, device=dev, generator=disc_gen)
+    set_process_group(disc, group)
     state = create_vqgan_state(gen_state, disc, disc_lr=args.disc_lr)
     gen_step, disc_step = make_vqgan_steps(model, disc, lpips=lpips,
-                                           prepare_fn=prepare_fn)
+                                           prepare_fn=prepare_fn,
+                                           process_group=group)
 
     def run_step(state, batch, step_count):
         if step_count % 2 == 0:
@@ -295,16 +310,26 @@ def main(argv=None, device: DeviceLike = None) -> Dict[str, Any]:
     parser = build_parser()
     args = parser.parse_args(argv)
     refuse_unported(parser, args)
+    common.init_multihost(args, device)
+    args.lpips_weights = resolve_lpips_weights(args.lpips_weights)
     if args.perceptual and args.sample_frames == 16:
         args.sample_frames = 12
     print(args, flush=True)
     dev = resolve_device(device)
+    mesh = make_mesh()
+    world = collectives.get_world_size()
+    primary = collectives.is_primary()
+    group = collectives.default_group()
+    # each process's share of the global batch of batch_size clips a device
+    local_clips = max(1, args.batch_size * mesh.size // world)
+    local_val_clips = max(1, mesh.size // world)
 
     model = common.build_vqvae(args, device=dev)
+    model.set_process_group(group)
     ds = TemporalAlignmentDataset(
         args.data_root, "train", args.train_frames, resolution=args.size,
         exclude_list=args.exclude_list, device=dev)
-    loader, prepare_fn = _loaders(args, ds, dev)
+    loader, prepare_fn = _loaders(args, ds, dev, local_clips)
     gen_state = create_train_state(
         model, make_optimizer(model.parameters(), args.lr))
 
@@ -323,7 +348,7 @@ def main(argv=None, device: DeviceLike = None) -> Dict[str, Any]:
     if args.perceptual or args.gan == "vqgan":
         lpips = RematLPIPS(fd_lpips) if args.remat_lpips else fd_lpips
     state, run_step, multi_step = _recipe(args, model, gen_state, lpips,
-                                          prepare_fn, dev)
+                                          prepare_fn, dev, group)
 
     ckpt = CheckpointManager(args.checkpoint_dir)
     disc_ckpt = CheckpointManager(osp.join(args.checkpoint_dir, "disc"))
@@ -352,18 +377,23 @@ def main(argv=None, device: DeviceLike = None) -> Dict[str, Any]:
     val_ds = TemporalAlignmentDataset(
         args.data_root, "val", args.val_frames, resolution=args.size,
         exclude_list=args.exclude_list, device=dev)
-    val_loader = DataLoader(val_ds, batch_clips=1, shuffle=False,
-                            num_workers=2, seed=args.seed)
-    metrics_writer = (MetricsWriter(args.metrics_path) if args.metrics_path
-                      else None)
+    val_loader = DataLoader(val_ds, batch_clips=local_val_clips,
+                            shuffle=False, num_workers=2, seed=args.seed,
+                            shard_index=collectives.get_rank(),
+                            shard_count=world)
+    metrics_writer = (MetricsWriter(args.metrics_path)
+                      if args.metrics_path and primary else None)
     preemption = PreemptionGuard()
     watchdog = StallWatchdog(args.stall_timeout)
     fd_feats, fd_finalize = make_fd_video_features(fd_lpips)
     last_fd = None
 
     def save_all(step_count):
-        ckpt.save(step_count, state.gen, seed=args.seed)
-        disc_ckpt.save_tree(step_count, disc_bundle(state))
+        def write():
+            ckpt.save(step_count, state.gen, seed=args.seed)
+            disc_ckpt.save_tree(step_count, disc_bundle(state))
+
+        collectives.run_on_primary(write)
 
     def validate(epoch, step_count):
         nonlocal last_fd
@@ -379,9 +409,14 @@ def main(argv=None, device: DeviceLike = None) -> Dict[str, Any]:
                      for k in ("input", "gt")}
             out, _ = eval_step(state.gen, batch)
             chunks.append(fd_feats(batch["gt"], out.to(torch.float32)))
+        if world > 1:
+            # the features of every process's validation shard
+            chunks = [{k: collectives.all_gather_rows(c[k], group)
+                       for k in c} for c in chunks]
         last_fd = {k: float(v) for k, v in fd_finalize(chunks).items()}
-        print(" ".join(f"{k}: {v:.4f}" for k, v in last_fd.items()),
-              flush=True)
+        if primary:
+            print(" ".join(f"{k}: {v:.4f}" for k, v in last_fd.items()),
+                  flush=True)
         if metrics_writer is not None:
             metrics_writer.write(step_count, last_fd, epoch=epoch)
             metrics_writer.flush()
@@ -445,19 +480,24 @@ def main(argv=None, device: DeviceLike = None) -> Dict[str, Any]:
                     step_count += 1
                     pending.append((step_count, epoch, m))
                 watchdog.beat()
-                if step_count - last_log >= args.log_every:
+                log_now = step_count - last_log >= args.log_every
+                if log_now:
                     last_log = step_count
                     for s, e, pm in pending:
                         vals = {k: float(v) for k, v in pm.items()}
                         if metrics_writer is not None:
                             metrics_writer.write(s, vals, epoch=e)
                     line = " ".join(f"{k}: {v:.5f}" for k, v in vals.items())
-                    print(f"epoch {epoch + 1} step {step_count}; {line}",
-                          flush=True)
+                    if primary:
+                        print(f"epoch {epoch + 1} step {step_count}; {line}",
+                              flush=True)
                     pending.clear()
                     if metrics_writer is not None:
                         metrics_writer.flush()
-                if preemption.should_stop:
+                # across processes: stop by consensus at the log cadence,
+                # which every process reaches at the same step
+                if (preemption.should_stop if world == 1 else
+                        log_now and preemption.should_stop_global(dev)):
                     print("preemption: saving the whole GAN state",
                           flush=True)
                     save_all(step_count)

@@ -11,12 +11,17 @@ clips there; --device_pipeline decodes clips on the host and prepares
 them on the card; by default host workers build whole items. Runs on
 CUDA; `main(argv, device="cpu")` runs on the CPU (the tests).
 
-Flags whose function the port does not have yet parse, then exit with an
-error naming the ROADMAP.md item that brings it: --multihost and its
-coordination flags, --lpips_weights auto.
---no_pallas is refused too: on the card the port always runs its CUDA
-kernels. Checkpoints are `torch.save` files of the full train state;
-sample streams are AVI files.
+--multihost trains one process a GPU over torch.distributed (NCCL on
+CUDA, gloo on the CPU; one NCCL process a GPU), joined with
+--coordinator_address/--num_processes/--process_id or the torchrun
+environment: each process takes --batch_size clips of its shard of the
+data a step, the step averages the gradients and sums the VQ statistics
+over the processes (`train/shardmap_step.py`), and only process 0
+writes checkpoints and samples. --lpips_weights auto probes local paths
+(`models.lpips.discover_lpips_weights`). --no_pallas is refused: on the
+card the port always runs its CUDA kernels. Checkpoints are
+`torch.save` files of the full train state; sample streams are AVI
+files.
 """
 
 from __future__ import annotations
@@ -36,6 +41,9 @@ from faceoff_tpu_torch.data.pipeline import DataLoader
 from faceoff_tpu_torch.device import DeviceLike, resolve_device
 from faceoff_tpu_torch.models.lpips import (RematLPIPS, init_lpips,
                                             resolve_lpips_weights)
+from faceoff_tpu_torch.parallel import collectives
+from faceoff_tpu_torch.parallel.mesh import make_mesh
+from faceoff_tpu_torch.train.shardmap_step import make_shardmap_train_step
 from faceoff_tpu_torch.train.state import create_train_state, make_optimizer
 from faceoff_tpu_torch.train.train_step import (make_eval_step,
                                                 make_multi_step,
@@ -68,8 +76,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--val_frames", type=int, default=50)
     p.add_argument("--num_workers", type=int, default=8)
     p.add_argument("--lpips_weights", type=str, default=None,
-                   help=".npz from tools/convert_lpips.py ('auto' is "
-                        "refused)")
+                   help=".npz from tools/convert_lpips.py, or 'auto' to "
+                        "probe local paths")
     common.add_model_flags(p)
     p.add_argument("--device_pipeline", action="store_true",
                    help="decode clips on the host, build the training "
@@ -96,7 +104,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "--ckpt latest; 0 disables")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--multihost", action="store_true",
-                   help="refused until the multi-device slice")
+                   help="one process a GPU over torch.distributed")
     common.add_curation_flags(p)
     common.add_multihost_flags(p)
     p.add_argument("--commitment_beta", type=float, default=1.0,
@@ -107,16 +115,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def refuse_unported(parser: argparse.ArgumentParser, args) -> None:
-    """Exit with an error for a flag whose function the port lacks."""
-    if args.multihost or any(
-            getattr(args, k) is not None for k in
-            ("coordinator_address", "num_processes", "process_id")):
-        parser.error("--multihost and its coordination flags wait for the "
-                     "multi-device port (ROADMAP.md, Queue 1 item 6)")
-    try:
-        resolve_lpips_weights(args.lpips_weights)
-    except ValueError as e:
-        parser.error(str(e))
+    """Exit with an error for a flag whose function the port lacks: only
+    --no_pallas (the port has no path around its kernels on the card)."""
     common.refuse_no_pallas(parser, args)
 
 
@@ -126,8 +126,19 @@ def random_run_name(n: int = 5) -> str:
                                   k=n))
 
 
-def build_everything(args, device: DeviceLike = None):
+def build_everything(args, device: DeviceLike = None, *,
+                     perceptual: bool = True):
+    """(trainer, cfg) of the flags on `device`. perceptual=False builds no
+    LPIPS and a step without the perceptual term (`cli/train_faceoff`).
+    Across processes each takes --batch_size clips of its own shard a
+    step, through the shardmap step."""
     dev = resolve_device(device)
+    mesh = make_mesh()
+    world, rank = collectives.get_world_size(), collectives.get_rank()
+    # each process's share of the global batch of batch_size clips a device
+    local_clips = max(1, args.batch_size * mesh.size // world)
+    local_val_clips = max(1, mesh.size // world)
+    group = collectives.default_group()
     cfg = config_lib.Config(
         model=common.model_config(args),
         train=config_lib.TrainConfig(
@@ -142,6 +153,7 @@ def build_everything(args, device: DeviceLike = None):
         ),
     )
     model = common.build_vqvae(args, cfg.model.in_channels, device=dev)
+    model.set_process_group(group)
 
     train_ds = TemporalAlignmentDataset(
         args.data_root, "train", args.train_frames,
@@ -171,47 +183,59 @@ def build_everything(args, device: DeviceLike = None):
               f"{corpus.nbytes / 2**20:.0f} MiB on {dev} in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
         prepare_fn = make_resident_prepare(
-            corpus, args.batch_size, args.train_frames,
+            corpus, local_clips, args.train_frames,
             color_jitter=args.colorjit)
         train_loader = ResidentBatches(
-            corpus, max(1, len(train_ds) // args.batch_size),
-            args.steps_per_call, clips_per_step=args.batch_size,
+            corpus, max(1, len(train_ds) // local_clips),
+            args.steps_per_call, clips_per_step=local_clips,
             clip_len=args.train_frames)
     elif args.device_pipeline:
         from faceoff_tpu_torch.data.device_pipeline import (
             RawClipLoader, prepare_train_batch)
 
-        train_loader = RawClipLoader(train_ds, batch_clips=args.batch_size,
+        train_loader = RawClipLoader(train_ds, batch_clips=local_clips,
                                      num_workers=args.num_workers,
-                                     seed=args.seed)
+                                     seed=args.seed, shard_index=rank,
+                                     shard_count=world)
         prepare_fn = functools.partial(prepare_train_batch,
                                        color_jitter=args.colorjit)
     else:
-        train_loader = DataLoader(train_ds, batch_clips=args.batch_size,
+        train_loader = DataLoader(train_ds, batch_clips=local_clips,
                                   num_workers=args.num_workers,
-                                  seed=args.seed)
-    val_loader = DataLoader(val_ds, batch_clips=1, shuffle=False,
-                            num_workers=args.num_workers, seed=args.seed)
+                                  seed=args.seed, shard_index=rank,
+                                  shard_count=world)
+    val_loader = DataLoader(val_ds, batch_clips=local_val_clips,
+                            shuffle=False, num_workers=args.num_workers,
+                            seed=args.seed, shard_index=rank,
+                            shard_count=world)
 
     steps_per_epoch = max(len(train_loader), 1)
     opt = make_optimizer(model.parameters(), args.lr, args.sched,
                          n_iter=steps_per_epoch * args.epoch,
                          warmup_proportion=0.05)
     state = create_train_state(model, opt)
-    lpips = init_lpips(torch.Generator().manual_seed(args.seed + 1),
-                       weights_npz=args.lpips_weights, device=dev)
-    if args.remat_lpips:
-        lpips = RematLPIPS(lpips)
+    lpips = None
+    if perceptual:
+        lpips = init_lpips(torch.Generator().manual_seed(args.seed + 1),
+                           weights_npz=resolve_lpips_weights(
+                               args.lpips_weights), device=dev)
+        if args.remat_lpips:
+            lpips = RematLPIPS(lpips)
 
     step_kwargs = dict(
         latent_loss_weight=cfg.train.latent_loss_weight,
-        perceptual_loss_weight=cfg.train.perceptual_loss_weight,
+        perceptual_loss_weight=(cfg.train.perceptual_loss_weight
+                                if perceptual else 0.0),
         lpips=lpips, prepare_fn=prepare_fn)
     if args.steps_per_call > 1:
         # a resident corpus: every inner step takes the same staged batch
         train_step = make_multi_step(model, args.steps_per_call,
                                      scan_batches=not args.resident_data,
-                                     **step_kwargs)
+                                     process_group=group, **step_kwargs)
+    elif group is not None:
+        train_step = make_shardmap_train_step(model, mesh,
+                                              process_group=group,
+                                              **step_kwargs)
     else:
         train_step = make_train_step(model, **step_kwargs)
     trainer = Trainer(
@@ -229,7 +253,8 @@ def main(argv=None, device: DeviceLike = None) -> Trainer:
     parser = build_parser()
     args = parser.parse_args(argv)
     refuse_unported(parser, args)
-    run = random_run_name()
+    common.init_multihost(args, device)
+    run = common.shared_run_name() if args.multihost else random_run_name()
     args.sample_folder = f"{args.sample_folder}_{run}"
     # with --ckpt the checkpoint directory is used as it is, to resume it
     if not args.ckpt:
@@ -237,12 +262,20 @@ def main(argv=None, device: DeviceLike = None) -> Trainer:
     print(args, flush=True)
 
     trainer, cfg = build_everything(args, device)
+    return resume_and_run(args, trainer, cfg)
+
+
+def resume_and_run(args, trainer: Trainer, cfg,
+                   missing: str = "--ckpt latest: no checkpoint in {} yet; "
+                                  "training from scratch") -> Trainer:
+    """Resume with --ckpt, then validate (--test) or train. `missing` is
+    the message for --ckpt latest without a checkpoint in the directory
+    ({} its path)."""
     if args.ckpt == "latest":
         # resume if there is a checkpoint, else train from scratch, so that
         # a supervisor may always pass --ckpt latest
         if trainer.ckpt.latest_step() is None:
-            print(f"--ckpt latest: no checkpoint in {trainer.ckpt.directory}"
-                  f" yet; training from scratch", flush=True)
+            print(missing.format(trainer.ckpt.directory), flush=True)
         else:
             trainer.resume(None)
     elif args.ckpt:

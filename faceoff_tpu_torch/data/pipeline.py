@@ -10,8 +10,8 @@ package's `prefetch_to_device`: a thread copies each host batch into
 pinned memory and on to the card with a non-blocking copy on a side
 stream, at most `depth` batches ahead.
 
-shard_index/shard_count keep the JAX interface for one process; several
-processes are Queue 1 item 6 of ROADMAP.md.
+shard_index/shard_count give each torch.distributed process its own
+balanced shard of every epoch's order (the CLIs' --multihost).
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@
 rasterising convex hulls with the port's `ops.warp.convex_mask`, so no
 image library is needed. `synthetic_corpus` makes a whole corpus of
 moving faces in memory; `generate_dataset` writes the same videos to disk
-in the dataset contract (`data/dataset.py`), as PNG.
+in the dataset contract (`data/dataset.py`), as PNG. `textured_background`
+is the JAX package's background generator.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from faceoff_tpu_torch.data import geometry
 from faceoff_tpu_torch.io.image import write_png
 from faceoff_tpu_torch.ops.warp import convex_mask
 
@@ -127,6 +129,17 @@ def video_frames(
     frames = draw_faces(bg.expand(n_frames, -1, -1, -1),
                         torch.from_numpy(lms).to(device), skin)
     return frames, lms
+
+
+def textured_background(rng: np.random.Generator, size: int) -> np.ndarray:
+    """A (size, size, 3) uint8 background: uniform noise of (size // 8)^2
+    pixels drawn from `rng` in HWC order, as the JAX package draws it,
+    upscaled with cv2's INTER_CUBIC semantics (`geometry.resize`: equal
+    to cv2's but for rare values one level apart, where a sum lands on
+    the other side of a half).
+    `video_frames` draws its own noise in CHW order and is unaffected."""
+    noise = rng.integers(0, 255, (size // 8, size // 8, 3), np.uint8)
+    return geometry.resize(noise, (size, size), interpolation="cubic")
 
 
 def synthetic_corpus(

@@ -11,10 +11,17 @@ direction. `lpips_from_jax_variables(params)` does the same for
 `models.lpips.LPIPS`, and `discriminator_from_jax_variables(variables,
 module)` / `discriminator_to_jax_variables(state_dict, module)` for the
 discriminators of `models.discriminators` (params and, where there is
-BatchNorm, `batch_stats`). Layout transforms:
+BatchNorm, `batch_stats`). `b2f_from_jax_variables` /
+`b2f_to_jax_variables` carry `models.vqvae_b2f.VQVAE_B2F` (its six
+codebooks included), `alignment_from_jax_variables` /
+`alignment_to_jax_variables` `models.alignment.AlignmentNet`, and
+`contrastive_from_jax_variables` / `contrastive_to_jax_variables`
+`losses.contrastive.SiameseFaceEmbedder` (params and `batch_stats`).
+Layout transforms:
 
   Conv2d          HWIO        -> OIHW           transpose(3, 2, 0, 1)
   Conv3d          DHWIO       -> OIDHW          transpose(4, 3, 0, 1, 2)
+  Dense           (in, out)   -> (out, in)      transpose
   ConvTranspose2d (kH,kW,I,O) -> (I,O,kH,kW)    spatial flip, then
                                                 transpose(2, 3, 0, 1)
   codebooks       (dim, n_embed) buffers, unchanged
@@ -120,6 +127,51 @@ def _field(codebook: Any, name: str) -> np.ndarray:
     return np.asarray(getattr(codebook, name))
 
 
+def _walk(tree: Mapping, path: tuple) -> Mapping:
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+_DENSE = "dense"
+
+
+def _layer_to_torch(node: Mapping, kind: str) -> Tuple[np.ndarray, np.ndarray]:
+    k = np.asarray(node["kernel"], np.float32)
+    k = k.T if kind == _DENSE else _to_torch(k, kind)
+    return np.array(k, order="C"), np.array(node["bias"], np.float32)
+
+
+def _layer_from_torch(w: np.ndarray, kind: str) -> np.ndarray:
+    return np.ascontiguousarray(w.T if kind == _DENSE
+                                else _from_torch(w, kind))
+
+
+def _sd_from_params(params: Mapping, entries: List) -> Dict[str, torch.Tensor]:
+    sd = {}
+    for t_name, f_path, kind in entries:
+        w, b = _layer_to_torch(_walk(params, f_path), kind)
+        sd[f"{t_name}.weight"] = torch.from_numpy(w)
+        sd[f"{t_name}.bias"] = torch.from_numpy(b)
+    return sd
+
+
+def _params_from_sd(sd: Mapping[str, np.ndarray], entries: List) -> Dict:
+    params: Dict[str, Any] = {}
+    for t_name, f_path, kind in entries:
+        node = params
+        for p in f_path:
+            node = node.setdefault(p, {})
+        node["kernel"] = _layer_from_torch(sd[f"{t_name}.weight"], kind)
+        node["bias"] = sd[f"{t_name}.bias"]
+    return params
+
+
+def _numpy_sd(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    return {k: v.detach().to("cpu", torch.float32).numpy()
+            for k, v in state_dict.items()}
+
+
 def from_jax_variables(params: Mapping, vq: Mapping) -> Dict[str, torch.Tensor]:
     """JAX VQVAE variables -> the port's VQVAE state_dict (float32, CPU).
 
@@ -127,16 +179,7 @@ def from_jax_variables(params: Mapping, vq: Mapping) -> Dict[str, torch.Tensor]:
     """
     n_res_block = _count(params["enc_b"], "ResBlock_")
     n_post = _count(params["postnet_b"], "Conv_")
-    sd: Dict[str, torch.Tensor] = {}
-    for t_name, f_path, kind in layer_map(n_res_block, n_post):
-        node = params
-        for p in f_path:
-            node = node[p]
-        kernel = _to_torch(np.asarray(node["kernel"], np.float32), kind)
-        sd[f"{t_name}.weight"] = torch.from_numpy(np.array(kernel, order="C"))
-        sd[f"{t_name}.bias"] = torch.from_numpy(
-            np.array(node["bias"], np.float32)
-        )
+    sd = _sd_from_params(params, layer_map(n_res_block, n_post))
     for level in ("quantize_t", "quantize_b"):
         cb = vq[level]["codebook"]
         for name in ("embed", "cluster_size", "embed_avg"):
@@ -157,20 +200,12 @@ def to_jax_variables(
     float32 numpy arrays in the JAX package's layout; vq maps each level
     to {"codebook": {"embed", "cluster_size", "embed_avg"}}, the fields of
     the JAX package's `VQCodebook`."""
-    sd = {k: v.detach().to("cpu", torch.float32).numpy()
-          for k, v in state_dict.items()}
+    sd = _numpy_sd(state_dict)
     n_res_block = len({k.split(".")[2] for k in sd
                        if k.startswith("enc_b.blocks.") and ".conv." in k})
     n_post = len({k.split(".")[2] for k in sd
                   if k.startswith("conv3d_encoded_b.conv3d.")})
-    params: Dict[str, Any] = {}
-    for t_name, f_path, kind in layer_map(n_res_block, n_post):
-        node = params
-        for p in f_path:
-            node = node.setdefault(p, {})
-        node["kernel"] = np.ascontiguousarray(
-            _from_torch(sd[f"{t_name}.weight"], kind))
-        node["bias"] = sd[f"{t_name}.bias"]
+    params = _params_from_sd(sd, layer_map(n_res_block, n_post))
     vq = {level: {"codebook": {name: sd[f"{level}.{name}"]
                                for name in _CODEBOOK}}
           for level in _LEVELS}
@@ -211,12 +246,6 @@ def _norm_entries(norm: nn.Module, j: int) -> List[Tuple[str, str, str, str]]:
         f = f"ActNorm_{j}"
         return [(f, "params", "loc", "loc"), (f, "params", "scale", "scale")]
     return []  # InstanceNorm: nothing to carry
-
-
-def _walk(tree: Mapping, path: tuple) -> Mapping:
-    for p in path:
-        tree = tree[p]
-    return tree
 
 
 def discriminator_from_jax_variables(
@@ -271,4 +300,116 @@ def discriminator_to_jax_variables(
         for j, norm in enumerate(stack.norms):
             for fmod, coll, fname, tname in _norm_entries(norm, j):
                 node(coll, fmod)[fname] = sd[f"{prefix}norms.{j}.{tname}"]
+    return out
+
+
+_B2F_TOWERS = ("encode_face", "encode_rhand", "encode_lhand")
+
+
+def b2f_layer_map(n_res_block: int) -> List[Tuple[str, tuple, str]]:
+    """(torch prefix, flax params path, kind) for every conv of VQVAE_B2F."""
+    entries = []
+    for tower in _B2F_TOWERS:
+        inner = (_encoder_entries("enc_b", 4, n_res_block)
+                 + _encoder_entries("enc_t", 2, n_res_block)
+                 + [("quantize_conv_t", ("quantize_conv_t",), _CONV2D),
+                    ("quantize_conv_b", ("quantize_conv_b",), _CONV2D)]
+                 + _decoder_entries("dec_t", 2, n_res_block))
+        entries += [(f"{tower}.{t}", (tower,) + f, k) for t, f, k in inner]
+    entries.append(("upsample_t", ("upsample_t",), _CONVT2D))
+    entries += _decoder_entries("dec", 4, n_res_block)
+    return entries
+
+
+def b2f_from_jax_variables(params: Mapping, vq: Mapping
+                           ) -> Dict[str, torch.Tensor]:
+    """JAX VQVAE_B2F variables (`params`, `vq`) -> the port's state_dict
+    (float32, CPU)."""
+    n_res_block = _count(params["encode_face"]["enc_b"], "ResBlock_")
+    sd = _sd_from_params(params, b2f_layer_map(n_res_block))
+    for tower in _B2F_TOWERS:
+        for level in _LEVELS:
+            cb = vq[tower][level]["codebook"]
+            for name in _CODEBOOK:
+                sd[f"{tower}.{level}.{name}"] = torch.from_numpy(
+                    np.array(_field(cb, name), np.float32))
+    return sd
+
+
+def b2f_to_jax_variables(state_dict: Mapping[str, torch.Tensor]
+                         ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The port's VQVAE_B2F state_dict -> (params, vq) of float32 numpy
+    arrays in the JAX layout (vq: tower -> level -> {"codebook": {embed,
+    cluster_size, embed_avg}})."""
+    sd = _numpy_sd(state_dict)
+    n_res_block = len({k.split(".")[3] for k in sd
+                       if k.startswith("encode_face.enc_b.blocks.")
+                       and ".conv." in k})
+    params = _params_from_sd(sd, b2f_layer_map(n_res_block))
+    vq = {tower: {level: {"codebook": {name: sd[f"{tower}.{level}.{name}"]
+                                       for name in _CODEBOOK}}
+                  for level in _LEVELS}
+          for tower in _B2F_TOWERS}
+    return params, vq
+
+
+def _alignment_entries(n_convs: int) -> List[Tuple[str, tuple, str]]:
+    return ([(f"convs.{j}", (f"Conv_{j}",), _CONV2D) for j in range(n_convs)]
+            + [(f"dense.{j}", (f"Dense_{j}",), _DENSE) for j in range(2)])
+
+
+def alignment_from_jax_variables(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX AlignmentNet `variables["params"]` -> the port's state_dict."""
+    return _sd_from_params(params, _alignment_entries(_count(params, "Conv_")))
+
+
+def alignment_to_jax_variables(state_dict: Mapping[str, torch.Tensor]
+                               ) -> Dict[str, Any]:
+    """The port's AlignmentNet state_dict -> JAX `params`."""
+    sd = _numpy_sd(state_dict)
+    n = len({k.split(".")[1] for k in sd if k.startswith("convs.")})
+    return _params_from_sd(sd, _alignment_entries(n))
+
+
+_TOWER = "_FaceTower_0"
+
+
+def _contrastive_entries(n_convs: int) -> List[Tuple[str, tuple, str]]:
+    return ([(f"tower.convs.{j}", (_TOWER, f"Conv_{j}"), _CONV2D)
+             for j in range(n_convs)]
+            + [(f"tower.dense.{j}", (_TOWER, f"Dense_{j}"), _DENSE)
+               for j in range(3)])
+
+
+_BN_FIELDS = (("params", "scale", "weight"), ("params", "bias", "bias"),
+              ("batch_stats", "mean", "running_mean"),
+              ("batch_stats", "var", "running_var"))
+
+
+def contrastive_from_jax_variables(variables: Mapping
+                                   ) -> Dict[str, torch.Tensor]:
+    """JAX SiameseFaceEmbedder `variables` ({"params", "batch_stats"}) ->
+    the port's state_dict. Both towers flatten in NHWC order, so the first
+    Dense kernel needs no permutation."""
+    n = _count(variables["params"][_TOWER], "Conv_")
+    sd = _sd_from_params(variables["params"], _contrastive_entries(n))
+    for j in range(n):
+        for coll, fname, tname in _BN_FIELDS:
+            sd[f"tower.norms.{j}.{tname}"] = torch.from_numpy(np.array(
+                variables[coll][_TOWER][f"BatchNorm_{j}"][fname], np.float32))
+    return sd
+
+
+def contrastive_to_jax_variables(state_dict: Mapping[str, torch.Tensor]
+                                 ) -> Dict[str, Any]:
+    """The port's SiameseFaceEmbedder state_dict -> JAX {"params",
+    "batch_stats"}."""
+    sd = _numpy_sd(state_dict)
+    n = len({k.split(".")[2] for k in sd if k.startswith("tower.convs.")})
+    out = {"params": _params_from_sd(sd, _contrastive_entries(n)),
+           "batch_stats": {}}
+    for j in range(n):
+        for coll, fname, tname in _BN_FIELDS:
+            out[coll].setdefault(_TOWER, {}).setdefault(
+                f"BatchNorm_{j}", {})[fname] = sd[f"tower.norms.{j}.{tname}"]
     return out

@@ -63,11 +63,24 @@ def bce_logits_loss(logits: Logits, target_is_real: bool) -> torch.Tensor:
 
 
 def relativistic_average_lsgan(logits_1: Logits, logits_2: Logits,
-                               target_is_real: bool) -> torch.Tensor:
+                               target_is_real: bool,
+                               process_group=None) -> torch.Tensor:
     """RaLSGAN: mean((D(x1) - mean D(x2) - target)^2), summed over
-    scales."""
+    scales. With a torch.distributed `process_group` the inputs are this
+    process's block of the global batch and `mean D(x2)` is the global
+    batch's (averaged over the group, differentiably); the outer mean
+    stays this process's, for the caller to average."""
     target = 1.0 if target_is_real else 0.0
-    return _sum(torch.mean((a - torch.mean(b) - target) ** 2)
+
+    def batch_mean(b):
+        m = torch.mean(b)
+        if process_group is None:
+            return m
+        from faceoff_tpu_torch.parallel import collectives
+
+        return collectives.all_reduce_mean(m, process_group)
+
+    return _sum(torch.mean((a - batch_mean(b) - target) ** 2)
                 for a, b in zip(_final_logits(logits_1),
                                 _final_logits(logits_2)))
 

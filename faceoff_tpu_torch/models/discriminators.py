@@ -27,6 +27,12 @@ Normalisations follow Flax, not torch:
   * `InstanceNorm`: per sample and channel over the spatial axes, no
     affine, epsilon 1e-5.
 
+Across `torch.distributed` processes (`set_process_group`), BatchNorm's
+batch statistics and ActNorm's initialising statistics are those of the
+global batch, as under the JAX package's jit over the global batch: each
+process's mean and mean square are averaged over the group
+(differentiably), the variance is their difference, as Flax computes it.
+
 Weights are drawn on the CPU from `generator` (kernels normal(0, 0.02),
 biases zero, BatchNorm scale 1 and bias 0), then moved to `device` (CUDA
 unless named). `io.convert.discriminator_from_jax_variables` carries a
@@ -43,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from faceoff_tpu_torch.device import DeviceLike, resolve_device
+from faceoff_tpu_torch.parallel import collectives
 
 # noise for the GaussianNoise layers: none, drawn from a generator, or the
 # standard-normal draws themselves, one tensor a layer in order
@@ -84,12 +91,17 @@ class ActNorm(nn.Module):
         self.loc = nn.Parameter(torch.zeros(num_features))
         self.scale = nn.Parameter(torch.ones(num_features))
         self.init_pending = False
+        self.process_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.init_pending:
             with torch.no_grad():
                 dims = [d for d in range(x.dim()) if d != 1]
-                std, mean = torch.std_mean(x, dim=dims, unbiased=False)
+                if self.process_group is None:
+                    std, mean = torch.std_mean(x, dim=dims, unbiased=False)
+                else:
+                    mean, var = _global_moments(x, dims, self.process_group)
+                    std = torch.sqrt(var)
                 self.loc.copy_(-mean)
                 self.scale.copy_(1.0 / (std + 1e-6))
             self.init_pending = False
@@ -107,11 +119,24 @@ class InstanceNorm(nn.Module):
         return F.instance_norm(x, eps=self.epsilon)
 
 
+def _global_moments(x: torch.Tensor, dims, group):
+    """(mean, biased variance) per channel of the global batch whose
+    block this process holds (equal blocks), differentiable: the mean and
+    mean square averaged over the group, var = E[x^2] - E[x]^2 clamped
+    at 0, as Flax computes it."""
+    c = x.shape[1]
+    both = torch.cat([torch.mean(x, dim=dims), torch.mean(x * x, dim=dims)])
+    both = collectives.all_reduce_mean(both, group)
+    mean, mean2 = both[:c], both[c:]
+    return mean, torch.clamp(mean2 - mean * mean, min=0.0)
+
+
 class BatchNorm(nn.Module):
     """Flax's `nn.BatchNorm`: in training the batch statistics normalise
     and the running averages take momentum * average + (1 - momentum) *
     batch statistic, the variance biased; otherwise the running averages
-    normalise."""
+    normalise. With a `process_group` the batch statistics are the
+    global batch's (`_global_moments`)."""
 
     def __init__(self, num_features: int, momentum: float = 0.99,
                  epsilon: float = 1e-5):
@@ -122,12 +147,25 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.process_group = None
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 self.epsilon)
+        if self.process_group is not None:
+            dims = [d for d in range(x.dim()) if d != 1]
+            mean, var = _global_moments(x, dims, self.process_group)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            inv = torch.rsqrt(var + self.epsilon) * self.weight
+            return ((x - mean.view(shape)) * inv.view(shape)
+                    + self.bias.view(shape))
         with torch.no_grad():
             dims = [d for d in range(x.dim()) if d != 1]
             var, mean = torch.var_mean(x, dim=dims, unbiased=False)
@@ -469,6 +507,14 @@ class NLayerDiscriminator(_Discriminator):
 
 
 @torch.no_grad()
+def set_process_group(disc: nn.Module, group) -> None:
+    """Compute `disc`'s BatchNorm batch statistics and ActNorm init over
+    the global batch of `group`'s processes (None: this process's)."""
+    for m in disc.modules():
+        if isinstance(m, (BatchNorm, ActNorm)):
+            m.process_group = group
+
+
 def init_actnorm_(disc: nn.Module, x: torch.Tensor, **kwargs) -> None:
     """Set every ActNorm of `disc` from the batch x, as Flax's init with
     that batch does: each layer's loc and scale normalise the activations

@@ -124,13 +124,139 @@ def _lecun_normal_(module: nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
 
 
+# torchvision's vgg16.features index of each conv layer, in order
+_VGG16_CONV_IDS = (
+    (0, "conv1_1"), (2, "conv1_2"),
+    (5, "conv2_1"), (7, "conv2_2"),
+    (10, "conv3_1"), (12, "conv3_2"), (14, "conv3_3"),
+    (17, "conv4_1"), (19, "conv4_2"), (21, "conv4_3"),
+    (24, "conv5_1"), (26, "conv5_2"), (28, "conv5_3"),
+)
+
+
+def _slice_of(idx: int) -> int:
+    """A VGG16 feature index -> its LPIPS slice (cut at 4/9/16/23/30)."""
+    for s, stop in enumerate((4, 9, 16, 23, 30), start=1):
+        if idx < stop:
+            return s
+    raise ValueError(idx)
+
+
+def _hwio(w: torch.Tensor) -> np.ndarray:
+    return np.transpose(w.detach().to(torch.float32).numpy(), (2, 3, 1, 0))
+
+
+def convert_torch_checkpoint(vgg16_path: Optional[str] = None,
+                             lpips_path: Optional[str] = None) -> dict:
+    """Torch LPIPS checkpoints -> the flat `.npz` arrays
+    (`vgg/convB_C/kernel` HWIO, `vgg/convB_C/bias`, `linK/kernel`), the
+    port's copy of the JAX package's `tools/convert_lpips.convert`:
+    `vgg16_path` a bare torchvision VGG16 state dict (`features.{idx}.*`),
+    `lpips_path` a full LPIPS state dict (`net.slice{s}.{idx}.*` and the
+    five `lin{k}.model.1.weight` heads; KeyError when a head is missing).
+    Checkpoints load with `torch.load(weights_only=True)`."""
+    out = {}
+    if vgg16_path:
+        sd = torch.load(vgg16_path, map_location="cpu", weights_only=True)
+        for idx, name in _VGG16_CONV_IDS:
+            out[f"vgg/{name}/kernel"] = _hwio(sd[f"features.{idx}.weight"])
+            out[f"vgg/{name}/bias"] = sd[f"features.{idx}.bias"].numpy()
+    if lpips_path:
+        sd = torch.load(lpips_path, map_location="cpu", weights_only=True)
+        for idx, name in _VGG16_CONV_IDS:
+            key = f"net.slice{_slice_of(idx)}.{idx}"
+            if f"{key}.weight" in sd:
+                out[f"vgg/{name}/kernel"] = _hwio(sd[f"{key}.weight"])
+                out[f"vgg/{name}/bias"] = sd[f"{key}.bias"].numpy()
+        for k in range(5):
+            for cand in (f"lin{k}.model.1.weight", f"lins.{k}.model.1.weight"):
+                if cand in sd:
+                    out[f"lin{k}/kernel"] = _hwio(sd[cand])
+                    break
+            else:
+                raise KeyError(f"lin{k} weight not found in {lpips_path}")
+    return out
+
+
+def discover_lpips_weights(verbose: bool = True) -> Optional[str]:
+    """`--lpips_weights auto`: probe local drop locations for converted
+    `.npz` weights or torch checkpoints, converting the latter
+    (`convert_torch_checkpoint`) and caching the result. Returns an
+    `.npz` path, or None, after which callers fall back loudly to the
+    seeded random VGG and tag their metrics `_random_vgg`. Nothing is
+    downloaded.
+
+    The JAX package's search order (first hit wins):
+      1. $FACEOFF_LPIPS_WEIGHTS (either format);
+      2. lpips_weights.npz and vgg.pth in the working directory, then
+         beside the package root;
+      3. ~/.cache/faceoff_tpu/lpips_weights.npz (an earlier conversion);
+      4. $TORCH_HOME (or ~/.cache/torch)/hub/checkpoints/ vgg.pth, then
+         vgg16-397923af.pth.
+    A checkpoint is read as a full LPIPS state dict first, then as a bare
+    VGG16 (the trunk only: the heads stay random, and callers tag their
+    metrics `_untrained_lin`); one that neither reads is skipped."""
+    import os
+    import os.path as osp
+
+    home = osp.expanduser("~")
+    torch_home = os.environ.get("TORCH_HOME", osp.join(home, ".cache", "torch"))
+    pkg_root = osp.dirname(osp.dirname(osp.dirname(osp.abspath(__file__))))
+    cache_npz = osp.join(home, ".cache", "faceoff_tpu", "lpips_weights.npz")
+    candidates = []
+    env = os.environ.get("FACEOFF_LPIPS_WEIGHTS")
+    if env:
+        candidates.append(env)
+    for base in (os.getcwd(), pkg_root):
+        candidates += [osp.join(base, "lpips_weights.npz"),
+                       osp.join(base, "vgg.pth")]
+    candidates.append(cache_npz)
+    candidates += [osp.join(torch_home, "hub", "checkpoints", name)
+                   for name in ("vgg.pth", "vgg16-397923af.pth")]
+
+    for path in candidates:
+        if not osp.isfile(path):
+            continue
+        if path.endswith(".npz"):
+            if verbose:
+                print(f"lpips auto: using converted weights {path}",
+                      flush=True)
+            return path
+        try:
+            try:
+                arrays = convert_torch_checkpoint(lpips_path=path)
+            except KeyError:
+                arrays = convert_torch_checkpoint(vgg16_path=path)
+                if verbose:
+                    print(f"lpips auto: {path} has no learned lin heads "
+                          "(bare VGG16); converting the trunk only: the lin "
+                          "heads stay random, so perceptual metrics are NOT "
+                          "reference-comparable (tagged _untrained_lin)",
+                          flush=True)
+            os.makedirs(osp.dirname(cache_npz), exist_ok=True)
+            np.savez(cache_npz, **arrays)
+            if verbose:
+                print(f"lpips auto: converted {path} -> {cache_npz} "
+                      f"({len(arrays)} arrays)", flush=True)
+            return cache_npz
+        except Exception as e:  # unreadable or foreign: keep looking
+            if verbose:
+                print(f"lpips auto: could not convert {path}: {e}",
+                      flush=True)
+    if verbose:
+        print("lpips auto: no weights found (drop a vgg.pth or "
+              "lpips_weights.npz in the working directory, or set "
+              "$FACEOFF_LPIPS_WEIGHTS); falling back to the fixed-seed "
+              "RANDOM VGG; perceptual metrics are NOT reference-comparable "
+              "and are reported as *_random_vgg", flush=True)
+    return None
+
+
 def resolve_lpips_weights(arg: Optional[str]) -> Optional[str]:
-    """A `--lpips_weights` value as it is; 'auto', the JAX package's probe
-    of local paths, is not ported (ROADMAP.md, Queue 1 item 7) and
-    raises."""
+    """A `--lpips_weights` value as it is, the literal 'auto' through
+    `discover_lpips_weights`."""
     if arg == "auto":
-        raise ValueError("--lpips_weights auto needs discover_lpips_weights "
-                         "(ROADMAP.md, Queue 1 item 7); pass an .npz path")
+        return discover_lpips_weights()
     return arg
 
 

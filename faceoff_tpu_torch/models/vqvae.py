@@ -149,11 +149,14 @@ class EmaQuantizer(nn.Module):
     also advances the EMA state in the buffers."""
 
     def __init__(self, embed_dim: int, n_embed: int, decay: float = 0.99,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, process_group=None):
         super().__init__()
         self.embed_dim = embed_dim
         self.decay = decay
         self.eps = eps
+        # a torch.distributed group: the EMA statistics and the revive's
+        # rows are this process's and are reduced over it (None: one process)
+        self.process_group = process_group
         self.register_buffer("embed", torch.zeros(embed_dim, n_embed))
         self.register_buffer("cluster_size", torch.zeros(n_embed))
         self.register_buffer("embed_avg", torch.zeros(embed_dim, n_embed))
@@ -177,7 +180,8 @@ class EmaQuantizer(nn.Module):
         if not train:
             return vq_ops.vq_lookup(self.codebook, x)
         quant, indices, diff, new = vq_ops.vq_quantize_train(
-            self.codebook, x, decay=self.decay, eps=self.eps, update=update)
+            self.codebook, x, decay=self.decay, eps=self.eps, update=update,
+            process_group=self.process_group)
         if update:
             self._store(new)
         return quant, indices, diff
@@ -190,7 +194,8 @@ class EmaQuantizer(nn.Module):
         """Re-seed EMA-dead codes from the activations x (..., embed_dim)."""
         flat = x.detach().to(torch.float32).reshape(-1, self.embed_dim)
         self._store(vq_ops.revive_dead_codes(
-            self.codebook, flat, generator, usage_threshold=usage_threshold))
+            self.codebook, flat, generator, usage_threshold=usage_threshold,
+            process_group=self.process_group))
 
 
 def _init_(module: nn.Module, generator: torch.Generator) -> None:
@@ -223,7 +228,9 @@ class VQVAE(nn.Module):
     Built on `device` (CUDA unless named; without CUDA and without a named
     device it raises) with random weights drawn on the CPU from
     `generator` (a fresh generator seeded 0 if None), so a seed gives the
-    same weights on every device. Load trained weights with
+    same weights on every device. `process_group` (a torch.distributed
+    group, None for one process) is the JAX model's `axis_name`: both
+    quantizers sum their EMA statistics over it. Load trained weights with
     `load_state_dict(io.convert.from_jax_variables(...), strict=True)`.
     """
 
@@ -234,6 +241,7 @@ class VQVAE(nn.Module):
         dtype: torch.dtype = torch.bfloat16,
         device: DeviceLike = None,
         generator: Optional[torch.Generator] = None,
+        process_group=None,
     ):
         super().__init__()
         device = resolve_device(device)
@@ -274,8 +282,15 @@ class VQVAE(nn.Module):
         for m in self.children():
             if not isinstance(m, EmaQuantizer):
                 m.to(dtype)
+        self.set_process_group(process_group)
         self.to(device)
         self.eval()
+
+    def set_process_group(self, group) -> None:
+        """Reduce the quantizers' statistics over `group` from now on."""
+        for m in self.modules():
+            if isinstance(m, EmaQuantizer):
+                m.process_group = group
 
     # -- internal, channels-first -----------------------------------------
 

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from faceoff_tpu_torch.ops import vq_cuda
+from faceoff_tpu_torch.parallel import collectives
 
 
 class VQCodebook(NamedTuple):
@@ -151,11 +152,21 @@ def vq_ema_update(
     *,
     decay: float = 0.99,
     eps: float = 1e-5,
+    process_group=None,
 ) -> VQCodebook:
     """One EMA step of the codebook from assignment statistics: EMA of the
-    counts and sums, Laplace-smoothed counts, codebook = sums / counts."""
+    counts and sums, Laplace-smoothed counts, codebook = sums / counts.
+    With a `process_group` the statistics are this process's and are
+    summed over the group first (one all-reduce of both), as the JAX
+    function psums them over its `axis_name`, so every process takes the
+    same step."""
     counts = counts.detach()
     sums = sums.detach()
+    if process_group is not None:
+        k = counts.numel()
+        both = torch.cat([counts.reshape(-1), sums.reshape(-1)])
+        torch.distributed.all_reduce(both, group=process_group)
+        counts, sums = both[:k], both[k:].reshape(sums.shape)
     cluster_size = codebook.cluster_size * decay + counts * (1.0 - decay)
     embed_avg = codebook.embed_avg * decay + sums * (1.0 - decay)
     n = torch.sum(cluster_size)
@@ -171,10 +182,17 @@ def revive_dead_codes(
     *,
     usage_threshold: float = 1e-3,
     rows: Optional[torch.Tensor] = None,
+    process_group=None,
 ) -> VQCodebook:
     """Re-seed codes whose EMA usage fell below `usage_threshold` with
     rows of `flat` (N, dim): code j takes row `rows[j]`, drawn uniformly
-    from `generator` unless given. Revived codes restart at count 1."""
+    from `generator` unless given. Revived codes restart at count 1.
+    With a `process_group`, `flat` is this process's block: the blocks
+    are gathered in rank order into the global rows first and every
+    process draws from them with its generator, which must be seeded
+    alike on every process, so that the codebooks stay identical."""
+    if process_group is not None:
+        flat = collectives.all_gather_rows(flat.detach(), process_group)
     n_embed = codebook.n_embed
     if rows is None:
         rows = torch.randint(0, flat.shape[0], (n_embed,),
@@ -196,6 +214,7 @@ def vq_quantize_train(
     decay: float = 0.99,
     eps: float = 1e-5,
     update: bool = True,
+    process_group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, VQCodebook]:
     """Training-mode quantization of x (..., dim): lookup, straight-through
     gradient and EMA update. Returns (quantized in x's dtype, indices,
@@ -203,7 +222,7 @@ def vq_quantize_train(
     commitment gradient to x. With update=False the statistics are not
     gathered and the codebook comes back as it was: the quantized values
     are the same, as the JAX package's are when its caller drops the EMA
-    update."""
+    update. `process_group`: see `vq_ema_update`."""
     flat = x.reshape(-1, codebook.dim)
     if not update:
         indices, quant_flat = vq_assign_rows(flat, codebook.embed)
@@ -217,7 +236,8 @@ def vq_quantize_train(
     indices = indices.reshape(x.shape[:-1])
     diff = torch.mean((quant.to(torch.float32) - x.to(torch.float32)) ** 2)
     quant_st = x + (quant - x).detach()
-    new_codebook = vq_ema_update(codebook, counts, sums, decay=decay, eps=eps)
+    new_codebook = vq_ema_update(codebook, counts, sums, decay=decay, eps=eps,
+                                 process_group=process_group)
     return quant_st, indices, diff, new_codebook
 
 

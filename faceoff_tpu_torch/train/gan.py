@@ -20,6 +20,15 @@ device for the input pipeline, one on the CPU for the window start, the
 pair's frame and the flip (`rand_bits`), which a caller may also pass
 (`bits=`). Resuming therefore needs no saved generator state.
 
+Across `torch.distributed` processes (`process_group`) each step is one
+data-parallel step on the global batch, as the JAX steps under jit over
+a sharded batch: the input pipeline draws from each process's own
+stream (`train_step.rank_seed`) while the window, pair frame and flip
+are shared; the RaLSGAN batch means are the global batch's; both the
+generator's and the discriminators' gradients, and the metrics, are
+averaged over the group; the model's quantizers sum their statistics
+over it.
+
 Every step runs with cuDNN's deterministic algorithms
 (`cudnn_deterministic`), so that a run repeats and resumes bit for bit.
 The generator's forward computes in bf16 on CUDA (`compute_dtype`, as
@@ -43,8 +52,10 @@ from torch import nn
 
 from faceoff_tpu_torch.losses import mse_loss, relativistic_average_lsgan
 from faceoff_tpu_torch.ops import video as video_ops
+from faceoff_tpu_torch.parallel import collectives
 from faceoff_tpu_torch.train.state import TrainState
-from faceoff_tpu_torch.train.train_step import _autocast, _device_of, step_seed
+from faceoff_tpu_torch.train.train_step import (_autocast, _device_of,
+                                                rank_seed, step_seed)
 
 GEN_TAG, DISC_TAG = 0, 1
 
@@ -80,13 +91,16 @@ def create_gan_state(gen_state: TrainState, d_img: nn.Module,
                          d_3d=d_3d, d_3d_opt=make_disc_optimizer(d_3d, disc_lr))
 
 
-def tagged_generators(device: torch.device, seed: int, tag: int, step: int
+def tagged_generators(device: torch.device, seed: int, tag: int, step: int,
+                      rank: int = 0
                       ) -> Tuple[torch.Generator, torch.Generator]:
     """(a generator on `device` for the input pipeline, a CPU generator
     for the step's scalar draws) of stream `tag` at generator step
-    `step`."""
+    `step`; process `rank` of several prepares its own clips from its
+    own pipeline stream, the scalar draws are every process's."""
     s = step_seed(step_seed(seed, tag), step)
-    pipeline = torch.Generator(device=device).manual_seed(s)
+    pipeline = torch.Generator(device=device).manual_seed(
+        rank_seed(s, rank))
     scalars = torch.Generator().manual_seed(step_seed(s, 0))
     return pipeline, scalars
 
@@ -122,12 +136,21 @@ def _maybe_flip(x: torch.Tensor, do_flip: bool) -> torch.Tensor:
     return torch.flip(x, dims=(-2,)) if do_flip else x
 
 
-def ralsgan_pair(d_a, d_b) -> torch.Tensor:
+def ralsgan_pair(d_a, d_b, process_group=None) -> torch.Tensor:
     """0.5 (RaLSGAN(a, b, real) + RaLSGAN(b, a, fake)): the generator's
     objective with a = fake, b = real, the discriminator's with a = real,
     b = fake."""
-    return 0.5 * (relativistic_average_lsgan(d_a, d_b, True)
-                  + relativistic_average_lsgan(d_b, d_a, False))
+    return 0.5 * (relativistic_average_lsgan(d_a, d_b, True, process_group)
+                  + relativistic_average_lsgan(d_b, d_a, False,
+                                               process_group))
+
+
+def reduced_update(optimizer, params, group) -> None:
+    """optimizer.step() on the gradients averaged over `group` (None: as
+    they are)."""
+    if group is not None:
+        collectives.all_reduce_gradients(params, group)
+    optimizer.step()
 
 
 def prepare(prepare_fn: Optional[Callable], generator: torch.Generator,
@@ -175,6 +198,7 @@ def make_gan_steps(
     lpips: Optional[nn.Module] = None,
     prepare_fn: Optional[Callable] = None,
     compute_dtype: Optional[torch.dtype] = None,
+    process_group=None,
 ):
     """Build (gen_step, disc_step).
 
@@ -184,13 +208,17 @@ def make_gan_steps(
     warm-up, `adv_scale_schedule`). lpips with perceptual_loss_weight > 0
     is the perceptual variant. prepare_fn: as in `make_train_step`; each
     step prepares its own batch. Metrics are 0-d tensors on the device.
+    process_group: see the module's docstring (the model and the
+    discriminators must be set to the same group).
     """
     device = _device_of(model)
     gen_params = step_parameters(model)
+    group = process_group
+    rank = collectives.get_rank() if group is not None else 0
 
     def draws(state, batch, seed, tag, bits):
         pipeline, scalars = tagged_generators(device, seed, tag,
-                                              state.gen.step)
+                                              state.gen.step, rank)
         batch = prepare(prepare_fn, pipeline, batch)
         if bits is None:
             bits = rand_bits(scalars, batch["gt"].shape[1], sample_frames)
@@ -215,9 +243,10 @@ def make_gan_steps(
         x_fake = _sample_window(out, start, sample_frames)
         x_real = _sample_window(gt, start, sample_frames)
         g_2d = ralsgan_pair(d_img(_frame_pair(x_fake, frame_id)),
-                            d_img(_frame_pair(x_real, frame_id)))
+                            d_img(_frame_pair(x_real, frame_id)), group)
         g_3d = ralsgan_pair(d_3d(_maybe_flip(_pair_stack(x_fake), flip)),
-                            d_3d(_maybe_flip(_pair_stack(x_real), flip)))
+                            d_3d(_maybe_flip(_pair_stack(x_real), flip)),
+                            group)
         loss = (recon + latent_loss_weight * latent
                 + perceptual_loss_weight * perceptual
                 + adv_scale * g_2d_weight * g_2d
@@ -226,10 +255,13 @@ def make_gan_steps(
         # the generator's gradients only: no weight gradient of either
         # discriminator is computed
         loss.backward(inputs=gen_params)
+        if group is not None:
+            collectives.all_reduce_gradients(gen_params, group)
         state.gen.apply_gradients()
         metrics = {"g_loss": loss, "mse": recon, "latent": latent,
                    "g_2d": g_2d, "g_3d": g_3d, "perceptual": perceptual}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return state, reduced_metrics(metrics, group)
 
     @cudnn_deterministic
     def disc_step(state: GANTrainState, batch: Dict[str, torch.Tensor],
@@ -249,14 +281,20 @@ def make_gan_steps(
                  lambda x: _maybe_flip(_pair_stack(x), flip)),
                 ("d_img_loss", d_img, state.d_img_opt,
                  lambda x: _frame_pair(x, frame_id))):
-            loss = ralsgan_pair(disc(inputs(x_real)), disc(inputs(x_fake)))
+            loss = ralsgan_pair(disc(inputs(x_real)), disc(inputs(x_fake)),
+                                group)
             opt.zero_grad(set_to_none=True)
             loss.backward()
-            opt.step()
+            reduced_update(opt, disc.parameters(), group)
             metrics[name] = loss.detach()
-        return state, metrics
+        return state, reduced_metrics(metrics, group)
 
     return gen_step, disc_step
+
+
+def reduced_metrics(metrics, group):
+    return (metrics if group is None
+            else collectives.all_reduce_metrics(metrics, group))
 
 
 def adv_scale_schedule(step: int, start: int = 0, ramp: int = 0) -> float:

@@ -16,6 +16,12 @@ step, as the JAX step keeps only the second forward's codebooks.
 
 Input noise (discriminators built with use_noise): one generator for
 each of the six discriminator applications, seeded from the step.
+
+Across processes (`process_group`, with the discriminators' BatchNorm
+set to the same group: `models.discriminators.set_process_group`) the
+step is one step on the global batch: BatchNorm normalises with the
+global batch's statistics, every gradient and metric is averaged over
+the group, and each process draws its own input and noise streams.
 """
 
 from __future__ import annotations
@@ -29,11 +35,14 @@ from torch import nn
 from faceoff_tpu_torch.losses import bce_logits_loss, mse_loss
 from faceoff_tpu_torch.models.discriminators import Noise
 from faceoff_tpu_torch.ops import video as video_ops
+from faceoff_tpu_torch.parallel import collectives
 from faceoff_tpu_torch.train.gan import (cudnn_deterministic,
                                          make_disc_optimizer, prepare,
+                                         reduced_metrics, reduced_update,
                                          step_parameters)
 from faceoff_tpu_torch.train.state import TrainState
-from faceoff_tpu_torch.train.train_step import _autocast, _device_of, step_seed
+from faceoff_tpu_torch.train.train_step import (_autocast, _device_of,
+                                                rank_seed, step_seed)
 
 
 @dataclasses.dataclass
@@ -70,6 +79,7 @@ def make_mocogan_step(
     lpips: Optional[nn.Module] = None,
     prepare_fn: Optional[Callable] = None,
     compute_dtype: Optional[torch.dtype] = None,
+    process_group=None,
 ) -> Callable:
     """`step(state, batch, seed=0) -> (state, metrics)`: both
     discriminator updates, then the generator's. The step's generators
@@ -79,6 +89,8 @@ def make_mocogan_step(
     video fake, then the generator's image and video)."""
     device = _device_of(model)
     gen_params = step_parameters(model)
+    group = process_group
+    rank = collectives.get_rank() if group is not None else 0
     use_noise = bool(getattr(d_img, "use_noise", False)
                      or getattr(d_vid, "use_noise", False))
 
@@ -91,7 +103,7 @@ def make_mocogan_step(
     @cudnn_deterministic
     def step(state: MocoganState, batch: Dict[str, torch.Tensor],
              seed: int = 0):
-        s = step_seed(seed, state.gen.step)
+        s = rank_seed(step_seed(seed, state.gen.step), rank)
         batch = prepare(prepare_fn, torch.Generator(device=device)
                         .manual_seed(s), batch)
         nk = noise_sources(s)
@@ -110,7 +122,7 @@ def make_mocogan_step(
                              disc(fake, train=True, noise=nk[k + 1]))
             opt.zero_grad(set_to_none=True)
             loss.backward()
-            opt.step()
+            reduced_update(opt, disc.parameters(), group)
             metrics[name] = loss.detach()
 
         with _autocast(device, compute_dtype):
@@ -130,10 +142,13 @@ def make_mocogan_step(
                 + image_disc_weight * g_img + video_disc_weight * g_vid)
         state.gen.optimizer.zero_grad()
         loss.backward(inputs=gen_params)
+        if group is not None:
+            collectives.all_reduce_gradients(gen_params, group)
         state.gen.apply_gradients()
         metrics.update({"g_loss": loss, "mse": recon, "latent": latent,
                         "g_img": g_img, "g_vid": g_vid,
                         "perceptual": perceptual})
-        return state, {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return state, reduced_metrics(metrics, group)
 
     return step

@@ -7,7 +7,8 @@
   * StepProfiler: a `torch.profiler` trace of steps [start, start + count),
     written as a Chrome trace into the log directory.
   * PreemptionGuard: SIGTERM/SIGINT become a request to checkpoint at the
-    next step boundary and stop (one process).
+    next step boundary and stop; `should_stop_global` makes the processes
+    of a torch.distributed run agree on it.
   * StallWatchdog: exits with STALL_EXIT_CODE when no step finished for
     `timeout` seconds, so that a supervisor restarts with --ckpt latest.
 """
@@ -116,6 +117,28 @@ class PreemptionGuard:
         print(f"received signal {signum}: checkpointing at next step "
               f"boundary", flush=True)
         self.should_stop = True
+
+    def should_stop_global(self, device=None) -> bool:
+        """Whether any process was asked to stop (an all-reduce MAX of the
+        local flags; `device` is where the flag travels: the process's
+        CUDA device under NCCL, the CPU under gloo). Signals land per
+        process: a save on a local flag alone would leave the others
+        waiting at the checkpoint's barrier. One process: the local
+        flag."""
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()) or \
+                dist.get_world_size() <= 1:
+            return self.should_stop
+        if device is None:
+            device = ("cuda" if dist.get_backend() == "nccl" else "cpu")
+        flag = torch.tensor([1 if self.should_stop else 0], dtype=torch.int32,
+                            device=device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        agreed = bool(flag.item())
+        if agreed:
+            self.should_stop = True  # the processes that saw no signal too
+        return agreed
 
     def restore(self) -> None:
         for sig, prev in self._prev.items():

@@ -30,6 +30,7 @@ from torch import nn
 
 from faceoff_tpu_torch.losses import mse_loss
 from faceoff_tpu_torch.ops import video as video_ops
+from faceoff_tpu_torch.parallel import collectives
 from faceoff_tpu_torch.train.state import TrainState
 
 _MASK64 = (1 << 64) - 1
@@ -43,6 +44,13 @@ def step_seed(seed: int, step: int) -> int:
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
     return (z ^ (z >> 31)) >> 1
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of process `rank`'s own random stream: rank 0 keeps
+    `seed` (a one-process run's stream), rank r > 0 a stream derived from
+    it, so that processes sampling their own clips draw different ones."""
+    return seed if rank == 0 else step_seed(seed, (1 << 40) + rank)
 
 
 def _device_of(model: nn.Module) -> torch.device:
@@ -64,6 +72,7 @@ def make_train_step(
     lpips: Optional[nn.Module] = None,
     prepare_fn: Optional[Callable] = None,
     compute_dtype: Optional[torch.dtype] = None,
+    process_group=None,
 ) -> Callable:
     """Build `train_step(state, batch, seed=0) -> (state, metrics)`.
 
@@ -78,18 +87,26 @@ def make_train_step(
     `data.device_pipeline.prepare_train_batch`).
     compute_dtype: the autocast dtype; None is bf16 on CUDA and float32
     (no autocast) on the CPU.
+    process_group: a torch.distributed group over which the step is one
+    data-parallel step (`train.shardmap_step.make_shardmap_train_step`):
+    the batch is this process's block, the gradients and the metrics are
+    averaged over the group before Adam, and a prepare function draws
+    from this process's own stream (`rank_seed`). The
+    model's quantizers must reduce over the same group.
 
     metrics hold 0-d float32 tensors: "loss", "mse", "latent" and
     "perceptual" on the model's device, so reading them is the caller's
     sync, and "lr" on the host.
     """
     device = _device_of(model)
+    rank = collectives.get_rank() if process_group is not None else 0
+    params = [p for p in model.parameters() if p.requires_grad]
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    seed: int = 0) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         if prepare_fn is not None:
             gen = torch.Generator(device=device)
-            gen.manual_seed(step_seed(seed, state.step))
+            gen.manual_seed(step_seed(rank_seed(seed, rank), state.step))
             with torch.no_grad():
                 batch = prepare_fn(gen, batch["frames"], batch["landmarks"])
         with _autocast(device, compute_dtype):
@@ -106,14 +123,17 @@ def make_train_step(
                     + perceptual_loss_weight * perceptual)
         state.optimizer.zero_grad()
         loss.backward()
-        state.apply_gradients()
         metrics = {
             "loss": loss.detach(),
             "mse": recon.detach(),
             "latent": latent.detach(),
             "perceptual": perceptual.detach(),
-            "lr": torch.tensor(state.optimizer.lr, dtype=torch.float32),
         }
+        if process_group is not None:
+            collectives.all_reduce_gradients(params, process_group)
+            metrics = collectives.all_reduce_metrics(metrics, process_group)
+        state.apply_gradients()
+        metrics["lr"] = torch.tensor(state.optimizer.lr, dtype=torch.float32)
         return state, metrics
 
     return train_step
@@ -129,6 +149,7 @@ def make_multi_step(
     prepare_fn: Optional[Callable] = None,
     compute_dtype: Optional[torch.dtype] = None,
     scan_batches: bool = True,
+    process_group=None,
 ) -> Callable:
     """`multi_step(state, batches, seed=0) -> (state, metrics)`: K =
     steps_per_call optimizer steps in one call, the counterpart of the JAX
@@ -144,7 +165,8 @@ def make_multi_step(
     step = make_train_step(
         model, latent_loss_weight=latent_loss_weight,
         perceptual_loss_weight=perceptual_loss_weight, lpips=lpips,
-        prepare_fn=prepare_fn, compute_dtype=compute_dtype)
+        prepare_fn=prepare_fn, compute_dtype=compute_dtype,
+        process_group=process_group)
 
     def multi_step(state: TrainState, batches: Dict[str, torch.Tensor],
                    seed: int = 0) -> Tuple[TrainState, Dict[str, torch.Tensor]]:

@@ -10,6 +10,14 @@ so that it does not wait for the card after every step. Validation
 writes four streams a batch (source, background, prediction,
 source_images) as uncompressed AVI files named
 `{epoch}_{step}_{batch}_{stream}.avi`.
+
+Across `torch.distributed` processes (the CLI's --multihost) every
+process runs the loop on its own shard of the data with the same step
+(`train.shardmap_step`); only the primary prints, writes metrics, sample
+streams and checkpoints, with barriers around each checkpoint;
+validation metrics are averaged over the processes; and a preemption
+stops every process by consensus at the log cadence, as in the JAX
+trainer.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from faceoff_tpu_torch.data.pipeline import prefetch_to_device
 from faceoff_tpu_torch.evaluation import evaluate_reconstruction
 from faceoff_tpu_torch.io.checkpoint import CheckpointManager
 from faceoff_tpu_torch.io.video import save_frames_as_video
+from faceoff_tpu_torch.parallel import collectives
 from faceoff_tpu_torch.train.observability import (MetricsWriter,
                                                    PreemptionGuard,
                                                    StallWatchdog,
@@ -87,8 +96,12 @@ def run_validation(
     """Write the sample streams of every validation batch (the first clip
     of each: source, background, prediction, source_images, and
     source_original and naive where the batch has them) and return the
-    mean reconstruction metrics."""
-    os.makedirs(sample_folder, exist_ok=True)
+    mean reconstruction metrics. Across processes each evaluates its own
+    shard, the means are averaged over them, and the primary alone
+    writes its shard's streams and prints."""
+    primary = collectives.is_primary()
+    if primary:
+        os.makedirs(sample_folder, exist_ok=True)
     device = _device_of(state)
     reports = []
     for i, host in enumerate(val_loader):
@@ -109,6 +122,8 @@ def run_validation(
         for name in ("source_original", "naive"):
             if name in host:
                 saves[name] = host[name]
+        if not primary:
+            continue
         for name, clip in saves.items():
             frames = [denormalize(f) for f in clip[0]]
             save_frames_as_video(frames, osp.join(
@@ -117,8 +132,13 @@ def run_validation(
         return {"val_mse": float("nan")}
     summary = {f"val_{k}": float(np.mean([r[k] for r in reports]))
                for k in reports[0]}
-    line = "; ".join(f"{k}: {v:.4f}" for k, v in summary.items())
-    print(f"validation: {line}", flush=True)
+    if collectives.get_world_size() > 1:
+        means = collectives.all_reduce_metrics(
+            {k: torch.tensor(v, device=device) for k, v in summary.items()})
+        summary = {k: float(v) for k, v in means.items()}
+    if primary:
+        line = "; ".join(f"{k}: {v:.4f}" for k, v in summary.items())
+        print(f"validation: {line}", flush=True)
     return summary
 
 
@@ -157,7 +177,9 @@ class Trainer:
         self._last_saved_step = -1
         # >1: train_step is a make_multi_step loop over stacked batches
         self.steps_per_call = steps_per_call
-        self.metrics_writer = (MetricsWriter(metrics_path) if metrics_path
+        self.world = collectives.get_world_size()
+        self.metrics_writer = (MetricsWriter(metrics_path)
+                               if metrics_path and collectives.is_primary()
                                else None)
         self.profiler = StepProfiler(profile_dir)
         self.preemption = PreemptionGuard()
@@ -225,7 +247,7 @@ class Trainer:
                 self.metrics_writer.write(self.global_step, metrics,
                                           epoch=epoch)
 
-            if i % self.log_every == 0:
+            if i % self.log_every == 0 and collectives.is_primary():
                 lr = float(metrics["lr"])
                 line = logger.line(epoch, metrics, lr)
                 fps = frames * (i + 1) / max(time.time() - t0, 1e-9)
@@ -241,7 +263,7 @@ class Trainer:
                                 + self.global_step)
                 self.model.revive_codes(batch["input"], gen)
 
-            if self.preemption.should_stop:
+            if self._stop_requested(i):
                 print("preemption requested: saving and stopping",
                       flush=True)
                 self._save()
@@ -259,10 +281,21 @@ class Trainer:
                        self.cfg.train.sample_folder, epoch, step)
         self._save()
 
+    def _stop_requested(self, i: int) -> bool:
+        """The preemption check. Across processes the flags are combined
+        at the log cadence, which every process reaches at the same step,
+        so that all stop together before the checkpoint's barrier."""
+        if self.world <= 1:
+            return self.preemption.should_stop
+        if i % self.log_every == 0:
+            return self.preemption.should_stop_global(self.device)
+        return False
+
     def _save(self):
         if self.global_step == self._last_saved_step:
             return  # already saved at this step (validation or preemption)
-        self.ckpt.save(self.global_step, self.state, seed=self.cfg.train.seed)
+        collectives.run_on_primary(lambda: self.ckpt.save(
+            self.global_step, self.state, seed=self.cfg.train.seed))
         self._last_saved_step = self.global_step
 
     def fit(self, epochs: Optional[int] = None):

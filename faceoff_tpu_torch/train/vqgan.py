@@ -28,9 +28,11 @@ from torch import nn
 
 from faceoff_tpu_torch.losses import hinge_d_loss, mse_loss, vanilla_d_loss
 from faceoff_tpu_torch.ops import video as video_ops
+from faceoff_tpu_torch.parallel import collectives
 from faceoff_tpu_torch.train.gan import (DISC_TAG, GEN_TAG,
                                          cudnn_deterministic,
                                          make_disc_optimizer, prepare,
+                                         reduced_metrics, reduced_update,
                                          step_parameters, tagged_generators)
 from faceoff_tpu_torch.train.state import TrainState
 from faceoff_tpu_torch.train.train_step import _autocast, _device_of
@@ -83,11 +85,18 @@ def make_vqgan_steps(
     lpips: Optional[nn.Module] = None,
     prepare_fn: Optional[Callable] = None,
     compute_dtype: Optional[torch.dtype] = None,
+    process_group=None,
 ):
     """Build (gen_step, disc_step), each `(state, batch, seed=0) -> (state,
     metrics)`; with a prepare function each step prepares its own batch
-    from a generator seeded by (seed, its tag, the generator's step)."""
+    from a generator seeded by (seed, its tag, the generator's step).
+    Across processes (`process_group`) every gradient and metric is
+    averaged over the group, the adaptive weight's two last-layer
+    gradients included (the global batch's, as under the JAX jit), and
+    each process prepares its own clips."""
     device = _device_of(model)
+    group = process_group
+    rank = collectives.get_rank() if group is not None else 0
     gen_params = step_parameters(model)
     last = model.get_submodule(find_last_layer_path(model))
     last_params = [last.weight, last.bias]
@@ -107,7 +116,8 @@ def make_vqgan_steps(
     @cudnn_deterministic
     def gen_step(state: VQGANState, batch: Dict[str, torch.Tensor],
                  seed: int = 0):
-        pipeline, _ = tagged_generators(device, seed, GEN_TAG, state.gen.step)
+        pipeline, _ = tagged_generators(device, seed, GEN_TAG, state.gen.step,
+                                        rank)
         batch = prepare(prepare_fn, pipeline, batch)
         with _autocast(device, compute_dtype):
             dec, latent = model(batch["input"], train=True)
@@ -118,6 +128,10 @@ def make_vqgan_steps(
         nll = recon + perceptual_loss_weight * perceptual
         nll_grads = torch.autograd.grad(nll, last_params, retain_graph=True)
         g_grads = torch.autograd.grad(g_adv, last_params, retain_graph=True)
+        if group is not None:
+            nll_grads = [collectives.all_reduce_mean(g, group)
+                         for g in nll_grads]
+            g_grads = [collectives.all_reduce_mean(g, group) for g in g_grads]
         d_weight = torch.clamp(_norm(nll_grads) / (_norm(g_grads) + 1e-4),
                                0.0, 1e4).detach() * disc_weight
         loss = (recon + latent_loss_weight * latent
@@ -125,17 +139,20 @@ def make_vqgan_steps(
                 + d_weight * factor(state) * g_adv)
         state.gen.optimizer.zero_grad()
         loss.backward(inputs=gen_params)
+        if group is not None:
+            collectives.all_reduce_gradients(gen_params, group)
         state.gen.apply_gradients()
         metrics = {"g_loss": loss, "mse": recon, "latent": latent,
                    "perceptual": perceptual, "d_weight": d_weight,
                    "g_adv": g_adv}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return state, reduced_metrics(metrics, group)
 
     @cudnn_deterministic
     def disc_step(state: VQGANState, batch: Dict[str, torch.Tensor],
                   seed: int = 0):
         pipeline, _ = tagged_generators(device, seed, DISC_TAG,
-                                        state.gen.step)
+                                        state.gen.step, rank)
         batch = prepare(prepare_fn, pipeline, batch)
         with torch.no_grad(), _autocast(device, compute_dtype):
             dec, _ = model(batch["input"], train=True,
@@ -153,7 +170,7 @@ def make_vqgan_steps(
         loss = factor(state) * d
         state.disc_opt.zero_grad(set_to_none=True)
         loss.backward()
-        state.disc_opt.step()
-        return state, {"d_loss": loss.detach()}
+        reduced_update(state.disc_opt, disc.parameters(), group)
+        return state, reduced_metrics({"d_loss": loss.detach()}, group)
 
     return gen_step, disc_step

@@ -5,7 +5,9 @@ fixtures, the copy to the card, a resume through the command line, and
 the swap: the warp of a swap chunk and the swap command line's device
 pipeline; the GAN stage: its kernels at the path's shapes and a
 mocoganhd pair's launches; the functional streaming push and a serving
-bundle exported for the card.
+bundle exported for the card; VQVAE_B2F's training forward (its six
+quantizers through the VQ kernels) and the shardmap step in a one-rank
+NCCL group against the plain step.
 
 Marked `cuda`; each test skips where there is no CUDA device. The file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -623,3 +625,95 @@ def test_multiscale_discriminator_input_gradient_matches_cpu(cuda, kind):
     err = float((grads[1] - grads[0]).abs().max() / grads[0].abs().max())
     assert err <= 1e-5, err
     assert torch.equal(grads[1], grads[2])
+
+
+def test_b2f_train_forward_launches_on_card(cuda):
+    """VQVAE_B2F's training forward at narrow widths: each of its six
+    quantizers assigns through the VQ kernels (6 assignment and 6
+    statistics launches), and the float32 reconstruction, latent loss and
+    EMA codebooks match the CPU's from the same weights (1e-4 of the
+    largest magnitude; codebooks rtol 1e-4 atol 1e-5)."""
+    from faceoff_tpu_torch.models.vqvae_b2f import VQVAE_B2F
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    widths = dict(channel=32, n_res_block=1, n_res_channel=8, embed_dim=16,
+                  n_embed=64)
+    cpu = VQVAE_B2F(dtype=torch.float32, device="cpu", **widths)
+    card = VQVAE_B2F(dtype=torch.float32, device=cuda, **widths)
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(5)
+    xs = tuple(torch.rand((4, 64, 64, 3), generator=g) * 2 - 1
+               for _ in range(3))
+    before = (vq_cuda.assign_launches, vq_cuda.stats_launches)
+    with torch.no_grad():
+        dec, diff = card(tuple(x.to(cuda) for x in xs), train=True)
+        torch.cuda.synchronize()
+        after = (vq_cuda.assign_launches, vq_cuda.stats_launches)
+        ref_dec, ref_diff = cpu(xs, train=True)
+    assert (after[0] - before[0], after[1] - before[1]) == (6, 6)
+    scale = float(ref_dec.abs().max())
+    assert float((dec.cpu() - ref_dec).abs().max()) <= 1e-4 * scale
+    assert abs(float(diff) - float(ref_diff)) <= 1e-4 * abs(float(ref_diff))
+    for k, v in cpu.state_dict().items():
+        if k.split(".")[-1] in ("embed", "cluster_size", "embed_avg"):
+            np.testing.assert_allclose(card.state_dict()[k].cpu().numpy(),
+                                       v.numpy(), rtol=1e-4, atol=1e-5,
+                                       err_msg=k)
+
+
+_NCCL_ONE_RANK = """
+import socket, torch
+from faceoff_tpu_torch.config import ModelConfig
+from faceoff_tpu_torch.models import VQVAE
+from faceoff_tpu_torch.parallel import collectives
+from faceoff_tpu_torch.train.shardmap_step import make_shardmap_train_step
+from faceoff_tpu_torch.train.state import create_train_state, make_optimizer
+from faceoff_tpu_torch.train.train_step import make_train_step
+from faceoff_tpu_torch.ops import vq_cuda
+
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+collectives.initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+assert torch.distributed.get_backend() == "nccl"
+g = torch.Generator().manual_seed(3)
+gt = torch.rand((2, 4, 64, 64, 3), generator=g) * 2 - 1
+batch = {"input": torch.cat([gt, gt.flip(2)], -1).cuda(), "gt": gt.cuda()}
+states = []
+for shard in (False, True):
+    model = VQVAE(ModelConfig(channel=32), dtype=torch.float32,
+                  generator=torch.Generator().manual_seed(0))
+    state = create_train_state(model, make_optimizer(model.parameters(), 3e-4))
+    step = (make_shardmap_train_step(model, perceptual_loss_weight=0.0)
+            if shard else make_train_step(model, perceptual_loss_weight=0.0))
+    before = vq_cuda.assign_launches
+    for _ in range(2):
+        state, m = step(state, batch)
+    torch.cuda.synchronize()
+    assert vq_cuda.assign_launches - before == 4
+    states.append((model.state_dict(), {k: float(v) for k, v in m.items()}))
+(a, ma), (b, mb) = states
+assert ma == mb, (ma, mb)
+for k in a:
+    assert torch.equal(a[k], b[k]), k
+collectives.destroy()
+print("ok")
+"""
+
+
+def test_shardmap_step_one_nccl_rank_matches_plain_step(cuda):
+    """The shardmap step in a one-rank NCCL group against the plain step
+    from the same weights, two bf16 steps: parameters, codebooks and
+    metrics bitwise equal (an all-reduce over one rank is the identity,
+    and the card's step repeats bit for bit). In a child process, so that
+    the process group dies with it."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    proc = subprocess.run([sys.executable, "-c", _NCCL_ONE_RANK],
+                          cwd=Path(__file__).resolve().parent.parent,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), (
+        proc.stdout[-3000:] + proc.stderr[-3000:])

@@ -237,9 +237,11 @@ def test_evaluate_cli_reports(eval_setup, capsys, extra, keys):
 def test_evaluate_cli_tags_trunk_only_weights_and_refuses_auto(
         eval_setup, lpips_pair, capsys, monkeypatch):
     """An .npz with the VGG trunk and no lin heads tags the metric
-    _untrained_lin; --lpips_weights auto exits naming its ROADMAP item;
-    the parser has the options and defaults of the JAX CLI's (which
-    builds it inside main: caught at its parse)."""
+    _untrained_lin; --lpips_weights auto (refused until ROADMAP.md Queue 1
+    item 7(a) was ported) finds nothing in empty probe paths and tags the
+    metric _random_vgg, and finds the trunk through
+    $FACEOFF_LPIPS_WEIGHTS; the parser has the options and defaults of the
+    JAX CLI's (which builds it inside main: caught at its parse)."""
     import argparse
 
     variables, _ = lpips_pair
@@ -250,11 +252,17 @@ def test_evaluate_cli_tags_trunk_only_weights_and_refuses_auto(
     np.savez(npz, **arrays)
     rep = _evaluate(eval_setup, "--lpips_weights", str(npz))
     assert "lpips_untrained_lin" in rep and "lpips_random_vgg" not in rep
-    with pytest.raises(SystemExit) as exc:
-        _evaluate(eval_setup, "--lpips_weights", "auto")
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and "Queue 1 item 7" in err
+    probe = eval_setup / "probe"
+    probe.mkdir()
+    monkeypatch.setenv("HOME", str(probe))
+    monkeypatch.setenv("TORCH_HOME", str(probe))
+    monkeypatch.delenv("FACEOFF_LPIPS_WEIGHTS", raising=False)
+    monkeypatch.chdir(probe)
+    rep = _evaluate(eval_setup, "--lpips_weights", "auto")
+    assert "lpips_random_vgg" in rep
+    monkeypatch.setenv("FACEOFF_LPIPS_WEIGHTS", str(npz))
+    rep = _evaluate(eval_setup, "--lpips_weights", "auto")
+    assert "lpips_untrained_lin" in rep
 
     caught = []
 

@@ -361,3 +361,14 @@ def test_port_imports_no_jax_no_cv2_no_reference_package():
             "faceoff_tpu_torch.cli.train_faceoff_gan"} <= set(modules)
     assert {"faceoff_tpu_torch.serve.export",
             "faceoff_tpu_torch.cli.export"} <= set(modules)
+    assert {"faceoff_tpu_torch.cli.encode",
+            "faceoff_tpu_torch.cli.train_alignment",
+            "faceoff_tpu_torch.cli.train_faceoff",
+            "faceoff_tpu_torch.models.vqvae_b2f",
+            "faceoff_tpu_torch.models.alignment",
+            "faceoff_tpu_torch.train.alignment",
+            "faceoff_tpu_torch.losses.contrastive",
+            "faceoff_tpu_torch.parallel",
+            "faceoff_tpu_torch.parallel.collectives",
+            "faceoff_tpu_torch.parallel.mesh",
+            "faceoff_tpu_torch.train.shardmap_step"} <= set(modules)

@@ -368,9 +368,11 @@ def test_parser_matches_jax():
 def test_refused_flags_exit_naming_their_item(capsys, flags, item):
     """Flags whose function the port lacks exit naming their item.
     --crossid and --custom_validation were refused until Queue 1 item 2
-    was ported; now they pass the check (and train: the test below)."""
+    was ported, --multihost and its coordination flags until item 6,
+    --lpips_weights auto until item 7(a); now they pass the check (and
+    train: the tests below and tests/test_torch_parallel.py)."""
     parser = tcli.build_parser()
-    if item == "Queue 1 item 2":
+    if item in ("Queue 1 item 2", "Queue 1 item 6", "Queue 1 item 7"):
         tcli.refuse_unported(parser, parser.parse_args(
             ["--data_root", "unused", *flags]))
         return
