@@ -5,9 +5,10 @@
 
 Phases, each printing lines with their seconds:
 
-  1. build   — compile the kernel sources (csrc/warp.cu, csrc/vq.cu) and
-               the nvJPEG shim (csrc/jpeg.cu), one nvcc each, started
-               together, into faceoff_tpu_torch/_build/, and load them;
+  1. build   — compile the kernel sources (csrc/warp.cu, csrc/vq.cu,
+               csrc/ccl.cu, csrc/lk.cu) and the nvJPEG shim
+               (csrc/jpeg.cu), one nvcc each, started together, into
+               faceoff_tpu_torch/_build/, and load them;
   2. kernel  — the kernel against its plain torch version on the card at
                (1,256,256,3), (16,256,256,3), one case whose output
                grid differs from the source, the training step's own
@@ -142,6 +143,19 @@ Phases, each printing lines with their seconds:
                make_shardmap_train_step against make_train_step at the
                train phase's setting (5 steps); both pairs bitwise equal;
                the two steps' ms beside the train phase's.
+ 16. preprocess — offline preprocessing from raw footage: 4 motion-JPEG
+               AVIs of 300 frames at 1280x720 (a drifting face, its mouth
+               opening and closing, a cut at frame 150) through
+               cli/preprocess's main(["all", ...]) at 256 px (8 clips,
+               none quarantined; stage 1 and 2 frames/s, kernel B's
+               launches a frame, the re-detections); stage 1's parts on
+               one video; kernel A (connected components, csrc/ccl.cu)
+               and kernel B (pyramidal LK, csrc/lk.cu) against their plain
+               versions on the phase's frames; the output read by
+               TemporalAlignmentDataset on the card and staged by
+               build_resident_corpus (batched nvJPEG windows), a window
+               by decode_jpeg_window against the per-frame loop; one
+               perceptual step at the train phase's setting on it.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 {"kernels": [...]}, and last {"ok": true, "device": {...}}. Any failure
@@ -183,23 +197,27 @@ from faceoff_tpu_torch.data.dataset import TemporalAlignmentDataset
 from faceoff_tpu_torch.data.resident import (build_resident_corpus,
                                              corpus_from_arrays,
                                              make_resident_prepare)
-from faceoff_tpu_torch.data.synthetic import (draw_face, face_landmarks,
+from faceoff_tpu_torch.data.synthetic import (draw_face, draw_faces,
+                                              face_landmarks,
                                               generate_dataset,
                                               synthetic_corpus)
 from faceoff_tpu_torch.io import image as image_io
 from faceoff_tpu_torch.io.checkpoint import CheckpointManager
-from faceoff_tpu_torch.io.video import read_video_frames
+from faceoff_tpu_torch.io.video import (read_video_frames, video_frame_chunks,
+                                        write_avi)
 from faceoff_tpu_torch.losses import mse_loss
 from faceoff_tpu_torch.models import VQVAE
 from faceoff_tpu_torch.models.vqvae_b2f import VQVAE_B2F
 from faceoff_tpu_torch.models.discriminators import (MultiscaleDiscriminator2D,
                                                      MultiscaleDiscriminator3D)
 from faceoff_tpu_torch.models.lpips import init_lpips
+from faceoff_tpu_torch.ops import ccl_cuda, lk_cuda
 from faceoff_tpu_torch.ops import vq as V
 from faceoff_tpu_torch.ops import vq_cuda
 from faceoff_tpu_torch.ops import warp as W
 from faceoff_tpu_torch.ops import warp_cuda
 from faceoff_tpu_torch.ops.swap import _STABLE, poisson_blend, prepare_swap_batch
+from faceoff_tpu_torch.preprocess.detectors import HeuristicDetector
 from faceoff_tpu_torch.serve import SwapSession
 from faceoff_tpu_torch.serve.export import load_bundle
 from faceoff_tpu_torch.serve.streaming import (_postnet_stream,
@@ -2720,6 +2738,391 @@ def dist_phase(t0, work: Path):
     return res, got
 
 
+# -- phase 16: offline preprocessing, raw footage to a training step ------
+
+
+PRE_VIDEOS, PRE_FRAMES, PRE_CUT, PRE_FPS = 4, 300, 150, 25
+PRE_H, PRE_W = 720, 1280
+PRE_DRAW_CHUNK = 25
+PRE_MIN_FRAMES = 30  # cli/preprocess's default
+# the window decoder against the per-frame loop: a training window
+PRE_WINDOW = 8
+# kernel B against its plain version: both do the same IEEE float32 steps
+# on the same integer sums (lk_cuda.py), so they should agree bit for bit
+LK_TOL = 1e-3
+# Kernel B's integer operations a window pixel, counted from lk.cu's
+# track(). Setting up a level: three bilinear interpolations (the image,
+# d/dx, d/dy), each 4 multiplies, 3 adds and a rounding shift (an add and
+# a shift): 27; the three products of the 2 x 2 system: 3; their block
+# sum, one add a pixel for each of the three: 3. In all 33. An iteration:
+# one interpolation of the other image (9) less the window's value (1),
+# the two products of the right-hand side (2) and their block sum (2): 14.
+# Address arithmetic and the per-point float steps are left out, so the
+# bound is a floor.
+LK_OPS_SETUP, LK_OPS_ITER = 33, 14
+
+
+def preprocess_footage(root: Path) -> dict:
+    """PRE_VIDEOS raw motion-JPEG AVIs of PRE_W x PRE_H at PRE_FPS, each
+    PRE_FRAMES frames: a face drifting over a grey textured background
+    (never in the skin cluster) with its mouth opening and closing, cut
+    at frame PRE_CUT to another place (two stable segments a video).
+    Drawn on the card, encoded by nvJPEG. Returns seconds and bytes."""
+    t = time.perf_counter()
+    n_bytes = 0
+    for v in range(PRE_VIDEOS):
+        gen = torch.Generator(device=DEV).manual_seed(100 + v)
+        noise = torch.rand((1, 1, PRE_H // 16, PRE_W // 16), generator=gen,
+                           device=DEV) * 70 + 20
+        grey = torch.nn.functional.interpolate(
+            noise, size=(PRE_H, PRE_W), mode="bicubic", align_corners=False)
+        bg = grey[0, 0].clamp(0, 255).round().to(torch.uint8)[..., None]
+        bg = bg.expand(PRE_H, PRE_W, 3)
+        lms = np.zeros((PRE_FRAMES, 68, 2), np.float32)
+        scale = PRE_H * (0.15 + 0.008 * v)  # about 110 px at 720p
+        for f in range(PRE_FRAMES):
+            side = 0.33 if f < PRE_CUT else 0.67
+            cx = PRE_W * (side + 0.03 * np.sin(0.05 * f + v))
+            cy = PRE_H * (0.5 + 0.03 * np.cos(0.04 * f + v))
+            pts = face_landmarks((cx, cy), scale, 4 * np.sin(0.03 * f))
+            mouth = pts[48:68]
+            lower = mouth[:, 1] > mouth[:, 1].mean()
+            mouth[lower, 1] += 0.25 * scale * 0.5 * (
+                1 - np.cos(2 * np.pi * f / 50))
+            lms[f] = pts
+        bodies = []
+        for lo in range(0, PRE_FRAMES, PRE_DRAW_CHUNK):
+            hi = min(PRE_FRAMES, lo + PRE_DRAW_CHUNK)
+            frames = draw_faces(bg.expand(hi - lo, -1, -1, -1),
+                                torch.from_numpy(lms[lo:hi]).to(DEV),
+                                (205, 165, 140))
+            bodies += [image_io.encode_jpeg(fr) for fr in frames]
+        write_avi(str(root / f"raw_{v}.avi"), bodies, PRE_W, PRE_H, PRE_FPS,
+                  "mjpg")
+        n_bytes += sum(len(b) for b in bodies)
+    torch.cuda.synchronize()
+    return {"s": time.perf_counter() - t, "bytes": n_bytes}
+
+
+def zero_pre_counts():
+    ccl_cuda.launches = lk_cuda.launches = 0
+    image_io.jpeg_decodes = image_io.jpeg_encodes = 0
+
+
+def read_pre_counts():
+    return {"connected_components": ccl_cuda.launches,
+            "pyr_lk": lk_cuda.launches,
+            "jpeg_decodes": image_io.jpeg_decodes,
+            "jpeg_encodes": image_io.jpeg_encodes}
+
+
+def _timed(module, name, store):
+    """module.name wrapped to add its seconds (synchronised) to store."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        store[name] = store.get(name, 0.0) + time.perf_counter() - t
+        return out
+    return fn, wrapper
+
+
+def stage1_split(raw: Path) -> dict:
+    """Stage 1's parts on one raw video, each synchronised: decode (nvJPEG
+    batched), detect (colour, morphology, kernel A, the table), crop and
+    resize, encode the clip frames (nvJPEG); frames/s of each."""
+    from faceoff_tpu_torch.preprocess.face_crop import (segment_stable_boxes,
+                                                        square_crop_box)
+    from faceoff_tpu_torch.data.geometry import resize_tensor
+
+    out = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    frames = next(video_frame_chunks(str(raw), PRE_FRAMES, DEV))
+    torch.cuda.synchronize()
+    out["decode_s"] = time.perf_counter() - t
+    det = HeuristicDetector(device=DEV)
+    t = time.perf_counter()
+    boxes = det.detect_batch(frames)
+    torch.cuda.synchronize()
+    out["detect_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    clips = []
+    for start, end, box in segment_stable_boxes(boxes):
+        x1, y1, x2, y2 = square_crop_box(box, frames.shape[1:3])
+        clips.append(resize_tensor(frames[start:end, y1:y2, x1:x2],
+                                   (TRAIN_SIZE, TRAIN_SIZE)))
+    torch.cuda.synchronize()
+    out["crop_resize_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    n_enc = 0
+    for clip in clips:
+        for fr in clip:
+            image_io.encode_jpeg(fr)
+            n_enc += 1
+    out["encode_s"] = time.perf_counter() - t
+    n = frames.shape[0]
+    for k in ("decode", "detect", "crop_resize"):
+        out[f"{k}_frames_per_s"] = n / out[f"{k}_s"]
+    out["encode_frames_per_s"] = n_enc / out["encode_s"]
+    return out, frames, boxes
+
+
+def ccl_row(t0, frames) -> dict:
+    """Kernel A at the detector's own call (DETECT_BATCH frames of the
+    phase's footage, their closed skin masks) against its plain version
+    on the card: the labels and the table equal; the kernel alone (a
+    memset and four launches, in a CUDA graph), the wrapper with its
+    table and the plain version timed;
+    the bound: the mask read once, the labels and the table written
+    once."""
+    from faceoff_tpu_torch.preprocess import imgproc
+    from faceoff_tpu_torch.preprocess.detectors import DETECT_BATCH, skin_mask
+
+    masks = imgproc.morph_close(skin_mask(frames[:DETECT_BATCH]), 7)
+    want = ccl_cuda.connected_components_plain(masks)
+    got = ccl_cuda.connected_components(masks)
+    torch.cuda.synchronize()
+    wrong = [name for name, g, w in zip(got._fields, got, want)
+             if not torch.equal(g, w)]
+    k = int(got.stats.shape[0])
+    n = masks.numel()
+    n_bytes = n + 4 * n + k * 7 * 8
+    row = {"shape": list(masks.shape), "components": k,
+           "max_abs_err": 0 if not wrong else None,
+           "kernel_ms": device_ms(lambda: ccl_cuda.launch_kernel(masks)),
+           "wrapper_ms": cuda_ms(lambda: ccl_cuda.connected_components(
+               masks), reps=5, inner=2),
+           "plain_ms": cuda_ms(lambda: ccl_cuda.connected_components_plain(
+               masks), reps=3, inner=1, warmup=1),
+           "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": None}
+    say("preprocess", t0, "kernel A " + json.dumps(row))
+    if wrong:
+        raise AssertionError(f"kernel A differs from its plain version in "
+                             f"{wrong}")
+    return row
+
+
+def lk_row(t0, clip_dir: Path) -> dict:
+    """Kernel B at the tracker's own call (two consecutive 256-pixel frames
+    of a written clip, the first frame's 68 landmarks) against its plain
+    version on the card: statuses equal, points within LK_TOL; the
+    kernel alone (one launch, in a CUDA graph), the wrapper and the plain
+    version timed; the bound: the integer operations these inputs need (window setups
+    and iterations counted by the plain version) over the card's float32
+    CUDA-core rate (its integer units are no faster)."""
+    from faceoff_tpu_torch.preprocess.imgproc import rgb_to_gray
+
+    lm_paths = _landmark_paths(str(clip_dir))[:2]
+    frames = torch.stack([torch.from_numpy(load_frame(p, TRAIN_SIZE, DEV)[0])
+                          for p in lm_paths]).to(DEV)
+    pts = torch.from_numpy(np.load(lm_paths[0])["landmark"].astype(
+        np.float32)).to(DEV)
+    gray = rgb_to_gray(frames)
+    pa, pb = lk_cuda.build_pyramid(gray[0]), lk_cuda.build_pyramid(gray[1])
+    work = {}
+    want = lk_cuda.pyr_lk_plain(pa, pb, pts, work=work)
+    got = lk_cuda.pyr_lk(pa, pb, pts)
+    torch.cuda.synchronize()
+    err = max((g - w).abs().max().item() for g, w in (
+        (got.fwd, want.fwd), (got.back, want.back)))
+    same = bool(torch.equal(got.st_fwd, want.st_fwd)
+                and torch.equal(got.st_back, want.st_back))
+    win = lk_cuda.WIN * lk_cuda.WIN
+    ops = win * (work["setups"] * LK_OPS_SETUP + work["iters"] * LK_OPS_ITER)
+    row = {"points": int(pts.shape[0]), "levels": len(pa.sizes),
+           "work": work, "max_abs_err": err, "status_equal": same,
+           "kernel_ms": device_ms(lambda: lk_cuda.launch_kernel(pa, pb,
+                                                                pts)),
+           "wrapper_ms": cuda_ms(lambda: lk_cuda.pyr_lk(pa, pb, pts)),
+           "plain_ms": cuda_ms(lambda: lk_cuda.pyr_lk_plain(pa, pb, pts),
+                               reps=3, inner=1, warmup=1),
+           "bound_ms": ops / F32_FLOPS * 1e3, "bound_by": "operations",
+           "library_ms": None}
+    say("preprocess", t0, "kernel B " + json.dumps(row))
+    if not same or err > LK_TOL:
+        raise AssertionError(f"kernel B against its plain version: statuses "
+                             f"equal {same}, max |diff| {err}")
+    return row
+
+
+def preprocess_phase(t0, work: Path):
+    """Offline preprocessing from raw 1280x720 motion-JPEG footage to one
+    training step, on the card:
+
+      footage  PRE_VIDEOS raw MJPEG AVIs of PRE_FRAMES frames (a drifting
+               face, its mouth opening and closing, a cut at PRE_CUT):
+               2 clips each, 8 in all;
+      cli      cli/preprocess's main(["all", ...]) at 256 px (the main
+               path; launch counts from 0 just before, read just after):
+               8 clips, none quarantined, every clip frame with its
+               landmark file; stage 1 and stage 2 seconds, kernel B's
+               launches a frame and the re-detections;
+      split    stage 1's parts on one video (decode, detect, crop+resize,
+               encode), frames/s each;
+      kernels  kernel A and kernel B against their plain versions on the
+               phase's own frames, timed beside their bounds;
+      read     TemporalAlignmentDataset(device=cuda) over the output, a
+               window by decode_jpeg_window against the per-frame
+               decode_jpeg_batch loop (ms a window), build_resident_corpus
+               (each video one batched decode);
+      step     one perceptual training step at the train phase's setting
+               on that corpus: 2 VQ and 1 warp launches, finite losses."""
+    from faceoff_tpu_torch.cli import preprocess as pre_cli
+    from faceoff_tpu_torch.preprocess import detectors as det_mod
+    from faceoff_tpu_torch.preprocess import face_crop, landmarks
+
+    raw, clips = work / "pre_raw", work / "pre_clips"
+    raw.mkdir()
+    footage = preprocess_footage(raw)
+    say("preprocess", t0, f"{PRE_VIDEOS} raw MJPEG videos of {PRE_FRAMES} "
+        f"frames {PRE_W}x{PRE_H}: {footage['bytes'] / 2**20:.1f} MiB in "
+        f"{footage['s']:.2f} s")
+
+    seeds = {"n": 0}
+    tracker = det_mod.ImageEvidenceLandmarker
+    seed_fn = tracker._seed_one
+
+    def counted_seed(self, frame, box):
+        seeds["n"] += 1
+        return seed_fn(self, frame, box)
+
+    stages = {}
+    crop_fn, crop_timed = _timed(face_crop, "process_videos", stages)
+    lms_fn, lms_timed = _timed(landmarks, "generate_landmarks_for_dataset",
+                               stages)
+    face_crop.process_videos = crop_timed
+    landmarks.generate_landmarks_for_dataset = lms_timed
+    tracker._seed_one = counted_seed
+    try:
+        torch.cuda.synchronize()
+        zero_pre_counts()
+        t = time.perf_counter()
+        res = pre_cli.main(["all", "--videos", str(raw), "--out", str(clips),
+                            "--resolution", str(TRAIN_SIZE),
+                            "--min_frames", str(PRE_MIN_FRAMES)], device=DEV)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t
+        counts = read_pre_counts()
+    finally:
+        face_crop.process_videos = crop_fn
+        landmarks.generate_landmarks_for_dataset = lms_fn
+        tracker._seed_one = seed_fn
+    n_clip_files = sum(len(list((clips / f"raw_{v}").glob("*.avi")))
+                       for v in range(PRE_VIDEOS))
+    frame_files = sorted(clips.glob("**/*.jpg"))
+    lm_files = sorted(clips.glob("**/*_landmarks.npz"))
+    stage2_frames = len(frame_files)
+    if stage2_frames != len(lm_files):
+        raise AssertionError(f"preprocess: {stage2_frames} JPEG frames, "
+                             f"{len(lm_files)} landmark files")
+    result = {
+        "main_s": main_s, "stage1_s": stages["process_videos"],
+        "stage2_s": stages["generate_landmarks_for_dataset"],
+        "stage1_frames_per_s": PRE_VIDEOS * PRE_FRAMES
+        / stages["process_videos"],
+        "stage2_frames_per_s": stage2_frames
+        / stages["generate_landmarks_for_dataset"],
+        "clips": len(res["clips"]), "ok": len(res["ok"]),
+        "quarantined": len(res["quarantined"]),
+        "clip_files": n_clip_files, "frames_written": stage2_frames,
+        "landmark_files": len(lm_files), "redetections": seeds["n"],
+        "pyr_lk_launches_per_frame": counts["pyr_lk"] / max(stage2_frames, 1),
+        "launches": counts}
+    say("preprocess", t0, json.dumps(result))
+    expect = 2 * PRE_VIDEOS
+    if not (result["clips"] == result["ok"] == expect
+            and not result["quarantined"]):
+        raise AssertionError(f"preprocess: {result['clips']} clips, "
+                             f"{result['ok']} ok, {result['quarantined']} "
+                             f"quarantined; expected {expect} ok")
+    if stage2_frames < 0.9 * PRE_VIDEOS * PRE_FRAMES:
+        raise AssertionError(f"preprocess: {stage2_frames} frames, "
+                             f"{len(lm_files)} landmark files")
+    if not counts["connected_components"] or not counts["pyr_lk"]:
+        raise AssertionError(f"preprocess: the kernels did not run on the "
+                             f"main path: {counts}")
+    for p in lm_files[:: max(1, len(lm_files) // 50)]:
+        lm = np.load(p)["landmark"]
+        if lm.shape != (68, 2) or not np.isfinite(lm).all() or (
+                lm.min() < -TRAIN_SIZE or lm.max() > 2 * TRAIN_SIZE):
+            raise AssertionError(f"preprocess: landmarks of {p}: {lm.shape} "
+                                 f"in [{lm.min()}, {lm.max()}]")
+
+    split, frames, _ = stage1_split(raw / "raw_0.avi")
+    result["stage1_split"] = split
+    say("preprocess", t0, "stage 1 split " + json.dumps(split))
+    result["ccl"] = ccl_row(t0, frames)
+    del frames
+    result["lk"] = lk_row(t0, sorted(p for p in clips.glob("raw_0/*")
+                                     if p.is_dir())[0])
+
+    ds = TemporalAlignmentDataset(str(clips), "train", TRAIN_T,
+                                  resolution=TRAIN_SIZE, device=DEV)
+    item = ds.get_item(0, np.random.default_rng(0))
+    if not all(np.isfinite(v).all() for v in item.values()):
+        raise AssertionError("preprocess: a non-finite dataset item")
+    window = [str(p).replace(".jpg", "_landmarks.npz")
+              for p in sorted(Path(ds.videos[0]).glob("*.jpg"))[:PRE_WINDOW]]
+    images = [w.replace("_landmarks.npz", ".jpg") for w in window]
+
+    def host_ms(fn, reps=15):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    via_window = image_io.decode_jpeg_window(images, TRAIN_SIZE, DEV)
+    per_frame = torch.stack(image_io.decode_jpeg_batch(images, DEV))
+    if not torch.equal(via_window, per_frame):
+        raise AssertionError("preprocess: decode_jpeg_window differs from "
+                             "decode_jpeg_batch")
+    result["window_ms"] = host_ms(
+        lambda: image_io.decode_jpeg_window(images, TRAIN_SIZE, DEV))
+    result["per_frame_loop_ms"] = host_ms(
+        lambda: image_io.decode_jpeg_batch(images, DEV))
+    t = time.perf_counter()
+    corpus = build_resident_corpus(ds, device=DEV)
+    torch.cuda.synchronize()
+    result["corpus_stage_s"] = time.perf_counter() - t
+    say("preprocess", t0, f"dataset: {len(ds)} videos, corpus "
+        f"{tuple(corpus.frames.shape)} staged in "
+        f"{result['corpus_stage_s']:.2f} s; window of {PRE_WINDOW}: "
+        f"{result['window_ms']:.3f} ms batched, "
+        f"{result['per_frame_loop_ms']:.3f} ms frame by frame")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    model = VQVAE(ModelConfig(), dtype=torch.float32, device=DEV,
+                  generator=torch.Generator().manual_seed(0))
+    lpips = init_lpips(torch.Generator().manual_seed(1), device=DEV)
+    state = create_train_state(model, make_optimizer(
+        model.parameters(), TRAIN_LR, "cycle", n_iter=TRAIN_N_ITER))
+    step = make_train_step(model, lpips=lpips, prepare_fn=make_resident_prepare(
+        corpus, TRAIN_B, TRAIN_T))
+    zero_counts()
+    state, metrics = step(state, {"frames": corpus.frames,
+                                  "landmarks": corpus.landmarks}, seed=0)
+    torch.cuda.synchronize()
+    step_counts = read_counts()
+    losses = {k: float(v) for k, v in metrics.items()}
+    result["step"] = {"losses": losses, "launches": step_counts}
+    say("preprocess", t0, "training step " + json.dumps(result["step"]))
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"preprocess: non-finite losses {losses}")
+    if (step_counts["vq_assign"], step_counts["vq_stats"],
+            step_counts["warp"]) != (2, 2, 1):
+        raise AssertionError(f"preprocess: step launches {step_counts}")
+    return result, counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -2736,13 +3139,15 @@ def main() -> int:
     t_all = time.perf_counter()
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        libs = [f.result() for f in [pool.submit(warp_cuda.build),
-                                     pool.submit(vq_cuda.build),
-                                     pool.submit(image_io.build_jpeg)]]
+    builds = (warp_cuda.build, vq_cuda.build, image_io.build_jpeg,
+              ccl_cuda.build, lk_cuda.build)
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        libs = [f.result() for f in [pool.submit(b) for b in builds]]
     warp_cuda.load()
     vq_cuda.load()
     image_io.load_jpeg()
+    ccl_cuda.load()
+    lk_cuda.load()
     say("build", t0, ", ".join(str(p.relative_to(REPO)) for p in libs)
         + " loaded")
 
@@ -2779,6 +3184,8 @@ def main() -> int:
         aux, aux_counts = aux_phase(t0, Path(work))
         t0 = time.perf_counter()
         dist, dist_counts = dist_phase(t0, Path(work))
+        t0 = time.perf_counter()
+        pre, pre_counts = preprocess_phase(t0, Path(work))
     trainer_counts = trainer["launches"]
     swap_counts = swap["launches"]
     gan_counts = gan_result["launches"]
@@ -2866,13 +3273,30 @@ def main() -> int:
         "multihost_cli_bitwise_equal": dist["cli"]["vs_single"][
             "bitwise_equal"],
         "launches": dist_counts}))
+    say("preprocess", t_all, json.dumps({
+        "card": card,
+        "stage1_frames_per_s": pre["stage1_frames_per_s"],
+        "stage2_frames_per_s": pre["stage2_frames_per_s"],
+        "stage1_split_frames_per_s": {
+            k: v for k, v in pre["stage1_split"].items()
+            if k.endswith("frames_per_s")},
+        "pyr_lk_launches_per_frame": pre["pyr_lk_launches_per_frame"],
+        "redetections": pre["redetections"],
+        "window_ms": pre["window_ms"],
+        "per_frame_loop_ms": pre["per_frame_loop_ms"],
+        "kernel_a": {k: pre["ccl"][k] for k in (
+            "kernel_ms", "wrapper_ms", "plain_ms", "bound_ms")},
+        "kernel_b": {k: pre["lk"][k] for k in (
+            "kernel_ms", "wrapper_ms", "plain_ms", "bound_ms", "work")},
+        "launches": pre_counts}))
     # the serving path: the slice phase's sessions and the export phase's
     launches += exported["launches"]["warp"]
     paths = {"serving": {"vq_assign": 0, "vq_stats": 0, "warp": launches,
                          "warp_backward": 0},
              "training": dict(train_counts), "trainer": trainer_counts,
              "swap": swap_counts, "gan": gan_counts, "b2f": b2f_counts,
-             "vanilla_trainer": aux_counts, "dist": dist_counts}
+             "vanilla_trainer": aux_counts, "dist": dist_counts,
+             "preprocess_step": pre["step"]["launches"]}
     say("launches", t_all, json.dumps(paths))
 
     def by_path(key):
@@ -2954,6 +3378,34 @@ def main() -> int:
         "bound_ms": bwd["bound_ms"],
         "bound_by": bwd["bound_by"],
         "library_ms": bwd["library_ms"],
+    }, {
+        "name": "connected_components",
+        "route": "cuda",
+        "source": "faceoff_tpu_torch/csrc/ccl.cu",
+        "replaces": "faceoff_tpu/preprocess/detectors.py:59",
+        "launches": pre_counts["connected_components"],
+        "max_abs_err": pre["ccl"]["max_abs_err"],
+        "ms": pre["ccl"]["kernel_ms"],
+        # the wrapper: the kernel, then its table or result tensors
+        "wrapper_ms": pre["ccl"]["wrapper_ms"],
+        "plain_ms": pre["ccl"]["plain_ms"],
+        "bound_ms": pre["ccl"]["bound_ms"],
+        "bound_by": pre["ccl"]["bound_by"],
+        "library_ms": None,  # no PyTorch call computes it
+    }, {
+        "name": "pyr_lk",
+        "route": "cuda",
+        "source": "faceoff_tpu_torch/csrc/lk.cu",
+        "replaces": "faceoff_tpu/preprocess/detectors.py:483",
+        "launches": pre_counts["pyr_lk"],
+        "max_abs_err": pre["lk"]["max_abs_err"],
+        "ms": pre["lk"]["kernel_ms"],
+        # the wrapper: the kernel, then its table or result tensors
+        "wrapper_ms": pre["lk"]["wrapper_ms"],
+        "plain_ms": pre["lk"]["plain_ms"],
+        "bound_ms": pre["lk"]["bound_ms"],
+        "bound_by": pre["lk"]["bound_by"],
+        "library_ms": None,  # no PyTorch call computes it
     }]
     print(f"[total] {time.perf_counter() - t_all:.2f} s", flush=True)
     print(card, flush=True)

@@ -39,8 +39,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from faceoff_tpu_torch.data import geometry, perturbations
-from faceoff_tpu_torch.device import DeviceLike
-from faceoff_tpu_torch.io.image import read_image
+from faceoff_tpu_torch.device import DeviceLike, resolve_device
+from faceoff_tpu_torch.io.image import decode_jpeg_window, read_image
 
 def _frame_index(path: str) -> int:
     return int(osp.basename(path).split("_")[0])
@@ -105,9 +105,17 @@ def load_window_frames(
     device: DeviceLike = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """A clip window: (frames (T, res, res, 3) uint8, landmarks
-    (T, 68, 2) float32)."""
-    frames = np.stack([load_frame(p, resolution, device)[0]
-                       for p in lm_paths])
+    (T, 68, 2) float32). A window whose frames are all JPEG decodes on a
+    CUDA device in one `io.image.decode_jpeg_window` call (the JAX
+    package's native `fo_load_frames` path), other windows frame by
+    frame."""
+    images = [_image_for_landmark(p) for p in lm_paths]
+    if images and all(p.endswith(".jpg") for p in images) and \
+            resolve_device(device).type == "cuda":
+        frames = decode_jpeg_window(images, resolution, device).cpu().numpy()
+    else:
+        frames = np.stack([load_frame(p, resolution, device)[0]
+                           for p in lm_paths])
     lms = np.stack([_landmarks(p) for p in lm_paths])
     return frames, lms
 

@@ -222,47 +222,79 @@ def resize(image: np.ndarray, size: Optional[Tuple[int, int]] = None, *,
         sx, sy = 1.0 / fx, 1.0 / fy
     if (oh, ow) == (h, w) and sx == 1.0 and sy == 1.0:
         return img.copy()
-    if interpolation not in ("linear", "cubic"):
-        raise ValueError(f"unknown interpolation {interpolation!r}")
     flat = img.ndim == 2
     src = torch.from_numpy(np.ascontiguousarray(img))
     if flat:
         src = src[..., None]
+    out = _resize_tensor(src, ow, oh, sx, sy, interpolation).numpy()
+    return out[..., 0] if flat else out
+
+
+def _resize_tensor(src: torch.Tensor, ow: int, oh: int, sx: float,
+                   sy: float, interpolation: str) -> torch.Tensor:
+    """`resize`'s arithmetic on uint8 (..., H, W, C) tensors on any
+    device (the same integers on every device)."""
+    if interpolation not in ("linear", "cubic"):
+        raise ValueError(f"unknown interpolation {interpolation!r}")
+    h, w = src.shape[-3:-1]
+    dev = src.device
     ix, wx = _axis_taps(w, ow, sx, interpolation)
     iy, wy = _axis_taps(h, oh, sy, interpolation)
-    ix, iy = torch.from_numpy(ix), torch.from_numpy(iy)
+    ix, iy = torch.from_numpy(ix).to(dev), torch.from_numpy(iy).to(dev)
     if interpolation == "linear":
         # cv2's fixed point: 11-bit weights, integer row sums, then the
         # vertical blend of the sums >> 4 with 16-bit products
-        cx = torch.from_numpy(np.rint(wx * 2048).astype(np.int64))
-        cy = torch.from_numpy(np.rint(wy * 2048).astype(np.int64))
-        rows = (src[:, ix].to(torch.int64) * cx[None, :, :, None]).sum(2)
-        r0 = rows[iy[:, 0]] >> 4
-        r1 = rows[iy[:, 1]] >> 4
+        cx = torch.from_numpy(np.rint(wx * 2048).astype(np.int64)).to(dev)
+        cy = torch.from_numpy(np.rint(wy * 2048).astype(np.int64)).to(dev)
+        rows = (src[..., ix, :].to(torch.int64)
+                * cx[:, :, None]).sum(-2)
+        r0 = rows[..., iy[:, 0], :, :] >> 4
+        r1 = rows[..., iy[:, 1], :, :] >> 4
         v = ((r0 * cy[:, 0, None, None]) >> 16) + (
             (r1 * cy[:, 1, None, None]) >> 16)
-        out = ((v + 2) >> 2).clamp_(0, 255).to(torch.uint8)
-    else:
-        cx = torch.from_numpy(wx.astype(np.float64))
-        cy = torch.from_numpy(wy.astype(np.float64))
-        rows = (src[:, ix].to(torch.float64) * cx[None, :, :, None]).sum(2)
-        v = (rows[iy] * cy[:, :, None, None]).sum(1)
-        out = torch.round(v).clamp_(0, 255).to(torch.uint8)
-    out = out.numpy()
-    return out[..., 0] if flat else out
+        return ((v + 2) >> 2).clamp_(0, 255).to(torch.uint8)
+    cx = torch.from_numpy(wx.astype(np.float64)).to(dev)
+    cy = torch.from_numpy(wy.astype(np.float64)).to(dev)
+    rows = (src[..., ix, :].to(torch.float64) * cx[:, :, None]).sum(-2)
+    v = (rows[..., iy, :, :] * cy[:, :, None, None]).sum(-3)
+    return torch.round(v).clamp_(0, 255).to(torch.uint8)
+
+
+def resize_tensor(frames: torch.Tensor, size: Tuple[int, int]
+                  ) -> torch.Tensor:
+    """Bilinear `resize` of uint8 (..., H, W, C) frames on their own
+    device to `size` = (width, height): the same integers as `resize`
+    (cv2's) on every device."""
+    h, w = frames.shape[-3:-1]
+    ow, oh = size
+    if (oh, ow) == (h, w):
+        return frames.clone()
+    return _resize_tensor(frames, ow, oh, w / ow, h / oh, "linear")
+
+
+def _square_pad(h: int, w: int):
+    """(padh, padw): `resize_frame`'s zeros on each side."""
+    return (0, (h - w) // 2) if h > w else ((w - h) // 2, 0)
 
 
 def resize_frame(frame: np.ndarray, resize_dim: int = 256) -> np.ndarray:
     """Pad to a square with zeros, then resize bilinearly to
     resize_dim x resize_dim (the identity at that size already)."""
     h, w = frame.shape[:2]
-    if h > w:
-        padw, padh = (h - w) // 2, 0
-    else:
-        padw, padh = 0, (w - h) // 2
+    padh, padw = _square_pad(h, w)
     pad = [(padh, padh), (padw, padw)] + [(0, 0)] * (frame.ndim - 2)
     padded = np.pad(frame, pad)
     return resize(padded, (resize_dim, resize_dim), interpolation="linear")
+
+
+def resize_frame_tensor(frames: torch.Tensor, resize_dim: int = 256
+                        ) -> torch.Tensor:
+    """`resize_frame` of uint8 (..., H, W, 3) frames on their own device,
+    bit for bit."""
+    h, w = frames.shape[-3:-1]
+    padh, padw = _square_pad(h, w)
+    padded = torch.nn.functional.pad(frames, (0, 0, padw, padw, padh, padh))
+    return resize_tensor(padded, (resize_dim, resize_dim))
 
 
 # -- masks ------------------------------------------------------------------

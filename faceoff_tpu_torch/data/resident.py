@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import os
 from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -96,22 +95,21 @@ def corpus_from_arrays(
 
 def _stage_video(paths, res: int, out: torch.Tensor,
                  pool: ThreadPoolExecutor) -> None:
-    """Decode the frames of one video into out (F, res, res, 3) uint8:
-    JPEG frames of the right size with nvJPEG straight into `out` on the
-    card, every other frame on the host."""
+    """Decode the frames of one video into out (F, res, res, 3) uint8: on
+    the card its JPEG frames in one batched nvJPEG window
+    (`io.image.decode_jpeg_window`), every other frame on the host."""
     from faceoff_tpu_torch.data.dataset import _image_for_landmark, load_frame
     from faceoff_tpu_torch.io import image
 
     images = [_image_for_landmark(p) for p in paths]
-    host = []
-    for f, img in enumerate(images):
-        if img.endswith(".jpg") and out.device.type == "cuda":
-            data = Path(img).read_bytes()
-            info = image.jpeg_info(data)
-            if (info["height"], info["width"]) == (res, res):
-                image.decode_jpeg_into(data, out[f])
-                continue
-        host.append(f)
+    on_card = out.device.type == "cuda"
+    jpeg = [f for f, img in enumerate(images)
+            if on_card and img.endswith(".jpg")]
+    host = sorted(set(range(len(images))) - set(jpeg))
+    if jpeg:
+        window = image.decode_jpeg_window([images[f] for f in jpeg], res,
+                                          out.device)
+        out[torch.as_tensor(jpeg, device=out.device)] = window
     if host:
         decoded = list(pool.map(
             lambda f: load_frame(paths[f], res, out.device)[0], host))

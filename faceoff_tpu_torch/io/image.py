@@ -9,11 +9,15 @@ to their left and decode byte by byte, which is slow but exact (libpng,
 and so cv2, writes such rows). `write_png` writes None or Sub rows; Sub
 rows decode as a cumulative sum, so the port's own files read fast.
 
-`decode_jpeg_batch` decodes JPEG files on a CUDA device with nvJPEG, the
-CUDA toolkit's JPEG decoder, through the C shim `csrc/jpeg.cu` (built at
-first use by `ops/cuda_build.py`, linked with -lnvjpeg). It returns RGB
-interleaved uint8 tensors on the card. There is no JPEG decoder on the
-CPU: asked for one, it raises.
+JPEG goes through nvJPEG, the CUDA toolkit's codec, through the C shim
+`csrc/jpeg.cu` (built at first use by `ops/cuda_build.py`, linked with
+-lnvjpeg), on a CUDA device: `decode_jpeg_bytes` (nvJPEG's batched
+decoder), `decode_jpeg_batch` (files, one a call of it) and
+`decode_jpeg_window` (one batched call; the window padded and resized on
+the card) return RGB interleaved uint8 tensors on the card; `encode_jpeg`
+and `write_jpeg` encode at cv2.imwrite's defaults (quality 95, 4:2:0). Each calling thread has its own nvJPEG
+state, so loader threads decode at once. There is no JPEG codec on the
+CPU: asked for one, these raise.
 """
 
 from __future__ import annotations
@@ -35,11 +39,13 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3}  # colour type -> samples a pixel
 JPEG_SOURCE = cuda_build.CSRC / "jpeg.cu"
 
-# JPEG files decoded through nvJPEG in this process
+# JPEG images decoded and encoded through nvJPEG in this process
 jpeg_decodes = 0
+jpeg_encodes = 0
 
 _jpeg_lib: Optional[ctypes.CDLL] = None
-_jpeg_lock = threading.Lock()
+_jpeg_lock = threading.Lock()  # loading the shim
+_count_lock = threading.Lock()  # the counts above
 
 PathLike = Union[str, Path]
 
@@ -195,6 +201,9 @@ def write_png(path: PathLike, image: np.ndarray, *,
 # levels on average. A wrong channel order, pitch or sampling shows as
 # tens of levels on average.
 JPEG_TOL = {"444": (8, 1.0), "420": (96, 6.5)}
+# cv2.imwrite's defaults, which the encoder takes: quality 95, 4:2:0
+JPEG_QUALITY = 95
+_CSS_420 = 2  # nvjpegChromaSubsampling_t NVJPEG_CSS_420
 
 
 def build_jpeg() -> Path:
@@ -205,17 +214,29 @@ def build_jpeg() -> Path:
 def load_jpeg() -> ctypes.CDLL:
     """Build if needed, then load the shim once per process."""
     global _jpeg_lib
-    if _jpeg_lib is None:
-        lib = ctypes.CDLL(str(build_jpeg()))
-        lib.faceoff_jpeg_info.argtypes = [
-            ctypes.c_char_p, ctypes.c_size_t] + [ctypes.c_void_p] * 4
-        lib.faceoff_jpeg_info.restype = ctypes.c_int
-        lib.faceoff_jpeg_decode_rgbi.argtypes = [
-            ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p]
-        lib.faceoff_jpeg_decode_rgbi.restype = ctypes.c_int
-        _jpeg_lib = lib
+    with _jpeg_lock:
+        if _jpeg_lib is None:
+            lib = ctypes.CDLL(str(build_jpeg()))
+            lib.faceoff_jpeg_info.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t] + [ctypes.c_void_p] * 4
+            lib.faceoff_jpeg_decode_batch.argtypes = [
+                ctypes.c_int] + [ctypes.c_void_p] * 5
+            lib.faceoff_jpeg_encode.argtypes = [
+                ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+                ctypes.c_void_p, ctypes.c_void_p]
+            lib.faceoff_jpeg_encode_take.argtypes = [
+                ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p]
+            for fn in (lib.faceoff_jpeg_info, lib.faceoff_jpeg_decode_batch,
+                       lib.faceoff_jpeg_encode,
+                       lib.faceoff_jpeg_encode_take):
+                fn.restype = ctypes.c_int
+            _jpeg_lib = lib
     return _jpeg_lib
+
+
+def _raise(status: int, what: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"nvJPEG {what} failed with status {status}")
 
 
 def jpeg_info(data: bytes) -> dict:
@@ -223,56 +244,145 @@ def jpeg_info(data: bytes) -> dict:
     one JPEG's bytes (needs the CUDA build)."""
     lib = load_jpeg()
     vals = [ctypes.c_int() for _ in range(4)]
-    with _jpeg_lock:
-        status = lib.faceoff_jpeg_info(data, len(data),
-                                       *[ctypes.byref(v) for v in vals])
-    if status != 0:
-        raise RuntimeError(f"nvjpegGetImageInfo failed with status {status}")
+    _raise(lib.faceoff_jpeg_info(data, len(data),
+                                 *[ctypes.byref(v) for v in vals]),
+           "nvjpegGetImageInfo")
     w, h, comps, sub = (v.value for v in vals)
     return {"width": w, "height": h, "components": comps,
             "subsampling": sub}
 
 
-def decode_jpeg_into(data: bytes, out: torch.Tensor) -> torch.Tensor:
-    """Decode one JPEG's bytes into `out`, a contiguous (H, W, 3) uint8
-    CUDA tensor of the image's size, on PyTorch's current stream; returns
-    when the stream has finished the decode."""
-    global jpeg_decodes
+def _check_out(out: torch.Tensor) -> None:
     if out.device.type != "cuda" or out.dtype != torch.uint8 or \
             out.dim() != 3 or out.shape[2] != 3 or not out.is_contiguous():
-        raise ValueError("decode_jpeg_into writes a contiguous (H, W, 3) "
-                         "uint8 CUDA tensor")
-    lib = load_jpeg()
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    with torch.cuda.device(out.device), _jpeg_lock:
-        status = lib.faceoff_jpeg_decode_rgbi(
-            data, len(data), out.data_ptr(), out.shape[1] * 3, stream)
-    if status != 0:
-        raise RuntimeError(f"nvJPEG decode failed with status {status}")
-    jpeg_decodes += 1
+        raise ValueError("JPEG frames decode into contiguous (H, W, 3) "
+                         "uint8 CUDA tensors")
+
+
+def _cuda_device(device: DeviceLike, what: str) -> torch.device:
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError(
+            f"JPEG frames {what} through nvJPEG on a CUDA device only; the "
+            f"port has no JPEG codec on the CPU (write the frames as PNG "
+            f"to read them there)")
+    return dev
+
+
+def decode_jpeg_bytes(datas: Sequence[bytes],
+                      device: DeviceLike = None) -> List[torch.Tensor]:
+    """Decode JPEG images' bytes with nvJPEG's batched decoder into RGB
+    (H, W, 3) uint8 tensors on `device` (CUDA unless named). Waits for
+    the decodes before it returns."""
+    dev = _cuda_device(device, "decode")
+    out = []
+    for data in datas:
+        info = jpeg_info(data)
+        out.append(torch.empty((info["height"], info["width"], 3),
+                               dtype=torch.uint8, device=dev))
+    _decode_batch(list(datas), out)
     return out
+
+
+def _decode_batch(datas: List[bytes], outs: List[torch.Tensor]) -> None:
+    global jpeg_decodes
+    n = len(datas)
+    if n == 0:
+        return
+    for o in outs:
+        _check_out(o)
+    lib = load_jpeg()
+    ptrs = (ctypes.c_char_p * n)(*datas)
+    lengths = (ctypes.c_size_t * n)(*[len(d) for d in datas])
+    dst = (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs])
+    pitches = (ctypes.c_int * n)(*[o.shape[1] * 3 for o in outs])
+    dev = outs[0].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        _raise(lib.faceoff_jpeg_decode_batch(
+            n, ctypes.cast(ptrs, ctypes.c_void_p), lengths, dst, pitches,
+            stream), "batched decode")
+    with _count_lock:
+        jpeg_decodes += n
 
 
 def decode_jpeg_batch(paths: Sequence[PathLike],
                       device: DeviceLike = None) -> List[torch.Tensor]:
     """Decode JPEG files with nvJPEG into RGB interleaved (H, W, 3) uint8
-    tensors on `device` (CUDA unless named). Waits for the decodes before
-    it returns, so the files' bytes may go."""
-    dev = resolve_device(device)
-    if dev.type != "cuda":
-        raise RuntimeError(
-            "JPEG frames decode through nvJPEG on a CUDA device only; the "
-            "port has no JPEG decoder on the CPU (write the frames as PNG "
-            "to read them there)")
-    out = []
-    for p in paths:
-        data = Path(p).read_bytes()
+    tensors on `device` (CUDA unless named), one file a call of
+    `decode_jpeg_bytes`. Waits for the decodes before it returns."""
+    dev = _cuda_device(device, "decode")
+    return [decode_jpeg_bytes([Path(p).read_bytes()], dev)[0]
+            for p in paths]
+
+
+def decode_jpeg_window(paths: Sequence[PathLike], resolution: int,
+                       device: DeviceLike = None) -> torch.Tensor:
+    """A window of JPEG frames as one (N, res, res, 3) uint8 tensor on
+    `device` (CUDA unless named), the counterpart of the JAX package's
+    native `fo_load_frames`: nvJPEG's batched decoder, then each frame
+    padded to a square and resized on the card with
+    `geometry.resize_frame`'s integers. Frames already res x res decode
+    straight into the window."""
+    from faceoff_tpu_torch.data.geometry import resize_frame_tensor
+
+    dev = _cuda_device(device, "decode")
+    datas = [Path(p).read_bytes() for p in paths]
+    window = torch.empty((len(datas), resolution, resolution, 3),
+                         dtype=torch.uint8, device=dev)
+    outs, resized = [], []
+    for i, data in enumerate(datas):
         info = jpeg_info(data)
-        img = torch.empty((info["height"], info["width"], 3),
-                          dtype=torch.uint8, device=dev)
-        out.append(decode_jpeg_into(data, img))
-    torch.cuda.current_stream(dev).synchronize()
-    return out
+        if (info["height"], info["width"]) == (resolution, resolution):
+            outs.append(window[i])
+        else:
+            outs.append(torch.empty((info["height"], info["width"], 3),
+                                    dtype=torch.uint8, device=dev))
+            resized.append(i)
+    _decode_batch(datas, outs)
+    for i in resized:
+        window[i] = resize_frame_tensor(outs[i], resolution)
+    return window
+
+
+def encode_jpeg(frame, quality: int = JPEG_QUALITY,
+                device: DeviceLike = None) -> bytes:
+    """One (H, W, 3) uint8 RGB frame as JPEG bytes, encoded by nvJPEG on
+    the card at `quality` with 4:2:0 chroma (cv2.imwrite's defaults). A
+    CUDA tensor is encoded where it lies; a numpy array or CPU tensor is
+    copied to `device` (CUDA unless named) first."""
+    global jpeg_encodes
+    if isinstance(frame, torch.Tensor) and frame.device.type == "cuda":
+        img = frame
+    else:
+        dev = _cuda_device(device, "encode")
+        img = torch.as_tensor(np.asarray(frame) if not isinstance(
+            frame, torch.Tensor) else frame).to(dev)
+    if img.dtype != torch.uint8 or img.dim() != 3 or img.shape[2] != 3:
+        raise ValueError(f"encode_jpeg takes (H, W, 3) uint8, got "
+                         f"{tuple(img.shape)} {img.dtype}")
+    img = img.contiguous()
+    lib = load_jpeg()
+    h, w = img.shape[:2]
+    length = ctypes.c_size_t()
+    stream = torch.cuda.current_stream(img.device).cuda_stream
+    with torch.cuda.device(img.device):
+        _raise(lib.faceoff_jpeg_encode(
+            img.data_ptr(), w, h, w * 3, quality, _CSS_420,
+            ctypes.byref(length), stream), "encode")
+        buf = ctypes.create_string_buffer(length.value)
+        _raise(lib.faceoff_jpeg_encode_take(buf, length.value, stream),
+               "bitstream")
+    with _count_lock:
+        jpeg_encodes += 1
+    return buf.raw[: length.value]
+
+
+def write_jpeg(path: PathLike, frame, quality: int = JPEG_QUALITY,
+               device: DeviceLike = None) -> None:
+    """Write one (H, W, 3) uint8 RGB frame as a JPEG file through
+    `encode_jpeg`."""
+    Path(path).write_bytes(encode_jpeg(frame, quality, device))
 
 
 def read_image(path: PathLike, device: DeviceLike = None) -> np.ndarray:

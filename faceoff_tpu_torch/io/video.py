@@ -1,13 +1,15 @@
-"""Sample videos and image grids without OpenCV, counterpart of
+"""Videos and image grids without OpenCV, counterpart of
 `faceoff_tpu/io/video.py`.
 
-Videos are uncompressed RIFF AVI files: one video stream of 24-bit BI_RGB
-frames (top-down BGR rows, marked by a negative height, padded to four
-bytes; each frame a key frame; an idx1 index), written and read with the
-standard library; ffmpeg reads them. The JAX
-package writes mp4 through cv2's encoder; these files are larger and
-lossless, and players read them as they are. Grids are PNG files
-(`io/image.py`).
+Videos are RIFF AVI files with one video stream, written and read with
+the standard library: uncompressed (24-bit BI_RGB frames, top-down BGR
+rows marked by a negative height, padded to four bytes) or motion JPEG
+(`codec="mjpg"`: each frame a JPEG that nvJPEG encodes on the card,
+fourcc MJPG). Every frame is a key frame and the file has an idx1 index;
+ffmpeg and cv2 read both. The JAX package writes mp4 through cv2's
+encoder; the card's machine has neither ffmpeg nor NVIDIA's video codec
+headers, so an .mp4 name, and MJPEG on the CPU (no JPEG codec there),
+raise (ROADMAP.md, Queue 1 item 7b). Grids are PNG files (`io/image.py`).
 """
 
 from __future__ import annotations
@@ -15,18 +17,29 @@ from __future__ import annotations
 import os
 import struct
 from pathlib import Path
-from typing import List, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
-from faceoff_tpu_torch.io.image import write_png
+from faceoff_tpu_torch.device import DeviceLike, resolve_device
+from faceoff_tpu_torch.io.image import (decode_jpeg_bytes, encode_jpeg,
+                                        write_png)
 
 _AVIF_HASINDEX = 0x10
 _AVIIF_KEYFRAME = 0x10
+_MJPG = struct.unpack("<I", b"MJPG")[0]
+CODECS = ("raw", "mjpg")
+_NO_MP4 = ("mp4 needs a video codec the port does not have (ROADMAP.md, "
+           "Queue 1 item 7b); use an .avi name")
+_NO_MJPG_CPU = ("motion-JPEG AVI is encoded and decoded by nvJPEG on a "
+                "CUDA device only (ROADMAP.md, Queue 1 item 7b); on the "
+                "CPU write codec='raw'")
 
 
 def _to_uint8(frame) -> np.ndarray:
-    f = np.asarray(frame)
+    f = frame.cpu().numpy() if isinstance(frame, torch.Tensor) else \
+        np.asarray(frame)
     if f.dtype != np.uint8:
         f = np.clip(np.rint(f * 255.0), 0, 255).astype(np.uint8)
     return f
@@ -41,42 +54,93 @@ def _list(kind: bytes, body: bytes) -> bytes:
     return _chunk(b"LIST", kind + body)
 
 
-def save_frames_as_video(
-    frames: Sequence[np.ndarray], video_path: str, fps: int = 25
-) -> None:
-    """Write float [0, 1] or uint8 RGB frames (H, W, 3) as an uncompressed
-    AVI at `fps`."""
+def _refuse_mp4(path: str) -> None:
+    if str(path).lower().endswith(".mp4"):
+        raise ValueError(f"{path}: {_NO_MP4}")
+
+
+def write_avi(video_path: str, frames: Sequence[bytes], width: int,
+              height: int, fps: int = 25, codec: str = "raw") -> None:
+    """The AVI container around frames already coded: for "raw" each is
+    a BI_RGB body (height rows of BGR padded to four bytes, top-down);
+    for "mjpg" each is one JPEG's bytes."""
+    if codec not in CODECS:
+        raise ValueError(f"unknown codec {codec!r}; one of {CODECS}")
+    _refuse_mp4(video_path)
     if len(frames) == 0:
         raise ValueError("no frames to write")
     os.makedirs(os.path.dirname(video_path) or ".", exist_ok=True)
-    first = _to_uint8(frames[0])
-    h, w = first.shape[:2]
-    row = (w * 3 + 3) & ~3
-    size = row * h
+    mjpg = codec == "mjpg"
+    tag = b"00dc" if mjpg else b"00db"
+    image_size = ((width * 3 + 3) & ~3) * height
     movi, index = [], []
     offset = 4  # idx1 offsets count from the 'movi' fourcc
-    for frame in frames:
-        f = _to_uint8(frame)
-        if f.shape != (h, w, 3):
-            raise ValueError(f"frame of shape {f.shape}, expected {(h, w, 3)}")
-        body = np.zeros((h, row), np.uint8)
-        body[:, : w * 3] = f[:, :, ::-1].reshape(h, w * 3)
-        movi.append(_chunk(b"00db", body.tobytes()))
-        index.append(struct.pack("<4sIII", b"00db", _AVIIF_KEYFRAME, offset,
-                                 size))
-        offset += 8 + size + size % 2
+    for body in frames:
+        movi.append(_chunk(tag, body))
+        index.append(struct.pack("<4sIII", tag, _AVIIF_KEYFRAME, offset,
+                                 len(body)))
+        offset += 8 + len(body) + len(body) % 2
     n = len(frames)
-    avih = struct.pack("<IIIIIIIIII4I", round(1e6 / fps), size * fps, 0,
-                       _AVIF_HASINDEX, n, 0, 1, size, w, h, 0, 0, 0, 0)
-    strh = struct.pack("<4s4sIHHIIIIIIIIhhhh", b"vids", b"DIB ", 0, 0, 0, 0,
-                       1, fps, 0, n, size, 0xFFFFFFFF, 0, 0, 0, w, h)
-    strf = struct.pack("<IiiHHIIiiII", 40, w, -h, 1, 24, 0, size, 0, 0, 0, 0)
+    largest = max(len(b) for b in frames)
+    avih = struct.pack("<IIIIIIIIII4I", round(1e6 / fps), largest * fps, 0,
+                       _AVIF_HASINDEX, n, 0, 1, largest, width, height,
+                       0, 0, 0, 0)
+    strh = struct.pack("<4s4sIHHIIIIIIIIhhhh", b"vids",
+                       b"MJPG" if mjpg else b"DIB ", 0, 0, 0, 0, 1, fps,
+                       0, n, largest, 0xFFFFFFFF, 0, 0, 0, width, height)
+    strf = struct.pack("<IiiHHIIiiII", 40, width,
+                       height if mjpg else -height, 1, 24,
+                       _MJPG if mjpg else 0, image_size, 0, 0, 0, 0)
     hdrl = _list(b"hdrl", _chunk(b"avih", avih) + _list(
         b"strl", _chunk(b"strh", strh) + _chunk(b"strf", strf)))
     body = (hdrl + _list(b"movi", b"".join(movi))
             + _chunk(b"idx1", b"".join(index)))
     Path(video_path).write_bytes(b"RIFF" + struct.pack("<I", 4 + len(body))
                                  + b"AVI " + body)
+
+
+def _raw_body(f: np.ndarray, h: int, w: int) -> bytes:
+    row = (w * 3 + 3) & ~3
+    body = np.zeros((h, row), np.uint8)
+    body[:, : w * 3] = f[:, :, ::-1].reshape(h, w * 3)
+    return body.tobytes()
+
+
+def save_frames_as_video(
+    frames, video_path: str, fps: int = 25, *, codec: str = "raw",
+    device: DeviceLike = None,
+) -> None:
+    """Write float [0, 1] or uint8 RGB frames (H, W, 3) as an AVI at
+    `fps`: uncompressed, or with codec "mjpg" as motion JPEG encoded by
+    nvJPEG on `device` (CUDA unless named; frames on the card are encoded
+    where they lie). An .mp4 name raises."""
+    if codec not in CODECS:
+        raise ValueError(f"unknown codec {codec!r}; one of {CODECS}")
+    _refuse_mp4(video_path)
+    if len(frames) == 0:
+        raise ValueError("no frames to write")
+    if codec == "mjpg":
+        dev = resolve_device(device)
+        if dev.type != "cuda":
+            raise RuntimeError(_NO_MJPG_CPU)
+        bodies = []
+        for frame in frames:
+            if not (isinstance(frame, torch.Tensor)
+                    and frame.dtype == torch.uint8):
+                frame = torch.from_numpy(_to_uint8(frame))
+            bodies.append(encode_jpeg(frame.to(dev)))
+        h, w = frames[0].shape[:2]
+        write_avi(video_path, bodies, w, h, fps, "mjpg")
+        return
+    first = _to_uint8(frames[0])
+    h, w = first.shape[:2]
+    bodies = []
+    for frame in frames:
+        f = _to_uint8(frame)
+        if f.shape != (h, w, 3):
+            raise ValueError(f"frame of shape {f.shape}, expected {(h, w, 3)}")
+        bodies.append(_raw_body(f, h, w))
+    write_avi(video_path, bodies, w, h, fps, "raw")
 
 
 def _walk(data: bytes, start: int, end: int):
@@ -94,35 +158,97 @@ def _walk(data: bytes, start: int, end: int):
         pos = body + size + size % 2
 
 
-def read_video_frames(
-    video_path: str, max_frames: Optional[int] = None
-) -> List[np.ndarray]:
-    """Read an uncompressed 24-bit AVI into a list of uint8 RGB frames."""
+def read_avi(video_path: str, max_frames: Optional[int] = None):
+    """The coded frames of an AVI: (codec "raw" or "mjpg", width,
+    height, list of each frame's bytes). A raw height below zero marks
+    top-down rows."""
+    _refuse_mp4(video_path)
     data = Path(video_path).read_bytes()
     if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
         raise ValueError(f"{video_path}: not an AVI file")
-    width = height = None
-    frames: List[np.ndarray] = []
+    width = height = codec = None
+    frames: List[bytes] = []
     for fourcc, lo, hi in _walk(data, 12, len(data)):
         if fourcc == b"strf":
             _, width, height, _, bits, comp = struct.unpack(
                 "<IiiHHI", data[lo: lo + 20])
-            if bits != 24 or comp != 0:
+            if comp == _MJPG:
+                codec = "mjpg"
+            elif bits == 24 and comp == 0:
+                codec = "raw"
+            else:
                 raise ValueError(f"{video_path}: only uncompressed 24-bit "
-                                 f"frames are read")
+                                 f"and motion-JPEG frames are read")
         elif fourcc in (b"00db", b"00dc"):
             if width is None:
                 raise ValueError(f"{video_path}: frames before strf")
             if max_frames is not None and len(frames) >= max_frames:
                 break
-            h, w = abs(height), width
-            row = (w * 3 + 3) & ~3
-            img = np.frombuffer(data[lo: lo + row * h], np.uint8)
-            img = img.reshape(h, row)[:, : w * 3].reshape(h, w, 3)
-            if height > 0:  # bottom-up rows
-                img = img[::-1]
-            frames.append(np.ascontiguousarray(img[..., ::-1]))
-    return frames
+            frames.append(data[lo:hi])
+    if codec is None:
+        raise ValueError(f"{video_path}: no video stream format")
+    return codec, width, height, frames
+
+
+def _decode_raw(body: bytes, width: int, height: int) -> np.ndarray:
+    h, w = abs(height), width
+    row = (w * 3 + 3) & ~3
+    img = np.frombuffer(body[: row * h], np.uint8)
+    img = img.reshape(h, row)[:, : w * 3].reshape(h, w, 3)
+    if height > 0:  # bottom-up rows
+        img = img[::-1]
+    return np.ascontiguousarray(img[..., ::-1])
+
+
+def decode_frames(codec: str, width: int, height: int,
+                  bodies: Sequence[bytes], device: DeviceLike = None
+                  ) -> Union[List[np.ndarray], torch.Tensor]:
+    """Frames of `read_avi`: raw ones as a list of uint8 RGB arrays when
+    no device or the CPU is named, else (and motion JPEG always, through
+    nvJPEG) one (N, H, W, 3) uint8 tensor on the CUDA device."""
+    if codec == "mjpg":
+        dev = resolve_device(device)
+        if dev.type != "cuda":
+            raise RuntimeError(_NO_MJPG_CPU)
+        if not bodies:
+            return torch.empty((0, abs(height), width, 3), dtype=torch.uint8,
+                               device=dev)
+        return torch.stack(decode_jpeg_bytes(bodies, dev))
+    frames = [_decode_raw(b, width, height) for b in bodies]
+    if device is None or torch.device(device).type == "cpu":
+        return frames
+    dev = resolve_device(device)
+    if not frames:
+        return torch.empty((0, abs(height), width, 3), dtype=torch.uint8,
+                           device=dev)
+    return torch.from_numpy(np.stack(frames)).to(dev)
+
+
+def read_video_frames(
+    video_path: str, max_frames: Optional[int] = None,
+    device: DeviceLike = None,
+) -> Union[List[np.ndarray], torch.Tensor]:
+    """Read an AVI's frames: an uncompressed one as a list of uint8 RGB
+    arrays when no device or the CPU is named; with a CUDA device (which
+    motion JPEG needs, and takes when none is named) one (N, H, W, 3)
+    uint8 tensor on the card."""
+    codec, width, height, bodies = read_avi(video_path, max_frames)
+    return decode_frames(codec, width, height, bodies, device)
+
+
+def video_frame_chunks(video_path: str, chunk_frames: int,
+                       device: DeviceLike = None) -> Iterator[torch.Tensor]:
+    """An AVI's frames in chunks of at most `chunk_frames`, each one
+    (n, H, W, 3) uint8 tensor on `device` (CUDA unless named), decoded
+    chunk by chunk."""
+    dev = resolve_device(device)
+    codec, width, height, bodies = read_avi(video_path)
+    for lo in range(0, len(bodies), chunk_frames):
+        part = decode_frames(codec, width, height,
+                             bodies[lo: lo + chunk_frames], dev)
+        if isinstance(part, list):
+            part = torch.from_numpy(np.stack(part))
+        yield part
 
 
 def save_image_grid(

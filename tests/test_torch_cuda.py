@@ -717,3 +717,217 @@ def test_shardmap_step_one_nccl_rank_matches_plain_step(cuda):
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), (
         proc.stdout[-3000:] + proc.stderr[-3000:])
+
+
+# -- offline preprocessing: kernels A (ccl) and B (pyr_lk), nvJPEG's
+# encoder and window decoder, stage 1 on the card -------------------------
+
+
+def _textured(gen, h, w):
+    """A smooth random texture (bicubic upsampling of noise) with noise on
+    top, uint8 (h, w)."""
+    noise = torch.rand((1, 1, h // 8 + 2, w // 8 + 2), generator=gen) * 255
+    img = torch.nn.functional.interpolate(noise, size=(h, w), mode="bicubic",
+                                          align_corners=False)[0, 0]
+    img = img + torch.randn((h, w), generator=gen) * 8
+    return img.clamp(0, 255).round().to(torch.uint8)
+
+
+@pytest.mark.parametrize("b,h,w,p", [(3, 37, 53, 0.5), (2, 720, 1280, 0.45),
+                                     (1, 720, 1280, 0.6), (2, 1, 1, 1.0),
+                                     (1, 33, 65, 0.0)])
+def test_ccl_kernel_equals_plain(cuda, b, h, w, p):
+    """Kernel A against its plain version: labels (each component's
+    smallest flat index), the stats table in cv2's order, the per-frame
+    counts and the largest component, all exactly equal; one launch."""
+    from faceoff_tpu_torch.ops import ccl_cuda
+
+    gen = torch.Generator().manual_seed(b * h + w)
+    masks = ((torch.rand((b, h, w), generator=gen) < p).to(torch.uint8)
+             * 255)
+    want = ccl_cuda.connected_components_plain(masks)
+    before = ccl_cuda.launches
+    got = ccl_cuda.connected_components(masks.to(cuda))
+    torch.cuda.synchronize()
+    assert ccl_cuda.launches == before + 1
+    for name, g, w_ in zip(got._fields, got, want):
+        assert torch.equal(g.cpu(), w_), name
+    assert torch.equal(ccl_cuda.largest(got, b).cpu(),
+                       ccl_cuda.largest(want, b))
+
+
+def test_ccl_kernel_at_its_capacity(cuda):
+    """Kernel A's table holds B * ceil(H / 2) * ceil(W / 2) components, one
+    a 2 x 2 block; a mask of isolated pixels at every even row and column
+    of odd sizes fills it exactly, and the table equals the plain
+    version's."""
+    from faceoff_tpu_torch.ops import ccl_cuda
+
+    b, h, w = 2, 33, 47
+    masks = torch.zeros((b, h, w), dtype=torch.uint8)
+    masks[:, ::2, ::2] = 1
+    want = ccl_cuda.connected_components_plain(masks)
+    got = ccl_cuda.connected_components(masks.to(cuda))
+    assert got.stats.shape[0] == b * ((h + 1) // 2) * ((w + 1) // 2)
+    for name, g, w_ in zip(got._fields, got, want):
+        assert torch.equal(g.cpu(), w_), name
+
+
+@pytest.mark.parametrize("h,w,n", [(256, 256, 68), (97, 131, 40),
+                                   (40, 300, 25)])
+def test_lk_kernel_matches_plain(cuda, h, w, n):
+    """Kernel B against its plain version at ragged sizes (the last drops
+    pyramid levels smaller than the window), points inside, near and
+    beyond the borders, on a frame and its shift: statuses equal, points
+    within 1e-3 px (both do the same IEEE float32 steps on the same
+    integer sums; bitwise equal expected); one launch for forward and
+    backward."""
+    from faceoff_tpu_torch.ops import lk_cuda
+
+    gen = torch.Generator().manual_seed(h + w)
+    a = _textured(gen, h, w)
+    b = torch.roll(a, (1, 2), (0, 1))
+    pts = (torch.rand((n, 2), generator=gen)
+           * torch.tensor([w + 30.0, h + 30.0]) - 15).to(torch.float32)
+    pa, pb = lk_cuda.build_pyramid(a), lk_cuda.build_pyramid(b)
+    want = lk_cuda.pyr_lk_plain(pa, pb, pts)
+    ca, cb = lk_cuda.build_pyramid(a.to(cuda)), lk_cuda.build_pyramid(
+        b.to(cuda))
+    for x, y in ((pa, ca), (pb, cb)):
+        assert torch.equal(x.img, y.img.cpu())
+        assert torch.equal(x.deriv, y.deriv.cpu())
+    before = lk_cuda.launches
+    got = lk_cuda.pyr_lk(ca, cb, pts.to(cuda))
+    torch.cuda.synchronize()
+    assert lk_cuda.launches == before + 1
+    assert torch.equal(got.st_fwd.cpu(), want.st_fwd)
+    assert torch.equal(got.st_back.cpu(), want.st_back)
+    for g, w_ in ((got.fwd, want.fwd), (got.back, want.back),
+                  (got.fb, want.fb)):
+        assert (g.cpu() - w_).abs().max().item() <= 1e-3
+
+
+def _face_frames(n, h, w, device, cx=0.5):
+    """n frames (h, w) of a synthetic face drifting about x = cx * w over
+    a dark background, uint8 on `device`."""
+    from faceoff_tpu_torch.data.synthetic import draw_faces, face_landmarks
+
+    lms = np.stack([face_landmarks((w * cx + 3 * np.sin(0.2 * f), h / 2),
+                                   min(h, w) * 0.25)
+                    for f in range(n)])
+    bg = torch.full((n, h, w, 3), 40, dtype=torch.uint8, device=device)
+    return draw_faces(bg, torch.from_numpy(lms).to(device), (200, 160, 140))
+
+
+def test_nvjpeg_encode_round_trip(cuda):
+    """encode_jpeg (quality 95, 4:2:0) then decode_jpeg_bytes on the card:
+    the decoded frames within the 4:2:0 decoder tolerance of io/image.py
+    of the frames given (chroma at half resolution moves sharp colour
+    edges by up to their contrast; the rest is a few levels)."""
+    from faceoff_tpu_torch.io import image
+
+    frames = _face_frames(3, 256, 256, cuda)
+    before = image.jpeg_encodes
+    datas = [image.encode_jpeg(f) for f in frames]
+    assert image.jpeg_encodes == before + 3
+    assert all(d[:2] == b"\xff\xd8" for d in datas)
+    info = image.jpeg_info(datas[0])
+    assert (info["width"], info["height"]) == (256, 256)
+    back = image.decode_jpeg_bytes(datas, cuda)
+    max_tol, mean_tol = image.JPEG_TOL["420"]
+    for g, f in zip(back, frames):
+        diff = (g.to(torch.int32) - f.to(torch.int32)).abs()
+        assert diff.max().item() <= max_tol
+        assert diff.float().mean().item() <= mean_tol
+
+
+def test_decode_jpeg_window_equals_batch_and_resize(cuda, tmp_path):
+    """decode_jpeg_window against decode_jpeg_batch + resize_frame on the
+    host, at the frames' own size (decoded straight into the window) and
+    at a smaller resolution and a mixed window (padded and resized on the
+    card): bit for bit."""
+    from pathlib import Path
+
+    from faceoff_tpu_torch.data.geometry import resize_frame
+    from faceoff_tpu_torch.io import image
+
+    data = Path(__file__).resolve().parent / "data_torch"
+    paths = sorted(data.glob("face256_*.jpg"))
+    wide = tmp_path / "wide.jpg"
+    image.write_jpeg(wide, _face_frames(1, 72, 130, cuda)[0])
+    for res, window in ((256, paths), (96, paths[:3] + [wide] + paths[3:])):
+        got = image.decode_jpeg_window(window, res, cuda)
+        assert got.shape == (len(window), res, res, 3)
+        refs = image.decode_jpeg_batch(window, cuda)
+        want = np.stack([resize_frame(r.cpu().numpy(), res) for r in refs])
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_resident_corpus_stages_a_mixed_video(cuda, tmp_path):
+    """build_resident_corpus on the card from a video whose frames are
+    JPEGs of the corpus's size, a wider JPEG and a PNG: the JPEGs in one
+    batched window, the PNG on the host; each frame bit for bit what
+    load_frame gives."""
+    import shutil
+    from pathlib import Path
+    from types import SimpleNamespace
+
+    from faceoff_tpu_torch.data.dataset import load_frame
+    from faceoff_tpu_torch.data.resident import build_resident_corpus
+    from faceoff_tpu_torch.io import image
+
+    data = Path(__file__).resolve().parent / "data_torch"
+    video = tmp_path / "video"
+    video.mkdir()
+    for i, p in enumerate(sorted(data.glob("face256_*.jpg"))[:3]):
+        shutil.copy(p, video / f"{i:05d}.jpg")
+    image.write_jpeg(video / "00003.jpg", _face_frames(1, 72, 130, cuda)[0])
+    image.write_png(video / "00004.png",
+                    _face_frames(1, 256, 256, "cpu")[0].numpy())
+    lms = np.random.default_rng(0).uniform(0, 256, (5, 68, 2))
+    for i in range(5):
+        np.savez(video / f"{i:05d}_landmarks.npz",
+                 landmark=lms[i].astype(np.float32))
+    before = image.jpeg_decodes
+    corpus = build_resident_corpus(
+        SimpleNamespace(videos=[str(video)], resolution=256), device=cuda)
+    assert image.jpeg_decodes == before + 4
+    want = np.stack([load_frame(str(video / f"{i:05d}_landmarks.npz"), 256,
+                                cuda)[0] for i in range(5)])
+    np.testing.assert_array_equal(corpus.frames[0].cpu().numpy(), want)
+    np.testing.assert_array_equal(corpus.landmarks[0].cpu().numpy(),
+                                  lms.astype(np.float32))
+
+
+def test_process_video_on_card_equals_cpu(cuda, tmp_path):
+    """Stage 1 on CUDA (MJPEG clips) and on the CPU (raw clips) from one
+    raw AVI with a cut: the same detection boxes, segments and clip
+    lengths; the clips' frames within the 4:2:0 tolerance (the card's
+    are JPEG)."""
+    from faceoff_tpu_torch.io import image
+    from faceoff_tpu_torch.io.video import (read_video_frames,
+                                            save_frames_as_video)
+    from faceoff_tpu_torch.preprocess import detectors, face_crop
+
+    frames = torch.cat([_face_frames(24, 180, 240, "cpu"),
+                        _face_frames(20, 180, 240, "cpu", cx=0.3)])
+    raw = str(tmp_path / "raw.avi")
+    save_frames_as_video(list(frames.numpy()), raw)
+    boxes = detectors.HeuristicDetector(device="cpu").detect_batch(frames)
+    assert detectors.HeuristicDetector(device=cuda).detect_batch(
+        frames.to(cuda)) == boxes
+    out = {}
+    for dev in ("cpu", cuda):
+        paths = face_crop.process_video(raw, str(tmp_path / str(dev)),
+                                        min_frames=10, resolution=64,
+                                        device=dev)
+        out[str(dev)] = [read_video_frames(p, device=dev) for p in paths]
+    cpu, gpu = out["cpu"], out[str(cuda)]
+    assert len(cpu) == len(gpu) == 2
+    max_tol, mean_tol = image.JPEG_TOL["420"]
+    for c, g in zip(cpu, gpu):
+        c = torch.from_numpy(np.stack(c)).to(torch.int32)
+        assert g.shape == c.shape
+        diff = (g.cpu().to(torch.int32) - c).abs()
+        assert diff.max().item() <= max_tol
+        assert diff.float().mean().item() <= mean_tol
