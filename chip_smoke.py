@@ -140,9 +140,10 @@ Phases, each printing lines with their seconds:
  15. dist    — in a child process with a one-rank NCCL group: the
                perceptual CLI with --multihost against the same run
                without it (3 steps at the trainer phase's setting), and
-               make_shardmap_train_step against make_train_step at the
-               train phase's setting (5 steps); both pairs bitwise equal;
-               the two steps' ms beside the train phase's.
+               make_shardmap_train_step on make_mesh(data=1, time=1)
+               against make_train_step at the train phase's setting (5
+               steps); both pairs bitwise equal; the two steps' ms beside
+               the train phase's.
  16. preprocess — offline preprocessing from raw footage: 4 motion-JPEG
                AVIs of 300 frames at 1280x720 (a drifting face, its mouth
                opening and closing, a cut at frame 150) through
@@ -156,6 +157,16 @@ Phases, each printing lines with their seconds:
                build_resident_corpus (batched nvJPEG windows), a window
                by decode_jpeg_window against the per-frame loop; one
                perceptual step at the train phase's setting on it.
+ 17. time    — both postnets of the flagship VQVAE at 256 px (128
+               channels at 64x64 and 32x32) over a T=64 clip cut into 4
+               blocks of 16 frames, each block through the shard-local
+               layer with the halos the exchange would deliver
+               (`models.vqvae.postnet_over_shards`), against the whole
+               clip: output and input gradient, float32 without TF32
+               (within 1e-4 of the largest |value|) and bf16 (within
+               2^-6 of it); no kernel of the port launches. The exchange
+               over NCCL needs several GPUs: tools/dist_check_torch.py
+               --time.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 {"kernels": [...]}, and last {"ok": true, "device": {...}}. Any failure
@@ -207,6 +218,7 @@ from faceoff_tpu_torch.io.video import (read_video_frames, video_frame_chunks,
                                         write_avi)
 from faceoff_tpu_torch.losses import mse_loss
 from faceoff_tpu_torch.models import VQVAE
+from faceoff_tpu_torch.models.vqvae import postnet_over_shards
 from faceoff_tpu_torch.models.vqvae_b2f import VQVAE_B2F
 from faceoff_tpu_torch.models.discriminators import (MultiscaleDiscriminator2D,
                                                      MultiscaleDiscriminator3D)
@@ -2650,8 +2662,8 @@ def dist_child(work: Path) -> int:
         if name == "plain":
             step = make_train_step(model, lpips=lpips, prepare_fn=prepare)
         else:
-            step = make_shardmap_train_step(model, make_mesh(), lpips=lpips,
-                                            prepare_fn=prepare)
+            step = make_shardmap_train_step(model, make_mesh(data=1, time=1),
+                                            lpips=lpips, prepare_fn=prepare)
         times, metrics, snaps = [], [], []
         for i in range(DIST_STEPS):
             torch.cuda.synchronize()
@@ -2695,8 +2707,10 @@ def dist_phase(t0, work: Path):
             NCCL group and trains through the shardmap step): the two
             runs bitwise equal (parameters, codebooks, every record's
             losses and lr);
-      step  make_shardmap_train_step against make_train_step from the
-            same weights, the train phase's setting (LPIPS in bf16,
+      step  make_shardmap_train_step on make_mesh(data=1, time=1) (the
+            data x time step's code with one process) against
+            make_train_step from the same weights, the train phase's
+            setting (LPIPS in bf16,
             resident prepared batches), 5 steps each: bitwise equal after
             2 and after 5 steps, metrics too; step ms (median of steps
             3-5) of both, printed beside the train phase's.
@@ -3123,6 +3137,70 @@ def preprocess_phase(t0, work: Path):
     return result, counts
 
 
+# -- phase 17: the postnets over a clip sharded in time -------------------
+
+TIME_T, TIME_BLOCKS = 64, 4
+# max |diff| against the whole clip, as a share of the largest |value|:
+# float32 without TF32 (the same products, summed by other algorithms of
+# cuDNN: some 3456 terms a sum, three layers), and bf16 under autocast
+# (both paths round the same fp32 sums to bf16; four bf16 ulps)
+TIME_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
+
+
+def time_phase(t0):
+    """Phase 17 (module docstring): returns {postnet_dtype: the output's
+    and the input gradient's max |diff| and largest |value|}."""
+    model = VQVAE(ModelConfig(), dtype=torch.float32, device=DEV,
+                  generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    tf32 = torch.backends.cudnn.allow_tf32
+    out = {}
+    zero_counts()
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        for name, post, hw in (
+                ("postnet_b", model.conv3d_encoded_b, TRAIN_SIZE // 4),
+                ("postnet_t", model.conv3d_encoded_t, TRAIN_SIZE // 8)):
+            shape = (1, model.channel, TIME_T, hw, hw)
+            x = torch.randn(shape, generator=gen, device=DEV)
+            g = torch.randn(shape, generator=gen, device=DEV)
+            for dtype, tol in TIME_TOL.items():
+                def run(blocks):
+                    xi = x.clone().requires_grad_()
+                    with torch.autocast("cuda", dtype=dtype,
+                                        enabled=dtype != torch.float32):
+                        if blocks:
+                            y = torch.cat(postnet_over_shards(
+                                post, xi.chunk(TIME_BLOCKS, dim=2)), dim=2)
+                        else:
+                            y = post(xi)
+                    (y.float() * g).sum().backward()
+                    return y.detach().float(), xi.grad
+
+                want_y, want_g = run(False)
+                got_y, got_g = run(True)
+                row = {}
+                for what, got, want in (("output", got_y, want_y),
+                                        ("input_grad", got_g, want_g)):
+                    big = float(want.abs().max())
+                    err = float((got - want).abs().max())
+                    row[f"{what}_max_abs_diff"] = err
+                    row[f"{what}_max_abs"] = big
+                    if not (torch.isfinite(got).all() and err <= tol * big):
+                        raise AssertionError(
+                            f"time: {name} {dtype} {what} differs by {err} "
+                            f"(largest |value| {big}, tolerance {tol})")
+                out[f"{name}_{str(dtype).split('.')[-1]}"] = row
+                del want_y, want_g, got_y, got_g
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"time: kernels launched {counts}")
+    say("time", t0, json.dumps(out))
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3186,6 +3264,8 @@ def main() -> int:
         dist, dist_counts = dist_phase(t0, Path(work))
         t0 = time.perf_counter()
         pre, pre_counts = preprocess_phase(t0, Path(work))
+    t0 = time.perf_counter()
+    time_result = time_phase(t0)
     trainer_counts = trainer["launches"]
     swap_counts = swap["launches"]
     gan_counts = gan_result["launches"]
@@ -3289,6 +3369,7 @@ def main() -> int:
         "kernel_b": {k: pre["lk"][k] for k in (
             "kernel_ms", "wrapper_ms", "plain_ms", "bound_ms", "work")},
         "launches": pre_counts}))
+    say("time", t_all, json.dumps({"card": card, **time_result}))
     # the serving path: the slice phase's sessions and the export phase's
     launches += exported["launches"]["warp"]
     paths = {"serving": {"vq_assign": 0, "vq_stats": 0, "warp": launches,

@@ -23,6 +23,15 @@ buffers. With `ModelConfig.remat` the encoders, postnets and decoders
 (as `remat_scope` selects) recompute their activations in the backward
 (`torch.utils.checkpoint`); the quantizers stay outside the recomputed
 regions, as in the JAX model, so the EMA update runs once per step.
+
+Over a clip sharded in time (`set_time_group`, a time group of
+`parallel.collectives.mesh_groups`) each process holds a block of every
+clip's frames. The postnets then exchange one halo frame with each time
+neighbour before each layer (`collectives.halo_exchange`) and convolve
+without time padding (`TemporalPostnet.layer_shard`); every other layer
+works frame by frame. The exchanges stay outside any recomputed region,
+so a rematerialised backward runs them once, in the autograd order that
+every process shares.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -37,6 +47,7 @@ from faceoff_tpu_torch.config import ModelConfig
 from faceoff_tpu_torch.device import DeviceLike, resolve_device
 from faceoff_tpu_torch.ops import video as video_ops
 from faceoff_tpu_torch.ops import vq as vq_ops
+from faceoff_tpu_torch.parallel import collectives
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -125,11 +136,17 @@ class Decoder(nn.Module):
 
 class TemporalPostnet(nn.Module):
     """Conv3D stack blending latents across frames: n-1 conv+ReLU layers
-    and a final linear conv, all kernel k 'same' over (T, H, W), NCDHW."""
+    and a final linear conv, all kernel k 'same' over (T, H, W), NCDHW.
+
+    With a `time_group` (`VQVAE.set_time_group`) the input is this
+    process's block of frames: each layer takes k//2 halo frames from
+    each time neighbour (`collectives.halo_exchange`) and runs
+    `layer_shard`."""
 
     def __init__(self, channels: int, n_layers: int = 3, kernel: int = 3):
         super().__init__()
         self.kernel = kernel
+        self.time_group = None
         self.conv3d = nn.ModuleList(
             nn.Sequential(
                 nn.Conv3d(channels, channels, kernel, padding="same"),
@@ -138,10 +155,61 @@ class TemporalPostnet(nn.Module):
             for i in range(n_layers)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for layer in self.conv3d:
-            x = layer(x)
+    def layer_shard(self, i: int, x: torch.Tensor, halo_prev: torch.Tensor,
+                    halo_next: torch.Tensor) -> torch.Tensor:
+        """Layer i on a block of frames: x (B, C, t, H, W) between the
+        neighbours' halos (B, C, k//2, H, W), zeros past the clip's ends ->
+        (B, C, t, H, W). No time padding; 'same' in H and W."""
+        conv = self.conv3d[i][0]
+        p = self.kernel // 2
+        # the halos in x's memory format, so that the window keeps it (a
+        # channels-last block stays channels-last, as on the whole clip)
+        fmt = (torch.channels_last_3d
+               if x.is_contiguous(memory_format=torch.channels_last_3d)
+               else torch.contiguous_format)
+        window = torch.cat([halo_prev.contiguous(memory_format=fmt), x,
+                            halo_next.contiguous(memory_format=fmt)], dim=2)
+        y = F.conv3d(window, conv.weight, conv.bias, padding=(0, p, p))
+        return F.relu(y) if i < len(self.conv3d) - 1 else y
+
+    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        """x (B, C, T, H, W), or this process's frame block of it with a
+        time group; `remat` recomputes each layer's convolution (not its
+        exchange) in the backward."""
+        if self.time_group is None:
+            for layer in self.conv3d:
+                x = layer(x)
+            return x
+        if torch.is_autocast_enabled(x.device.type):
+            # exchange in the compute dtype the convolution casts to
+            x = x.to(torch.get_autocast_dtype(x.device.type))
+        for i in range(len(self.conv3d)):
+            halo_prev, halo_next = collectives.halo_exchange(
+                x, 2, self.time_group, self.kernel // 2)
+            if remat:
+                x = checkpoint(self.layer_shard, i, x, halo_prev, halo_next,
+                               use_reentrant=False)
+            else:
+                x = self.layer_shard(i, x, halo_prev, halo_next)
         return x
+
+
+def postnet_over_shards(postnet: TemporalPostnet, shards):
+    """The postnet over a clip cut into consecutive frame blocks (a list
+    of (B, C, t, H, W)) in one process: before each layer every block
+    gets the halos `collectives.halo_exchange` would deliver (its
+    neighbours' edge frames, zeros past the clip's ends) and runs
+    `layer_shard`. Returns the blocks of the output; autograd through
+    the slices is the exchange's backward."""
+    d = postnet.kernel // 2
+    shards = list(shards)
+    for i in range(len(postnet.conv3d)):
+        zero = torch.zeros_like(shards[0][:, :, :d])
+        prevs = [zero] + [s[:, :, -d:] for s in shards[:-1]]
+        nexts = [s[:, :, :d] for s in shards[1:]] + [zero]
+        shards = [postnet.layer_shard(i, s, a, b)
+                  for s, a, b in zip(shards, prevs, nexts)]
+    return shards
 
 
 class EmaQuantizer(nn.Module):
@@ -157,6 +225,9 @@ class EmaQuantizer(nn.Module):
         # a torch.distributed group: the EMA statistics and the revive's
         # rows are this process's and are reduced over it (None: one process)
         self.process_group = process_group
+        # the time axis of that group's data x time mesh: the revive puts
+        # the gathered rows back in the one-process (B, T, h, w) order
+        self.time_parallel = 1
         self.register_buffer("embed", torch.zeros(embed_dim, n_embed))
         self.register_buffer("cluster_size", torch.zeros(n_embed))
         self.register_buffer("embed_avg", torch.zeros(embed_dim, n_embed))
@@ -191,11 +262,13 @@ class EmaQuantizer(nn.Module):
 
     def revive(self, x: torch.Tensor, generator: torch.Generator,
                usage_threshold: float = 1e-3) -> None:
-        """Re-seed EMA-dead codes from the activations x (..., embed_dim)."""
-        flat = x.detach().to(torch.float32).reshape(-1, self.embed_dim)
+        """Re-seed EMA-dead codes from the activations x (B, T, ...,
+        embed_dim): this process's block of clips and frames."""
         self._store(vq_ops.revive_dead_codes(
-            self.codebook, flat, generator, usage_threshold=usage_threshold,
-            process_group=self.process_group))
+            self.codebook, x.detach().to(torch.float32), generator,
+            usage_threshold=usage_threshold,
+            process_group=self.process_group,
+            time_parallel=self.time_parallel))
 
 
 def _init_(module: nn.Module, generator: torch.Generator) -> None:
@@ -230,7 +303,8 @@ class VQVAE(nn.Module):
     `generator` (a fresh generator seeded 0 if None), so a seed gives the
     same weights on every device. `process_group` (a torch.distributed
     group, None for one process) is the JAX model's `axis_name`: both
-    quantizers sum their EMA statistics over it. Load trained weights with
+    quantizers sum their EMA statistics over it. `time_group` (see
+    `set_time_group`) shards the frames. Load trained weights with
     `load_state_dict(io.convert.from_jax_variables(...), strict=True)`.
     """
 
@@ -242,6 +316,7 @@ class VQVAE(nn.Module):
         device: DeviceLike = None,
         generator: Optional[torch.Generator] = None,
         process_group=None,
+        time_group=None,
     ):
         super().__init__()
         device = resolve_device(device)
@@ -283,6 +358,7 @@ class VQVAE(nn.Module):
             if not isinstance(m, EmaQuantizer):
                 m.to(dtype)
         self.set_process_group(process_group)
+        self.set_time_group(time_group)
         self.to(device)
         self.eval()
 
@@ -291,6 +367,20 @@ class VQVAE(nn.Module):
         for m in self.modules():
             if isinstance(m, EmaQuantizer):
                 m.process_group = group
+
+    def set_time_group(self, group) -> None:
+        """Take this process's block of every clip's frames from now on:
+        `group` is its time group (`collectives.mesh_groups`), None for
+        whole clips. The postnets exchange halos over it, the evaluation
+        `diff` is averaged over it, and a revive puts the rows gathered
+        over the process group back in the one-process order."""
+        self.time_group = group
+        k = torch.distributed.get_world_size(group) if group is not None else 1
+        for m in self.modules():
+            if isinstance(m, TemporalPostnet):
+                m.time_group = group
+            elif isinstance(m, EmaQuantizer):
+                m.time_parallel = k
 
     # -- internal, channels-first -----------------------------------------
 
@@ -359,8 +449,12 @@ class VQVAE(nn.Module):
         """Conv3D postnets on both levels; (B,T,h,w,ch) in and out."""
 
         def run(postnet, x):
-            y = self._run(postnet, x.permute(0, 4, 1, 2, 3),
-                          self.remat_encoder)
+            x = x.permute(0, 4, 1, 2, 3)
+            if postnet.time_group is None:
+                y = self._run(postnet, x, self.remat_encoder)
+            else:
+                y = postnet(x, remat=self.remat_encoder
+                            and torch.is_grad_enabled())
             return y.permute(0, 2, 3, 4, 1)
 
         return run(self.conv3d_encoded_b, enc_b), run(self.conv3d_encoded_t, enc_t)
@@ -401,12 +495,15 @@ class VQVAE(nn.Module):
         """Re-seed dead codebook entries of both levels from this batch's
         pre-quantization latents; the top level first, then the bottom
         level from latents built with the revived top codebook."""
+        b = video.shape[0]
         enc_b, enc_t = self._blended_frames(video)
         qt_in = self.quantize_conv_t(enc_t)
-        self.quantize_t.revive(_nhwc(qt_in), generator, usage_threshold)
+        self.quantize_t.revive(video_ops.unfold_time(_nhwc(qt_in), b),
+                               generator, usage_threshold)
         quant_t, _, _ = self.quantize_t(_nhwc(qt_in))
         qb_in = self._quantize_conv_b(_nchw(quant_t), enc_b)
-        self.quantize_b.revive(_nhwc(qb_in), generator, usage_threshold)
+        self.quantize_b.revive(video_ops.unfold_time(_nhwc(qb_in), b),
+                               generator, usage_threshold)
 
     def forward(
         self, video: torch.Tensor, train: bool = False,
@@ -415,6 +512,10 @@ class VQVAE(nn.Module):
         b = video.shape[0]
         quant_t, quant_b, diff, _, _ = self._encode_quantized(
             *self._blended_frames(video), train, update_codebooks)
+        if self.time_group is not None and not train:
+            # the diff of the whole clips; a training step averages its
+            # metrics and gradients over every process instead
+            diff = collectives.all_reduce_mean(diff, self.time_group)
         dec = _nhwc(self._decode(quant_t, quant_b))
         return (video_ops.unfold_time(dec, b).to(torch.float32),
                 diff.to(torch.float32))

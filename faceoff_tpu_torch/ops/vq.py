@@ -177,22 +177,30 @@ def vq_ema_update(
 
 def revive_dead_codes(
     codebook: VQCodebook,
-    flat: torch.Tensor,
+    x: torch.Tensor,
     generator: Optional[torch.Generator] = None,
     *,
     usage_threshold: float = 1e-3,
     rows: Optional[torch.Tensor] = None,
     process_group=None,
+    time_parallel: int = 1,
 ) -> VQCodebook:
     """Re-seed codes whose EMA usage fell below `usage_threshold` with
-    rows of `flat` (N, dim): code j takes row `rows[j]`, drawn uniformly
-    from `generator` unless given. Revived codes restart at count 1.
-    With a `process_group`, `flat` is this process's block: the blocks
-    are gathered in rank order into the global rows first and every
-    process draws from them with its generator, which must be seeded
-    alike on every process, so that the codebooks stay identical."""
+    rows of x (..., dim) taken as (N, dim): code j takes row `rows[j]`,
+    drawn uniformly from `generator` unless given. Revived codes restart
+    at count 1. With a `process_group`, x is this process's block: the
+    blocks are gathered into the global rows first and every process
+    draws from them with its generator, which must be seeded alike on
+    every process, so that the codebooks stay identical. Over a data x
+    time mesh (`time_parallel` > 1) x is (B, T, ..., dim), this process's
+    block of clips and frames, and the rows are gathered in the
+    one-process (B, T, ...) order (`collectives.all_gather_clips`), so
+    that the draw picks the rows a one-process revive on the global batch
+    picks."""
     if process_group is not None:
-        flat = collectives.all_gather_rows(flat.detach(), process_group)
+        x = collectives.all_gather_clips(x.detach(), process_group,
+                                         time_parallel)
+    flat = x.reshape(-1, codebook.dim)
     n_embed = codebook.n_embed
     if rows is None:
         rows = torch.randint(0, flat.shape[0], (n_embed,),

@@ -20,6 +20,12 @@ group. `all_reduce_mean` and `all_reduce_sum` are differentiable
 (`torch.distributed.nn`), so that statistics reduced inside a forward
 (BatchNorm, the RaLSGAN batch means) carry their gradient to every rank,
 as a `psum` inside a JAX program does.
+
+Compute over a clip sharded in time (a mesh with `time > 1`) adds
+`mesh_groups`, which builds each process's time and data groups, and
+`halo_exchange`, the differentiable swap of edge frames between time
+neighbours that XLA's SPMD partitioner inserts around the JAX package's
+Conv3D postnets when their frame axis is sharded.
 """
 
 from __future__ import annotations
@@ -138,6 +144,118 @@ def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts)
+
+
+def all_gather_clips(x: torch.Tensor, group=None,
+                     time: int = 1) -> torch.Tensor:
+    """The whole (B, T, ...) batch on every process, from each process's
+    (B/data, T/time, ...) block of a data x time mesh over `group` (rank
+    r holds clip block r // time and frame block r % time, as
+    `parallel.mesh.Mesh` lays them out); with time 1, `all_gather_rows`.
+    The result is in the one-process (B, T, ...) order. Not
+    differentiable."""
+    rows = all_gather_rows(x, group)
+    if time == 1 or rows is x:
+        return rows
+    b, t = x.shape[:2]
+    blocks = rows.reshape((-1, time, b, t) + tuple(x.shape[2:]))
+    return blocks.transpose(1, 2).reshape((-1, time * t)
+                                          + tuple(x.shape[2:]))
+
+
+def mesh_groups(mesh):
+    """(time group, data group) of this process on a data x time `mesh`
+    (`parallel.mesh.Mesh`): the processes that hold the same clips (one
+    `data_index`, every frame block) and those that hold the same frame
+    block of every clip. Every process builds every group, in one order
+    (`dist.new_group` is collective); without a process group both are
+    None."""
+    if not _initialized():
+        return None, None
+    mine = {}
+    for d in range(mesh.data):
+        ranks = [d * mesh.time + k for k in range(mesh.time)]
+        group = dist.new_group(ranks)
+        if d == mesh.data_index:
+            mine["time"] = group
+    for k in range(mesh.time):
+        ranks = [d * mesh.time + k for d in range(mesh.data)]
+        group = dist.new_group(ranks)
+        if k == mesh.time_index:
+            mine["data"] = group
+    return mine["time"], mine["data"]
+
+
+def _exchange(to_prev: torch.Tensor, to_next: torch.Tensor, group):
+    """Send `to_prev` to the previous process of the time group and
+    `to_next` to the next, in one batch of point-to-point operations;
+    return (what the previous sent, what the next sent), zeros where the
+    clip ends. Both tensors have one shape, as every block of a time
+    group does."""
+    ranks = dist.get_process_group_ranks(group)
+    i = ranks.index(dist.get_rank())
+    from_prev = torch.zeros_like(to_prev)
+    from_next = torch.zeros_like(to_prev)
+    ops = []
+    if i > 0:
+        ops += [dist.P2POp(dist.isend, to_prev, ranks[i - 1], group),
+                dist.P2POp(dist.irecv, from_prev, ranks[i - 1], group)]
+    if i + 1 < len(ranks):
+        ops += [dist.P2POp(dist.isend, to_next, ranks[i + 1], group),
+                dist.P2POp(dist.irecv, from_next, ranks[i + 1], group)]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return from_prev, from_next
+
+
+class _HaloExchange(torch.autograd.Function):
+    """Forward: this block's first `width` frames go to the previous time
+    process and its last to the next. Backward: the reverse exchange, so
+    that the gradient of a received halo frame is added to its sender's
+    gradient of that frame."""
+
+    @staticmethod
+    def forward(ctx, x, time_axis, group, width):
+        ctx.time_axis, ctx.group, ctx.width = time_axis, group, width
+        ctx.save_for_backward(x)
+        t = x.shape[time_axis]
+        return _exchange(x.narrow(time_axis, 0, width).contiguous(),
+                         x.narrow(time_axis, t - width, width).contiguous(),
+                         group)
+
+    @staticmethod
+    def backward(ctx, g_prev, g_next):
+        # g_prev is the gradient of the previous process's last frames:
+        # it goes back there; what comes back is the gradient of ours
+        g_first, g_last = _exchange(g_prev.contiguous(), g_next.contiguous(),
+                                    ctx.group)
+        axis, w = ctx.time_axis, ctx.width
+        x, = ctx.saved_tensors
+        t = x.shape[axis]
+        grad = torch.zeros_like(x)  # x's layout, as its other gradients
+        grad.narrow(axis, 0, w).add_(g_first)
+        grad.narrow(axis, t - w, w).add_(g_last)
+        return grad, None, None, None
+
+
+def halo_exchange(x: torch.Tensor, time_axis: int, group,
+                  width: int = 1):
+    """(halo_prev, halo_next): the last `width` frames of the previous
+    block of the clip and the first `width` of the next, from this
+    process's time neighbours in `group` (a time group of
+    `mesh_groups`), each of x's shape with `width` frames on `time_axis`.
+    The clip's first and last blocks get zeros for the missing neighbour,
+    which is what 'same' padding gives the unsharded convolution.
+    Differentiable: the backward returns each halo's gradient to the
+    process that sent it. Every process of the group must call it (and
+    run its backward) in the same order. NCCL on CUDA, gloo on the
+    CPU."""
+    t = x.shape[time_axis]
+    if t < width:
+        raise ValueError(f"a block of {t} frames cannot give a halo of "
+                         f"{width}")
+    return _HaloExchange.apply(x, time_axis, group, width)
 
 
 def run_on_primary(fn) -> None:

@@ -3,15 +3,20 @@
 
 The JAX package builds a ('data', 'time') mesh of every chip under one
 process. Here a mesh is a layout of the `torch.distributed` processes,
-one a GPU: `data` shards the clips of a batch (data parallelism, the only
-strategy any JAX entry point builds), `time` is kept as a layout only.
-No JAX entry point builds `time > 1` (every caller takes `make_mesh()`'s
-defaults); compute over a clip sharded in time, with the halo exchange
-its Conv3D postnets would need, is still to do (ROADMAP.md).
+one a GPU: `data` shards the clips of a batch (data parallelism), `time`
+shards the frames of each clip (sequence parallelism for clips that
+outgrow one GPU). Process r sits at data index r // time and time index
+r % time. `parallel.collectives.mesh_groups` builds its time group (the
+processes holding the other frame blocks of its clips) and its data
+group; `train.shardmap_step.make_shardmap_train_step` trains over any
+data x time mesh, with the Conv3D postnets exchanging a halo frame with
+their time neighbours before each layer (`collectives.halo_exchange`)
+and the VQ statistics, gradients and metrics reduced over every process.
 
 `shard_batch` and `stage_global` take this process's block of a global
 batch, the counterpart of `jax.make_array_from_process_local_data`'s
-view: process r of a data axis of size n holds clips [r*B/n, (r+1)*B/n).
+view: process r of a data axis of size n holds clips [r*B/n, (r+1)*B/n),
+and with `time_axis` the frame block of its time index.
 """
 
 from __future__ import annotations
@@ -71,10 +76,16 @@ def batch_sharding(mesh: Mesh, time_axis: Optional[int] = None):
     def take(x: torch.Tensor) -> torch.Tensor:
         x = _block(x, 0, mesh.data, mesh.data_index)
         if time_axis is not None:
-            x = _block(x, time_axis, mesh.time, mesh.time_index)
+            x = frame_block(x, mesh, time_axis)
         return x
 
     return take
+
+
+def frame_block(x: torch.Tensor, mesh: Mesh, time_axis: int = 1):
+    """This process's block of x's frames (axis `time_axis` over `time`)
+    alone: the time shard of clips that its data group holds whole."""
+    return _block(x, time_axis, mesh.time, mesh.time_index)
 
 
 def replicated_sharding(mesh: Mesh):
@@ -99,8 +110,10 @@ def stage_global(x, sharding, device=None):
     return t.to(device) if device is not None else t
 
 
-def shard_batch(batch: Dict, mesh: Mesh, device=None) -> Dict:
-    """This process's block of every array of a global batch (the leading
-    axis over `data`)."""
-    sharding = batch_sharding(mesh)
+def shard_batch(batch: Dict, mesh: Mesh, device=None,
+                time_axis: Optional[int] = None) -> Dict:
+    """This process's block of every array of a global batch: the leading
+    axis over `data`, and axis `time_axis` over `time` when given (the
+    frame block a time-sharded step takes)."""
+    sharding = batch_sharding(mesh, time_axis)
     return {k: stage_global(v, sharding, device) for k, v in batch.items()}

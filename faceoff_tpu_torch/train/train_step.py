@@ -31,6 +31,7 @@ from torch import nn
 from faceoff_tpu_torch.losses import mse_loss
 from faceoff_tpu_torch.ops import video as video_ops
 from faceoff_tpu_torch.parallel import collectives
+from faceoff_tpu_torch.parallel.mesh import Mesh, frame_block, make_mesh
 from faceoff_tpu_torch.train.state import TrainState
 
 _MASK64 = (1 << 64) - 1
@@ -47,9 +48,10 @@ def step_seed(seed: int, step: int) -> int:
 
 
 def rank_seed(seed: int, rank: int) -> int:
-    """The seed of process `rank`'s own random stream: rank 0 keeps
-    `seed` (a one-process run's stream), rank r > 0 a stream derived from
-    it, so that processes sampling their own clips draw different ones."""
+    """The seed of stream `rank` (a process's, or a data group's over a
+    time-sharded mesh): 0 keeps `seed` (a one-process run's stream),
+    r > 0 a stream derived from it, so that processes sampling their own
+    clips draw different ones."""
     return seed if rank == 0 else step_seed(seed, (1 << 40) + rank)
 
 
@@ -73,6 +75,7 @@ def make_train_step(
     prepare_fn: Optional[Callable] = None,
     compute_dtype: Optional[torch.dtype] = None,
     process_group=None,
+    mesh: Optional[Mesh] = None,
 ) -> Callable:
     """Build `train_step(state, batch, seed=0) -> (state, metrics)`.
 
@@ -93,22 +96,34 @@ def make_train_step(
     averaged over the group before Adam, and a prepare function draws
     from this process's own stream (`rank_seed`). The
     model's quantizers must reduce over the same group.
+    mesh: the group's data x time layout (`make_mesh()`, data parallel
+    over every process, by default). With `time` > 1 a prepare function
+    draws from its data group's stream (`rank_seed(seed, data_index)`),
+    so that the processes of a time group prepare the same clips, and the
+    step keeps this process's frame block of them (`frame_block`); a
+    batch without a prepare function must already be that block. Equal
+    blocks make the averaged MSE, latent and LPIPS terms the global ones.
 
     metrics hold 0-d float32 tensors: "loss", "mse", "latent" and
     "perceptual" on the model's device, so reading them is the caller's
     sync, and "lr" on the host.
     """
     device = _device_of(model)
-    rank = collectives.get_rank() if process_group is not None else 0
+    if mesh is None:
+        mesh = (make_mesh() if process_group is not None
+                else make_mesh(world_size=1, rank=0))
     params = [p for p in model.parameters() if p.requires_grad]
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    seed: int = 0) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         if prepare_fn is not None:
             gen = torch.Generator(device=device)
-            gen.manual_seed(step_seed(rank_seed(seed, rank), state.step))
+            gen.manual_seed(step_seed(rank_seed(seed, mesh.data_index),
+                                      state.step))
             with torch.no_grad():
                 batch = prepare_fn(gen, batch["frames"], batch["landmarks"])
+            if mesh.time > 1:
+                batch = {k: frame_block(v, mesh) for k, v in batch.items()}
         with _autocast(device, compute_dtype):
             dec, latent = model(batch["input"], train=True)
             out = dec[..., :3]

@@ -372,3 +372,6 @@ def test_port_imports_no_jax_no_cv2_no_reference_package():
             "faceoff_tpu_torch.parallel.collectives",
             "faceoff_tpu_torch.parallel.mesh",
             "faceoff_tpu_torch.train.shardmap_step"} <= set(modules)
+    # compute over a clip sharded in time
+    assert {"faceoff_tpu_torch.models.vqvae", "faceoff_tpu_torch.ops.vq",
+            "faceoff_tpu_torch.train.train_step"} <= set(modules)
