@@ -6,7 +6,7 @@
 Phases, each printing lines with their seconds:
 
   1. build   — compile the kernel sources (csrc/warp.cu, csrc/vq.cu,
-               csrc/ccl.cu, csrc/lk.cu) and the nvJPEG shim
+               csrc/ccl.cu, csrc/lk.cu, csrc/mpeg4.cu) and the nvJPEG shim
                (csrc/jpeg.cu), one nvcc each, started together, into
                faceoff_tpu_torch/_build/, and load them;
   2. kernel  — the kernel against its plain torch version on the card at
@@ -77,8 +77,9 @@ Phases, each printing lines with their seconds:
                resume of that run's step-6 checkpoint to step 8, which must
                equal that run's own step 8 bit for bit and agree with the
                unbroken run within train_check's tolerances; metrics,
-               checkpoints, sample streams and launch counts checked; a
-               checkpoint's save and restore timed.
+               checkpoints, sample streams (mp4v, read back on the card)
+               and launch counts checked; a checkpoint's save and restore
+               timed.
   9. jpeg    — the committed JPEG fixtures (4:2:0, 4:4:4) decoded by nvJPEG
                against cv2's decodes (max and mean |diff| in levels, within
                the stated tolerance), and a JPEG dataset of the trainer
@@ -87,7 +88,9 @@ Phases, each printing lines with their seconds:
                on the card, every frame equal to its own decode.
  10. swap    — the swap command line's main() (cli/swap) on two 48-frame
                synthetic videos at 256 px with the trainer phase's step-8
-               checkpoint: the host geometry; --device_pipeline (2 K4
+               checkpoint, writing swapped .mp4 files (each read back
+               equal to the encoder's reconstruction of the swapped
+               frames): the host geometry; --device_pipeline (2 K4
                launches, its streams against the host path's);
                --streaming with 1 and 4 frames a call against the
                chunked frames; --blend poisson at 1024 iterations (the
@@ -134,8 +137,9 @@ Phases, each printing lines with their seconds:
                2 + 2 VQ launches a step, frames/s) on a PNG dataset at
                flagship widths, 256 px, b2, T8, 4 steps; cli/encode on the
                trainer phase's step-8 checkpoint over 32 frames (the codes
-               equal the restored model's encode_codes; the --decode AVI
-               round trip's PSNR); cli/train_alignment for 20 steps at
+               equal the restored model's encode_codes; the --decode .mp4
+               read back equal to the encoder's reconstruction, its
+               PSNR); cli/train_alignment for 20 steps at
                256 px, 8 frames (first and last loss, steps/s).
  15. dist    — in a child process with a one-rank NCCL group: the
                perceptual CLI with --multihost against the same run
@@ -147,8 +151,8 @@ Phases, each printing lines with their seconds:
  16. preprocess — offline preprocessing from raw footage: 4 motion-JPEG
                AVIs of 300 frames at 1280x720 (a drifting face, its mouth
                opening and closing, a cut at frame 150) through
-               cli/preprocess's main(["all", ...]) at 256 px (8 clips,
-               none quarantined; stage 1 and 2 frames/s, kernel B's
+               cli/preprocess's main(["all", ...]) at 256 px (8 mp4v
+               clips, none quarantined; stage 1 and 2 frames/s, kernel B's
                launches a frame, the re-detections); stage 1's parts on
                one video; kernel A (connected components, csrc/ccl.cu)
                and kernel B (pyramidal LK, csrc/lk.cu) against their plain
@@ -167,6 +171,20 @@ Phases, each printing lines with their seconds:
                2^-6 of it); no kernel of the port launches. The exchange
                over NCCL needs several GPUs: tools/dist_check_torch.py
                --time.
+ 18. mp4     — mp4 in and out: the committed cv2 fixture
+               (tests/data_torch/face_mp4v.mp4) decoded on the card equal
+               to the plain decode and to cv2's stored decode; the
+               preprocess phase's 4 x 300 frames at 1280x720 written as
+               mp4v on the card and read back (the main path), each
+               decode equal to the encoder's reconstruction (encode and
+               decode frames/s, the host coder's share, bytes a frame,
+               PSNR), and a 256-px clip likewise; kernels V1-V4
+               (csrc/mpeg4.cu) against their plain versions at every call
+               of the first GOP's round trip at 720p and 256 px, then
+               each timed at the main path's largest call beside its
+               bound; cli/preprocess's main(["all", ...]) on one 720p
+               mp4v video (NNNNN.mp4 clips, none quarantined, stage 1 and
+               2 frames/s beside the AVI run's).
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 {"kernels": [...]}, and last {"ok": true, "device": {...}}. Any failure
@@ -213,6 +231,7 @@ from faceoff_tpu_torch.data.synthetic import (draw_face, draw_faces,
                                               generate_dataset,
                                               synthetic_corpus)
 from faceoff_tpu_torch.io import image as image_io
+from faceoff_tpu_torch.io import mp4, mpeg4
 from faceoff_tpu_torch.io.checkpoint import CheckpointManager
 from faceoff_tpu_torch.io.video import (read_video_frames, video_frame_chunks,
                                         write_avi)
@@ -223,7 +242,7 @@ from faceoff_tpu_torch.models.vqvae_b2f import VQVAE_B2F
 from faceoff_tpu_torch.models.discriminators import (MultiscaleDiscriminator2D,
                                                      MultiscaleDiscriminator3D)
 from faceoff_tpu_torch.models.lpips import init_lpips
-from faceoff_tpu_torch.ops import ccl_cuda, lk_cuda
+from faceoff_tpu_torch.ops import ccl_cuda, lk_cuda, mpeg4_cuda
 from faceoff_tpu_torch.ops import vq as V
 from faceoff_tpu_torch.ops import vq_cuda
 from faceoff_tpu_torch.ops import warp as W
@@ -1252,17 +1271,15 @@ def trainer_phase(t0, work: Path):
     if run_r.global_step != TRAINER_STEPS or kept["r"][-1] != TRAINER_STEPS:
         raise AssertionError(f"the resumed run ended at step "
                              f"{run_r.global_step}, checkpoints {kept['r']}")
-    streams = sorted(_run_dir(work, "samples_v").glob("*.avi"))
+    streams = sorted(_run_dir(work, "samples_v").glob("*.mp4"))
     n_expected = 2 * VAL_VIDEOS * 4  # validations x batches x streams
     if len(streams) != n_expected:
         raise AssertionError(f"{len(streams)} sample streams, expected "
                              f"{n_expected}")
-    for path in streams:
-        frames = read_video_frames(str(path))
-        if len(frames) != TRAIN_T or any(
-                f.shape != (TRAIN_SIZE, TRAIN_SIZE, 3) for f in frames):
-            raise AssertionError(f"{path.name}: {len(frames)} frames of "
-                                 f"{frames[0].shape if frames else None}")
+    for path in streams:  # mp4v, read back on the card
+        frames = read_video_frames(str(path), device=DEV)
+        if tuple(frames.shape) != (TRAIN_T, TRAIN_SIZE, TRAIN_SIZE, 3):
+            raise AssertionError(f"{path.name}: {tuple(frames.shape)}")
 
     # the resumed run against the runs without a break, at step 8
     rec_v = _records(work / "metrics_v.jsonl")
@@ -1470,7 +1487,7 @@ def swap_phase(t0, work: Path):
         argv = ["--source", str(videos / "video_000"),
                 "--target", str(videos / "video_001"),
                 "--checkpoint_dir", str(ckpt), "--ckpt", str(TRAINER_STEPS),
-                "--out", str(work / f"swap_{name}.avi"),
+                "--out", str(work / f"swap_{name}.mp4"),
                 "--size", str(SIZE), "--chunk", str(SWAP_CHUNK), *extra]
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1479,9 +1496,11 @@ def swap_phase(t0, work: Path):
         if len(res["frames"]) != SWAP_FRAMES or res["step"] != TRAINER_STEPS:
             raise AssertionError(f"swap {name}: {len(res['frames'])} frames "
                                  f"from step {res['step']}")
-        frames = read_video_frames(str(work / f"swap_{name}.avi"))
-        if len(frames) != SWAP_FRAMES or not np.array_equal(
-                frames[-1], res["frames"][-1]):
+        # mp4v: the video read back is the encoder's reconstruction
+        frames = read_video_frames(str(work / f"swap_{name}.mp4"), device=DEV)
+        *_, recon = mpeg4.encode(torch.from_numpy(np.stack(res["frames"]))
+                                 .to(DEV), 25, return_recon=True)
+        if frames.shape[0] != SWAP_FRAMES or not torch.equal(frames, recon):
             raise AssertionError(f"swap {name}: the video written differs")
         return res
 
@@ -1541,9 +1560,9 @@ def swap_phase(t0, work: Path):
 
     poisson = run("poisson", "--device_pipeline", "--blend", "poisson",
                   "--save_streams")
-    streams = sorted(p.name for p in work.glob("swap_poisson_*.avi"))
-    if streams != ["swap_poisson_background.avi", "swap_poisson_composite.avi",
-                   "swap_poisson_naive_poisson.avi"]:
+    streams = sorted(p.name for p in work.glob("swap_poisson_*.mp4"))
+    if streams != ["swap_poisson_background.mp4", "swap_poisson_composite.mp4",
+                   "swap_poisson_naive_poisson.mp4"]:
         raise AssertionError(f"--save_streams wrote {streams}")
     cli_counts = read_counts()
     # one chunk of the swap's geometry on the card, paste and Poisson,
@@ -2531,7 +2550,7 @@ def aux_phase(t0, work: Path):
     argv = ["--video_dir", str(video_dir), "--checkpoint_dir",
             str(_run_dir(work, "ckpt_v")), "--ckpt", str(TRAINER_STEPS),
             "--out", str(work / "codes.npz"), "--decode",
-            str(work / "recon.avi"), "--size", str(TRAIN_SIZE),
+            str(work / "recon.mp4"), "--size", str(TRAIN_SIZE),
             "--max_frames", str(AUX_ENCODE_FRAMES)]
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -2545,21 +2564,26 @@ def aux_phase(t0, work: Path):
     codes_equal = (np.array_equal(saved["codes_top"], ref_t.cpu().numpy())
                    and np.array_equal(saved["codes_bottom"],
                                       ref_b.cpu().numpy()))
-    recon = read_video_frames(str(work / "recon.avi"))
-    avi_equal = len(recon) == AUX_ENCODE_FRAMES and all(
-        np.array_equal(a, denormalize(b)) for a, b in zip(recon, res["recon"]))
+    # mp4v: the video read back is the encoder's reconstruction of the
+    # decoded frames
+    recon = read_video_frames(str(work / "recon.mp4"), device=DEV)
+    decoded = torch.from_numpy(np.stack([denormalize(b) for b in
+                                         res["recon"]])).to(DEV)
+    *_, want = mpeg4.encode(decoded, 25, return_recon=True)
+    mp4_equal = recon.shape[0] == AUX_ENCODE_FRAMES and torch.equal(recon,
+                                                                    want)
     src = np.stack([load_frame(p, TRAIN_SIZE)[0]
                     for p in _landmark_paths(str(video_dir))])
-    mse = float(np.mean((np.stack(recon).astype(np.float64)
+    mse = float(np.mean((recon.cpu().numpy().astype(np.float64)
                          - src.astype(np.float64)) ** 2))
     result["encode"] = {
         "codes_top": list(saved["codes_top"].shape),
         "codes_bottom": list(saved["codes_bottom"].shape),
         "codes_equal_encode_codes": codes_equal,
-        "avi_equal_decoded": avi_equal, "wall_s": enc_s,
+        "mp4_equal_encoder_recon": mp4_equal, "wall_s": enc_s,
         "decode_psnr_db": 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))}
     say("aux", t0, "encode " + json.dumps(result["encode"]))
-    if not (codes_equal and avi_equal):
+    if not (codes_equal and mp4_equal):
         raise AssertionError(f"encode: {result['encode']}")
 
     # the alignment trainer
@@ -2845,8 +2869,9 @@ def _timed(module, name, store):
 
 def stage1_split(raw: Path) -> dict:
     """Stage 1's parts on one raw video, each synchronised: decode (nvJPEG
-    batched), detect (colour, morphology, kernel A, the table), crop and
-    resize, encode the clip frames (nvJPEG); frames/s of each."""
+    batched, or mp4v), detect (colour, morphology, kernel A, the table),
+    crop and resize, encode the clips (mp4v, as the stage writes them);
+    frames/s of each."""
     from faceoff_tpu_torch.preprocess.face_crop import (segment_stable_boxes,
                                                         square_crop_box)
     from faceoff_tpu_torch.data.geometry import resize_tensor
@@ -2873,9 +2898,9 @@ def stage1_split(raw: Path) -> dict:
     t = time.perf_counter()
     n_enc = 0
     for clip in clips:
-        for fr in clip:
-            image_io.encode_jpeg(fr)
-            n_enc += 1
+        mpeg4.encode(clip, PRE_FPS)
+        n_enc += len(clip)
+    torch.cuda.synchronize()
     out["encode_s"] = time.perf_counter() - t
     n = frames.shape[0]
     for k in ("decode", "detect", "crop_resize"):
@@ -3025,7 +3050,7 @@ def preprocess_phase(t0, work: Path):
         face_crop.process_videos = crop_fn
         landmarks.generate_landmarks_for_dataset = lms_fn
         tracker._seed_one = seed_fn
-    n_clip_files = sum(len(list((clips / f"raw_{v}").glob("*.avi")))
+    n_clip_files = sum(len(list((clips / f"raw_{v}").glob("*.mp4")))
                        for v in range(PRE_VIDEOS))
     frame_files = sorted(clips.glob("**/*.jpg"))
     lm_files = sorted(clips.glob("**/*_landmarks.npz"))
@@ -3137,6 +3162,352 @@ def preprocess_phase(t0, work: Path):
     return result, counts
 
 
+# -- phase 18: mp4 in and out ---------------------------------------------
+
+MP4_FIXTURE = REPO / "tests" / "data_torch" / "face_mp4v.mp4"
+MP4_STAGES = ("dequant_idct", "motion_compensate", "motion_search",
+              "fdct_quant")
+MP4_PLAIN = {name: getattr(mpeg4_cuda, name + "_plain")
+             for name in MP4_STAGES}
+# each byte of a 16 x 16 SAD is an absolute difference and an add; the
+# integer units are no faster than the float32 CUDA cores
+MP4_SAD_OPS = 2
+# V4: two 8-term integer dot products a coefficient (rows, then columns)
+MP4_FDCT_OPS = 2 * 2 * 8
+
+
+def zero_mp4_counts():
+    for k in mpeg4_cuda.launches:
+        mpeg4_cuda.launches[k] = 0
+
+
+def read_mp4_counts():
+    return dict(mpeg4_cuda.launches)
+
+
+class Mp4Calls:
+    """The four stage wrappers of ops/mpeg4_cuda wrapped: with `hold`,
+    each call also runs the plain version on the same inputs (clones of
+    the planes V2 writes in place) and must equal it bit for bit; every
+    call's arguments are kept as that stage's `last`, the largest call's
+    (by its first dimension) as its `largest`."""
+
+    def __init__(self, hold: bool):
+        self.hold = hold
+        self.held = {k: 0 for k in MP4_STAGES}
+        self.largest = {}
+        self.orig = {k: getattr(mpeg4_cuda, k) for k in MP4_STAGES}
+
+    def __enter__(self):
+        for name in MP4_STAGES:
+            setattr(mpeg4_cuda, name, self._wrap(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(mpeg4_cuda, name, fn)
+
+    def _size(self, name, args):
+        """The call's items (V2-V4) or blocks (V1)."""
+        return int(args[{"dequant_idct": 0, "motion_compensate": 3,
+                         "motion_search": 1, "fdct_quant": 3}[name]]
+                   .shape[0])
+
+    def _wrap(self, name):
+        fn = self.orig[name]
+
+        def run(*args):
+            size = self._size(name, args)
+            if size >= self.largest.get(name, (0, None))[0]:
+                self.largest[name] = (size, args)
+            if not self.hold:
+                return fn(*args)
+            if name == "motion_compensate":
+                planes = [p.clone() for p in args[0]]
+                MP4_PLAIN[name](planes, *args[1:])
+                out = fn(*args)
+                same = all(torch.equal(a, b) for a, b in zip(args[0], planes))
+            elif name == "dequant_idct":
+                want = MP4_PLAIN[name](*args[:3], args[3].clone())
+                out = fn(*args)
+                same = torch.equal(out, want)
+            else:
+                out = fn(*args)
+                same = torch.equal(out, MP4_PLAIN[name](*args))
+            if not same:
+                raise AssertionError(f"mp4: kernel {name} differs from its "
+                                     f"plain version at the path's call")
+            self.held[name] += 1
+            return out
+        return run
+
+
+def mp4_bound(name, args) -> tuple:
+    """(bound ms, "bytes" or "operations") of one call: what this call's
+    data makes the kernel read, each byte once, and write, over the HBM
+    rate, its operations over the float32 CUDA-core rate. Of a
+    macroblock's record V1 and V4 read the mode and qp, V2 the mode and,
+    for an inter macroblock with a reference, the four vectors; only
+    inter macroblocks read the reference (V2) or prediction (V4)."""
+    if name == "dequant_idct":
+        blocks, bidx, mb, _ = args
+        nb = blocks.shape[0]
+        coded = int(torch.unique(bidx // 6).numel())
+        n_bytes = 2 * nb * 64 * 2 + nb * 4 + coded * 2 * 4
+        ops = nb * 64 * (2 + 16)  # dequantisation; rows and columns
+    elif name == "motion_compensate":
+        planes, mb, res, items = args[:4]
+        mbs = items.shape[0] * mb.shape[1]
+        rec = mb[items[:, 0].long()]
+        inter = int(((rec[..., 0] != mpeg4_cuda.MB_INTRA)
+                     & (items[:, 1:2] >= 0)).sum())
+        area = sum(p[0].numel() for p in planes) // mb.shape[1]  # 384
+        n_bytes = mbs * (area + 4) + inter * (8 * 4 + area)
+        if res is not None:
+            n_bytes += mbs * 6 * 64 * 2
+        ops = mbs * area * 8  # four taps, their sum, the residual, a clip
+    elif name == "motion_search":
+        y, items = args[:2]
+        g = items.shape[0]
+        m = y[0].numel() // 256
+        n_bytes = 2 * g * y[0].numel() + g * m * 3 * 4
+        cands = (2 * mpeg4_cuda.SEARCH_RANGE + 1) ** 2 + 9
+        ops = g * m * cands * 256 * MP4_SAD_OPS
+    else:
+        src, pred, mb, items = args
+        mbs = items.shape[0] * mb.shape[1]
+        inter = int((mb[..., 0] != mpeg4_cuda.MB_INTRA).sum())
+        area = sum(p[0].numel() for p in src) // mb.shape[1]  # 384
+        n_bytes = (mbs * (area + 2 * 4 + 6 * 64 * 2) + inter * area)
+        ops = mbs * 6 * 64 * MP4_FDCT_OPS
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def mp4_round_trip(frames: torch.Tensor, path: Path, fps: int,
+                   host: dict) -> dict:
+    """Encode (N, H, W, 3) uint8 frames on the card into an mp4v file,
+    read it back through read_video_frames: the decode must equal the
+    encoder's reconstruction bit for bit. Seconds of each way, the host
+    coder's share (timed around ops/mpeg4_cuda's C++ calls, their
+    record copies included), bytes a frame, PSNR against the frames."""
+    n = frames.shape[0]
+    start = dict(host)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    samples, sync, dsi, recon = mpeg4.encode(frames, fps, return_recon=True)
+    mp4.write_mp4(str(path), samples, sync, frames.shape[2],
+                  frames.shape[1], fps, dsi)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t
+    t = time.perf_counter()
+    back = read_video_frames(str(path), device=DEV)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t
+    if back.shape != frames.shape or not torch.equal(back, recon):
+        raise AssertionError(f"mp4 {path.name}: the decode differs from the "
+                             f"encoder's reconstruction")
+    sq = ((back.float() - frames.float()) ** 2).mean((1, 2, 3))
+    psnr = (10 * torch.log10(255.0 ** 2 / sq.clamp_min(1e-12))).mean()
+    return {"frames": n, "encode_s": enc_s, "decode_s": dec_s,
+            "write_host_s": host.get("write_vops", 0.0)
+            - start.get("write_vops", 0.0),
+            "parse_host_s": host.get("parse_vops", 0.0)
+            - start.get("parse_vops", 0.0),
+            "bytes": sum(len(x) for x in samples), "psnr_db": float(psnr)}
+
+
+def mp4_phase(t0, work: Path, pre: dict):
+    """mp4 in and out on the card (io/mp4.py, io/mpeg4.py, kernels V1-V4
+    of csrc/mpeg4.cu and its C++ entropy coder):
+
+      fixture   tests/data_torch/face_mp4v.mp4 (cv2's mp4v, 24 frames of
+                104 px) decoded on the card: equal to the plain decode
+                (the Python coder and the plain stages on the CPU) and
+                to cv2's stored decode, bit for bit (the tolerance of
+                tests/test_torch_mp4.py, 0);
+      footage   the preprocess phase's 4 x 300 frames at 1280x720 (its
+                MJPEG AVIs decoded by nvJPEG) written as mp4v on the card
+                and read back through read_video_frames (the main path;
+                launch counts from 0 just before, read just after): each
+                decode equal to the encoder's reconstruction; encode and
+                decode frames/s, the host coder's share, bytes a frame,
+                PSNR;
+      held      V1-V4 against their plain versions at every call of the
+                round trip of the first GOP of one 720p video and of one
+                256-px clip, bit for bit;
+      kernels   each kernel at the main path's largest call: device ms
+                in a CUDA graph, wrapper ms eager, the plain version's
+                ms, launches a frame, bound;
+      preprocess cli/preprocess's main(["all", ...]) on one 720p mp4v
+                video: NNNNN.mp4 clips, none quarantined; stage 1 and 2
+                frames/s beside the AVI run's."""
+    from faceoff_tpu_torch.cli import preprocess as pre_cli
+    from faceoff_tpu_torch.preprocess import face_crop, landmarks
+
+    result = {}
+    track = mp4.read_mp4(str(MP4_FIXTURE))
+    vol = mpeg4.parse_vol(track.dsi)
+    got = read_video_frames(str(MP4_FIXTURE), device=DEV)
+    plain = mpeg4.decode(track.samples, vol, torch.device("cpu"))
+    cv2_decode = torch.from_numpy(np.load(
+        MP4_FIXTURE.with_suffix(".npz"))["frames"])
+    result["fixture"] = {
+        "frames": int(got.shape[0]),
+        "equal_plain_decode": bool(torch.equal(got.cpu(), plain)),
+        "max_abs_diff_cv2": int((got.cpu().int() - cv2_decode.int()).abs()
+                                .max())}
+    say("mp4", t0, "fixture " + json.dumps(result["fixture"]))
+    if not result["fixture"]["equal_plain_decode"] or result["fixture"][
+            "max_abs_diff_cv2"] != 0:
+        raise AssertionError(f"mp4 fixture: {result['fixture']}")
+
+    host = {}
+    wrapped = []
+    for name in ("parse_vops", "write_vops"):
+        fn, timed = _timed(mpeg4_cuda, name, host)
+        wrapped.append((name, fn))
+        setattr(mpeg4_cuda, name, timed)
+    out = work / "mp4"
+    out.mkdir()
+    try:
+        # the main path: 4 x 300 frames at 720p
+        raws = [read_video_frames(str(work / "pre_raw" / f"raw_{v}.avi"),
+                                  device=DEV) for v in range(PRE_VIDEOS)]
+        rows = []
+        zero_mp4_counts()
+        with Mp4Calls(hold=False) as calls:
+            for v, frames in enumerate(raws):
+                rows.append(mp4_round_trip(frames, out / f"raw_{v}.mp4",
+                                           PRE_FPS, host))
+        counts = read_mp4_counts()
+        largest = calls.largest
+        n = sum(r["frames"] for r in rows)
+        enc_s = sum(r["encode_s"] for r in rows)
+        dec_s = sum(r["decode_s"] for r in rows)
+        write_s = sum(r["write_host_s"] for r in rows)
+        parse_s = sum(r["parse_host_s"] for r in rows)
+        result["footage"] = {
+            "videos": len(rows), "frames": n,
+            "size": [PRE_W, PRE_H],
+            "encode_frames_per_s": n / enc_s,
+            "decode_frames_per_s": n / dec_s,
+            "encode_host_share": write_s / enc_s,
+            "decode_host_share": parse_s / dec_s,
+            "encode_host_s": write_s, "encode_s": enc_s,
+            "decode_host_s": parse_s, "decode_s": dec_s,
+            "bytes_per_frame": sum(r["bytes"] for r in rows) / n,
+            "psnr_db": statistics.mean(r["psnr_db"] for r in rows),
+            "launches": counts,
+            "launches_per_frame": {k: v / n for k, v in counts.items()}}
+        say("mp4", t0, "720p " + json.dumps(result["footage"]))
+        if not all(counts.values()):
+            raise AssertionError(f"mp4: a kernel did not run on the main "
+                                 f"path: {counts}")
+
+        # 256 px: the trainer's sample streams' size
+        small = draw_faces(torch.zeros((48, TRAIN_SIZE, TRAIN_SIZE, 3),
+                                       dtype=torch.uint8, device=DEV) + 90,
+                           torch.from_numpy(np.stack([face_landmarks(
+                               (128 + 20 * np.sin(0.1 * f), 128), 70, 0)
+                               for f in range(48)]).astype(np.float32))
+                           .to(DEV), (205, 165, 140))
+        result["256"] = mp4_round_trip(small, out / "small.mp4", PRE_FPS,
+                                       host)
+        r = result["256"]
+        r.update(encode_frames_per_s=r["frames"] / r["encode_s"],
+                 decode_frames_per_s=r["frames"] / r["decode_s"],
+                 bytes_per_frame=r["bytes"] / r["frames"])
+        say("mp4", t0, "256 px " + json.dumps(r))
+
+        # V1-V4 against their plain versions on the first GOPs
+        with Mp4Calls(hold=True) as held:
+            mp4_round_trip(raws[0][: mpeg4.GOP], out / "gop720.mp4", PRE_FPS,
+                           host)
+            mp4_round_trip(small[: mpeg4.GOP], out / "gop256.mp4", PRE_FPS,
+                           host)
+        result["held_calls"] = held.held
+        say("mp4", t0, "kernels equal their plain versions at "
+            + json.dumps(held.held) + " calls")
+        if not all(held.held.values()):
+            raise AssertionError(f"mp4: a kernel was not held: {held.held}")
+    finally:
+        for name, fn in wrapped:
+            setattr(mpeg4_cuda, name, fn)
+    del raws
+
+    rows = {}
+    frames_by = {"dequant_idct": 2 * n, "motion_compensate": 2 * n,
+                 "motion_search": n, "fdct_quant": n}
+    for name in MP4_STAGES:
+        size, args = largest[name]
+        fn = getattr(mpeg4_cuda, name)
+        if name == "motion_compensate":
+            planes = [p.clone() for p in args[0]]
+            MP4_PLAIN[name](planes, *args[1:])
+            fn(*args)
+            err = max(int((a.int() - b.int()).abs().max())
+                      for a, b in zip(args[0], planes))
+        elif name == "dequant_idct":
+            want = MP4_PLAIN[name](*args[:3], args[3].clone())
+            err = int((fn(*args).int() - want.int()).abs().max())
+        else:
+            err = int((fn(*args).int() - MP4_PLAIN[name](*args).int())
+                      .abs().max())
+        bound, by = mp4_bound(name, args)
+        rows[name] = {
+            "items": size, "max_abs_err": err,
+            "kernel_ms": device_ms(lambda: fn(*args), reps=10, inner=5),
+            "wrapper_ms": cuda_ms(lambda: fn(*args), reps=5, inner=3),
+            "plain_ms": cuda_ms(lambda: MP4_PLAIN[name](*args), reps=1,
+                                inner=1, warmup=0),
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            # the main path's launches a frame (V1 and V2 run in both
+            # ways)
+            "launches_per_frame": counts[name] / frames_by[name]}
+        say("mp4", t0, f"{name} " + json.dumps(rows[name]))
+        if err:
+            raise AssertionError(f"mp4: {name} differs from its plain "
+                                 f"version by {err}")
+    result["kernels"] = rows
+
+    # preprocessing from one 720p mp4v video
+    raw_mp4, clips = work / "mp4_raw", work / "mp4_clips"
+    raw_mp4.mkdir()
+    shutil.copy(out / "raw_0.mp4", raw_mp4 / "raw_0.mp4")
+    stages = {}
+    crop_fn, crop_timed = _timed(face_crop, "process_videos", stages)
+    lms_fn, lms_timed = _timed(landmarks, "generate_landmarks_for_dataset",
+                               stages)
+    face_crop.process_videos = crop_timed
+    landmarks.generate_landmarks_for_dataset = lms_timed
+    try:
+        res = pre_cli.main(["all", "--videos", str(raw_mp4), "--out",
+                            str(clips), "--resolution", str(TRAIN_SIZE),
+                            "--min_frames", str(PRE_MIN_FRAMES)], device=DEV)
+    finally:
+        face_crop.process_videos = crop_fn
+        landmarks.generate_landmarks_for_dataset = lms_fn
+    clip_files = sorted(p.name for p in (clips / "raw_0").glob("*"))
+    frame_files = sorted(clips.glob("**/*.jpg"))
+    result["preprocess"] = {
+        "clips": len(res["clips"]), "ok": len(res["ok"]),
+        "quarantined": len(res["quarantined"]), "clip_files": clip_files,
+        "stage1_frames_per_s": PRE_FRAMES / stages["process_videos"],
+        "stage2_frames_per_s": len(frame_files)
+        / stages["generate_landmarks_for_dataset"],
+        "avi_stage1_frames_per_s": pre["stage1_frames_per_s"],
+        "avi_stage2_frames_per_s": pre["stage2_frames_per_s"]}
+    say("mp4", t0, "preprocess " + json.dumps(result["preprocess"]))
+    mp4_clips = [c for c in clip_files if c.endswith(".mp4")]
+    if not (result["preprocess"]["clips"] == result["preprocess"]["ok"]
+            == 2 == len(mp4_clips) and not res["quarantined"]
+            and mp4_clips == ["00000.mp4", "00001.mp4"]):
+        raise AssertionError(f"mp4 preprocess: {result['preprocess']}")
+    return result, counts
+
+
 # -- phase 17: the postnets over a clip sharded in time -------------------
 
 TIME_T, TIME_BLOCKS = 64, 4
@@ -3218,7 +3589,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     builds = (warp_cuda.build, vq_cuda.build, image_io.build_jpeg,
-              ccl_cuda.build, lk_cuda.build)
+              ccl_cuda.build, lk_cuda.build, mpeg4_cuda.build)
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         libs = [f.result() for f in [pool.submit(b) for b in builds]]
     warp_cuda.load()
@@ -3226,6 +3597,7 @@ def main() -> int:
     image_io.load_jpeg()
     ccl_cuda.load()
     lk_cuda.load()
+    mpeg4_cuda.load()
     say("build", t0, ", ".join(str(p.relative_to(REPO)) for p in libs)
         + " loaded")
 
@@ -3264,6 +3636,8 @@ def main() -> int:
         dist, dist_counts = dist_phase(t0, Path(work))
         t0 = time.perf_counter()
         pre, pre_counts = preprocess_phase(t0, Path(work))
+        t0 = time.perf_counter()
+        mp4_result, mp4_counts = mp4_phase(t0, Path(work), pre)
     t0 = time.perf_counter()
     time_result = time_phase(t0)
     trainer_counts = trainer["launches"]
@@ -3370,6 +3744,18 @@ def main() -> int:
             "kernel_ms", "wrapper_ms", "plain_ms", "bound_ms", "work")},
         "launches": pre_counts}))
     say("time", t_all, json.dumps({"card": card, **time_result}))
+    footage = mp4_result["footage"]
+    say("mp4", t_all, json.dumps({
+        "card": card,
+        "720p": {k: footage[k] for k in (
+            "encode_frames_per_s", "decode_frames_per_s",
+            "encode_host_share", "decode_host_share", "bytes_per_frame",
+            "psnr_db")},
+        "256px": {k: mp4_result["256"][k] for k in (
+            "encode_frames_per_s", "decode_frames_per_s", "bytes_per_frame",
+            "psnr_db")},
+        "preprocess_from_mp4": mp4_result["preprocess"],
+        "launches": mp4_counts}))
     # the serving path: the slice phase's sessions and the export phase's
     launches += exported["launches"]["warp"]
     paths = {"serving": {"vq_assign": 0, "vq_stats": 0, "warp": launches,
@@ -3488,6 +3874,24 @@ def main() -> int:
         "bound_by": pre["lk"]["bound_by"],
         "library_ms": None,  # no PyTorch call computes it
     }]
+    mp4_rows = mp4_result["kernels"]
+    for name, replaces in (("dequant_idct", "faceoff_tpu/io/video.py:61"),
+                           ("motion_compensate",
+                            "faceoff_tpu/io/video.py:61"),
+                           ("motion_search", "faceoff_tpu/io/video.py:22"),
+                           ("fdct_quant", "faceoff_tpu/io/video.py:22")):
+        row = mp4_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "faceoff_tpu_torch/csrc/mpeg4.cu",
+            # cv2's FFmpeg mp4v behind the JAX package's video I/O; no TPU
+            # kernel
+            "replaces": replaces,
+            "launches": mp4_counts[name],
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["kernel_ms"], "wrapper_ms": row["wrapper_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None})
     print(f"[total] {time.perf_counter() - t_all:.2f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,13 +2,13 @@
 encode a video to its discrete VQ codes, and optionally decode them back.
 
     python -m faceoff_tpu_torch.cli.encode --video_dir DIR \
-        --checkpoint_dir CKPT --out codes.npz [--decode recon.avi]
+        --checkpoint_dir CKPT --out codes.npz [--decode recon.mp4]
 
 It writes the (T, h, w) top and bottom code maps (`codes_top`,
 `codes_bottom`) of the model's `encode_codes` for downstream latent
 modelling; --decode writes `decode_code`'s reconstruction as an
-uncompressed AVI (an .mp4 name is refused: mp4 waits for an encoder,
-ROADMAP.md Queue 1 item 7b). The tokenizer takes 6-channel (face ||
+`mp4v` MP4 as the JAX CLI writes it (an .avi name: uncompressed AVI;
+another suffix is refused). The tokenizer takes 6-channel (face ||
 background) composites: a plain video's frame goes into both halves. The
 same flags and defaults as the JAX CLI; the model is built as
 `cli.common.restore_for_inference` builds it (bf16 on CUDA, float32 on
@@ -40,7 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt", default=None)
     p.add_argument("--out", default="codes.npz")
     p.add_argument("--decode", default=None,
-                   help="also decode the codes back to an .avi video")
+                   help="also decode the codes back to an .mp4 video")
     p.add_argument("--size", type=int, default=256)
     p.add_argument("--max_frames", type=int, default=32)
     p.add_argument("--fps", type=int, default=25)
@@ -58,10 +58,10 @@ def main(argv=None, device: DeviceLike = None) -> Dict[str, Any]:
     parser = build_parser()
     args = parser.parse_args(argv)
     common.refuse_no_pallas(parser, args)
-    if args.decode and osp.splitext(args.decode)[1].lower() != ".avi":
-        parser.error(f"--decode {args.decode}: the port writes uncompressed "
-                     "AVI; mp4 needs a video encoder (ROADMAP.md, Queue 1 "
-                     "item 7b, mp4 sample videos); name an .avi file")
+    if args.decode and osp.splitext(args.decode)[1].lower() not in (
+            ".mp4", ".avi"):
+        parser.error(f"--decode {args.decode}: the port writes .mp4 (mp4v) "
+                     "or .avi (uncompressed); name such a file")
     dev = resolve_device(device)
     paths = _landmark_paths(args.video_dir)[: args.max_frames]
     if not paths:
@@ -83,7 +83,7 @@ def main(argv=None, device: DeviceLike = None) -> Dict[str, Any]:
         dec = model.decode_code(id_t, id_b)
         recon = dec[..., :3].to(torch.float32).cpu().numpy()
         save_frames_as_video([denormalize(f) for f in recon], args.decode,
-                             fps=args.fps)
+                             fps=args.fps, device=dev)
         print(f"wrote {args.decode} ({recon.shape[0]} frames)", flush=True)
         out["recon"] = recon
     return out

@@ -12,11 +12,12 @@
 
 The same subcommands, flags and defaults as the JAX CLI, with the
 backends the JAX package picks without mediapipe and face_alignment
-(`preprocess/detectors.py`). Input videos are the port's AVI files
-(`*.avi`, uncompressed or motion JPEG; mp4 waits for a video codec,
-ROADMAP.md Queue 1 item 7b). On CUDA the clips are motion-JPEG AVI and the
-frames JPEG (nvJPEG); `main(argv, device="cpu")` runs on the CPU and
-writes uncompressed AVI clips and PNG frames.
+(`preprocess/detectors.py`). Input videos are `*.mp4` (mp4v, as the JAX
+package and cv2 write them; an H.264 mp4 raises naming its codec) and the
+port's `*.avi` (uncompressed or motion JPEG). The clips are `NNNNN.mp4`
+(mp4v) as the JAX package writes them; on CUDA the frames are JPEG
+(nvJPEG); `main(argv, device="cpu")` runs on the CPU and writes PNG
+frames.
 """
 
 from __future__ import annotations

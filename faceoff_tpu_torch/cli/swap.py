@@ -2,18 +2,18 @@
 `faceoff_tpu/cli/swap.py`:
 
     python -m faceoff_tpu_torch.cli.swap --source SRC_DIR --target TGT_DIR \
-        --checkpoint_dir CKPT [--ckpt STEP] --out swapped.avi
+        --checkpoint_dir CKPT [--ckpt STEP] --out swapped.mp4
 
 Given two video directories of the dataset contract (frames and landmark
 files) and a checkpoint of the port's trainer, writes the swapped video
 and, with --save_streams, the composite, background and naive-blend
-streams beside it (`{stem}_composite.avi`, `{stem}_background.avi`,
-`{stem}_naive_{blend}.avi`).
+streams beside it (`{stem}_composite.mp4`, `{stem}_background.mp4`,
+`{stem}_naive_{blend}.mp4`, with the suffix of --out).
 
-The same options and defaults as the JAX CLI, but for --out: videos are
-uncompressed AVI (`io/video.py`), so the default is swapped.avi and
-another suffix is refused (mp4 waits for an encoder: ROADMAP.md, Queue 1
-item 7b). The swap geometry runs per frame pair on the host
+The same options and defaults as the JAX CLI. Videos are `mp4v` MP4 as
+the JAX CLI writes them through cv2 (`io/video.py`, encoded on the
+device); an .avi --out writes uncompressed AVI and another suffix is
+refused. The swap geometry runs per frame pair on the host
 (`data/geometry.generate_warped_image`) or, with --device_pipeline, on
 the device in chunks of --chunk frames (`ops/swap.prepare_swap_batch`,
 one launch of the warp kernel a chunk on the card). The model runs in
@@ -48,8 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="target video dir (pose/background)")
     p.add_argument("--checkpoint_dir", required=True)
     p.add_argument("--ckpt", default=None, help="step (default latest)")
-    p.add_argument("--out", default="swapped.avi",
-                   help="the swapped video, an .avi file")
+    p.add_argument("--out", default="swapped.mp4",
+                   help="the swapped video, an .mp4 (or .avi) file")
     p.add_argument("--size", type=int, default=256)
     p.add_argument("--max_frames", type=int, default=None)
     p.add_argument("--fps", type=int, default=25)
@@ -139,10 +139,9 @@ def main(argv=None, device: DeviceLike = None) -> Dict:
     parser = build_parser()
     args = parser.parse_args(argv)
     common.refuse_no_pallas(parser, args)
-    if osp.splitext(args.out)[1].lower() != ".avi":
-        parser.error(f"--out {args.out}: the port writes uncompressed AVI; "
-                     "mp4 needs a video encoder (ROADMAP.md, Queue 1 item "
-                     "7b, mp4 sample videos); name an .avi file")
+    if osp.splitext(args.out)[1].lower() not in (".mp4", ".avi"):
+        parser.error(f"--out {args.out}: the port writes .mp4 (mp4v) or "
+                     ".avi (uncompressed); name such a file")
     dev = resolve_device(device)
 
     src_paths = _landmark_paths(args.source)
@@ -173,15 +172,15 @@ def main(argv=None, device: DeviceLike = None) -> Dict:
         frames_out = _run_chunked(args, state, sources, backgrounds, n, dev)
     seconds["model"] = time.perf_counter() - t0
 
-    save_frames_as_video(frames_out, args.out, fps=args.fps)
+    save_frames_as_video(frames_out, args.out, fps=args.fps, device=dev)
     print(f"wrote {args.out} ({len(frames_out)} frames)", flush=True)
     if args.save_streams:
-        stem = osp.splitext(args.out)[0]
-        names = [f"{stem}_composite.avi", f"{stem}_background.avi",
-                 f"{stem}_naive_{args.blend}.avi"]
+        stem, ext = osp.splitext(args.out)
+        names = [f"{stem}_composite{ext}", f"{stem}_background{ext}",
+                 f"{stem}_naive_{args.blend}{ext}"]
         for name, stream in zip(names, (sources, backgrounds, naives)):
             save_frames_as_video([denormalize(f) for f in stream], name,
-                                 fps=args.fps)
+                                 fps=args.fps, device=dev)
         print("wrote " + ", ".join(names), flush=True)
     return {"frames": frames_out, "sources": sources,
             "backgrounds": backgrounds, "naives": naives,

@@ -141,6 +141,16 @@ def build_everything(args, device: DeviceLike = None, *,
     group = collectives.default_group()
     cfg = config_lib.Config(
         model=common.model_config(args),
+        data=config_lib.DataConfig(
+            data_root=args.data_root,
+            resolution=args.size,
+            train_frames=args.train_frames,
+            val_frames=args.val_frames,
+            batch_clips=args.batch_size,
+            color_jitter=args.colorjit,
+            grayscale=args.gray,
+            num_workers=args.num_workers,
+        ),
         train=config_lib.TrainConfig(
             lr=args.lr,
             epochs=args.epoch,

@@ -1,16 +1,15 @@
-"""Configuration: copies of `faceoff_tpu.config`'s ModelConfig and of the
-part of its TrainConfig that the perceptual trainer uses, and a Config
-holding the two (the data settings stay on the command line's `args`;
-the mesh configuration waits for the multi-device port).
+"""Configuration: copies of `faceoff_tpu.config`'s dataclasses
+(ModelConfig, DataConfig, TrainConfig, MeshConfig, the Config that holds
+them and `default_config()`), with the same fields and defaults.
 
 The port keeps its own copy so that it never imports the JAX package.
-The defaults are the flagship operating point; the GAN stage's weights
-wait for that stage's port.
+The defaults are the flagship operating point.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,8 +43,35 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Data pipeline configuration: the clips' size and frame counts, the
+    perturbation magnitudes (+/-3 px translation, +/-3 deg rotation about
+    the eye centre, 90-110 % scale, arc/barrel radial distortion), colour
+    jitter, loader workers and the 68-point landmark layout (the jaw left
+    out of hull masks)."""
+
+    data_root: str = ""
+    resolution: int = 256
+    train_frames: int = 30
+    val_frames: int = 50
+    batch_clips: int = 1  # clips per device per step
+    translation_range: int = 3
+    rotation_range: float = 3.0
+    scale_range: Tuple[int, int] = (90, 110)
+    arc_max_deg: float = 30.0
+    mask_enlargement: int = 10
+    color_jitter: str = ""  # '', 'const' or 'random'
+    grayscale: bool = False
+    num_workers: int = 8
+    prefetch: int = 2
+    hull_start: int = 17
+    hull_end: int = 67
+    stable_points: Tuple[int, ...] = (33, 36, 39, 42, 45)
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Optimization configuration of the perceptual trainer."""
+    """Optimization configuration, the GAN stage's weights included."""
 
     lr: float = 3e-4
     epochs: int = 560
@@ -53,6 +79,13 @@ class TrainConfig:
     sched: str = ""  # '' or 'cycle'
     latent_loss_weight: float = 1.0
     perceptual_loss_weight: float = 1.0
+    g_loss_2d_weight: float = 0.25
+    g_loss_3d_weight: float = 0.25
+    image_disc_weight: float = 0.5
+    video_disc_weight: float = 0.5
+    d_loss_weight: float = 0.1
+    disc_lr: float = 3e-4
+    disc_frames: int = 16  # discriminator clip window
     seed: int = 0
     revive_codes_every: int = 0  # 0 = off; else re-seed dead VQ codes
     checkpoint_dir: str = "checkpoints"
@@ -61,6 +94,21 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout: `data` shards clips, `time` the frames of each
+    clip (`parallel.mesh.make_mesh`)."""
+
+    data: int = -1  # -1: all devices
+    time: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+
+
+def default_config() -> Config:
+    return Config()

@@ -1,0 +1,1291 @@
+// The MPEG-4 Part 2 (mp4v) codec of the port: the host entropy coder in
+// C++ and the four device stages as CUDA kernels (ops/mpeg4_cuda.py has
+// the plain version of each and the record layout; io/mpeg4.py has the
+// plain entropy coder, whose VLC tables mpeg4_set_vlc receives).
+//
+//   host   mpeg4_parse / mpeg4_write: VOP bits <-> macroblock records, the
+//          VOPs of a batch spread over threads (each VOP is independent
+//          once the VOL is known)
+//   V1     dequant_idct: H.263 inverse quantisation and the integer
+//          "simple" IDCT of every coded block of a batch, 8 threads a block
+//   V2     motion_compensate: half-pel prediction (+ residual, clipped) of
+//          one macroblock per CUDA block, every item (a VOP) of a launch in
+//          grid.y
+//   V3     motion_search: +-16 pixel full search on the reference window in
+//          shared memory with packed-byte SADs (__vsadu4), then half-pel
+//          refinement and the intra decision
+//   V4     fdct_quant: integer 8x8 forward DCT and H.263 quantisation, one
+//          thread a coefficient
+//
+// Every stage is integer arithmetic and matches its plain version bit for
+// bit. Without __CUDACC__ only the host coder is compiled (a C++ compiler
+// can build it alone).
+
+#include <algorithm>
+#include <atomic>
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <stdexcept>
+#include <string>
+#include <thread>
+#include <vector>
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#endif
+
+namespace {
+
+constexpr int MB_FIELDS = 12;
+constexpr int VOP_FIELDS = 6;
+constexpr int VOP_I = 0, VOP_P = 1, VOP_SKIP = 2;
+constexpr int MB_SKIP = 0, MB_INTER = 1, MB_INTRA = 2;
+
+// ---- VLC tables, set from Python ----------------------------------------
+
+enum Table { MCBPC_I = 0, MCBPC_P, CBPY, DC_L, DC_C, MVD, T_INTER, T_INTRA,
+             N_TABLES };
+constexpr int ESC = -1;
+constexpr int MCBPC_I_STUFFING = 8, MCBPC_P_STUFFING = 20;
+
+struct Vlc {
+  int bits = 0;
+  std::vector<int32_t> sym;
+  std::vector<uint8_t> len;
+  std::vector<uint32_t> code;   // by symbol index (non-TCOEF tables)
+  std::vector<uint8_t> clen;
+};
+
+Vlc g_vlc[N_TABLES];
+// TCOEF: code index of (last, run, level), LMAX, RMAX
+constexpr int MAXRUN = 64, MAXLEV = 32;
+int g_tidx[2][2][MAXRUN][MAXLEV];  // [table][last][run][level] -> entry or -1
+uint32_t g_tcode[2][128];
+uint8_t g_tlen[2][128];
+int g_lmax[2][2][MAXRUN];   // 0: no code for the run
+int g_rmax[2][2][MAXLEV];   // -1: no code for the level
+uint32_t g_esc_code = 0;
+int g_esc_len = 0;
+
+const int ZIGZAG[64] = {
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+const int ALT_H[64] = {
+    0, 1, 2, 3, 8, 9, 16, 17, 10, 11, 4, 5, 6, 7, 15, 14,
+    13, 12, 19, 18, 24, 25, 32, 33, 26, 27, 20, 21, 22, 23, 28, 29,
+    30, 31, 34, 35, 40, 41, 48, 49, 42, 43, 36, 37, 38, 39, 44, 45,
+    46, 47, 50, 51, 56, 57, 58, 59, 52, 53, 54, 55, 60, 61, 62, 63};
+int ALT_V[64];
+const int DQUANT[4] = {-1, -2, 1, 2};
+const int DC_THR_QP[8] = {99, 13, 15, 17, 19, 21, 23, 0};
+const int C_OFF[4] = {2, 1, 1, -1};
+
+int dc_scaler(int qp, bool luma) {
+  if (qp < 5) return 8;
+  if (luma) return qp < 9 ? 2 * qp : (qp < 25 ? qp + 8 : 2 * qp - 16);
+  return qp < 25 ? (qp + 13) / 2 : qp - 6;
+}
+
+int time_bits(int res) {
+  int b = 0;
+  while ((1 << b) < res) ++b;  // bit length of res - 1
+  return std::max(b, 1);
+}
+
+struct Error : std::runtime_error {
+  using std::runtime_error::runtime_error;
+};
+
+// ---- bits -------------------------------------------------------------------
+
+struct Reader {
+  const uint8_t* d;
+  int64_t end;   // in bits
+  int64_t pos;
+  uint32_t peek(int n) const {  // n in 1..32; reads past the end give 0
+    int64_t byte = pos >> 3;
+    uint64_t v = 0;
+    int64_t nbytes = (end + 7) >> 3;
+    for (int i = 0; i < 8; ++i) {
+      int64_t b = byte + i;
+      v = (v << 8) | (b < nbytes ? d[b] : 0);
+    }
+    return (uint32_t)((v << (pos & 7)) >> (64 - n));
+  }
+  uint32_t read(int n) {
+    if (n == 0) return 0;
+    uint32_t v = peek(n);
+    pos += n;
+    return v;
+  }
+  int vlc(const Vlc& t) {
+    uint32_t i = peek(t.bits);
+    int n = t.len[i];
+    if (!n) throw Error("no VLC code at bit " + std::to_string(pos));
+    pos += n;
+    return t.sym[i];
+  }
+  void marker() {
+    if (!read(1)) throw Error("marker bit missing");
+  }
+  int64_t left() const { return end - pos; }
+};
+
+struct Writer {
+  std::vector<uint8_t> out;
+  uint64_t acc = 0;
+  int nacc = 0;
+  int64_t nbits = 0;
+  void put(uint32_t v, int n) {
+    if (n == 0) return;
+    if (n < 32) v &= (1u << n) - 1;
+    acc = (acc << n) | v;
+    nacc += n;
+    nbits += n;
+    while (nacc >= 8) {
+      nacc -= 8;
+      out.push_back((uint8_t)(acc >> nacc));
+    }
+  }
+  void stuff() {
+    put(0, 1);
+    int k = (int)((8 - (nbits & 7)) & 7);
+    put((1u << k) - 1, k);
+  }
+  void flush() {
+    if (nacc) put(0, 8 - nacc);
+  }
+};
+
+// ---- predictors ------------------------------------------------------------
+
+struct Vol {
+  int width, height, res, resync_disable, qprec;
+  int mbw, mbh, n_mb, tbits, mbbits;
+  explicit Vol(const int32_t* v)
+      : width(v[0]), height(v[1]), res(v[2]), resync_disable(v[3]),
+        qprec(v[4]) {
+    mbw = (width + 15) / 16;
+    mbh = (height + 15) / 16;
+    n_mb = mbw * mbh;
+    tbits = time_bits(res);
+    int b = 0;
+    while ((1 << b) < n_mb) ++b;
+    mbbits = std::max(b, 1);
+  }
+};
+
+struct Pred {
+  int mbw, mbh, off[3], stride[3];
+  std::vector<int> dc;
+  std::vector<int16_t> row, col;  // 7 levels a block
+  std::vector<uint8_t> intra;
+  std::vector<int> qp;
+  std::vector<int> mvx, mvy;
+  int start = 0;
+  explicit Pred(const Vol& v) : mbw(v.mbw), mbh(v.mbh) {
+    int nl = 4 * mbw * mbh, nc = mbw * mbh;
+    off[0] = 0; off[1] = nl; off[2] = nl + nc;
+    stride[0] = 2 * mbw; stride[1] = stride[2] = mbw;
+    int n = nl + 2 * nc;
+    dc.assign(n, 1024);
+    row.assign(7 * n, 0);
+    col.assign(7 * n, 0);
+    intra.assign(nc, 0);
+    qp.assign(nc, 0);
+    mvx.assign(nl, 0);
+    mvy.assign(nl, 0);
+  }
+  void block(int m, int b, int& plane, int& y, int& x) const {
+    int my = m / mbw, mx = m % mbw;
+    if (b < 4) { plane = 0; y = 2 * my + (b >> 1); x = 2 * mx + (b & 1); }
+    else { plane = b - 3; y = my; x = mx; }
+  }
+  int key(int plane, int y, int x) const {
+    if (y < 0 || x < 0) return -1;
+    int s = plane == 0 ? 1 : 0;
+    int m = (y >> s) * mbw + (x >> s);
+    if (m < start || !intra[m]) return -1;
+    return off[plane] + y * stride[plane] + x;
+  }
+  // key of block, predicting DC, top?, key of the predicting block
+  void dc_direction(int m, int b, int& k, int& pdc, int& top, int& pk) const {
+    int plane, y, x;
+    block(m, b, plane, y, x);
+    int ka = key(plane, y, x - 1), kb = key(plane, y - 1, x - 1),
+        kc = key(plane, y - 1, x);
+    int fa = ka < 0 ? 1024 : dc[ka], fb = kb < 0 ? 1024 : dc[kb],
+        fc = kc < 0 ? 1024 : dc[kc];
+    k = off[plane] + y * stride[plane] + x;
+    if (std::abs(fa - fb) < std::abs(fb - fc)) { pdc = fc; top = 1; pk = kc; }
+    else { pdc = fa; top = 0; pk = ka; }
+  }
+  void ac_prediction(int pk, int top, int q, int add[7]) const {
+    if (pk < 0) { for (int i = 0; i < 7; ++i) add[i] = 0; return; }
+    const int16_t* v = top ? &row[7 * pk] : &col[7 * pk];
+    int plane = pk < off[1] ? 0 : (pk < off[2] ? 1 : 2);
+    int local = pk - off[plane];
+    int y = local / stride[plane], x = local % stride[plane];
+    int s = plane == 0 ? 1 : 0;
+    int qa = qp[(y >> s) * mbw + (x >> s)];
+    for (int i = 0; i < 7; ++i) {
+      int a = v[i] * qa;
+      add[i] = qa == q ? v[i]
+                       : (a >= 0 ? (a + (q >> 1)) / q : -((-a + (q >> 1)) / q));
+    }
+  }
+  void store_intra(int k, const int16_t* lv, int scale) {
+    int d = lv[0] * scale;
+    dc[k] = d < 0 ? 0 : std::min(d, 2047);
+    for (int i = 1; i < 8; ++i) {
+      row[7 * k + i - 1] = lv[i];
+      col[7 * k + i - 1] = lv[8 * i];
+    }
+  }
+  bool mv(int y, int x, int& vx, int& vy) const {
+    if (y < 0 || x < 0 || x >= 2 * mbw) return false;
+    if ((y >> 1) * mbw + (x >> 1) < start) return false;
+    int k = y * 2 * mbw + x;
+    vx = mvx[k]; vy = mvy[k];
+    return true;
+  }
+  void mv_prediction(int m, int b, int& px, int& py) const {
+    int plane, y, x;
+    block(m, b, plane, y, x);
+    int cx[3] = {0, 0, 0}, cy[3] = {0, 0, 0};
+    bool ok[3] = {mv(y, x - 1, cx[0], cy[0]), mv(y - 1, x, cx[1], cy[1]),
+                  mv(y - 1, x + C_OFF[b], cx[2], cy[2])};
+    int nv = ok[0] + ok[1] + ok[2];
+    if (nv == 0) { px = py = 0; return; }
+    if (nv == 1) {
+      for (int i = 0; i < 3; ++i)
+        if (ok[i]) { px = cx[i]; py = cy[i]; }
+      return;
+    }
+    auto med = [](int a, int b, int c) {
+      return std::max(std::min(a, b), std::min(std::max(a, b), c));
+    };
+    px = med(cx[0], cx[1], cx[2]);
+    py = med(cy[0], cy[1], cy[2]);
+  }
+  void set_mvs(int m, const int v[8]) {
+    for (int b = 0; b < 4; ++b) {
+      int plane, y, x;
+      block(m, b, plane, y, x);
+      int k = y * 2 * mbw + x;
+      mvx[k] = v[2 * b];
+      mvy[k] = v[2 * b + 1];
+    }
+  }
+};
+
+// ---- parsing ----------------------------------------------------------------
+
+void read_tcoef(Reader& br, int t, int& last, int& run, int& level) {
+  const Vlc& v = g_vlc[t == 0 ? T_INTER : T_INTRA];
+  int s = br.vlc(v);
+  if (s != ESC) {
+    last = s >> 16; run = (s >> 8) & 255; level = s & 255;
+    if (br.read(1)) level = -level;
+    return;
+  }
+  if (br.read(1) == 0) {
+    s = br.vlc(v);
+    if (s == ESC) throw Error("escape inside escape mode 1");
+    last = s >> 16; run = (s >> 8) & 255; level = s & 255;
+    level += g_lmax[t][last][run];
+    if (br.read(1)) level = -level;
+    return;
+  }
+  if (br.read(1) == 0) {
+    s = br.vlc(v);
+    if (s == ESC) throw Error("escape inside escape mode 2");
+    last = s >> 16; run = (s >> 8) & 255; level = s & 255;
+    run += g_rmax[t][last][level] + 1;
+    if (br.read(1)) level = -level;
+    return;
+  }
+  last = br.read(1);
+  run = br.read(6);
+  br.marker();
+  level = br.read(12);
+  br.marker();
+  if (level >= 2048) level -= 4096;
+  if (level == 0 || level == -2048) throw Error("forbidden escape level");
+}
+
+void read_levels(Reader& br, int t, const int* scan, int16_t* lv, int pos) {
+  while (true) {
+    int last, run, level;
+    read_tcoef(br, t, last, run, level);
+    pos += run;
+    if (pos > 63) throw Error("more than 64 coefficients in a block");
+    lv[scan[pos]] = (int16_t)level;
+    ++pos;
+    if (last) return;
+  }
+}
+
+int read_mv(Reader& br, int pred, int fcode) {
+  int code = br.vlc(g_vlc[MVD]);
+  int val = 0;
+  if (code) {
+    int sign = br.read(1);
+    int r = fcode - 1;
+    val = r ? ((code - 1) << r) + (int)br.read(r) + 1 : code;
+    if (sign) val = -val;
+  }
+  int f32 = 32 << (fcode - 1);
+  int v = pred + val + f32;
+  v %= 2 * f32;
+  if (v < 0) v += 2 * f32;
+  return v - f32;
+}
+
+int resync_length(Reader& br, int prefix) {
+  int n = 8 - (int)(br.pos & 7);
+  if (br.peek(n) != (1u << (n - 1)) - 1) return 0;
+  Reader r = br;
+  r.pos += n;
+  bool ok = r.left() > prefix && r.peek(prefix + 1) == 1;
+  return ok ? n : 0;
+}
+
+struct ParsedVop {
+  int32_t vop[VOP_FIELDS];
+  std::vector<int32_t> mb;
+  std::vector<int16_t> blocks;
+  std::vector<int32_t> bidx;
+  std::string error;
+};
+
+int64_t find_vop(const uint8_t* d, int64_t n) {
+  for (int64_t i = 0; i + 3 < n; ++i)
+    if (d[i] == 0 && d[i + 1] == 0 && d[i + 2] == 1 && d[i + 3] == 0xB6)
+      return (i + 4) * 8;
+  throw Error("sample holds no VOP start code");
+}
+
+void parse_vop(const uint8_t* d, int64_t n, const Vol& vol, ParsedVop& out) {
+  Reader br{d, n * 8, find_vop(d, n)};
+  out.mb.assign((size_t)vol.n_mb * MB_FIELDS, 0);
+  int kind = br.read(2);
+  if (kind == 2) throw Error("B-VOPs (Advanced Simple Profile)");
+  if (kind == 3) throw Error("S-VOPs (sprites or GMC)");
+  int modulo = 0;
+  while (br.read(1)) {
+    if (++modulo > (1 << 16)) throw Error("endless modulo_time_base");
+  }
+  br.marker();
+  int incr = br.read(vol.tbits);
+  br.marker();
+  if (!br.read(1)) {
+    int32_t v[VOP_FIELDS] = {VOP_SKIP, 0, 1, 1, modulo, incr};
+    std::memcpy(out.vop, v, sizeof(v));
+    return;
+  }
+  int rounding = kind == VOP_P ? br.read(1) : 0;
+  int thr = br.read(3);
+  int qp = br.read(vol.qprec);
+  if (qp == 0) throw Error("vop_quant 0");
+  int fcode = 1;
+  if (kind == VOP_P) {
+    fcode = br.read(3);
+    if (fcode == 0) throw Error("vop_fcode_forward 0");
+  }
+  int32_t v[VOP_FIELDS] = {kind, rounding, qp, fcode, modulo, incr};
+  std::memcpy(out.vop, v, sizeof(v));
+  Pred pred(vol);
+  int prefix = kind == VOP_I ? 16 : 15 + fcode;
+  int qmax = (1 << vol.qprec) - 1;
+  int m = 0;
+  int16_t lv[64];
+  while (m < vol.n_mb) {
+    if (!vol.resync_disable && m > 0) {
+      int k = resync_length(br, prefix);
+      if (k) {
+        br.pos += k + prefix + 1;
+        int m0 = br.read(vol.mbbits);
+        qp = br.read(vol.qprec);
+        if (br.read(1)) {
+          while (br.read(1)) {}
+          br.marker();
+          br.read(vol.tbits);
+          br.marker();
+          br.read(2);
+          br.read(3);
+          if (kind == VOP_P) br.read(3);
+        }
+        if (m0 != m) throw Error("video packet starts at an unexpected "
+                                 "macroblock");
+        pred.start = m;
+      }
+    }
+    int32_t* row = &out.mb[(size_t)m * MB_FIELDS];
+    int mcbpc;
+    if (kind == VOP_P) {
+      if (br.read(1)) {
+        pred.qp[m] = qp;
+        pred.intra[m] = 0;
+        int z[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+        pred.set_mvs(m, z);
+        row[1] = qp;
+        ++m;
+        continue;
+      }
+      mcbpc = br.vlc(g_vlc[MCBPC_P]);
+      if (mcbpc == MCBPC_P_STUFFING) continue;
+    } else {
+      mcbpc = br.vlc(g_vlc[MCBPC_I]);
+      if (mcbpc == MCBPC_I_STUFFING) continue;
+      mcbpc += 12;
+    }
+    int mb_type = mcbpc >> 2, cbpc = mcbpc & 3;
+    bool intra = mb_type >= 3;
+    int acp = intra ? br.read(1) : 0;
+    int cbpy = br.vlc(g_vlc[CBPY]);
+    if (!intra) cbpy = 15 - cbpy;
+    if (mb_type == 1 || mb_type == 4)
+      qp = std::min(std::max(qp + DQUANT[br.read(2)], 1), qmax);
+    int cbp = (cbpy << 2) | cbpc;
+    pred.qp[m] = qp;
+    pred.intra[m] = intra;
+    int vec[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    if (!intra) {
+      int nv = mb_type == 2 ? 4 : 1;
+      for (int b = 0; b < nv; ++b) {
+        int px, py;
+        pred.mv_prediction(m, b, px, py);
+        int vx = read_mv(br, px, fcode), vy = read_mv(br, py, fcode);
+        for (int j = b; j < 4; ++j) { vec[2 * j] = vx; vec[2 * j + 1] = vy; }
+        pred.set_mvs(m, vec);
+      }
+    }
+    pred.set_mvs(m, vec);
+    row[0] = intra ? MB_INTRA : MB_INTER;
+    row[1] = qp; row[2] = cbp; row[3] = acp;
+    for (int i = 0; i < 8; ++i) row[4 + i] = vec[i];
+    bool dc_vlc = qp < DC_THR_QP[thr];
+    for (int b = 0; b < 6; ++b) {
+      int coded = (cbp >> (5 - b)) & 1;
+      std::memset(lv, 0, sizeof(lv));
+      if (!intra) {
+        if (coded) {
+          read_levels(br, 0, ZIGZAG, lv, 0);
+          out.blocks.insert(out.blocks.end(), lv, lv + 64);
+          out.bidx.push_back(m * 6 + b);
+        }
+        continue;
+      }
+      int key, pdc, top, pk;
+      pred.dc_direction(m, b, key, pdc, top, pk);
+      int scale = dc_scaler(qp, b < 4);
+      int diff = 0;
+      if (dc_vlc) {
+        int size = br.vlc(g_vlc[b < 4 ? DC_L : DC_C]);
+        if (size) {
+          diff = br.read(size);
+          if (!(diff >> (size - 1))) diff -= (1 << size) - 1;
+          if (size > 8) br.marker();
+        }
+      }
+      const int* scan = !acp ? ZIGZAG : (top ? ALT_H : ALT_V);
+      if (coded) read_levels(br, 1, scan, lv, dc_vlc ? 1 : 0);
+      if (!dc_vlc) diff = lv[0];
+      lv[0] = (int16_t)(diff + (pdc + (scale >> 1)) / scale);
+      if (acp) {
+        int add[7];
+        pred.ac_prediction(pk, top, qp, add);
+        for (int i = 1; i < 8; ++i) lv[top ? i : 8 * i] += add[i - 1];
+      }
+      pred.store_intra(key, lv, scale);
+      out.blocks.insert(out.blocks.end(), lv, lv + 64);
+      out.bidx.push_back(m * 6 + b);
+    }
+    ++m;
+  }
+}
+
+// ---- writing ----------------------------------------------------------------
+
+void put_code(Writer& bw, int t, int sym) {
+  bw.put(g_vlc[t].code[sym], g_vlc[t].clen[sym]);
+}
+
+void put_tcoef(Writer& bw, int t, int last, int run, int level) {
+  int a = std::abs(level), sign = level < 0;
+  auto idx = [&](int l, int r, int v) {
+    if (r < 0 || r >= MAXRUN || v <= 0 || v >= MAXLEV) return -1;
+    return g_tidx[t][l][r][v];
+  };
+  int i = idx(last, run, a);
+  if (i >= 0) {
+    bw.put(g_tcode[t][i], g_tlen[t][i]);
+    bw.put(sign, 1);
+    return;
+  }
+  if (run < MAXRUN && g_lmax[t][last][run]) {
+    i = idx(last, run, a - g_lmax[t][last][run]);
+    if (i >= 0) {
+      bw.put(g_esc_code, g_esc_len);
+      bw.put(0, 1);
+      bw.put(g_tcode[t][i], g_tlen[t][i]);
+      bw.put(sign, 1);
+      return;
+    }
+  }
+  if (a < MAXLEV && g_rmax[t][last][a] >= 0) {
+    i = idx(last, run - g_rmax[t][last][a] - 1, a);
+    if (i >= 0) {
+      bw.put(g_esc_code, g_esc_len);
+      bw.put(2, 2);
+      bw.put(g_tcode[t][i], g_tlen[t][i]);
+      bw.put(sign, 1);
+      return;
+    }
+  }
+  if (a == 0 || a > 2047 || run > 63) throw Error("event out of range");
+  bw.put(g_esc_code, g_esc_len);
+  bw.put(3, 2);
+  bw.put(last, 1);
+  bw.put(run, 6);
+  bw.put(1, 1);
+  bw.put((uint32_t)level & 0xFFF, 12);
+  bw.put(1, 1);
+}
+
+void put_levels(Writer& bw, int t, const int* scan, const int* lv, int start) {
+  int nz[64], k = 0;
+  for (int i = start; i < 64; ++i)
+    if (lv[scan[i]]) nz[k++] = i;
+  int prev = start;
+  for (int j = 0; j < k; ++j) {
+    put_tcoef(bw, t, j == k - 1, nz[j] - prev, lv[scan[nz[j]]]);
+    prev = nz[j] + 1;
+  }
+}
+
+void put_mvd(Writer& bw, int diff, int fcode) {
+  int f32 = 32 << (fcode - 1);
+  diff = ((diff + f32) % (2 * f32) + 2 * f32) % (2 * f32) - f32;
+  if (diff == 0) { bw.put(1, 1); return; }
+  int r = fcode - 1;
+  int a = std::abs(diff) - 1;
+  put_code(bw, MVD, (a >> r) + 1);
+  bw.put(diff < 0, 1);
+  bw.put(a & ((1 << r) - 1), r);
+}
+
+void put_dc(Writer& bw, int diff, bool luma) {
+  int a = std::abs(diff), size = 0;
+  while ((1 << size) <= a) ++size;
+  put_code(bw, luma ? DC_L : DC_C, size);
+  if (size) {
+    bw.put(diff > 0 ? diff : diff + (1 << size) - 1, size);
+    if (size > 8) bw.put(1, 1);
+  }
+}
+
+// one VOP of the encoder: no video packets, intra_dc_vlc_thr 0, no AC
+// prediction (the writer of io/mpeg4.py with its defaults)
+void write_vop(const int32_t* vop, const int32_t* mb, const int16_t* coef,
+               const Vol& vol, std::vector<uint8_t>& out) {
+  int kind = vop[0], rounding = vop[1], qp = vop[2], fcode = vop[3],
+      modulo = vop[4], incr = vop[5];
+  Writer bw;
+  bw.put(0x1B6, 32);
+  bw.put(kind == VOP_SKIP ? VOP_P : kind, 2);
+  for (int i = 0; i < modulo; ++i) bw.put(1, 1);
+  bw.put(0, 1);
+  bw.put(1, 1);
+  bw.put(incr, vol.tbits);
+  bw.put(1, 1);
+  if (kind == VOP_SKIP) {
+    bw.put(0, 1);
+    bw.stuff();
+    bw.flush();
+    out.swap(bw.out);
+    return;
+  }
+  bw.put(1, 1);
+  if (kind == VOP_P) bw.put(rounding, 1);
+  bw.put(0, 3);
+  bw.put(qp, vol.qprec);
+  if (kind == VOP_P) bw.put(fcode, 3);
+  Pred pred(vol);
+  int sent[6][64];
+  int16_t lv16[64];
+  for (int m = 0; m < vol.n_mb; ++m) {
+    const int32_t* row = mb + (size_t)m * MB_FIELDS;
+    const int16_t* lv = coef + (size_t)m * 6 * 64;
+    int mode = row[0], mqp = row[1];
+    bool anyv = false, anyl = false, four = false;
+    for (int i = 0; i < 8; ++i) anyv |= row[4 + i] != 0;
+    for (int i = 0; i < 6 * 64; ++i) anyl |= lv[i] != 0;
+    for (int b = 1; b < 4; ++b)
+      four |= row[4 + 2 * b] != row[4] || row[5 + 2 * b] != row[5];
+    if (kind == VOP_P && (mode == MB_SKIP ||
+                          (mode == MB_INTER && !anyv && !anyl))) {
+      bw.put(1, 1);
+      pred.qp[m] = qp;
+      pred.intra[m] = 0;
+      int z[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+      pred.set_mvs(m, z);
+      continue;
+    }
+    bool intra = mode == MB_INTRA || kind == VOP_I;
+    int dq = mqp - qp;
+    int dqi = -1;
+    for (int i = 0; i < 4; ++i)
+      if (DQUANT[i] == dq) dqi = i;
+    if (dq && dqi < 0) throw Error("qp step is no DQUANT step");
+    four = four && !intra;
+    if (four && dq) throw Error("four vectors and DQUANT");
+    qp = mqp;
+    pred.qp[m] = qp;
+    pred.intra[m] = intra;
+    for (int b = 0; b < 6; ++b)
+      for (int i = 0; i < 64; ++i) sent[b][i] = lv[b * 64 + i];
+    int cbp = 0;
+    if (intra) {
+      int z[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+      pred.set_mvs(m, z);
+      for (int b = 0; b < 6; ++b) {
+        int key, pdc, top, pk;
+        pred.dc_direction(m, b, key, pdc, top, pk);
+        int scale = dc_scaler(qp, b < 4);
+        sent[b][0] -= (pdc + (scale >> 1)) / scale;
+        std::memcpy(lv16, lv + b * 64, sizeof(lv16));
+        pred.store_intra(key, lv16, scale);
+        bool any = false;
+        for (int i = 1; i < 64; ++i) any |= sent[b][i] != 0;
+        cbp |= (int)any << (5 - b);
+      }
+    } else {
+      for (int b = 0; b < 6; ++b) {
+        bool any = false;
+        for (int i = 0; i < 64; ++i) any |= sent[b][i] != 0;
+        cbp |= (int)any << (5 - b);
+      }
+    }
+    int mb_type = (intra ? 3 : (four ? 2 : 0)) + (dq ? 1 : 0);
+    if (kind == VOP_P) {
+      bw.put(0, 1);
+      put_code(bw, MCBPC_P, 4 * mb_type + (cbp & 3));
+    } else {
+      put_code(bw, MCBPC_I, 4 * (mb_type - 3) + (cbp & 3));
+    }
+    if (intra) bw.put(0, 1);  // ac_pred_flag
+    put_code(bw, CBPY, intra ? (cbp >> 2) : 15 - (cbp >> 2));
+    if (dq) bw.put(dqi, 2);
+    if (!intra) {
+      int vec[8];
+      int nv = four ? 4 : 1;
+      for (int b = 0; b < nv; ++b) {
+        int px, py;
+        pred.mv_prediction(m, b, px, py);
+        put_mvd(bw, row[4 + 2 * b] - px, fcode);
+        put_mvd(bw, row[5 + 2 * b] - py, fcode);
+        for (int j = 0; j < 4; ++j) {
+          int s = j < b ? j : b;
+          vec[2 * j] = row[4 + 2 * s];
+          vec[2 * j + 1] = row[5 + 2 * s];
+        }
+        pred.set_mvs(m, vec);
+      }
+      for (int j = 0; j < 4; ++j) {
+        int s = four ? j : 0;
+        vec[2 * j] = row[4 + 2 * s];
+        vec[2 * j + 1] = row[5 + 2 * s];
+      }
+      pred.set_mvs(m, vec);
+    }
+    for (int b = 0; b < 6; ++b) {
+      if (intra) {
+        put_dc(bw, sent[b][0], b < 4);
+        if ((cbp >> (5 - b)) & 1) put_levels(bw, 1, ZIGZAG, sent[b], 1);
+      } else if ((cbp >> (5 - b)) & 1) {
+        put_levels(bw, 0, ZIGZAG, sent[b], 0);
+      }
+    }
+  }
+  bw.stuff();
+  bw.flush();
+  out.swap(bw.out);
+}
+
+// ---- handles -------------------------------------------------------------------
+
+struct Handle {
+  virtual ~Handle() = default;
+  std::string error;
+};
+
+struct ParseHandle : Handle {
+  std::vector<ParsedVop> vops;
+  int n_mb = 0;
+};
+
+struct WriteHandle : Handle {
+  std::vector<std::vector<uint8_t>> out;
+};
+
+template <typename F>
+void parallel(int n, int threads, F fn) {
+  threads = std::max(1, std::min(threads, n));
+  std::atomic<int> next{0};
+  std::vector<std::thread> pool;
+  for (int t = 0; t < threads; ++t)
+    pool.emplace_back([&] {
+      for (int i = next++; i < n; i = next++) fn(i);
+    });
+  for (auto& th : pool) th.join();
+}
+
+}  // namespace
+
+extern "C" {
+
+// table: 0..7 as enum Table; sym -1 is the TCOEF escape. For TCOEF tables
+// sym = last << 16 | run << 8 | level.
+int mpeg4_set_vlc(int table, int n, const int32_t* codes,
+                  const int32_t* lens, const int32_t* syms) {
+  if (table < 0 || table >= N_TABLES) return 1;
+  Vlc& v = g_vlc[table];
+  v.bits = 0;
+  for (int i = 0; i < n; ++i) v.bits = std::max(v.bits, (int)lens[i]);
+  v.sym.assign((size_t)1 << v.bits, 0);
+  v.len.assign((size_t)1 << v.bits, 0);
+  v.code.assign(n, 0);
+  v.clen.assign(n, 0);
+  bool tcoef = table == T_INTER || table == T_INTRA;
+  int t = table == T_INTRA ? 1 : 0;
+  if (tcoef) {
+    for (int l = 0; l < 2; ++l) {
+      for (int r = 0; r < MAXRUN; ++r) {
+        g_lmax[t][l][r] = 0;
+        for (int k = 0; k < MAXLEV; ++k) g_tidx[t][l][r][k] = -1;
+      }
+      for (int k = 0; k < MAXLEV; ++k) g_rmax[t][l][k] = -1;
+    }
+  }
+  for (int i = 0; i < n; ++i) {
+    uint32_t lo = (uint32_t)codes[i] << (v.bits - lens[i]);
+    for (uint32_t j = lo; j < lo + (1u << (v.bits - lens[i])); ++j) {
+      if (v.len[j]) return 2;  // overlapping codes
+      v.sym[j] = syms[i];
+      v.len[j] = (uint8_t)lens[i];
+    }
+    if (!tcoef) {
+      if (syms[i] < 0 || syms[i] >= n) return 3;
+      v.code[syms[i]] = codes[i];
+      v.clen[syms[i]] = (uint8_t)lens[i];
+    } else if (syms[i] == ESC) {
+      g_esc_code = codes[i];
+      g_esc_len = lens[i];
+    } else {
+      int l = syms[i] >> 16, r = (syms[i] >> 8) & 255, lev = syms[i] & 255;
+      if (i >= 128 || r >= MAXRUN || lev >= MAXLEV) return 4;
+      g_tidx[t][l][r][lev] = i;
+      g_tcode[t][i] = codes[i];
+      g_tlen[t][i] = (uint8_t)lens[i];
+      g_lmax[t][l][r] = std::max(g_lmax[t][l][r], lev);
+      g_rmax[t][l][lev] = std::max(g_rmax[t][l][lev], r);
+    }
+  }
+  for (int p = 0; p < 64; ++p) ALT_V[p] = (ALT_H[p] % 8) * 8 + ALT_H[p] / 8;
+  return 0;
+}
+
+// Parse n VOPs (sample i at data + offsets[i], sizes[i] bytes). counts[0]
+// gets the coded blocks of the batch. Returns a handle for
+// mpeg4_parse_fetch; a parse error leaves its message in mpeg4_error.
+void* mpeg4_parse(const uint8_t* data, const int64_t* offsets,
+                  const int64_t* sizes, int n, const int32_t* vol_fields,
+                  int threads, int64_t* counts) {
+  auto* h = new ParseHandle();
+  Vol vol(vol_fields);
+  h->n_mb = vol.n_mb;
+  h->vops.resize(n);
+  parallel(n, threads, [&](int i) {
+    try {
+      parse_vop(data + offsets[i], sizes[i], vol, h->vops[i]);
+    } catch (const std::exception& e) {
+      h->vops[i].error = "VOP " + std::to_string(i) + ": " + e.what();
+    }
+  });
+  int64_t nb = 0;
+  for (auto& v : h->vops) {
+    if (!v.error.empty() && h->error.empty()) h->error = v.error;
+    nb += (int64_t)v.bidx.size();
+  }
+  counts[0] = nb;
+  return h;
+}
+
+int mpeg4_parse_fetch(void* handle, int32_t* vop, int32_t* mb,
+                      int16_t* blocks, int32_t* bidx) {
+  auto* h = static_cast<ParseHandle*>(handle);
+  if (!h->error.empty()) return 1;
+  int64_t nb = 0;
+  int64_t per = (int64_t)h->n_mb * MB_FIELDS;
+  for (size_t f = 0; f < h->vops.size(); ++f) {
+    const ParsedVop& v = h->vops[f];
+    std::memcpy(vop + f * VOP_FIELDS, v.vop, sizeof(v.vop));
+    if (v.mb.empty())
+      std::memset(mb + f * per, 0, per * sizeof(int32_t));
+    else
+      std::memcpy(mb + f * per, v.mb.data(), per * sizeof(int32_t));
+    std::memcpy(blocks + nb * 64, v.blocks.data(),
+                v.blocks.size() * sizeof(int16_t));
+    int32_t base = (int32_t)(f * h->n_mb * 6);
+    for (size_t j = 0; j < v.bidx.size(); ++j)
+      bidx[nb + j] = base + v.bidx[j];
+    nb += (int64_t)v.bidx.size();
+  }
+  return 0;
+}
+
+// Write n VOPs from records vop (n, 6), mb (n, M, 12), coef (n, M, 6, 64).
+// total[0] gets the bytes of all samples.
+void* mpeg4_write(const int32_t* vop, const int32_t* mb, const int16_t* coef,
+                  int n, const int32_t* vol_fields, int threads,
+                  int64_t* total) {
+  auto* h = new WriteHandle();
+  Vol vol(vol_fields);
+  h->out.resize(n);
+  std::vector<std::string> errs(n);
+  parallel(n, threads, [&](int i) {
+    try {
+      write_vop(vop + (size_t)i * VOP_FIELDS,
+                mb + (size_t)i * vol.n_mb * MB_FIELDS,
+                coef + (size_t)i * vol.n_mb * 6 * 64, vol, h->out[i]);
+    } catch (const std::exception& e) {
+      errs[i] = "VOP " + std::to_string(i) + ": " + e.what();
+    }
+  });
+  int64_t s = 0;
+  for (int i = 0; i < n; ++i) {
+    if (!errs[i].empty() && h->error.empty()) h->error = errs[i];
+    s += (int64_t)h->out[i].size();
+  }
+  total[0] = s;
+  return h;
+}
+
+int mpeg4_write_fetch(void* handle, uint8_t* out, int64_t* sizes) {
+  auto* h = static_cast<WriteHandle*>(handle);
+  if (!h->error.empty()) return 1;
+  int64_t pos = 0;
+  for (size_t i = 0; i < h->out.size(); ++i) {
+    std::memcpy(out + pos, h->out[i].data(), h->out[i].size());
+    sizes[i] = (int64_t)h->out[i].size();
+    pos += sizes[i];
+  }
+  return 0;
+}
+
+const char* mpeg4_error(void* handle) {
+  return static_cast<Handle*>(handle)->error.c_str();
+}
+
+int mpeg4_free(void* handle) {
+  delete static_cast<Handle*>(handle);
+  return 0;
+}
+
+}  // extern "C"
+
+#ifdef __CUDACC__
+
+namespace {
+
+__constant__ int kW[8] = {0, 22725, 21407, 19266, 16383, 12873, 8867, 4520};
+__constant__ int kFdct[64] = {
+    2896, 2896, 2896, 2896, 2896, 2896, 2896, 2896,
+    4017, 3406, 2276, 799, -799, -2276, -3406, -4017,
+    3784, 1567, -1567, -3784, -3784, -1567, 1567, 3784,
+    3406, -799, -4017, -2276, 2276, 4017, 799, -3406,
+    2896, -2896, -2896, 2896, 2896, -2896, -2896, 2896,
+    2276, -4017, 799, 3406, -3406, -799, 4017, -2276,
+    1567, -3784, 3784, -1567, -1567, 3784, -3784, 1567,
+    799, -2276, 3406, -4017, 4017, -3406, 2276, -799};
+__constant__ int kChromaRound[16] = {0, 0, 0, 1, 1, 1, 1, 1,
+                                     1, 1, 1, 1, 1, 1, 2, 2};
+
+__device__ __forceinline__ int d_dc_scaler(int qp, bool luma) {
+  if (qp < 5) return 8;
+  if (luma) return qp < 9 ? 2 * qp : (qp < 25 ? qp + 8 : 2 * qp - 16);
+  return qp < 25 ? (qp + 13) / 2 : qp - 6;
+}
+
+__device__ __forceinline__ int d_wrap16(long long v) {
+  return (int)(int16_t)(uint16_t)(v & 0xFFFF);
+}
+
+// V1: 32 blocks a CUDA block, 8 threads a block (a row, then a column)
+constexpr int V1_BLOCKS = 32;
+
+__global__ void dequant_idct_kernel(const int16_t* __restrict__ blocks,
+                                    const int32_t* __restrict__ bidx, int nb,
+                                    const int32_t* __restrict__ mb,
+                                    int16_t* __restrict__ out) {
+  __shared__ int16_t rows[V1_BLOCKS][64];
+  int local = threadIdx.x >> 3, r = threadIdx.x & 7;
+  int j = blockIdx.x * V1_BLOCKS + local;
+  bool live = j < nb;
+  int idx = live ? bidx[j] : 0;
+  if (live) {
+    const int32_t* rec = mb + (size_t)(idx / 6) * MB_FIELDS;
+    int qp = rec[1];
+    bool intra = rec[0] == MB_INTRA;
+    bool luma = (idx % 6) < 4;
+    int x[8];
+    for (int c = 0; c < 8; ++c) {
+      int l = blocks[(size_t)j * 64 + r * 8 + c];
+      int f;
+      if (r == 0 && c == 0 && intra) {
+        f = l * d_dc_scaler(qp, luma);
+      } else if (l == 0) {
+        f = 0;
+      } else {
+        int mag = qp * (2 * abs(l) + 1) - (1 - (qp & 1));
+        f = l < 0 ? -mag : mag;
+      }
+      x[c] = min(max(f, -2048), 2047);
+    }
+    bool dc_only = !(x[1] | x[2] | x[3] | x[4] | x[5] | x[6] | x[7]);
+    int16_t* o = &rows[local][r * 8];
+    if (dc_only) {
+      int v = d_wrap16((long long)x[0] * 8);
+      for (int c = 0; c < 8; ++c) o[c] = (int16_t)v;
+    } else {
+      int a0 = kW[4] * x[0] + (1 << 10), a1 = a0, a2 = a0, a3 = a0;
+      a0 += kW[2] * x[2] + kW[4] * x[4] + kW[6] * x[6];
+      a1 += kW[6] * x[2] - kW[4] * x[4] - kW[2] * x[6];
+      a2 += -kW[6] * x[2] - kW[4] * x[4] + kW[2] * x[6];
+      a3 += -kW[2] * x[2] + kW[4] * x[4] - kW[6] * x[6];
+      int b0 = kW[1] * x[1] + kW[3] * x[3] + kW[5] * x[5] + kW[7] * x[7];
+      int b1 = kW[3] * x[1] - kW[7] * x[3] - kW[1] * x[5] - kW[5] * x[7];
+      int b2 = kW[5] * x[1] - kW[1] * x[3] + kW[7] * x[5] + kW[3] * x[7];
+      int b3 = kW[7] * x[1] - kW[5] * x[3] + kW[3] * x[5] - kW[1] * x[7];
+      o[0] = (int16_t)d_wrap16((a0 + b0) >> 11);
+      o[1] = (int16_t)d_wrap16((a1 + b1) >> 11);
+      o[2] = (int16_t)d_wrap16((a2 + b2) >> 11);
+      o[3] = (int16_t)d_wrap16((a3 + b3) >> 11);
+      o[4] = (int16_t)d_wrap16((a3 - b3) >> 11);
+      o[5] = (int16_t)d_wrap16((a2 - b2) >> 11);
+      o[6] = (int16_t)d_wrap16((a1 - b1) >> 11);
+      o[7] = (int16_t)d_wrap16((a0 - b0) >> 11);
+    }
+  }
+  __syncthreads();
+  if (!live) return;
+  long long x[8];
+  for (int k = 0; k < 8; ++k) x[k] = rows[local][k * 8 + r];
+  long long a0 = (long long)kW[4] * (x[0] + ((1 << 19) / kW[4]));
+  long long a1 = a0, a2 = a0, a3 = a0;
+  a0 += kW[2] * x[2] + kW[4] * x[4] + kW[6] * x[6];
+  a1 += kW[6] * x[2] - kW[4] * x[4] - kW[2] * x[6];
+  a2 += -kW[6] * x[2] - kW[4] * x[4] + kW[2] * x[6];
+  a3 += -kW[2] * x[2] + kW[4] * x[4] - kW[6] * x[6];
+  long long b0 = kW[1] * x[1] + kW[3] * x[3] + kW[5] * x[5] + kW[7] * x[7];
+  long long b1 = kW[3] * x[1] - kW[7] * x[3] - kW[1] * x[5] - kW[5] * x[7];
+  long long b2 = kW[5] * x[1] - kW[1] * x[3] + kW[7] * x[5] + kW[3] * x[7];
+  long long b3 = kW[7] * x[1] - kW[5] * x[3] + kW[3] * x[5] - kW[1] * x[7];
+  int16_t* o = out + (size_t)idx * 64 + r;
+  o[0] = (int16_t)d_wrap16((a0 + b0) >> 20);
+  o[8] = (int16_t)d_wrap16((a1 + b1) >> 20);
+  o[16] = (int16_t)d_wrap16((a2 + b2) >> 20);
+  o[24] = (int16_t)d_wrap16((a3 + b3) >> 20);
+  o[32] = (int16_t)d_wrap16((a3 - b3) >> 20);
+  o[40] = (int16_t)d_wrap16((a2 - b2) >> 20);
+  o[48] = (int16_t)d_wrap16((a1 - b1) >> 20);
+  o[56] = (int16_t)d_wrap16((a0 - b0) >> 20);
+}
+
+// half-pel sample of a plane at half-pel (X, Y), every tap clamped into w x h
+__device__ __forceinline__ int interp(const uint8_t* __restrict__ p,
+                                      int stride, int X, int Y, int w, int h,
+                                      int rnd) {
+  int x0 = X >> 1, y0 = Y >> 1, fx = X & 1, fy = Y & 1;
+  int xa = min(max(x0, 0), w - 1), xb = min(max(x0 + 1, 0), w - 1);
+  int ya = min(max(y0, 0), h - 1), yb = min(max(y0 + 1, 0), h - 1);
+  int a = p[ya * stride + xa];
+  if (!fx && !fy) return a;
+  if (!fy) return (a + p[ya * stride + xb] + 1 - rnd) >> 1;
+  int c = p[yb * stride + xa];
+  if (!fx) return (a + c + 1 - rnd) >> 1;
+  return (a + p[ya * stride + xb] + c + p[yb * stride + xb] + 2 - rnd) >> 2;
+}
+
+__device__ __forceinline__ int chroma_vector(int s) {
+  return kChromaRound[s & 15] + ((s >> 3) & ~1);
+}
+
+// V2: one macroblock per CUDA block (256 threads: a luma pixel each, the
+// first 128 also a chroma pixel), the launch's items in grid.y
+__global__ void motion_compensate_kernel(
+    uint8_t* __restrict__ Y, uint8_t* __restrict__ U, uint8_t* __restrict__ V,
+    int h16, int w16, const int32_t* __restrict__ mb, int n_mb,
+    const int16_t* __restrict__ res, const int32_t* __restrict__ items,
+    int width, int height) {
+  int m = blockIdx.x, t = threadIdx.x;
+  const int32_t* it = items + blockIdx.y * 4;
+  int f = it[0], ref = it[1], outs = it[2], rnd = it[3];
+  int mbw = w16 >> 4;
+  int my = m / mbw, mx = m % mbw;
+  const int32_t* rec = mb + ((size_t)f * n_mb + m) * MB_FIELDS;
+  bool intra = rec[0] == MB_INTRA;
+  size_t lplane = (size_t)h16 * w16, cplane = lplane >> 2;
+  const int16_t* r = res ? res + ((size_t)f * n_mb + m) * 6 * 64 : nullptr;
+  {
+    int py = t >> 4, px = t & 15;
+    int b = ((py >= 8) << 1) | (px >= 8);
+    int lx = mx * 16 + px, ly = my * 16 + py;
+    int p = 0;
+    if (!intra && ref >= 0)
+      p = interp(Y + ref * lplane, w16, 2 * lx + rec[4 + 2 * b],
+                 2 * ly + rec[5 + 2 * b], width, height, rnd);
+    int rv = r ? r[b * 64 + (py & 7) * 8 + (px & 7)] : 0;
+    Y[outs * lplane + (size_t)ly * w16 + lx] =
+        (uint8_t)min(max(p + rv, 0), 255);
+  }
+  if (t < 128) {
+    int c = t >> 6, q = t & 63;
+    int cy = q >> 3, cx = q & 7;
+    uint8_t* P = c ? V : U;
+    int cw = w16 >> 1;
+    int lx = mx * 8 + cx, ly = my * 8 + cy;
+    int p = 0;
+    if (!intra && ref >= 0) {
+      int sx = rec[4] + rec[6] + rec[8] + rec[10];
+      int sy = rec[5] + rec[7] + rec[9] + rec[11];
+      p = interp(P + ref * cplane, cw, 2 * lx + chroma_vector(sx),
+                 2 * ly + chroma_vector(sy), width >> 1, height >> 1, rnd);
+    }
+    int rv = r ? r[(4 + c) * 64 + q] : 0;
+    P[outs * cplane + (size_t)ly * cw + lx] =
+        (uint8_t)min(max(p + rv, 0), 255);
+  }
+}
+
+// V3: one macroblock per CUDA block of 256 threads
+constexpr int RANGE = 16;
+constexpr int WIN = 52;          // window rows/columns: -18 .. +33
+constexpr int WIN_OFF = 18;
+constexpr int WIN_WORDS = 14;    // 56 bytes a row
+constexpr int N_CAND = (2 * RANGE + 1) * (2 * RANGE + 1);
+
+__constant__ int kHalf[9][2] = {{0, 0}, {-1, -1}, {0, -1}, {1, -1}, {-1, 0},
+                                {1, 0}, {-1, 1}, {0, 1}, {1, 1}};
+
+__global__ void motion_search_kernel(const uint8_t* __restrict__ Y, int h16,
+                                     int w16, const int32_t* __restrict__ items,
+                                     int width, int height,
+                                     int32_t* __restrict__ out) {
+  __shared__ uint32_t win[WIN * WIN_WORDS];
+  __shared__ uint32_t cur[16 * 4];
+  __shared__ unsigned long long best[256];
+  __shared__ int sums[12];
+  int m = blockIdx.x, t = threadIdx.x;
+  int c_i = items[blockIdx.y * 2], r_i = items[blockIdx.y * 2 + 1];
+  int mbw = w16 >> 4;
+  int my = m / mbw, mx = m % mbw;
+  int n_mb = gridDim.x;
+  size_t plane = (size_t)h16 * w16;
+  const uint8_t* cp = Y + c_i * plane;
+  const uint8_t* rp = Y + r_i * plane;
+  uint8_t* wb = reinterpret_cast<uint8_t*>(win);
+  int oy = my * 16 - WIN_OFF, ox = mx * 16 - WIN_OFF;
+  for (int i = t; i < WIN * WIN_WORDS * 4; i += 256) {
+    int wy = i / (WIN_WORDS * 4), wx = i % (WIN_WORDS * 4);
+    int yy = min(max(oy + wy, 0), height - 1);
+    int xx = min(max(ox + wx, 0), width - 1);
+    wb[i] = rp[(size_t)yy * w16 + xx];
+  }
+  if (t < 64) {
+    int py = t >> 2, w = t & 3;
+    const uint8_t* s = cp + (size_t)(my * 16 + py) * w16 + mx * 16 + 4 * w;
+    cur[t] = s[0] | (s[1] << 8) | (s[2] << 16) | ((uint32_t)s[3] << 24);
+  }
+  if (t < 12) sums[t] = 0;
+  __syncthreads();
+  unsigned long long mine = ~0ull;
+  for (int c = t; c < N_CAND; c += 256) {
+    int dy = c / (2 * RANGE + 1) - RANGE, dx = c % (2 * RANGE + 1) - RANGE;
+    int sad = 0;
+    int col = WIN_OFF + dx;
+    int sh = col & 3;
+    unsigned sel = 0x3210 + 0x1111 * sh;
+    for (int py = 0; py < 16; ++py) {
+      const uint32_t* wr = win + (WIN_OFF + dy + py) * WIN_WORDS + (col >> 2);
+      uint32_t w0 = wr[0], w1 = wr[1], w2 = wr[2], w3 = wr[3], w4 = wr[4];
+      sad += __vsadu4(__byte_perm(w0, w1, sel), cur[py * 4 + 0]);
+      sad += __vsadu4(__byte_perm(w1, w2, sel), cur[py * 4 + 1]);
+      sad += __vsadu4(__byte_perm(w2, w3, sel), cur[py * 4 + 2]);
+      sad += __vsadu4(__byte_perm(w3, w4, sel), cur[py * 4 + 3]);
+    }
+    int cheb = max(abs(dx), abs(dy));
+    unsigned long long key = ((unsigned long long)sad << 17) |
+                             (cheb << 12) | ((dy + RANGE) << 6) | (dx + RANGE);
+    mine = min(mine, key);
+  }
+  best[t] = mine;
+  __syncthreads();
+  for (int s = 128; s > 0; s >>= 1) {
+    if (t < s) best[t] = min(best[t], best[t + s]);
+    __syncthreads();
+  }
+  unsigned long long k = best[0];
+  int order = (int)(k & ((1 << 17) - 1));
+  int bdx = (order & 63) - RANGE, bdy = ((order >> 6) & 63) - RANGE;
+  // half-pel refinement and the intra decision: pixel t of the macroblock
+  int py = t >> 4, px = t & 15;
+  int cv = cp[(size_t)(my * 16 + py) * w16 + mx * 16 + px];
+  for (int i = 0; i < 9; ++i) {
+    // window coordinates in half pels
+    int X = 2 * (WIN_OFF + px + bdx) + kHalf[i][0];
+    int Yh = 2 * (WIN_OFF + py + bdy) + kHalf[i][1];
+    int x0 = X >> 1, y0 = Yh >> 1, fx = X & 1, fy = Yh & 1;
+    int a = wb[y0 * WIN_WORDS * 4 + x0], b = wb[y0 * WIN_WORDS * 4 + x0 + 1];
+    int c = wb[(y0 + 1) * WIN_WORDS * 4 + x0];
+    int d = wb[(y0 + 1) * WIN_WORDS * 4 + x0 + 1];
+    int p = !fx ? (!fy ? a : (a + c + 1) >> 1)
+                : (!fy ? (a + b + 1) >> 1 : (a + b + c + d + 2) >> 2);
+    atomicAdd(&sums[i], abs(p - cv));
+  }
+  atomicAdd(&sums[9], cv);
+  __syncthreads();
+  int mean = (sums[9] + 128) >> 8;
+  atomicAdd(&sums[10], abs(cv - mean));
+  __syncthreads();
+  if (t == 0) {
+    int bi = 0;
+    for (int i = 1; i < 9; ++i)
+      if (sums[i] < sums[bi]) bi = i;
+    int sad = sums[bi];
+    bool intra = sums[10] + 512 < sad;
+    int32_t* o = out + ((size_t)blockIdx.y * n_mb + m) * 3;
+    o[0] = intra ? MB_INTRA : MB_INTER;
+    o[1] = intra ? 0 : 2 * bdx + kHalf[bi][0];
+    o[2] = intra ? 0 : 2 * bdy + kHalf[bi][1];
+  }
+}
+
+// V4: one macroblock per CUDA block, 384 threads: a coefficient each
+__global__ void fdct_quant_kernel(
+    const uint8_t* __restrict__ sy, const uint8_t* __restrict__ su,
+    const uint8_t* __restrict__ sv, const uint8_t* __restrict__ py_,
+    const uint8_t* __restrict__ pu, const uint8_t* __restrict__ pv, int h16,
+    int w16, const int32_t* __restrict__ mb, int n_mb,
+    const int32_t* __restrict__ items, int16_t* __restrict__ out) {
+  __shared__ int x[6][64];
+  __shared__ int tr[6][64];
+  int m = blockIdx.x, t = threadIdx.x;
+  int b = t >> 6, i = t & 63;
+  int s_i = items[blockIdx.y * 2], p_i = items[blockIdx.y * 2 + 1];
+  int mbw = w16 >> 4;
+  int my = m / mbw, mx = m % mbw;
+  const int32_t* rec = mb + ((size_t)blockIdx.y * n_mb + m) * MB_FIELDS;
+  bool intra = rec[0] == MB_INTRA;
+  int qp = rec[1];
+  size_t lplane = (size_t)h16 * w16, cplane = lplane >> 2;
+  int yy = i >> 3, xx = i & 7;
+  int v;
+  if (b < 4) {
+    size_t o = (size_t)(my * 16 + (b >> 1) * 8 + yy) * w16 + mx * 16 +
+               (b & 1) * 8 + xx;
+    v = sy[s_i * lplane + o];
+    if (!intra) v -= py_[p_i * lplane + o];
+  } else {
+    size_t o = (size_t)(my * 8 + yy) * (w16 >> 1) + mx * 8 + xx;
+    const uint8_t* s = b == 4 ? su : sv;
+    const uint8_t* p = b == 4 ? pu : pv;
+    v = s[s_i * cplane + o];
+    if (!intra) v -= p[p_i * cplane + o];
+  }
+  x[b][i] = v;
+  __syncthreads();
+  // rows: tr[y][u] = (sum_x x[y][x] C[u][x] + 512) >> 10
+  {
+    int y = i >> 3, u = i & 7;
+    int s = 0;
+    for (int k = 0; k < 8; ++k) s += x[b][y * 8 + k] * kFdct[u * 8 + k];
+    tr[b][i] = (s + 512) >> 10;
+  }
+  __syncthreads();
+  // columns: F[v][u] = (sum_y C[v][y] tr[y][u] + 32768) >> 16
+  int vv = i >> 3, u = i & 7;
+  int s = 0;
+  for (int k = 0; k < 8; ++k) s += kFdct[vv * 8 + k] * tr[b][k * 8 + u];
+  int F = (s + 32768) >> 16;
+  int lv;
+  if (i == 0 && intra) {
+    int sc = d_dc_scaler(qp, b < 4);
+    int q = F + (sc >> 1);
+    q = q >= 0 ? q / sc : -((-q + sc - 1) / sc);  // floor division
+    lv = min(max(q, 1), 254);
+  } else {
+    int a = abs(F);
+    int mag = intra ? a / (2 * qp) : max(a - qp / 2, 0) / (2 * qp);
+    mag = min(mag, 2047);
+    lv = F < 0 ? -mag : (F > 0 ? mag : 0);
+  }
+  out[(((size_t)blockIdx.y * n_mb + m) * 6 + b) * 64 + i] = (int16_t)lv;
+}
+
+int status(cudaError_t e) { return e == cudaSuccess ? 0 : 1000 + (int)e; }
+
+}  // namespace
+
+extern "C" {
+
+int mpeg4_dequant_idct(const int16_t* blocks, const int32_t* bidx, int nb,
+                       const int32_t* mb, int16_t* out, cudaStream_t stream) {
+  int grid = (nb + V1_BLOCKS - 1) / V1_BLOCKS;
+  dequant_idct_kernel<<<grid, V1_BLOCKS * 8, 0, stream>>>(blocks, bidx, nb,
+                                                          mb, out);
+  return status(cudaGetLastError());
+}
+
+int mpeg4_motion_compensate(uint8_t* y, uint8_t* u, uint8_t* v, int h16,
+                            int w16, const int32_t* mb, int n_mb,
+                            const int16_t* res, const int32_t* items, int g,
+                            int width, int height, cudaStream_t stream) {
+  dim3 grid(n_mb, g);
+  motion_compensate_kernel<<<grid, 256, 0, stream>>>(
+      y, u, v, h16, w16, mb, n_mb, res, items, width, height);
+  return status(cudaGetLastError());
+}
+
+int mpeg4_motion_search(const uint8_t* y, int n, int h16, int w16,
+                        const int32_t* items, int g, int width, int height,
+                        int32_t* out, cudaStream_t stream) {
+  (void)n;
+  dim3 grid((h16 / 16) * (w16 / 16), g);
+  motion_search_kernel<<<grid, 256, 0, stream>>>(y, h16, w16, items, width,
+                                                 height, out);
+  return status(cudaGetLastError());
+}
+
+int mpeg4_fdct_quant(const uint8_t* sy, const uint8_t* su, const uint8_t* sv,
+                     int n_src, const uint8_t* py, const uint8_t* pu,
+                     const uint8_t* pv, int n_pred, int h16, int w16,
+                     const int32_t* mb, const int32_t* items, int g,
+                     int16_t* out, cudaStream_t stream) {
+  (void)n_src;
+  (void)n_pred;
+  int n_mb = (h16 / 16) * (w16 / 16);
+  dim3 grid(n_mb, g);
+  fdct_quant_kernel<<<grid, 384, 0, stream>>>(sy, su, sv, py, pu, pv, h16,
+                                              w16, mb, n_mb, items, out);
+  return status(cudaGetLastError());
+}
+
+}  // extern "C"
+
+#endif  // __CUDACC__

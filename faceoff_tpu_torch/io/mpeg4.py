@@ -1,0 +1,1383 @@
+"""The MPEG-4 Part 2 (ISO/IEC 14496-2) Simple Profile bitstream: the
+`mp4v` codec that cv2's `VideoWriter_fourcc(*"mp4v")` writes for the JAX
+package (`faceoff_tpu/io/video.py`), read and written without FFmpeg.
+
+The codec is split into the host half, the bit-level entropy coding, and
+four device stages in integer arithmetic (`ops/mpeg4_cuda.py`):
+
+    decode: VOP bits -> records (this module, or csrc/mpeg4.cu on the
+            host) -> V1 dequant_idct -> V2 motion_compensate -> YUV -> RGB
+    encode: RGB -> YUV -> V3 motion_search -> for each position k of a
+            GOP: V2 (prediction) -> V4 fdct_quant -> V1 -> V2 (the
+            reconstruction) -> records -> VOP bits
+
+The records of a batch of F VOPs with M macroblocks each:
+  vop (F, VOP_FIELDS) int32: coding type (0 I, 1 P, 2 not coded: a copy of
+      the previous VOP), rounding type, quantiser, forward f_code, modulo
+      time base count and time increment;
+  mb (F, M, MB_FIELDS) int32: mode (0 not coded, 1 inter, 2 intra), qp,
+      cbp (bit 5 - b for block b), ac_pred_flag, then the four luma block
+      vectors (x, y) in half pels (four equal ones for one vector);
+  blocks (NB, 64) int16: the quantised levels of each coded block in
+      raster order, after DC and AC prediction (the intra DC is its
+      level, not yet times the dc_scaler);
+  bidx (NB,) int32: the flat index f * M * 6 + m * 6 + b of each block.
+
+The entropy coder here is the plain (slow, Python) version; on CUDA the
+same records come from the C++ coder of `csrc/mpeg4.cu`, which takes its
+VLC tables from this module.
+
+Decoding takes what the Simple Profile holds: I- and P-VOPs, not-coded
+VOPs, MCBPC/CBPY/DQUANT, the intra DC VLCs and `intra_dc_vlc_thr`, both
+TCOEF tables with the three escape modes, DC prediction by the gradient
+rule and AC prediction with the alternate scans, one or four vectors a
+macroblock with median prediction, video packets (resync markers, with
+the header extension) and not-coded macroblocks. It refuses by name what
+lies beyond: data partitioning and RVLC, quant_type 1, quarter-pel, GMC
+and sprites, interlacing, B-VOPs (Advanced Simple Profile), the short
+video header and shapes other than rectangular. On cv2's files the port's
+frames equal cv2's bit for bit (the same integer IDCT, FFmpeg's fixed-point
+YUV to RGB); cv2's FFmpeg averages the half-pel samples of VOPs with
+rounding type 1 by approximate SIMD (it is exact only when asked), so on
+other streams those VOPs may differ from cv2's by a level or so, where
+the port follows the standard.
+
+The encoder writes what cv2's writer does: a GOP of 12 VOPs (I then 11
+P), one half-pel vector a macroblock from a +-16 pixel full search (V3),
+intra macroblocks in P-VOPs where the macroblock's deviation from its own
+mean plus `ops/mpeg4_cuda.INTRA_BIAS` is below the best SAD, not-coded
+ones where the vector is zero and no block has a level; a fixed
+quantiser, no AC prediction, no resync markers, `vop_rounding_type` 0.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from faceoff_tpu_torch.ops import mpeg4_cuda as K
+from faceoff_tpu_torch.ops.mpeg4_cuda import (MB_FIELDS, MB_INTER, MB_INTRA,
+                                              MB_SKIP)
+
+GOP = 12
+VOP_FIELDS = 6
+VOP_I, VOP_P, VOP_SKIP = 0, 1, 2
+
+# --- scans (raster position of each scan index) ---------------------------
+
+ZIGZAG = (
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63)
+ALT_HORIZONTAL = (
+    0, 1, 2, 3, 8, 9, 16, 17, 10, 11, 4, 5, 6, 7, 15, 14,
+    13, 12, 19, 18, 24, 25, 32, 33, 26, 27, 20, 21, 22, 23, 28, 29,
+    30, 31, 34, 35, 40, 41, 48, 49, 42, 43, 36, 37, 38, 39, 44, 45,
+    46, 47, 50, 51, 56, 57, 58, 59, 52, 53, 54, 55, 60, 61, 62, 63)
+# the alternate-vertical scan is the transpose of the alternate-horizontal
+ALT_VERTICAL = tuple((p % 8) * 8 + p // 8 for p in ALT_HORIZONTAL)
+
+# --- VLC tables (ISO/IEC 14496-2 Annex B), codes without their sign bit ---
+
+# Table B-6: MCBPC of I-VOPs, symbol = 4 * (mb_type - 3) + cbpc; 8 stuffing
+MCBPC_I = ((0b1, 1), (0b001, 3), (0b010, 3), (0b011, 3), (0b0001, 4),
+           (0b000001, 6), (0b000010, 6), (0b000011, 6), (0b000000001, 9))
+MCBPC_I_STUFFING = 8
+# Table B-7: MCBPC of P-VOPs, symbol = 4 * mb_type + cbpc (mb_type 0 inter,
+# 1 inter+q, 2 inter4v, 3 intra, 4 intra+q); 20 stuffing
+MCBPC_P = (
+    (0b1, 1), (0b0011, 4), (0b0010, 4), (0b000101, 6),
+    (0b011, 3), (0b0000111, 7), (0b0000110, 7), (0b000000101, 9),
+    (0b010, 3), (0b0000101, 7), (0b0000100, 7), (0b00000101, 8),
+    (0b00011, 5), (0b00000100, 8), (0b00000011, 8), (0b0000011, 7),
+    (0b000100, 6), (0b000000100, 9), (0b000000011, 9), (0b000000010, 9),
+    (0b000000001, 9))
+MCBPC_P_STUFFING = 20
+# Table B-8: CBPY of intra macroblocks, symbol = cbpy (inter: 15 - cbpy)
+CBPY = ((0b0011, 4), (0b00101, 5), (0b00100, 5), (0b1001, 4),
+        (0b00011, 5), (0b0111, 4), (0b000010, 6), (0b1011, 4),
+        (0b00010, 5), (0b000011, 6), (0b0101, 4), (0b1010, 4),
+        (0b0100, 4), (0b1000, 4), (0b0110, 4), (0b11, 2))
+# Tables B-13 and B-14: dct_dc_size of luma and chroma, symbol = size
+DC_LUMA = ((0b011, 3), (0b11, 2), (0b10, 2), (0b010, 3), (0b001, 3),
+           (0b0001, 4), (0b00001, 5), (0b000001, 6), (0b0000001, 7),
+           (0b00000001, 8), (0b000000001, 9), (0b0000000001, 10),
+           (0b00000000001, 11))
+DC_CHROMA = ((0b11, 2), (0b10, 2), (0b01, 2), (0b001, 3), (0b0001, 4),
+             (0b00001, 5), (0b000001, 6), (0b0000001, 7), (0b00000001, 8),
+             (0b000000001, 9), (0b0000000001, 10), (0b00000000001, 11),
+             (0b000000000001, 12))
+# Table B-12: motion vector codes 0..32 (a sign bit follows a nonzero one)
+MVD = ((1, 1), (1, 2), (1, 3), (1, 4), (3, 6), (5, 7), (4, 7), (3, 7),
+       (11, 9), (10, 9), (9, 9), (17, 10), (16, 10), (15, 10), (14, 10),
+       (13, 10), (12, 10), (11, 10), (10, 10), (9, 10), (8, 10), (7, 10),
+       (6, 10), (5, 10), (4, 10), (7, 11), (6, 11), (5, 11), (4, 11),
+       (3, 11), (2, 11), (3, 12), (2, 12))
+DQUANT = (-1, -2, 1, 2)
+ESCAPE = (0b0000011, 7)
+
+# TCOEF tables: for last = 0 and 1, the largest level of each run, and the
+# codes in order of run, then level
+_INTER_LMAX = ((12, 6, 4, 3, 3, 3, 3, 2, 2, 2, 2) + (1,) * 16,
+               (3, 2) + (1,) * 39)
+_INTER_CODES = (
+    # last 0
+    (0x2, 2), (0xf, 4), (0x15, 6), (0x17, 7), (0x1f, 8), (0x25, 9),
+    (0x24, 9), (0x21, 10), (0x20, 10), (0x7, 11), (0x6, 11), (0x20, 11),
+    (0x6, 3), (0x14, 6), (0x1e, 8), (0xf, 10), (0x21, 11), (0x50, 12),
+    (0xe, 4), (0x1d, 8), (0xe, 10), (0x51, 12),
+    (0xd, 5), (0x23, 9), (0xd, 10),
+    (0xc, 5), (0x22, 9), (0x52, 12),
+    (0xb, 5), (0xc, 10), (0x53, 12),
+    (0x13, 6), (0xb, 10), (0x54, 12),
+    (0x12, 6), (0xa, 10),
+    (0x11, 6), (0x9, 10),
+    (0x10, 6), (0x8, 10),
+    (0x16, 7), (0x55, 12),
+    (0x15, 7), (0x14, 7), (0x1c, 8), (0x1b, 8), (0x21, 9), (0x20, 9),
+    (0x1f, 9), (0x1e, 9), (0x1d, 9), (0x1c, 9), (0x1b, 9), (0x1a, 9),
+    (0x22, 11), (0x23, 11), (0x56, 12), (0x57, 12),
+    # last 1
+    (0x7, 4), (0x19, 9), (0x5, 11),
+    (0xf, 6), (0x4, 11),
+    (0xe, 6), (0xd, 6), (0xc, 6), (0x13, 7), (0x12, 7), (0x11, 7),
+    (0x10, 7), (0x1a, 8), (0x19, 8), (0x18, 8), (0x17, 8), (0x16, 8),
+    (0x15, 8), (0x14, 8), (0x13, 8), (0x18, 9), (0x17, 9), (0x16, 9),
+    (0x15, 9), (0x14, 9), (0x13, 9), (0x12, 9), (0x11, 9), (0x7, 10),
+    (0x6, 10), (0x5, 10), (0x4, 10), (0x24, 11), (0x25, 11), (0x26, 11),
+    (0x27, 11), (0x58, 12), (0x59, 12), (0x5a, 12), (0x5b, 12),
+    (0x5c, 12), (0x5d, 12), (0x5e, 12), (0x5f, 12))
+_INTRA_LMAX = ((27, 10, 5, 4, 3, 3, 3, 3, 2, 2, 1, 1, 1, 1, 1),
+               (8, 3, 2, 2, 2, 2, 2) + (1,) * 14)
+_INTRA_CODES = (
+    # last 0
+    (0x2, 2), (0x6, 3), (0xf, 4), (0xd, 5), (0xc, 5), (0x15, 6),
+    (0x13, 6), (0x12, 6), (0x17, 7), (0x1f, 8), (0x1e, 8), (0x1d, 8),
+    (0x25, 9), (0x24, 9), (0x23, 9), (0x21, 9), (0x21, 10), (0x20, 10),
+    (0xf, 10), (0xe, 10), (0x7, 11), (0x6, 11), (0x20, 11), (0x21, 11),
+    (0x50, 12), (0x51, 12), (0x52, 12),
+    (0xe, 4), (0x14, 6), (0x16, 7), (0x1c, 8), (0x20, 9), (0x1f, 9),
+    (0xd, 10), (0x22, 11), (0x53, 12), (0x55, 12),
+    (0xb, 5), (0x15, 7), (0x1e, 9), (0xc, 10), (0x56, 12),
+    (0x11, 6), (0x1b, 8), (0x1d, 9), (0xb, 10),
+    (0x10, 6), (0x22, 9), (0xa, 10),
+    (0xd, 6), (0x1c, 9), (0x8, 10),
+    (0x12, 7), (0x1b, 9), (0x54, 12),
+    (0x14, 7), (0x1a, 9), (0x57, 12),
+    (0x19, 8), (0x9, 10),
+    (0x18, 8), (0x23, 11),
+    (0x17, 8), (0x19, 9), (0x18, 9), (0x7, 10), (0x58, 12),
+    # last 1
+    (0x7, 4), (0xc, 6), (0x16, 8), (0x17, 9), (0x6, 10), (0x5, 11),
+    (0x4, 11), (0x59, 12),
+    (0xf, 6), (0x16, 9), (0x5, 10),
+    (0xe, 6), (0x4, 10),
+    (0x11, 7), (0x24, 11),
+    (0x10, 7), (0x25, 11),
+    (0x13, 7), (0x5a, 12),
+    (0x15, 8), (0x5b, 12),
+    (0x14, 8), (0x13, 8), (0x1a, 8), (0x15, 9), (0x14, 9), (0x13, 9),
+    (0x12, 9), (0x11, 9), (0x26, 11), (0x27, 11), (0x5c, 12), (0x5d, 12),
+    (0x5e, 12), (0x5f, 12))
+
+
+def _tcoef_symbols(lmax) -> List[Tuple[int, int, int]]:
+    """(last, run, level) of each code, in the tables' order."""
+    return [(last, run, level) for last in (0, 1)
+            for run, top in enumerate(lmax[last])
+            for level in range(1, top + 1)]
+
+
+class TcoefTable:
+    """One TCOEF table: its codes, symbols, and the LMAX/RMAX of the
+    escape modes 1 and 2."""
+
+    def __init__(self, codes, lmax):
+        self.codes = tuple(codes)
+        self.symbols = tuple(_tcoef_symbols(lmax))
+        assert len(self.codes) == len(self.symbols)
+        self.lmax = tuple(tuple(t) for t in lmax)
+        self.rmax: Tuple[Dict[int, int], Dict[int, int]] = ({}, {})
+        for last, run, level in self.symbols:
+            r = self.rmax[last]
+            r[level] = max(r.get(level, -1), run)
+        self.encode = {s: c for s, c in zip(self.symbols, self.codes)}
+
+
+INTER_TCOEF = TcoefTable(_INTER_CODES, _INTER_LMAX)
+INTRA_TCOEF = TcoefTable(_INTRA_CODES, _INTRA_LMAX)
+
+
+def dc_scaler(qp: int, luma: bool) -> int:
+    """The intra DC quantiser step of a qp (Table 7-1)."""
+    if qp < 5:
+        return 8
+    if luma:
+        return 2 * qp if qp < 9 else (qp + 8 if qp < 25 else 2 * qp - 16)
+    return (qp + 13) // 2 if qp < 25 else qp - 6
+
+
+# intra_dc_vlc_thr -> the smallest qp that codes the DC as a TCOEF
+_DC_THR_QP = (99, 13, 15, 17, 19, 21, 23, 0)
+
+
+class Vlc:
+    """Decoding look-up table of a VLC of at most `bits` bits: each
+    `bits`-bit peek gives (symbol, length), length 0 for no code."""
+
+    def __init__(self, codes: Sequence[Tuple[int, int]],
+                 symbols: Optional[Sequence] = None, escape=None):
+        symbols = list(range(len(codes))) if symbols is None else list(symbols)
+        codes = list(codes)
+        if escape is not None:
+            codes.append(escape)
+            symbols.append(None)
+        self.bits = max(n for _, n in codes)
+        self.sym: List = [None] * (1 << self.bits)
+        self.len = [0] * (1 << self.bits)
+        for (code, n), s in zip(codes, symbols):
+            lo = code << (self.bits - n)
+            for i in range(lo, lo + (1 << (self.bits - n))):
+                if self.len[i]:
+                    raise ValueError(f"VLC codes overlap at {code:b}/{n}")
+                self.sym[i] = s
+                self.len[i] = n
+
+
+class BitstreamError(ValueError):
+    """A VOP that does not parse."""
+
+
+class BitReader:
+    """MSB-first bit reader over bytes."""
+
+    def __init__(self, data: bytes, pos: int = 0):
+        self.data = bytes(data) + b"\0" * 8
+        self.end = len(data) * 8
+        self.pos = pos
+
+    def peek(self, n: int) -> int:
+        p = self.pos
+        v = int.from_bytes(self.data[p >> 3: (p >> 3) + 5], "big")
+        return (v >> (40 - (p & 7) - n)) & ((1 << n) - 1)
+
+    def read(self, n: int) -> int:
+        if n == 0:
+            return 0
+        v = self.peek(n)
+        self.pos += n
+        return v
+
+    def vlc(self, table: Vlc):
+        i = self.peek(table.bits)
+        n = table.len[i]
+        if n == 0:
+            raise BitstreamError(f"no VLC code at bit {self.pos}")
+        self.pos += n
+        return table.sym[i]
+
+    def marker(self) -> None:
+        if not self.read(1):
+            raise BitstreamError(f"marker bit missing at bit {self.pos - 1}")
+
+    def left(self) -> int:
+        return self.end - self.pos
+
+
+class BitWriter:
+    """MSB-first bit writer."""
+
+    def __init__(self):
+        self.parts: List[str] = []
+        self.n = 0
+
+    def put(self, v: int, n: int) -> None:
+        if n:
+            self.parts.append(format(v & ((1 << n) - 1), f"0{n}b"))
+            self.n += n
+
+    def stuff(self) -> None:
+        """next_start_code(): a 0 then 1s up to the byte boundary."""
+        self.put(0, 1)
+        k = -self.n & 7
+        self.put((1 << k) - 1, k)
+
+    def bytes(self) -> bytes:
+        s = "".join(self.parts)
+        s += "0" * (-len(s) & 7)
+        return int(s, 2).to_bytes(len(s) // 8, "big") if s else b""
+
+
+# --- headers ----------------------------------------------------------------
+
+VOS_START, VO_START, USER_DATA, GOV_START, VOP_START = (
+    0xB0, 0xB5, 0xB2, 0xB3, 0xB6)
+PROFILE_SIMPLE_L1 = 0x01
+
+
+def _unsupported(what: str) -> BitstreamError:
+    return BitstreamError(
+        f"MPEG-4 Part 2 stream uses {what}, which the port's Simple Profile "
+        f"decoder does not read (ROADMAP.md, Queue 1 item 7b)")
+
+
+def start_codes(data: bytes) -> List[Tuple[int, int]]:
+    """(offset of the byte after 00 00 01, start code value) of each start
+    code in `data`."""
+    out = []
+    i = data.find(b"\0\0\1")
+    while 0 <= i < len(data) - 3:
+        out.append((i + 3, data[i + 3]))
+        i = data.find(b"\0\0\1", i + 3)
+    return out
+
+
+def _time_bits(resolution: int) -> int:
+    return max((resolution - 1).bit_length(), 1)
+
+
+@dataclass(frozen=True)
+class Vol:
+    """What decoding and encoding need of a video object layer."""
+
+    width: int
+    height: int
+    time_resolution: int
+    resync_marker_disable: bool = True
+    quant_precision: int = 5
+
+    @property
+    def mb_width(self) -> int:
+        return (self.width + 15) // 16
+
+    @property
+    def mb_height(self) -> int:
+        return (self.height + 15) // 16
+
+    @property
+    def n_mb(self) -> int:
+        return self.mb_width * self.mb_height
+
+    @property
+    def time_bits(self) -> int:
+        return _time_bits(self.time_resolution)
+
+    @property
+    def mb_num_bits(self) -> int:
+        return max((self.n_mb - 1).bit_length(), 1)
+
+    def as_ints(self) -> List[int]:
+        """The fields the C++ coder takes, in its order."""
+        return [self.width, self.height, self.time_resolution,
+                int(self.resync_marker_disable), self.quant_precision]
+
+
+def parse_vol(data: bytes) -> Vol:
+    """The video object layer of a DecoderSpecificInfo (or of any bytes
+    that hold the VOL start code), refusing what the Simple Profile
+    decoder does not take."""
+    for pos, code in start_codes(data):
+        if code == 0xB3 or code == VOP_START:
+            break
+        if 0x20 <= code <= 0x2F:
+            return _parse_vol_body(BitReader(data, (pos + 1) * 8))
+    raise BitstreamError("no video object layer header")
+
+
+def _parse_vol_body(br: BitReader) -> Vol:
+    br.read(1)  # random_accessible_vol
+    br.read(8)  # video_object_type_indication
+    verid = 1
+    if br.read(1):  # is_object_layer_identifier
+        verid = br.read(4)
+        br.read(3)
+    if br.read(4) == 15:  # aspect_ratio_info: extended PAR
+        br.read(16)
+    if br.read(1):  # vol_control_parameters
+        br.read(2)  # chroma_format
+        low_delay = br.read(1)
+        if not low_delay:
+            raise _unsupported("B-VOPs (low_delay 0, Advanced Simple "
+                               "Profile)")
+        if br.read(1):  # vbv_parameters
+            for n in (15, 1, 15, 1, 15, 1, 3, 11, 1, 15, 1):
+                br.read(n)
+    shape = br.read(2)
+    if shape != 0:
+        raise _unsupported(f"video_object_layer_shape {shape} (not "
+                           f"rectangular)")
+    br.marker()
+    resolution = br.read(16)
+    if resolution == 0:
+        raise BitstreamError("vop_time_increment_resolution 0")
+    br.marker()
+    if br.read(1):  # fixed_vop_rate
+        br.read(_time_bits(resolution))
+    br.marker()
+    width = br.read(13)
+    br.marker()
+    height = br.read(13)
+    br.marker()
+    if br.read(1):
+        raise _unsupported("interlacing")
+    br.read(1)  # obmc_disable
+    sprite = br.read(1 if verid == 1 else 2)
+    if sprite:
+        raise _unsupported("sprites or GMC")
+    quant_precision = 5
+    if br.read(1):  # not_8_bit
+        quant_precision = br.read(4)
+        if br.read(4) != 8:
+            raise _unsupported("a bit depth other than 8")
+    if br.read(1):
+        raise _unsupported("quant_type 1 (MPEG quantisation)")
+    if verid != 1 and br.read(1):
+        raise _unsupported("quarter-pel motion")
+    if not br.read(1):
+        raise _unsupported("complexity estimation headers")
+    resync_disable = br.read(1)
+    if br.read(1):
+        raise _unsupported("data partitioning and RVLC")
+    if verid != 1:
+        if br.read(1):
+            raise _unsupported("NEWPRED")
+        if br.read(1):
+            raise _unsupported("reduced-resolution VOPs")
+    if br.read(1):
+        raise _unsupported("scalability")
+    if width == 0 or height == 0 or width % 2 or height % 2:
+        raise BitstreamError(f"VOL size {width}x{height}: need even, "
+                             f"nonzero sides")
+    return Vol(width, height, resolution, bool(resync_disable),
+               quant_precision)
+
+
+def write_vol_headers(vol: Vol) -> bytes:
+    """VOS, VO and VOL headers (the DecoderSpecificInfo), laid out as
+    FFmpeg's mpeg4 encoder writes them: Simple Profile, verid 1, H.263
+    quantisation, low delay, no data partitioning; resync markers as the
+    Vol says."""
+    bw = BitWriter()
+    bw.put(0x1B0, 32)
+    bw.put(PROFILE_SIMPLE_L1, 8)
+    bw.put(0x1B5, 32)
+    bw.put(1, 1)      # is_visual_object_identifier
+    bw.put(1, 4)      # visual_object_verid
+    bw.put(1, 3)      # priority
+    bw.put(1, 4)      # visual_object_type: video
+    bw.put(0, 1)      # video_signal_type
+    bw.stuff()
+    bw.put(0x100, 32)  # video_object_start_code
+    bw.put(0x120, 32)  # video_object_layer_start_code
+    bw.put(0, 1)      # random_accessible_vol
+    bw.put(1, 8)      # video_object_type_indication: simple object
+    bw.put(1, 1)      # is_object_layer_identifier
+    bw.put(1, 4)      # verid
+    bw.put(1, 3)      # priority
+    bw.put(1, 4)      # aspect_ratio_info: square pixels
+    bw.put(1, 1)      # vol_control_parameters
+    bw.put(1, 2)      # chroma_format 4:2:0
+    bw.put(1, 1)      # low_delay
+    bw.put(0, 1)      # vbv_parameters
+    bw.put(0, 2)      # rectangular
+    bw.put(1, 1)
+    bw.put(vol.time_resolution, 16)
+    bw.put(1, 1)
+    bw.put(0, 1)      # fixed_vop_rate
+    bw.put(1, 1)
+    bw.put(vol.width, 13)
+    bw.put(1, 1)
+    bw.put(vol.height, 13)
+    bw.put(1, 1)
+    bw.put(0, 1)      # interlaced
+    bw.put(1, 1)      # obmc_disable
+    bw.put(0, 1)      # sprite_enable
+    bw.put(0, 1)      # not_8_bit
+    bw.put(0, 1)      # quant_type
+    bw.put(1, 1)      # complexity_estimation_disable
+    bw.put(int(vol.resync_marker_disable), 1)
+    bw.put(0, 1)      # data_partitioned
+    bw.put(0, 1)      # scalability
+    bw.stuff()
+    return bw.bytes()
+
+
+def _parse_vop_header(br: BitReader, vol: Vol) -> Optional[List[int]]:
+    """The VOP header after its start code: the vop record, or None for a
+    VOP that is not coded (its record is filled by the caller)."""
+    kind = br.read(2)
+    if kind == 2:
+        raise _unsupported("B-VOPs (Advanced Simple Profile)")
+    if kind == 3:
+        raise _unsupported("S-VOPs (sprites or GMC)")
+    modulo = 0
+    while br.read(1):
+        modulo += 1
+        if modulo > 1 << 16:
+            raise BitstreamError("endless modulo_time_base")
+    br.marker()
+    incr = br.read(vol.time_bits)
+    br.marker()
+    if not br.read(1):  # vop_coded
+        return [VOP_SKIP, 0, 1, 1, modulo, incr]
+    rounding = br.read(1) if kind == VOP_P else 0
+    thr = br.read(3)
+    qp = br.read(vol.quant_precision)
+    if qp == 0:
+        raise BitstreamError("vop_quant 0")
+    fcode = 1
+    if kind == VOP_P:
+        fcode = br.read(3)
+        if fcode == 0:
+            raise BitstreamError("vop_fcode_forward 0")
+    return [kind, rounding, qp, fcode, modulo, incr, thr]
+
+
+def find_vop(sample: bytes) -> int:
+    """The bit offset of the VOP header in a sample (after its start
+    code); the sample may carry VOS/VOL/GOV headers before it."""
+    for pos, code in start_codes(sample):
+        if code == VOP_START:
+            return (pos + 1) * 8
+    raise BitstreamError("sample holds no VOP start code")
+
+
+# --- the macroblock layer ---------------------------------------------------
+
+_MCBPC_I_VLC = Vlc(MCBPC_I)
+_MCBPC_P_VLC = Vlc(MCBPC_P)
+_CBPY_VLC = Vlc(CBPY)
+_DC_VLC = (Vlc(DC_LUMA), Vlc(DC_CHROMA))
+_MVD_VLC = Vlc(MVD)
+_TCOEF_VLC = {id(t): Vlc(t.codes, t.symbols, ESCAPE)
+              for t in (INTER_TCOEF, INTRA_TCOEF)}
+_C_OFF = (2, 1, 1, -1)  # column of the above-right candidate, per block
+_LIMIT_LEVEL = 2047
+
+
+class _Prediction:
+    """DC, AC and vector predictors of one VOP. Blocks of luma (plane 0,
+    a 2 M_h x 2 M_w grid) and chroma (planes 1 and 2, M_h x M_w) are
+    keyed by their plane offset plus row * stride + column. A neighbour
+    predicts only when it lies in the VOP, in the current video packet
+    (its macroblock index >= `start`) and, for DC and AC, in an intra
+    macroblock of this VOP."""
+
+    def __init__(self, vol: Vol):
+        self.mbw, self.mbh = vol.mb_width, vol.mb_height
+        n_l = 4 * self.mbw * self.mbh
+        n_c = self.mbw * self.mbh
+        self.off = (0, n_l, n_l + n_c)
+        self.stride = (2 * self.mbw, self.mbw, self.mbw)
+        n = n_l + 2 * n_c
+        self.dc = [1024] * n
+        self.row = [None] * n   # first row levels 1..7 of intra blocks
+        self.col = [None] * n   # first column levels 1..7
+        self.intra = [False] * (self.mbw * self.mbh)
+        self.qp = [0] * (self.mbw * self.mbh)
+        self.mvx = [0] * n_l
+        self.mvy = [0] * n_l
+        self.start = 0
+
+    def block(self, m: int, b: int) -> Tuple[int, int, int]:
+        """(plane, row, column) of block b of macroblock m."""
+        my, mx = divmod(m, self.mbw)
+        if b < 4:
+            return 0, 2 * my + (b >> 1), 2 * mx + (b & 1)
+        return b - 3, my, mx
+
+    def _key(self, plane: int, y: int, x: int) -> Optional[int]:
+        if y < 0 or x < 0:
+            return None
+        s = 1 if plane == 0 else 0
+        m = (y >> s) * self.mbw + (x >> s)
+        if m < self.start or not self.intra[m]:
+            return None
+        return self.off[plane] + y * self.stride[plane] + x
+
+    def dc_direction(self, m: int, b: int):
+        """(key of this block, predicting DC value, 1 for the block above
+        or 0 for the left one, key of that block or None)."""
+        plane, y, x = self.block(m, b)
+        ka, kb, kc = (self._key(plane, y, x - 1),
+                      self._key(plane, y - 1, x - 1),
+                      self._key(plane, y - 1, x))
+        fa = 1024 if ka is None else self.dc[ka]
+        fb = 1024 if kb is None else self.dc[kb]
+        fc = 1024 if kc is None else self.dc[kc]
+        key = self.off[plane] + y * self.stride[plane] + x
+        if abs(fa - fb) < abs(fb - fc):
+            return key, fc, 1, kc
+        return key, fa, 0, ka
+
+    def ac_prediction(self, pk: Optional[int], top: int, qp: int
+                      ) -> List[int]:
+        """Levels 1..7 that AC prediction adds to the first row (top) or
+        column (left) of a block of quantiser qp, from block pk."""
+        if pk is None:
+            return [0] * 7
+        vals = self.row[pk] if top else self.col[pk]
+        plane = 0 if pk < self.off[1] else (1 if pk < self.off[2] else 2)
+        local = pk - self.off[plane]
+        y, x = divmod(local, self.stride[plane])
+        s = 1 if plane == 0 else 0
+        qa = self.qp[(y >> s) * self.mbw + (x >> s)]
+        if qa == qp:
+            return list(vals)
+        # the standard's // : division rounded half away from zero
+        return [(v * qa + (qp >> 1)) // qp if v * qa >= 0
+                else -((-v * qa + (qp >> 1)) // qp) for v in vals]
+
+    def store_intra(self, key: int, levels: Sequence[int], scale: int):
+        level_dc = levels[0] * scale
+        self.dc[key] = 0 if level_dc < 0 else min(level_dc, 2047)
+        self.row[key] = [levels[i] for i in range(1, 8)]
+        self.col[key] = [levels[8 * i] for i in range(1, 8)]
+
+    def _mv(self, y: int, x: int):
+        if y < 0 or x < 0 or x >= 2 * self.mbw:
+            return None
+        if (y >> 1) * self.mbw + (x >> 1) < self.start:
+            return None
+        k = y * 2 * self.mbw + x
+        return self.mvx[k], self.mvy[k]
+
+    def mv_prediction(self, m: int, b: int) -> Tuple[int, int]:
+        """The median predictor of luma block b of macroblock m: an
+        unavailable candidate counts as zero when it is the only one, the
+        one available candidate is the predictor when two are missing."""
+        _, y, x = self.block(m, b)
+        cands = [self._mv(y, x - 1), self._mv(y - 1, x),
+                 self._mv(y - 1, x + _C_OFF[b])]
+        valid = [c for c in cands if c is not None]
+        if not valid:
+            return 0, 0
+        if len(valid) == 1:
+            return valid[0]
+        cands = [c if c is not None else (0, 0) for c in cands]
+        xs = sorted(c[0] for c in cands)
+        ys = sorted(c[1] for c in cands)
+        return xs[1], ys[1]
+
+    def set_mvs(self, m: int, vectors: Sequence[Tuple[int, int]]) -> None:
+        for b in range(4):
+            _, y, x = self.block(m, b)
+            k = y * 2 * self.mbw + x
+            self.mvx[k], self.mvy[k] = vectors[b]
+
+
+def _read_tcoef(br: BitReader, table: TcoefTable, vlc: Vlc):
+    sym = br.vlc(vlc)
+    if sym is not None:
+        last, run, level = sym
+        return last, run, -level if br.read(1) else level
+    if br.read(1) == 0:  # mode 1: level + LMAX
+        sym = br.vlc(vlc)
+        if sym is None:
+            raise BitstreamError("escape inside escape mode 1")
+        last, run, level = sym
+        level += table.lmax[last][run]
+        return last, run, -level if br.read(1) else level
+    if br.read(1) == 0:  # mode 2: run + RMAX + 1
+        sym = br.vlc(vlc)
+        if sym is None:
+            raise BitstreamError("escape inside escape mode 2")
+        last, run, level = sym
+        run += table.rmax[last][level] + 1
+        return last, run, -level if br.read(1) else level
+    last = br.read(1)  # mode 3: fixed length
+    run = br.read(6)
+    br.marker()
+    level = br.read(12)
+    br.marker()
+    if level >= 2048:
+        level -= 4096
+    if level == 0 or level == -2048:
+        raise BitstreamError(f"escape level {level} is forbidden")
+    return last, run, level
+
+
+def _read_levels(br: BitReader, table: TcoefTable, scan, levels: List[int],
+                 pos: int) -> None:
+    vlc = _TCOEF_VLC[id(table)]
+    while True:
+        last, run, level = _read_tcoef(br, table, vlc)
+        pos += run
+        if pos > 63:
+            raise BitstreamError("more than 64 coefficients in a block")
+        levels[scan[pos]] = level
+        pos += 1
+        if last:
+            return
+
+
+def _read_mv(br: BitReader, pred: int, fcode: int) -> int:
+    code = br.vlc(_MVD_VLC)
+    val = 0
+    if code:
+        sign = br.read(1)
+        r = fcode - 1
+        val = ((code - 1) << r) + br.read(r) + 1 if r else code
+        if sign:
+            val = -val
+    f32 = 32 << (fcode - 1)
+    return (pred + val + f32) % (2 * f32) - f32
+
+
+def _resync_length(br: BitReader, prefix: int) -> int:
+    """The stuffing bits before a resync marker at this position, or 0."""
+    n = 8 - (br.pos & 7)
+    if br.peek(n) != (1 << (n - 1)) - 1:
+        return 0
+    save = br.pos
+    br.pos += n
+    ok = br.left() > prefix and br.peek(prefix + 1) == 1
+    br.pos = save
+    return n if ok else 0
+
+
+def parse_vop(sample: bytes, vol: Vol):
+    """One VOP's records: (vop row, mb (M, MB_FIELDS) int32, list of
+    (block index m * 6 + b, 64 levels))."""
+    br = BitReader(sample, find_vop(sample))
+    hdr = _parse_vop_header(br, vol)
+    n_mb = vol.n_mb
+    mb = np.zeros((n_mb, MB_FIELDS), np.int32)
+    blocks: List[Tuple[int, List[int]]] = []
+    if hdr[0] == VOP_SKIP:
+        return hdr[:VOP_FIELDS], mb, blocks
+    kind, _, qp, fcode, _, _, thr = hdr
+    pred = _Prediction(vol)
+    prefix = 16 if kind == VOP_I else 15 + fcode
+    qmax = (1 << vol.quant_precision) - 1
+    m = 0
+    while m < n_mb:
+        if not vol.resync_marker_disable and m > 0:
+            n = _resync_length(br, prefix)
+            if n:
+                br.pos += n + prefix + 1
+                m0 = br.read(vol.mb_num_bits)
+                qp = br.read(vol.quant_precision)
+                if br.read(1):  # header_extension_code
+                    while br.read(1):
+                        pass
+                    br.marker()
+                    br.read(vol.time_bits)
+                    br.marker()
+                    br.read(2)
+                    br.read(3)
+                    if kind == VOP_P:
+                        br.read(3)
+                if m0 != m:
+                    raise BitstreamError(f"video packet starts at macroblock"
+                                         f" {m0}, expected {m}")
+                pred.start = m
+        if kind == VOP_P:
+            if br.read(1):  # not_coded
+                pred.qp[m] = qp
+                pred.intra[m] = False
+                pred.set_mvs(m, [(0, 0)] * 4)
+                mb[m, 1] = qp
+                m += 1
+                continue
+            mcbpc = br.vlc(_MCBPC_P_VLC)
+            if mcbpc == MCBPC_P_STUFFING:
+                continue
+        else:
+            mcbpc = br.vlc(_MCBPC_I_VLC)
+            if mcbpc == MCBPC_I_STUFFING:
+                continue
+            mcbpc += 12
+        mb_type, cbpc = mcbpc >> 2, mcbpc & 3
+        intra = mb_type >= 3
+        acp = br.read(1) if intra else 0
+        cbpy = br.vlc(_CBPY_VLC)
+        if not intra:
+            cbpy = 15 - cbpy
+        if mb_type in (1, 4):
+            qp = min(max(qp + DQUANT[br.read(2)], 1), qmax)
+        cbp = (cbpy << 2) | cbpc
+        pred.qp[m] = qp
+        pred.intra[m] = intra
+        vectors = [(0, 0)] * 4
+        if not intra:
+            vectors = []
+            for b in range(4 if mb_type == 2 else 1):
+                px, py = pred.mv_prediction(m, b)
+                v = (_read_mv(br, px, fcode), _read_mv(br, py, fcode))
+                vectors.append(v)
+                pred.set_mvs(m, vectors + [v] * (4 - len(vectors)))
+            vectors += [vectors[0]] * (4 - len(vectors))
+        pred.set_mvs(m, vectors)
+        row = mb[m]
+        row[0] = MB_INTRA if intra else MB_INTER
+        row[1], row[2], row[3] = qp, cbp, acp
+        row[4:12] = [c for v in vectors for c in v]
+        dc_vlc = qp < _DC_THR_QP[thr]
+        for b in range(6):
+            coded = (cbp >> (5 - b)) & 1
+            levels = [0] * 64
+            if not intra:
+                if coded:
+                    _read_levels(br, INTER_TCOEF, ZIGZAG, levels, 0)
+                    blocks.append((m * 6 + b, levels))
+                continue
+            key, pdc, top, pk = pred.dc_direction(m, b)
+            scale = dc_scaler(qp, b < 4)
+            diff = 0
+            if dc_vlc:
+                size = br.vlc(_DC_VLC[b >= 4])
+                if size:
+                    diff = br.read(size)
+                    if not diff >> (size - 1):
+                        diff -= (1 << size) - 1
+                    if size > 8:
+                        br.marker()
+            scan = ZIGZAG if not acp else (ALT_HORIZONTAL if top
+                                           else ALT_VERTICAL)
+            if coded:
+                _read_levels(br, INTRA_TCOEF, scan, levels,
+                             1 if dc_vlc else 0)
+            if not dc_vlc:
+                diff = levels[0]
+            levels[0] = diff + (pdc + (scale >> 1)) // scale
+            if acp:
+                add = pred.ac_prediction(pk, top, qp)
+                for i in range(1, 8):
+                    levels[i if top else 8 * i] += add[i - 1]
+            pred.store_intra(key, levels, scale)
+            blocks.append((m * 6 + b, levels))
+        m += 1
+    return hdr[:VOP_FIELDS], mb, blocks
+
+
+def parse_vops(samples: Sequence[bytes], vol: Vol):
+    """The records of a batch of VOPs (see the module's docstring):
+    (vop (F, VOP_FIELDS), mb (F, M, MB_FIELDS), blocks (NB, 64) int16,
+    bidx (NB,) int32)."""
+    vops, mbs, levels, index = [], [], [], []
+    for f, sample in enumerate(samples):
+        vop, mb, blocks = parse_vop(sample, vol)
+        vops.append(vop)
+        mbs.append(mb)
+        base = f * vol.n_mb * 6
+        for i, lv in blocks:
+            index.append(base + i)
+            levels.append(lv)
+    blocks_arr = (np.asarray(levels, np.int16) if levels
+                  else np.zeros((0, 64), np.int16))
+    return (np.asarray(vops, np.int32).reshape(-1, VOP_FIELDS),
+            np.stack(mbs) if mbs else np.zeros((0, vol.n_mb, MB_FIELDS),
+                                               np.int32),
+            blocks_arr, np.asarray(index, np.int32))
+
+
+# --- colour -------------------------------------------------------------------
+
+def rgb_to_yuv420(frames: torch.Tensor, h16: int, w16: int):
+    """(N, H, W, 3) uint8 RGB -> Y (N, h16, w16), U, V (N, h16/2, w16/2)
+    uint8: BT.601 limited range in integers, chroma from the mean of each
+    2 x 2 block's RGB, the frame extended to the 16-aligned size by
+    repeating its last row and column."""
+    n, h, w, _ = frames.shape
+    x = frames.to(torch.int32)
+    x = torch.nn.functional.pad(x.permute(0, 3, 1, 2).float(),
+                                (0, w16 - w, 0, h16 - h), mode="replicate"
+                                ).to(torch.int32) if (h16, w16) != (h, w) \
+        else x.permute(0, 3, 1, 2)
+    r, g, b = x[:, 0], x[:, 1], x[:, 2]
+    y = ((66 * r + 129 * g + 25 * b + 128) >> 8) + 16
+    q = x.view(n, 3, h16 // 2, 2, w16 // 2, 2).sum((3, 5))
+    r, g, b = q[:, 0], q[:, 1], q[:, 2]
+    u = ((-38 * r - 74 * g + 112 * b + 512) >> 10) + 128
+    v = ((112 * r - 94 * g - 18 * b + 512) >> 10) + 128
+    return (y.clamp(0, 255).to(torch.uint8), u.clamp(0, 255).to(torch.uint8),
+            v.clamp(0, 255).to(torch.uint8))
+
+
+# FFmpeg's fixed-point YUV -> RGB (its x86 converter, which cv2's reader
+# uses): BT.601 limited-range coefficients times 2^13, applied to samples
+# times 8 by a signed high multiply (>> 16)
+_Y_COEF, _Y_OFF = 9539, 128
+_VR, _UB, _UG, _VG = 13075, 16525, -3209, -6660
+
+
+def yuv420_to_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                  height: int, width: int) -> torch.Tensor:
+    """Y (N, H16, W16), U, V (N, H16/2, W16/2) uint8 -> (N, height, width,
+    3) uint8 RGB, each chroma sample repeated over its 2 x 2 block, in
+    FFmpeg's fixed point: y' = ((8 Y - 128) * 9539) >> 16, then
+    R = y' + (8 (V - 128) * 13075 >> 16), B = y' + (8 (U - 128) * 16525
+    >> 16), G = y' + (8 (U - 128) * -3209 >> 16) + (8 (V - 128) * -6660
+    >> 16), saturated. On cv2's own files this gives cv2's RGB bit for
+    bit."""
+    yy = ((y[:, :height, :width].to(torch.int32) * 8 - _Y_OFF) * _Y_COEF
+          ) >> 16
+    d, e = [(p.repeat_interleave(2, 1).repeat_interleave(2, 2)
+             [:, :height, :width].to(torch.int32) - 128) * 8 for p in (u, v)]
+    rgb = torch.stack([yy + ((e * _VR) >> 16),
+                       yy + ((d * _UG) >> 16) + ((e * _VG) >> 16),
+                       yy + ((d * _UB) >> 16)], -1)
+    return rgb.clamp(0, 255).to(torch.uint8)
+
+
+# --- decoding -------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_threads(dev: torch.device):
+    """On the CPU, the codec's plain stages run on one intra-op thread:
+    they are many small tensor operations, which lose more to handing
+    work to other threads than they gain, and which slowed 110-fold when
+    six processes shared eight cores (a 24-frame 104-px encode: 1.5 s
+    alone, 169 s each of six at once with 8 threads, 2.2 s with 1).
+    The setting is the calling thread's and is restored after."""
+    if dev.type != "cpu":
+        yield
+        return
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+# The device bytes a batch of VOPs may take while it decodes or encodes.
+# A batch is the most whole GOPs whose working set fits in BATCH_BYTES (a
+# whole clip where it fits), so V2 runs once for each position in the GOP
+# a batch. WORK_BYTES is that working set a pixel of the 16-aligned VOP,
+# most of it the colour conversion's int32 planes; tools/mp4_batch_torch.py
+# measures it and the frames/s at each batch size.
+BATCH_BYTES = 4 << 30
+WORK_BYTES = 64
+
+
+def batch_vops(vol: Vol) -> int:
+    """VOPs a decode or encode batch: the whole GOPs whose working set
+    fits in BATCH_BYTES, at least one."""
+    per_gop = GOP * WORK_BYTES * 256 * vol.n_mb
+    return GOP * max(1, BATCH_BYTES // per_gop)
+
+
+def _depths(kinds: np.ndarray, carried: bool) -> np.ndarray:
+    """Each VOP's distance from its last I-VOP (the carried reference from
+    an earlier batch at depth 0)."""
+    depth = np.zeros(len(kinds), np.int64)
+    prev = 0 if carried else -1
+    for i, k in enumerate(kinds):
+        depth[i] = 0 if k == VOP_I else prev + 1
+        prev = depth[i]
+    return depth
+
+
+def _planes(n: int, vol: Vol, dev) -> List[torch.Tensor]:
+    h16, w16 = 16 * vol.mb_height, 16 * vol.mb_width
+    return [torch.zeros((n, h16, w16), dtype=torch.uint8, device=dev),
+            torch.zeros((n, h16 // 2, w16 // 2), dtype=torch.uint8,
+                        device=dev),
+            torch.zeros((n, h16 // 2, w16 // 2), dtype=torch.uint8,
+                        device=dev)]
+
+
+def reconstruct(vop: np.ndarray, mb: torch.Tensor, blocks: torch.Tensor,
+                bidx: torch.Tensor, vol: Vol,
+                carry: Optional[List[torch.Tensor]] = None):
+    """The device half of decoding a batch of records: V1 on every coded
+    block in one launch, then V2 once per depth in the GOPs (every VOP at
+    distance k from its I-VOP in one launch). Returns the Y, U, V planes
+    of slots 1..F (slot 0 holds the carried reference)."""
+    dev = mb.device
+    n = len(vop)
+    res = torch.zeros((n, vol.n_mb, 6, 64), dtype=torch.int16, device=dev)
+    K.dequant_idct(blocks, bidx, mb, res)
+    planes = _planes(n + 1, vol, dev)
+    if carry is not None:
+        for p, c in zip(planes, carry):
+            p[0] = c
+    depth = _depths(vop[:, 0], carry is not None)
+    for k in range(int(depth.max()) + 1 if n else 0):
+        fs = np.nonzero(depth == k)[0]
+        items = np.stack([fs, np.where(vop[fs, 0] == VOP_I, -1, fs),
+                          fs + 1, vop[fs, 1]], 1).astype(np.int32)
+        K.motion_compensate(planes, mb, res,
+                            torch.from_numpy(items).to(dev), vol.width,
+                            vol.height)
+    return [p[1:] for p in planes]
+
+
+def entropy_decode(samples: Sequence[bytes], vol: Vol, dev: torch.device):
+    """The records of a batch on `dev`: the C++ coder on CUDA (one copy to
+    the card), the plain Python one on the CPU."""
+    if dev.type == "cuda":
+            return K.parse_vops(samples, vol.as_ints(), vol.n_mb, dev)
+    vop, mb, blocks, bidx = parse_vops(samples, vol)
+    return (vop, torch.from_numpy(mb), torch.from_numpy(blocks),
+            torch.from_numpy(bidx))
+
+
+def batches(n: int, sync: Optional[Sequence[bool]], batch: int
+            ) -> List[Tuple[int, int]]:
+    """[lo, hi) ranges of at most `batch` VOPs, each ending before a key
+    frame where one lies in reach."""
+    keys = [i for i in range(n) if sync[i]] if sync is not None else []
+    out, lo = [], 0
+    while lo < n:
+        hi = min(lo + batch, n)
+        cuts = [k for k in keys if lo < k <= hi]
+        if hi < n and cuts:
+            hi = cuts[-1]
+        out.append((lo, hi))
+        lo = hi
+    return out
+
+
+def iter_decode(samples: Sequence[bytes], vol: Vol, dev: torch.device,
+                sync: Optional[Sequence[bool]] = None):
+    """Decode VOPs batch_vops(vol) at a time (the last reconstruction
+    carried between batches): yields (n, H, W, 3) uint8 RGB tensors on
+    `dev`."""
+    carry = None
+    for lo, hi in batches(len(samples), sync, batch_vops(vol)):
+        with plain_threads(dev):
+            vop, mb, blocks, bidx = entropy_decode(samples[lo:hi], vol, dev)
+            y, u, v = reconstruct(vop, mb, blocks, bidx, vol, carry)
+            carry = [y[-1], u[-1], v[-1]]
+            rgb = yuv420_to_rgb(y, u, v, vol.height, vol.width)
+        yield rgb
+
+
+def decode(samples: Sequence[bytes], vol: Vol, dev: torch.device,
+           sync: Optional[Sequence[bool]] = None) -> torch.Tensor:
+    """Decode VOPs into (N, H, W, 3) uint8 RGB frames on `dev`."""
+    out = list(iter_decode(samples, vol, dev, sync))
+    if not out:
+        return torch.zeros((0, vol.height, vol.width, 3), dtype=torch.uint8,
+                           device=dev)
+    return torch.cat(out)
+
+
+# --- the plain writer -----------------------------------------------------------
+
+def put_tcoef(bw: BitWriter, table: TcoefTable, last: int, run: int,
+              level: int) -> None:
+    """One (last, run, level) event: its VLC and sign, else the first
+    escape mode that reaches it (1: level - LMAX, 2: run - RMAX - 1, 3:
+    fixed length)."""
+    a, sign = abs(level), int(level < 0)
+    code = table.encode.get((last, run, a))
+    if code:
+        bw.put(*code)
+        bw.put(sign, 1)
+        return
+    lmax = table.lmax[last]
+    if run < len(lmax):
+        code = table.encode.get((last, run, a - lmax[run]))
+        if code:
+            bw.put(*ESCAPE)
+            bw.put(0, 1)
+            bw.put(*code)
+            bw.put(sign, 1)
+            return
+    rmax = table.rmax[last].get(a)
+    if rmax is not None and run - rmax - 1 >= 0:
+        code = table.encode.get((last, run - rmax - 1, a))
+        if code:
+            bw.put(*ESCAPE)
+            bw.put(0b10, 2)
+            bw.put(*code)
+            bw.put(sign, 1)
+            return
+    if not 0 < a <= _LIMIT_LEVEL or run > 63:
+        raise ValueError(f"event (last {last}, run {run}, level {level}) "
+                         f"out of range")
+    bw.put(*ESCAPE)
+    bw.put(0b11, 2)
+    bw.put(last, 1)
+    bw.put(run, 6)
+    bw.put(1, 1)
+    bw.put(level & 0xFFF, 12)
+    bw.put(1, 1)
+
+
+def _put_levels(bw: BitWriter, table: TcoefTable, scan, levels,
+                start: int) -> None:
+    nz = [i for i in range(start, 64) if levels[scan[i]]]
+    prev = start
+    for j, i in enumerate(nz):
+        put_tcoef(bw, table, int(j == len(nz) - 1), i - prev,
+                  int(levels[scan[i]]))
+        prev = i + 1
+
+
+def put_mvd(bw: BitWriter, diff: int, fcode: int) -> None:
+    """A vector difference (half pels), wrapped into the f_code's range."""
+    f32 = 32 << (fcode - 1)
+    diff = (diff + f32) % (2 * f32) - f32
+    if diff == 0:
+        bw.put(1, 1)
+        return
+    r = fcode - 1
+    a = abs(diff) - 1
+    bw.put(*MVD[(a >> r) + 1])
+    bw.put(int(diff < 0), 1)
+    bw.put(a & ((1 << r) - 1), r)
+
+
+def put_dc(bw: BitWriter, diff: int, luma: bool) -> None:
+    size = abs(diff).bit_length()
+    bw.put(*(DC_LUMA if luma else DC_CHROMA)[size])
+    if size:
+        bw.put(diff if diff > 0 else diff + (1 << size) - 1, size)
+        if size > 8:
+            bw.put(1, 1)
+
+
+def write_vop(vop: Sequence[int], mb: np.ndarray, coef: np.ndarray,
+              vol: Vol, packets: Sequence[int] = (), thr: int = 0) -> bytes:
+    """The plain writer: one VOP from its records, `coef` (M, 6, 64) the
+    final levels of every block (raster, the intra DC as its level).
+    A macroblock is written as not coded when it is inter with zero
+    vectors and no level, with four vectors when they differ, with
+    DQUANT when its qp differs from the one before (by at most 2), with
+    AC prediction when its ac_pred_flag is set. `packets` lists the
+    macroblocks that start a video packet; `thr` is intra_dc_vlc_thr."""
+    kind, rounding, qp, fcode, modulo, incr = [int(v) for v in vop[:6]]
+    bw = BitWriter()
+    bw.put(0x1B6, 32)
+    bw.put(VOP_P if kind == VOP_SKIP else kind, 2)
+    bw.put((1 << modulo) - 1, modulo)
+    bw.put(0, 1)
+    bw.put(1, 1)
+    bw.put(incr, vol.time_bits)
+    bw.put(1, 1)
+    if kind == VOP_SKIP:
+        bw.put(0, 1)
+        bw.stuff()
+        return bw.bytes()
+    bw.put(1, 1)
+    if kind == VOP_P:
+        bw.put(rounding, 1)
+    bw.put(thr, 3)
+    bw.put(qp, vol.quant_precision)
+    if kind == VOP_P:
+        bw.put(fcode, 3)
+    pred = _Prediction(vol)
+    prefix = 16 if kind == VOP_I else 15 + fcode
+    packets = set(packets)
+    for m in range(vol.n_mb):
+        row = mb[m]
+        mode, mqp, acp = int(row[0]), int(row[1]), int(row[3])
+        lv = coef[m]
+        if m in packets and m > 0:
+            bw.stuff()
+            bw.put(0, prefix)
+            bw.put(1, 1)
+            bw.put(m, vol.mb_num_bits)
+            bw.put(mqp, vol.quant_precision)
+            bw.put(0, 1)
+            pred.start = m
+            qp = mqp
+        vectors = [(int(row[4 + 2 * b]), int(row[5 + 2 * b]))
+                   for b in range(4)]
+        if kind == VOP_P and (mode == MB_SKIP or (
+                mode == MB_INTER and not any(any(v) for v in vectors)
+                and not lv.any())):
+            bw.put(1, 1)
+            pred.qp[m] = qp
+            pred.intra[m] = False
+            pred.set_mvs(m, [(0, 0)] * 4)
+            continue
+        intra = mode == MB_INTRA or kind == VOP_I
+        dq = mqp - qp
+        if dq and dq not in DQUANT:
+            raise ValueError(f"macroblock {m}: qp {qp} -> {mqp} is no "
+                             f"DQUANT step")
+        four = not intra and len(set(vectors)) > 1
+        if four and dq:
+            raise ValueError(f"macroblock {m}: four vectors and DQUANT")
+        qp = mqp
+        pred.qp[m] = qp
+        pred.intra[m] = intra
+        sent = [list(map(int, lv[b])) for b in range(6)]
+        scans = [ZIGZAG] * 6
+        dc_vlc = qp < _DC_THR_QP[thr]
+        if intra:
+            pred.set_mvs(m, [(0, 0)] * 4)
+            for b in range(6):
+                key, pdc, top, pk = pred.dc_direction(m, b)
+                scale = dc_scaler(qp, b < 4)
+                sent[b][0] -= (pdc + (scale >> 1)) // scale
+                if acp:
+                    add = pred.ac_prediction(pk, top, qp)
+                    for i in range(1, 8):
+                        sent[b][i if top else 8 * i] -= add[i - 1]
+                    scans[b] = ALT_HORIZONTAL if top else ALT_VERTICAL
+                pred.store_intra(key, [int(v) for v in lv[b]], scale)
+            first = 1 if dc_vlc else 0
+            cbp = sum(int(any(sent[b][first:])) << (5 - b) for b in range(6))
+        else:
+            cbp = sum(int(any(sent[b])) << (5 - b) for b in range(6))
+        mb_type = (3 if intra else (2 if four else 0)) + (1 if dq else 0)
+        if kind == VOP_P:
+            bw.put(0, 1)
+            bw.put(*MCBPC_P[4 * mb_type + (cbp & 3)])
+        else:
+            bw.put(*MCBPC_I[4 * (mb_type - 3) + (cbp & 3)])
+        if intra:
+            bw.put(acp, 1)
+        bw.put(*CBPY[(cbp >> 2) if intra else 15 - (cbp >> 2)])
+        if dq:
+            bw.put(DQUANT.index(dq), 2)
+        if not intra:
+            done: List[Tuple[int, int]] = []
+            for b in range(4 if four else 1):
+                px, py = pred.mv_prediction(m, b)
+                put_mvd(bw, vectors[b][0] - px, fcode)
+                put_mvd(bw, vectors[b][1] - py, fcode)
+                done.append(vectors[b])
+                pred.set_mvs(m, done + [vectors[b]] * (4 - len(done)))
+            pred.set_mvs(m, vectors if four else [vectors[0]] * 4)
+        for b in range(6):
+            if intra:
+                if dc_vlc:
+                    put_dc(bw, sent[b][0], b < 4)
+                if (cbp >> (5 - b)) & 1:
+                    _put_levels(bw, INTRA_TCOEF, scans[b], sent[b],
+                                1 if dc_vlc else 0)
+            elif (cbp >> (5 - b)) & 1:
+                _put_levels(bw, INTER_TCOEF, ZIGZAG, sent[b], 0)
+    bw.stuff()
+    return bw.bytes()
+
+
+def write_vops(vop: np.ndarray, mb: np.ndarray, coef: np.ndarray,
+               vol: Vol) -> List[bytes]:
+    """The plain writer over a batch: one sample a VOP."""
+    return [write_vop(vop[f], mb[f], coef[f], vol) for f in range(len(vop))]
+
+
+# --- encoding -------------------------------------------------------------------
+
+# the quantiser of the port's writer: on the 256-px synthetic clip it keeps
+# the bytes a frame within 2x of cv2's writer at no more than 1 dB less PSNR
+DEFAULT_QSCALE = 4
+
+
+def _timing(j: int, fps: int) -> Tuple[int, int]:
+    """(modulo_time_base count, vop_time_increment) of frame j."""
+    return (j // fps - (j - 1) // fps if j else 0), j % fps
+
+
+def fcode_for(lo: int, hi: int) -> int:
+    """The least f_code whose range [-32 f, 32 f - 1] (half pels) holds
+    vectors from lo to hi."""
+    f = 1
+    while lo < -(32 << (f - 1)) or hi > (32 << (f - 1)) - 1:
+        f += 1
+    return f
+
+
+def encode_gops(yuv: Sequence[torch.Tensor], first: int, vol: Vol,
+                qscale: int):
+    """The device half of encoding frames first.. of whole GOPs (from
+    their Y, U, V planes): V3 for every P-VOP in one launch, then per
+    position k of the GOPs V2 (the prediction), V4, V1 and V2 (the
+    reconstruction). Returns (vop (N, VOP_FIELDS) numpy, mb, levels
+    (N, M, 6, 64) int16, reconstruction planes)."""
+    y = yuv[0]
+    dev = y.device
+    n = y.shape[0]
+    pos = (np.arange(n) + first) % GOP
+    mb = torch.zeros((n, vol.n_mb, MB_FIELDS), dtype=torch.int32,
+                     device=dev)
+    mb[:, :, 0] = MB_INTRA
+    mb[:, :, 1] = qscale
+    ps = np.nonzero(pos != 0)[0]
+    if len(ps):
+        items = torch.from_numpy(np.stack([ps, ps - 1], 1).astype(np.int32))
+        found = K.motion_search(y, items.to(dev), vol.width, vol.height)
+        idx = torch.from_numpy(ps).to(dev)
+        mb[idx, :, 0] = found[:, :, 0]
+        mb[idx, :, 4::2] = found[:, :, 1:2].expand(-1, -1, 4)
+        mb[idx, :, 5::2] = found[:, :, 2:3].expand(-1, -1, 4)
+    planes = _planes(n + 1, vol, dev)
+    levels = torch.empty((n, vol.n_mb, 6, 64), dtype=torch.int16,
+                         device=dev)
+    for k in range(GOP):
+        fs = np.nonzero(pos == k)[0]
+        if not len(fs):
+            continue
+        g = np.arange(len(fs))
+        refs = fs if k else np.full(len(fs), -1)
+        items = torch.from_numpy(np.stack(
+            [g, refs, fs + 1, np.zeros_like(fs)], 1).astype(np.int32)
+        ).to(dev)
+        fsi = torch.from_numpy(fs).to(dev)
+        mb_k = mb[fsi]
+        K.motion_compensate(planes, mb_k, None, items, vol.width,
+                            vol.height)
+        q = K.fdct_quant(yuv, planes, mb_k, torch.from_numpy(np.stack(
+            [fs, fs + 1], 1).astype(np.int32)).to(dev))
+        res = torch.zeros_like(q)
+        K.dequant_idct(q.view(-1, 64), torch.arange(
+            q.shape[0] * vol.n_mb * 6, dtype=torch.int32, device=dev), mb_k,
+            res)
+        K.motion_compensate(planes, mb_k, res, items, vol.width, vol.height)
+        levels[fsi] = q
+    mv = mb[:, :, 4:12]
+    lo = mv.amin((1, 2)).cpu().numpy()
+    hi = mv.amax((1, 2)).cpu().numpy()
+    vop = np.zeros((n, VOP_FIELDS), np.int32)
+    for i in range(n):
+        j = first + i
+        vop[i] = [VOP_I if pos[i] == 0 else VOP_P, 0, qscale,
+                  fcode_for(int(lo[i]), int(hi[i])), *_timing(j, vol.
+                                                              time_resolution)]
+    return vop, mb, levels, [p[1:] for p in planes]
+
+
+def entropy_encode(vop: np.ndarray, mb: torch.Tensor, levels: torch.Tensor,
+                   vol: Vol) -> List[bytes]:
+    """VOP bits from the encoder's records: the C++ coder for records on
+    CUDA, the plain writer for records on the CPU."""
+    if mb.device.type == "cuda":
+            return K.write_vops(vop, mb, levels, vol.as_ints(), vol.n_mb)
+    return write_vops(vop, mb.numpy(), levels.numpy(), vol)
+
+
+def encode(frames, fps: int, qscale: int = DEFAULT_QSCALE,
+           return_recon: bool = False):
+    """Encode (N, H, W, 3) uint8 RGB frames (a tensor on the device that
+    encodes, or a sequence of them) as `mp4v`: returns (samples, sync
+    flags, DecoderSpecificInfo, reconstruction (N, H, W, 3) uint8 or
+    None). Works batch_vops GOPs at a time."""
+    first = frames[0]
+    h, w = first.shape[:2]
+    if h % 2 or w % 2:
+        raise ValueError(f"frame size {w}x{h}: mp4v needs even sides")
+    if not 1 <= qscale <= 31:
+        raise ValueError(f"qscale {qscale} outside 1..31")
+    vol = Vol(w, h, fps)
+    dev = first.device
+    h16, w16 = 16 * vol.mb_height, 16 * vol.mb_width
+    samples: List[bytes] = []
+    recon = []
+    step = batch_vops(vol)
+    for lo in range(0, len(frames), step):
+        part = frames[lo: lo + step]
+        if not isinstance(part, torch.Tensor):
+            part = torch.stack(list(part))
+        with plain_threads(dev):
+            yuv = rgb_to_yuv420(part, h16, w16)
+            vop, mb, levels, planes = encode_gops(yuv, lo, vol, qscale)
+            samples += entropy_encode(vop, mb, levels, vol)
+            if return_recon:
+                recon.append(yuv420_to_rgb(*planes, h, w))
+    sync = [(i % GOP) == 0 for i in range(len(samples))]
+    dsi = write_vol_headers(vol)
+    return samples, sync, dsi, (torch.cat(recon) if return_recon else None)

@@ -1,15 +1,19 @@
 """Videos and image grids without OpenCV, counterpart of
 `faceoff_tpu/io/video.py`.
 
-Videos are RIFF AVI files with one video stream, written and read with
-the standard library: uncompressed (24-bit BI_RGB frames, top-down BGR
-rows marked by a negative height, padded to four bytes) or motion JPEG
-(`codec="mjpg"`: each frame a JPEG that nvJPEG encodes on the card,
-fourcc MJPG). Every frame is a key frame and the file has an idx1 index;
-ffmpeg and cv2 read both. The JAX package writes mp4 through cv2's
-encoder; the card's machine has neither ffmpeg nor NVIDIA's video codec
-headers, so an .mp4 name, and MJPEG on the CPU (no JPEG codec there),
-raise (ROADMAP.md, Queue 1 item 7b). Grids are PNG files (`io/image.py`).
+An .mp4 name is written as the JAX package writes it through cv2: an MP4
+file (`io/mp4.py`) holding MPEG-4 Part 2 `mp4v` video (`io/mpeg4.py`),
+encoded on `device` (CUDA unless named: the kernels of
+`ops/mpeg4_cuda.py` and the C++ entropy coder; on the CPU their plain
+versions). Other names get a RIFF AVI with one video stream, written and
+read with the standard library: uncompressed (24-bit BI_RGB frames,
+top-down BGR rows marked by a negative height, padded to four bytes) or
+motion JPEG (`codec="mjpg"`: each frame a JPEG that nvJPEG encodes on the
+card, fourcc MJPG). Every AVI frame is a key frame and the file has an
+idx1 index; ffmpeg and cv2 read both. Readers find the format by content,
+as cv2 does; an MP4 of another codec (H.264, HEVC, ...) raises naming it.
+MJPEG on the CPU (no JPEG codec there) raises. Grids are PNG files
+(`io/image.py`).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from faceoff_tpu_torch.device import DeviceLike, resolve_device
+from faceoff_tpu_torch.io import mp4, mpeg4
 from faceoff_tpu_torch.io.image import (decode_jpeg_bytes, encode_jpeg,
                                         write_png)
 
@@ -30,8 +35,6 @@ _AVIF_HASINDEX = 0x10
 _AVIIF_KEYFRAME = 0x10
 _MJPG = struct.unpack("<I", b"MJPG")[0]
 CODECS = ("raw", "mjpg")
-_NO_MP4 = ("mp4 needs a video codec the port does not have (ROADMAP.md, "
-           "Queue 1 item 7b); use an .avi name")
 _NO_MJPG_CPU = ("motion-JPEG AVI is encoded and decoded by nvJPEG on a "
                 "CUDA device only (ROADMAP.md, Queue 1 item 7b); on the "
                 "CPU write codec='raw'")
@@ -54,9 +57,8 @@ def _list(kind: bytes, body: bytes) -> bytes:
     return _chunk(b"LIST", kind + body)
 
 
-def _refuse_mp4(path: str) -> None:
-    if str(path).lower().endswith(".mp4"):
-        raise ValueError(f"{path}: {_NO_MP4}")
+def is_mp4_name(path: str) -> bool:
+    return str(path).lower().endswith(".mp4")
 
 
 def write_avi(video_path: str, frames: Sequence[bytes], width: int,
@@ -66,7 +68,6 @@ def write_avi(video_path: str, frames: Sequence[bytes], width: int,
     for "mjpg" each is one JPEG's bytes."""
     if codec not in CODECS:
         raise ValueError(f"unknown codec {codec!r}; one of {CODECS}")
-    _refuse_mp4(video_path)
     if len(frames) == 0:
         raise ValueError("no frames to write")
     os.makedirs(os.path.dirname(video_path) or ".", exist_ok=True)
@@ -106,17 +107,51 @@ def _raw_body(f: np.ndarray, h: int, w: int) -> bytes:
     return body.tobytes()
 
 
+def _device_frames(frames, dev: torch.device) -> List[torch.Tensor]:
+    """Each float [0, 1] or uint8 RGB frame as a uint8 tensor on `dev`."""
+    out = []
+    for frame in frames:
+        if isinstance(frame, torch.Tensor):
+            f = frame.to(dev)
+            if f.dtype != torch.uint8:
+                f = (f.float() * 255.0).round().clamp(0, 255).to(torch.uint8)
+        else:
+            f = torch.from_numpy(_to_uint8(frame)).to(dev)
+        out.append(f)
+    return out
+
+
+def _save_mp4(frames, video_path: str, fps: int, device: DeviceLike
+              ) -> None:
+    """Write frames as an `mp4v` MP4, encoded on `device` (CUDA unless
+    named) at mpeg4.DEFAULT_QSCALE."""
+    if len(frames) == 0:
+        raise ValueError("no frames to write")
+    dev = resolve_device(device)
+    frames = _device_frames(frames, dev)
+    h, w = frames[0].shape[:2]
+    for f in frames:
+        if tuple(f.shape) != (h, w, 3):
+            raise ValueError(f"frame of shape {tuple(f.shape)}, expected "
+                             f"{(h, w, 3)}")
+    samples, sync, dsi, _ = mpeg4.encode(frames, fps)
+    mp4.write_mp4(video_path, samples, sync, w, h, fps, dsi)
+
+
 def save_frames_as_video(
     frames, video_path: str, fps: int = 25, *, codec: str = "raw",
     device: DeviceLike = None,
 ) -> None:
-    """Write float [0, 1] or uint8 RGB frames (H, W, 3) as an AVI at
-    `fps`: uncompressed, or with codec "mjpg" as motion JPEG encoded by
-    nvJPEG on `device` (CUDA unless named; frames on the card are encoded
-    where they lie). An .mp4 name raises."""
+    """Write float [0, 1] or uint8 RGB frames (H, W, 3) at `fps`: for an
+    .mp4 name as `mp4v` (encoded on `device`; `codec` is ignored), else
+    as an AVI, uncompressed, or with codec "mjpg" as motion JPEG encoded by nvJPEG on
+    `device` (CUDA unless named; frames on the card are encoded where they
+    lie)."""
+    if is_mp4_name(video_path):
+        _save_mp4(frames, video_path, fps, device)
+        return
     if codec not in CODECS:
         raise ValueError(f"unknown codec {codec!r}; one of {CODECS}")
-    _refuse_mp4(video_path)
     if len(frames) == 0:
         raise ValueError("no frames to write")
     if codec == "mjpg":
@@ -162,7 +197,6 @@ def read_avi(video_path: str, max_frames: Optional[int] = None):
     """The coded frames of an AVI: (codec "raw" or "mjpg", width,
     height, list of each frame's bytes). A raw height below zero marks
     top-down rows."""
-    _refuse_mp4(video_path)
     data = Path(video_path).read_bytes()
     if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
         raise ValueError(f"{video_path}: not an AVI file")
@@ -224,24 +258,63 @@ def decode_frames(codec: str, width: int, height: int,
     return torch.from_numpy(np.stack(frames)).to(dev)
 
 
+def _mp4_track(video_path: str, max_frames: Optional[int] = None):
+    track = mp4.read_mp4(video_path, max_frames)
+    vol = mpeg4.parse_vol(track.dsi)
+    if (vol.width, vol.height) != (track.width, track.height):
+        raise ValueError(f"{video_path}: the VOL's {vol.width}x{vol.height}"
+                         f" differs from the track's {track.width}x"
+                         f"{track.height}")
+    return track, vol
+
+
+def _is_mp4(video_path: str) -> bool:
+    kind = mp4.sniff(video_path)
+    if kind is None:
+        raise ValueError(f"{video_path}: neither an MP4 nor an AVI file")
+    return kind == "mp4"
+
+
 def read_video_frames(
     video_path: str, max_frames: Optional[int] = None,
     device: DeviceLike = None,
 ) -> Union[List[np.ndarray], torch.Tensor]:
-    """Read an AVI's frames: an uncompressed one as a list of uint8 RGB
-    arrays when no device or the CPU is named; with a CUDA device (which
-    motion JPEG needs, and takes when none is named) one (N, H, W, 3)
-    uint8 tensor on the card."""
+    """Read a video's frames, its format found by content. An MP4 (mp4v)
+    decodes on `device` (CUDA unless named) into one (N, H, W, 3) uint8
+    tensor. An AVI: an uncompressed one as a list of uint8 RGB arrays when
+    no device or the CPU is named; with a CUDA device (which motion JPEG
+    needs, and takes when none is named) one (N, H, W, 3) uint8 tensor on
+    the card."""
+    if _is_mp4(video_path):
+        dev = resolve_device(device)
+        track, vol = _mp4_track(video_path, max_frames)
+        return mpeg4.decode(track.samples, vol, dev, sync=track.sync)
     codec, width, height, bodies = read_avi(video_path, max_frames)
     return decode_frames(codec, width, height, bodies, device)
 
 
 def video_frame_chunks(video_path: str, chunk_frames: int,
                        device: DeviceLike = None) -> Iterator[torch.Tensor]:
-    """An AVI's frames in chunks of at most `chunk_frames`, each one
+    """A video's frames in chunks of at most `chunk_frames`, each one
     (n, H, W, 3) uint8 tensor on `device` (CUDA unless named), decoded
-    chunk by chunk."""
+    chunk by chunk (an MP4 in batches that start at its key frames where
+    they can, the last reconstruction carried between them)."""
     dev = resolve_device(device)
+    if _is_mp4(video_path):
+        track, vol = _mp4_track(video_path)
+        pending: List[torch.Tensor] = []
+        held = 0
+        for part in mpeg4.iter_decode(track.samples, vol, dev,
+                                      sync=track.sync):
+            pending.append(part)
+            held += part.shape[0]
+            while held >= chunk_frames:
+                whole = torch.cat(pending)
+                yield whole[:chunk_frames]
+                pending, held = [whole[chunk_frames:]], held - chunk_frames
+        if held:
+            yield torch.cat(pending)
+        return
     codec, width, height, bodies = read_avi(video_path)
     for lo in range(0, len(bodies), chunk_frames):
         part = decode_frames(codec, width, height,

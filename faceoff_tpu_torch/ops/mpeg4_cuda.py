@@ -1,0 +1,678 @@
+"""The device stages of the MPEG-4 Part 2 (`mp4v`) codec and its host
+entropy coder (`csrc/mpeg4.cu`), with the plain torch version of each
+stage beside its kernel.
+
+    V1 dequant_idct       H.263 inverse quantisation, then the integer
+                          8x8 IDCT, of the coded blocks of a batch of VOPs
+    V2 motion_compensate  the half-pel prediction of the k-th VOP of every
+                          GOP of a batch from its reference, plus the
+                          residual, clipped to 8 bits
+    V3 motion_search      the encoder's +-16 pixel full search with
+                          half-pel refinement and the intra decision
+    V4 fdct_quant         the encoder's integer 8x8 forward DCT and H.263
+                          quantisation
+
+They replace work that the JAX package hands to cv2's FFmpeg on the host;
+no TPU kernel and no PyTorch call computes them. All four are integer
+arithmetic, so each kernel equals its plain version bit for bit. The IDCT
+is the integer "simple" IDCT (22725, 21407, 19266, 16383, 12873, 8867,
+4520; rows >> 11, columns >> 20, a DC-only row shortcut), which meets IEEE
+1180 and is the one FFmpeg decodes its own `mp4v` streams with. The
+forward DCT is an orthonormal matrix DCT in 13-bit fixed point (rows
+rounded >> 10, columns >> 16).
+
+On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
+launches the kernel or raises. `launches` counts the kernel launches of
+each stage. The host coder (`parse_vops`, `write_vops`) spreads the VOPs of
+a batch over threads in C++ and is called once a batch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import os
+import threading
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from faceoff_tpu_torch.ops import cuda_build
+
+SOURCE = cuda_build.CSRC / "mpeg4.cu"
+
+MB_FIELDS = 12
+MB_SKIP, MB_INTER, MB_INTRA = 0, 1, 2
+# P-VOP macroblocks go intra where deviation + INTRA_BIAS < best SAD
+INTRA_BIAS = 512
+SEARCH_RANGE = 16
+
+# kernel launches made through the wrappers in this process
+launches: Dict[str, int] = {"dequant_idct": 0, "motion_compensate": 0,
+                            "motion_search": 0, "fdct_quant": 0}
+
+_lib: Optional[ctypes.CDLL] = None
+_lock = threading.Lock()
+
+# the simple IDCT's constants
+W1, W2, W3, W4, W5, W6, W7 = 22725, 21407, 19266, 16383, 12873, 8867, 4520
+ROW_SHIFT, COL_SHIFT = 11, 20
+
+
+def fdct_matrix() -> np.ndarray:
+    """(8, 8) int64: round(2^13 * c(u) / 2 * cos((2x + 1) u pi / 16))."""
+    m = np.zeros((8, 8), np.int64)
+    for u in range(8):
+        cu = math.sqrt(0.5) if u == 0 else 1.0
+        for x in range(8):
+            m[u, x] = round(8192 * cu / 2 * math.cos((2 * x + 1) * u
+                                                     * math.pi / 16))
+    return m
+
+
+FDCT = fdct_matrix()
+
+
+def dc_scaler(qp: torch.Tensor, luma: torch.Tensor) -> torch.Tensor:
+    """The intra DC step of each qp (Table 7-1), luma or chroma."""
+    lum = torch.where(qp < 9, 2 * qp, torch.where(qp < 25, qp + 8,
+                                                  2 * qp - 16))
+    chrom = torch.where(qp < 25, (qp + 13) // 2, qp - 6)
+    return torch.where(qp < 5, torch.full_like(qp, 8),
+                       torch.where(luma, lum, chrom))
+
+
+def _wrap16(x: torch.Tensor) -> torch.Tensor:
+    """x stored to int16 and read back, as the C code's int16 rows."""
+    return ((x + 32768) & 0xFFFF) - 32768
+
+
+# --- V1: dequantisation and IDCT -------------------------------------------
+
+def _idct_rows(r: torch.Tensor) -> torch.Tensor:
+    """The simple IDCT's row pass on (..., 8) int64."""
+    x = [r[..., i] for i in range(8)]
+    a0 = W4 * x[0] + (1 << (ROW_SHIFT - 1))
+    a1, a2, a3 = a0, a0, a0
+    a0 = a0 + W2 * x[2] + W4 * x[4] + W6 * x[6]
+    a1 = a1 + W6 * x[2] - W4 * x[4] - W2 * x[6]
+    a2 = a2 - W6 * x[2] - W4 * x[4] + W2 * x[6]
+    a3 = a3 - W2 * x[2] + W4 * x[4] - W6 * x[6]
+    b0 = W1 * x[1] + W3 * x[3] + W5 * x[5] + W7 * x[7]
+    b1 = W3 * x[1] - W7 * x[3] - W1 * x[5] - W5 * x[7]
+    b2 = W5 * x[1] - W1 * x[3] + W7 * x[5] + W3 * x[7]
+    b3 = W7 * x[1] - W5 * x[3] + W3 * x[5] - W1 * x[7]
+    out = torch.stack([a0 + b0, a1 + b1, a2 + b2, a3 + b3,
+                       a3 - b3, a2 - b2, a1 - b1, a0 - b0], -1) >> ROW_SHIFT
+    dc_only = (r[..., 1:] == 0).all(-1, keepdim=True)
+    out = torch.where(dc_only, (x[0] * 8).unsqueeze(-1).expand_as(out), out)
+    return _wrap16(out)
+
+
+def _idct_cols(c: torch.Tensor) -> torch.Tensor:
+    """The column pass on (..., 8) int64 (one column, top to bottom)."""
+    x = [c[..., i] for i in range(8)]
+    a0 = W4 * (x[0] + ((1 << (COL_SHIFT - 1)) // W4))
+    a1, a2, a3 = a0, a0, a0
+    a0 = a0 + W2 * x[2] + W4 * x[4] + W6 * x[6]
+    a1 = a1 + W6 * x[2] - W4 * x[4] - W2 * x[6]
+    a2 = a2 - W6 * x[2] - W4 * x[4] + W2 * x[6]
+    a3 = a3 - W2 * x[2] + W4 * x[4] - W6 * x[6]
+    b0 = W1 * x[1] + W3 * x[3] + W5 * x[5] + W7 * x[7]
+    b1 = W3 * x[1] - W7 * x[3] - W1 * x[5] - W5 * x[7]
+    b2 = W5 * x[1] - W1 * x[3] + W7 * x[5] + W3 * x[7]
+    b3 = W7 * x[1] - W5 * x[3] + W3 * x[5] - W1 * x[7]
+    return torch.stack([a0 + b0, a1 + b1, a2 + b2, a3 + b3,
+                        a3 - b3, a2 - b2, a1 - b1, a0 - b0], -1) >> COL_SHIFT
+
+
+def idct_plain(coef: torch.Tensor) -> torch.Tensor:
+    """(N, 64) dequantised coefficients (raster) -> (N, 64) int16."""
+    r = _idct_rows(coef.to(torch.int64).view(-1, 8, 8))
+    out = _idct_cols(r.transpose(1, 2)).transpose(1, 2)
+    return _wrap16(out).reshape(-1, 64).to(torch.int16)
+
+
+def dequantize_plain(levels: torch.Tensor, qp: torch.Tensor,
+                     intra: torch.Tensor, luma: torch.Tensor
+                     ) -> torch.Tensor:
+    """H.263 inverse quantisation of (N, 64) levels: |F| = qp (2 |l| + 1),
+    less one for an even qp; the intra DC is its level times the
+    dc_scaler; all clamped to [-2048, 2047]. (N, 64) int64."""
+    lv = levels.to(torch.int64)
+    q = qp.to(torch.int64).unsqueeze(1)
+    mag = q * (2 * lv.abs() + 1) - (1 - (q & 1))
+    f = torch.where(lv == 0, torch.zeros_like(lv), torch.sign(lv) * mag)
+    dc = lv[:, 0] * dc_scaler(qp.to(torch.int64), luma)
+    f[:, 0] = torch.where(intra, dc, f[:, 0])
+    return f.clamp(-2048, 2047)
+
+
+def _block_params(bidx: torch.Tensor, mb: torch.Tensor):
+    n_mb = mb.shape[1]
+    rows = mb.reshape(-1, MB_FIELDS)[(bidx // 6).to(torch.int64)]
+    return (rows[:, 1], rows[:, 0] == MB_INTRA, (bidx % 6) < 4)
+
+
+def dequant_idct_plain(blocks: torch.Tensor, bidx: torch.Tensor,
+                       mb: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """The plain V1: each row of `blocks` (NB, 64) int16 levels,
+    dequantised with the qp and mode of its macroblock in `mb` (F, M,
+    MB_FIELDS), inverse transformed into row bidx of `out` (F * M * 6, 64)
+    int16."""
+    if blocks.shape[0] == 0:
+        return out
+    qp, intra, luma = _block_params(bidx, mb)
+    res = idct_plain(dequantize_plain(blocks, qp, intra, luma))
+    out.view(-1, 64)[bidx.to(torch.int64)] = res
+    return out
+
+
+# --- V2: motion compensation ------------------------------------------------
+
+_CHROMA_ROUND = torch.tensor([0, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2])
+
+
+def chroma_vector(s: torch.Tensor) -> torch.Tensor:
+    """The chroma vector (half pels) from the sum of the four luma block
+    vectors (Table 7-9's sixteenth-pel rounding; for four equal vectors
+    it is the one-vector rule (v >> 1) | (v & 1))."""
+    tab = _CHROMA_ROUND.to(s.device)
+    return tab[s & 15] + ((s >> 3) & ~1)
+
+
+def _interp(ref: torch.Tensor, X: torch.Tensor, Y: torch.Tensor, w: int,
+            h: int, rounding: int) -> torch.Tensor:
+    """Half-pel bilinear samples of `ref` (H, W) int64 at half-pel
+    coordinates X, Y, every tap clamped into the w x h picture."""
+    x0, y0, fx, fy = X >> 1, Y >> 1, X & 1, Y & 1
+    xa, xb = x0.clamp(0, w - 1), (x0 + 1).clamp(0, w - 1)
+    ya, yb = y0.clamp(0, h - 1), (y0 + 1).clamp(0, h - 1)
+    a, b = ref[ya, xa], ref[ya, xb]
+    c, d = ref[yb, xa], ref[yb, xb]
+    r = rounding
+    return torch.where(
+        fx == 0,
+        torch.where(fy == 0, a, (a + c + 1 - r) >> 1),
+        torch.where(fy == 0, (a + b + 1 - r) >> 1,
+                    (a + b + c + d + 2 - r) >> 2))
+
+
+def _mc_grids(mbw: int, mbh: int, dev):
+    """Per macroblock and pixel: luma (M, 256) block index and x, y
+    offsets; chroma (M, 64) offsets."""
+    m = torch.arange(mbw * mbh, device=dev)
+    my, mx = (m // mbw).unsqueeze(1), (m % mbw).unsqueeze(1)
+    p = torch.arange(256, device=dev).unsqueeze(0)
+    py, px = p // 16, p % 16
+    blk = (py >= 8).to(torch.int64) * 2 + (px >= 8).to(torch.int64)
+    q = torch.arange(64, device=dev).unsqueeze(0)
+    return (mx * 16 + px, my * 16 + py, blk,
+            mx * 8 + q % 8, my * 8 + q // 8)
+
+
+def _residual_planes(res: torch.Tensor, mbw: int, mbh: int):
+    """(M, 6, 64) residual -> luma (M, 256) and chroma (2, M, 64) in the
+    macroblocks' pixel order."""
+    r = res.to(torch.int64).view(-1, 6, 8, 8)
+    luma = r[:, :4].view(-1, 2, 2, 8, 8).permute(0, 1, 3, 2, 4)
+    return luma.reshape(-1, 256), r[:, 4:].reshape(-1, 2, 64).transpose(0, 1)
+
+
+def motion_compensate_plain(planes: Sequence[torch.Tensor], mb: torch.Tensor,
+                            res: Optional[torch.Tensor], items: torch.Tensor,
+                            width: int, height: int) -> None:
+    """The plain V2. planes: Y (S, H16, W16), U, V (S, H16/2, W16/2) uint8
+    slots; items (G, 4) int32 rows (f, reference slot, output slot,
+    rounding type): macroblocks mb[f] (F, M, MB_FIELDS) and residual
+    res[f] (F, M, 6, 64) int16 (None: zero) make output slot from
+    reference slot. Intra macroblocks take the residual alone, not-coded
+    ones the reference; every reference tap is clamped into the width x
+    height picture. Writes the output slots in place."""
+    y_pl, u_pl, v_pl = planes
+    h16, w16 = y_pl.shape[1:]
+    mbw, mbh = w16 // 16, h16 // 16
+    dev = y_pl.device
+    lx, ly, blk, cx, cy = _mc_grids(mbw, mbh, dev)
+    for f, ref, out, rnd in items.tolist():
+        rec = mb[f].to(torch.int64)
+        mode = rec[:, 0:1]
+        mv = rec[:, 4:12].view(-1, 4, 2)
+        bk = blk.expand(mv.shape[0], -1)
+        mvx = torch.gather(mv[:, :, 0], 1, bk)
+        mvy = torch.gather(mv[:, :, 1], 1, bk)
+        cmx = chroma_vector(mv[:, :, 0].sum(1)).unsqueeze(1)
+        cmy = chroma_vector(mv[:, :, 1].sum(1)).unsqueeze(1)
+        if res is None:
+            r_l = torch.zeros_like(lx)
+            r_c = torch.zeros((2,) + cx.shape, dtype=torch.int64, device=dev)
+        else:
+            r_l, r_c = _residual_planes(res[f], mbw, mbh)
+        intra = mode == MB_INTRA
+        if ref >= 0:
+            p_l = _interp(y_pl[ref].to(torch.int64), 2 * lx + mvx,
+                          2 * ly + mvy, width, height, rnd)
+        else:
+            p_l = torch.zeros_like(lx)
+        p_l = torch.where(intra, torch.zeros_like(p_l), p_l)
+        rec_l = (p_l + r_l).clamp(0, 255).to(torch.uint8)
+        y_pl[out][ly, lx] = rec_l
+        for c, pl in enumerate((u_pl, v_pl)):
+            if ref >= 0:
+                p_c = _interp(pl[ref].to(torch.int64), 2 * cx + cmx,
+                              2 * cy + cmy, width // 2, height // 2, rnd)
+            else:
+                p_c = torch.zeros_like(cx)
+            p_c = torch.where(intra, torch.zeros_like(p_c), p_c)
+            pl[out][cy, cx] = (p_c + r_c[c]).clamp(0, 255).to(torch.uint8)
+
+
+# --- V3: motion search -------------------------------------------------------
+
+_HALF_ORDER = ((0, 0), (-1, -1), (0, -1), (1, -1), (-1, 0), (1, 0),
+               (-1, 1), (0, 1), (1, 1))
+
+
+def motion_search_plain(src_y: torch.Tensor, items: torch.Tensor, width: int,
+                        height: int) -> torch.Tensor:
+    """The plain V3 on luma planes (N, H16, W16) uint8 and items (G, 2)
+    int32 (current frame, reference frame): (G, M, 3) int32 rows (mode,
+    mvx, mvy), the vector in half pels. The full search scores every
+    integer vector of [-16, 16]^2 by the 16 x 16 SAD against the
+    reference clamped into the picture, the least key (SAD, then the
+    Chebyshev length, then dy, then dx) winning; the half-pel step scores
+    the eight neighbours of that vector (rounding 0) after it, the first
+    of equal SADs in _HALF_ORDER winning. A macroblock goes intra when its
+    deviation from its own mean plus INTRA_BIAS is below the best SAD."""
+    n, h16, w16 = src_y.shape
+    mbw, mbh = w16 // 16, h16 // 16
+    dev = src_y.device
+    rng = SEARCH_RANGE
+    pad = rng + 2
+    yy = (torch.arange(-pad, h16 + pad, device=dev)).clamp(0, height - 1)
+    xx = (torch.arange(-pad, w16 + pad, device=dev)).clamp(0, width - 1)
+    lx, ly, _, _, _ = _mc_grids(mbw, mbh, dev)
+    out = []
+    for cur_i, ref_i in items.tolist():
+        cur = src_y[cur_i].to(torch.int64)
+        ref = src_y[ref_i].to(torch.int64)
+        padded = ref[yy][:, xx]
+        cur_mb = cur.view(mbh, 16, mbw, 16).permute(0, 2, 1, 3).reshape(-1,
+                                                                      256)
+        best = torch.full((mbw * mbh,), 2 ** 62, dtype=torch.int64,
+                          device=dev)
+        dxs = torch.arange(-rng, rng + 1, device=dev)
+        for dy in range(-rng, rng + 1):
+            rows = padded[pad + dy: pad + dy + h16]
+            # every dx at once: (2 rng + 1, h16, w16) shifted windows
+            win = rows.unfold(1, w16, 1)[:, pad - rng: pad + rng + 1]
+            sad = (win.permute(1, 0, 2) - cur).abs().view(
+                -1, mbh, 16, mbw, 16).sum((2, 4)).view(len(dxs), -1)
+            order = ((torch.maximum(dxs.abs(), torch.tensor(abs(dy))) << 12)
+                     | ((dy + rng) << 6) | (dxs + rng))
+            best = torch.minimum(best, ((sad << 17) | order[:, None])
+                                 .amin(0))
+        order = best & ((1 << 17) - 1)
+        bdx = (order & 63) - rng
+        bdy = ((order >> 6) & 63) - rng
+        keys = []
+        for i, (hx, hy) in enumerate(_HALF_ORDER):
+            X = 2 * lx + (2 * bdx + hx).unsqueeze(1)
+            Y = 2 * ly + (2 * bdy + hy).unsqueeze(1)
+            p = _interp(ref, X, Y, width, height, 0)
+            keys.append(((p - cur_mb).abs().sum(1) << 4) | i)
+        k2 = torch.stack(keys, 1).min(1).values
+        sad = k2 >> 4
+        pick = torch.tensor(_HALF_ORDER, device=dev)[k2 & 15]
+        mvx = 2 * bdx + pick[:, 0]
+        mvy = 2 * bdy + pick[:, 1]
+        mean = (cur_mb.sum(1) + 128) >> 8
+        devn = (cur_mb - mean.unsqueeze(1)).abs().sum(1)
+        intra = devn + INTRA_BIAS < sad
+        mode = torch.where(intra, MB_INTRA, MB_INTER)
+        zero = torch.zeros_like(mvx)
+        out.append(torch.stack([mode, torch.where(intra, zero, mvx),
+                                torch.where(intra, zero, mvy)], 1))
+    if not out:
+        return torch.zeros((0, mbw * mbh, 3), dtype=torch.int32, device=dev)
+    return torch.stack(out).to(torch.int32)
+
+
+# --- V4: forward DCT and quantisation ---------------------------------------
+
+def _blocks_of(planes: Sequence[torch.Tensor], slot: int) -> torch.Tensor:
+    """The (M, 6, 64) int64 blocks of one slot of Y, U, V planes."""
+    y_pl, u_pl, v_pl = planes
+    h16, w16 = y_pl.shape[1:]
+    mbw, mbh = w16 // 16, h16 // 16
+    y = y_pl[slot].to(torch.int64).view(mbh, 2, 8, mbw, 2, 8)
+    y = y.permute(0, 3, 1, 4, 2, 5).reshape(-1, 4, 64)
+    cs = [pl[slot].to(torch.int64).view(mbh, 8, mbw, 8).permute(0, 2, 1, 3)
+          .reshape(-1, 1, 64) for pl in (u_pl, v_pl)]
+    return torch.cat([y] + cs, 1)
+
+
+def fdct_plain(x: torch.Tensor) -> torch.Tensor:
+    """(..., 64) int64 samples -> (..., 64) int64 DCT coefficients."""
+    m = torch.from_numpy(FDCT).to(x.device)
+    b = x.reshape(-1, 8, 8)
+    t = ((b.unsqueeze(2) * m.view(1, 1, 8, 8)).sum(-1) + 512) >> 10
+    # t[n, y, u]; columns: F[n, v, u] = sum_y m[v, y] t[n, y, u]
+    f = ((m.view(1, 8, 8, 1) * t.unsqueeze(1)).sum(2) + 32768) >> 16
+    return f.reshape(x.shape)
+
+
+def quantize_plain(f: torch.Tensor, qp: torch.Tensor, intra: torch.Tensor,
+                   luma: torch.Tensor) -> torch.Tensor:
+    """H.263 quantisation of (N, 64) int64 coefficients: intra AC
+    |F| // (2 qp), inter (|F| - qp // 2) // (2 qp), clamped to 2047; the
+    intra DC rounded by its dc_scaler into [1, 254]. (N, 64) int16."""
+    q = qp.to(torch.int64).unsqueeze(1)
+    a = f.abs()
+    mag = torch.where(intra.unsqueeze(1), a // (2 * q),
+                      (a - q // 2).clamp(min=0) // (2 * q))
+    lv = (torch.sign(f) * mag.clamp(max=2047))
+    s = dc_scaler(qp.to(torch.int64), luma)
+    dc = ((f[:, 0] + (s >> 1)) // s).clamp(1, 254)
+    lv[:, 0] = torch.where(intra, dc, lv[:, 0])
+    return lv.to(torch.int16)
+
+
+def fdct_quant_plain(src: Sequence[torch.Tensor], pred: Sequence[torch.Tensor],
+                     mb: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
+    """The plain V4: for each item (source frame, prediction slot), the
+    blocks of macroblocks mb[g] (G, M, MB_FIELDS): intra ones from the
+    source, others the source less the prediction, transformed and
+    quantised with their qp. (G, M, 6, 64) int16."""
+    out = []
+    for g, (s, p) in enumerate(items.tolist()):
+        rec = mb[g].to(torch.int64)
+        intra = (rec[:, 0] == MB_INTRA)
+        x = _blocks_of(src, s)
+        x = torch.where(intra.view(-1, 1, 1), x, x - _blocks_of(pred, p))
+        n_mb = x.shape[0]
+        f = fdct_plain(x).view(-1, 64)
+        qp = rec[:, 1].repeat_interleave(6)
+        luma = (torch.arange(6, device=x.device) < 4).repeat(n_mb)
+        out.append(quantize_plain(f, qp, intra.repeat_interleave(6), luma)
+                   .view(n_mb, 6, 64))
+    if not out:
+        return torch.zeros((0,) + tuple(mb.shape[1:2]) + (6, 64),
+                           dtype=torch.int16, device=mb.device)
+    return torch.stack(out)
+
+
+# --- the kernels ----------------------------------------------------------------
+
+def library_path() -> Path:
+    return cuda_build.library_path(SOURCE, "faceoff_mpeg4")
+
+
+def build() -> Path:
+    """Compile the kernel library unless this source is already built."""
+    return cuda_build.build(SOURCE, "faceoff_mpeg4")
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def load() -> ctypes.CDLL:
+    """Build if needed, then load the library once per process and hand
+    the C++ entropy coder the VLC tables of `io/mpeg4.py`."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib = ctypes.CDLL(str(build()))
+        sigs = {
+            "mpeg4_dequant_idct": [_P, _P, _I, _P, _P, _P],
+            "mpeg4_motion_compensate": [_P, _P, _P, _I, _I, _P, _I, _P, _P,
+                                        _I, _I, _I, _P],
+            "mpeg4_motion_search": [_P, _I, _I, _I, _P, _I, _I, _I, _P,
+                                    _P],
+            "mpeg4_fdct_quant": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
+                                 _P, _P, _I, _P, _P],
+            "mpeg4_set_vlc": [_I, _I, _P, _P, _P],
+            "mpeg4_parse": [_P, _P, _P, _I, _P, _I, ctypes.POINTER(
+                ctypes.c_int64)],
+            "mpeg4_parse_fetch": [_P, _P, _P, _P, _P],
+            "mpeg4_write": [_P, _P, _P, _I, _P, _I, ctypes.POINTER(
+                ctypes.c_int64)],
+            "mpeg4_write_fetch": [_P, _P, _P],
+            "mpeg4_free": [_P],
+            "mpeg4_error": [_P],
+        }
+        for name, args in sigs.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = _I
+        lib.mpeg4_parse.restype = _P
+        lib.mpeg4_write.restype = _P
+        lib.mpeg4_error.restype = ctypes.c_char_p
+        _send_tables(lib)
+        _lib = lib
+        return lib
+
+
+def _cuda_check(t: torch.Tensor, what: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} on {t.device}: the kernel takes CUDA "
+                         f"tensors")
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _count(name: str, status: int) -> None:
+    if status != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError "
+                           f"{status - 1000}")
+    with _lock:
+        launches[name] += 1
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def dequant_idct(blocks: torch.Tensor, bidx: torch.Tensor, mb: torch.Tensor,
+                 out: torch.Tensor) -> torch.Tensor:
+    """V1 into `out` (F, M, 6, 64) int16 (rows not named by bidx keep
+    their values): the kernel on CUDA tensors, the plain version on CPU
+    ones."""
+    if blocks.device.type == "cpu":
+        return dequant_idct_plain(blocks, bidx, mb, out)
+    for t, n in ((blocks, "blocks"), (bidx, "bidx"), (mb, "mb"),
+                 (out, "out")):
+        _cuda_check(t, n)
+    if blocks.shape[0] == 0:
+        return out
+    lib = load()
+    with torch.cuda.device(blocks.device):
+        status = lib.mpeg4_dequant_idct(
+            blocks.contiguous().data_ptr(), bidx.contiguous().data_ptr(),
+            blocks.shape[0], mb.contiguous().data_ptr(), out.data_ptr(),
+            _stream(blocks.device))
+    _count("dequant_idct", status)
+    return out
+
+
+def motion_compensate(planes: Sequence[torch.Tensor], mb: torch.Tensor,
+                      res: Optional[torch.Tensor], items: torch.Tensor,
+                      width: int, height: int) -> None:
+    """V2 (see motion_compensate_plain), in place on the planes' output
+    slots: one launch for every item."""
+    y_pl, u_pl, v_pl = planes
+    if y_pl.device.type == "cpu":
+        return motion_compensate_plain(planes, mb, res, items, width, height)
+    for t, n in ((y_pl, "planes"), (mb, "mb"), (items, "items")):
+        _cuda_check(t, n)
+    if items.shape[0] == 0:
+        return None
+    lib = load()
+    h16, w16 = y_pl.shape[1:]
+    with torch.cuda.device(y_pl.device):
+        status = lib.mpeg4_motion_compensate(
+            y_pl.data_ptr(), u_pl.data_ptr(), v_pl.data_ptr(), h16, w16,
+            mb.contiguous().data_ptr(), mb.shape[1],
+            _ptr(None if res is None else res.contiguous()),
+            items.contiguous().data_ptr(), items.shape[0], width, height,
+            _stream(y_pl.device))
+    _count("motion_compensate", status)
+    return None
+
+
+def motion_search(src_y: torch.Tensor, items: torch.Tensor, width: int,
+                  height: int) -> torch.Tensor:
+    """V3 (see motion_search_plain): (G, M, 3) int32."""
+    if src_y.device.type == "cpu":
+        return motion_search_plain(src_y, items, width, height)
+    _cuda_check(src_y, "src_y")
+    _cuda_check(items, "items")
+    n, h16, w16 = src_y.shape
+    g = items.shape[0]
+    out = torch.empty((g, (h16 // 16) * (w16 // 16), 3), dtype=torch.int32,
+                      device=src_y.device)
+    if g == 0:
+        return out
+    lib = load()
+    with torch.cuda.device(src_y.device):
+        status = lib.mpeg4_motion_search(
+            src_y.contiguous().data_ptr(), n, h16, w16,
+            items.contiguous().data_ptr(), g, width, height,
+            out.data_ptr(), _stream(src_y.device))
+    _count("motion_search", status)
+    return out
+
+
+def fdct_quant(src: Sequence[torch.Tensor], pred: Sequence[torch.Tensor],
+               mb: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
+    """V4 (see fdct_quant_plain): (G, M, 6, 64) int16."""
+    if src[0].device.type == "cpu":
+        return fdct_quant_plain(src, pred, mb, items)
+    for t, n in ((src[0], "src"), (pred[0], "pred"), (mb, "mb"),
+                 (items, "items")):
+        _cuda_check(t, n)
+    g = items.shape[0]
+    h16, w16 = src[0].shape[1:]
+    out = torch.empty((g, mb.shape[1], 6, 64), dtype=torch.int16,
+                      device=mb.device)
+    if g == 0:
+        return out
+    lib = load()
+    with torch.cuda.device(mb.device):
+        status = lib.mpeg4_fdct_quant(
+            *(p.data_ptr() for p in src), src[0].shape[0],
+            *(p.data_ptr() for p in pred), pred[0].shape[0], h16, w16,
+            mb.contiguous().data_ptr(), items.contiguous().data_ptr(), g,
+            out.data_ptr(), _stream(mb.device))
+    _count("fdct_quant", status)
+    return out
+
+
+# --- the host entropy coder -------------------------------------------------------
+
+def threads() -> int:
+    """Host threads of the entropy coder: the machine's cores, at most 8."""
+    return max(1, min(8, os.cpu_count() or 1))
+
+
+def _send_tables(lib: ctypes.CDLL) -> None:
+    from faceoff_tpu_torch.io import mpeg4 as M
+    plain = [M.MCBPC_I, M.MCBPC_P, M.CBPY, M.DC_LUMA, M.DC_CHROMA, M.MVD]
+    tables: List[Tuple[Sequence, List[int]]] = [
+        (codes, list(range(len(codes)))) for codes in plain]
+    for t in (M.INTER_TCOEF, M.INTRA_TCOEF):
+        syms = [(last << 16) | (run << 8) | level
+                for last, run, level in t.symbols]
+        tables.append((list(t.codes) + [M.ESCAPE], syms + [-1]))
+    for i, (codes, syms) in enumerate(tables):
+        c = np.asarray([code for code, _ in codes], np.int32)
+        n = np.asarray([length for _, length in codes], np.int32)
+        s = np.asarray(syms, np.int32)
+        status = lib.mpeg4_set_vlc(i, len(c), c.ctypes.data, n.ctypes.data,
+                                   s.ctypes.data)
+        if status:
+            raise RuntimeError(f"mpeg4_set_vlc({i}) failed: {status}")
+
+
+def _host_error(lib, handle, what: str) -> ValueError:
+    msg = lib.mpeg4_error(handle).decode()
+    lib.mpeg4_free(handle)
+    return ValueError(f"{what}: {msg}")
+
+
+def _align(n: int) -> int:
+    return (n + 7) & ~7
+
+
+def parse_vops(samples: Sequence[bytes], vol_fields: Sequence[int],
+               n_mb: int, dev: torch.device):
+    """The C++ parser over a batch of VOPs on host threads, its records
+    packed into one pinned buffer and copied to `dev` in one transfer:
+    (vop numpy (F, 6), mb (F, M, 12), blocks (NB, 64), bidx (NB,))."""
+    lib = load()
+    n = len(samples)
+    sizes = np.asarray([len(s) for s in samples], np.int64)
+    offsets = np.zeros(n, np.int64)
+    offsets[1:] = np.cumsum(sizes)[:-1]
+    data = b"".join(samples) + b"\0" * 8
+    vol = np.asarray(vol_fields, np.int32)
+    count = ctypes.c_int64(0)
+    handle = lib.mpeg4_parse(data, offsets.ctypes.data, sizes.ctypes.data, n,
+                             vol.ctypes.data, threads(), ctypes.byref(count))
+    nb = count.value
+    if lib.mpeg4_error(handle):
+        raise _host_error(lib, handle, "mp4v parse")
+    parts = [n * 6 * 4, n * n_mb * MB_FIELDS * 4, nb * 4, nb * 64 * 2]
+    starts = np.concatenate([[0], np.cumsum([_align(p) for p in parts])])
+    buf = torch.empty(int(starts[-1]), dtype=torch.uint8,
+                      pin_memory=dev.type == "cuda")
+    base = buf.data_ptr()
+    status = lib.mpeg4_parse_fetch(handle, base + int(starts[0]),
+                                   base + int(starts[1]),
+                                   base + int(starts[3]),
+                                   base + int(starts[2]))
+    lib.mpeg4_free(handle)
+    if status:
+        raise ValueError("mp4v parse: fetch failed")
+    vop = buf[: parts[0]].view(torch.int32).numpy().reshape(n, 6).copy()
+    dbuf = buf.to(dev, non_blocking=True)
+
+    def part(i, dtype):
+        return dbuf[int(starts[i]): int(starts[i]) + parts[i]].view(dtype)
+
+    mb = part(1, torch.int32).view(n, n_mb, MB_FIELDS)
+    bidx = part(2, torch.int32)
+    blocks = part(3, torch.int16).view(nb, 64)
+    return vop, mb, blocks, bidx
+
+
+def write_vops(vop: np.ndarray, mb: torch.Tensor, levels: torch.Tensor,
+               vol_fields: Sequence[int], n_mb: int) -> List[bytes]:
+    """The C++ writer over a batch: records (from the card, copied to the
+    host once) -> one sample a VOP."""
+    lib = load()
+    n = len(vop)
+    vop = np.ascontiguousarray(vop, np.int32)
+    mb_h = mb.to("cpu").contiguous()
+    lv_h = levels.to("cpu").contiguous()
+    vol = np.asarray(vol_fields, np.int32)
+    total = ctypes.c_int64(0)
+    handle = lib.mpeg4_write(vop.ctypes.data, mb_h.data_ptr(),
+                             lv_h.data_ptr(), n, vol.ctypes.data, threads(),
+                             ctypes.byref(total))
+    if lib.mpeg4_error(handle):
+        raise _host_error(lib, handle, "mp4v write")
+    out = np.empty(total.value, np.uint8)
+    sizes = np.empty(n, np.int64)
+    status = lib.mpeg4_write_fetch(handle, out.ctypes.data, sizes.ctypes.data)
+    lib.mpeg4_free(handle)
+    if status:
+        raise ValueError("mp4v write: fetch failed")
+    ends = np.cumsum(sizes)
+    raw = out.tobytes()
+    return [raw[e - s: e] for s, e in zip(sizes.tolist(), ends.tolist())]

@@ -7,12 +7,14 @@ segment's boxes into one square crop, and write every segment of at
 least `min_frames` frames as its own clip, in memory-bounded chunks of
 `chunk_frames` frames.
 
-Input is the port's AVI (uncompressed, or motion JPEG on CUDA; mp4 waits
-for a video codec, ROADMAP.md Queue 1 item 7b). Detection runs batched on
+Input is `*.mp4` (mp4v, as cv2 writes it; H.264 mp4 raises naming its
+codec) and the port's `*.avi` (uncompressed, or motion JPEG on CUDA), the
+format found by content. Detection runs batched on
 the frames' device (`HeuristicDetector.detect_batch`, in launches of its
 `batch_size` frames, the same boxes as frame by frame). Crops are resized
 with `geometry.resize_tensor`, cv2.resize's integers. Clips are written
-as motion-JPEG AVI (nvJPEG) on CUDA and as uncompressed AVI on the CPU.
+as `NNNNN.mp4` (mp4v, encoded on the device), as the JAX package names
+them.
 """
 
 from __future__ import annotations
@@ -109,13 +111,12 @@ def process_video(
     fps: int = 25,
     device: DeviceLike = None,
 ) -> List[str]:
-    """Crop one raw AVI into stable face clips on `device` (CUDA unless
-    named); returns the written paths (`NNNNN.avi`, numbered across the
+    """Crop one raw video into stable face clips on `device` (CUDA unless
+    named); returns the written paths (`NNNNN.mp4`, numbered across the
     video's chunks)."""
     dev = resolve_device(device)
     detector = detector or default_detector(dev)
     os.makedirs(out_dir, exist_ok=True)
-    codec = "mjpg" if dev.type == "cuda" else "raw"
     written: List[str] = []
     clip_idx = 0
     for frames in video_frame_chunks(video_path, chunk_frames, dev):
@@ -127,9 +128,8 @@ def process_video(
             for lo in range(start, end, RESIZE_BATCH):
                 crops = frames[lo: min(end, lo + RESIZE_BATCH), y1:y2, x1:x2]
                 clip.extend(resize_tensor(crops, (resolution, resolution)))
-            out_path = osp.join(out_dir, f"{clip_idx:05d}.avi")
-            save_frames_as_video(clip, out_path, fps, codec=codec,
-                                 device=dev)
+            out_path = osp.join(out_dir, f"{clip_idx:05d}.mp4")
+            save_frames_as_video(clip, out_path, fps, device=dev)
             written.append(out_path)
             clip_idx += 1
     return written
@@ -137,11 +137,13 @@ def process_video(
 
 def process_videos(video_dir: str, out_root: str, *, detector=None,
                    device: DeviceLike = None, **kwargs) -> List[str]:
-    """Process every `*.avi` under video_dir into out_root/<name>/."""
+    """Process every `*.mp4` and `*.avi` under video_dir into
+    out_root/<name>/."""
     dev = resolve_device(device)
     detector = detector or default_detector(dev)
     written: List[str] = []
-    for path in sorted(glob(osp.join(video_dir, "*.avi"))):
+    for path in sorted(glob(osp.join(video_dir, "*.mp4"))
+                       + glob(osp.join(video_dir, "*.avi"))):
         name = osp.splitext(osp.basename(path))[0]
         written += process_video(path, osp.join(out_root, name),
                                  detector=detector, device=dev, **kwargs)

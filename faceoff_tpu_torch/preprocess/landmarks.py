@@ -89,12 +89,15 @@ def generate_landmarks_for_dataset(
     clips_root: str, *, landmarker=None, num_workers: int = 4,
     device: DeviceLike = None, **kwargs
 ) -> Tuple[List[str], List[str]]:
-    """Process every `*.avi` clip under clips_root (at any depth) in a
-    pool of `num_workers` threads; returns (ok, quarantined) paths."""
+    """Process every `*.mp4` and `*.avi` clip under clips_root (at any
+    depth) in a pool of `num_workers` threads; returns (ok, quarantined)
+    paths."""
     from concurrent.futures import ThreadPoolExecutor
 
     dev = resolve_device(device)
-    paths = sorted(glob(osp.join(clips_root, "**", "*.avi"), recursive=True))
+    paths = sorted(glob(osp.join(clips_root, "**", "*.mp4"), recursive=True)
+                   + glob(osp.join(clips_root, "**", "*.avi"),
+                          recursive=True))
     ok_list: List[str] = []
     bad_list: List[str] = []
 

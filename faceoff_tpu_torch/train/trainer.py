@@ -8,8 +8,9 @@ reads them only at the log cadence and at the end of an epoch
 (`MetricLogger`, `MetricsWriter`), as the JAX trainer defers its reads,
 so that it does not wait for the card after every step. Validation
 writes four streams a batch (source, background, prediction,
-source_images) as uncompressed AVI files named
-`{epoch}_{step}_{batch}_{stream}.avi`.
+source_images) as `mp4v` MP4 files named
+`{epoch}_{step}_{batch}_{stream}.mp4`, as the JAX trainer does, encoded on
+the device the model lives on.
 
 Across `torch.distributed` processes (the CLI's --multihost) every
 process runs the loop on its own shard of the data with the same step
@@ -127,7 +128,8 @@ def run_validation(
         for name, clip in saves.items():
             frames = [denormalize(f) for f in clip[0]]
             save_frames_as_video(frames, osp.join(
-                sample_folder, f"{epoch + 1}_{step}_{i}_{name}.avi"))
+                sample_folder, f"{epoch + 1}_{step}_{i}_{name}.mp4"),
+                device=device)
     if not reports:
         return {"val_mse": float("nan")}
     summary = {f"val_{k}": float(np.mean([r[k] for r in reports]))

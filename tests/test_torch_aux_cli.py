@@ -4,8 +4,9 @@ trainer that the port reproduces:
 
   * cli/encode's code maps against the JAX model's `encode_codes` on the
     same weights (carried by `io.convert.to_jax_variables`) and the same
-    composite; its --decode AVI read back equal to the decoded frames;
-    the .mp4 refusal.
+    composite; its --decode AVI read back equal to the decoded frames,
+    its --decode .mp4 read by the JAX package, the refusal of another
+    suffix.
   * cli/train_faceoff for one epoch with no LPIPS built and a perceptual
     term of 0; its refusals of --resident_data, --device_pipeline,
     --steps_per_call > 1 and --multihost, naming ROADMAP.md Queue 3.
@@ -110,13 +111,26 @@ def test_encode_decode_writes_avi_and_refuses_mp4(data, checkpoint, tmp_path,
     assert len(frames) == 4
     for got, recon in zip(frames, res["recon"]):
         assert np.array_equal(got, denormalize(recon))
+    # .mp4 (the JAX CLI's name): mp4v that cv2 reads as the port decodes
+    # it, both equal to the port's encoder's reconstruction of the decoded
+    # frames bit for bit
+    res = encode_cli.main(base + ["--decode", str(tmp_path / "r.mp4")],
+                          device="cpu")
+    from faceoff_tpu.io.video import read_video_frames as jread
+    from faceoff_tpu_torch.io import mpeg4
+    got = read_video_frames(str(tmp_path / "r.mp4"), device="cpu")
+    want = np.stack([denormalize(r) for r in res["recon"]])
+    *_, recon = mpeg4.encode(torch.from_numpy(want), 25, return_recon=True)
+    assert torch.equal(got, recon)
+    cv = np.stack(jread(str(tmp_path / "r.mp4")))
+    assert cv.shape == (4, 32, 32, 3)
+    np.testing.assert_array_equal(cv, got.numpy())
     with pytest.raises(SystemExit) as exc:
-        encode_cli.main(base + ["--decode", str(tmp_path / "r.mp4")],
+        encode_cli.main(base + ["--decode", str(tmp_path / "r.mkv")],
                         device="cpu")
     assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and "Queue 1 item 7b" in err
-    assert not os.path.exists(tmp_path / "r.mp4")
+    assert ".mp4" in capsys.readouterr().err
+    assert not os.path.exists(tmp_path / "r.mkv")
 
 
 def test_train_faceoff_one_epoch_without_lpips(data, tmp_path, monkeypatch):
@@ -161,7 +175,7 @@ def test_train_faceoff_ckpt_latest_without_checkpoint(data, tmp_path, capsys):
          "--test", "--checkpoint_dir", str(tmp_path / "ck"),
          "--sample_folder", str(tmp_path / "sm"), *NARROW], device="cpu")
     assert "no checkpoint yet" in capsys.readouterr().out
-    assert glob.glob(str(tmp_path / "sm_*" / "1_0_0_prediction.avi"))
+    assert glob.glob(str(tmp_path / "sm_*" / "1_0_0_prediction.mp4"))
 
 
 def test_jax_train_faceoff_resident_data_fault(tmp_path, monkeypatch):

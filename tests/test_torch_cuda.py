@@ -7,7 +7,9 @@ pipeline; the GAN stage: its kernels at the path's shapes and a
 mocoganhd pair's launches; the functional streaming push and a serving
 bundle exported for the card; VQVAE_B2F's training forward (its six
 quantizers through the VQ kernels) and the shardmap step in a one-rank
-NCCL group against the plain step.
+NCCL group against the plain step; mp4: kernels V1-V4 against their plain
+versions at every call of a round trip, and the C++ entropy coder against
+the Python one.
 
 Marked `cuda`; each test skips where there is no CUDA device. The file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -900,11 +902,10 @@ def test_resident_corpus_stages_a_mixed_video(cuda, tmp_path):
 
 
 def test_process_video_on_card_equals_cpu(cuda, tmp_path):
-    """Stage 1 on CUDA (MJPEG clips) and on the CPU (raw clips) from one
-    raw AVI with a cut: the same detection boxes, segments and clip
-    lengths; the clips' frames within the 4:2:0 tolerance (the card's
-    are JPEG)."""
-    from faceoff_tpu_torch.io import image
+    """Stage 1 on CUDA and on the CPU from one raw AVI with a cut: the
+    same detection boxes, segments and clip lengths; the clips (mp4v,
+    kernels on the card, their plain versions on the CPU, all integer
+    arithmetic) equal bit for bit."""
     from faceoff_tpu_torch.io.video import (read_video_frames,
                                             save_frames_as_video)
     from faceoff_tpu_torch.preprocess import detectors, face_crop
@@ -924,10 +925,102 @@ def test_process_video_on_card_equals_cpu(cuda, tmp_path):
         out[str(dev)] = [read_video_frames(p, device=dev) for p in paths]
     cpu, gpu = out["cpu"], out[str(cuda)]
     assert len(cpu) == len(gpu) == 2
-    max_tol, mean_tol = image.JPEG_TOL["420"]
     for c, g in zip(cpu, gpu):
-        c = torch.from_numpy(np.stack(c)).to(torch.int32)
-        assert g.shape == c.shape
-        diff = (g.cpu().to(torch.int32) - c).abs()
-        assert diff.max().item() <= max_tol
-        assert diff.float().mean().item() <= mean_tol
+        assert torch.equal(g.cpu(), c)
+
+
+# -- mp4: kernels V1-V4 of csrc/mpeg4.cu and the C++ entropy coder ----------
+
+_MP4_STAGES = ("dequant_idct", "motion_compensate", "motion_search",
+               "fdct_quant")
+
+
+@pytest.mark.parametrize("h,w", [(104, 104), (144, 176)])
+def test_mpeg4_kernels_equal_plain_at_every_call(cuda, h, w, monkeypatch):
+    """An mp4v round trip of 24 frames (two GOPs) on the card, each
+    stage's kernel held against its plain version at every call, bit for
+    bit; the decode equals the encoder's reconstruction."""
+    from faceoff_tpu_torch.data.synthetic import video_frames
+    from faceoff_tpu_torch.io import mpeg4
+    from faceoff_tpu_torch.ops import mpeg4_cuda as K
+
+    held = {k: 0 for k in _MP4_STAGES}
+
+    def hold(name):
+        fn, plain = getattr(K, name), getattr(K, name + "_plain")
+
+        def run(*args):
+            if name == "motion_compensate":
+                planes = [p.clone() for p in args[0]]
+                plain(planes, *args[1:])
+                out = fn(*args)
+                assert all(torch.equal(a, b) for a, b in zip(args[0], planes))
+            elif name == "dequant_idct":
+                want = plain(*args[:3], args[3].clone())
+                out = fn(*args)
+                assert torch.equal(out, want)
+            else:
+                out = fn(*args)
+                assert torch.equal(out, plain(*args))
+            held[name] += 1
+            return out
+        return run
+
+    for name in _MP4_STAGES:
+        monkeypatch.setattr(K, name, hold(name))
+    frames = video_frames(24, max(h, w), seed=3, device=cuda)[0][:, :h, :w]
+    before = dict(K.launches)
+    samples, sync, dsi, recon = mpeg4.encode(frames.contiguous(), 25,
+                                             return_recon=True)
+    got = mpeg4.decode(samples, mpeg4.parse_vol(dsi), cuda, sync=sync)
+    assert torch.equal(got, recon)
+    assert all(held.values())
+    assert all(K.launches[k] > before[k] for k in _MP4_STAGES)
+
+
+def test_mpeg4_host_coder_equals_python(cuda):
+    """The C++ parser on the committed fixture (cv2's stream) and the C++
+    writer on the encoder's records equal the Python coder."""
+    from pathlib import Path
+
+    from faceoff_tpu_torch.data.synthetic import video_frames
+    from faceoff_tpu_torch.io import mp4, mpeg4
+    from faceoff_tpu_torch.ops import mpeg4_cuda as K
+
+    fixture = Path(__file__).resolve().parent / "data_torch" / "face_mp4v.mp4"
+    track = mp4.read_mp4(str(fixture))
+    vol = mpeg4.parse_vol(track.dsi)
+    want = mpeg4.parse_vops(track.samples, vol)
+    got = K.parse_vops(track.samples, vol.as_ints(), vol.n_mb, cuda)
+    assert np.array_equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert np.array_equal(g.cpu().numpy(), w)
+    frames = mpeg4.decode(track.samples, vol, cuda)
+    assert np.array_equal(frames.cpu().numpy(), np.load(
+        fixture.with_suffix(".npz"))["frames"])
+    clip = video_frames(24, 64, seed=2, device=cuda)[0]
+    yuv = mpeg4.rgb_to_yuv420(clip, 64, 64)
+    vol = mpeg4.Vol(64, 64, 25)
+    vop, mb, levels, _ = mpeg4.encode_gops(yuv, 0, vol,
+                                           mpeg4.DEFAULT_QSCALE)
+    assert K.write_vops(vop, mb, levels, vol.as_ints(), vol.n_mb) == \
+        mpeg4.write_vops(vop, mb.cpu().numpy(), levels.cpu().numpy(), vol)
+
+
+def test_mpeg4_batches_on_the_card_equal_the_cpu(cuda, monkeypatch):
+    """On the card, batches of 5 VOPs (GOPs cut, the reconstruction
+    carried mid-GOP) decode the file the CPU writes as the CPU decodes
+    it, and encode in one-GOP batches the bytes the CPU writes."""
+    from faceoff_tpu_torch.data.synthetic import video_frames
+    from faceoff_tpu_torch.io import mpeg4
+
+    cpu = torch.device("cpu")
+    frames = video_frames(26, 48, seed=3)[0]
+    samples, sync, dsi, recon = mpeg4.encode(frames, 25, return_recon=True)
+    vol = mpeg4.parse_vol(dsi)
+    monkeypatch.setattr(mpeg4, "batch_vops", lambda _vol: 5)
+    got = mpeg4.decode(samples, vol, cuda)
+    assert torch.equal(got.cpu(), mpeg4.decode(samples, vol, cpu))
+    assert torch.equal(got.cpu(), recon)
+    monkeypatch.setattr(mpeg4, "batch_vops", lambda _vol: mpeg4.GOP)
+    assert mpeg4.encode(frames.to(cuda), 25)[0] == samples

@@ -108,7 +108,7 @@ def test_resume_equals_the_unbroken_run(warm):
     assert all(rec_r[s] == rec_a[s] for s in (3, 4))
     assert set(rec_a[1]) >= {"g_loss", "g_2d", "g_3d", "adv_scale"}
     assert set(rec_a[2]) >= {"d_3d_loss", "d_img_loss"}
-    streams = sorted((root / "samples_a").glob("*.avi"))
+    streams = sorted((root / "samples_a").glob("*.mp4"))
     assert len(streams) == 2 * 4  # two validations of one batch
 
 

@@ -428,9 +428,9 @@ def _worker_clis(rank, world, port, out):
     checkpoint.CheckpointManager.save_tree = recording_save
     save_video = trainer.save_frames_as_video
 
-    def recording_video(frames, path, fps=25):
+    def recording_video(frames, path, fps=25, **kwargs):
         writes.append(["video", os.path.basename(path)])
-        save_video(frames, path, fps)
+        save_video(frames, path, fps, **kwargs)
 
     trainer.save_frames_as_video = recording_video
     mh = ["--multihost", "--coordinator_address", f"127.0.0.1:{port}",

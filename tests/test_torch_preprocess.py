@@ -24,6 +24,7 @@ from faceoff_tpu.preprocess import face_crop as jcrop
 from faceoff_tpu.preprocess import landmarks as jlms
 from faceoff_tpu_torch.cli import preprocess as tcli
 from faceoff_tpu_torch.data import dataset as tds
+from faceoff_tpu_torch.io import mpeg4 as tmpeg4
 from faceoff_tpu_torch.io import video as tvideo
 from faceoff_tpu_torch.ops import ccl_cuda, lk_cuda
 from faceoff_tpu_torch.preprocess import detectors as tdet
@@ -382,12 +383,13 @@ def test_flow_tracker_behaviour_as_the_jax_tests():
 # -- (h) stage 1 ------------------------------------------------------------
 
 
-def test_stage1_on_the_cpu_equals_jax(tmp_path):
+def test_stage1_on_the_cpu_equals_jax(tmp_path, monkeypatch):
     """process_video on the port's raw AVI (40 frames, a jump at frame
     22): the JAX stage, reading the same file through cv2, finds the same
-    segments and crop boxes (it writes mp4, lossy, so its clip lengths
-    are compared), and the port's clips hold cv2.resize of those crops
-    bit for bit."""
+    segments and crop boxes (both write mp4, lossy, so the JAX clip
+    lengths are compared); the frames the port hands its writer are
+    cv2.resize of those crops bit for bit, and its clips hold the port's
+    mp4v reconstruction of those frames bit for bit."""
     raw = str(tmp_path / "raw.avi")
     frames = _raw_frames(40, 160, cut=22)
     tvideo.save_frames_as_video(frames, raw)
@@ -403,6 +405,14 @@ def test_stage1_on_the_cpu_equals_jax(tmp_path):
     boxes = [jdet.HeuristicDetector().detect(f) for f in frames]
     segments = jcrop.segment_stable_boxes(boxes, min_frames=10)
     assert len(segments) == 2
+    handed = {}
+
+    def save(clip, path, *args, **kwargs):
+        handed[path] = np.stack([np.asarray(f) for f in clip])
+        return save_frames(clip, path, *args, **kwargs)
+
+    save_frames = tcrop.save_frames_as_video
+    monkeypatch.setattr(tcrop, "save_frames_as_video", save)
     written = tcrop.process_video(raw, str(tmp_path / "t"), min_frames=10,
                                   resolution=64, chunk_frames=25,
                                   device=CPU)
@@ -418,12 +428,16 @@ def test_stage1_on_the_cpu_equals_jax(tmp_path):
     lo_of = [0, 25]
     for path, jpath, (start, end, mean_box), lo in zip(
             written, jax_written, want, lo_of):
-        got = tvideo.read_video_frames(path)
+        assert path.endswith(".mp4") and jpath.endswith(".mp4")
+        got = tvideo.read_video_frames(path, device=CPU)
         assert len(got) == len(jvideo.read_video_frames(jpath)) == end - start
         x1, y1, x2, y2 = jcrop.square_crop_box(mean_box, frames[0].shape)
         ref = [cv2.resize(f[y1:y2, x1:x2], (64, 64))
                for f in frames[lo + start: lo + end]]
-        np.testing.assert_array_equal(np.stack(got), np.stack(ref))
+        np.testing.assert_array_equal(handed[path], np.stack(ref))
+        *_, recon = tmpeg4.encode(torch.from_numpy(np.stack(ref)), 25,
+                                  return_recon=True)
+        np.testing.assert_array_equal(got.numpy(), recon.numpy())
 
 
 # -- (i) stage 2 and the command line -------------------------------------------
@@ -453,7 +467,8 @@ def test_cli_all_on_the_cpu_writes_the_contract_both_datasets_read(tmp_path):
         d = osp.splitext(clip)[0]
         pngs = sorted(glob.glob(osp.join(d, "*.png")))
         npzs = sorted(glob.glob(osp.join(d, "*_landmarks.npz")))
-        assert len(pngs) == len(npzs) == len(tvideo.read_video_frames(clip))
+        assert len(pngs) == len(npzs) == len(
+            tvideo.read_video_frames(clip, device=CPU))
         jdir = tmp_path / "j" / osp.relpath(d, out)
         ok, n, _ = jlms.generate_landmarks_for_video(clip, str(jdir),
                                                      resolution=64)
@@ -478,8 +493,10 @@ def test_cli_all_on_the_cpu_writes_the_contract_both_datasets_read(tmp_path):
 
 
 def test_entry_points_need_cuda_or_the_cpu_named(tmp_path, monkeypatch):
-    """Without CUDA and without a named device the entry points raise;
-    .mp4 and motion JPEG on the CPU raise naming the ROADMAP entry."""
+    """Without CUDA and without a named device the entry points raise,
+    an .mp4 read or write among them; an H.264 mp4 (an avc1 sample entry)
+    raises naming its codec; motion JPEG on the CPU raises naming the
+    ROADMAP entry."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     raw = str(tmp_path / "raw.avi")
     tvideo.save_frames_as_video(_raw_frames(4, 64), raw)
@@ -490,11 +507,17 @@ def test_entry_points_need_cuda_or_the_cpu_named(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tcli.main(["crop", "--videos", str(tmp_path), "--out",
                    str(tmp_path / "o")])
-    with pytest.raises(ValueError, match="item 7b"):
-        tvideo.read_video_frames(str(tmp_path / "x.mp4"))
-    with pytest.raises(ValueError, match="item 7b"):
-        tvideo.save_frames_as_video(_raw_frames(2, 64),
-                                    str(tmp_path / "x.mp4"))
+    mp4 = str(tmp_path / "x.mp4")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tvideo.save_frames_as_video(_raw_frames(2, 64), mp4)
+    tvideo.save_frames_as_video(_raw_frames(2, 64), mp4, device=CPU)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tvideo.read_video_frames(mp4)
+    avc = str(tmp_path / "h264.mp4")
+    with open(mp4, "rb") as src, open(avc, "wb") as dst:
+        dst.write(src.read().replace(b"mp4v", b"avc1"))
+    with pytest.raises(ValueError, match=r"H\.264 \(avc1\)"):
+        tvideo.read_video_frames(avc, device=CPU)
     with pytest.raises(RuntimeError, match="item 7b"):
         tvideo.save_frames_as_video(_raw_frames(2, 64),
                                     str(tmp_path / "x.avi"), codec="mjpg",

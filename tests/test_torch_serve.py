@@ -375,3 +375,6 @@ def test_port_imports_no_jax_no_cv2_no_reference_package():
     # compute over a clip sharded in time
     assert {"faceoff_tpu_torch.models.vqvae", "faceoff_tpu_torch.ops.vq",
             "faceoff_tpu_torch.train.train_step"} <= set(modules)
+    # mp4 in and out
+    assert {"faceoff_tpu_torch.io.mp4", "faceoff_tpu_torch.io.mpeg4",
+            "faceoff_tpu_torch.ops.mpeg4_cuda"} <= set(modules)

@@ -232,12 +232,12 @@ def test_fit_writes_metrics_streams_and_keeps_checkpoints(tmp_path,
                for k in ("loss", "mse", "latent", "perceptual", "lr"))
     assert CheckpointManager(str(_only(tmp_path, "ckpt"))).all_steps() == [
         2, 3, 4, 5, 6]
-    streams = sorted(_only(tmp_path, "samples").glob("*.avi"))
+    streams = sorted(_only(tmp_path, "samples").glob("*.mp4"))
     assert len(streams) == 6 * 4 * 4  # validations x batches x streams
     assert {p.name.split("_", 3)[3] for p in streams} == {
-        "source.avi", "background.avi", "prediction.avi",
-        "source_images.avi"}
-    frames = read_video_frames(str(streams[0]))
+        "source.mp4", "background.mp4", "prediction.mp4",
+        "source_images.mp4"}
+    frames = read_video_frames(str(streams[0]), device="cpu")
     assert len(frames) == 3 and frames[0].shape == (32, 32, 3)
 
 
@@ -250,12 +250,12 @@ def test_cross_identity_validation_writes_its_streams(tmp_path, data_root,
     the frames of the clip."""
     tcli.main(_argv(data_root, tmp_path, "--resident_data", "--epoch", "1",
                     "--validate_at", "2", flag), device="cpu")
-    streams = sorted(_only(tmp_path, "samples").glob("*.avi"))
+    streams = sorted(_only(tmp_path, "samples").glob("*.mp4"))
     assert len(streams) == 4 * 5  # batches x streams
     assert {p.name.split("_", 3)[3] for p in streams} == {
-        "source.avi", "background.avi", "prediction.avi",
-        "source_images.avi", "source_original.avi"}
-    frames = read_video_frames(str(streams[-1]))
+        "source.mp4", "background.mp4", "prediction.mp4",
+        "source_images.mp4", "source_original.mp4"}
+    frames = read_video_frames(str(streams[-1]), device="cpu")
     assert len(frames) == 3 and frames[0].shape == (32, 32, 3)
 
 

@@ -54,6 +54,15 @@ and the checks are those of compute over a clip sharded in time
                kernels against the step's wall time; the ms of preparing
                the whole clips, which every rank of a data group does.
 
+With --permuted one process runs the step check's one-process side
+(float32 without TF32, CHECK_STEPS steps on the global batch of --world
+ranks) on the batch as it is, again, and with its clips in two other
+orders (the same sums taken in another order), and reports `_compare`'s
+measures between them and where the codebook measure peaks: the
+rounding spread that the step check's limits must leave room for
+(--deterministic: with cuDNN's deterministic algorithms). It exits
+non-zero if two runs of one order differ.
+
 Prints, on rank 0, the card's name and power limit (nvidia-smi) and one
 JSON line; exits non-zero when a check fails. --narrow runs narrow
 widths at 32 px (a CPU rehearsal; --time divides the timing's frames by
@@ -227,6 +236,8 @@ def worker(rank, world, port, device, narrow, out):
             ref_recs.append({k: float(v) for k, v in m.items()})
         res["step_vs_one_process"] = _compare(
             sd, ref.model.state_dict(), names, recs, ref_recs)
+        res["step_vs_one_process"]["codebook_peak"] = _codebook_detail(
+            sd, ref.model.state_dict(), names)
         del ref, lpips, ref_step
     torch.distributed.barrier()
 
@@ -459,6 +470,89 @@ def time_worker(rank, world, port, device, narrow, out, k):
     collectives.destroy()
 
 
+def _codebook_detail(sd_a, sd_b, names) -> dict:
+    """Where `_compare`'s codebook measure peaks: the tensor, the code
+    (column), both values, that code's cluster size, and per quantizer
+    the codes whose cluster size moved by more than 1e-3 (an EMA step
+    moves a code's size by (1 - decay) = 0.01 for each row that changes
+    code)."""
+    worst = (-1.0, None, None)
+    moved = {}
+    for k in sd_a:
+        if k in names:
+            continue
+        d = (sd_a[k] - sd_b[k]).abs() / sd_b[k].abs().clamp_min(1)
+        i = int(d.argmax())
+        if float(d.reshape(-1)[i]) > worst[0]:
+            worst = (float(d.reshape(-1)[i]), k, i)
+        if k.endswith("cluster_size"):
+            moved[k] = int(((sd_a[k] - sd_b[k]).abs() > 1e-3).sum())
+    _, k, i = worst
+    code = i % sd_a[k].shape[-1]
+    size = sd_b[k.rsplit(".", 1)[0] + ".cluster_size"][code]
+    return {"tensor": k, "code": code,
+            "values": [float(sd_a[k].reshape(-1)[i]),
+                       float(sd_b[k].reshape(-1)[i])],
+            "cluster_size": float(size), "codes_moved": moved}
+
+
+def permuted_check(device: str, narrow: bool, world: int,
+                   deterministic: bool = False) -> dict:
+    """The step check's one-process run against itself with the global
+    batch's clips permuted: `_compare`'s measures for each other order
+    (and where the codebook measure peaks), and whether a second run of
+    the first order repeats it bit for bit. `deterministic` asks cuDNN
+    for deterministic algorithms."""
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device == "cuda" else torch.device("cpu"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = deterministic
+    cfg = _config(narrow)
+    corpus = _corpus(32 if narrow else 256, dev, narrow)
+    prepare = make_resident_prepare(corpus, CHECK_B * world, T)
+    with torch.no_grad():
+        batch = prepare(torch.Generator(device=dev).manual_seed(11),
+                        corpus.frames, corpus.landmarks)
+    batch = {k: v.contiguous() for k, v in batch.items()
+             if k in ("input", "gt")}
+    n = batch["input"].shape[0]
+    orders = {"as_is": list(range(n)), "as_is_again": list(range(n)),
+              "reversed": list(range(n))[::-1],
+              "rotated": list(range(1, n)) + [0]}
+    runs = {}
+    for name, order in orders.items():
+        st, lpips = _state(cfg, dev, torch.float32)
+        step = make_train_step(st.model, lpips=lpips,
+                               compute_dtype=torch.float32)
+        b = {k: v[order].contiguous() for k, v in batch.items()}
+        recs = []
+        for _ in range(CHECK_STEPS):
+            st, m = step(st, b)
+            recs.append({k: float(v) for k, v in m.items()})
+        names = {k for k, _ in st.model.named_parameters()}
+        runs[name] = ({k: v.detach().clone() for k, v in
+                       st.model.state_dict().items()}, recs, names)
+        del st, lpips, step
+    base, base_recs, names = runs["as_is"]
+    res = {"permuted_clips": n, "device": device,
+           "cudnn_deterministic": deterministic}
+    for name in ("as_is_again", "reversed", "rotated"):
+        sd, recs, _ = runs[name]
+        res[name] = _compare(sd, base, names, recs, base_recs)
+        res[name]["codebook_peak"] = _codebook_detail(sd, base, names)
+    res["repeats_bitwise"] = all(torch.equal(runs["as_is_again"][0][k], v)
+                                 for k, v in base.items())
+    return res
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
 def _timed(step_fn, st, raw, dev):
     """Median ms of TIMED calls after WARMUP, each ending in a read of its
     loss; and every call's ms."""
@@ -481,6 +575,11 @@ def main() -> int:
     p.add_argument("--out", default=None)
     p.add_argument("--time", type=int, default=None, choices=sorted(
         TIME_TIMING), help="shard each clip's frames over K processes")
+    p.add_argument("--permuted", action="store_true",
+                   help="one process: the step check against itself with "
+                        "the batch's clips permuted")
+    p.add_argument("--deterministic", action="store_true",
+                   help="with --permuted: cuDNN's deterministic algorithms")
     p.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
     args = p.parse_args()
@@ -489,6 +588,14 @@ def main() -> int:
         return 1
     world = args.world or (torch.cuda.device_count()
                            if args.device == "cuda" else 2)
+    if args.permuted:
+        res = permuted_check(args.device, args.narrow, world,
+                             args.deterministic)
+        if args.device == "cuda":
+            res["card"] = _card()
+            print(res["card"], flush=True)
+        print(json.dumps(res), flush=True)
+        return 0 if res["repeats_bitwise"] else 1
     if args.time and world != 4:
         print("dist_check_torch: --time runs on four processes",
               file=sys.stderr)
@@ -521,12 +628,8 @@ def main() -> int:
         with open(Path(out) / "result.json") as f:
             res = json.load(f)
     if args.device == "cuda":
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60, check=True).stdout.strip().splitlines()[0]
-        res["card"] = card
-        print(card, flush=True)
+        res["card"] = _card()
+        print(res["card"], flush=True)
     print(json.dumps(res), flush=True)
     cmp = res["step_vs_one_process"]
     if args.time:
