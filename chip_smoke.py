@@ -3174,6 +3174,15 @@ MP4_PLAIN = {name: getattr(mpeg4_cuda, name + "_plain")
 MP4_SAD_OPS = 2
 # V4: two 8-term integer dot products a coefficient (rows, then columns)
 MP4_FDCT_OPS = 2 * 2 * 8
+# V3's second bound, from its SASS: one VABSDIFF4 (PTX vabsdiff4.add) sums
+# the absolute differences of four bytes into an accumulator. The card
+# issues it at the rate of IMAD (tools/mp4_variants_torch.py's rates: 8
+# independent chains a thread, within 3 % of IMAD's and about half float32
+# FMA's), which the CUDA programming guide gives as 64 a clock an SM on
+# compute capability 9.0; at the clock F32_FLOPS assumes
+H100_SMS = 132
+H100_CLOCK_HZ = F32_FLOPS / (H100_SMS * 128 * 2)
+MP4_VABSDIFF4_PER_CLOCK_SM = 64
 
 
 def zero_mp4_counts():
@@ -3283,6 +3292,18 @@ def mp4_bound(name, args) -> tuple:
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def mp4_sass_bound(args) -> float:
+    """V3's bound in ms from its SAD instruction, for the arguments of a
+    motion_search call: a VABSDIFF4 for every four bytes of every
+    candidate's 16 x 16 SAD (the integer candidates and the eight
+    half-pel ones), at the card's issue rate for it."""
+    y, items = args[:2]
+    m = y[0].numel() // 256
+    cands = (2 * mpeg4_cuda.SEARCH_RANGE + 1) ** 2 + 9
+    n = items.shape[0] * m * cands * 256 // 4
+    return n / (H100_SMS * MP4_VABSDIFF4_PER_CLOCK_SM * H100_CLOCK_HZ) * 1e3
 
 
 def mp4_round_trip(frames: torch.Tensor, path: Path, fps: int,
@@ -3466,6 +3487,8 @@ def mp4_phase(t0, work: Path, pre: dict):
             # the main path's launches a frame (V1 and V2 run in both
             # ways)
             "launches_per_frame": counts[name] / frames_by[name]}
+        if name == "motion_search":
+            rows[name]["sass_bound_ms"] = mp4_sass_bound(args)
         say("mp4", t0, f"{name} " + json.dumps(rows[name]))
         if err:
             raise AssertionError(f"mp4: {name} differs from its plain "
@@ -3892,6 +3915,8 @@ def main() -> int:
             "ms": row["kernel_ms"], "wrapper_ms": row["wrapper_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None})
+        if "sass_bound_ms" in row:
+            kernels[-1]["sass_bound_ms"] = row["sass_bound_ms"]
     print(f"[total] {time.perf_counter() - t_all:.2f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

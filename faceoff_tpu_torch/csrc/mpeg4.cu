@@ -12,10 +12,11 @@
 //          one macroblock per CUDA block, every item (a VOP) of a launch in
 //          grid.y
 //   V3     motion_search: +-16 pixel full search on the reference window in
-//          shared memory with packed-byte SADs (__vsadu4), then half-pel
-//          refinement and the intra decision
-//   V4     fdct_quant: integer 8x8 forward DCT and H.263 quantisation, one
-//          thread a coefficient
+//          shared memory with packed-byte SADs (vabsdiff4), a run of
+//          candidates a thread, then half-pel refinement and the intra
+//          decision
+//   V4     fdct_quant: integer 8x8 forward DCT (butterflies in registers)
+//          and H.263 quantisation by multiply-high, a thread a block row
 //
 // Every stage is integer arithmetic and matches its plain version bit for
 // bit. Without __CUDACC__ only the host coder is compiled (a C++ compiler
@@ -1073,169 +1074,439 @@ __global__ void motion_compensate_kernel(
   }
 }
 
-// V3: one macroblock per CUDA block of 256 threads
+// V3: the full search, then the half-pel step and the intra decision.
+// Bound by the SAD's integer instructions (one VABSDIFF4 sums four bytes'
+// absolute differences), so the design spends as few others as it can on
+// each byte. A "run" thread scores MS_RUN consecutive dx at MS_DY
+// consecutive dy; the runs tile dx -16 .. 15 exactly, and a "column"
+// thread scores dx 16 at MS_DY dy (its words are aligned: no shifts).
+// Each window row a run thread loads (MS_RUN / 4 + 4 words) and the three
+// byte shifts of those words (one __byte_perm each) serve MS_RUN x MS_DY
+// candidate rows of four VABSDIFF4 each; the rows where every dy is live
+// run without a branch, so the shifts are made once a row. The current
+// macroblock's row is one broadcast 16-byte load from shared memory. Run
+// threads come first and column threads after, so that warps run one
+// path. The key packs SAD, Chebyshev length, dy and dx into 31 bits
+// (search_key) and is reduced by warp shuffles over each macroblock's
+// threads, then one shared atomicMin a warp. The half-pel and intra sums
+// take a column of 4 pixels a task (a 6 x 3 neighbourhood of window bytes
+// serves all 4) and are reduced by __reduce_add_sync, one shared atomicAdd
+// a warp. The window is filled with 16-byte loads of clamped rows, bytes
+// clamped one by one only in chunks that cross the picture's left or
+// right edge.
 constexpr int RANGE = 16;
-constexpr int WIN = 52;          // window rows/columns: -18 .. +33
-constexpr int WIN_OFF = 18;
-constexpr int WIN_WORDS = 14;    // 56 bytes a row
-constexpr int N_CAND = (2 * RANGE + 1) * (2 * RANGE + 1);
+constexpr int SIDE = 2 * RANGE + 1;
+constexpr int WIN_ROWS = 52;    // rows -18 .. +33 of the macroblock
+constexpr int WIN_Y = 18;
+constexpr int WIN_X = 32;       // columns -32 .. +47: 16-byte aligned loads
+constexpr int WIN_LOAD = 80;    // bytes of a row filled
+constexpr int WIN_STRIDE = 88;  // bytes of a row in shared memory: 22 words
+                                // put rows 1 and 3 apart on distinct banks
+constexpr int ORDER_BITS = 15;  // (cheb * 33 + dy + 16) * 33 + dx + 16
 
-__constant__ int kHalf[9][2] = {{0, 0}, {-1, -1}, {0, -1}, {1, -1}, {-1, 0},
-                                {1, 0}, {-1, 1}, {0, 1}, {1, 1}};
+// chosen from tools/mp4_variants_torch.py's readings (PERF.md, section 6)
+constexpr int MS_RUN = 8, MS_DY = 3, MS_MBS = 2;
+constexpr int FQ_MBS = 4;
 
-__global__ void motion_search_kernel(const uint8_t* __restrict__ Y, int h16,
-                                     int w16, const int32_t* __restrict__ items,
-                                     int width, int height,
-                                     int32_t* __restrict__ out) {
-  __shared__ uint32_t win[WIN * WIN_WORDS];
-  __shared__ uint32_t cur[16 * 4];
-  __shared__ unsigned long long best[256];
-  __shared__ int sums[12];
-  int m = blockIdx.x, t = threadIdx.x;
-  int c_i = items[blockIdx.y * 2], r_i = items[blockIdx.y * 2 + 1];
-  int mbw = w16 >> 4;
-  int my = m / mbw, mx = m % mbw;
-  int n_mb = gridDim.x;
-  size_t plane = (size_t)h16 * w16;
-  const uint8_t* cp = Y + c_i * plane;
-  const uint8_t* rp = Y + r_i * plane;
-  uint8_t* wb = reinterpret_cast<uint8_t*>(win);
-  int oy = my * 16 - WIN_OFF, ox = mx * 16 - WIN_OFF;
-  for (int i = t; i < WIN * WIN_WORDS * 4; i += 256) {
-    int wy = i / (WIN_WORDS * 4), wx = i % (WIN_WORDS * 4);
-    int yy = min(max(oy + wy, 0), height - 1);
-    int xx = min(max(ox + wx, 0), width - 1);
-    wb[i] = rp[(size_t)yy * w16 + xx];
-  }
-  if (t < 64) {
-    int py = t >> 2, w = t & 3;
-    const uint8_t* s = cp + (size_t)(my * 16 + py) * w16 + mx * 16 + 4 * w;
-    cur[t] = s[0] | (s[1] << 8) | (s[2] << 16) | ((uint32_t)s[3] << 24);
-  }
-  if (t < 12) sums[t] = 0;
-  __syncthreads();
-  unsigned long long mine = ~0ull;
-  for (int c = t; c < N_CAND; c += 256) {
-    int dy = c / (2 * RANGE + 1) - RANGE, dx = c % (2 * RANGE + 1) - RANGE;
-    int sad = 0;
-    int col = WIN_OFF + dx;
-    int sh = col & 3;
-    unsigned sel = 0x3210 + 0x1111 * sh;
-    for (int py = 0; py < 16; ++py) {
-      const uint32_t* wr = win + (WIN_OFF + dy + py) * WIN_WORDS + (col >> 2);
-      uint32_t w0 = wr[0], w1 = wr[1], w2 = wr[2], w3 = wr[3], w4 = wr[4];
-      sad += __vsadu4(__byte_perm(w0, w1, sel), cur[py * 4 + 0]);
-      sad += __vsadu4(__byte_perm(w1, w2, sel), cur[py * 4 + 1]);
-      sad += __vsadu4(__byte_perm(w2, w3, sel), cur[py * 4 + 2]);
-      sad += __vsadu4(__byte_perm(w3, w4, sel), cur[py * 4 + 3]);
+template <int R, int D, int MPB>
+struct SearchShape {
+  static_assert(32 % R == 0 && R % 4 == 0, "runs tile dx -16 .. 15");
+  static_assert(SIDE % D == 0, "dy groups tile dy -16 .. 16");
+  static constexpr int NRUN = 32 / R;
+  static constexpr int NDY = SIDE / D;
+  static constexpr int RUNS = NRUN * NDY;    // run threads a macroblock
+  static constexpr int RUN_THREADS = RUNS * MPB;
+  static constexpr int THREADS = (RUN_THREADS + NDY * MPB + 31) / 32 * 32;
+  static_assert(WIN_Y + (NDY - 1) * D - RANGE + D + 14 < WIN_ROWS &&
+                    WIN_Y + 2 * RANGE + 1 < WIN_ROWS,
+                "the window holds every row read");
+  static_assert(WIN_X + RANGE + 16 < WIN_LOAD,
+                "the window holds every column read");
+};
+
+// the half-pel offsets of _HALF_ORDER: (0, 0), then the eight neighbours
+// row by row
+__device__ constexpr int half_dx(int i) {
+  return i == 0 ? 0 : (i < 5 ? i - 1 : i) % 3 - 1;
+}
+__device__ constexpr int half_dy(int i) {
+  return i == 0 ? 0 : (i < 5 ? i - 1 : i) / 3 - 1;
+}
+
+// acc + the sum of the absolute differences of a's and b's four bytes
+__device__ __forceinline__ unsigned sad4(unsigned a, unsigned b,
+                                         unsigned acc) {
+  unsigned d;
+  asm("vabsdiff4.u32.u32.u32.add %0, %1, %2, %3;"
+      : "=r"(d) : "r"(a), "r"(b), "r"(acc));
+  return d;
+}
+
+// the plain order's key (SAD, Chebyshev length, dy, dx) in 31 bits: the
+// SAD is below 2^16 and the mixed-radix order below 33^2 * 17 < 2^15
+__device__ __forceinline__ unsigned search_key(unsigned sad, int dx, int dy) {
+  int cheb = max(abs(dx), abs(dy));
+  return (sad << ORDER_BITS) |
+         (unsigned)((cheb * SIDE + dy + RANGE) * SIDE + dx + RANGE);
+}
+
+// One window row r (relative to dy0) against the current rows r - i of
+// candidates (dx0 + j, dy0 + i): R consecutive dx from a word boundary of
+// `row`. LIVE: every r - i is a row of the macroblock.
+template <int R, int D, bool LIVE>
+__device__ __forceinline__ void search_row(const uint8_t* row,
+                                           const uint4* cur, int r,
+                                           unsigned (&acc)[D][R]) {
+  constexpr int NW = R / 4 + 4;  // words of a row a thread loads
+  uint32_t w[NW], sh[3][NW - 1];
+  if constexpr (NW % 2 == 0) {
+    const uint2* p = reinterpret_cast<const uint2*>(row);
+#pragma unroll
+    for (int q = 0; q < NW / 2; ++q) {
+      const uint2 v = p[q];
+      w[2 * q] = v.x;
+      w[2 * q + 1] = v.y;
     }
-    int cheb = max(abs(dx), abs(dy));
-    unsigned long long key = ((unsigned long long)sad << 17) |
-                             (cheb << 12) | ((dy + RANGE) << 6) | (dx + RANGE);
-    mine = min(mine, key);
+  } else {
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(row);
+#pragma unroll
+    for (int q = 0; q < NW; ++q) w[q] = p[q];
   }
-  best[t] = mine;
-  __syncthreads();
-  for (int s = 128; s > 0; s >>= 1) {
-    if (t < s) best[t] = min(best[t], best[t + s]);
-    __syncthreads();
-  }
-  unsigned long long k = best[0];
-  int order = (int)(k & ((1 << 17) - 1));
-  int bdx = (order & 63) - RANGE, bdy = ((order >> 6) & 63) - RANGE;
-  // half-pel refinement and the intra decision: pixel t of the macroblock
-  int py = t >> 4, px = t & 15;
-  int cv = cp[(size_t)(my * 16 + py) * w16 + mx * 16 + px];
-  for (int i = 0; i < 9; ++i) {
-    // window coordinates in half pels
-    int X = 2 * (WIN_OFF + px + bdx) + kHalf[i][0];
-    int Yh = 2 * (WIN_OFF + py + bdy) + kHalf[i][1];
-    int x0 = X >> 1, y0 = Yh >> 1, fx = X & 1, fy = Yh & 1;
-    int a = wb[y0 * WIN_WORDS * 4 + x0], b = wb[y0 * WIN_WORDS * 4 + x0 + 1];
-    int c = wb[(y0 + 1) * WIN_WORDS * 4 + x0];
-    int d = wb[(y0 + 1) * WIN_WORDS * 4 + x0 + 1];
-    int p = !fx ? (!fy ? a : (a + c + 1) >> 1)
-                : (!fy ? (a + b + 1) >> 1 : (a + b + c + d + 2) >> 2);
-    atomicAdd(&sums[i], abs(p - cv));
-  }
-  atomicAdd(&sums[9], cv);
-  __syncthreads();
-  int mean = (sums[9] + 128) >> 8;
-  atomicAdd(&sums[10], abs(cv - mean));
-  __syncthreads();
-  if (t == 0) {
-    int bi = 0;
-    for (int i = 1; i < 9; ++i)
-      if (sums[i] < sums[bi]) bi = i;
-    int sad = sums[bi];
-    bool intra = sums[10] + 512 < sad;
-    int32_t* o = out + ((size_t)blockIdx.y * n_mb + m) * 3;
-    o[0] = intra ? MB_INTRA : MB_INTER;
-    o[1] = intra ? 0 : 2 * bdx + kHalf[bi][0];
-    o[2] = intra ? 0 : 2 * bdy + kHalf[bi][1];
+#pragma unroll
+  for (int s = 1; s < 4; ++s)
+#pragma unroll
+    for (int q = 0; q < NW - 1; ++q)
+      sh[s - 1][q] = __byte_perm(w[q], w[q + 1], 0x3210 + 0x1111 * s);
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    const int py = r - i;
+    if (!LIVE && (py < 0 || py >= 16)) continue;
+    const uint4 c = cur[py];
+    const unsigned cw[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int o = (j >> 2) + q;
+        const unsigned a = (j & 3) ? sh[(j & 3) - 1][o] : w[o];
+        acc[i][j] = sad4(a, cw[q], acc[i][j]);
+      }
   }
 }
 
-// V4: one macroblock per CUDA block, 384 threads: a coefficient each
-__global__ void fdct_quant_kernel(
-    const uint8_t* __restrict__ sy, const uint8_t* __restrict__ su,
-    const uint8_t* __restrict__ sv, const uint8_t* __restrict__ py_,
-    const uint8_t* __restrict__ pu, const uint8_t* __restrict__ pv, int h16,
-    int w16, const int32_t* __restrict__ mb, int n_mb,
-    const int32_t* __restrict__ items, int16_t* __restrict__ out) {
-  __shared__ int x[6][64];
-  __shared__ int tr[6][64];
-  int m = blockIdx.x, t = threadIdx.x;
-  int b = t >> 6, i = t & 63;
-  int s_i = items[blockIdx.y * 2], p_i = items[blockIdx.y * 2 + 1];
-  int mbw = w16 >> 4;
-  int my = m / mbw, mx = m % mbw;
-  const int32_t* rec = mb + ((size_t)blockIdx.y * n_mb + m) * MB_FIELDS;
-  bool intra = rec[0] == MB_INTRA;
-  int qp = rec[1];
-  size_t lplane = (size_t)h16 * w16, cplane = lplane >> 2;
-  int yy = i >> 3, xx = i & 7;
-  int v;
-  if (b < 4) {
-    size_t o = (size_t)(my * 16 + (b >> 1) * 8 + yy) * w16 + mx * 16 +
-               (b & 1) * 8 + xx;
-    v = sy[s_i * lplane + o];
-    if (!intra) v -= py_[p_i * lplane + o];
-  } else {
-    size_t o = (size_t)(my * 8 + yy) * (w16 >> 1) + mx * 8 + xx;
-    const uint8_t* s = b == 4 ? su : sv;
-    const uint8_t* p = b == 4 ? pu : pv;
-    v = s[s_i * cplane + o];
-    if (!intra) v -= p[p_i * cplane + o];
+// The SADs of candidates (dx0 + j, dy0 + i), j < R, i < D, over the
+// window rows from `base` (the window at dy0, dx0).
+template <int R, int D>
+__device__ __forceinline__ void search_block(const uint8_t* base,
+                                             const uint4* cur,
+                                             unsigned (&acc)[D][R]) {
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < R; ++j) acc[i][j] = 0;
+#pragma unroll 1
+  for (int r = 0; r < D - 1; ++r)
+    search_row<R, D, false>(base + r * WIN_STRIDE, cur, r, acc);
+#pragma unroll 1
+  for (int r = D - 1; r < 16; ++r)
+    search_row<R, D, true>(base + r * WIN_STRIDE, cur, r, acc);
+#pragma unroll 1
+  for (int r = 16; r < D + 15; ++r)
+    search_row<R, D, false>(base + r * WIN_STRIDE, cur, r, acc);
+}
+
+template <int R, int D, int MPB>
+__global__ void __launch_bounds__(SearchShape<R, D, MPB>::THREADS)
+motion_search_kernel(const uint8_t* __restrict__ Y, int h16, int w16,
+                     const int32_t* __restrict__ items, int n_mb, int width,
+                     int height, int32_t* __restrict__ out) {
+  using S = SearchShape<R, D, MPB>;
+  __shared__ __align__(16) uint8_t win[MPB][WIN_ROWS * WIN_STRIDE];
+  __shared__ uint4 cur[MPB][16];
+  __shared__ unsigned best[MPB];
+  __shared__ int sums[MPB][11];  // 9 half-pel SADs, the deviation, the sum
+  const int t = threadIdx.x, lane = t & 31;
+  const int g = blockIdx.y;
+  const int c_i = items[2 * g], r_i = items[2 * g + 1];
+  const size_t plane = (size_t)h16 * w16;
+  const uint8_t* cp = Y + c_i * plane;
+  const uint8_t* rp = Y + r_i * plane;
+  const int mbw = w16 >> 4;
+  const int m0 = blockIdx.x * MPB;
+#pragma unroll 1
+  for (int k = 0; k < MPB && m0 + k < n_mb; ++k) {
+    const int m = m0 + k, my = m / mbw, mx = m - my * mbw;
+    const int oy = my * 16 - WIN_Y, ox = mx * 16 - WIN_X;
+    // 16 bytes a thread: a vector load where the chunk lies inside the
+    // picture's width, the clamped bytes where it does not
+    for (int i = t; i < WIN_ROWS * (WIN_LOAD / 16); i += S::THREADS) {
+      const int wy = i / (WIN_LOAD / 16);
+      const int x0 = ox + 16 * (i - wy * (WIN_LOAD / 16));
+      const uint8_t* src = rp + (size_t)min(max(oy + wy, 0), height - 1) * w16;
+      uint4 v;
+      if (x0 >= 0 && x0 + 16 <= width) {
+        v = *reinterpret_cast<const uint4*>(src + x0);
+      } else {
+        unsigned b[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int c = 0; c < 16; ++c)
+          b[c >> 2] |= (unsigned)src[min(max(x0 + c, 0), width - 1)]
+                       << (8 * (c & 3));
+        v = make_uint4(b[0], b[1], b[2], b[3]);
+      }
+      uint2* d = reinterpret_cast<uint2*>(win[k] + wy * WIN_STRIDE + x0 - ox);
+      d[0] = make_uint2(v.x, v.y);
+      d[1] = make_uint2(v.z, v.w);
+    }
+    if (t < 16)
+      cur[k][t] = *reinterpret_cast<const uint4*>(
+          cp + (size_t)(my * 16 + t) * w16 + mx * 16);
+    if (t < 11) sums[k][t] = 0;
+    if (t == 0) best[k] = ~0u;
   }
-  x[b][i] = v;
   __syncthreads();
-  // rows: tr[y][u] = (sum_x x[y][x] C[u][x] + 512) >> 10
-  {
-    int y = i >> 3, u = i & 7;
-    int s = 0;
-    for (int k = 0; k < 8; ++k) s += x[b][y * 8 + k] * kFdct[u * 8 + k];
-    tr[b][i] = (s + 512) >> 10;
+  // the pixel sum: a warp's 32 words lie in one macroblock
+  for (int q = t; q < MPB * 64; q += S::THREADS) {
+    const int k = q >> 6;
+    if (m0 + k >= n_mb) break;
+    const uint32_t* cw = reinterpret_cast<const uint32_t*>(cur[k]);
+    const int s = __reduce_add_sync(0xffffffffu, sad4(cw[q & 63], 0u, 0u));
+    if (lane == 0) atomicAdd(&sums[k][10], s);
+  }
+  // the integer search: segment `seg` is a macroblock's run threads
+  // (seg < MPB) or its column threads (seg - MPB)
+  const bool run = t < S::RUN_THREADS;
+  const int seg = run ? t / S::RUNS : MPB + (t - S::RUN_THREADS) / S::NDY;
+  const int k = seg < MPB ? seg : seg - MPB;
+  const bool live = k < MPB && m0 + k < n_mb;
+  unsigned key = ~0u;
+  if (live && run) {
+    const int u = t - k * S::RUNS;
+    const int dy0 = (u % S::NDY) * D - RANGE, dx0 = (u / S::NDY) * R - RANGE;
+    unsigned acc[D][R];
+    search_block<R, D>(win[k] + (WIN_Y + dy0) * WIN_STRIDE + WIN_X + dx0,
+                       cur[k], acc);
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        key = min(key, search_key(acc[i][j], dx0 + j, dy0 + i));
+  } else if (live) {
+    const int dy0 = (t - S::RUN_THREADS - k * S::NDY) * D - RANGE;
+    unsigned acc[D][1];
+    search_block<1, D>(win[k] + (WIN_Y + dy0) * WIN_STRIDE + WIN_X + RANGE,
+                       cur[k], acc);
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+      key = min(key, search_key(acc[i][0], RANGE, dy0 + i));
+  }
+  // a segment's threads are consecutive: a segmented warp minimum
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned o = __shfl_down_sync(0xffffffffu, key, off);
+    const int t2 = t + off;
+    const int seg2 = t2 < S::RUN_THREADS
+                         ? t2 / S::RUNS
+                         : MPB + (t2 - S::RUN_THREADS) / S::NDY;
+    if (lane + off < 32 && seg2 == seg) key = min(key, o);
+  }
+  const bool first = run ? t % S::RUNS == 0
+                         : (t - S::RUN_THREADS) % S::NDY == 0;
+  if (live && (lane == 0 || first)) atomicMin(&best[k], key);
+  __syncthreads();
+  // the half-pel neighbours (rounding 0) and the deviation: a task is a
+  // column of 4 pixels (its 6 x 3 window bytes serve all 4), a warp's 32
+  // tasks in one macroblock; sums kept in registers, reduced once a task
+  for (int q = t; q < MPB * 64; q += S::THREADS) {
+    const int kk = q >> 6, col = q & 15, row = (q >> 4) & 3;
+    if (m0 + kk >= n_mb) break;
+    const int order = best[kk] & ((1 << ORDER_BITS) - 1);
+    const int bx = order % SIDE - RANGE, by = (order / SIDE) % SIDE - RANGE;
+    const int mean = (sums[kk][10] + 128) >> 8;
+    const uint8_t* cb = reinterpret_cast<const uint8_t*>(cur[kk]);
+    const uint8_t* w = win[kk] + (WIN_Y + 4 * row + by - 1) * WIN_STRIDE +
+                       WIN_X + col + bx - 1;
+    int a[6][3];
+#pragma unroll
+    for (int y = 0; y < 6; ++y)
+#pragma unroll
+      for (int x = 0; x < 3; ++x) a[y][x] = w[y * WIN_STRIDE + x];
+    int v[10];
+#pragma unroll
+    for (int i = 0; i < 10; ++i) v[i] = 0;
+#pragma unroll
+    for (int py = 0; py < 4; ++py) {
+      const int cv = cb[(4 * row + py) * 16 + col];
+#pragma unroll
+      for (int i = 0; i < 9; ++i) {
+        // taps of half-pel offset (hx, hy): column x0 (and x0 + 1 where
+        // hx is odd), row y0 (and y0 + 1 where hy is odd)
+        const int X = 2 + half_dx(i), Yh = 2 + half_dy(i);
+        const int x0 = X >> 1, y0 = py + (Yh >> 1), fx = X & 1, fy = Yh & 1;
+        const int pa = a[y0][x0];
+        int pr;
+        if (!fx && !fy)
+          pr = pa;
+        else if (!fy)
+          pr = (pa + a[y0][x0 + 1] + 1) >> 1;
+        else if (!fx)
+          pr = (pa + a[y0 + 1][x0] + 1) >> 1;
+        else
+          pr = (pa + a[y0][x0 + 1] + a[y0 + 1][x0] + a[y0 + 1][x0 + 1] + 2) >>
+               2;
+        v[i] += abs(pr - cv);
+      }
+      v[9] += abs(cv - mean);
+    }
+#pragma unroll
+    for (int i = 0; i < 10; ++i) v[i] = __reduce_add_sync(0xffffffffu, v[i]);
+    if (lane == 0)
+#pragma unroll
+      for (int i = 0; i < 10; ++i) atomicAdd(&sums[kk][i], v[i]);
   }
   __syncthreads();
-  // columns: F[v][u] = (sum_y C[v][y] tr[y][u] + 32768) >> 16
-  int vv = i >> 3, u = i & 7;
-  int s = 0;
-  for (int k = 0; k < 8; ++k) s += kFdct[vv * 8 + k] * tr[b][k * 8 + u];
-  int F = (s + 32768) >> 16;
-  int lv;
-  if (i == 0 && intra) {
-    int sc = d_dc_scaler(qp, b < 4);
-    int q = F + (sc >> 1);
-    q = q >= 0 ? q / sc : -((-q + sc - 1) / sc);  // floor division
-    lv = min(max(q, 1), 254);
-  } else {
-    int a = abs(F);
-    int mag = intra ? a / (2 * qp) : max(a - qp / 2, 0) / (2 * qp);
-    mag = min(mag, 2047);
-    lv = F < 0 ? -mag : (F > 0 ? mag : 0);
+  if (t < MPB && m0 + t < n_mb) {
+    const int order = best[t] & ((1 << ORDER_BITS) - 1);
+    const int bx = order % SIDE - RANGE, by = (order / SIDE) % SIDE - RANGE;
+    int bi = 0;
+    for (int i = 1; i < 9; ++i)
+      if (sums[t][i] < sums[t][bi]) bi = i;
+    const bool intra = sums[t][9] + 512 < sums[t][bi];
+    int32_t* o = out + ((size_t)g * n_mb + m0 + t) * 3;
+    o[0] = intra ? MB_INTRA : MB_INTER;
+    o[1] = intra ? 0 : 2 * bx + half_dx(bi);
+    o[2] = intra ? 0 : 2 * by + half_dy(bi);
   }
-  out[(((size_t)blockIdx.y * n_mb + m) * 6 + b) * 64 + i] = (int16_t)lv;
+}
+
+// V4: a thread a row of an 8 x 8 block (8 threads a block, 48 a
+// macroblock), MPB macroblocks a CUDA block. Each thread loads its source
+// and prediction rows as 8-byte vectors, runs the row pass in registers
+// with the even/odd butterfly (C[u][7 - k] = (-1)^u C[u][k]), hands its
+// row to the block's 8 threads through a padded shared tile (one warp,
+// no barrier), runs the column pass for its output row v the same way,
+// and quantises by multiply-high with the reciprocals of kRecip (exact
+// for every value the inputs reach; ops/mpeg4_cuda.py's tests). Integer
+// sums do not depend on their order and stay below 2^27, so the result is
+// the plain version's. One 16-byte store a row.
+constexpr int T_ROW = 12;               // ints of a tile row (8 used)
+constexpr int T_BLOCK = 8 * T_ROW + 4;  // ints of a block's tile
+
+__constant__ uint32_t kRecip[64];       // ceil(2^32 / d), d = 2 .. 63
+
+__device__ __forceinline__ int div_recip(int n, int d) {
+  return (int)__umulhi((unsigned)n, kRecip[d]);
+}
+
+template <int MPB>
+__global__ void __launch_bounds__(48 * MPB)
+fdct_quant_kernel(const uint8_t* __restrict__ sy,
+                  const uint8_t* __restrict__ su,
+                  const uint8_t* __restrict__ sv,
+                  const uint8_t* __restrict__ py_,
+                  const uint8_t* __restrict__ pu,
+                  const uint8_t* __restrict__ pv, int h16, int w16,
+                  const int32_t* __restrict__ mb, int n_mb, int total,
+                  const int32_t* __restrict__ items,
+                  int16_t* __restrict__ out) {
+  __shared__ __align__(16) int tile[6 * MPB * T_BLOCK];
+  const int t = threadIdx.x, r = t & 7;
+  const int j = blockIdx.x * 6 * MPB + (t >> 3);  // (item, macroblock, block)
+  const int gm = j / 6, b = j - gm * 6;
+  const bool live = gm < total;
+  int* row = tile + (t >> 3) * T_BLOCK;
+  bool intra = false;
+  int qp = 1;
+  if (live) {
+    const int g = gm / n_mb, m = gm - g * n_mb;
+    const int32_t* rec = mb + (size_t)gm * MB_FIELDS;
+    const int s_i = items[2 * g], p_i = items[2 * g + 1];
+    const int mbw = w16 >> 4, my = m / mbw, mx = m - my * mbw;
+    const uint8_t *s, *p;
+    if (b < 4) {
+      const size_t o = (size_t)(my * 16 + (b >> 1) * 8 + r) * w16 + mx * 16 +
+                       (b & 1) * 8;
+      const size_t lplane = (size_t)h16 * w16;
+      s = sy + s_i * lplane + o;
+      p = py_ + p_i * lplane + o;
+    } else {
+      const size_t o = (size_t)(my * 8 + r) * (w16 >> 1) + mx * 8;
+      const size_t cplane = (size_t)h16 * w16 >> 2;
+      s = (b == 4 ? su : sv) + s_i * cplane + o;
+      p = (b == 4 ? pu : pv) + p_i * cplane + o;
+    }
+    const uint2 sa = *reinterpret_cast<const uint2*>(s);
+    const uint2 pa = *reinterpret_cast<const uint2*>(p);
+    intra = rec[0] == MB_INTRA;
+    qp = rec[1];
+    int x[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const unsigned sw = c < 4 ? sa.x : sa.y, pw = c < 4 ? pa.x : pa.y;
+      const int sh = 8 * (c & 3);
+      x[c] = (int)((sw >> sh) & 255) - (intra ? 0 : (int)((pw >> sh) & 255));
+    }
+    int e[4], o[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      e[k] = x[k] + x[7 - k];
+      o[k] = x[k] - x[7 - k];
+    }
+    int tr[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int* h = (u & 1) ? o : e;
+      int acc = 512;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc += kFdct[u * 8 + k] * h[k];
+      tr[u] = acc >> 10;
+    }
+    int4* d = reinterpret_cast<int4*>(row + r * T_ROW);
+    d[0] = make_int4(tr[0], tr[1], tr[2], tr[3]);
+    d[1] = make_int4(tr[4], tr[5], tr[6], tr[7]);
+  }
+  __syncwarp();
+  if (!live) return;
+  // column pass for output row v = r: F[v][u] = sum_y C[v][y] tr[y][u]
+  int c[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) c[k] = kFdct[r * 8 + k];
+  const int sgn = (r & 1) ? -1 : 1;
+  int acc[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) acc[u] = 32768;
+#pragma unroll
+  for (int y = 0; y < 4; ++y) {
+    const int4* a = reinterpret_cast<const int4*>(row + y * T_ROW);
+    const int4* z = reinterpret_cast<const int4*>(row + (7 - y) * T_ROW);
+    const int4 a0 = a[0], a1 = a[1], z0 = z[0], z1 = z[1];
+    const int ta[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const int tz[8] = {z0.x, z0.y, z0.z, z0.w, z1.x, z1.y, z1.z, z1.w};
+#pragma unroll
+    for (int u = 0; u < 8; ++u) acc[u] += c[y] * (ta[u] + sgn * tz[u]);
+  }
+  const int d2 = 2 * qp, half = qp >> 1;
+  int lv[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int f = acc[u] >> 16;
+    const int a = abs(f);
+    const int n = intra ? a : max(a - half, 0);
+    const int mag = min(div_recip(n, d2), 2047);
+    lv[u] = f < 0 ? -mag : mag;
+  }
+  if (intra && r == 0) {
+    const int sc = d_dc_scaler(qp, b < 4);
+    const int q = (acc[0] >> 16) + (sc >> 1);
+    const int dc = q >= 0 ? div_recip(q, sc) : -div_recip(-q + sc - 1, sc);
+    lv[0] = min(max(dc, 1), 254);
+  }
+  uint4 packed;
+  packed.x = (uint16_t)lv[0] | ((unsigned)(uint16_t)lv[1] << 16);
+  packed.y = (uint16_t)lv[2] | ((unsigned)(uint16_t)lv[3] << 16);
+  packed.z = (uint16_t)lv[4] | ((unsigned)(uint16_t)lv[5] << 16);
+  packed.w = (uint16_t)lv[6] | ((unsigned)(uint16_t)lv[7] << 16);
+  *reinterpret_cast<uint4*>(out + (size_t)j * 64 + r * 8) = packed;
 }
 
 int status(cudaError_t e) { return e == cudaSuccess ? 0 : 1000 + (int)e; }
@@ -1266,9 +1537,11 @@ int mpeg4_motion_search(const uint8_t* y, int n, int h16, int w16,
                         const int32_t* items, int g, int width, int height,
                         int32_t* out, cudaStream_t stream) {
   (void)n;
-  dim3 grid((h16 / 16) * (w16 / 16), g);
-  motion_search_kernel<<<grid, 256, 0, stream>>>(y, h16, w16, items, width,
-                                                 height, out);
+  using S = SearchShape<MS_RUN, MS_DY, MS_MBS>;
+  const int n_mb = (h16 / 16) * (w16 / 16);
+  dim3 grid((n_mb + MS_MBS - 1) / MS_MBS, g);
+  motion_search_kernel<MS_RUN, MS_DY, MS_MBS><<<grid, S::THREADS, 0, stream>>>(
+      y, h16, w16, items, n_mb, width, height, out);
   return status(cudaGetLastError());
 }
 
@@ -1279,11 +1552,21 @@ int mpeg4_fdct_quant(const uint8_t* sy, const uint8_t* su, const uint8_t* sv,
                      int16_t* out, cudaStream_t stream) {
   (void)n_src;
   (void)n_pred;
-  int n_mb = (h16 / 16) * (w16 / 16);
-  dim3 grid(n_mb, g);
-  fdct_quant_kernel<<<grid, 384, 0, stream>>>(sy, su, sv, py, pu, pv, h16,
-                                              w16, mb, n_mb, items, out);
+  const int n_mb = (h16 / 16) * (w16 / 16), total = g * n_mb;
+  fdct_quant_kernel<FQ_MBS><<<(total + FQ_MBS - 1) / FQ_MBS, 48 * FQ_MBS, 0,
+                              stream>>>(sy, su, sv, py, pu, pv, h16, w16, mb,
+                                        n_mb, total, items, out);
   return status(cudaGetLastError());
+}
+
+// V4's reciprocals (ops/mpeg4_cuda.recip_table), into the constant memory
+// of the stream's device; synchronous
+int mpeg4_set_recip(const uint32_t* table, int n, cudaStream_t stream) {
+  if (n != 64) return 1;
+  cudaError_t e = cudaMemcpyToSymbolAsync(kRecip, table, sizeof(kRecip), 0,
+                                          cudaMemcpyHostToDevice, stream);
+  if (e == cudaSuccess) e = cudaStreamSynchronize(stream);
+  return status(e);
 }
 
 }  // extern "C"

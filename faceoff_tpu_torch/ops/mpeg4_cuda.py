@@ -380,6 +380,50 @@ def quantize_plain(f: torch.Tensor, qp: torch.Tensor, intra: torch.Tensor,
     return lv.to(torch.int16)
 
 
+def fdct_bound() -> int:
+    """The largest |coefficient| fdct_plain can give on samples or
+    residuals in [-255, 255]: each pass's largest sum of |C| times its
+    largest input, rounded as the pass rounds."""
+    reach = int(np.abs(FDCT).sum(1).max())
+    row = (reach * 255 + 512) >> 10
+    return (reach * row + 32768) >> 16
+
+
+F_MAX = fdct_bound()
+# The kernel divides by 2 qp and by the DC scaler (2 .. 46) with a
+# multiply-high by RECIP[d] = ceil(2^32 / d): floor(n / d) == (n *
+# RECIP[d]) >> 32 for every numerator up to QUANT_N_MAX (its error term n
+# (RECIP[d] d - 2^32) stays below 2^32 / d there; tests check each pair).
+# The numerators: |F|, |F| - qp // 2, and the intra DC's F + s // 2 (or
+# -F + s - 1 on the negative side) for a DC scaler s below 64.
+QUANT_N_MAX = F_MAX + 64
+
+
+def recip_table() -> np.ndarray:
+    """(64,) uint32: ceil(2^32 / d) for d = 2 .. 63, 0 for d < 2."""
+    d = np.arange(64, dtype=np.uint64)
+    out = np.zeros(64, np.uint64)
+    out[2:] = ((1 << 32) + d[2:] - 1) // d[2:]
+    return out.astype(np.uint32)
+
+
+RECIP = recip_table()
+
+
+# V3's kernel packs the plain key (SAD << 17 | Chebyshev length << 12 |
+# dy + 16 << 6 | dx + 16) into 32 bits: the SAD (below 2^16) over a
+# mixed-radix order below 2^15 that sorts as (Chebyshev length, dy, dx).
+ORDER_BITS = 15
+
+
+def search_key(sad, dx, dy):
+    """The kernel's 31-bit key of candidates (numpy or int arrays)."""
+    side = 2 * SEARCH_RANGE + 1
+    cheb = np.maximum(np.abs(dx), np.abs(dy))
+    order = (cheb * side + dy + SEARCH_RANGE) * side + dx + SEARCH_RANGE
+    return (np.asarray(sad, np.int64) << ORDER_BITS) | order
+
+
 def fdct_quant_plain(src: Sequence[torch.Tensor], pred: Sequence[torch.Tensor],
                      mb: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
     """The plain V4: for each item (source frame, prediction slot), the
@@ -451,9 +495,30 @@ def load() -> ctypes.CDLL:
         lib.mpeg4_parse.restype = _P
         lib.mpeg4_write.restype = _P
         lib.mpeg4_error.restype = ctypes.c_char_p
+        lib.mpeg4_set_recip.argtypes = [_P, _I, _P]
+        lib.mpeg4_set_recip.restype = _I
         _send_tables(lib)
         _lib = lib
         return lib
+
+
+_recip_sent: set = set()
+
+
+def _load_for(dev: torch.device) -> ctypes.CDLL:
+    """The library, with V4's reciprocals in the constant memory of
+    `dev` (sent once a device, before the first launch there)."""
+    lib = load()
+    with _lock:
+        if dev.index not in _recip_sent:
+            with torch.cuda.device(dev):
+                status = lib.mpeg4_set_recip(RECIP.ctypes.data, len(RECIP),
+                                             _stream(dev))
+            if status:
+                raise RuntimeError(f"mpeg4_set_recip failed: cudaError "
+                                   f"{status - 1000}")
+            _recip_sent.add(dev.index)
+    return lib
 
 
 def _cuda_check(t: torch.Tensor, what: str) -> None:
@@ -472,6 +537,12 @@ def _count(name: str, status: int) -> None:
                            f"{status - 1000}")
     with _lock:
         launches[name] += 1
+
+
+def _aligned(t: torch.Tensor, what: str, n: int) -> None:
+    if t.data_ptr() % n:
+        raise ValueError(f"{what} is not {n}-byte aligned: the kernel "
+                         f"loads it in {n}-byte vectors")
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -538,10 +609,12 @@ def motion_search(src_y: torch.Tensor, items: torch.Tensor, width: int,
                       device=src_y.device)
     if g == 0:
         return out
+    src_y = src_y.contiguous()
+    _aligned(src_y, "src_y", 16)
     lib = load()
     with torch.cuda.device(src_y.device):
         status = lib.mpeg4_motion_search(
-            src_y.contiguous().data_ptr(), n, h16, w16,
+            src_y.data_ptr(), n, h16, w16,
             items.contiguous().data_ptr(), g, width, height,
             out.data_ptr(), _stream(src_y.device))
     _count("motion_search", status)
@@ -562,7 +635,10 @@ def fdct_quant(src: Sequence[torch.Tensor], pred: Sequence[torch.Tensor],
                       device=mb.device)
     if g == 0:
         return out
-    lib = load()
+    for planes, what in ((src, "src"), (pred, "pred")):
+        for p in planes:
+            _aligned(p, what, 8)
+    lib = _load_for(mb.device)
     with torch.cuda.device(mb.device):
         status = lib.mpeg4_fdct_quant(
             *(p.data_ptr() for p in src), src[0].shape[0],

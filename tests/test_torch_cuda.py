@@ -8,8 +8,10 @@ mocoganhd pair's launches; the functional streaming push and a serving
 bundle exported for the card; VQVAE_B2F's training forward (its six
 quantizers through the VQ kernels) and the shardmap step in a one-rank
 NCCL group against the plain step; mp4: kernels V1-V4 against their plain
-versions at every call of a round trip, and the C++ entropy coder against
-the Python one.
+versions at every call of a round trip, V3 and V4 on adversarial inputs
+(ties, shifts past the search range, every border clamp, both DC clamps,
+the largest coefficients), and the C++ entropy coder against the Python
+one.
 
 Marked `cuda`; each test skips where there is no CUDA device. The file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -1024,3 +1026,149 @@ def test_mpeg4_batches_on_the_card_equal_the_cpu(cuda, monkeypatch):
     assert torch.equal(got.cpu(), recon)
     monkeypatch.setattr(mpeg4, "batch_vops", lambda _vol: mpeg4.GOP)
     assert mpeg4.encode(frames.to(cuda), 25)[0] == samples
+
+
+# -- V3 and V4 on adversarial inputs, bit for bit against the plain ----------
+
+def _shifted_frames(rng, h, w, shifts):
+    """Frame 0 cut from a noise texture, then the same cut moved by each
+    (dy, dx) of `shifts`: P-VOPs against frame 0 whose best vectors are
+    known (within +-16) or out of range."""
+    pad = 24
+    base = rng.integers(0, 256, (h + 2 * pad, w + 2 * pad), dtype=np.uint8)
+    cuts = [(0, 0)] + list(shifts)
+    return np.stack([base[pad + dy: pad + dy + h, pad + dx: pad + dx + w]
+                     for dy, dx in cuts])
+
+
+@pytest.mark.parametrize("case", ["flat", "shifted", "noise", "100x60",
+                                  "smooth"])
+def test_mpeg4_motion_search_adversarial(cuda, case):
+    """V3 against motion_search_plain bit for bit: flat planes (every
+    candidate ties at SAD 0, so the order alone decides), frames shifted
+    by known vectors (+-16 and past the range) with interior macroblocks,
+    uniform noise, a 100x60 picture in 112x64 planes (the clamps at every
+    border), a smooth pattern moved by half pels (the half-pel step and
+    the intra test decide); every case several P-VOPs a launch."""
+    from faceoff_tpu_torch.ops import mpeg4_cuda as K
+
+    rng = np.random.default_rng(7)
+    width = height = None
+    if case == "flat":
+        y = np.full((3, 48, 96), 77, np.uint8)
+        y[2] = 200
+        items = [[1, 0], [0, 1], [2, 0]]
+    elif case == "shifted":
+        y = _shifted_frames(rng, 144, 176, [(16, -16), (-16, 16), (3, 5),
+                                            (20, -1), (-7, -19), (0, 17)])
+        items = [[0, k] for k in range(1, 7)]
+    elif case == "noise":
+        y = rng.integers(0, 256, (3, 96, 128), dtype=np.uint8)
+        items = [[1, 0], [2, 1], [0, 2]]
+    elif case == "100x60":
+        y = rng.integers(0, 256, (3, 64, 112), dtype=np.uint8)
+        items = [[1, 0], [0, 1], [2, 1]]
+        width, height = 100, 60
+    else:
+        yy, xx = np.mgrid[0:96, 0:160]
+        y = np.stack([128 + 60 * np.sin((xx + 0.5 * k) / 7.0)
+                      * np.cos((yy - 1.5 * k) / 5.0) for k in range(3)]
+                     ).astype(np.uint8)
+        items = [[1, 0], [2, 1], [2, 0]]
+    n, h16, w16 = y.shape
+    width, height = width or w16, height or h16
+    planes = torch.from_numpy(y).to(cuda)
+    it = torch.tensor(items, dtype=torch.int32, device=cuda)
+    before = K.launches["motion_search"]
+    got = K.motion_search(planes, it, width, height)
+    assert K.launches["motion_search"] == before + 1
+    want = K.motion_search_plain(planes.cpu(), it.cpu(), width, height)
+    assert torch.equal(got.cpu(), want)
+    if case == "shifted":  # the shifts within range are found exactly
+        m = (h16 // 16) * (w16 // 16)
+        hit = (got[2, :, 1:].cpu() == torch.tensor([-10, -6])).all(1)
+        assert int(hit.sum()) > m // 2
+
+
+def _fdct_patterns(n_mb):
+    """Per macroblock (source, prediction) 16 x 16 patterns: residuals of
+    +255 and -255 everywhere (intra: white and black, the DC levels that
+    clamp to 254 and to 1), +-255 in the sign pattern of DCT basis
+    products (the largest coefficients), a checkerboard, noise, and a
+    zero residual."""
+    from faceoff_tpu_torch.ops import mpeg4_cuda as K
+
+    rng = np.random.default_rng(11)
+    c = np.sign(K.FDCT[:, np.arange(16) % 8])
+    out = []
+    for i in range(n_mb):
+        k = i % 8
+        if k == 0:
+            s, p = np.full((16, 16), 255), np.zeros((16, 16))
+        elif k == 1:
+            s, p = np.zeros((16, 16)), np.full((16, 16), 255)
+        elif k in (2, 3, 4):
+            u, v = [(1, 1), (7, 3), (2, 5)][k - 2]
+            s = np.where(np.outer(c[v], c[u]) >= 0, 255, 0)
+            p = 255 - s
+        elif k == 5:
+            s = np.where((np.add.outer(np.arange(16), np.arange(16)) % 2)
+                         == 0, 255, 0)
+            p = 255 - s
+        elif k == 6:
+            s, p = rng.integers(0, 256, (16, 16)), rng.integers(0, 256,
+                                                                (16, 16))
+        else:
+            s = rng.integers(0, 256, (16, 16))
+            p = s
+        out.append((s.astype(np.uint8), p.astype(np.uint8)))
+    return out
+
+
+@pytest.mark.parametrize("qp", [1, 4, 5, 8, 9, 24, 25, 31])
+def test_mpeg4_fdct_quant_adversarial(cuda, qp):
+    """V4 against fdct_quant_plain bit for bit at each qp where the DC
+    scaler changes branch, intra and inter macroblocks side by side, on
+    the patterns of _fdct_patterns (largest coefficients, clamped DC
+    levels), two items a launch. (A level never reaches the 2047 clamp
+    from 8-bit samples: |F| <= mpeg4_cuda.F_MAX = 2039, so |level| <=
+    1019; tests/test_torch_mpeg4_arith.py shows it.)"""
+    from faceoff_tpu_torch.ops import mpeg4_cuda as K
+
+    h16, w16 = 32, 128
+    mbw = w16 // 16
+    n_mb = (h16 // 16) * mbw
+    src = [np.zeros((3, h16, w16), np.uint8),
+           np.zeros((3, h16 // 2, w16 // 2), np.uint8),
+           np.zeros((3, h16 // 2, w16 // 2), np.uint8)]
+    pred = [np.zeros_like(p) for p in src]
+    for m, (s, p) in enumerate(_fdct_patterns(n_mb)):
+        my, mx = divmod(m, mbw)
+        for slot in range(3):
+            src[0][slot, my * 16:(my + 1) * 16, mx * 16:(mx + 1) * 16] = s
+            pred[0][slot, my * 16:(my + 1) * 16, mx * 16:(mx + 1) * 16] = p
+            for c in (1, 2):
+                src[c][slot, my * 8:(my + 1) * 8, mx * 8:(mx + 1) * 8] = \
+                    s[::2, ::2]
+                pred[c][slot, my * 8:(my + 1) * 8, mx * 8:(mx + 1) * 8] = \
+                    p[::2, ::2]
+    mb = np.zeros((2, n_mb, 12), np.int32)
+    mb[:, :, 1] = qp
+    mb[0, :, 0] = np.where(np.arange(n_mb) % 2 == 0, 2, 1)
+    mb[1, :, 0] = np.where(np.arange(n_mb) % 2 == 0, 1, 2)
+    mb[1, ::4, 0] = 2
+    items = [[0, 1], [2, 0]]
+    args = ([torch.from_numpy(a).to(cuda) for a in src],
+            [torch.from_numpy(a).to(cuda) for a in pred],
+            torch.from_numpy(mb).to(cuda),
+            torch.tensor(items, dtype=torch.int32, device=cuda))
+    before = K.launches["fdct_quant"]
+    got = K.fdct_quant(*args)
+    assert K.launches["fdct_quant"] == before + 1
+    want = K.fdct_quant_plain([a.cpu() for a in args[0]],
+                              [a.cpu() for a in args[1]], args[2].cpu(),
+                              args[3].cpu())
+    assert torch.equal(got.cpu(), want)
+    if qp < 5:  # intra white and black blocks reach both DC clamps
+        dc = want[..., 0][torch.from_numpy(mb[..., 0] == 2)]
+        assert (dc == 254).any() and (dc == 1).any()

@@ -1,0 +1,879 @@
+// Variants of kernels V3 (motion search) and V4 (forward DCT and
+// quantisation) of faceoff_tpu_torch/csrc/mpeg4.cu, built and timed by
+// tools/mp4_variants_torch.py beside the port's own kernels to find what
+// bounds them on the card. Not used by the port. The port's source is
+// included, so its templates (motion_search_kernel<RUN, DY, MBS>,
+// fdct_quant_kernel<MBS>) are instantiated here at other shapes.
+//
+// V3 variants (probe_motion_search):
+//   0 original    the first form of the port: a CUDA block of 256 threads a
+//                 macroblock, a candidate a thread (five loads, four
+//                 __byte_perm and four __vsadu4 a row), a shared-memory
+//                 tree over 64-bit keys, shared atomics for the half-pel
+//                 and intra sums, the window filled a byte at a time
+//   1 redesign1   the first redesign at RUN 8, DY 3, MBS 1: runs
+//                 padded to dx 23, the shifts made under each dy's branch,
+//                 border windows a byte at a time, a pixel a half-pel task
+//   2 redesign2   the same at MBS 4 with clamped-row vector fills and a
+//                 column of 4 pixels a half-pel task
+//   3..           motion_search_kernel<RUN, DY, MBS> at PROBE_SEARCH's
+//                 shapes
+// V4 variants (probe_fdct_quant):
+//   0 original    the first form of the port: 384 threads a macroblock, a
+//                 coefficient a thread, two barriers, 16 shared-memory
+//                 multiply-adds and an integer division a coefficient
+//   1 block       a thread an 8 x 8 block: both passes in registers with
+//                 the butterflies, eight 16-byte stores
+//   2 copy        a thread a block row: V4's loads and stores (the
+//                 residual stored as int16), no arithmetic: the floor the
+//                 memory system gives this access pattern
+//   3..           fdct_quant_kernel<MBS> at PROBE_FDCT's shapes
+// Instruction rates (probe_rate), each thread 8 independent chains:
+//   0 vabsdiff4.add   1 __byte_perm   2 float32 fma   3 integer
+//   multiply-add
+
+#include "../faceoff_tpu_torch/csrc/mpeg4.cu"
+
+namespace original {
+
+__constant__ int kHalf[9][2] = {{0, 0}, {-1, -1}, {0, -1}, {1, -1}, {-1, 0},
+                                {1, 0}, {-1, 1}, {0, 1}, {1, 1}};
+constexpr int WIN = 52;
+constexpr int WIN_OFF = 18;
+constexpr int WIN_WORDS = 14;
+constexpr int N_CAND = SIDE * SIDE;
+
+__global__ void motion_search(const uint8_t* __restrict__ Y, int h16,
+                              int w16, const int32_t* __restrict__ items,
+                              int width, int height,
+                              int32_t* __restrict__ out) {
+  __shared__ uint32_t win[WIN * WIN_WORDS];
+  __shared__ uint32_t cur[16 * 4];
+  __shared__ unsigned long long best[256];
+  __shared__ int sums[12];
+  int m = blockIdx.x, t = threadIdx.x;
+  int c_i = items[blockIdx.y * 2], r_i = items[blockIdx.y * 2 + 1];
+  int mbw = w16 >> 4;
+  int my = m / mbw, mx = m % mbw;
+  int n_mb = gridDim.x;
+  size_t plane = (size_t)h16 * w16;
+  const uint8_t* cp = Y + c_i * plane;
+  const uint8_t* rp = Y + r_i * plane;
+  uint8_t* wb = reinterpret_cast<uint8_t*>(win);
+  int oy = my * 16 - WIN_OFF, ox = mx * 16 - WIN_OFF;
+  for (int i = t; i < WIN * WIN_WORDS * 4; i += 256) {
+    int wy = i / (WIN_WORDS * 4), wx = i % (WIN_WORDS * 4);
+    int yy = min(max(oy + wy, 0), height - 1);
+    int xx = min(max(ox + wx, 0), width - 1);
+    wb[i] = rp[(size_t)yy * w16 + xx];
+  }
+  if (t < 64) {
+    int py = t >> 2, w = t & 3;
+    const uint8_t* s = cp + (size_t)(my * 16 + py) * w16 + mx * 16 + 4 * w;
+    cur[t] = s[0] | (s[1] << 8) | (s[2] << 16) | ((uint32_t)s[3] << 24);
+  }
+  if (t < 12) sums[t] = 0;
+  __syncthreads();
+  unsigned long long mine = ~0ull;
+  for (int c = t; c < N_CAND; c += 256) {
+    int dy = c / (2 * RANGE + 1) - RANGE, dx = c % (2 * RANGE + 1) - RANGE;
+    int sad = 0;
+    int col = WIN_OFF + dx;
+    int sh = col & 3;
+    unsigned sel = 0x3210 + 0x1111 * sh;
+    for (int py = 0; py < 16; ++py) {
+      const uint32_t* wr = win + (WIN_OFF + dy + py) * WIN_WORDS + (col >> 2);
+      uint32_t w0 = wr[0], w1 = wr[1], w2 = wr[2], w3 = wr[3], w4 = wr[4];
+      sad += __vsadu4(__byte_perm(w0, w1, sel), cur[py * 4 + 0]);
+      sad += __vsadu4(__byte_perm(w1, w2, sel), cur[py * 4 + 1]);
+      sad += __vsadu4(__byte_perm(w2, w3, sel), cur[py * 4 + 2]);
+      sad += __vsadu4(__byte_perm(w3, w4, sel), cur[py * 4 + 3]);
+    }
+    int cheb = max(abs(dx), abs(dy));
+    unsigned long long key = ((unsigned long long)sad << 17) |
+                             (cheb << 12) | ((dy + RANGE) << 6) | (dx + RANGE);
+    mine = min(mine, key);
+  }
+  best[t] = mine;
+  __syncthreads();
+  for (int s = 128; s > 0; s >>= 1) {
+    if (t < s) best[t] = min(best[t], best[t + s]);
+    __syncthreads();
+  }
+  unsigned long long k = best[0];
+  int order = (int)(k & ((1 << 17) - 1));
+  int bdx = (order & 63) - RANGE, bdy = ((order >> 6) & 63) - RANGE;
+  int py = t >> 4, px = t & 15;
+  int cv = cp[(size_t)(my * 16 + py) * w16 + mx * 16 + px];
+  for (int i = 0; i < 9; ++i) {
+    int X = 2 * (WIN_OFF + px + bdx) + kHalf[i][0];
+    int Yh = 2 * (WIN_OFF + py + bdy) + kHalf[i][1];
+    int x0 = X >> 1, y0 = Yh >> 1, fx = X & 1, fy = Yh & 1;
+    int a = wb[y0 * WIN_WORDS * 4 + x0], b = wb[y0 * WIN_WORDS * 4 + x0 + 1];
+    int c = wb[(y0 + 1) * WIN_WORDS * 4 + x0];
+    int d = wb[(y0 + 1) * WIN_WORDS * 4 + x0 + 1];
+    int p = !fx ? (!fy ? a : (a + c + 1) >> 1)
+                : (!fy ? (a + b + 1) >> 1 : (a + b + c + d + 2) >> 2);
+    atomicAdd(&sums[i], abs(p - cv));
+  }
+  atomicAdd(&sums[9], cv);
+  __syncthreads();
+  int mean = (sums[9] + 128) >> 8;
+  atomicAdd(&sums[10], abs(cv - mean));
+  __syncthreads();
+  if (t == 0) {
+    int bi = 0;
+    for (int i = 1; i < 9; ++i)
+      if (sums[i] < sums[bi]) bi = i;
+    int sad = sums[bi];
+    bool intra = sums[10] + 512 < sad;
+    int32_t* o = out + ((size_t)blockIdx.y * n_mb + m) * 3;
+    o[0] = intra ? MB_INTRA : MB_INTER;
+    o[1] = intra ? 0 : 2 * bdx + kHalf[bi][0];
+    o[2] = intra ? 0 : 2 * bdy + kHalf[bi][1];
+  }
+}
+
+__global__ void fdct_quant(
+    const uint8_t* __restrict__ sy, const uint8_t* __restrict__ su,
+    const uint8_t* __restrict__ sv, const uint8_t* __restrict__ py_,
+    const uint8_t* __restrict__ pu, const uint8_t* __restrict__ pv, int h16,
+    int w16, const int32_t* __restrict__ mb, int n_mb,
+    const int32_t* __restrict__ items, int16_t* __restrict__ out) {
+  __shared__ int x[6][64];
+  __shared__ int tr[6][64];
+  int m = blockIdx.x, t = threadIdx.x;
+  int b = t >> 6, i = t & 63;
+  int s_i = items[blockIdx.y * 2], p_i = items[blockIdx.y * 2 + 1];
+  int mbw = w16 >> 4;
+  int my = m / mbw, mx = m % mbw;
+  const int32_t* rec = mb + ((size_t)blockIdx.y * n_mb + m) * MB_FIELDS;
+  bool intra = rec[0] == MB_INTRA;
+  int qp = rec[1];
+  size_t lplane = (size_t)h16 * w16, cplane = lplane >> 2;
+  int yy = i >> 3, xx = i & 7;
+  int v;
+  if (b < 4) {
+    size_t o = (size_t)(my * 16 + (b >> 1) * 8 + yy) * w16 + mx * 16 +
+               (b & 1) * 8 + xx;
+    v = sy[s_i * lplane + o];
+    if (!intra) v -= py_[p_i * lplane + o];
+  } else {
+    size_t o = (size_t)(my * 8 + yy) * (w16 >> 1) + mx * 8 + xx;
+    const uint8_t* s = b == 4 ? su : sv;
+    const uint8_t* p = b == 4 ? pu : pv;
+    v = s[s_i * cplane + o];
+    if (!intra) v -= p[p_i * cplane + o];
+  }
+  x[b][i] = v;
+  __syncthreads();
+  {
+    int y = i >> 3, u = i & 7;
+    int s = 0;
+    for (int k = 0; k < 8; ++k) s += x[b][y * 8 + k] * kFdct[u * 8 + k];
+    tr[b][i] = (s + 512) >> 10;
+  }
+  __syncthreads();
+  int vv = i >> 3, u = i & 7;
+  int s = 0;
+  for (int k = 0; k < 8; ++k) s += kFdct[vv * 8 + k] * tr[b][k * 8 + u];
+  int F = (s + 32768) >> 16;
+  int lv;
+  if (i == 0 && intra) {
+    int sc = d_dc_scaler(qp, b < 4);
+    int q = F + (sc >> 1);
+    q = q >= 0 ? q / sc : -((-q + sc - 1) / sc);
+    lv = min(max(q, 1), 254);
+  } else {
+    int a = abs(F);
+    int mag = intra ? a / (2 * qp) : max(a - qp / 2, 0) / (2 * qp);
+    mag = min(mag, 2047);
+    lv = F < 0 ? -mag : (F > 0 ? mag : 0);
+  }
+  out[(((size_t)blockIdx.y * n_mb + m) * 6 + b) * 64 + i] = (int16_t)lv;
+}
+
+}  // namespace original
+
+namespace old {
+
+// The earlier forms of the redesigned V3, at their own window size:
+// runs padded past dx 16, the shifts made again under each dy's branch.
+// first: border windows a byte at a time, a pixel a half-pel task with ten
+// reductions a task. second: clamped-row vector fills, a column of 4
+// pixels a half-pel task.
+constexpr int WIN_ROWS = 56;
+__constant__ int kHalf[9][2] = {{0, 0}, {-1, -1}, {0, -1}, {1, -1}, {-1, 0},
+                                {1, 0}, {-1, 1}, {0, 1}, {1, 1}};
+
+template <int R, int D, int MPB>
+struct OldShape {
+  static_assert(R % 4 == 0, "runs start on a word");
+  static constexpr int NRUN = (SIDE + R - 1) / R;
+  static constexpr int NDY = (SIDE + D - 1) / D;
+  static constexpr int LIVE = NRUN * NDY;  // threads of a macroblock
+  static constexpr int THREADS = (LIVE * MPB + 31) / 32 * 32;
+  static constexpr int NW = R / 4 + 4;     // words of a row a thread loads
+  static_assert(WIN_Y + (NDY - 1) * D - RANGE + D + 14 < WIN_ROWS,
+                "the window holds every row read");
+  static_assert(WIN_X + (NRUN - 1) * R - RANGE + 4 * NW <= WIN_LOAD,
+                "the window holds every column read");
+};
+
+template <int R, int D, int MPB>
+__global__ void __launch_bounds__(OldShape<R, D, MPB>::THREADS)
+first_search(const uint8_t* __restrict__ Y, int h16, int w16,
+                     const int32_t* __restrict__ items, int n_mb, int width,
+                     int height, int32_t* __restrict__ out) {
+  using S = OldShape<R, D, MPB>;
+  __shared__ __align__(16) uint8_t win[MPB][WIN_ROWS * WIN_STRIDE];
+  __shared__ uint4 cur[MPB][16];
+  __shared__ unsigned best[MPB];
+  __shared__ int sums[MPB][11];  // 9 half-pel SADs, the deviation, the sum
+  const int t = threadIdx.x, lane = t & 31;
+  const int g = blockIdx.y;
+  const int c_i = items[2 * g], r_i = items[2 * g + 1];
+  const size_t plane = (size_t)h16 * w16;
+  const uint8_t* cp = Y + c_i * plane;
+  const uint8_t* rp = Y + r_i * plane;
+  const int mbw = w16 >> 4;
+  const int m0 = blockIdx.x * MPB;
+#pragma unroll 1
+  for (int k = 0; k < MPB && m0 + k < n_mb; ++k) {
+    const int m = m0 + k, my = m / mbw, mx = m - my * mbw;
+    const int oy = my * 16 - WIN_Y, ox = mx * 16 - WIN_X;
+    uint8_t* w = win[k];
+    if (oy >= 0 && ox >= 0 && oy + WIN_ROWS <= height &&
+        ox + WIN_LOAD <= width) {
+      for (int i = t; i < WIN_ROWS * (WIN_LOAD / 16); i += S::THREADS) {
+        const int wy = i / (WIN_LOAD / 16), q = i - wy * (WIN_LOAD / 16);
+        const uint4 v = *reinterpret_cast<const uint4*>(
+            rp + (size_t)(oy + wy) * w16 + ox + 16 * q);
+        uint2* d = reinterpret_cast<uint2*>(w + wy * WIN_STRIDE + 16 * q);
+        d[0] = make_uint2(v.x, v.y);
+        d[1] = make_uint2(v.z, v.w);
+      }
+    } else {
+      for (int i = t; i < WIN_ROWS * WIN_LOAD; i += S::THREADS) {
+        const int wy = i / WIN_LOAD, wx = i - wy * WIN_LOAD;
+        const int yy = min(max(oy + wy, 0), height - 1);
+        const int xx = min(max(ox + wx, 0), width - 1);
+        w[wy * WIN_STRIDE + wx] = rp[(size_t)yy * w16 + xx];
+      }
+    }
+    if (t < 16)
+      cur[k][t] = *reinterpret_cast<const uint4*>(
+          cp + (size_t)(my * 16 + t) * w16 + mx * 16);
+    if (t < 11) sums[k][t] = 0;
+    if (t == 0) best[k] = ~0u;
+  }
+  __syncthreads();
+  // the pixel sum: a warp's 32 words lie in one macroblock
+  for (int q = t; q < MPB * 64; q += S::THREADS) {
+    const int k = q >> 6;
+    if (m0 + k >= n_mb) break;
+    const uint32_t* cw = reinterpret_cast<const uint32_t*>(cur[k]);
+    const int s = __reduce_add_sync(0xffffffffu, sad4(cw[q & 63], 0u, 0u));
+    if (lane == 0) atomicAdd(&sums[k][10], s);
+  }
+  // the integer search
+  const int k = t / S::LIVE, u = t - k * S::LIVE;
+  const bool live = k < MPB && m0 + k < n_mb;
+  unsigned key = ~0u;
+  if (live) {
+    const int dy0 = (u % S::NDY) * D - RANGE, dx0 = (u / S::NDY) * R - RANGE;
+    const uint8_t* base = win[k] + (WIN_Y + dy0) * WIN_STRIDE + WIN_X + dx0;
+    unsigned acc[D][R];
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) acc[i][j] = 0;
+#pragma unroll 1
+    for (int r = 0; r < D + 15; ++r) {
+      uint32_t w[S::NW], sh[3][S::NW - 1];
+      if constexpr (R % 8 == 0) {
+        const uint2* row = reinterpret_cast<const uint2*>(base +
+                                                          r * WIN_STRIDE);
+#pragma unroll
+        for (int q = 0; q < S::NW / 2; ++q) {
+          const uint2 v = row[q];
+          w[2 * q] = v.x;
+          w[2 * q + 1] = v.y;
+        }
+      } else {
+        const uint32_t* row = reinterpret_cast<const uint32_t*>(
+            base + r * WIN_STRIDE);
+#pragma unroll
+        for (int q = 0; q < S::NW; ++q) w[q] = row[q];
+      }
+#pragma unroll
+      for (int s = 1; s < 4; ++s)
+#pragma unroll
+        for (int q = 0; q < S::NW - 1; ++q)
+          sh[s - 1][q] = __byte_perm(w[q], w[q + 1], 0x3210 + 0x1111 * s);
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        const int py = r - i;
+        if (py < 0 || py >= 16) continue;
+        const uint4 c = cur[k][py];
+        const unsigned cw[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int o = (j >> 2) + q;
+            const unsigned a = (j & 3) ? sh[(j & 3) - 1][o] : w[o];
+            acc[i][j] = sad4(a, cw[q], acc[i][j]);
+          }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        if (dx0 + j <= RANGE && dy0 + i <= RANGE)
+          key = min(key, search_key(acc[i][j], dx0 + j, dy0 + i));
+  }
+  // a macroblock's threads are consecutive: a segmented warp minimum
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned o = __shfl_down_sync(0xffffffffu, key, off);
+    if (lane + off < 32 && (t + off) / S::LIVE == k) key = min(key, o);
+  }
+  if (live && (lane == 0 || u == 0)) atomicMin(&best[k], key);
+  __syncthreads();
+  // the half-pel neighbours (rounding 0) and the deviation: pixel tasks,
+  // a warp's 32 in one macroblock
+  for (int q = t; q < MPB * 256; q += S::THREADS) {
+    const int kk = q >> 8, p = q & 255;
+    if (m0 + kk >= n_mb) break;
+    const int order = best[kk] & ((1 << ORDER_BITS) - 1);
+    const int bx = order % SIDE - RANGE, by = (order / SIDE) % SIDE - RANGE;
+    const int cv = reinterpret_cast<const uint8_t*>(cur[kk])[p];
+    const uint8_t* w = win[kk] + (WIN_Y + (p >> 4) + by - 1) * WIN_STRIDE +
+                       WIN_X + (p & 15) + bx - 1;
+    int a[3][3];
+#pragma unroll
+    for (int y = 0; y < 3; ++y)
+#pragma unroll
+      for (int x = 0; x < 3; ++x) a[y][x] = w[y * WIN_STRIDE + x];
+    int v[10];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      // window taps of half-pel offset (hx, hy): column x0 (and x0 + 1
+      // where hx is odd), row y0 (and y0 + 1)
+      const int X = 2 + kHalf[i][0], Yh = 2 + kHalf[i][1];
+      const int x0 = X >> 1, y0 = Yh >> 1, fx = X & 1, fy = Yh & 1;
+      const int pa = a[y0][x0];
+      int pr;
+      if (!fx && !fy) pr = pa;
+      else if (!fy) pr = (pa + a[y0][x0 + 1] + 1) >> 1;
+      else if (!fx) pr = (pa + a[y0 + 1][x0] + 1) >> 1;
+      else
+        pr = (pa + a[y0][x0 + 1] + a[y0 + 1][x0] + a[y0 + 1][x0 + 1] + 2) >> 2;
+      v[i] = abs(pr - cv);
+    }
+    v[9] = abs(cv - ((sums[kk][10] + 128) >> 8));
+#pragma unroll
+    for (int i = 0; i < 10; ++i) v[i] = __reduce_add_sync(0xffffffffu, v[i]);
+    if (lane == 0)
+#pragma unroll
+      for (int i = 0; i < 10; ++i) atomicAdd(&sums[kk][i], v[i]);
+  }
+  __syncthreads();
+  if (t < MPB && m0 + t < n_mb) {
+    const int order = best[t] & ((1 << ORDER_BITS) - 1);
+    const int bx = order % SIDE - RANGE, by = (order / SIDE) % SIDE - RANGE;
+    int bi = 0;
+    for (int i = 1; i < 9; ++i)
+      if (sums[t][i] < sums[t][bi]) bi = i;
+    const bool intra = sums[t][9] + 512 < sums[t][bi];
+    int32_t* o = out + ((size_t)g * n_mb + m0 + t) * 3;
+    o[0] = intra ? MB_INTRA : MB_INTER;
+    o[1] = intra ? 0 : 2 * bx + kHalf[bi][0];
+    o[2] = intra ? 0 : 2 * by + kHalf[bi][1];
+  }
+}
+
+
+template <int R, int D, int MPB>
+__global__ void __launch_bounds__(OldShape<R, D, MPB>::THREADS)
+second_search(const uint8_t* __restrict__ Y, int h16, int w16,
+                     const int32_t* __restrict__ items, int n_mb, int width,
+                     int height, int32_t* __restrict__ out) {
+  using S = OldShape<R, D, MPB>;
+  __shared__ __align__(16) uint8_t win[MPB][WIN_ROWS * WIN_STRIDE];
+  __shared__ uint4 cur[MPB][16];
+  __shared__ unsigned best[MPB];
+  __shared__ int sums[MPB][11];  // 9 half-pel SADs, the deviation, the sum
+  const int t = threadIdx.x, lane = t & 31;
+  const int g = blockIdx.y;
+  const int c_i = items[2 * g], r_i = items[2 * g + 1];
+  const size_t plane = (size_t)h16 * w16;
+  const uint8_t* cp = Y + c_i * plane;
+  const uint8_t* rp = Y + r_i * plane;
+  const int mbw = w16 >> 4;
+  const int m0 = blockIdx.x * MPB;
+#pragma unroll 1
+  for (int k = 0; k < MPB && m0 + k < n_mb; ++k) {
+    const int m = m0 + k, my = m / mbw, mx = m - my * mbw;
+    const int oy = my * 16 - WIN_Y, ox = mx * 16 - WIN_X;
+    // 16 bytes a thread: a vector load where the chunk lies inside the
+    // picture's width, the clamped bytes where it does not
+    for (int i = t; i < WIN_ROWS * (WIN_LOAD / 16); i += S::THREADS) {
+      const int wy = i / (WIN_LOAD / 16), x0 = ox + 16 * (i - wy * (WIN_LOAD /
+                                                                 16));
+      const uint8_t* src = rp + (size_t)min(max(oy + wy, 0), height - 1) * w16;
+      uint4 v;
+      if (x0 >= 0 && x0 + 16 <= width) {
+        v = *reinterpret_cast<const uint4*>(src + x0);
+      } else {
+        unsigned b[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int c = 0; c < 16; ++c)
+          b[c >> 2] |= (unsigned)src[min(max(x0 + c, 0), width - 1)]
+                       << (8 * (c & 3));
+        v = make_uint4(b[0], b[1], b[2], b[3]);
+      }
+      uint2* d = reinterpret_cast<uint2*>(win[k] + wy * WIN_STRIDE + x0 - ox);
+      d[0] = make_uint2(v.x, v.y);
+      d[1] = make_uint2(v.z, v.w);
+    }
+    if (t < 16)
+      cur[k][t] = *reinterpret_cast<const uint4*>(
+          cp + (size_t)(my * 16 + t) * w16 + mx * 16);
+    if (t < 11) sums[k][t] = 0;
+    if (t == 0) best[k] = ~0u;
+  }
+  __syncthreads();
+  // the pixel sum: a warp's 32 words lie in one macroblock
+  for (int q = t; q < MPB * 64; q += S::THREADS) {
+    const int k = q >> 6;
+    if (m0 + k >= n_mb) break;
+    const uint32_t* cw = reinterpret_cast<const uint32_t*>(cur[k]);
+    const int s = __reduce_add_sync(0xffffffffu, sad4(cw[q & 63], 0u, 0u));
+    if (lane == 0) atomicAdd(&sums[k][10], s);
+  }
+  // the integer search
+  const int k = t / S::LIVE, u = t - k * S::LIVE;
+  const bool live = k < MPB && m0 + k < n_mb;
+  unsigned key = ~0u;
+  if (live) {
+    const int dy0 = (u % S::NDY) * D - RANGE, dx0 = (u / S::NDY) * R - RANGE;
+    const uint8_t* base = win[k] + (WIN_Y + dy0) * WIN_STRIDE + WIN_X + dx0;
+    unsigned acc[D][R];
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) acc[i][j] = 0;
+#pragma unroll 1
+    for (int r = 0; r < D + 15; ++r) {
+      uint32_t w[S::NW], sh[3][S::NW - 1];
+      if constexpr (R % 8 == 0) {
+        const uint2* row = reinterpret_cast<const uint2*>(base +
+                                                          r * WIN_STRIDE);
+#pragma unroll
+        for (int q = 0; q < S::NW / 2; ++q) {
+          const uint2 v = row[q];
+          w[2 * q] = v.x;
+          w[2 * q + 1] = v.y;
+        }
+      } else {
+        const uint32_t* row = reinterpret_cast<const uint32_t*>(
+            base + r * WIN_STRIDE);
+#pragma unroll
+        for (int q = 0; q < S::NW; ++q) w[q] = row[q];
+      }
+#pragma unroll
+      for (int s = 1; s < 4; ++s)
+#pragma unroll
+        for (int q = 0; q < S::NW - 1; ++q)
+          sh[s - 1][q] = __byte_perm(w[q], w[q + 1], 0x3210 + 0x1111 * s);
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        const int py = r - i;
+        if (py < 0 || py >= 16) continue;
+        const uint4 c = cur[k][py];
+        const unsigned cw[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int o = (j >> 2) + q;
+            const unsigned a = (j & 3) ? sh[(j & 3) - 1][o] : w[o];
+            acc[i][j] = sad4(a, cw[q], acc[i][j]);
+          }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        if (dx0 + j <= RANGE && dy0 + i <= RANGE)
+          key = min(key, search_key(acc[i][j], dx0 + j, dy0 + i));
+  }
+  // a macroblock's threads are consecutive: a segmented warp minimum
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned o = __shfl_down_sync(0xffffffffu, key, off);
+    if (lane + off < 32 && (t + off) / S::LIVE == k) key = min(key, o);
+  }
+  if (live && (lane == 0 || u == 0)) atomicMin(&best[k], key);
+  __syncthreads();
+  // the half-pel neighbours (rounding 0) and the deviation: a task is a
+  // column of 4 pixels (its 6 x 3 window bytes serve all 4), a warp's 32
+  // tasks in one macroblock; sums kept in registers, reduced once a task
+  for (int q = t; q < MPB * 64; q += S::THREADS) {
+    const int kk = q >> 6, col = q & 15, row = (q >> 4) & 3;
+    if (m0 + kk >= n_mb) break;
+    const int order = best[kk] & ((1 << ORDER_BITS) - 1);
+    const int bx = order % SIDE - RANGE, by = (order / SIDE) % SIDE - RANGE;
+    const int mean = (sums[kk][10] + 128) >> 8;
+    const uint8_t* cb = reinterpret_cast<const uint8_t*>(cur[kk]);
+    const uint8_t* w = win[kk] + (WIN_Y + 4 * row + by - 1) * WIN_STRIDE +
+                       WIN_X + col + bx - 1;
+    int a[6][3];
+#pragma unroll
+    for (int y = 0; y < 6; ++y)
+#pragma unroll
+      for (int x = 0; x < 3; ++x) a[y][x] = w[y * WIN_STRIDE + x];
+    int v[10];
+#pragma unroll
+    for (int i = 0; i < 10; ++i) v[i] = 0;
+#pragma unroll
+    for (int py = 0; py < 4; ++py) {
+      const int cv = cb[(4 * row + py) * 16 + col];
+#pragma unroll
+      for (int i = 0; i < 9; ++i) {
+        // taps of half-pel offset (hx, hy): column x0 (and x0 + 1 where
+        // hx is odd), row y0 (and y0 + 1)
+        const int X = 2 + kHalf[i][0], Yh = 2 + kHalf[i][1];
+        const int x0 = X >> 1, y0 = py + (Yh >> 1), fx = X & 1, fy = Yh & 1;
+        const int pa = a[y0][x0];
+        int pr;
+        if (!fx && !fy)
+          pr = pa;
+        else if (!fy)
+          pr = (pa + a[y0][x0 + 1] + 1) >> 1;
+        else if (!fx)
+          pr = (pa + a[y0 + 1][x0] + 1) >> 1;
+        else
+          pr = (pa + a[y0][x0 + 1] + a[y0 + 1][x0] + a[y0 + 1][x0 + 1] + 2) >>
+               2;
+        v[i] += abs(pr - cv);
+      }
+      v[9] += abs(cv - mean);
+    }
+#pragma unroll
+    for (int i = 0; i < 10; ++i) v[i] = __reduce_add_sync(0xffffffffu, v[i]);
+    if (lane == 0)
+#pragma unroll
+      for (int i = 0; i < 10; ++i) atomicAdd(&sums[kk][i], v[i]);
+  }
+  __syncthreads();
+  if (t < MPB && m0 + t < n_mb) {
+    const int order = best[t] & ((1 << ORDER_BITS) - 1);
+    const int bx = order % SIDE - RANGE, by = (order / SIDE) % SIDE - RANGE;
+    int bi = 0;
+    for (int i = 1; i < 9; ++i)
+      if (sums[t][i] < sums[t][bi]) bi = i;
+    const bool intra = sums[t][9] + 512 < sums[t][bi];
+    int32_t* o = out + ((size_t)g * n_mb + m0 + t) * 3;
+    o[0] = intra ? MB_INTRA : MB_INTER;
+    o[1] = intra ? 0 : 2 * bx + kHalf[bi][0];
+    o[2] = intra ? 0 : 2 * by + kHalf[bi][1];
+  }
+}
+
+
+}  // namespace old
+
+namespace probe {
+
+// the source and prediction rows of block j's row r (see fdct_quant_kernel)
+__device__ __forceinline__ void block_rows(
+    const uint8_t* sy, const uint8_t* su, const uint8_t* sv,
+    const uint8_t* py_, const uint8_t* pu, const uint8_t* pv, int h16,
+    int w16, int n_mb, const int32_t* items, int gm, int b,
+    const uint8_t** s, const uint8_t** p, int* stride) {
+  const int g = gm / n_mb, m = gm - g * n_mb;
+  const int s_i = items[2 * g], p_i = items[2 * g + 1];
+  const int mbw = w16 >> 4, my = m / mbw, mx = m - my * mbw;
+  if (b < 4) {
+    const size_t o = (size_t)(my * 16 + (b >> 1) * 8) * w16 + mx * 16 +
+                     (b & 1) * 8;
+    const size_t lplane = (size_t)h16 * w16;
+    *s = sy + s_i * lplane + o;
+    *p = py_ + p_i * lplane + o;
+    *stride = w16;
+  } else {
+    const size_t o = (size_t)(my * 8) * (w16 >> 1) + mx * 8;
+    const size_t cplane = (size_t)h16 * w16 >> 2;
+    *s = (b == 4 ? su : sv) + s_i * cplane + o;
+    *p = (b == 4 ? pu : pv) + p_i * cplane + o;
+    *stride = w16 >> 1;
+  }
+}
+
+constexpr int BLOCK_THREADS = 192;
+
+__global__ void __launch_bounds__(BLOCK_THREADS)
+fdct_block(const uint8_t* __restrict__ sy, const uint8_t* __restrict__ su,
+           const uint8_t* __restrict__ sv, const uint8_t* __restrict__ py_,
+           const uint8_t* __restrict__ pu, const uint8_t* __restrict__ pv,
+           int h16, int w16, const int32_t* __restrict__ mb, int n_mb,
+           int total, const int32_t* __restrict__ items,
+           int16_t* __restrict__ out) {
+  const int j = blockIdx.x * BLOCK_THREADS + threadIdx.x;
+  const int gm = j / 6, b = j - gm * 6;
+  if (gm >= total) return;
+  const int32_t* rec = mb + (size_t)gm * MB_FIELDS;
+  const bool intra = rec[0] == MB_INTRA;
+  const int qp = rec[1];
+  const uint8_t *s, *p;
+  int stride;
+  block_rows(sy, su, sv, py_, pu, pv, h16, w16, n_mb, items, gm, b, &s, &p,
+             &stride);
+  int tr[8][8];
+#pragma unroll
+  for (int y = 0; y < 8; ++y) {
+    const uint2 sa = *reinterpret_cast<const uint2*>(s + y * stride);
+    const uint2 pa = *reinterpret_cast<const uint2*>(p + y * stride);
+    int x[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const unsigned sw = c < 4 ? sa.x : sa.y, pw = c < 4 ? pa.x : pa.y;
+      const int sh = 8 * (c & 3);
+      x[c] = (int)((sw >> sh) & 255) - (intra ? 0 : (int)((pw >> sh) & 255));
+    }
+    int e[4], o[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      e[k] = x[k] + x[7 - k];
+      o[k] = x[k] - x[7 - k];
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int* h = (u & 1) ? o : e;
+      int acc = 512;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc += kFdct[u * 8 + k] * h[k];
+      tr[y][u] = acc >> 10;
+    }
+  }
+  const int d2 = 2 * qp, half = qp >> 1;
+  int16_t* dst = out + (size_t)j * 64;
+#pragma unroll
+  for (int v = 0; v < 8; ++v) {
+    int lv[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      int acc = 32768;
+#pragma unroll
+      for (int y = 0; y < 4; ++y)
+        acc += kFdct[v * 8 + y] *
+               ((v & 1) ? tr[y][u] - tr[7 - y][u] : tr[y][u] + tr[7 - y][u]);
+      const int f = acc >> 16;
+      if (v == 0 && u == 0 && intra) {
+        const int sc = d_dc_scaler(qp, b < 4);
+        const int q = f + (sc >> 1);
+        const int dc = q >= 0 ? div_recip(q, sc) : -div_recip(-q + sc - 1, sc);
+        lv[u] = min(max(dc, 1), 254);
+      } else {
+        const int a = abs(f);
+        const int n = intra ? a : max(a - half, 0);
+        const int mag = min(div_recip(n, d2), 2047);
+        lv[u] = f < 0 ? -mag : mag;
+      }
+    }
+    uint4 packed;
+    packed.x = (uint16_t)lv[0] | ((unsigned)(uint16_t)lv[1] << 16);
+    packed.y = (uint16_t)lv[2] | ((unsigned)(uint16_t)lv[3] << 16);
+    packed.z = (uint16_t)lv[4] | ((unsigned)(uint16_t)lv[5] << 16);
+    packed.w = (uint16_t)lv[6] | ((unsigned)(uint16_t)lv[7] << 16);
+    *reinterpret_cast<uint4*>(dst + v * 8) = packed;
+  }
+}
+
+__global__ void __launch_bounds__(48 * FQ_MBS)
+fdct_copy(const uint8_t* __restrict__ sy, const uint8_t* __restrict__ su,
+          const uint8_t* __restrict__ sv, const uint8_t* __restrict__ py_,
+          const uint8_t* __restrict__ pu, const uint8_t* __restrict__ pv,
+          int h16, int w16, const int32_t* __restrict__ mb, int n_mb,
+          int total, const int32_t* __restrict__ items,
+          int16_t* __restrict__ out) {
+  const int t = threadIdx.x, r = t & 7;
+  const int j = blockIdx.x * 6 * FQ_MBS + (t >> 3);
+  const int gm = j / 6, b = j - gm * 6;
+  if (gm >= total) return;
+  const bool intra = mb[(size_t)gm * MB_FIELDS] == MB_INTRA;
+  const uint8_t *s, *p;
+  int stride;
+  block_rows(sy, su, sv, py_, pu, pv, h16, w16, n_mb, items, gm, b, &s, &p,
+             &stride);
+  const uint2 sa = *reinterpret_cast<const uint2*>(s + r * stride);
+  const uint2 pa = *reinterpret_cast<const uint2*>(p + r * stride);
+  int x[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const unsigned sw = c < 4 ? sa.x : sa.y, pw = c < 4 ? pa.x : pa.y;
+    const int sh = 8 * (c & 3);
+    x[c] = (int)((sw >> sh) & 255) - (intra ? 0 : (int)((pw >> sh) & 255));
+  }
+  uint4 packed;
+  packed.x = (uint16_t)x[0] | ((unsigned)(uint16_t)x[1] << 16);
+  packed.y = (uint16_t)x[2] | ((unsigned)(uint16_t)x[3] << 16);
+  packed.z = (uint16_t)x[4] | ((unsigned)(uint16_t)x[5] << 16);
+  packed.w = (uint16_t)x[6] | ((unsigned)(uint16_t)x[7] << 16);
+  *reinterpret_cast<uint4*>(out + (size_t)j * 64 + r * 8) = packed;
+}
+
+// Instruction rates: each thread runs `iters` rounds of 8 independent
+// chains of one instruction; out[thread] keeps the result live.
+template <int KIND>
+__global__ void rate(int iters, unsigned seed, unsigned* out) {
+  const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned a[8];
+  float f[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    a[i] = seed * (t + 1) + 0x01010101u * i;
+    f[i] = (float)a[i];
+  }
+  const unsigned b = seed ^ t;
+  const float fb = (float)b * 1e-9f;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if constexpr (KIND == 0) a[i] = sad4(a[i], b, a[i]);
+      if constexpr (KIND == 1) a[i] = __byte_perm(a[i], b, 0x4321);
+      if constexpr (KIND == 2) f[i] = fmaf(f[i], fb, 1.0f);
+      if constexpr (KIND == 3) a[i] = a[i] * b + 0x9e3779b9u;
+    }
+  }
+  unsigned r = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r += a[i] + __float_as_uint(f[i]);
+  out[t] = r;
+}
+
+// the V3 shapes tried: {RUN, DY, MBS}
+#define PROBE_SEARCH(X) X(8, 3, 1) X(8, 3, 2) X(8, 3, 4) X(8, 3, 8) \
+  X(4, 3, 2) X(8, 1, 2)
+// the V4 macroblocks a CUDA block tried
+#define PROBE_FDCT(X) X(1) X(2) X(4) X(8) X(16)
+
+}  // namespace probe
+
+extern "C" {
+
+int probe_search_shapes(int* out, int n) {
+  int i = 0;
+#define SHAPE(R, D, M) if (i < n) { out[3 * i] = R; out[3 * i + 1] = D; \
+    out[3 * i + 2] = M; } ++i;
+  PROBE_SEARCH(SHAPE)
+#undef SHAPE
+  return i;
+}
+
+int probe_fdct_shapes(int* out, int n) {
+  int i = 0;
+#define SHAPE(M) if (i < n) out[i] = M; ++i;
+  PROBE_FDCT(SHAPE)
+#undef SHAPE
+  return i;
+}
+
+int probe_motion_search(int variant, const uint8_t* y, int h16, int w16,
+                        const int32_t* items, int g, int width, int height,
+                        int32_t* out, cudaStream_t stream) {
+  const int n_mb = (h16 / 16) * (w16 / 16);
+  if (variant == 0) {
+    original::motion_search<<<dim3(n_mb, g), 256, 0, stream>>>(
+        y, h16, w16, items, width, height, out);
+    return status(cudaGetLastError());
+  }
+  if (variant == 1) {
+    old::first_search<8, 3, 1>
+        <<<dim3(n_mb, g), old::OldShape<8, 3, 1>::THREADS, 0, stream>>>(
+            y, h16, w16, items, n_mb, width, height, out);
+    return status(cudaGetLastError());
+  }
+  if (variant == 2) {
+    old::second_search<8, 3, 4>
+        <<<dim3((n_mb + 3) / 4, g), old::OldShape<8, 3, 4>::THREADS, 0,
+           stream>>>(y, h16, w16, items, n_mb, width, height, out);
+    return status(cudaGetLastError());
+  }
+  int v = 3;
+#define LAUNCH(R, D, M)                                                     \
+  if (variant == v) {                                                       \
+    motion_search_kernel<R, D, M>                                           \
+        <<<dim3((n_mb + M - 1) / M, g), SearchShape<R, D, M>::THREADS, 0,   \
+           stream>>>(y, h16, w16, items, n_mb, width, height, out);         \
+    return status(cudaGetLastError());                                      \
+  }                                                                         \
+  ++v;
+  PROBE_SEARCH(LAUNCH)
+#undef LAUNCH
+  return 1;
+}
+
+int probe_fdct_quant(int variant, const uint8_t* sy, const uint8_t* su,
+                     const uint8_t* sv, const uint8_t* py,
+                     const uint8_t* pu, const uint8_t* pv, int h16, int w16,
+                     const int32_t* mb, const int32_t* items, int g,
+                     int16_t* out, cudaStream_t stream) {
+  const int n_mb = (h16 / 16) * (w16 / 16), total = g * n_mb;
+  switch (variant) {
+    case 0:
+      original::fdct_quant<<<dim3(n_mb, g), 384, 0, stream>>>(
+          sy, su, sv, py, pu, pv, h16, w16, mb, n_mb, items, out);
+      return status(cudaGetLastError());
+    case 1:
+      probe::fdct_block<<<(total * 6 + probe::BLOCK_THREADS - 1) /
+                              probe::BLOCK_THREADS,
+                          probe::BLOCK_THREADS, 0, stream>>>(
+          sy, su, sv, py, pu, pv, h16, w16, mb, n_mb, total, items, out);
+      return status(cudaGetLastError());
+    case 2:
+      probe::fdct_copy<<<(total + FQ_MBS - 1) / FQ_MBS, 48 * FQ_MBS, 0,
+                         stream>>>(sy, su, sv, py, pu, pv, h16, w16, mb, n_mb,
+                                   total, items, out);
+      return status(cudaGetLastError());
+  }
+  int v = 3;
+#define LAUNCH(M)                                                           \
+  if (variant == v) {                                                       \
+    fdct_quant_kernel<M><<<(total + M - 1) / M, 48 * M, 0, stream>>>(       \
+        sy, su, sv, py, pu, pv, h16, w16, mb, n_mb, total, items, out);     \
+    return status(cudaGetLastError());                                      \
+  }                                                                         \
+  ++v;
+  PROBE_FDCT(LAUNCH)
+#undef LAUNCH
+  return 1;
+}
+
+int probe_rate(int kind, int blocks, int threads, int iters, unsigned* out,
+               cudaStream_t stream) {
+  switch (kind) {
+    case 0:
+      probe::rate<0><<<blocks, threads, 0, stream>>>(iters, 7u, out);
+      break;
+    case 1:
+      probe::rate<1><<<blocks, threads, 0, stream>>>(iters, 7u, out);
+      break;
+    case 2:
+      probe::rate<2><<<blocks, threads, 0, stream>>>(iters, 7u, out);
+      break;
+    case 3:
+      probe::rate<3><<<blocks, threads, 0, stream>>>(iters, 7u, out);
+      break;
+    default:
+      return 1;
+  }
+  return status(cudaGetLastError());
+}
+
+}  // extern "C"
