@@ -6,9 +6,10 @@
 Phases, each printing lines with their seconds:
 
   1. build   — compile the kernel sources (csrc/warp.cu, csrc/vq.cu,
-               csrc/ccl.cu, csrc/lk.cu, csrc/mpeg4.cu) and the nvJPEG shim
-               (csrc/jpeg.cu), one nvcc each, started together, into
-               faceoff_tpu_torch/_build/, and load them;
+               csrc/ccl.cu, csrc/lk.cu, csrc/mpeg4.cu), the nvJPEG shim
+               (csrc/jpeg.cu) and the kernel probe that times kernel B's
+               link (tools/ccl_lk_probe.cu), one nvcc each, started
+               together, into faceoff_tpu_torch/_build/, and load them;
   2. kernel  — the kernel against its plain torch version on the card at
                (1,256,256,3), (16,256,256,3), one case whose output
                grid differs from the source, the training step's own
@@ -154,9 +155,12 @@ Phases, each printing lines with their seconds:
                cli/preprocess's main(["all", ...]) at 256 px (8 mp4v
                clips, none quarantined; stage 1 and 2 frames/s, kernel B's
                launches a frame, the re-detections); stage 1's parts on
-               one video; kernel A (connected components, csrc/ccl.cu)
-               and kernel B (pyramidal LK, csrc/lk.cu) against their plain
-               versions on the phase's frames; the output read by
+               one video; kernel A (connected components, csrc/ccl.cu;
+               its launches by caller: 720p and 256 px detector batches,
+               seed crops) and kernel B (pyramidal LK, csrc/lk.cu; its
+               latency bound: the longest point's links times one link's
+               least time) against their plain versions on the phase's
+               frames; the output read by
                TemporalAlignmentDataset on the card and staged by
                build_resident_corpus (batched nvJPEG windows), a window
                by decode_jpeg_window against the per-frame loop; one
@@ -196,6 +200,8 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import ctypes
+import hashlib
 import json
 import math
 import shutil
@@ -242,7 +248,8 @@ from faceoff_tpu_torch.models.vqvae_b2f import VQVAE_B2F
 from faceoff_tpu_torch.models.discriminators import (MultiscaleDiscriminator2D,
                                                      MultiscaleDiscriminator3D)
 from faceoff_tpu_torch.models.lpips import init_lpips
-from faceoff_tpu_torch.ops import ccl_cuda, lk_cuda, mpeg4_cuda
+from faceoff_tpu_torch.ops import (ccl_cuda, cuda_build, lk_cuda,
+                                   mpeg4_cuda)
 from faceoff_tpu_torch.ops import vq as V
 from faceoff_tpu_torch.ops import vq_cuda
 from faceoff_tpu_torch.ops import warp as W
@@ -2798,6 +2805,82 @@ LK_TOL = 1e-3
 # Address arithmetic and the per-point float steps are left out, so the
 # bound is a floor.
 LK_OPS_SETUP, LK_OPS_ITER = 33, 14
+# Kernel B is bound by latency: a point's links (window setups and
+# iterations) run one after another. tools/ccl_lk_probe.cu times a chain of
+# LK_CHAIN_LINKS links of the iteration without its loads (its shuffles and
+# float steps) on one warp: the least time of a link.
+LK_PROBE = REPO / "tools" / "ccl_lk_probe.cu"
+LK_CHAIN_LINKS = 20000
+
+
+def build_lk_probe() -> Path:
+    """Build tools/ccl_lk_probe.cu; it includes csrc/ccl.cu and csrc/lk.cu,
+    so their digest names the library."""
+    digest = hashlib.sha256(ccl_cuda.SOURCE.read_bytes()
+                            + lk_cuda.SOURCE.read_bytes()).hexdigest()[:8]
+    return cuda_build.build(LK_PROBE, f"ccl_lk_probe_{digest}")
+
+
+def lk_link_ms(links: int = LK_CHAIN_LINKS) -> float:
+    """Device ms of one link of kernel B's chain (probe_link_chain on one
+    warp, in a CUDA graph)."""
+    lib = ctypes.CDLL(str(build_lk_probe()))
+    lib.probe_link_chain.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                     ctypes.c_void_p]
+    out = torch.empty(1, device=DEV)
+
+    def run():
+        if lib.probe_link_chain(links, out.data_ptr(),
+                                torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("probe_link_chain failed")
+    return device_ms(run, reps=5, inner=3) / links
+
+
+def lk_point_links(pa, pb, pts: torch.Tensor) -> list:
+    """Each point's dependent links in kernel B (window setups and
+    iterations, both directions), counted by the plain version run on that
+    point alone (points are tracked independently), on CPU copies."""
+    cpu = [lk_cuda.Pyramid(p.img.cpu(), p.deriv.cpu(), p.levels.cpu(),
+                           p.sizes, p.win) for p in (pa, pb)]
+    links = []
+    for i in range(pts.shape[0]):
+        work = {}
+        lk_cuda.pyr_lk_plain(*cpu, pts[i: i + 1].cpu(), work=work)
+        links.append(work["setups"] + work["iters"])
+    return links
+
+
+def pre_scene(v: int):
+    """Video v of the preprocess phase's footage: its grey textured
+    background (PRE_H, PRE_W, 3) uint8 on DEV and its PRE_FRAMES faces'
+    landmarks (PRE_FRAMES, 68, 2) float32, as `pre_frames` draws them."""
+    gen = torch.Generator(device=DEV).manual_seed(100 + v)
+    noise = torch.rand((1, 1, PRE_H // 16, PRE_W // 16), generator=gen,
+                       device=DEV) * 70 + 20
+    grey = torch.nn.functional.interpolate(
+        noise, size=(PRE_H, PRE_W), mode="bicubic", align_corners=False)
+    bg = grey[0, 0].clamp(0, 255).round().to(torch.uint8)[..., None]
+    bg = bg.expand(PRE_H, PRE_W, 3)
+    lms = np.zeros((PRE_FRAMES, 68, 2), np.float32)
+    scale = PRE_H * (0.15 + 0.008 * v)  # about 110 px at 720p
+    for f in range(PRE_FRAMES):
+        side = 0.33 if f < PRE_CUT else 0.67
+        cx = PRE_W * (side + 0.03 * np.sin(0.05 * f + v))
+        cy = PRE_H * (0.5 + 0.03 * np.cos(0.04 * f + v))
+        pts = face_landmarks((cx, cy), scale, 4 * np.sin(0.03 * f))
+        mouth = pts[48:68]
+        lower = mouth[:, 1] > mouth[:, 1].mean()
+        mouth[lower, 1] += 0.25 * scale * 0.5 * (
+            1 - np.cos(2 * np.pi * f / 50))
+        lms[f] = pts
+    return bg, lms
+
+
+def pre_frames(scene, lo: int, hi: int) -> torch.Tensor:
+    """Frames lo..hi-1 (uint8 RGB on DEV) of a `pre_scene`."""
+    bg, lms = scene
+    return draw_faces(bg.expand(hi - lo, -1, -1, -1),
+                      torch.from_numpy(lms[lo:hi]).to(DEV), (205, 165, 140))
 
 
 def preprocess_footage(root: Path) -> dict:
@@ -2809,32 +2892,12 @@ def preprocess_footage(root: Path) -> dict:
     t = time.perf_counter()
     n_bytes = 0
     for v in range(PRE_VIDEOS):
-        gen = torch.Generator(device=DEV).manual_seed(100 + v)
-        noise = torch.rand((1, 1, PRE_H // 16, PRE_W // 16), generator=gen,
-                           device=DEV) * 70 + 20
-        grey = torch.nn.functional.interpolate(
-            noise, size=(PRE_H, PRE_W), mode="bicubic", align_corners=False)
-        bg = grey[0, 0].clamp(0, 255).round().to(torch.uint8)[..., None]
-        bg = bg.expand(PRE_H, PRE_W, 3)
-        lms = np.zeros((PRE_FRAMES, 68, 2), np.float32)
-        scale = PRE_H * (0.15 + 0.008 * v)  # about 110 px at 720p
-        for f in range(PRE_FRAMES):
-            side = 0.33 if f < PRE_CUT else 0.67
-            cx = PRE_W * (side + 0.03 * np.sin(0.05 * f + v))
-            cy = PRE_H * (0.5 + 0.03 * np.cos(0.04 * f + v))
-            pts = face_landmarks((cx, cy), scale, 4 * np.sin(0.03 * f))
-            mouth = pts[48:68]
-            lower = mouth[:, 1] > mouth[:, 1].mean()
-            mouth[lower, 1] += 0.25 * scale * 0.5 * (
-                1 - np.cos(2 * np.pi * f / 50))
-            lms[f] = pts
+        scene = pre_scene(v)
         bodies = []
         for lo in range(0, PRE_FRAMES, PRE_DRAW_CHUNK):
             hi = min(PRE_FRAMES, lo + PRE_DRAW_CHUNK)
-            frames = draw_faces(bg.expand(hi - lo, -1, -1, -1),
-                                torch.from_numpy(lms[lo:hi]).to(DEV),
-                                (205, 165, 140))
-            bodies += [image_io.encode_jpeg(fr) for fr in frames]
+            bodies += [image_io.encode_jpeg(fr)
+                       for fr in pre_frames(scene, lo, hi)]
         write_avi(str(root / f"raw_{v}.avi"), bodies, PRE_W, PRE_H, PRE_FPS,
                   "mjpg")
         n_bytes += sum(len(b) for b in bodies)
@@ -2844,11 +2907,26 @@ def preprocess_footage(root: Path) -> dict:
 
 def zero_pre_counts():
     ccl_cuda.launches = lk_cuda.launches = 0
+    ccl_cuda.launch_shapes.clear()
     image_io.jpeg_decodes = image_io.jpeg_encodes = 0
+
+
+def ccl_launches_by_shape() -> dict:
+    """Kernel A's launches since the counts were zeroed, by caller: the
+    skin detector's batches of 720p frames and of 256 px clip frames, and
+    the landmark seeds' single-frame face crops (any other size)."""
+    out = {"detector_720p": 0, "detector_256px": 0, "seed_crops": 0}
+    for (_, h, w), n in ccl_cuda.launch_shapes.items():
+        key = ("detector_720p" if (h, w) == (PRE_H, PRE_W) else
+               "detector_256px" if (h, w) == (TRAIN_SIZE, TRAIN_SIZE) else
+               "seed_crops")
+        out[key] += n
+    return out
 
 
 def read_pre_counts():
     return {"connected_components": ccl_cuda.launches,
+            "connected_components_by_shape": ccl_launches_by_shape(),
             "pyr_lk": lk_cuda.launches,
             "jpeg_decodes": image_io.jpeg_decodes,
             "jpeg_encodes": image_io.jpeg_encodes}
@@ -2912,9 +2990,9 @@ def stage1_split(raw: Path) -> dict:
 def ccl_row(t0, frames) -> dict:
     """Kernel A at the detector's own call (DETECT_BATCH frames of the
     phase's footage, their closed skin masks) against its plain version
-    on the card: the labels and the table equal; the kernel alone (a
-    memset and four launches, in a CUDA graph), the wrapper with its
-    table and the plain version timed;
+    on the card: the labels and the table equal; the kernel alone (four
+    launches, in a CUDA graph), the wrapper with its table and the plain
+    version timed;
     the bound: the mask read once, the labels and the table written
     once."""
     from faceoff_tpu_torch.preprocess import imgproc
@@ -2952,7 +3030,9 @@ def lk_row(t0, clip_dir: Path) -> dict:
     kernel alone (one launch, in a CUDA graph), the wrapper and the plain
     version timed; the bound: the integer operations these inputs need (window setups
     and iterations counted by the plain version) over the card's float32
-    CUDA-core rate (its integer units are no faster)."""
+    CUDA-core rate (its integer units are no faster); beside it the
+    latency bound: the longest point's links (`lk_point_links`) times the
+    least time of a link (`lk_link_ms`)."""
     from faceoff_tpu_torch.preprocess.imgproc import rgb_to_gray
 
     lm_paths = _landmark_paths(str(clip_dir))[:2]
@@ -2972,6 +3052,11 @@ def lk_row(t0, clip_dir: Path) -> dict:
                 and torch.equal(got.st_back, want.st_back))
     win = lk_cuda.WIN * lk_cuda.WIN
     ops = win * (work["setups"] * LK_OPS_SETUP + work["iters"] * LK_OPS_ITER)
+    links = lk_point_links(pa, pb, pts)
+    if sum(links) != work["setups"] + work["iters"]:
+        raise AssertionError(f"kernel B: the points' links {sum(links)} "
+                             f"differ from the batch's {work}")
+    link_ms = lk_link_ms()
     row = {"points": int(pts.shape[0]), "levels": len(pa.sizes),
            "work": work, "max_abs_err": err, "status_equal": same,
            "kernel_ms": device_ms(lambda: lk_cuda.launch_kernel(pa, pb,
@@ -2980,6 +3065,8 @@ def lk_row(t0, clip_dir: Path) -> dict:
            "plain_ms": cuda_ms(lambda: lk_cuda.pyr_lk_plain(pa, pb, pts),
                                reps=3, inner=1, warmup=1),
            "bound_ms": ops / F32_FLOPS * 1e3, "bound_by": "operations",
+           "longest_point_links": max(links), "link_ms": link_ms,
+           "latency_bound_ms": max(links) * link_ms,
            "library_ms": None}
     say("preprocess", t0, "kernel B " + json.dumps(row))
     if not same or err > LK_TOL:
@@ -3612,7 +3699,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     builds = (warp_cuda.build, vq_cuda.build, image_io.build_jpeg,
-              ccl_cuda.build, lk_cuda.build, mpeg4_cuda.build)
+              ccl_cuda.build, lk_cuda.build, mpeg4_cuda.build,
+              build_lk_probe)
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         libs = [f.result() for f in [pool.submit(b) for b in builds]]
     warp_cuda.load()
@@ -3764,7 +3852,8 @@ def main() -> int:
         "kernel_a": {k: pre["ccl"][k] for k in (
             "kernel_ms", "wrapper_ms", "plain_ms", "bound_ms")},
         "kernel_b": {k: pre["lk"][k] for k in (
-            "kernel_ms", "wrapper_ms", "plain_ms", "bound_ms", "work")},
+            "kernel_ms", "wrapper_ms", "plain_ms", "bound_ms",
+            "latency_bound_ms", "work")},
         "launches": pre_counts}))
     say("time", t_all, json.dumps({"card": card, **time_result}))
     footage = mp4_result["footage"]
@@ -3874,6 +3963,7 @@ def main() -> int:
         "source": "faceoff_tpu_torch/csrc/ccl.cu",
         "replaces": "faceoff_tpu/preprocess/detectors.py:59",
         "launches": pre_counts["connected_components"],
+        "launches_by_shape": pre_counts["connected_components_by_shape"],
         "max_abs_err": pre["ccl"]["max_abs_err"],
         "ms": pre["ccl"]["kernel_ms"],
         # the wrapper: the kernel, then its table or result tensors
@@ -3895,6 +3985,8 @@ def main() -> int:
         "plain_ms": pre["lk"]["plain_ms"],
         "bound_ms": pre["lk"]["bound_ms"],
         "bound_by": pre["lk"]["bound_by"],
+        # a point's links run one after another (lk_row)
+        "latency_bound_ms": pre["lk"]["latency_bound_ms"],
         "library_ms": None,  # no PyTorch call computes it
     }]
     mp4_rows = mp4_result["kernels"]

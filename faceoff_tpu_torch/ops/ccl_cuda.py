@@ -23,6 +23,7 @@ launches the kernel or raises. `launches` counts the kernel's launches.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import threading
 from pathlib import Path
@@ -34,8 +35,10 @@ from faceoff_tpu_torch.ops import cuda_build
 
 SOURCE = cuda_build.CSRC / "ccl.cu"
 
-# kernel launches made through the wrapper in this process
+# kernel launches made through the wrapper in this process, and their
+# mask shapes (B, H, W)
 launches = 0
+launch_shapes: collections.Counter = collections.Counter()
 
 _lib: Optional[ctypes.CDLL] = None
 _count_lock = threading.Lock()  # preprocessing threads launch at once
@@ -73,7 +76,7 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         fn = lib.faceoff_ccl
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
@@ -174,23 +177,27 @@ def launch_kernel(masks: torch.Tensor):
     masks = masks.contiguous()
     b, h, w = masks.shape
     dev = masks.device
-    # one component at most a 2 x 2 block (ccl.cu)
+    # one component at most a 2 x 2 block, the kernel's node (ccl.cu)
     capacity = b * ((h + 1) // 2) * ((w + 1) // 2)
     lib = load()
     labels = torch.empty((b, h, w), dtype=torch.int32, device=dev)
-    slot = torch.empty((b * h * w,), dtype=torch.int32, device=dev)
+    parent = torch.empty((capacity,), dtype=torch.int32, device=dev)
+    bits = torch.empty((capacity,), dtype=torch.uint8, device=dev)
+    stats = torch.empty((6, capacity), dtype=torch.int32, device=dev)
     count = torch.empty((1,), dtype=torch.int32, device=dev)
     table = torch.empty((7, capacity), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         status = lib.faceoff_ccl(masks.data_ptr(), labels.data_ptr(),
-                                 slot.data_ptr(), count.data_ptr(),
+                                 parent.data_ptr(), bits.data_ptr(),
+                                 stats.data_ptr(), count.data_ptr(),
                                  table.data_ptr(), capacity, b, h, w, stream)
     if status != 0:
         raise RuntimeError(f"ccl kernel launch failed: cudaError "
                            f"{status - 1000}")
     with _count_lock:
         launches += 1
+        launch_shapes[(b, h, w)] += 1
     return labels, count, table
 
 

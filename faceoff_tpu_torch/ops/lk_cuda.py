@@ -53,6 +53,34 @@ W_BITS = 14
 FLT_SCALE = 1.0 / (1 << 20)
 FLT_EPSILON = 1.1920928955078125e-07
 
+# What bounds the kernel's integer sums (lk.cu sums a thread's products in
+# 32 bits); tests/test_torch_ccl_lk_arith.py checks each claim.
+# |Scharr derivative| of uint8 frames: (3 + 10 + 3) * 255.
+DERIV_MAX = 16 * 255
+# The four bilinear weights sum to 2^14; the first three are roundings of
+# products in [0, 1] and the fourth, 2^14 less them, is at least -1: the
+# sum of their magnitudes is at most 2^14 + 2, of the positive ones 2^14 + 1.
+WEIGHT_MIN = -1
+WEIGHT_ABS_SUM_MAX = (1 << W_BITS) + 2
+# A window value (descaled by 9 bits) lies in [0, IVAL_MAX], a derivative
+# (descaled by 14) in [-IDER_MAX, IDER_MAX].
+IVAL_MAX = (255 * ((1 << W_BITS) + 1) + (1 << (W_BITS - 6))) >> (W_BITS - 5)
+IDER_MAX = (DERIV_MAX * WEIGHT_ABS_SUM_MAX + (1 << (W_BITS - 1))) >> W_BITS
+# The largest product summed: (J - I) * dI; dI * dI is smaller.
+PRODUCT_MAX = IVAL_MAX * IDER_MAX
+INT32_MAX = 2 ** 31 - 1
+
+
+# Warps the kernel gives a point (lk.cu's kWarpsPerPoint).
+POINT_WARPS = 4
+
+
+def lane_pixels(win: int) -> int:
+    """Window pixels a thread of the kernel owns (lk.cu's KPL): 4 up to a
+    window of 22 x 22, 8 up to 32 x 32. A thread's sum of that many
+    products, at most KPL * PRODUCT_MAX in magnitude, fits int32."""
+    return 4 if win * win <= 4 * 32 * POINT_WARPS else 8
+
 # kernel launches made through the wrapper in this process
 launches = 0
 
@@ -139,7 +167,7 @@ def load() -> ctypes.CDLL:
         fn = lib.faceoff_pyr_lk
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                        + [ctypes.c_float, ctypes.c_double]
-                       + [ctypes.c_void_p] * 6 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
@@ -334,6 +362,7 @@ def launch_kernel(src: Pyramid, dst: Pyramid, pts: torch.Tensor, *,
     st = torch.empty((2, n), dtype=torch.uint8, device=dev)
     fb = torch.empty((n,), dtype=torch.float32, device=dev)
     eps2 = min(max(eps, 0.0), 10.0) ** 2
+    kpl = lane_pixels(src.win)
     lib = load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -342,7 +371,10 @@ def launch_kernel(src: Pyramid, dst: Pyramid, pts: torch.Tensor, *,
             dst.deriv.data_ptr(), src.levels.data_ptr(), len(src.sizes),
             src.win, max_iter, min_eig, eps2, pts.data_ptr(),
             fwd.data_ptr(), st[0].data_ptr(), back.data_ptr(),
-            st[1].data_ptr(), fb.data_ptr(), n, stream)
+            st[1].data_ptr(), fb.data_ptr(), n, kpl, stream)
+    if status == 1:
+        raise ValueError(f"window {src.win}: the kernel has no launch for "
+                         f"{kpl} pixels a thread")
     if status != 0:
         raise RuntimeError(f"pyr_lk kernel launch failed: cudaError "
                            f"{status - 1000}")

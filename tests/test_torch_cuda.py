@@ -11,7 +11,10 @@ NCCL group against the plain step; mp4: kernels V1-V4 against their plain
 versions at every call of a round trip, V3 and V4 on adversarial inputs
 (ties, shifts past the search range, every border clamp, both DC clamps,
 the largest coefficients), and the C++ entropy coder against the Python
-one.
+one; kernels A and B at the edges of their designs: components across
+tile borders, ragged and odd sizes, full-foreground and serpentine 720p
+frames, an odd mask address; no point, counts of points no multiple of a
+block's, points beyond every border, dropped pyramid levels.
 
 Marked `cuda`; each test skips where there is no CUDA device. The file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -777,6 +780,133 @@ def test_ccl_kernel_at_its_capacity(cuda):
         assert torch.equal(g.cpu(), w_), name
 
 
+def _ccl_equal(cuda, masks):
+    """Kernel A on `masks` against its plain version: every Components
+    field and `largest` exactly equal; one launch."""
+    from faceoff_tpu_torch.ops import ccl_cuda
+
+    want = ccl_cuda.connected_components_plain(masks)
+    before = ccl_cuda.launches
+    got = ccl_cuda.connected_components(masks.to(cuda))
+    torch.cuda.synchronize()
+    assert ccl_cuda.launches == before + 1
+    for name, g, w_ in zip(got._fields, got, want):
+        assert torch.equal(g.cpu(), w_), name
+    b = masks.shape[0]
+    assert torch.equal(ccl_cuda.largest(got, b).cpu(),
+                       ccl_cuda.largest(want, b))
+
+
+def _tile_crossing(kind, b, h, w):
+    """Masks whose components cross kernel A's 32 x 64 pixel tiles (16 x
+    32 blocks of 2 x 2) in every direction: lines along rows, columns and
+    both diagonals one pixel wide, 2 x 2 checkers that join only through
+    block corners, rings, and noise."""
+    ys = torch.arange(h)[:, None]
+    xs = torch.arange(w)[None, :]
+    if kind == "rows":
+        m = ys % 5 == 2
+    elif kind == "cols":
+        m = xs % 7 == 3
+    elif kind == "diag":
+        m = (xs - ys) % 9 == 0
+    elif kind == "antidiag":
+        m = (xs + ys) % 11 == 0
+    elif kind == "checker":
+        m = ((ys // 2) + (xs // 2)) % 2 == 0
+    elif kind == "pixel_checker":
+        m = (ys + xs) % 2 == 0
+    elif kind == "rings":
+        r = ((ys - h / 2) ** 2 + (xs - w / 3) ** 2).sqrt()
+        m = (r.round() % 6) == 0
+    else:
+        gen = torch.Generator().manual_seed(h * w)
+        return ((torch.rand((b, h, w), generator=gen) < 0.52)
+                .to(torch.uint8) * 255)
+    m = m.expand(b, h, w).clone()
+    m[1:] = m[1:].flip(-1)  # another layout in the other frames
+    return m.to(torch.uint8) * 255
+
+
+@pytest.mark.parametrize("kind", ["rows", "cols", "diag", "antidiag",
+                                  "checker", "pixel_checker", "rings",
+                                  "noise"])
+def test_ccl_kernel_across_tile_borders(cuda, kind):
+    """Kernel A where components cross tile borders in every direction
+    (the border launch's W, NW, N and NE joins, and the block corners that
+    only a diagonal pixel pair links), against its plain version."""
+    _ccl_equal(cuda, _tile_crossing(kind, 2, 97, 161))
+
+
+@pytest.mark.parametrize("b,h,w", [(1, 1, 77), (1, 77, 1), (1, 1, 1280),
+                                   (1, 720, 1), (2, 33, 65), (1, 31, 63),
+                                   (3, 66, 130), (1, 35, 97), (2, 2, 2),
+                                   (1, 3, 1), (4, 64, 96)])
+def test_ccl_kernel_ragged_sizes(cuda, b, h, w):
+    """Kernel A when H or W is not a multiple of the tile, of 4 bytes or of
+    2 (odd sizes take the byte-wise mask loads and label stores), single
+    rows and columns, against its plain version."""
+    gen = torch.Generator().manual_seed(b * 10007 + h * 101 + w)
+    masks = ((torch.rand((b, h, w), generator=gen) < 0.55).to(torch.uint8)
+             * 7)
+    _ccl_equal(cuda, masks)
+
+
+def test_ccl_kernel_odd_mask_address(cuda):
+    """Kernel A on a contiguous view that starts at an odd byte: the
+    16-bit mask loads are not taken, the result is the plain version's."""
+    from faceoff_tpu_torch.ops import ccl_cuda
+
+    gen = torch.Generator().manual_seed(9)
+    flat = ((torch.rand((2 * 40 * 64 + 1,), generator=gen) < 0.5)
+            .to(torch.uint8))
+    masks = flat[1:].view(2, 40, 64)
+    want = ccl_cuda.connected_components_plain(masks)
+    got = ccl_cuda.connected_components(flat.to(cuda)[1:].view(2, 40, 64))
+    for name, g, w_ in zip(got._fields, got, want):
+        assert torch.equal(g.cpu(), w_), name
+
+
+def test_ccl_kernel_full_foreground(cuda):
+    """Kernel A on two all-foreground 720p frames (one component a frame,
+    the case where the first form sent every pixel's atomics to one slot),
+    against its plain version."""
+    _ccl_equal(cuda, torch.full((2, 720, 1280), 255, dtype=torch.uint8))
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_ccl_kernel_serpentine(cuda, transpose):
+    """Kernel A on a one-pixel-wide serpentine over whole 720p frames
+    (every other row, joined at alternate ends; or the same along
+    columns): one component a frame through the longest union chains. The
+    plain version's propagation would take minutes here, so the result is
+    checked against what it must be: each frame one component rooted at
+    its first pixel, the whole frame its box, its area the pixels set."""
+    from faceoff_tpu_torch.ops import ccl_cuda
+
+    b, h, w = 2, 720, 1280
+    m = torch.zeros((b, h, w), dtype=torch.uint8)
+    m[:, 0::2, :] = 1
+    odd = torch.arange(1, h, 2)
+    m[:, odd, torch.where((odd // 2) % 2 == 0, w - 1, 0)] = 1
+    if transpose:
+        m = m[:, : w // 2 + 1].transpose(1, 2).contiguous()
+        b, h, w = m.shape
+    got = ccl_cuda.connected_components(m.to(cuda))
+    first = torch.arange(b) * (h * w)
+    fg = m.bool()
+    assert torch.equal(got.labels.cpu(), torch.where(
+        fg, first[:, None, None].to(torch.int32).expand(b, h, w),
+        torch.full((b, h, w), -1, dtype=torch.int32)))
+    assert torch.equal(got.frame.cpu(), torch.arange(b))
+    assert torch.equal(got.root.cpu(), first)
+    area = fg.sum((1, 2))
+    assert torch.equal(got.stats.cpu(), torch.stack(
+        [torch.zeros(b, dtype=torch.int64), torch.zeros(b, dtype=torch.int64),
+         torch.full((b,), w), torch.full((b,), h), area], 1))
+    assert torch.equal(got.counts.cpu(), torch.ones(b, dtype=torch.int64))
+
+
 @pytest.mark.parametrize("h,w,n", [(256, 256, 68), (97, 131, 40),
                                    (40, 300, 25)])
 def test_lk_kernel_matches_plain(cuda, h, w, n):
@@ -809,6 +939,74 @@ def test_lk_kernel_matches_plain(cuda, h, w, n):
     for g, w_ in ((got.fwd, want.fwd), (got.back, want.back),
                   (got.fb, want.fb)):
         assert (g.cpu() - w_).abs().max().item() <= 1e-3
+
+
+def _lk_equal(cuda, a, b, pts):
+    """Kernel B against its plain version: statuses equal, points within
+    1e-3 px; one launch."""
+    from faceoff_tpu_torch.ops import lk_cuda
+
+    pa, pb = lk_cuda.build_pyramid(a), lk_cuda.build_pyramid(b)
+    want = lk_cuda.pyr_lk_plain(pa, pb, pts)
+    ca, cb = lk_cuda.build_pyramid(a.to(cuda)), lk_cuda.build_pyramid(
+        b.to(cuda))
+    before = lk_cuda.launches
+    got = lk_cuda.pyr_lk(ca, cb, pts.to(cuda))
+    torch.cuda.synchronize()
+    assert lk_cuda.launches == before + 1
+    assert torch.equal(got.st_fwd.cpu(), want.st_fwd)
+    assert torch.equal(got.st_back.cpu(), want.st_back)
+    for g, w_ in ((got.fwd, want.fwd), (got.back, want.back),
+                  (got.fb, want.fb)):
+        assert g.shape == w_.shape
+        if w_.numel():
+            assert (g.cpu() - w_).abs().max().item() <= 1e-3
+    return pa
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 5, 33, 130])
+def test_lk_kernel_point_counts(cuda, n):
+    """Kernel B with no point, one point and counts that are no multiple of
+    the points a CUDA block takes (a warp a point), on a 256 px frame and
+    its shift."""
+    gen = torch.Generator().manual_seed(n + 1)
+    a = _textured(gen, 256, 256)
+    b = torch.roll(a, (2, -1), (0, 1))
+    pts = (torch.rand((n, 2), generator=gen) * 200 + 28).to(torch.float32)
+    _lk_equal(cuda, a, b, pts)
+
+
+def test_lk_kernel_points_beyond_the_borders(cuda):
+    """Kernel B on points at, just beyond and far beyond every border of
+    the frame (each level's [-win, size) test, at the start and during
+    the iterations), against its plain version."""
+    gen = torch.Generator().manual_seed(17)
+    h, w = 120, 160
+    a = _textured(gen, h, w)
+    b = torch.roll(a, (3, 4), (0, 1))
+    edge = [-40.0, -31.0, -21.0, -10.5, -1.0, 0.0, 0.5, 10.0]
+    xs = edge + [w - 1.0, w - 0.5, w + 0.0, w + 9.5, w + 10.5, w + 30.0,
+                 1e4, -1e4]
+    ys = edge + [h - 1.0, h - 0.5, h + 0.0, h + 9.5, h + 10.5, h + 30.0,
+                 1e4, -1e4]
+    pts = torch.tensor([(x, h / 2) for x in xs] + [(w / 2, y) for y in ys]
+                       + list(zip(xs, ys)), dtype=torch.float32)
+    _lk_equal(cuda, a, b, pts)
+
+
+@pytest.mark.parametrize("h,w", [(24, 24), (30, 90), (50, 50), (47, 400),
+                                 (90, 45)])
+def test_lk_kernel_dropped_levels(cuda, h, w):
+    """Kernel B on frames whose pyramid drops its upper levels (a level
+    whose side is no more than the window is dropped, with those above
+    it): one to three levels instead of four."""
+    gen = torch.Generator().manual_seed(h * w)
+    a = _textured(gen, h, w)
+    b = torch.roll(a, (1, 1), (0, 1))
+    pts = (torch.rand((20, 2), generator=gen)
+           * torch.tensor([w - 1.0, h - 1.0])).to(torch.float32)
+    pa = _lk_equal(cuda, a, b, pts)
+    assert len(pa.sizes) < 4
 
 
 def _face_frames(n, h, w, device, cx=0.5):
