@@ -186,7 +186,8 @@ Phases, each printing lines with their seconds:
                (csrc/mpeg4.cu) against their plain versions at every call
                of the first GOP's round trip at 720p and 256 px, then
                each timed at the main path's largest call beside its
-               bound; cli/preprocess's main(["all", ...]) on one 720p
+               bound (V1 with the share of its blocks whose column pass
+               takes 64 bits); cli/preprocess's main(["all", ...]) on one 720p
                mp4v video (NNNNN.mp4 clips, none quarantined, stage 1 and
                2 frames/s beside the AVI run's).
 
@@ -3381,6 +3382,19 @@ def mp4_bound(name, args) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def mp4_wide_share(args) -> dict:
+    """The share of a V1 call's blocks, and of their columns, whose column
+    pass the kernel runs in 64 bits (some |column input| above
+    mpeg4_cuda.COL_SAFE), from the plain row pass."""
+    blocks, bidx, mb, _ = args
+    qp, intra, luma = mpeg4_cuda._block_params(bidx, mb)
+    rows = mpeg4_cuda._idct_rows(mpeg4_cuda.dequantize_plain(
+        blocks, qp, intra, luma).view(-1, 8, 8))
+    wide = rows.abs().amax(1) > mpeg4_cuda.COL_SAFE  # (blocks, columns)
+    return {"blocks": float(wide.any(1).float().mean()),
+            "columns": float(wide.float().mean())}
+
+
 def mp4_sass_bound(args) -> float:
     """V3's bound in ms from its SAD instruction, for the arguments of a
     motion_search call: a VABSDIFF4 for every four bytes of every
@@ -3576,6 +3590,8 @@ def mp4_phase(t0, work: Path, pre: dict):
             "launches_per_frame": counts[name] / frames_by[name]}
         if name == "motion_search":
             rows[name]["sass_bound_ms"] = mp4_sass_bound(args)
+        if name == "dequant_idct":
+            rows[name]["wide_share"] = mp4_wide_share(args)
         say("mp4", t0, f"{name} " + json.dumps(rows[name]))
         if err:
             raise AssertionError(f"mp4: {name} differs from its plain "
@@ -4007,8 +4023,9 @@ def main() -> int:
             "ms": row["kernel_ms"], "wrapper_ms": row["wrapper_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None})
-        if "sass_bound_ms" in row:
-            kernels[-1]["sass_bound_ms"] = row["sass_bound_ms"]
+        for key in ("sass_bound_ms", "wide_share"):
+            if key in row:
+                kernels[-1][key] = row[key]
     print(f"[total] {time.perf_counter() - t_all:.2f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,10 +7,11 @@
 //          VOPs of a batch spread over threads (each VOP is independent
 //          once the VOL is known)
 //   V1     dequant_idct: H.263 inverse quantisation and the integer
-//          "simple" IDCT of every coded block of a batch, 8 threads a block
-//   V2     motion_compensate: half-pel prediction (+ residual, clipped) of
-//          one macroblock per CUDA block, every item (a VOP) of a launch in
-//          grid.y
+//          "simple" IDCT of every coded block of a batch, a thread a row,
+//          the column pass in int32 where a bound certifies it
+//   V2     motion_compensate: half-pel prediction (+ residual, clipped),
+//          rows of 8 pixels a thread from word-wide reference rows, every
+//          item (a VOP) of a launch in grid.y
 //   V3     motion_search: +-16 pixel full search on the reference window in
 //          shared memory with packed-byte SADs (vabsdiff4), a run of
 //          candidates a thread, then half-pel refinement and the intra
@@ -904,7 +905,6 @@ int mpeg4_free(void* handle) {
 
 namespace {
 
-__constant__ int kW[8] = {0, 22725, 21407, 19266, 16383, 12873, 8867, 4520};
 __constant__ int kFdct[64] = {
     2896, 2896, 2896, 2896, 2896, 2896, 2896, 2896,
     4017, 3406, 2276, 799, -799, -2276, -3406, -4017,
@@ -914,8 +914,6 @@ __constant__ int kFdct[64] = {
     2276, -4017, 799, 3406, -3406, -799, 4017, -2276,
     1567, -3784, 3784, -1567, -1567, 3784, -3784, 1567,
     799, -2276, 3406, -4017, 4017, -3406, 2276, -799};
-__constant__ int kChromaRound[16] = {0, 0, 0, 1, 1, 1, 1, 1,
-                                     1, 1, 1, 1, 1, 1, 2, 2};
 
 __device__ __forceinline__ int d_dc_scaler(int qp, bool luma) {
   if (qp < 5) return 8;
@@ -923,154 +921,390 @@ __device__ __forceinline__ int d_dc_scaler(int qp, bool luma) {
   return qp < 25 ? (qp + 13) / 2 : qp - 6;
 }
 
-__device__ __forceinline__ int d_wrap16(long long v) {
+// the value stored to int16 and read back (the C code's int16 rows)
+template <typename T>
+__device__ __forceinline__ int d_wrap16(T v) {
   return (int)(int16_t)(uint16_t)(v & 0xFFFF);
 }
 
-// V1: 32 blocks a CUDA block, 8 threads a block (a row, then a column)
-constexpr int V1_BLOCKS = 32;
+// V1: H.263 inverse quantisation and FFmpeg's "simple" IDCT of the coded
+// blocks of a batch, each into row bidx[j] of the output. It replaces no
+// TPU kernel: the JAX package hands mp4v decoding to cv2
+// (faceoff_tpu/io/video.py:61). Bound by bytes (128 in and 128 out a
+// block) and then by the integer multiplies, about 64 a row. A thread
+// takes RPT rows, 8 / RPT threads a block, BPB blocks a CUDA block: one
+// 16-byte load of each row's levels, issued before the block's bidx and
+// record (each one broadcast request, the record's mode and qp one 8-byte
+// word; the first form made eight scalar loads and the bidx and record
+// chain on every thread); the row pass in int32 (the DC-only shortcut
+// read from the levels); the rows through a padded tile in shared memory
+// (one warp, no barrier) to the thread's columns, two read as one word.
+// The column pass runs in int32 where the column certifies it: every
+// |input| <= COL_SAFE keeps each partial sum below 2^31 (122424 * 17537 +
+// 524256 < 2^31; the bound is reached, tests/test_torch_mpeg4_arith.py),
+// else in 64 bits as the plain version (the first form ran every column in
+// 64 bits). The columns go back through the tile so that each row leaves
+// as one 16-byte store.
+constexpr int W1 = 22725, W2 = 21407, W3 = 19266, W4 = 16383, W5 = 12873,
+              W6 = 8867, W7 = 4520;
+constexpr int COL_SAFE = 17537;
+constexpr int IDCT_TILE = 72;  // int16 of a block's tile: 8 rows of 8 and
+                               // 16 bytes that put the tiles of a warp on
+                               // distinct banks
 
-__global__ void dequant_idct_kernel(const int16_t* __restrict__ blocks,
-                                    const int32_t* __restrict__ bidx, int nb,
-                                    const int32_t* __restrict__ mb,
-                                    int16_t* __restrict__ out) {
-  __shared__ int16_t rows[V1_BLOCKS][64];
-  int local = threadIdx.x >> 3, r = threadIdx.x & 7;
-  int j = blockIdx.x * V1_BLOCKS + local;
-  bool live = j < nb;
-  int idx = live ? bidx[j] : 0;
+// The simple IDCT's butterfly on one row or column x in T (int or 64
+// bits): o[i] = (sum_i) >> SHIFT, wrapped to int16; `a` is the first
+// even term with its rounding (W4 x0 + 2^10 in rows, W4 (x0 + 32) in
+// columns).
+template <typename T, int SHIFT>
+__device__ __forceinline__ void idct8(const T (&x)[8], T a, int (&o)[8]) {
+  const T a0 = a + W2 * x[2] + W4 * x[4] + W6 * x[6];
+  const T a1 = a + W6 * x[2] - W4 * x[4] - W2 * x[6];
+  const T a2 = a - W6 * x[2] - W4 * x[4] + W2 * x[6];
+  const T a3 = a - W2 * x[2] + W4 * x[4] - W6 * x[6];
+  const T b0 = W1 * x[1] + W3 * x[3] + W5 * x[5] + W7 * x[7];
+  const T b1 = W3 * x[1] - W7 * x[3] - W1 * x[5] - W5 * x[7];
+  const T b2 = W5 * x[1] - W1 * x[3] + W7 * x[5] + W3 * x[7];
+  const T b3 = W7 * x[1] - W5 * x[3] + W3 * x[5] - W1 * x[7];
+  o[0] = d_wrap16((a0 + b0) >> SHIFT);
+  o[1] = d_wrap16((a1 + b1) >> SHIFT);
+  o[2] = d_wrap16((a2 + b2) >> SHIFT);
+  o[3] = d_wrap16((a3 + b3) >> SHIFT);
+  o[4] = d_wrap16((a3 - b3) >> SHIFT);
+  o[5] = d_wrap16((a2 - b2) >> SHIFT);
+  o[6] = d_wrap16((a1 - b1) >> SHIFT);
+  o[7] = d_wrap16((a0 - b0) >> SHIFT);
+}
+
+__device__ __forceinline__ uint4 pack16(const int (&v)[8]) {
+  uint4 p;
+  p.x = (uint16_t)v[0] | ((unsigned)(uint16_t)v[1] << 16);
+  p.y = (uint16_t)v[2] | ((unsigned)(uint16_t)v[3] << 16);
+  p.z = (uint16_t)v[4] | ((unsigned)(uint16_t)v[5] << 16);
+  p.w = (uint16_t)v[6] | ((unsigned)(uint16_t)v[7] << 16);
+  return p;
+}
+
+// one row of levels (a 16-byte word) dequantised, then the row pass;
+// with `intra_dc`, x[0] is `dc` (row 0 of an intra block)
+__device__ __forceinline__ void dequant_row(uint4 lv, int qp, bool intra_dc,
+                                            int dc, int (&row)[8]) {
+  const unsigned lw[4] = {lv.x, lv.y, lv.z, lv.w};
+  // |F| = qp (2 |l| + 1) - (1 - (qp & 1)) = 2 qp |l| + c0
+  const int c0 = qp - 1 + (qp & 1);
+  int x[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const unsigned w = lw[c >> 1];
+    const int l = (c & 1) ? (int)w >> 16 : (int)(int16_t)(w & 0xFFFF);
+    const int mag = min(2 * qp * abs(l) + c0, l < 0 ? 2048 : 2047);
+    x[c] = l == 0 ? 0 : (l < 0 ? -mag : mag);
+  }
+  if (intra_dc) x[0] = dc;
+  if (((lv.x >> 16) | lv.y | lv.z | lv.w) == 0) {  // DC only
+#pragma unroll
+    for (int c = 0; c < 8; ++c) row[c] = x[0] * 8;
+  } else {
+    idct8<int, 11>(x, W4 * x[0] + (1 << 10), row);
+  }
+}
+
+// the column pass on one column, in int32 where COL_SAFE certifies it
+__device__ __forceinline__ void idct_column(const int (&y)[8], int (&o)[8]) {
+  int big = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) big = max(big, abs(y[k]));
+  if (big <= COL_SAFE) {
+    idct8<int, 20>(y, W4 * (y[0] + 32), o);
+  } else {
+    long long z[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) z[k] = y[k];
+    idct8<long long, 20>(z, (long long)W4 * (z[0] + 32), o);
+  }
+}
+
+template <int BPB, int RPT>
+__global__ void __launch_bounds__(8 / RPT * BPB)
+dequant_idct_kernel(const int16_t* __restrict__ blocks,
+                    const int32_t* __restrict__ bidx, int nb,
+                    const int32_t* __restrict__ mb,
+                    int16_t* __restrict__ out) {
+  constexpr int TPB = 8 / RPT;  // threads a block
+  static_assert(RPT == 1 || RPT == 2, "a row or two a thread");
+  static_assert(BPB * TPB % 32 == 0, "whole warps");
+  __shared__ __align__(16) int16_t tile[BPB * IDCT_TILE];
+  const int t = threadIdx.x, r0 = (t % TPB) * RPT;
+  const int j = blockIdx.x * BPB + t / TPB;
+  const bool live = j < nb;
+  int16_t* tl = tile + (t / TPB) * IDCT_TILE;
+  const uint4* src = reinterpret_cast<const uint4*>(blocks + (size_t)j * 64);
+  uint4 lv[RPT];
+  int idx = 0;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+    lv[i] = live ? src[r0 + i] : make_uint4(0, 0, 0, 0);
+  if (live) idx = bidx[j];
+  int qp = 1, dc = 0;
+  bool intra_dc = false;
   if (live) {
-    const int32_t* rec = mb + (size_t)(idx / 6) * MB_FIELDS;
-    int qp = rec[1];
-    bool intra = rec[0] == MB_INTRA;
-    bool luma = (idx % 6) < 4;
-    int x[8];
-    for (int c = 0; c < 8; ++c) {
-      int l = blocks[(size_t)j * 64 + r * 8 + c];
-      int f;
-      if (r == 0 && c == 0 && intra) {
-        f = l * d_dc_scaler(qp, luma);
-      } else if (l == 0) {
-        f = 0;
-      } else {
-        int mag = qp * (2 * abs(l) + 1) - (1 - (qp & 1));
-        f = l < 0 ? -mag : mag;
-      }
-      x[c] = min(max(f, -2048), 2047);
-    }
-    bool dc_only = !(x[1] | x[2] | x[3] | x[4] | x[5] | x[6] | x[7]);
-    int16_t* o = &rows[local][r * 8];
-    if (dc_only) {
-      int v = d_wrap16((long long)x[0] * 8);
-      for (int c = 0; c < 8; ++c) o[c] = (int16_t)v;
+    const int2 rec = *reinterpret_cast<const int2*>(
+        mb + (size_t)(idx / 6) * MB_FIELDS);
+    qp = rec.y;
+    intra_dc = r0 == 0 && rec.x == MB_INTRA;
+    dc = min(max((int)(int16_t)(lv[0].x & 0xFFFF) *
+                     d_dc_scaler(qp, idx % 6 < 4), -2048), 2047);
+  }
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    int row[8];
+    dequant_row(lv[i], qp, i == 0 && intra_dc, dc, row);
+    reinterpret_cast<uint4*>(tl)[r0 + i] = pack16(row);
+  }
+  __syncwarp();
+  // columns r0 .. r0 + RPT - 1 (two read as one word)
+  int y[RPT][8], o[RPT][8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    if (RPT == 2) {
+      const unsigned w = *reinterpret_cast<const unsigned*>(tl + k * 8 + r0);
+      y[0][k] = (int)(int16_t)(w & 0xFFFF);
+      y[RPT - 1][k] = (int)w >> 16;
     } else {
-      int a0 = kW[4] * x[0] + (1 << 10), a1 = a0, a2 = a0, a3 = a0;
-      a0 += kW[2] * x[2] + kW[4] * x[4] + kW[6] * x[6];
-      a1 += kW[6] * x[2] - kW[4] * x[4] - kW[2] * x[6];
-      a2 += -kW[6] * x[2] - kW[4] * x[4] + kW[2] * x[6];
-      a3 += -kW[2] * x[2] + kW[4] * x[4] - kW[6] * x[6];
-      int b0 = kW[1] * x[1] + kW[3] * x[3] + kW[5] * x[5] + kW[7] * x[7];
-      int b1 = kW[3] * x[1] - kW[7] * x[3] - kW[1] * x[5] - kW[5] * x[7];
-      int b2 = kW[5] * x[1] - kW[1] * x[3] + kW[7] * x[5] + kW[3] * x[7];
-      int b3 = kW[7] * x[1] - kW[5] * x[3] + kW[3] * x[5] - kW[1] * x[7];
-      o[0] = (int16_t)d_wrap16((a0 + b0) >> 11);
-      o[1] = (int16_t)d_wrap16((a1 + b1) >> 11);
-      o[2] = (int16_t)d_wrap16((a2 + b2) >> 11);
-      o[3] = (int16_t)d_wrap16((a3 + b3) >> 11);
-      o[4] = (int16_t)d_wrap16((a3 - b3) >> 11);
-      o[5] = (int16_t)d_wrap16((a2 - b2) >> 11);
-      o[6] = (int16_t)d_wrap16((a1 - b1) >> 11);
-      o[7] = (int16_t)d_wrap16((a0 - b0) >> 11);
+      y[0][k] = tl[k * 8 + r0];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) idct_column(y[i], o[i]);
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    if (RPT == 2)
+      *reinterpret_cast<unsigned*>(tl + k * 8 + r0) =
+          (uint16_t)o[0][k] | ((unsigned)(uint16_t)o[RPT - 1][k] << 16);
+    else
+      tl[k * 8 + r0] = (int16_t)o[0][k];
+  }
+  __syncwarp();
+  if (live)
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+      reinterpret_cast<uint4*>(out + (size_t)idx * 64)[r0 + i] =
+          reinterpret_cast<const uint4*>(tl)[r0 + i];
+}
+
+// the chroma vector (half pels) from the sum s of the four luma vectors:
+// Table 7-9's rounding of s & 15 (0, 0, 0, 1 x 11, 2, 2) by two compares
+__device__ __forceinline__ int chroma_vector(int s) {
+  const int q = s & 15;
+  return (q >= 3) + (q >= 14) + ((s >> 3) & ~1);
+}
+
+// V2: the half-pel prediction of one VOP of every GOP from its reference
+// slot plus the residual, clipped to 8 bits. It replaces no TPU kernel:
+// cv2's mp4v decoding (faceoff_tpu/io/video.py:61) and the encoder's
+// prediction and reconstruction. Bound by bytes: a macroblock's residual
+// (768), output (384) and reference (384 and the half-pel margins)
+// against a few integer operations a pixel. The first form (a thread a
+// pixel) put three dependent loads (item, record, taps) and byte-wide
+// accesses in front of every pixel; a first redesign (a thread a row of
+// one 8 x 8 block, a macroblock's rows in consecutive lanes) made each
+// warp-wide reference load touch 32 picture rows, 32 L1 lines a request.
+// Here a thread makes ROWS rows of 8 pixels, and the lanes of a warp walk
+// along picture rows: MPB macroblocks in raster order a CUDA block, luma
+// lanes (macroblock, left or right half) for each group of rows, then
+// chroma lanes (macroblock) for each plane and group of rows, so that a
+// warp's reference loads and 8-byte stores cover a few lines. The item is
+// read once a thread (one broadcast request); the block's records and
+// residual are loaded coalesced into shared memory (the residual padded,
+// MC_RES_MB, so that a warp's luma lanes read distinct banks). A
+// reference row of an interior block is three aligned words moved to the
+// vector's byte offset by funnel shifts; a row whose 9 bytes cross the
+// picture's edge is read a byte at a time, each tap clamped into the
+// width x height picture. All four half-pel phases take one branch-free
+// four-tap average in 16-bit lanes, (a + b + c + d + 2 - rnd) >> 2, the
+// second column (row) repeating the first where the x (y) phase is 0:
+// that equals the two- and one-tap averages for both rounding types
+// (tests/test_torch_mpeg4_arith.py). RES is 1 with a residual, 0 without
+// (the encoder's prediction); the two calls take their own shapes
+// (MC_RES_*, MC_PRED_*).
+template <int ROWS, int MPB>
+struct McShape {
+  static_assert(8 % ROWS == 0, "rows tile an 8 x 8 block");
+  static constexpr int LUMA = 2 * MPB * 16 / ROWS;   // (rows, mb, half)
+  static constexpr int CHROMA = 2 * MPB * 8 / ROWS;  // (plane, rows, mb)
+  static constexpr int THREADS = LUMA + CHROMA;
+};
+// 16-byte units of a macroblock's residual in shared memory: 6 blocks of
+// 9 (8 rows and a pad) and 4 more, so that 8 luma lanes (4 macroblocks,
+// both halves) fall on distinct banks
+constexpr int MC_RES_BLOCK = 9, MC_RES_MB = 58;
+
+// a reference row's bytes x .. x + 7 (a) and x + 1 .. x + 8 (b), two
+// words each
+struct RefRow {
+  uint32_t a0, a1, b0, b1;
+};
+
+__device__ __forceinline__ RefRow ref_row(const uint8_t* __restrict__ row,
+                                          int x, int w, bool interior) {
+  uint32_t w0, w1, w2;
+  int sh;
+  if (interior) {  // x .. x + 8 inside [0, w): three aligned words
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(row + (x & ~3));
+    w0 = p[0];
+    w1 = p[1];
+    w2 = p[2];
+    sh = 8 * (x & 3);
+  } else {
+    uint32_t b[3] = {0, 0, 0};
+#pragma unroll
+    for (int c = 0; c < 9; ++c)
+      b[c >> 2] |= (uint32_t)row[min(max(x + c, 0), w - 1)] << (8 * (c & 3));
+    w0 = b[0];
+    w1 = b[1];
+    w2 = b[2];
+    sh = 0;
+  }
+  RefRow r;
+  r.a0 = __funnelshift_r(w0, w1, sh);
+  r.a1 = __funnelshift_r(w1, w2, sh);
+  r.b0 = __funnelshift_rc(w0, w1, sh + 8);
+  r.b1 = __funnelshift_rc(w1, w2, sh + 8);
+  return r;
+}
+
+// (a + b + c + d + k) >> 2 of four bytes at once: bytes 0, 1 in the 16-bit
+// lanes of `lo`, bytes 2, 3 in those of `hi` (each lane below 1024 before
+// the shift; the bits a lane's shift takes from the next lie above its
+// byte)
+__device__ __forceinline__ void hpel4(uint32_t a, uint32_t b, uint32_t c,
+                                      uint32_t d, uint32_t k, uint32_t& lo,
+                                      uint32_t& hi) {
+  lo = (__byte_perm(a, 0, 0x4140) + __byte_perm(b, 0, 0x4140) +
+        __byte_perm(c, 0, 0x4140) + __byte_perm(d, 0, 0x4140) + k) >> 2;
+  hi = (__byte_perm(a, 0, 0x4342) + __byte_perm(b, 0, 0x4342) +
+        __byte_perm(c, 0, 0x4342) + __byte_perm(d, 0, 0x4342) + k) >> 2;
+}
+
+// four predicted bytes (lanes of hpel4) plus four int16 residuals (two
+// words), each clipped to [0, 255], packed, in 16-bit lanes with Hopper's
+// DPX operations: the residual first clamped to [-256, 255] (so p + r
+// stays inside int16, and the clip of p + r for p in [0, 255] is
+// unchanged), then max(min(p + r, 255), 0)
+__device__ __forceinline__ uint32_t add_clip4(uint32_t lo, uint32_t hi,
+                                              uint32_t r01, uint32_t r23) {
+  const unsigned lo255 = 0x00FF00FFu, neg256 = 0xFF00FF00u;
+  const unsigned a = __vimin3_s16x2(__vimax3_s16x2(r01, neg256, neg256),
+                                    lo255, lo255);
+  const unsigned b = __vimin3_s16x2(__vimax3_s16x2(r23, neg256, neg256),
+                                    lo255, lo255);
+  return __byte_perm(__viaddmin_s16x2_relu(lo & lo255, a, lo255),
+                     __viaddmin_s16x2_relu(hi & lo255, b, lo255), 0x6420);
+}
+
+template <int ROWS, int MPB, int RES>
+__global__ void __launch_bounds__(McShape<ROWS, MPB>::THREADS)
+motion_compensate_kernel(uint8_t* __restrict__ Y, uint8_t* __restrict__ U,
+                         uint8_t* __restrict__ V, int h16, int w16,
+                         const int32_t* __restrict__ mb, int n_mb,
+                         const int16_t* __restrict__ res,
+                         const int32_t* __restrict__ items, int width,
+                         int height) {
+  using S = McShape<ROWS, MPB>;
+  __shared__ int32_t recs[MPB * MB_FIELDS];
+  __shared__ uint4 sres[RES ? MPB * MC_RES_MB : 1];
+  const int t = threadIdx.x;
+  const int32_t* it = items + 4 * blockIdx.y;
+  const int f = it[0], ref = it[1], outs = it[2], rnd = it[3];
+  const int m0 = blockIdx.x * MPB;
+  const int n_live = min(MPB, n_mb - m0);
+  const size_t first = (size_t)f * n_mb + m0;
+  for (int i = t; i < n_live * MB_FIELDS; i += S::THREADS)
+    recs[i] = mb[first * MB_FIELDS + i];
+  if (RES) {
+    const uint4* src = reinterpret_cast<const uint4*>(res + first * 6 * 64);
+    for (int i = t; i < n_live * 48; i += S::THREADS) {
+      const int k = i / 48, q = i - 48 * k;
+      sres[k * MC_RES_MB + (q >> 3) * MC_RES_BLOCK + (q & 7)] = src[i];
     }
   }
   __syncthreads();
-  if (!live) return;
-  long long x[8];
-  for (int k = 0; k < 8; ++k) x[k] = rows[local][k * 8 + r];
-  long long a0 = (long long)kW[4] * (x[0] + ((1 << 19) / kW[4]));
-  long long a1 = a0, a2 = a0, a3 = a0;
-  a0 += kW[2] * x[2] + kW[4] * x[4] + kW[6] * x[6];
-  a1 += kW[6] * x[2] - kW[4] * x[4] - kW[2] * x[6];
-  a2 += -kW[6] * x[2] - kW[4] * x[4] + kW[2] * x[6];
-  a3 += -kW[2] * x[2] + kW[4] * x[4] - kW[6] * x[6];
-  long long b0 = kW[1] * x[1] + kW[3] * x[3] + kW[5] * x[5] + kW[7] * x[7];
-  long long b1 = kW[3] * x[1] - kW[7] * x[3] - kW[1] * x[5] - kW[5] * x[7];
-  long long b2 = kW[5] * x[1] - kW[1] * x[3] + kW[7] * x[5] + kW[3] * x[7];
-  long long b3 = kW[7] * x[1] - kW[5] * x[3] + kW[3] * x[5] - kW[1] * x[7];
-  int16_t* o = out + (size_t)idx * 64 + r;
-  o[0] = (int16_t)d_wrap16((a0 + b0) >> 20);
-  o[8] = (int16_t)d_wrap16((a1 + b1) >> 20);
-  o[16] = (int16_t)d_wrap16((a2 + b2) >> 20);
-  o[24] = (int16_t)d_wrap16((a3 + b3) >> 20);
-  o[32] = (int16_t)d_wrap16((a3 - b3) >> 20);
-  o[40] = (int16_t)d_wrap16((a2 - b2) >> 20);
-  o[48] = (int16_t)d_wrap16((a1 - b1) >> 20);
-  o[56] = (int16_t)d_wrap16((a0 - b0) >> 20);
-}
-
-// half-pel sample of a plane at half-pel (X, Y), every tap clamped into w x h
-__device__ __forceinline__ int interp(const uint8_t* __restrict__ p,
-                                      int stride, int X, int Y, int w, int h,
-                                      int rnd) {
-  int x0 = X >> 1, y0 = Y >> 1, fx = X & 1, fy = Y & 1;
-  int xa = min(max(x0, 0), w - 1), xb = min(max(x0 + 1, 0), w - 1);
-  int ya = min(max(y0, 0), h - 1), yb = min(max(y0 + 1, 0), h - 1);
-  int a = p[ya * stride + xa];
-  if (!fx && !fy) return a;
-  if (!fy) return (a + p[ya * stride + xb] + 1 - rnd) >> 1;
-  int c = p[yb * stride + xa];
-  if (!fx) return (a + c + 1 - rnd) >> 1;
-  return (a + p[ya * stride + xb] + c + p[yb * stride + xb] + 2 - rnd) >> 2;
-}
-
-__device__ __forceinline__ int chroma_vector(int s) {
-  return kChromaRound[s & 15] + ((s >> 3) & ~1);
-}
-
-// V2: one macroblock per CUDA block (256 threads: a luma pixel each, the
-// first 128 also a chroma pixel), the launch's items in grid.y
-__global__ void motion_compensate_kernel(
-    uint8_t* __restrict__ Y, uint8_t* __restrict__ U, uint8_t* __restrict__ V,
-    int h16, int w16, const int32_t* __restrict__ mb, int n_mb,
-    const int16_t* __restrict__ res, const int32_t* __restrict__ items,
-    int width, int height) {
-  int m = blockIdx.x, t = threadIdx.x;
-  const int32_t* it = items + blockIdx.y * 4;
-  int f = it[0], ref = it[1], outs = it[2], rnd = it[3];
-  int mbw = w16 >> 4;
-  int my = m / mbw, mx = m % mbw;
-  const int32_t* rec = mb + ((size_t)f * n_mb + m) * MB_FIELDS;
-  bool intra = rec[0] == MB_INTRA;
-  size_t lplane = (size_t)h16 * w16, cplane = lplane >> 2;
-  const int16_t* r = res ? res + ((size_t)f * n_mb + m) * 6 * 64 : nullptr;
-  {
-    int py = t >> 4, px = t & 15;
-    int b = ((py >= 8) << 1) | (px >= 8);
-    int lx = mx * 16 + px, ly = my * 16 + py;
-    int p = 0;
-    if (!intra && ref >= 0)
-      p = interp(Y + ref * lplane, w16, 2 * lx + rec[4 + 2 * b],
-                 2 * ly + rec[5 + 2 * b], width, height, rnd);
-    int rv = r ? r[b * 64 + (py & 7) * 8 + (px & 7)] : 0;
-    Y[outs * lplane + (size_t)ly * w16 + lx] =
-        (uint8_t)min(max(p + rv, 0), 255);
+  int k, b, r0;  // macroblock, 8 x 8 block, first row in the block
+  if (t < S::LUMA) {
+    const int pos = t % (2 * MPB), g = t / (2 * MPB) * ROWS;
+    k = pos >> 1;
+    b = ((g >> 3) << 1) | (pos & 1);
+    r0 = g & 7;
+  } else {
+    const int c = t - S::LUMA, rest = c / MPB;
+    k = c - rest * MPB;
+    b = 4 + rest / (8 / ROWS);
+    r0 = (rest % (8 / ROWS)) * ROWS;
   }
-  if (t < 128) {
-    int c = t >> 6, q = t & 63;
-    int cy = q >> 3, cx = q & 7;
-    uint8_t* P = c ? V : U;
-    int cw = w16 >> 1;
-    int lx = mx * 8 + cx, ly = my * 8 + cy;
-    int p = 0;
-    if (!intra && ref >= 0) {
-      int sx = rec[4] + rec[6] + rec[8] + rec[10];
-      int sy = rec[5] + rec[7] + rec[9] + rec[11];
-      p = interp(P + ref * cplane, cw, 2 * lx + chroma_vector(sx),
-                 2 * ly + chroma_vector(sy), width >> 1, height >> 1, rnd);
+  if (k >= n_live) return;
+  const int m = m0 + k;
+  const int32_t* rec = recs + k * MB_FIELDS;
+  const int mbw = w16 >> 4, my = m / mbw, mx = m - my * mbw;
+  const bool luma = b < 4;
+  const size_t plane = luma ? (size_t)h16 * w16 : (size_t)h16 * w16 >> 2;
+  const int stride = luma ? w16 : w16 >> 1;
+  uint8_t* P = luma ? Y : (b == 4 ? U : V);
+  const int px = luma ? mx * 16 + (b & 1) * 8 : mx * 8;
+  const int py = (luma ? my * 16 + (b >> 1) * 8 : my * 8) + r0;
+  // the prediction's bytes 0-1, 2-3, 4-5, 6-7 of each row in 16-bit lanes
+  uint32_t pl[ROWS][4];
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i)
+    pl[i][0] = pl[i][1] = pl[i][2] = pl[i][3] = 0;
+  if (ref >= 0 && rec[0] != MB_INTRA) {
+    int vx, vy;
+    if (luma) {
+      vx = rec[4 + 2 * b];
+      vy = rec[5 + 2 * b];
+    } else {
+      vx = chroma_vector(rec[4] + rec[6] + rec[8] + rec[10]);
+      vy = chroma_vector(rec[5] + rec[7] + rec[9] + rec[11]);
     }
-    int rv = r ? r[(4 + c) * 64 + q] : 0;
-    P[outs * cplane + (size_t)ly * cw + lx] =
-        (uint8_t)min(max(p + rv, 0), 255);
+    const int pw = luma ? width : width >> 1, ph = luma ? height : height >> 1;
+    const int X = 2 * px + vx, Yh = 2 * py + vy;
+    const int x0 = X >> 1, y0 = Yh >> 1;
+    const bool fx = X & 1, fy = Yh & 1;
+    const bool interior = x0 >= 0 && x0 + 9 <= pw;
+    const uint8_t* base = P + ref * plane;
+    RefRow rr[ROWS + 1];
+#pragma unroll
+    for (int i = 0; i <= ROWS; ++i) {
+      rr[i] = RefRow{0, 0, 0, 0};
+      if (i < ROWS || fy)
+        rr[i] = ref_row(base + (size_t)min(max(y0 + i, 0), ph - 1) * stride,
+                        x0, pw, interior);
+    }
+    const uint32_t kr = (2 - rnd) * 0x00010001u;
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      const RefRow& A = rr[i];
+      const RefRow& C = fy ? rr[i + 1] : rr[i];
+      hpel4(A.a0, fx ? A.b0 : A.a0, C.a0, fx ? C.b0 : C.a0, kr, pl[i][0],
+            pl[i][1]);
+      hpel4(A.a1, fx ? A.b1 : A.a1, C.a1, fx ? C.b1 : C.a1, kr, pl[i][2],
+            pl[i][3]);
+    }
+  }
+  uint8_t* o = P + outs * plane + (size_t)py * stride + px;
+  const uint4* rv = sres + k * MC_RES_MB + b * MC_RES_BLOCK + r0;
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    uint2 v;
+    if (RES) {
+      const uint4 r = rv[i];
+      v.x = add_clip4(pl[i][0], pl[i][1], r.x, r.y);
+      v.y = add_clip4(pl[i][2], pl[i][3], r.z, r.w);
+    } else {
+      v.x = __byte_perm(pl[i][0], pl[i][1], 0x6420);
+      v.y = __byte_perm(pl[i][2], pl[i][3], 0x6420);
+    }
+    *reinterpret_cast<uint2*>(o + (size_t)i * stride) = v;
   }
 }
 
@@ -1107,6 +1341,9 @@ constexpr int ORDER_BITS = 15;  // (cheb * 33 + dy + 16) * 33 + dx + 16
 // chosen from tools/mp4_variants_torch.py's readings (PERF.md, section 6)
 constexpr int MS_RUN = 8, MS_DY = 3, MS_MBS = 2;
 constexpr int FQ_MBS = 4;
+constexpr int V1_BPB = 32, V1_RPT = 2;
+constexpr int MC_RES_ROWS = 1, MC_RES_MBS = 4;    // with a residual
+constexpr int MC_PRED_ROWS = 2, MC_PRED_MBS = 4;  // without
 
 template <int R, int D, int MPB>
 struct SearchShape {
@@ -1517,9 +1754,9 @@ extern "C" {
 
 int mpeg4_dequant_idct(const int16_t* blocks, const int32_t* bidx, int nb,
                        const int32_t* mb, int16_t* out, cudaStream_t stream) {
-  int grid = (nb + V1_BLOCKS - 1) / V1_BLOCKS;
-  dequant_idct_kernel<<<grid, V1_BLOCKS * 8, 0, stream>>>(blocks, bidx, nb,
-                                                          mb, out);
+  dequant_idct_kernel<V1_BPB, V1_RPT>
+      <<<(nb + V1_BPB - 1) / V1_BPB, 8 / V1_RPT * V1_BPB, 0, stream>>>(
+          blocks, bidx, nb, mb, out);
   return status(cudaGetLastError());
 }
 
@@ -1527,9 +1764,17 @@ int mpeg4_motion_compensate(uint8_t* y, uint8_t* u, uint8_t* v, int h16,
                             int w16, const int32_t* mb, int n_mb,
                             const int16_t* res, const int32_t* items, int g,
                             int width, int height, cudaStream_t stream) {
-  dim3 grid(n_mb, g);
-  motion_compensate_kernel<<<grid, 256, 0, stream>>>(
-      y, u, v, h16, w16, mb, n_mb, res, items, width, height);
+  if (res) {
+    using S = McShape<MC_RES_ROWS, MC_RES_MBS>;
+    motion_compensate_kernel<MC_RES_ROWS, MC_RES_MBS, 1>
+        <<<dim3((n_mb + MC_RES_MBS - 1) / MC_RES_MBS, g), S::THREADS, 0,
+           stream>>>(y, u, v, h16, w16, mb, n_mb, res, items, width, height);
+  } else {
+    using S = McShape<MC_PRED_ROWS, MC_PRED_MBS>;
+    motion_compensate_kernel<MC_PRED_ROWS, MC_PRED_MBS, 0>
+        <<<dim3((n_mb + MC_PRED_MBS - 1) / MC_PRED_MBS, g), S::THREADS, 0,
+           stream>>>(y, u, v, h16, w16, mb, n_mb, res, items, width, height);
+  }
   return status(cudaGetLastError());
 }
 

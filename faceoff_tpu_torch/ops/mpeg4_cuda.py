@@ -22,7 +22,9 @@ forward DCT is an orthonormal matrix DCT in 13-bit fixed point (rows
 rounded >> 10, columns >> 16).
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises. `launches` counts the kernel launches of
+launches the kernel or raises (also where a tensor is not aligned for
+the kernel's vector loads: 16 bytes for V1's blocks and output, V2's
+residual and V3's planes, 8 for V1's records and the V2 and V4 planes). `launches` counts the kernel launches of
 each stage. The host coder (`parse_vops`, `write_vops`) spreads the VOPs of
 a batch over threads in C++ and is called once a batch.
 """
@@ -59,6 +61,11 @@ _lock = threading.Lock()
 # the simple IDCT's constants
 W1, W2, W3, W4, W5, W6, W7 = 22725, 21407, 19266, 16383, 12873, 8867, 4520
 ROW_SHIFT, COL_SHIFT = 11, 20
+# V1's kernel runs an IDCT column in int32 where every |input| <= COL_SAFE:
+# each partial sum is then at most (W1 + W2 + W3 + 2 W4 + W5 + W6 + W7)
+# COL_SAFE + W4 (2^19 // W4) = 122424 * 17537 + 524256 < 2^31
+# (tests/test_torch_mpeg4_arith.py); other columns take 64 bits
+COL_SAFE = 17537
 
 
 def fdct_matrix() -> np.ndarray:
@@ -561,11 +568,15 @@ def dequant_idct(blocks: torch.Tensor, bidx: torch.Tensor, mb: torch.Tensor,
         _cuda_check(t, n)
     if blocks.shape[0] == 0:
         return out
+    blocks, mb = blocks.contiguous(), mb.contiguous()
+    for t, n, size in ((blocks, "blocks", 16), (out, "out", 16),
+                       (mb, "mb", 8)):
+        _aligned(t, n, size)
     lib = load()
     with torch.cuda.device(blocks.device):
         status = lib.mpeg4_dequant_idct(
-            blocks.contiguous().data_ptr(), bidx.contiguous().data_ptr(),
-            blocks.shape[0], mb.contiguous().data_ptr(), out.data_ptr(),
+            blocks.data_ptr(), bidx.contiguous().data_ptr(),
+            blocks.shape[0], mb.data_ptr(), out.data_ptr(),
             _stream(blocks.device))
     _count("dequant_idct", status)
     return out
@@ -583,13 +594,17 @@ def motion_compensate(planes: Sequence[torch.Tensor], mb: torch.Tensor,
         _cuda_check(t, n)
     if items.shape[0] == 0:
         return None
+    for p in planes:
+        _aligned(p, "planes", 8)
+    if res is not None:
+        res = res.contiguous()
+        _aligned(res, "res", 16)
     lib = load()
     h16, w16 = y_pl.shape[1:]
     with torch.cuda.device(y_pl.device):
         status = lib.mpeg4_motion_compensate(
             y_pl.data_ptr(), u_pl.data_ptr(), v_pl.data_ptr(), h16, w16,
-            mb.contiguous().data_ptr(), mb.shape[1],
-            _ptr(None if res is None else res.contiguous()),
+            mb.contiguous().data_ptr(), mb.shape[1], _ptr(res),
             items.contiguous().data_ptr(), items.shape[0], width, height,
             _stream(y_pl.device))
     _count("motion_compensate", status)
@@ -682,7 +697,9 @@ def _host_error(lib, handle, what: str) -> ValueError:
 
 
 def _align(n: int) -> int:
-    return (n + 7) & ~7
+    """A part's bytes rounded up to 16, so that the next starts where V1
+    can load a block row as one 16-byte vector."""
+    return (n + 15) & ~15
 
 
 def parse_vops(samples: Sequence[bytes], vol_fields: Sequence[int],

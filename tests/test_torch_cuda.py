@@ -8,9 +8,12 @@ mocoganhd pair's launches; the functional streaming push and a serving
 bundle exported for the card; VQVAE_B2F's training forward (its six
 quantizers through the VQ kernels) and the shardmap step in a one-rank
 NCCL group against the plain step; mp4: kernels V1-V4 against their plain
-versions at every call of a round trip, V3 and V4 on adversarial inputs
-(ties, shifts past the search range, every border clamp, both DC clamps,
-the largest coefficients), and the C++ entropy coder against the Python
+versions at every call of a round trip, V1-V4 on adversarial inputs
+(every qp, levels at the clamps, rows that wrap int16, columns that take
+64 bits, bidx in any order; every half-pel phase, both rounding types,
+vectors far outside the picture, residuals at the int16 extremes; ties,
+shifts past the search range, every border clamp, both DC clamps, the
+largest coefficients), and the C++ entropy coder against the Python
 one; kernels A and B at the edges of their designs: components across
 tile borders, ragged and odd sizes, full-foreground and serpentine 720p
 frames, an odd mask address; no point, counts of points no multiple of a
@@ -1370,3 +1373,117 @@ def test_mpeg4_fdct_quant_adversarial(cuda, qp):
     if qp < 5:  # intra white and black blocks reach both DC clamps
         dc = want[..., 0][torch.from_numpy(mb[..., 0] == 2)]
         assert (dc == 254).any() and (dc == 1).any()
+
+
+# -- V1 and V2 on adversarial inputs, bit for bit against the plain ----------
+
+def _idct_levels(rng, nb):
+    """(nb, 64) int16 levels by block j % 8: {0, +-1, +-2, +-2047} at
+    random, DC-only rows, +-2047 everywhere (rows that wrap int16, columns
+    past COL_SAFE), a 254 DC with 2047 AC in row 0 (the 64-bit column
+    pass), zeros, uniform, sparse, one +-2047 coefficient."""
+    out = np.zeros((nb, 64), np.int64)
+    for j in range(nb):
+        k = j % 8
+        if k == 0:
+            out[j] = rng.choice([0, 0, 1, -1, 2, -2, 2047, -2047], 64)
+        elif k == 1:
+            out[j, ::8] = rng.integers(-2048, 2048, 8)
+        elif k == 2:
+            out[j] = rng.choice([2047, -2047], 64)
+        elif k == 3:
+            out[j, 0], out[j, 2] = 254, 2047
+            out[j, 1] = rng.integers(-2047, 2048)
+            out[j, 8:16] = rng.integers(-2047, 2048, 8)
+        elif k == 5:
+            out[j] = rng.integers(-2048, 2048, 64)
+        elif k == 6:
+            out[j] = np.where(rng.random(64) < 0.15,
+                              rng.integers(-300, 301, 64), 0)
+        elif k == 7:
+            out[j, rng.integers(64)] = rng.choice([2047, -2047])
+    return out.astype(np.int16)
+
+
+def test_mpeg4_dequant_idct_adversarial(cuda):
+    """V1 against dequant_idct_plain bit for bit: every qp 1..31 intra and
+    inter, luma and chroma blocks, the level patterns of _idct_levels
+    (some blocks' columns take the 64-bit pass), bidx a random order of
+    most rows, the rows it does not name keeping their values."""
+    from faceoff_tpu_torch.ops import mpeg4_cuda as K
+
+    rng = np.random.default_rng(21)
+    F, M = 2, 62
+    mb = np.zeros((F, M, 12), np.int32)
+    mb[:, :, 1] = 1 + np.arange(M) % 31
+    mb[:, :, 0] = np.where((np.arange(M)[None] // 31 + np.arange(F)[:, None])
+                           % 2 == 0, K.MB_INTRA, K.MB_INTER)
+    rows = F * M * 6
+    bidx = rng.permutation(rows)[: rows - 40].astype(np.int32)
+    levels = _idct_levels(rng, len(bidx))
+    out0 = rng.integers(-32768, 32768, (F, M, 6, 64)).astype(np.int16)
+    cpu = [torch.from_numpy(a) for a in (levels, bidx, mb)]
+    qp, intra, luma = K._block_params(cpu[1], cpu[2])
+    wide = K._idct_rows(K.dequantize_plain(cpu[0], qp, intra, luma)
+                        .view(-1, 8, 8)).abs().amax(1) > K.COL_SAFE
+    assert wide.any() and not wide.all()
+    want = K.dequant_idct_plain(*cpu, torch.from_numpy(out0.copy()))
+    before = K.launches["dequant_idct"]
+    got = K.dequant_idct(*(t.to(cuda) for t in cpu),
+                         torch.from_numpy(out0).to(cuda))
+    assert K.launches["dequant_idct"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("size,res_kind", [
+    ((104, 104, 112, 112), None), ((104, 104, 112, 112), "extreme"),
+    ((176, 144, 176, 144), "extreme"), ((176, 144, 176, 144), None),
+    ((1280, 720, 1280, 720), "extreme")])
+def test_mpeg4_motion_compensate_adversarial(cuda, size, res_kind):
+    """V2 against motion_compensate_plain bit for bit: skip, inter and
+    intra macroblocks mixed, four distinct vectors a macroblock whose
+    chroma sums cover all 16 residues, every half-pel phase, vectors
+    reaching up to 200 half pels past every side of the picture (104 x
+    104 in 112-pixel planes: the taps clamp to the picture, not the
+    plane), both rounding types, items with no reference, the residual
+    None or at the int16 extremes; several items a launch."""
+    from faceoff_tpu_torch.ops import mpeg4_cuda as K
+
+    width, height, w16, h16 = size
+    rng = np.random.default_rng(width + height)
+    n_mb = (h16 // 16) * (w16 // 16)
+    G, F = 4, 5
+    slots = 2 * G + 1
+    planes = [rng.integers(0, 256, (slots, h16, w16), dtype=np.uint8),
+              rng.integers(0, 256, (slots, h16 // 2, w16 // 2),
+                           dtype=np.uint8),
+              rng.integers(0, 256, (slots, h16 // 2, w16 // 2),
+                           dtype=np.uint8)]
+    mb = np.zeros((F, n_mb, 12), np.int32)
+    mb[..., 0] = rng.choice([K.MB_SKIP, K.MB_INTER, K.MB_INTER, K.MB_INTRA],
+                            (F, n_mb))
+    near = rng.integers(-40, 41, (F, n_mb, 8))
+    far = rng.integers(-2 * max(w16, h16) - 200, 2 * max(w16, h16) + 201,
+                       (F, n_mb, 8))
+    mb[..., 4:12] = np.where(rng.random((F, n_mb, 8)) < 0.2, far, near)
+    sums = mb[..., 4:12:2].sum(-1)
+    assert len(np.unique(sums & 15)) == 16
+    assert len(np.unique(mb[..., 4:12] & 1)) == 2
+    items = np.asarray([[1, 0, 5, 0], [2, 1, 6, 1], [4, -1, 7, 0],
+                        [0, 2, 8, 1]], np.int32)
+    res = None
+    if res_kind:
+        res = rng.choice([-32768, 32767, -256, 256, -255, 255, -1, 0, 1, 77],
+                         (F, n_mb, 6, 64)).astype(np.int16)
+    want = [torch.from_numpy(p.copy()) for p in planes]
+    K.motion_compensate_plain(want, torch.from_numpy(mb),
+                              None if res is None else torch.from_numpy(res),
+                              torch.from_numpy(items), width, height)
+    got = [torch.from_numpy(p).to(cuda) for p in planes]
+    before = K.launches["motion_compensate"]
+    K.motion_compensate(got, torch.from_numpy(mb).to(cuda),
+                        None if res is None else torch.from_numpy(res).to(cuda),
+                        torch.from_numpy(items).to(cuda), width, height)
+    assert K.launches["motion_compensate"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)

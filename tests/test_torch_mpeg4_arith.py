@@ -1,6 +1,15 @@
-"""The arithmetic that kernels V3 and V4 of `csrc/mpeg4.cu` do otherwise
+"""The arithmetic that kernels V1-V4 of `csrc/mpeg4.cu` do otherwise
 than their plain versions in `ops/mpeg4_cuda.py`, checked over every value
 it can meet, on the CPU:
+
+  * V1 dequantises as 2 qp |l| + c0 clamped by sign, and reads a row's
+    DC-only shortcut from its levels; its column pass runs in int32 where
+    every |input| <= COL_SAFE: no partial sum can then leave int32 (the
+    bound is reached, and one more breaks it), and the int32 pass equals
+    the plain one on every column it admits;
+  * V2 averages half pels in 16-bit lanes with one four-tap form for all
+    four phases and both rounding types, takes the chroma rounding by two
+    compares, and adds the residual in those lanes, clamped first;
 
   * V4 divides by 2 qp and by the intra DC scaler with a multiply-high by
     `RECIP[d]` = ceil(2^32 / d) (sent to the kernel's constant memory):
@@ -17,13 +26,17 @@ cv2), so the reference here is the plain version's own arithmetic.
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import pytest
 import torch
 
+from faceoff_tpu_torch.io.mpeg4 import plain_threads
 from faceoff_tpu_torch.ops import mpeg4_cuda as K
 
 QPS = np.arange(1, 32)
+SRC = K.SOURCE.read_text()
 
 
 def _divisors():
@@ -148,3 +161,263 @@ def test_search_key_keeps_the_plain_order():
     plain = _plain_key(sads, dx[pick], dy[pick])
     assert np.array_equal(np.argsort(ours, kind="stable"),
                           np.argsort(plain, kind="stable"))
+
+
+# -- V1 -------------------------------------------------------------------
+
+def test_kernel_constants_are_the_plain_ones():
+    """csrc/mpeg4.cu's IDCT weights and COL_SAFE are the module's, and the
+    column rounding W4 (x0 + 32) is the plain W4 (x0 + 2^19 // W4)."""
+    for i in range(1, 8):
+        m = re.search(rf"\bW{i} = (\d+)", SRC)
+        assert int(m.group(1)) == getattr(K, f"W{i}")
+    assert int(re.search(r"COL_SAFE = (\d+);", SRC).group(1)) == K.COL_SAFE
+    assert (1 << (K.COL_SHIFT - 1)) // K.W4 == 32
+
+
+def test_dequantisation_as_the_kernel_writes_it():
+    """|F| = 2 qp |l| + c0 (c0 = qp - 1 + (qp & 1)), clamped to 2047 above
+    and 2048 below, 0 for l = 0, equals dequantize_plain's AC for every
+    int16 level at every qp; and F = 0 only for l = 0, so a row is DC-only
+    exactly where its seven AC levels are 0."""
+    lv = np.arange(-32768, 32768, dtype=np.int64)
+    with plain_threads(torch.device("cpu")):
+        for qp in QPS.tolist():
+            c0 = qp - 1 + (qp & 1)
+            mag = np.minimum(2 * qp * np.abs(lv) + c0,
+                             np.where(lv < 0, 2048, 2047))
+            ours = np.where(lv == 0, 0, np.where(lv < 0, -mag, mag))
+            blocks = torch.from_numpy(lv).view(-1, 1).expand(-1, 2)
+            n = blocks.shape[0]
+            want = K.dequantize_plain(blocks, torch.full((n,), qp),
+                                      torch.zeros(n, dtype=torch.bool),
+                                      torch.ones(n, dtype=torch.bool))
+            assert np.array_equal(ours, want[:, 1].numpy())
+            assert np.array_equal(ours == 0, lv == 0)
+
+
+def _linear_terms(first):
+    """Every partial sum of the simple IDCT's butterfly (csrc/mpeg4.cu
+    idct8, evaluated left to right) as (coefficients of x0..x7,
+    constant)."""
+    W = {i: getattr(K, f"W{i}") for i in range(1, 8)}
+
+    def term(c, k):
+        v = np.zeros(8, np.int64)
+        v[k] = c
+        return v, 0
+
+    def add(p, q, sign=1):
+        return p[0] + sign * q[0], p[1] + sign * q[1]
+
+    out = []
+
+    def chain(start, parts):
+        acc = start
+        for sign, c, k in parts:
+            acc = add(acc, term(c, k), sign)
+            out.append(acc)
+        return acc
+
+    a = first(W)
+    out.append(a)
+    a0 = chain(a, [(1, W[2], 2), (1, W[4], 4), (1, W[6], 6)])
+    a1 = chain(a, [(1, W[6], 2), (-1, W[4], 4), (-1, W[2], 6)])
+    a2 = chain(a, [(-1, W[6], 2), (-1, W[4], 4), (1, W[2], 6)])
+    a3 = chain(a, [(-1, W[2], 2), (1, W[4], 4), (-1, W[6], 6)])
+    b = [chain(term(W[1], 1), [(1, W[3], 3), (1, W[5], 5), (1, W[7], 7)]),
+         chain(term(W[3], 1), [(-1, W[7], 3), (-1, W[1], 5), (-1, W[5], 7)]),
+         chain(term(W[5], 1), [(-1, W[1], 3), (1, W[7], 5), (1, W[3], 7)]),
+         chain(term(W[7], 1), [(-1, W[5], 3), (1, W[3], 5), (-1, W[1], 7)])]
+    for ai, bi in zip((a0, a1, a2, a3), b):
+        out += [add(ai, bi), add(ai, bi, -1)]
+    return out
+
+
+def _reach(terms, m):
+    """The largest |partial sum| over inputs with every |x_k| <= m."""
+    return max(int(np.abs(c).sum()) * m + abs(d) for c, d in terms)
+
+
+def test_column_certificate_keeps_int32():
+    """With every |column input| <= COL_SAFE no partial sum of the column
+    pass reaches 2^31 (122424 * 17537 + 524256 = 2147473944); the bound
+    is reached by the all-COL_SAFE column, and COL_SAFE + 1 would break
+    it. Rows (inputs within [-2048, 2047]) stay far inside int32."""
+    cols = _linear_terms(lambda W: (np.eye(8, dtype=np.int64)[0] * W[4],
+                                    W[4] * 32))
+    rows = _linear_terms(lambda W: (np.eye(8, dtype=np.int64)[0] * W[4],
+                                    1 << 10))
+    reach = _reach(cols, K.COL_SAFE)
+    assert reach == 122424 * 17537 + 524256 < 2 ** 31
+    assert _reach(cols, K.COL_SAFE + 1) >= 2 ** 31
+    assert _reach(rows, 2048) < 2 ** 31
+    # reached: the all-COL_SAFE column's first output sum
+    col = torch.full((1, 8), K.COL_SAFE, dtype=torch.int64)
+    s = K._idct_cols(col)[0, 0]
+    assert int(s) == reach >> K.COL_SHIFT
+
+
+def _idct_cols_int32(x):
+    """The kernel's int32 column pass: every operation wrapped to int32,
+    in the order idct8 writes it; (N, 8) -> (N, 8) wrapped to int16."""
+    def w32(v):
+        return ((v + 2 ** 31) % 2 ** 32) - 2 ** 31
+
+    W = {i: getattr(K, f"W{i}") for i in range(1, 8)}
+    x = [x[:, k].astype(np.int64) for k in range(8)]
+
+    def s(*terms):
+        acc = terms[0]
+        for t in terms[1:]:
+            acc = w32(acc + w32(t))
+        return acc
+
+    a = w32(W[4] * (x[0] + 32))
+    a0 = s(a, W[2] * x[2], W[4] * x[4], W[6] * x[6])
+    a1 = s(a, W[6] * x[2], -W[4] * x[4], -W[2] * x[6])
+    a2 = s(a, -W[6] * x[2], -W[4] * x[4], W[2] * x[6])
+    a3 = s(a, -W[2] * x[2], W[4] * x[4], -W[6] * x[6])
+    b0 = s(W[1] * x[1], W[3] * x[3], W[5] * x[5], W[7] * x[7])
+    b1 = s(W[3] * x[1], -W[7] * x[3], -W[1] * x[5], -W[5] * x[7])
+    b2 = s(W[5] * x[1], -W[1] * x[3], W[7] * x[5], W[3] * x[7])
+    b3 = s(W[7] * x[1], -W[5] * x[3], W[3] * x[5], -W[1] * x[7])
+    out = [s(a0, b0), s(a1, b1), s(a2, b2), s(a3, b3), s(a3, -b3),
+           s(a2, -b2), s(a1, -b1), s(a0, -b0)]
+    out = np.stack(out, 1) >> K.COL_SHIFT
+    return ((out + 32768) & 0xFFFF) - 32768
+
+
+def test_int32_column_pass_equals_the_plain_one():
+    """On columns the certificate admits (all 3^8 sign patterns of 0 and
+    +-COL_SAFE, and random ones) the int32 pass equals _idct_cols; a
+    column at COL_SAFE + 1 that it would refuse differs."""
+    m = K.COL_SAFE
+    grid = np.stack(np.meshgrid(*[np.array([-m, 0, m])] * 8,
+                                indexing="ij"), -1).reshape(-1, 8)
+    rng = np.random.default_rng(4)
+    cols = np.concatenate([grid, rng.integers(-m, m + 1, (200000, 8))])
+    want = K._wrap16(K._idct_cols(torch.from_numpy(cols))).numpy()
+    assert np.array_equal(_idct_cols_int32(cols), want)
+    over = np.full((1, 8), m + 1, np.int64)
+    assert not np.array_equal(_idct_cols_int32(over), K._wrap16(
+        K._idct_cols(torch.from_numpy(over))).numpy())
+
+
+# -- V2 -------------------------------------------------------------------
+
+def _byte_perm(x, y, s):
+    v = (y.astype(np.uint64) << np.uint64(32)) | x.astype(np.uint64)
+    r = np.zeros_like(x, dtype=np.uint64)
+    for i in range(4):
+        sel = np.uint64(((s >> (4 * i)) & 7) * 8)
+        r |= ((v >> sel) & np.uint64(0xFF)) << np.uint64(8 * i)
+    return r.astype(np.uint32)
+
+
+def _hpel4(a, b, c, d, rnd):
+    """csrc/mpeg4.cu hpel4, then the byte_perm 0x6420 that packs it."""
+    z = np.zeros_like(a)
+    k = np.uint32((2 - rnd) * 0x00010001)
+    lo = (_byte_perm(a, z, 0x4140) + _byte_perm(b, z, 0x4140)
+          + _byte_perm(c, z, 0x4140) + _byte_perm(d, z, 0x4140) + k) >> 2
+    hi = (_byte_perm(a, z, 0x4342) + _byte_perm(b, z, 0x4342)
+          + _byte_perm(c, z, 0x4342) + _byte_perm(d, z, 0x4342) + k) >> 2
+    return lo.astype(np.uint32), hi.astype(np.uint32)
+
+
+def _pack(lo, hi):
+    return _byte_perm(lo, hi, 0x6420)
+
+
+def _words(bytes4):
+    """(N, 4) bytes -> (N,) little-endian uint32."""
+    b = bytes4.astype(np.uint32)
+    return b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16) | (b[:, 3] << 24)
+
+
+def _bytes(w):
+    return np.stack([(w >> (8 * i)) & 0xFF for i in range(4)], 1).astype(
+        np.int64)
+
+
+@pytest.mark.parametrize("rnd", [0, 1])
+def test_one_form_serves_every_half_pel_phase(rnd):
+    """Over all byte pairs in every byte of a word: the four-tap form
+    with the x (y) taps repeated gives _interp's two-tap averages (a + b
+    + 1 - rnd) >> 1, and with both repeated the byte itself."""
+    a, b = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    a, b = a.ravel(), b.ravel()
+    pair = (a + b + 1 - rnd) >> 1
+    for pos in range(4):
+        rows_a = np.zeros((a.size, 4), np.int64)
+        rows_b = np.zeros((a.size, 4), np.int64)
+        rows_a[:, pos], rows_b[:, pos] = a, b
+        rows_a[:, (pos + 1) % 4], rows_b[:, (pos + 1) % 4] = 255, 255
+        wa, wb = _words(rows_a), _words(rows_b)
+        for got in (_pack(*_hpel4(wa, wb, wa, wb, rnd)),    # x phase
+                    _pack(*_hpel4(wa, wa, wb, wb, rnd))):   # y phase
+            assert np.array_equal(_bytes(got)[:, pos], pair)
+        assert np.array_equal(_pack(*_hpel4(wa, wa, wa, wa, rnd)), wa)
+
+
+@pytest.mark.parametrize("rnd", [0, 1])
+def test_four_tap_lanes_over_every_sum(rnd):
+    """Every four-tap sum 0..1020 in every byte of a word, its neighbours
+    at 0 and at 255: (a + b + c + d + 2 - rnd) >> 2 exactly, no lane
+    disturbing another; then random words."""
+    s = np.arange(1021)
+    taps = np.stack([np.clip(s - 255 * i, 0, 255) for i in range(4)], 1)
+    assert np.array_equal(taps.sum(1), s)
+    want = (s + 2 - rnd) >> 2
+    for pos in range(4):
+        for fill in (0, 255):
+            w = []
+            for i in range(4):
+                r = np.full((s.size, 4), fill, np.int64)
+                r[:, pos] = taps[:, i]
+                w.append(_words(r))
+            got = _bytes(_pack(*_hpel4(*w, rnd)))
+            assert np.array_equal(got[:, pos], want)
+            other = [q for q in range(4) if q != pos]
+            assert (got[:, other] == ((4 * fill + 2 - rnd) >> 2)).all()
+    rng = np.random.default_rng(6)
+    w = [rng.integers(0, 2 ** 32, 100000, dtype=np.uint64).astype(np.uint32)
+         for _ in range(4)]
+    got = _bytes(_pack(*_hpel4(*w, rnd)))
+    want = (sum(_bytes(x) for x in w) + 2 - rnd) >> 2
+    assert np.array_equal(got, want)
+
+
+def test_residual_adds_to_the_lanes_bytes():
+    """add_clip4 masks hpel4's shifted lane words with 0x00FF00FF: for
+    every pair of lane sums 0..1022 that leaves the two averages (the bits
+    a shift brings down from the next lane lie above the byte). It then
+    clamps each int16 residual to [-256, 255] and takes max(min(p + r,
+    255), 0) in 16-bit lanes: equal to clip(p + r, 0, 255) for every byte
+    p and every int16 r, no lane sum leaving int16."""
+    s0, s1 = np.meshgrid(np.arange(1023), np.arange(1023), indexing="ij")
+    lane = ((s0.ravel() | (s1.ravel() << 16)).astype(np.uint64) >> 2)
+    lane = lane.astype(np.uint32) & np.uint32(0x00FF00FF)
+    assert np.array_equal(lane & 0xFFFF, s0.ravel() >> 2)
+    assert np.array_equal(lane >> 16, s1.ravel() >> 2)
+    p, r = np.meshgrid(np.arange(256, dtype=np.int32),
+                       np.arange(-32768, 32768, dtype=np.int32), indexing="ij")
+    rc = np.minimum(np.maximum(r, -256), 255)
+    total = p + rc
+    assert total.min() >= -32768 and total.max() <= 32767
+    got = np.maximum(np.minimum(total, 255), 0)
+    assert np.array_equal(got, np.clip(p + r, 0, 255))
+
+
+def test_chroma_vector_by_compares():
+    """(q >= 3) + (q >= 14) for q = s & 15 is Table 7-9's rounding, and
+    the kernel's chroma vector equals chroma_vector on every sum of four
+    vectors the fcode allows (|v| <= 2048 half pels)."""
+    q = np.arange(16)
+    assert np.array_equal((q >= 3).astype(int) + (q >= 14),
+                          K._CHROMA_ROUND.numpy())
+    s = np.arange(-4 * 2048, 4 * 2048 + 1)
+    qs = s & 15
+    ours = (qs >= 3).astype(np.int64) + (qs >= 14) + ((s >> 3) & ~1)
+    assert np.array_equal(ours, K.chroma_vector(torch.from_numpy(s)).numpy())

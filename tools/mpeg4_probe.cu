@@ -1,37 +1,35 @@
-// Variants of kernels V3 (motion search) and V4 (forward DCT and
-// quantisation) of faceoff_tpu_torch/csrc/mpeg4.cu, built and timed by
+// Variants of kernels V1 (dequantisation and IDCT), V2 (motion
+// compensation), V3 (motion search) and V4 (forward DCT and quantisation)
+// of faceoff_tpu_torch/csrc/mpeg4.cu, built and timed by
 // tools/mp4_variants_torch.py beside the port's own kernels to find what
 // bounds them on the card. Not used by the port. The port's source is
-// included, so its templates (motion_search_kernel<RUN, DY, MBS>,
-// fdct_quant_kernel<MBS>) are instantiated here at other shapes.
+// included, so its templates (dequant_idct_kernel<BPB, RPT>,
+// motion_compensate_kernel<ROWS, MBS, RES>, motion_search_kernel<RUN, DY,
+// MBS>, fdct_quant_kernel<MBS>) are instantiated here at other shapes.
 //
-// V3 variants (probe_motion_search):
-//   0 original    the first form of the port: a CUDA block of 256 threads a
-//                 macroblock, a candidate a thread (five loads, four
-//                 __byte_perm and four __vsadu4 a row), a shared-memory
-//                 tree over 64-bit keys, shared atomics for the half-pel
-//                 and intra sums, the window filled a byte at a time
-//   1 redesign1   the first redesign at RUN 8, DY 3, MBS 1: runs
-//                 padded to dx 23, the shifts made under each dy's branch,
-//                 border windows a byte at a time, a pixel a half-pel task
-//   2 redesign2   the same at MBS 4 with clamped-row vector fills and a
-//                 column of 4 pixels a half-pel task
-//   3..           motion_search_kernel<RUN, DY, MBS> at PROBE_SEARCH's
-//                 shapes
-// V4 variants (probe_fdct_quant):
-//   0 original    the first form of the port: 384 threads a macroblock, a
-//                 coefficient a thread, two barriers, 16 shared-memory
-//                 multiply-adds and an integer division a coefficient
-//   1 block       a thread an 8 x 8 block: both passes in registers with
-//                 the butterflies, eight 16-byte stores
-//   2 copy        a thread a block row: V4's loads and stores (the
-//                 residual stored as int16), no arithmetic: the floor the
-//                 memory system gives this access pattern
-//   3..           fdct_quant_kernel<MBS> at PROBE_FDCT's shapes
-// Instruction rates (probe_rate), each thread 8 independent chains:
-//   0 vabsdiff4.add   1 __byte_perm   2 float32 fma   3 integer
-//   multiply-add
-
+// V1 variants (probe_dequant_idct):
+//   0 original    the first form of the port: 8 threads a block, 32 blocks
+//                 a CUDA block, eight scalar level loads and the bidx and
+//                 record chain on every thread, int16 rows in shared
+//                 memory, a 64-bit column pass, eight scalar stores
+//   1 block       a thread an 8 x 8 block: both passes in registers, eight
+//                 16-byte loads and stores
+//   2 copy        a thread a row at the port's shape: V1's loads (levels,
+//                 bidx, record) and 16-byte stores, no arithmetic: the
+//                 floor the memory system gives this access pattern
+//   3..           dequant_idct_kernel<BPB, RPT> at PROBE_IDCT's shapes
+//                 (blocks a CUDA block, rows a thread)
+// V2 variants (probe_motion_compensate):
+//   0 original    the first form of the port: a CUDA block a macroblock, a
+//                 thread a luma pixel (the first 128 also a chroma pixel),
+//                 the item, record and taps loaded by every thread, a byte
+//                 at a time
+//   1 copy        the port's residual shape doing V2's loads (item,
+//                 records and residual into shared memory, the reference
+//                 words) and 8-byte stores, no averaging: the floor of this
+//                 access pattern
+//   2..           motion_compensate_kernel<ROWS, MBS, RES> at PROBE_MC's
+//                 shapes, RES 1 for a call with a residual, else 0
 #include "../faceoff_tpu_torch/csrc/mpeg4.cu"
 
 namespace original {
@@ -191,6 +189,155 @@ __global__ void fdct_quant(
     lv = F < 0 ? -mag : (F > 0 ? mag : 0);
   }
   out[(((size_t)blockIdx.y * n_mb + m) * 6 + b) * 64 + i] = (int16_t)lv;
+}
+
+// the port's first V1 and V2
+__constant__ int kW[8] = {0, 22725, 21407, 19266, 16383, 12873, 8867, 4520};
+__constant__ int kChromaRound[16] = {0, 0, 0, 1, 1, 1, 1, 1,
+                                     1, 1, 1, 1, 1, 1, 2, 2};
+constexpr int V1_BLOCKS = 32;
+
+__global__ void dequant_idct(const int16_t* __restrict__ blocks,
+                             const int32_t* __restrict__ bidx, int nb,
+                             const int32_t* __restrict__ mb,
+                             int16_t* __restrict__ out) {
+  __shared__ int16_t rows[V1_BLOCKS][64];
+  int local = threadIdx.x >> 3, r = threadIdx.x & 7;
+  int j = blockIdx.x * V1_BLOCKS + local;
+  bool live = j < nb;
+  int idx = live ? bidx[j] : 0;
+  if (live) {
+    const int32_t* rec = mb + (size_t)(idx / 6) * MB_FIELDS;
+    int qp = rec[1];
+    bool intra = rec[0] == MB_INTRA;
+    bool luma = (idx % 6) < 4;
+    int x[8];
+    for (int c = 0; c < 8; ++c) {
+      int l = blocks[(size_t)j * 64 + r * 8 + c];
+      int f;
+      if (r == 0 && c == 0 && intra) {
+        f = l * d_dc_scaler(qp, luma);
+      } else if (l == 0) {
+        f = 0;
+      } else {
+        int mag = qp * (2 * abs(l) + 1) - (1 - (qp & 1));
+        f = l < 0 ? -mag : mag;
+      }
+      x[c] = min(max(f, -2048), 2047);
+    }
+    bool dc_only = !(x[1] | x[2] | x[3] | x[4] | x[5] | x[6] | x[7]);
+    int16_t* o = &rows[local][r * 8];
+    if (dc_only) {
+      int v = d_wrap16((long long)x[0] * 8);
+      for (int c = 0; c < 8; ++c) o[c] = (int16_t)v;
+    } else {
+      int a0 = kW[4] * x[0] + (1 << 10), a1 = a0, a2 = a0, a3 = a0;
+      a0 += kW[2] * x[2] + kW[4] * x[4] + kW[6] * x[6];
+      a1 += kW[6] * x[2] - kW[4] * x[4] - kW[2] * x[6];
+      a2 += -kW[6] * x[2] - kW[4] * x[4] + kW[2] * x[6];
+      a3 += -kW[2] * x[2] + kW[4] * x[4] - kW[6] * x[6];
+      int b0 = kW[1] * x[1] + kW[3] * x[3] + kW[5] * x[5] + kW[7] * x[7];
+      int b1 = kW[3] * x[1] - kW[7] * x[3] - kW[1] * x[5] - kW[5] * x[7];
+      int b2 = kW[5] * x[1] - kW[1] * x[3] + kW[7] * x[5] + kW[3] * x[7];
+      int b3 = kW[7] * x[1] - kW[5] * x[3] + kW[3] * x[5] - kW[1] * x[7];
+      o[0] = (int16_t)d_wrap16((a0 + b0) >> 11);
+      o[1] = (int16_t)d_wrap16((a1 + b1) >> 11);
+      o[2] = (int16_t)d_wrap16((a2 + b2) >> 11);
+      o[3] = (int16_t)d_wrap16((a3 + b3) >> 11);
+      o[4] = (int16_t)d_wrap16((a3 - b3) >> 11);
+      o[5] = (int16_t)d_wrap16((a2 - b2) >> 11);
+      o[6] = (int16_t)d_wrap16((a1 - b1) >> 11);
+      o[7] = (int16_t)d_wrap16((a0 - b0) >> 11);
+    }
+  }
+  __syncthreads();
+  if (!live) return;
+  long long x[8];
+  for (int k = 0; k < 8; ++k) x[k] = rows[local][k * 8 + r];
+  long long a0 = (long long)kW[4] * (x[0] + ((1 << 19) / kW[4]));
+  long long a1 = a0, a2 = a0, a3 = a0;
+  a0 += kW[2] * x[2] + kW[4] * x[4] + kW[6] * x[6];
+  a1 += kW[6] * x[2] - kW[4] * x[4] - kW[2] * x[6];
+  a2 += -kW[6] * x[2] - kW[4] * x[4] + kW[2] * x[6];
+  a3 += -kW[2] * x[2] + kW[4] * x[4] - kW[6] * x[6];
+  long long b0 = kW[1] * x[1] + kW[3] * x[3] + kW[5] * x[5] + kW[7] * x[7];
+  long long b1 = kW[3] * x[1] - kW[7] * x[3] - kW[1] * x[5] - kW[5] * x[7];
+  long long b2 = kW[5] * x[1] - kW[1] * x[3] + kW[7] * x[5] + kW[3] * x[7];
+  long long b3 = kW[7] * x[1] - kW[5] * x[3] + kW[3] * x[5] - kW[1] * x[7];
+  int16_t* o = out + (size_t)idx * 64 + r;
+  o[0] = (int16_t)d_wrap16((a0 + b0) >> 20);
+  o[8] = (int16_t)d_wrap16((a1 + b1) >> 20);
+  o[16] = (int16_t)d_wrap16((a2 + b2) >> 20);
+  o[24] = (int16_t)d_wrap16((a3 + b3) >> 20);
+  o[32] = (int16_t)d_wrap16((a3 - b3) >> 20);
+  o[40] = (int16_t)d_wrap16((a2 - b2) >> 20);
+  o[48] = (int16_t)d_wrap16((a1 - b1) >> 20);
+  o[56] = (int16_t)d_wrap16((a0 - b0) >> 20);
+}
+
+// half-pel sample of a plane at half-pel (X, Y), every tap clamped into w x h
+__device__ __forceinline__ int interp(const uint8_t* __restrict__ p,
+                                      int stride, int X, int Y, int w, int h,
+                                      int rnd) {
+  int x0 = X >> 1, y0 = Y >> 1, fx = X & 1, fy = Y & 1;
+  int xa = min(max(x0, 0), w - 1), xb = min(max(x0 + 1, 0), w - 1);
+  int ya = min(max(y0, 0), h - 1), yb = min(max(y0 + 1, 0), h - 1);
+  int a = p[ya * stride + xa];
+  if (!fx && !fy) return a;
+  if (!fy) return (a + p[ya * stride + xb] + 1 - rnd) >> 1;
+  int c = p[yb * stride + xa];
+  if (!fx) return (a + c + 1 - rnd) >> 1;
+  return (a + p[ya * stride + xb] + c + p[yb * stride + xb] + 2 - rnd) >> 2;
+}
+
+__device__ __forceinline__ int table_chroma_vector(int s) {
+  return kChromaRound[s & 15] + ((s >> 3) & ~1);
+}
+
+__global__ void motion_compensate(
+    uint8_t* __restrict__ Y, uint8_t* __restrict__ U, uint8_t* __restrict__ V,
+    int h16, int w16, const int32_t* __restrict__ mb, int n_mb,
+    const int16_t* __restrict__ res, const int32_t* __restrict__ items,
+    int width, int height) {
+  int m = blockIdx.x, t = threadIdx.x;
+  const int32_t* it = items + blockIdx.y * 4;
+  int f = it[0], ref = it[1], outs = it[2], rnd = it[3];
+  int mbw = w16 >> 4;
+  int my = m / mbw, mx = m % mbw;
+  const int32_t* rec = mb + ((size_t)f * n_mb + m) * MB_FIELDS;
+  bool intra = rec[0] == MB_INTRA;
+  size_t lplane = (size_t)h16 * w16, cplane = lplane >> 2;
+  const int16_t* r = res ? res + ((size_t)f * n_mb + m) * 6 * 64 : nullptr;
+  {
+    int py = t >> 4, px = t & 15;
+    int b = ((py >= 8) << 1) | (px >= 8);
+    int lx = mx * 16 + px, ly = my * 16 + py;
+    int p = 0;
+    if (!intra && ref >= 0)
+      p = interp(Y + ref * lplane, w16, 2 * lx + rec[4 + 2 * b],
+                 2 * ly + rec[5 + 2 * b], width, height, rnd);
+    int rv = r ? r[b * 64 + (py & 7) * 8 + (px & 7)] : 0;
+    Y[outs * lplane + (size_t)ly * w16 + lx] =
+        (uint8_t)min(max(p + rv, 0), 255);
+  }
+  if (t < 128) {
+    int c = t >> 6, q = t & 63;
+    int cy = q >> 3, cx = q & 7;
+    uint8_t* P = c ? V : U;
+    int cw = w16 >> 1;
+    int lx = mx * 8 + cx, ly = my * 8 + cy;
+    int p = 0;
+    if (!intra && ref >= 0) {
+      int sx = rec[4] + rec[6] + rec[8] + rec[10];
+      int sy = rec[5] + rec[7] + rec[9] + rec[11];
+      p = interp(P + ref * cplane, cw, 2 * lx + table_chroma_vector(sx),
+                 2 * ly + table_chroma_vector(sy), width >> 1, height >> 1,
+                 rnd);
+    }
+    int rv = r ? r[(4 + c) * 64 + q] : 0;
+    P[outs * cplane + (size_t)ly * cw + lx] =
+        (uint8_t)min(max(p + rv, 0), 255);
+  }
 }
 
 }  // namespace original
@@ -615,6 +762,137 @@ __device__ __forceinline__ void block_rows(
   }
 }
 
+// V1 a thread a block: both passes in registers
+__global__ void __launch_bounds__(128)
+idct_block(const int16_t* __restrict__ blocks, const int32_t* __restrict__ bidx,
+           int nb, const int32_t* __restrict__ mb, int16_t* __restrict__ out) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= nb) return;
+  const int idx = bidx[j];
+  const int2 rec = *reinterpret_cast<const int2*>(
+      mb + (size_t)(idx / 6) * MB_FIELDS);
+  const int qp = rec.y;
+  const uint4* src = reinterpret_cast<const uint4*>(blocks + (size_t)j * 64);
+  uint4 lv[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) lv[r] = src[r];
+  const int dc = min(max((int)(int16_t)(lv[0].x & 0xFFFF) *
+                             d_dc_scaler(qp, idx % 6 < 4), -2048), 2047);
+  int v[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+    dequant_row(lv[r], qp, r == 0 && rec.x == MB_INTRA, dc, v[r]);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    int y[8], o[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) y[k] = v[k][c];
+    idct_column(y, o);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k][c] = o[k];
+  }
+  uint4* dst = reinterpret_cast<uint4*>(out + (size_t)idx * 64);
+#pragma unroll
+  for (int r = 0; r < 8; ++r) dst[r] = pack16(v[r]);
+}
+
+// V1's loads and stores at the port's shape, no arithmetic
+__global__ void __launch_bounds__(8 * V1_BPB)
+idct_copy(const int16_t* __restrict__ blocks, const int32_t* __restrict__ bidx,
+          int nb, const int32_t* __restrict__ mb, int16_t* __restrict__ out) {
+  const int t = threadIdx.x, r = t & 7;
+  const int j = blockIdx.x * V1_BPB + (t >> 3);
+  if (j >= nb) return;
+  uint4 lv = reinterpret_cast<const uint4*>(blocks + (size_t)j * 64)[r];
+  const int idx = bidx[j];
+  const int2 rec = *reinterpret_cast<const int2*>(
+      mb + (size_t)(idx / 6) * MB_FIELDS);
+  lv.x ^= (unsigned)(rec.x + rec.y);
+  reinterpret_cast<uint4*>(out + (size_t)idx * 64)[r] = lv;
+}
+
+// V2's loads and stores at a shape of the port's (the same lanes, the
+// records and residual staged the same way), no averaging
+template <int ROWS, int MPB>
+__global__ void __launch_bounds__(McShape<ROWS, MPB>::THREADS)
+mc_copy(uint8_t* __restrict__ Y, uint8_t* __restrict__ U,
+        uint8_t* __restrict__ V, int h16, int w16,
+        const int32_t* __restrict__ mb, int n_mb,
+        const int16_t* __restrict__ res, const int32_t* __restrict__ items,
+        int width, int height) {
+  using S = McShape<ROWS, MPB>;
+  __shared__ int32_t recs[MPB * MB_FIELDS];
+  __shared__ uint4 sres[MPB * MC_RES_MB];
+  const int t = threadIdx.x;
+  const int32_t* it = items + 4 * blockIdx.y;
+  const int f = it[0], ref = it[1], outs = it[2];
+  const int m0 = blockIdx.x * MPB;
+  const int n_live = min(MPB, n_mb - m0);
+  const size_t first = (size_t)f * n_mb + m0;
+  for (int i = t; i < n_live * MB_FIELDS; i += S::THREADS)
+    recs[i] = mb[first * MB_FIELDS + i];
+  if (res) {
+    const uint4* src = reinterpret_cast<const uint4*>(res + first * 6 * 64);
+    for (int i = t; i < n_live * 48; i += S::THREADS) {
+      const int k = i / 48, q = i - 48 * k;
+      sres[k * MC_RES_MB + (q >> 3) * MC_RES_BLOCK + (q & 7)] = src[i];
+    }
+  }
+  __syncthreads();
+  int k, b, r0;
+  if (t < S::LUMA) {
+    const int pos = t % (2 * MPB), g = t / (2 * MPB) * ROWS;
+    k = pos >> 1;
+    b = ((g >> 3) << 1) | (pos & 1);
+    r0 = g & 7;
+  } else {
+    const int c = t - S::LUMA, rest = c / MPB;
+    k = c - rest * MPB;
+    b = 4 + rest / (8 / ROWS);
+    r0 = (rest % (8 / ROWS)) * ROWS;
+  }
+  if (k >= n_live) return;
+  const int m = m0 + k;
+  const int32_t* rec = recs + k * MB_FIELDS;
+  const int mbw = w16 >> 4, my = m / mbw, mx = m - my * mbw;
+  const bool luma = b < 4;
+  const size_t plane = luma ? (size_t)h16 * w16 : (size_t)h16 * w16 >> 2;
+  const int stride = luma ? w16 : w16 >> 1;
+  uint8_t* P = luma ? Y : (b == 4 ? U : V);
+  const int px = luma ? mx * 16 + (b & 1) * 8 : mx * 8;
+  const int py = (luma ? my * 16 + (b >> 1) * 8 : my * 8) + r0;
+  uint2 w[ROWS];
+  const uint4* rv = sres + k * MC_RES_MB + b * MC_RES_BLOCK + r0;
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    w[i] = make_uint2(0, 0);
+    if (res) w[i] = make_uint2(rv[i].x ^ rv[i].y, rv[i].z ^ rv[i].w);
+  }
+  if (ref >= 0 && rec[0] != MB_INTRA) {
+    const int vx = luma ? rec[4 + 2 * b] : rec[4];
+    const int vy = luma ? rec[5 + 2 * b] : rec[5];
+    const int pw = luma ? width : width >> 1, ph = luma ? height : height >> 1;
+    const int X = 2 * px + vx, Yh = 2 * py + vy;
+    const int x0 = X >> 1, y0 = Yh >> 1;
+    const bool fy = Yh & 1;
+    const bool interior = x0 >= 0 && x0 + 9 <= pw;
+    const uint8_t* base = P + ref * plane;
+#pragma unroll
+    for (int i = 0; i <= ROWS; ++i)
+      if (i < ROWS || fy) {
+        const RefRow a = ref_row(
+            base + (size_t)min(max(y0 + i, 0), ph - 1) * stride, x0, pw,
+            interior);
+        w[i < ROWS ? i : ROWS - 1].x ^= a.a0;
+        w[i < ROWS ? i : ROWS - 1].y ^= a.a1;
+      }
+  }
+  uint8_t* o = P + outs * plane + (size_t)py * stride + px;
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i)
+    *reinterpret_cast<uint2*>(o + (size_t)i * stride) = w[i];
+}
+
 constexpr int BLOCK_THREADS = 192;
 
 __global__ void __launch_bounds__(BLOCK_THREADS)
@@ -757,6 +1035,12 @@ __global__ void rate(int iters, unsigned seed, unsigned* out) {
   out[t] = r;
 }
 
+// the V1 blocks a CUDA block tried
+#define PROBE_IDCT(X) X(8, 1) X(16, 1) X(32, 1) X(64, 1) X(16, 2) X(32, 2) \
+  X(64, 2)
+// the V2 shapes tried: {ROWS, MBS}
+#define PROBE_MC(X) X(1, 4) X(1, 8) X(1, 16) X(2, 4) X(2, 8) X(2, 16) X(4, 8) \
+  X(4, 16)
 // the V3 shapes tried: {RUN, DY, MBS}
 #define PROBE_SEARCH(X) X(8, 3, 1) X(8, 3, 2) X(8, 3, 4) X(8, 3, 8) \
   X(4, 3, 2) X(8, 1, 2)
@@ -766,6 +1050,90 @@ __global__ void rate(int iters, unsigned seed, unsigned* out) {
 }  // namespace probe
 
 extern "C" {
+
+int probe_idct_shapes(int* out, int n) {
+  int i = 0;
+#define SHAPE(B, R) if (i < n) { out[2 * i] = B; out[2 * i + 1] = R; } ++i;
+  PROBE_IDCT(SHAPE)
+#undef SHAPE
+  return i;
+}
+
+int probe_mc_shapes(int* out, int n) {
+  int i = 0;
+#define SHAPE(R, M) if (i < n) { out[2 * i] = R; out[2 * i + 1] = M; } ++i;
+  PROBE_MC(SHAPE)
+#undef SHAPE
+  return i;
+}
+
+int probe_dequant_idct(int variant, const int16_t* blocks,
+                       const int32_t* bidx, int nb, const int32_t* mb,
+                       int16_t* out, cudaStream_t stream) {
+  switch (variant) {
+    case 0:
+      original::dequant_idct<<<(nb + original::V1_BLOCKS - 1) /
+                                   original::V1_BLOCKS,
+                               original::V1_BLOCKS * 8, 0, stream>>>(
+          blocks, bidx, nb, mb, out);
+      return status(cudaGetLastError());
+    case 1:
+      probe::idct_block<<<(nb + 127) / 128, 128, 0, stream>>>(blocks, bidx,
+                                                             nb, mb, out);
+      return status(cudaGetLastError());
+    case 2:
+      probe::idct_copy<<<(nb + V1_BPB - 1) / V1_BPB, 8 * V1_BPB, 0,
+                         stream>>>(blocks, bidx, nb, mb, out);
+      return status(cudaGetLastError());
+  }
+  int v = 3;
+#define LAUNCH(B, R)                                                        \
+  if (variant == v) {                                                       \
+    dequant_idct_kernel<B, R><<<(nb + B - 1) / B, 8 / R * B, 0, stream>>>(  \
+        blocks, bidx, nb, mb, out);                                         \
+    return status(cudaGetLastError());                                      \
+  }                                                                         \
+  ++v;
+  PROBE_IDCT(LAUNCH)
+#undef LAUNCH
+  return 1;
+}
+
+int probe_motion_compensate(int variant, uint8_t* y, uint8_t* u, uint8_t* v_,
+                            int h16, int w16, const int32_t* mb, int n_mb,
+                            const int16_t* res, const int32_t* items, int g,
+                            int width, int height, cudaStream_t stream) {
+  if (variant == 0) {
+    original::motion_compensate<<<dim3(n_mb, g), 256, 0, stream>>>(
+        y, u, v_, h16, w16, mb, n_mb, res, items, width, height);
+    return status(cudaGetLastError());
+  }
+  if (variant == 1) {
+    probe::mc_copy<MC_RES_ROWS, MC_RES_MBS>
+        <<<dim3((n_mb + MC_RES_MBS - 1) / MC_RES_MBS, g),
+           McShape<MC_RES_ROWS, MC_RES_MBS>::THREADS, 0, stream>>>(
+            y, u, v_, h16, w16, mb, n_mb, res, items, width, height);
+    return status(cudaGetLastError());
+  }
+  int v = 2;
+#define LAUNCH(R, M)                                                        \
+  if (variant == v) {                                                       \
+    const dim3 grid((n_mb + M - 1) / M, g);                                 \
+    if (res)                                                                \
+      motion_compensate_kernel<R, M, 1>                                     \
+          <<<grid, McShape<R, M>::THREADS, 0, stream>>>(                    \
+              y, u, v_, h16, w16, mb, n_mb, res, items, width, height);     \
+    else                                                                    \
+      motion_compensate_kernel<R, M, 0>                                     \
+          <<<grid, McShape<R, M>::THREADS, 0, stream>>>(                    \
+              y, u, v_, h16, w16, mb, n_mb, res, items, width, height);     \
+    return status(cudaGetLastError());                                      \
+  }                                                                         \
+  ++v;
+  PROBE_MC(LAUNCH)
+#undef LAUNCH
+  return 1;
+}
 
 int probe_search_shapes(int* out, int n) {
   int i = 0;
