@@ -2,9 +2,12 @@
 """Throughput and latency of the PyTorch/CUDA port, the counterparts of
 `bench.py`'s modes at their points, metric names and timing:
 
-    python3 bench_torch.py [--mode resident|gan|stream|swap_session|infer|
-                                   e2e|e2e_host] [--batch N]
+    python3 bench_torch.py [--mode resident|step|gan|stream|swap_session|
+                                   infer|e2e|e2e_host] [--batch N]
                            [--frames_per_call K] [--scan K]
+                           [--frames T] [--hw S] [--remat]
+                           [--remat_scope all|decoder|encoder]
+                           [--remat_lpips] [--no_pallas]
 
 resident (the default; `bench_resident`, `--mode e2e_resident`): a
 synthetic dataset of max(8, B) videos x (T + 8) frames at 256 px written
@@ -15,6 +18,16 @@ bf16 takes WARMUP steps and ITERS timed steps of B = 16 clips of T = 8
 frames, one step a call, each step sampling and preparing its clips on
 the card. The time runs on the host clock from before the first timed
 step to after a read of the last step's loss.
+
+step (`bench.py`'s default mode, its `main`): the train step alone on
+a batch already on the card, B = --batch (16) clips of T = --frames (8)
+frames at --hw (256) px, gt and background drawn uniform in [-1, 1]
+(input = gt || background); the flagship VQVAE (seed 0) with a random
+VGG16 LPIPS in bf16, --remat/--remat_scope on the VQVAE, --remat_lpips
+recomputing the LPIPS towers, --no_pallas the VQ codebooks' plain path.
+WARMUP steps, then ITERS timed, from before the first timed step to
+after a read of the last loss; frames/s per card (vs_baseline only at
+256 px, as bench.py reports it), with the peak memory allocated.
 
 gan (`bench_gan`): the GAN stage's mocoganhd recipe: the flagship VQVAE
 (bf16 autocast) with MultiscaleDiscriminator2D/3D (ndf 64, float32), one
@@ -77,7 +90,7 @@ from faceoff_tpu_torch.data.resident import (build_resident_corpus,
 from faceoff_tpu_torch.models import VQVAE
 from faceoff_tpu_torch.models.discriminators import (MultiscaleDiscriminator2D,
                                                      MultiscaleDiscriminator3D)
-from faceoff_tpu_torch.models.lpips import init_lpips
+from faceoff_tpu_torch.models.lpips import RematLPIPS, init_lpips
 from faceoff_tpu_torch.serve import StreamingSwapper, SwapSession
 from faceoff_tpu_torch.train.gan import (create_gan_state,
                                          make_gan_multi_step, make_gan_steps)
@@ -130,6 +143,42 @@ def bench_resident() -> dict:
     return {"metric": f"e2e_train_frames_per_sec_resident_b{B}",
             "value": round(fps, 2), "unit": "frames/s/chip",
             "vs_baseline": round(fps / REF_FPS_PER_GPU_EST, 3), **card()}
+
+
+def bench_step(batch: int = B, frames: int = T, hw: int = HW,
+               remat: bool = False, remat_scope: str = "all",
+               remat_lpips: bool = False, no_pallas: bool = False) -> dict:
+    dev = _cuda()
+    model = VQVAE(ModelConfig(remat=remat, remat_scope=remat_scope,
+                              use_pallas_vq=not no_pallas),
+                  dtype=torch.float32, device=dev,
+                  generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    gt = torch.rand((batch, frames, hw, hw, 3), generator=gen,
+                    device=dev) * 2 - 1
+    bg = torch.rand((batch, frames, hw, hw, 3), generator=gen,
+                    device=dev) * 2 - 1
+    batch_d = {"input": torch.cat([gt, bg], dim=-1), "gt": gt}
+    state = create_train_state(model, lr=3e-4)
+    lpips = init_lpips(torch.Generator().manual_seed(1), device=dev)
+    step = make_train_step(model, lpips=RematLPIPS(lpips) if remat_lpips
+                           else lpips)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(WARMUP):
+        state, m = step(state, batch_d)
+    float(m["loss"])  # a host read: the card has finished
+    t0 = time.perf_counter()
+    for _ in range(ITERS):
+        state, m = step(state, batch_d)
+    float(m["loss"])
+    fps = batch * frames * ITERS / (time.perf_counter() - t0)
+    name = f"train_frames_per_sec_per_chip_{hw}px_T{frames}_b{batch}"
+    return {"metric": name,
+            "value": round(fps, 2), "unit": "frames/s/chip",
+            "vs_baseline": (round(fps / REF_FPS_PER_GPU_EST, 3) if hw == HW
+                            else None),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+            **card()}
 
 
 def _cuda() -> torch.device:
@@ -335,23 +384,42 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--mode", default="resident",
-        choices=["resident", "gan", "stream", "swap_session", "infer", "e2e",
-                 "e2e_host"],
-        help="resident: bench_resident's training point; gan: bench_gan's "
+        choices=["resident", "step", "gan", "stream", "swap_session", "infer",
+                 "e2e", "e2e_host"],
+        help="resident: bench_resident's training point; step: the train "
+             "step alone on a batch on the card (bench.py's default mode); "
+             "gan: bench_gan's "
              "(--scan K: K steps a call); stream: the streaming push "
              "(--batch streams, --frames_per_call K); swap_session: the "
              "session from host frames; infer: the eval forward; e2e / "
              "e2e_host: training through the input pipeline, prepared on "
              "the card / on the host")
     parser.add_argument("--batch", type=int, default=None,
-                        help="stream, infer, e2e and e2e_host modes: "
-                             "streams or clips a call (default 1)")
+                        help="step mode: clips a step (default 16); stream, "
+                             "infer, e2e and e2e_host modes: streams or "
+                             "clips a call (default 1)")
     parser.add_argument("--frames_per_call", type=int, default=1,
                         help="stream and swap_session modes: K frames a "
                              "push_many call")
     parser.add_argument("--scan", type=int, default=0,
                         help="gan mode: K alternating gen/disc steps a call "
                              "(even; 0 = one pair a call)")
+    parser.add_argument("--frames", type=int, default=T,
+                        help="step mode: clip length T")
+    parser.add_argument("--hw", type=int, default=HW,
+                        help="step mode: the frames' size in px")
+    parser.add_argument("--remat", action="store_true",
+                        help="step mode: recompute the VQVAE's activations "
+                             "in the backward")
+    parser.add_argument("--remat_scope", choices=["all", "decoder", "encoder"],
+                        default="all", help="step mode with --remat: which "
+                                            "submodules recompute")
+    parser.add_argument("--remat_lpips", action="store_true",
+                        help="step mode: recompute the LPIPS towers in the "
+                             "backward")
+    parser.add_argument("--no_pallas", action="store_true",
+                        help="step mode: the VQ codebooks' plain path "
+                             "instead of the VQ kernels")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("bench_torch: no CUDA device; this benchmark runs on a GPU "
@@ -360,6 +428,9 @@ def main() -> int:
     batch = args.batch or 1
     benches = {
         "resident": bench_resident,
+        "step": lambda: bench_step(
+            args.batch or B, args.frames, args.hw, args.remat,
+            args.remat_scope, args.remat_lpips, args.no_pallas),
         "gan": lambda: bench_gan(args.scan),
         "stream": lambda: bench_stream(batch, args.frames_per_call),
         "swap_session": lambda: bench_swap_session(args.frames_per_call),

@@ -14,7 +14,9 @@ Phases, each printing lines with their seconds:
                (1,256,256,3), (16,256,256,3), one case whose output
                grid differs from the source, the training step's own
                call: 128 frames (b16 x T8) of 256x256x3 at the grids of
-               `perturbation_grids`, and the swap's chunk: 32 frames at
+               `perturbation_grids`, the 512 px step's (b4 x T8: 32
+               frames of 512x512x3, as many pixels at twice the source
+               stride), and the swap's chunk: 32 frames at
                the grids of Umeyama similarities between synthetic
                faces; max |diff| <= 1e-5; kernel, plain,
                grid_sample and bound times, and the share of 16x16 tiles
@@ -62,7 +64,8 @@ Phases, each printing lines with their seconds:
                statistics kernel). With --profile, one more step under
                torch.profiler (the device's busy share, device time by
                operator and by kernel), then LPIPS and the VQVAE forward
-               and backward alone at the step's shapes.
+               and backward alone at the step's shapes. The train
+               phase's --no_pallas part is phase 19.
   7. train_check — a small configuration (channel 32, b2, T4, 64 px) takes
                3 float32 steps without TF32 (LPIPS in float32) on CUDA and
                on the CPU from the same weights and prepared batches;
@@ -190,6 +193,30 @@ Phases, each printing lines with their seconds:
                takes 64 bits); cli/preprocess's main(["all", ...]) on one 720p
                mp4v video (NNNNN.mp4 clips, none quarantined, stage 1 and
                2 frames/s beside the AVI run's).
+ 19. no_pallas — the train phase's step with --no_pallas (run after
+               the trainer phase, whose dataset its CLI run reads): the
+               same corpus, seeds and weights through a
+               `use_pallas_vq=False` model and the kernel model, float32
+               without TF32, 2 steps each: the plain route launches no
+               VQ kernel and one warp a step; the share of rows whose
+               code differs at the first step (on the same inputs; only
+               float32 ties may differ), the losses, parameters and
+               codebooks within the stated tolerances; two bf16 runs of
+               the plain route from one seed bitwise equal, its step ms;
+               then the perceptual CLI with --no_pallas for 2 steps at
+               the trainer phase's point (finite records, no VQ launch).
+ 20. remat512 — 512 px training at the JAX package's operating point
+               (b4, T8, flagship widths): one float32 step without TF32
+               on a held batch with no remat, --remat, --remat
+               --remat_scope decoder and --remat --remat_lpips, the
+               losses, gradients and codebooks of each against no remat
+               within the stated tolerances; the four in bf16 with the
+               resident prepare function (2 warm-up and 3 timed steps):
+               step ms, frames/s, peak memory, 2 VQ and 1 warp launches
+               a step; then the perceptual CLI with --resident_data
+               --size 512 --batch_size 4 --train_frames 8 --remat for 4
+               steps on a 512 px PNG dataset (finite records, a
+               checkpoint written).
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 {"kernels": [...]}, and last {"ok": true, "device": {...}}. Any failure
@@ -248,7 +275,7 @@ from faceoff_tpu_torch.models.vqvae import postnet_over_shards
 from faceoff_tpu_torch.models.vqvae_b2f import VQVAE_B2F
 from faceoff_tpu_torch.models.discriminators import (MultiscaleDiscriminator2D,
                                                      MultiscaleDiscriminator3D)
-from faceoff_tpu_torch.models.lpips import init_lpips
+from faceoff_tpu_torch.models.lpips import RematLPIPS, init_lpips
 from faceoff_tpu_torch.ops import (ccl_cuda, cuda_build, lk_cuda,
                                    mpeg4_cuda)
 from faceoff_tpu_torch.ops import vq as V
@@ -283,6 +310,9 @@ WARMUP_STEPS, TIMED_STEPS = 2, 5
 # the one-cycle schedule spans the run (5% warmup rounds to no warmup)
 TRAIN_LR, TRAIN_N_ITER = 3e-4, WARMUP_STEPS + TIMED_STEPS
 VQ_SHAPES = [(524288, 64, 512), (131072, 64, 512), (65536, 64, 4096)]
+# the 512 px training point (the JAX package's: b4, T8, full remat), the
+# same 32 frames a step as the train phase's b16 x T8 at 256 px
+R512_B, R512_T, R512_SIZE = 4, 8, 512
 WARP_BWD_SHAPE = (128, 256, 256, 3, 256, 256)
 MINIFY_SHAPE = (16, 768, 768, 3, 256, 256)
 # the backward sums g w_tap of the taps that land on a source value per
@@ -379,11 +409,11 @@ def bound_ms(n, h, w, c, oh, ow):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def perturb_inputs(gen):
-    """The warp's inputs on the training step: B x T = 128 frames of
-    256x256x3 in [0, 1], sampled at the grids `perturb_clip` builds from
-    a fresh draw (eye centres near the middle of the frame)."""
-    t, size = TRAIN_B * TRAIN_T, TRAIN_SIZE
+def perturb_inputs(gen, t=TRAIN_B * TRAIN_T, size=TRAIN_SIZE):
+    """The warp's inputs on the training step: B x T frames (128 at 256 px,
+    32 at 512 px) of size x size x 3 in [0, 1], sampled at the grids
+    `perturb_clip` builds from a fresh draw (eye centres near the middle
+    of the frame)."""
     imgs = torch.rand((t, size, size, 3), generator=gen)
     eyes = size * (0.4 + 0.2 * torch.rand((t, 2), generator=gen))
     xs, ys, _ = W.perturbation_grids(W.draw_perturbation(gen, t), size,
@@ -445,6 +475,10 @@ def kernel_phase(t0):
     cases.append(("perturbation", (TRAIN_B * TRAIN_T, TRAIN_SIZE, TRAIN_SIZE,
                                    3, TRAIN_SIZE, TRAIN_SIZE),
                   lambda: perturb_inputs(gen)))
+    # the 512 px step's call: as many pixels, twice the source stride
+    cases.append(("perturbation", (R512_B * R512_T, R512_SIZE, R512_SIZE, 3,
+                                   R512_SIZE, R512_SIZE),
+                  lambda: perturb_inputs(gen, R512_B * R512_T, R512_SIZE)))
     cases.append(("swap", (SWAP_CHUNK, SIZE, SIZE, 3, SIZE, SIZE),
                   lambda: swap_inputs(gen)))
     rows = []
@@ -3698,6 +3732,465 @@ def time_phase(t0):
     return out
 
 
+
+# -- phase 19: the train phase's step with --no_pallas -------------------
+
+NP_STEPS = 2  # float32 steps of each route
+NP_BF16_STEPS = 4  # steps of each bf16 --no_pallas run; the last 2 timed
+NP_CLI_STEPS = 2
+# the float32 routes differ only in the VQ statistics' order of summation
+# (and in a row whose two best codes tie within float32 rounding): the
+# losses and codebooks are held as train_check and the trainer phase hold
+# two runs (losses 1e-3 relative; codebooks 1e-3 of max(1, |value|), the
+# EMA sums reaching 1e4 at 524288 rows); parameters within 2 lr a step,
+# 99 % within 1e-5
+NP_LOSS_TOL = NP_CODEBOOK_TOL = 1e-3
+
+
+def _model_state(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _record_assign(name, store):
+    """Replace V.<name> (`vq_assign` or `vq_assign_plain`) by a wrapper
+    that keeps each call's inputs and indices; returns the original."""
+    original = getattr(V, name)
+
+    def wrapper(flat, embed):
+        out = original(flat, embed)
+        store.append((flat.detach().to(torch.float32).clone(),
+                      embed.detach().to(torch.float32).clone(),
+                      out[0].clone()))
+        return out
+
+    setattr(V, name, wrapper)
+    return original
+
+
+def _tie_rows(x, e, idx_a, idx_b):
+    """(rows of x whose codes differ between the two assignments, how many
+    of them score further apart than two of check_vq's tie margins: each
+    float32 pick lies within one margin of the exact best, so two picks of
+    one row lie within two)."""
+    differ = idx_a != idx_b
+    n = int(differ.sum())
+    if n == 0:
+        return 0, 0
+    xs, d = x[differ], x.shape[1]
+    hn = 0.5 * (e * e).sum(0)
+    scores = xs @ e - hn
+    margin = 2 * (d + 1) * U32 * (xs.abs() @ e.abs() + hn).amax(1)
+    sa = scores.gather(1, idx_a[differ].long()[:, None])[:, 0]
+    sb = scores.gather(1, idx_b[differ].long()[:, None])[:, 0]
+    return n, int(((sa - sb).abs() > 2 * margin).sum())
+
+
+def _expect_launches(what, counts, steps, vq_calls):
+    """`vq_calls` VQ assignment+statistics calls a step (2, or 0 on the
+    plain route), one warp a step, no warp backward."""
+    want = {"vq_assign": vq_calls * steps, "vq_stats": vq_calls * steps,
+            "warp": steps, "warp_backward": 0}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+
+
+def no_pallas_phase(t0, work: Path):
+    """Phase 19 (module docstring). Returns (result, the launch counts of
+    the --no_pallas runs)."""
+    frames, lms, n_frames = synthetic_corpus(
+        CORPUS_VIDEOS, CORPUS_FRAMES, TRAIN_SIZE, seed=3, device=DEV)
+    corpus = corpus_from_arrays(frames, lms, n_frames, device=DEV)
+    del frames
+    prepare = make_resident_prepare(corpus, TRAIN_B, TRAIN_T)
+    raw = {"frames": corpus.frames, "landmarks": corpus.landmarks}
+
+    def build(use_kernels, dtype):
+        model = VQVAE(ModelConfig(use_pallas_vq=use_kernels),
+                      dtype=torch.float32, device=DEV,
+                      generator=torch.Generator().manual_seed(0))
+        lpips = init_lpips(torch.Generator().manual_seed(1), device=DEV,
+                           dtype=dtype)
+        opt = make_optimizer(model.parameters(), TRAIN_LR, "cycle",
+                             n_iter=TRAIN_N_ITER)
+        step = make_train_step(model, lpips=lpips, prepare_fn=prepare,
+                               compute_dtype=dtype)
+        return model, create_train_state(model, opt), step
+
+    # float32 without TF32: the kernel route against the plain route
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    routes = {}
+    try:
+        for route, use in (("kernels", True), ("plain", False)):
+            model, state, step = build(use, torch.float32)
+            name = "vq_assign" if use else "vq_assign_plain"
+            calls, losses = [], []
+            zero_counts()
+            for i in range(NP_STEPS):
+                # the first step's two assignments, on the same inputs
+                original = _record_assign(name, calls) if i == 0 else None
+                try:
+                    state, m = step(state, raw, seed=0)
+                finally:
+                    if original is not None:
+                        setattr(V, name, original)
+                losses.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            counts = read_counts()
+            _expect_launches(f"no_pallas {route} float32", counts, NP_STEPS,
+                             2 if use else 0)
+            routes[route] = {
+                "losses": losses, "state": _model_state(model),
+                "params": {n for n, _ in model.named_parameters()},
+                "calls": calls, "launches": counts}
+            del model, state, step
+            torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    ker, pl = routes["kernels"], routes["plain"]
+    assign = {}
+    moved = {}  # codes a differing row moved between, by level
+    for level, a, b in zip(("quantize_t", "quantize_b"), ker["calls"],
+                           pl["calls"]):
+        n_diff, outside = _tie_rows(b[0], b[1], a[2], b[2])
+        differ = a[2] != b[2]
+        moved[level] = torch.unique(torch.cat([a[2][differ], b[2][differ]]))
+        assign[level] = {"rows": int(b[0].shape[0]),
+                         "same_inputs": bool(torch.equal(a[0], b[0])
+                                             and torch.equal(a[1], b[1])),
+                         "rows_differing": n_diff,
+                         "share_differing": n_diff / int(b[0].shape[0]),
+                         "differing_outside_tie_margin": outside}
+    # the plain statistics at the step's bottom call beside the kernel,
+    # the atomics of index_add_ and index_put_'s sorted sums
+    x, _, idx = pl["calls"][1]
+    n_embed = ModelConfig().n_embed
+    idx64 = idx.long()
+    counts = torch.bincount(idx64, minlength=n_embed)
+    reps = dict(reps=5, inner=1, warmup=1)
+    again = (V.vq_stats(x, idx, n_embed), V.vq_stats(x, idx, n_embed))
+    stats = {
+        "shape": list(x.shape) + [n_embed],
+        "codes_used": int((counts > 0).sum()),
+        "largest_code_share": float(counts.max() / x.shape[0]),
+        "plain_ms": cuda_ms(lambda: V.vq_stats(x, idx, n_embed), **reps),
+        "plain_repeats_bitwise": bool(torch.equal(again[0][1],
+                                                  again[1][1])),
+        "kernel_ms": cuda_ms(lambda: vq_cuda.code_stats(x, idx, n_embed),
+                             **reps),
+        "index_add_ms": cuda_ms(lambda: torch.zeros(
+            (n_embed, x.shape[1]), device=DEV).index_add_(0, idx64, x),
+            **reps),
+        "index_put_sorted_ms": cuda_ms(lambda: torch.zeros(
+            (n_embed, x.shape[1]), device=DEV).index_put_(
+                (idx64,), x, accumulate=True), **reps)}
+    del x, idx, idx64, again
+    sd_k, sd_p = ker["state"], pl["state"]
+    diffs = torch.cat([(sd_k[k] - sd_p[k]).abs().ravel().cpu()
+                       for k in ker["params"]])
+    cb_err = 0.0
+    for k in sd_k:
+        if k in ker["params"]:
+            continue
+        err = (sd_k[k] - sd_p[k]).abs() / sd_p[k].abs().clamp_min(1)
+        # a code that a tied row moved between is left out
+        keep = torch.ones(err.shape[-1], dtype=torch.bool, device=err.device)
+        keep[moved[k.split(".")[0]]] = False
+        cb_err = max(cb_err, float(err[..., keep].max()))
+    keys = ("loss", "mse", "latent", "perceptual")
+    float32 = {
+        "assignment": assign,
+        "max_loss_rel_err": max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                                for a, b in zip(ker["losses"], pl["losses"])
+                                for k in keys),
+        "max_param_diff": float(diffs.max()),
+        "share_params_within_1e-5": float((diffs <= 1e-5).float().mean()),
+        "max_codebook_scaled_diff": cb_err,
+        "codebooks_bitwise_equal": all(
+            torch.equal(sd_k[k], sd_p[k]) for k in sd_k
+            if k not in ker["params"]),
+        "plain_statistics": stats,
+        "losses_kernels": ker["losses"], "losses_plain": pl["losses"],
+        "launches": {"kernels": ker["launches"], "plain": pl["launches"]}}
+    say("no_pallas", t0, json.dumps(float32))
+    del routes, ker, pl, sd_k, sd_p
+    if not stats["plain_repeats_bitwise"]:
+        raise AssertionError("no_pallas: two calls of the plain statistics "
+                             "on the same inputs differ")
+    if any(v["differing_outside_tie_margin"] for v in assign.values()):
+        raise AssertionError("no_pallas: the routes' codes differ outside "
+                             "a float32 tie")
+    if not (float32["max_loss_rel_err"] <= NP_LOSS_TOL
+            and float32["max_param_diff"] <= 2 * TRAIN_LR * NP_STEPS + 1e-6
+            and float32["share_params_within_1e-5"] >= 0.99
+            and cb_err <= NP_CODEBOOK_TOL):
+        raise AssertionError("no_pallas: the plain route disagrees with the "
+                             "kernel route")
+
+    # bf16 as the CLI trains: two runs of the plain route from one seed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    runs = []
+    zero_counts()
+    for _ in range(2):
+        model, state, step = build(False, torch.bfloat16)
+        losses, times = [], []
+        for _ in range(NP_BF16_STEPS):
+            t = time.perf_counter()
+            state, m = step(state, raw, seed=0)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append({k: float(v) for k, v in m.items()})
+        runs.append((losses, _model_state(model), times))
+        del model, state, step
+        torch.cuda.empty_cache()
+    bf16_counts = read_counts()
+    _expect_launches("no_pallas bf16", bf16_counts, 2 * NP_BF16_STEPS, 0)
+    (l_a, sd_a, t_a), (l_b, sd_b, t_b) = runs
+    bf16 = {"bitwise_equal": l_a == l_b and all(torch.equal(sd_a[k], sd_b[k])
+                                                for k in sd_a),
+            "step_ms": [t_a, t_b],
+            "step_ms_median": statistics.median(t_a[2:] + t_b[2:]),
+            "losses": l_a, "launches": bf16_counts}
+    bf16["frames_per_s"] = TRAIN_B * TRAIN_T / (bf16["step_ms_median"] / 1e3)
+    say("no_pallas", t0, json.dumps(bf16))
+    del runs, sd_a, sd_b
+    if not bf16["bitwise_equal"]:
+        raise AssertionError("no_pallas: two bf16 runs of the plain route "
+                             "from one seed differ")
+
+    # the CLI with --no_pallas at the trainer phase's point and dataset
+    zero_counts()
+    run = trainer_cli.main(
+        ["--data_root", str(work / "data"), "--validation_folder",
+         str(work / "val"), "--resident_data", "--batch_size", str(TRAIN_B),
+         "--train_frames", str(TRAIN_T), "--val_frames", str(TRAIN_T),
+         "--size", str(TRAIN_SIZE), "--sched", "cycle",
+         "--epoch", str(NP_CLI_STEPS), "--validate_at", "1000",
+         "--metrics_path", str(work / "metrics_np.jsonl"),
+         "--sample_folder", str(work / "samples_np"),
+         "--checkpoint_dir", str(work / "ckpt_np"), "--no_pallas"],
+        device=DEV)
+    cli_counts = read_counts()
+    _expect_launches("no_pallas CLI", cli_counts, NP_CLI_STEPS, 0)
+    rec = _records(work / "metrics_np.jsonl")
+    rec_u = _records(work / "metrics_u.jsonl")  # the trainer phase's run U
+    steps = list(range(1, NP_CLI_STEPS + 1))
+    if sorted(rec) != steps or not all(
+            math.isfinite(r[k]) for r in rec.values()
+            for k in ("loss", "mse", "latent", "perceptual", "lr")):
+        raise AssertionError(f"no_pallas CLI: records {rec}")
+    if run.model.quantize_b.use_kernels or run.cfg.model.use_pallas_vq:
+        raise AssertionError("no_pallas CLI: the model kept the kernel route")
+    cli = {"records": [rec[s] for s in steps],
+           # beside the trainer phase's unbroken kernel run: bf16, so
+           # reported, not held (float32 is held above)
+           "max_loss_rel_diff_vs_kernel_run": max(
+               abs(rec[s][k] - rec_u[s][k]) / max(abs(rec_u[s][k]), 1e-12)
+               for s in steps for k in ("loss", "mse", "latent",
+                                         "perceptual")),
+           "launches": cli_counts}
+    say("no_pallas", t0, json.dumps(cli))
+    counts = {k: float32["launches"]["plain"][k] + bf16_counts[k]
+              + cli_counts[k] for k in cli_counts}
+    return {"float32": float32, "bf16": bf16, "cli": cli}, counts
+
+
+# -- phase 20: 512 px training with remat ---------------------------------
+
+R512_VIDEOS, R512_FRAMES = 8, 16  # the synthetic corpus on the card
+R512_WARMUP, R512_TIMED = 2, 3
+R512_CLI_VIDEOS, R512_CLI_FRAMES, R512_CLI_EPOCHS = 8, 12, 2
+# (name, ModelConfig.remat, remat_scope, LPIPS recomputed: --remat_lpips)
+R512_CONFIGS = (("no_remat", False, "all", False),
+                ("remat", True, "all", False),
+                ("remat_decoder", True, "decoder", False),
+                ("remat_lpips", True, "all", True))
+# float32 without TF32, one step on one batch, against no remat. Remat
+# recomputes the same forward operations, so the losses, the codes and
+# the EMA step can only move by cuDNN choosing another algorithm for a
+# recomputed convolution (float32 rounding of a mean: 1e-5 relative; the
+# codebooks as the trainer phase holds two runs, 1e-3 of max(1, |value|)).
+# The backward's sums are the same products added by cuDNN in another
+# order: float32 sums of up to 32 x 256^2 terms differ by about
+# sqrt(n) u, 1e-4 of their absolute sum, so each gradient tensor must lie
+# within 1e-3 of its L2 norm.
+R512_LOSS_TOL, R512_GRAD_TOL, R512_CODEBOOK_TOL = 1e-5, 1e-3, 1e-3
+
+
+def _r512_parts(name, remat, scope, remat_lpips, dtype, prepare=None):
+    """The model, LPIPS (recomputed with --remat_lpips), state and step of
+    one configuration at the flagship widths."""
+    model = VQVAE(ModelConfig(remat=remat, remat_scope=scope),
+                  dtype=torch.float32, device=DEV,
+                  generator=torch.Generator().manual_seed(0))
+    lpips = init_lpips(torch.Generator().manual_seed(1), device=DEV,
+                       dtype=dtype)
+    if remat_lpips:
+        lpips = RematLPIPS(lpips)
+    opt = make_optimizer(model.parameters(), TRAIN_LR, "cycle",
+                         n_iter=TRAIN_N_ITER)
+    step = make_train_step(model, lpips=lpips, prepare_fn=prepare,
+                           compute_dtype=dtype)
+    return model, create_train_state(model, opt), step
+
+
+def remat512_phase(t0, work: Path):
+    """Phase 20 (module docstring). Returns (result, the launch counts of
+    the bf16 steps and the CLI run)."""
+    frames, lms, n_frames = synthetic_corpus(
+        R512_VIDEOS, R512_FRAMES, R512_SIZE, seed=12, device=DEV)
+    corpus = corpus_from_arrays(frames, lms, n_frames, device=DEV)
+    del frames
+    prepare = make_resident_prepare(corpus, R512_B, R512_T)
+    raw = {"frames": corpus.frames, "landmarks": corpus.landmarks}
+    with torch.no_grad():
+        held = prepare(torch.Generator(device=DEV).manual_seed(13),
+                       corpus.frames, corpus.landmarks)
+
+    # parity: float32 without TF32, one step on the held batch each
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    steps = {}
+    try:
+        for name, remat, scope, rl in R512_CONFIGS:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            model, state, step = _r512_parts(name, remat, scope, rl,
+                                             torch.float32)
+            zero_counts()
+            state, m = step(state, held)
+            torch.cuda.synchronize()
+            if any(read_counts()[k] != 2 for k in ("vq_assign", "vq_stats")):
+                raise AssertionError(f"remat512 {name}: launches "
+                                     f"{read_counts()}")
+            steps[name] = {
+                "losses": {k: float(v) for k, v in m.items()},
+                "grads": {n: p.grad.detach().clone()
+                          for n, p in model.named_parameters()},
+                "codebooks": {k: v.detach().clone() for k, v in
+                              model.state_dict().items()
+                              if k.startswith("quantize_")},
+                "peak_bytes": torch.cuda.max_memory_allocated() - base}
+            del model, state, step, m
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    ref = steps["no_remat"]
+    parity = {}
+    for name, _, _, _ in R512_CONFIGS[1:]:
+        got = steps[name]
+        grad_rel = {n: float((got["grads"][n] - g).norm()
+                             / g.norm().clamp_min(1e-30))
+                    for n, g in ref["grads"].items()}
+        parity[name] = {
+            "max_loss_rel_err": max(
+                abs(got["losses"][k] - v) / max(abs(v), 1e-12)
+                for k, v in ref["losses"].items()),
+            "max_grad_rel_norm_diff": max(grad_rel.values()),
+            "worst_grad": max(grad_rel, key=grad_rel.get),
+            "grads_bitwise_equal": all(
+                torch.equal(got["grads"][n], g)
+                for n, g in ref["grads"].items()),
+            "max_codebook_scaled_diff": max(
+                float(((got["codebooks"][k] - v).abs()
+                       / v.abs().clamp_min(1)).max())
+                for k, v in ref["codebooks"].items()),
+            "codebooks_bitwise_equal": all(
+                torch.equal(got["codebooks"][k], v)
+                for k, v in ref["codebooks"].items()),
+            "float32_peak_bytes": got["peak_bytes"]}
+    parity["no_remat"] = {"float32_peak_bytes": ref["peak_bytes"],
+                          "losses": ref["losses"]}
+    say("remat512", t0, json.dumps(parity))
+    del steps, ref
+    torch.cuda.empty_cache()
+    for name, row in parity.items():
+        if name != "no_remat" and not (
+                row["max_loss_rel_err"] <= R512_LOSS_TOL
+                and row["max_grad_rel_norm_diff"] <= R512_GRAD_TOL
+                and row["max_codebook_scaled_diff"] <= R512_CODEBOOK_TOL):
+            raise AssertionError(f"remat512: {name} disagrees with the step "
+                                 f"without remat: {row}")
+
+    # bf16 as the CLI trains: each configuration's step with the resident
+    # prepare function (the warp kernel at (32, 512, 512, 3))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    timing = {}
+    total = {k: 0 for k in read_counts()}
+    n_steps = R512_WARMUP + R512_TIMED
+    for name, remat, scope, rl in R512_CONFIGS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        model, state, step = _r512_parts(name, remat, scope, rl,
+                                         torch.bfloat16, prepare)
+        zero_counts()
+        times, losses = [], []
+        for _ in range(n_steps):
+            t = time.perf_counter()
+            state, m = step(state, raw, seed=0)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append({k: float(v) for k, v in m.items()})
+        counts = read_counts()
+        _expect_launches(f"remat512 {name}", counts, n_steps, 2)
+        for k in total:
+            total[k] += counts[k]
+        step_ms = statistics.median(times[R512_WARMUP:])
+        timing[name] = {
+            "step_ms_median": step_ms, "step_ms": times,
+            "frames_per_s": R512_B * R512_T / (step_ms / 1e3),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "step_peak_bytes": torch.cuda.max_memory_allocated() - base,
+            "launches": counts, "last_losses": losses[-1]}
+        say("remat512", t0, json.dumps({name: timing[name]}))
+        if not all(math.isfinite(v) for m in losses for v in m.values()):
+            raise AssertionError(f"remat512 {name}: non-finite losses")
+        del model, state, step, m
+    torch.cuda.empty_cache()
+
+    # the CLI at the JAX package's 512 px point
+    data = work / "data512"
+    generate_dataset(str(data), R512_CLI_VIDEOS, R512_CLI_FRAMES, R512_SIZE,
+                     seed=14, device=DEV)
+    zero_counts()
+    run = trainer_cli.main(
+        ["--data_root", str(data), "--resident_data", "--size",
+         str(R512_SIZE), "--batch_size", str(R512_B), "--train_frames",
+         str(R512_T), "--val_frames", str(R512_T), "--remat",
+         "--epoch", str(R512_CLI_EPOCHS), "--validate_at", "1000",
+         "--metrics_path", str(work / "metrics_512.jsonl"),
+         "--sample_folder", str(work / "samples_512"),
+         "--checkpoint_dir", str(work / "ckpt_512")], device=DEV)
+    cli_counts = read_counts()
+    n_cli = R512_CLI_EPOCHS * (R512_CLI_VIDEOS // R512_B)
+    _expect_launches("remat512 CLI", cli_counts, n_cli, 2)
+    for k in total:
+        total[k] += cli_counts[k]
+    rec = _records(work / "metrics_512.jsonl")
+    kept = CheckpointManager(str(_run_dir(work, "ckpt_512"))).all_steps()
+    if sorted(rec) != list(range(1, n_cli + 1)) or not all(
+            math.isfinite(r[k]) for r in rec.values()
+            for k in ("loss", "mse", "latent", "perceptual", "lr")):
+        raise AssertionError(f"remat512 CLI: records {rec}")
+    if kept != [n_cli] or not run.model.remat_encoder:
+        raise AssertionError(f"remat512 CLI: checkpoints {kept}, remat "
+                             f"{run.model.remat_encoder}")
+    cli = {"steps": n_cli, "checkpoints": kept,
+           "records": [rec[s] for s in sorted(rec)],
+           "launches": cli_counts}
+    say("remat512", t0, json.dumps(cli))
+    return {"parity": parity, "timing": timing, "cli": cli}, total
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3748,6 +4241,8 @@ def main() -> int:
         t0 = time.perf_counter()
         trainer = trainer_phase(t0, Path(work))
         t0 = time.perf_counter()
+        no_pallas, no_pallas_counts = no_pallas_phase(t0, Path(work))
+        t0 = time.perf_counter()
         jpeg_phase(t0, Path(work))
         t0 = time.perf_counter()
         swap = swap_phase(t0, Path(work))
@@ -3765,6 +4260,8 @@ def main() -> int:
         pre, pre_counts = preprocess_phase(t0, Path(work))
         t0 = time.perf_counter()
         mp4_result, mp4_counts = mp4_phase(t0, Path(work), pre)
+        t0 = time.perf_counter()
+        r512, r512_counts = remat512_phase(t0, Path(work))
     t0 = time.perf_counter()
     time_result = time_phase(t0)
     trainer_counts = trainer["launches"]
@@ -3872,6 +4369,32 @@ def main() -> int:
             "latency_bound_ms", "work")},
         "launches": pre_counts}))
     say("time", t_all, json.dumps({"card": card, **time_result}))
+    say("no_pallas", t_all, json.dumps({
+        "card": card,
+        "float32_vs_kernels": {k: no_pallas["float32"][k] for k in (
+            "max_loss_rel_err", "max_param_diff", "share_params_within_1e-5",
+            "max_codebook_scaled_diff")},
+        "share_rows_differing": {
+            k: v["share_differing"]
+            for k, v in no_pallas["float32"]["assignment"].items()},
+        "bf16_bitwise_equal": no_pallas["bf16"]["bitwise_equal"],
+        "bf16_step_ms_median": no_pallas["bf16"]["step_ms_median"],
+        "train_phase_step_ms_median": train_result["step_ms_median"],
+        "launches": no_pallas_counts}))
+    say("remat512", t_all, json.dumps({
+        "card": card,
+        "step_ms_median": {k: v["step_ms_median"]
+                           for k, v in r512["timing"].items()},
+        "frames_per_s": {k: v["frames_per_s"]
+                         for k, v in r512["timing"].items()},
+        "max_memory_allocated_bytes": {
+            k: v["max_memory_allocated_bytes"]
+            for k, v in r512["timing"].items()},
+        "parity": {k: {m: v[m] for m in ("max_loss_rel_err",
+                                         "max_grad_rel_norm_diff",
+                                         "max_codebook_scaled_diff")}
+                   for k, v in r512["parity"].items() if k != "no_remat"},
+        "launches": r512_counts}))
     footage = mp4_result["footage"]
     say("mp4", t_all, json.dumps({
         "card": card,
@@ -3891,7 +4414,8 @@ def main() -> int:
              "training": dict(train_counts), "trainer": trainer_counts,
              "swap": swap_counts, "gan": gan_counts, "b2f": b2f_counts,
              "vanilla_trainer": aux_counts, "dist": dist_counts,
-             "preprocess_step": pre["step"]["launches"]}
+             "preprocess_step": pre["step"]["launches"],
+             "no_pallas": no_pallas_counts, "remat512": r512_counts}
     say("launches", t_all, json.dumps(paths))
 
     def by_path(key):
@@ -3905,6 +4429,7 @@ def main() -> int:
     # assignment row
     pairs = {p: c["vq_stats"] for p, c in paths.items()}
     main_row = rows[0]
+    row512 = next(r for r in rows if r["shape"][1] == R512_SIZE)
     vq_main, vq_big = vq_rows[0], vq_rows[-1]
     kernels = [{
         "name": "bilinear_warp",
@@ -3919,6 +4444,10 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        # the 512 px step's call (32, 512, 512, 3)
+        "call_512": {k: row512[k] for k in (
+            "shape", "max_abs_err", "kernel_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")},
     }, {
         "name": "vq_assign",
         "route": "cuda",

@@ -24,8 +24,11 @@ def add_model_flags(p) -> None:
     g.add_argument("--embed_dim", type=int, default=64)
     g.add_argument("--n_embed", type=int, default=512)
     g.add_argument("--no_pallas", action="store_true",
-                   help="refused: the port always runs its CUDA kernels on "
-                        "the card")
+                   help="train the VQ codebooks through the plain PyTorch "
+                        "path instead of the CUDA kernels, on any device "
+                        "(the warp keeps its kernel); the inference CLIs "
+                        "accept it, as the JAX CLIs do, and evaluate as "
+                        "without it")
     g.add_argument("--remat", action="store_true",
                    help="recompute encoder/decoder activations in the "
                         "backward (less memory, more compute); checkpoints "
@@ -107,15 +110,8 @@ def model_config(args, in_channels: int = 6) -> ModelConfig:
         commitment_beta=getattr(args, "commitment_beta", 1.0),
         remat=getattr(args, "remat", False),
         remat_scope=getattr(args, "remat_scope", "all"),
+        use_pallas_vq=not getattr(args, "no_pallas", False),
     )
-
-
-def refuse_no_pallas(parser, args) -> None:
-    """Exit with an error for --no_pallas: the port has no path around
-    its CUDA kernels on the card."""
-    if args.no_pallas:
-        parser.error("--no_pallas: the port has no path around its CUDA "
-                     "kernels on the card (ROADMAP.md, North star)")
 
 
 def build_vqvae(args, in_channels: int = 6, *, device: DeviceLike = None,

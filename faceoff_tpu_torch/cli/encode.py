@@ -57,7 +57,6 @@ def main(argv=None, device: DeviceLike = None) -> Dict[str, Any]:
     3) float32 on the host)."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    common.refuse_no_pallas(parser, args)
     if args.decode and osp.splitext(args.decode)[1].lower() not in (
             ".mp4", ".avi"):
         parser.error(f"--decode {args.decode}: the port writes .mp4 (mp4v) "

@@ -86,9 +86,7 @@ def _lpips_tag(lpips_npz) -> str:
 
 def main(argv=None, device: DeviceLike = None) -> Dict:
     """Evaluate, print the report as one JSON line and return it."""
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    common.refuse_no_pallas(parser, args)
+    args = build_parser().parse_args(argv)
     lpips_npz = resolve_lpips_weights(args.lpips_weights)
     dev = resolve_device(device)
     state = common.restore_for_inference(args, dev)

@@ -138,7 +138,6 @@ def main(argv=None, device: DeviceLike = None) -> Dict:
     results on the host) and "step", the checkpoint's."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    common.refuse_no_pallas(parser, args)
     if osp.splitext(args.out)[1].lower() not in (".mp4", ".avi"):
         parser.error(f"--out {args.out}: the port writes .mp4 (mp4v) or "
                      ".avi (uncompressed); name such a file")

@@ -28,8 +28,7 @@ _FAULT = ("the JAX cli/train_faceoff.py drops the prepare function and the "
 
 
 def refuse(parser, args) -> None:
-    """Exit for the flags whose path the JAX CLI breaks, and --no_pallas."""
-    base.refuse_unported(parser, args)
+    """Exit for the flags whose path the JAX CLI breaks."""
     if args.resident_data:
         parser.error(f"--resident_data: {_FAULT}")
     if args.device_pipeline:

@@ -31,8 +31,10 @@ global batch (gradients and metrics averaged, VQ statistics summed,
 BatchNorm statistics and the RaLSGAN batch means the global batch's,
 the Fréchet features gathered), only process 0 writes checkpoints and
 samples, and a preemption stops every process by consensus at the log
-cadence. --lpips_weights auto probes local paths; --no_pallas is
-refused.
+cadence. --lpips_weights auto probes local paths; --no_pallas makes
+the generator's quantizers assign through the plain VQ path, in the gen
+and the disc steps (`ModelConfig.use_pallas_vq`), as the JAX CLI's
+`use_pallas=False` model does.
 """
 
 from __future__ import annotations
@@ -187,9 +189,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def refuse_unported(parser: argparse.ArgumentParser, args) -> None:
-    """Exit with an error for a flag whose function the port lacks
-    (--no_pallas) or a combination the steps do not take."""
-    common.refuse_no_pallas(parser, args)
+    """Exit with an error for a combination the steps do not take."""
     if args.steps_per_call > 1 and args.gan != "mocoganhd":
         parser.error("--steps_per_call supports --gan mocoganhd only")
     if args.steps_per_call > 1 and args.steps_per_call % 2 != 0:

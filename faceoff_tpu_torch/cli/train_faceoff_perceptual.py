@@ -18,10 +18,13 @@ environment: each process takes --batch_size clips of its shard of the
 data a step, the step averages the gradients and sums the VQ statistics
 over the processes (`train/shardmap_step.py`), and only process 0
 writes checkpoints and samples. --lpips_weights auto probes local paths
-(`models.lpips.discover_lpips_weights`). --no_pallas is refused: on the
-card the port always runs its CUDA kernels. Checkpoints are
-`torch.save` files of the full train state; sample streams are AVI
-files.
+(`models.lpips.discover_lpips_weights`). --no_pallas trains the
+codebooks through the plain VQ path instead of the VQ kernels
+(`ModelConfig.use_pallas_vq`), as the JAX CLI's flag takes its XLA VQ
+path; the warp keeps its kernel. As in the JAX CLI, the VQVAE is built
+from `cfg.model` and the clip lengths are read from `cfg.data`.
+Checkpoints are `torch.save` files of the full train state; sample
+streams are mp4v files.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from faceoff_tpu_torch.cli import common
 from faceoff_tpu_torch.data.dataset import TemporalAlignmentDataset
 from faceoff_tpu_torch.data.pipeline import DataLoader
 from faceoff_tpu_torch.device import DeviceLike, resolve_device
+from faceoff_tpu_torch.models import VQVAE
 from faceoff_tpu_torch.models.lpips import (RematLPIPS, init_lpips,
                                             resolve_lpips_weights)
 from faceoff_tpu_torch.parallel import collectives
@@ -114,12 +118,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported(parser: argparse.ArgumentParser, args) -> None:
-    """Exit with an error for a flag whose function the port lacks: only
-    --no_pallas (the port has no path around its kernels on the card)."""
-    common.refuse_no_pallas(parser, args)
-
-
 def random_run_name(n: int = 5) -> str:
     """The run directories' suffix."""
     return "".join(random.choices(string.ascii_lowercase + string.digits,
@@ -162,16 +160,17 @@ def build_everything(args, device: DeviceLike = None, *,
             sample_folder=args.sample_folder,
         ),
     )
-    model = common.build_vqvae(args, cfg.model.in_channels, device=dev)
+    model = VQVAE(cfg.model, dtype=torch.float32, device=dev,
+                  generator=torch.Generator().manual_seed(args.seed))
     model.set_process_group(group)
 
     train_ds = TemporalAlignmentDataset(
-        args.data_root, "train", args.train_frames,
+        args.data_root, "train", cfg.data.train_frames,
         resolution=args.size, color_jitter_type=args.colorjit,
         grayscale=args.gray, exclude_list=args.exclude_list, device=dev)
     val_ds = TemporalAlignmentDataset(
         args.validation_folder or args.data_root, "val",
-        args.val_frames, resolution=args.size,
+        cfg.data.val_frames, resolution=args.size,
         color_jitter_type=args.colorjit, cross_identity=args.crossid,
         grayscale=args.gray,
         custom_validation_source=(args.data_root if args.custom_validation
@@ -193,12 +192,12 @@ def build_everything(args, device: DeviceLike = None, *,
               f"{corpus.nbytes / 2**20:.0f} MiB on {dev} in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
         prepare_fn = make_resident_prepare(
-            corpus, local_clips, args.train_frames,
+            corpus, local_clips, cfg.data.train_frames,
             color_jitter=args.colorjit)
         train_loader = ResidentBatches(
             corpus, max(1, len(train_ds) // local_clips),
             args.steps_per_call, clips_per_step=local_clips,
-            clip_len=args.train_frames)
+            clip_len=cfg.data.train_frames)
     elif args.device_pipeline:
         from faceoff_tpu_torch.data.device_pipeline import (
             RawClipLoader, prepare_train_batch)
@@ -260,9 +259,7 @@ def main(argv=None, device: DeviceLike = None) -> Trainer:
     """Parse `argv`, build the trainer on `device` (CUDA unless named),
     resume with --ckpt, then validate (--test) or train. Returns the
     trainer."""
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    refuse_unported(parser, args)
+    args = build_parser().parse_args(argv)
     common.init_multihost(args, device)
     run = common.shared_run_name() if args.multihost else random_run_name()
     args.sample_folder = f"{args.sample_folder}_{run}"

@@ -3,7 +3,13 @@
 them and `default_config()`), with the same fields and defaults.
 
 The port keeps its own copy so that it never imports the JAX package.
-The defaults are the flagship operating point.
+The defaults are the flagship operating point. The perceptual CLI builds
+a Config from its flags and reads `model` (the VQVAE, `use_pallas_vq`
+included) and `data.train_frames`/`data.val_frames` from it where the
+JAX CLI does. The fields that nothing in the JAX package reads
+(`MeshConfig`, `default_config()`, the GAN weights on `TrainConfig`)
+are kept as parity fields, so that the two packages' configurations stay
+field for field the same.
 """
 
 from __future__ import annotations
@@ -37,8 +43,9 @@ class ModelConfig:
     remat_scope: str = "all"
     temporal_postnet_layers: int = 3  # Conv3D stack depth per level
     temporal_kernel: int = 3
-    # kept so that the config is the JAX package's: the port sends every
-    # codebook size on CUDA to its VQ kernels and reads no flag
+    # the training quantizer's route: the VQ kernels on CUDA (at every
+    # codebook size), or, False (--no_pallas), their plain version on
+    # every device; the warp and evaluation are not affected
     use_pallas_vq: bool = True
 
 
@@ -71,7 +78,10 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Optimization configuration, the GAN stage's weights included."""
+    """Optimization configuration. The GAN stage's weights
+    (g_loss_*_weight, *_disc_weight, d_loss_weight, disc_lr,
+    disc_frames) are parity fields: neither package's GAN CLI reads them
+    from here; it takes its own flags."""
 
     lr: float = 3e-4
     epochs: int = 560
@@ -96,7 +106,8 @@ class TrainConfig:
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Device-mesh layout: `data` shards clips, `time` the frames of each
-    clip (`parallel.mesh.make_mesh`)."""
+    clip. A parity field: the CLIs call `parallel.mesh.make_mesh` with
+    their own arguments, in both packages."""
 
     data: int = -1  # -1: all devices
     time: int = 1
@@ -111,4 +122,6 @@ class Config:
 
 
 def default_config() -> Config:
+    """The flagship Config; a parity function that no CLI calls, in
+    either package."""
     return Config()

@@ -19,7 +19,10 @@ in tests); codebooks stay float32 and the nearest-code scores are float32.
 
 Training (`forward(video, train=True)`) runs both quantizers through
 `ops/vq.vq_quantize_train` and writes the EMA-updated codebooks into their
-buffers. With `ModelConfig.remat` the encoders, postnets and decoders
+buffers: through the VQ kernels on CUDA, or through their plain version
+on every device with `ModelConfig.use_pallas_vq` off (the CLIs'
+--no_pallas; the JAX model's `use_pallas`). Evaluation looks up either
+way. With `ModelConfig.remat` the encoders, postnets and decoders
 (as `remat_scope` selects) recompute their activations in the backward
 (`torch.utils.checkpoint`); the quantizers stay outside the recomputed
 regions, as in the JAX model, so the EMA update runs once per step.
@@ -217,11 +220,15 @@ class EmaQuantizer(nn.Module):
     also advances the EMA state in the buffers."""
 
     def __init__(self, embed_dim: int, n_embed: int, decay: float = 0.99,
-                 eps: float = 1e-5, process_group=None):
+                 eps: float = 1e-5, process_group=None,
+                 use_kernels: bool = True):
         super().__init__()
         self.embed_dim = embed_dim
         self.decay = decay
         self.eps = eps
+        # training assigns through the VQ kernels on CUDA; False: through
+        # their plain version on every device
+        self.use_kernels = use_kernels
         # a torch.distributed group: the EMA statistics and the revive's
         # rows are this process's and are reduced over it (None: one process)
         self.process_group = process_group
@@ -246,13 +253,14 @@ class EmaQuantizer(nn.Module):
         self, x: torch.Tensor, train: bool = False, update: bool = True
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """x (..., embed_dim) channels-last -> (quant, indices, diff).
-        Training mode assigns through the VQ kernels and, with `update`,
-        stores the EMA step."""
+        Training mode assigns through the VQ kernels (or their plain
+        version, `use_kernels` off) and, with `update`, stores the EMA
+        step."""
         if not train:
             return vq_ops.vq_lookup(self.codebook, x)
         quant, indices, diff, new = vq_ops.vq_quantize_train(
             self.codebook, x, decay=self.decay, eps=self.eps, update=update,
-            process_group=self.process_group)
+            process_group=self.process_group, use_kernels=self.use_kernels)
         if update:
             self._store(new)
         return quant, indices, diff
@@ -337,10 +345,12 @@ class VQVAE(nn.Module):
             self.enc_b = Encoder(c.in_channels, ch, rb, rc, 4)
             self.enc_t = Encoder(ch, ch, rb, rc, 2)
             self.quantize_conv_t = nn.Conv2d(ch, ed, 1)
-            self.quantize_t = EmaQuantizer(ed, c.n_embed, c.vq_decay, c.vq_eps)
+            self.quantize_t = EmaQuantizer(ed, c.n_embed, c.vq_decay, c.vq_eps,
+                                           use_kernels=c.use_pallas_vq)
             self.dec_t = Decoder(ed, ed, ch, rb, rc, 2)
             self.quantize_conv_b = nn.Conv2d(ed + ch, ed, 1)
-            self.quantize_b = EmaQuantizer(ed, c.n_embed, c.vq_decay, c.vq_eps)
+            self.quantize_b = EmaQuantizer(ed, c.n_embed, c.vq_decay, c.vq_eps,
+                                           use_kernels=c.use_pallas_vq)
             self.upsample_t = nn.ConvTranspose2d(ed, ed, 4, stride=2, padding=1)
             self.dec = Decoder(ed + ed, self.out_channels, ch, rb, rc, 4)
             self.conv3d_encoded_b = TemporalPostnet(

@@ -8,9 +8,12 @@ Training (`vq_quantize_train`) assigns, quantizes and gathers the EMA
 statistics in one call of `vq_assign`: a CUDA tensor goes to the
 hand-written kernels (`ops/vq_cuda.py`, `csrc/vq.cu`) at every codebook
 size, a CPU tensor to `vq_assign_plain` beside it, which is also the
-kernels' reference. The JAX package sends codebooks above 2048 codes to
-XLA instead of its Pallas kernel (`faceoff_tpu/ops/vq.py:204-210`); that
-crossover was measured on a TPU v5e and is not carried over.
+kernels' reference. `use_kernels=False` (`ModelConfig.use_pallas_vq`
+off, the CLIs' --no_pallas) sends every device to `vq_assign_plain`, as
+the JAX package's `use_pallas=False` takes its XLA path. The JAX package
+also sends codebooks above 2048 codes to XLA instead of its Pallas
+kernel (`faceoff_tpu/ops/vq.py:204-210`); that crossover was measured on
+a TPU v5e and is not carried over.
 """
 
 from __future__ import annotations
@@ -89,19 +92,40 @@ def vq_lookup(
     return quant, indices, diff
 
 
+# elements of one block of vq_stats' float64 one-hot on CUDA (256 MiB)
+STATS_CHUNK_ELEMS = 1 << 25
+
+
 def vq_stats(
     flat: torch.Tensor, indices: torch.Tensor, n_embed: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """flat (N, dim), indices (N,) -> (counts (n_embed,), sums
-    (dim, n_embed)), float32. The JAX package multiplies by a one-hot
-    matrix; the same sums are an index_add here, which needs no (N, K)
-    buffer."""
+    (dim, n_embed)), float32.
+
+    On the CPU the sums are an index_add_, which adds the rows in order
+    and needs no (N, K) buffer. On CUDA index_add_ adds with atomics, in
+    an order that changes from run to run, and index_put_'s sorted sums
+    add a code's rows one after another in one warp (the codes of a young
+    codebook crowd into a few, so a call took hundreds of ms). There the
+    sums are the JAX package's one-hot product instead, in float64 over
+    STATS_CHUNK_ELEMS-element blocks of rows added in order: the same
+    product on the same inputs gives the same bits, so a run and its
+    resume repeat bit for bit, as the statistics kernel does; float64
+    sums are finer than float32's and no TF32 setting reaches them."""
     idx = indices.reshape(-1).long()
     counts = torch.bincount(idx, minlength=n_embed).to(torch.float32)
     f32 = flat.to(torch.float32)
-    sums = torch.zeros((n_embed, f32.shape[1]), dtype=torch.float32,
-                       device=f32.device).index_add_(0, idx, f32)
-    return counts, sums.t().contiguous()
+    if f32.device.type == "cpu":
+        sums = torch.zeros((n_embed, f32.shape[1]), dtype=torch.float32)
+        return counts, sums.index_add_(0, idx, f32).t().contiguous()
+    codes = torch.arange(n_embed, device=f32.device)
+    sums = torch.zeros((f32.shape[1], n_embed), dtype=torch.float64,
+                       device=f32.device)
+    rows = max(1, STATS_CHUNK_ELEMS // n_embed)
+    for lo in range(0, idx.shape[0], rows):
+        hot = (idx[lo:lo + rows, None] == codes).to(torch.float64)
+        sums += f32[lo:lo + rows].t().to(torch.float64) @ hot
+    return counts, sums.to(torch.float32)
 
 
 def vq_assign_plain(
@@ -223,6 +247,7 @@ def vq_quantize_train(
     eps: float = 1e-5,
     update: bool = True,
     process_group=None,
+    use_kernels: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, VQCodebook]:
     """Training-mode quantization of x (..., dim): lookup, straight-through
     gradient and EMA update. Returns (quantized in x's dtype, indices,
@@ -230,16 +255,23 @@ def vq_quantize_train(
     commitment gradient to x. With update=False the statistics are not
     gathered and the codebook comes back as it was: the quantized values
     are the same, as the JAX package's are when its caller drops the EMA
-    update. `process_group`: see `vq_ema_update`."""
+    update. `process_group`: see `vq_ema_update`. `use_kernels=False`
+    takes `vq_assign_plain` on every device, where `vq_assign` and
+    `vq_assign_rows` send a CUDA tensor to the kernels (the JAX function's
+    `use_pallas=False` and True)."""
     flat = x.reshape(-1, codebook.dim)
     if not update:
-        indices, quant_flat = vq_assign_rows(flat, codebook.embed)
+        if use_kernels:
+            indices, quant_flat = vq_assign_rows(flat, codebook.embed)
+        else:
+            indices, quant_flat, _, _ = vq_assign_plain(flat, codebook.embed)
         quant = quant_flat.reshape(x.shape).to(x.dtype)
         diff = torch.mean((quant.to(torch.float32)
                            - x.to(torch.float32)) ** 2)
         return (x + (quant - x).detach(), indices.reshape(x.shape[:-1]),
                 diff, codebook)
-    indices, quant_flat, counts, sums = vq_assign(flat, codebook.embed)
+    assign = vq_assign if use_kernels else vq_assign_plain
+    indices, quant_flat, counts, sums = assign(flat, codebook.embed)
     quant = quant_flat.reshape(x.shape).to(x.dtype)
     indices = indices.reshape(x.shape[:-1])
     diff = torch.mean((quant.to(torch.float32) - x.to(torch.float32)) ** 2)

@@ -331,6 +331,10 @@ def perturb_clip(
     return out * valid[..., None]
 
 
+# the most bytes of booleans one chunk of convex_mask's directions makes
+MASK_CHUNK_BYTES = 1 << 28
+
+
 def convex_mask(
     points: torch.Tensor,
     h: int,
@@ -343,7 +347,10 @@ def convex_mask(
 
     Support-function test: q is inside iff d.q <= max_i d.p_i + 0.5 for
     `n_directions` directions d; `enlarge` grows the hull by that many
-    pixels (Minkowski sum with an L2 ball).
+    pixels (Minkowski sum with an L2 ball). The directions are tested in
+    chunks, so that the comparisons' booleans, (..., h*w, chunk), stay
+    within MASK_CHUNK_BYTES whatever the number and size of the frames
+    (all 128 at once took 1 GiB at 32 frames of 512x512).
     """
     pts = points.to(torch.float32)
     k = n_directions
@@ -358,7 +365,13 @@ def convex_mask(
     support = proj.amax(dim=-2) + enlarge  # (..., K)
     x, y = identity_grid(h, w, pts.device)
     dq = x.reshape(-1, 1) * cos + y.reshape(-1, 1) * sin  # (H*W, K)
-    inside = torch.all(dq <= support[..., None, :] + 0.5, dim=-1)
+    bound = support[..., None, :] + 0.5  # (..., 1, K)
+    chunk = max(1, MASK_CHUNK_BYTES // max(1, bound[..., 0].numel() * h * w))
+    inside = None
+    for k0 in range(0, k, chunk):
+        part = torch.all(dq[:, k0:k0 + chunk] <= bound[..., k0:k0 + chunk],
+                         dim=-1)
+        inside = part if inside is None else inside & part
     return inside.reshape(tuple(pts.shape[:-2]) + (h, w)).to(torch.float32)
 
 

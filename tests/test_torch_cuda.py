@@ -7,8 +7,10 @@ pipeline; the GAN stage: its kernels at the path's shapes and a
 mocoganhd pair's launches; the functional streaming push and a serving
 bundle exported for the card; VQVAE_B2F's training forward (its six
 quantizers through the VQ kernels) and the shardmap step in a one-rank
-NCCL group against the plain step; mp4: kernels V1-V4 against their plain
-versions at every call of a round trip, V1-V4 on adversarial inputs
+NCCL group against the plain step; the training quantizer's plain
+route (--no_pallas: no VQ launch, repeatable sums); mp4: kernels V1-V4
+against their plain versions at every call of a round trip, V1-V4 on
+adversarial inputs
 (every qp, levels at the clamps, rows that wrap int16, columns that take
 64 bits, bidx in any order; every half-pel phase, both rounding types,
 vectors far outside the picture, residuals at the int16 extremes; ties,
@@ -563,6 +565,40 @@ def test_gan_path_kernels_match_plain(cuda):
     out = W.warp_with_grid(faces.to(cuda), xs.to(cuda), ys.to(cuda))
     torch.cuda.synchronize()
     assert (out.cpu() - W._bilinear_sample(faces, xs, ys)).abs().max() <= 1e-5
+
+
+def test_plain_route_on_card_launches_nothing_and_repeats(cuda,
+                                                         monkeypatch):
+    """The training quantizer with the kernel route off (--no_pallas) on
+    CUDA: no VQ kernel launches, the plain statistics of the same inputs
+    bitwise equal twice (the float64 one-hot sums, 3 blocks of rows
+    here), within float32 rounding of float64 sums of the same rows
+    (4 u of each sum's absolute terms), with indices equal to the
+    kernel route's but for float32 ties (`_check_vq`)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(V, "STATS_CHUNK_ELEMS", 6000 * 512)
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    e = torch.randn((64, 512), generator=gen, device=cuda)
+    x = torch.randn((2, 8, 32, 32, 64), generator=gen, device=cuda)
+    cb = V.VQCodebook(e, torch.ones(512, device=cuda), e.clone())
+    before = (vq_cuda.assign_launches, vq_cuda.stats_launches)
+    runs = [V.vq_quantize_train(cb, x, use_kernels=False) for _ in range(2)]
+    for update in (True, False):
+        V.vq_quantize_train(cb, x, update=update, use_kernels=False)
+    torch.cuda.synchronize()
+    assert (vq_cuda.assign_launches, vq_cuda.stats_launches) == before
+    for a, b in zip(runs[0][3], runs[1][3]):
+        assert torch.equal(a, b)
+    flat = x.reshape(-1, 64)
+    _check_vq(flat, e, V.vq_assign(flat, e))
+    idx = runs[0][1].reshape(-1)
+    _, sums = V.vq_stats(flat, idx, 512)
+    exact = torch.zeros((512, 64), dtype=torch.float64, device=cuda)
+    exact.index_add_(0, idx.long(), flat.double())
+    absum = torch.zeros((512, 64), dtype=torch.float64, device=cuda)
+    absum.index_add_(0, idx.long(), flat.double().abs())
+    err = (sums.double() - exact.t()).abs()
+    assert bool((err <= 4 * 2.0 ** -24 * absum.t() + 1e-30).all())
 
 
 def test_gan_pair_launches_on_card(cuda):

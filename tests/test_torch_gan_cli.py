@@ -174,20 +174,15 @@ def test_parser_matches_jax():
     (["--process_id", "0"], "Queue 1 item 6"),
     (["--lpips_weights", "auto"], "Queue 1 item 7"),
     (["--no_pallas"], "North star")])
-def test_refused_flags_exit_naming_their_item(capsys, flags, item):
+def test_refused_flags_exit_naming_their_item(flags, item):
     """--multihost and its coordination flags were refused until Queue 1
-    item 6 was ported, --lpips_weights auto until item 7(a); now they pass
-    the check (multi-process GAN steps: tests/test_torch_parallel.py)."""
-    if item in ("Queue 1 item 6", "Queue 1 item 7"):
-        parser = gcli.build_parser()
-        gcli.refuse_unported(parser, parser.parse_args(
-            ["--data_root", "unused", *flags]))
-        return
-    with pytest.raises(SystemExit) as exc:
-        gcli.main(["--data_root", "unused", *flags], device="cpu")
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and item in err
+    item 6 was ported, --lpips_weights auto until item 7(a), --no_pallas
+    (naming the North star) until item 11; now they pass the check
+    (multi-process GAN steps: tests/test_torch_parallel.py; --no_pallas:
+    tests/test_torch_no_pallas.py)."""
+    parser = gcli.build_parser()
+    gcli.refuse_unported(parser, parser.parse_args(
+        ["--data_root", "unused", *flags]))
 
 
 @pytest.mark.parametrize("flags,message", [

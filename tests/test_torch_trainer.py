@@ -20,6 +20,7 @@ from faceoff_tpu.cli import train_faceoff_perceptual as jcli
 from faceoff_tpu.evaluation import metrics as jmetrics
 from faceoff_tpu.train import observability as jobs
 from faceoff_tpu.train import trainer as jtrainer
+from faceoff_tpu_torch.cli import common
 from faceoff_tpu_torch.cli import train_faceoff_perceptual as tcli
 from faceoff_tpu_torch.config import ModelConfig
 from faceoff_tpu_torch.data.resident import (corpus_from_arrays,
@@ -365,19 +366,14 @@ def test_parser_matches_jax():
     (["--custom_validation"], "Queue 1 item 2"),
     (["--lpips_weights", "auto"], "Queue 1 item 7"),
     (["--no_pallas"], "North star")])
-def test_refused_flags_exit_naming_their_item(capsys, flags, item):
-    """Flags whose function the port lacks exit naming their item.
+def test_refused_flags_exit_naming_their_item(flags, item):
+    """Flags whose function the port lacked exited naming their item.
     --crossid and --custom_validation were refused until Queue 1 item 2
     was ported, --multihost and its coordination flags until item 6,
-    --lpips_weights auto until item 7(a); now they pass the check (and
-    train: the tests below and tests/test_torch_parallel.py)."""
-    parser = tcli.build_parser()
-    if item in ("Queue 1 item 2", "Queue 1 item 6", "Queue 1 item 7"):
-        tcli.refuse_unported(parser, parser.parse_args(
-            ["--data_root", "unused", *flags]))
-        return
-    with pytest.raises(SystemExit) as exc:
-        tcli.main(["--data_root", "unused", *flags], device="cpu")
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and item in err
+    --lpips_weights auto until item 7(a), --no_pallas (naming the North
+    star) until item 11; now every one parses, and --no_pallas alone
+    turns the model's kernel route off (they train: the tests below,
+    tests/test_torch_parallel.py and tests/test_torch_no_pallas.py)."""
+    args = tcli.build_parser().parse_args(["--data_root", "unused", *flags])
+    assert common.model_config(args).use_pallas_vq is (
+        flags != ["--no_pallas"]), item
