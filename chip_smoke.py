@@ -192,7 +192,19 @@ Phases, each printing lines with their seconds:
                bound (V1 with the share of its blocks whose column pass
                takes 64 bits); cli/preprocess's main(["all", ...]) on one 720p
                mp4v video (NNNNN.mp4 clips, none quarantined, stage 1 and
-               2 frames/s beside the AVI run's).
+               2 frames/s beside the AVI run's). Then the Advanced Simple
+               Profile: the four fixtures tests/data_torch/asp_*
+               (B-VOPs, MPEG quantisation, quarter-pel, Xvid's packed AVI,
+               720p) decoded on the card through read_video_frames (a
+               main path of its own: counts from 0 just before, read just
+               after), each equal to cv2's stored decode (its digests) and
+               to the CPU plain decode, bit for bit; V1 (MPEG
+               quantisation, Xvid IDCT), V2 (quarter-pel) and V5
+               (bidir_compensate) against their plain versions at every
+               call of those decodes, each form held at least once, then
+               timed at the path's largest call beside its bound; the
+               720p fixture's decode frames/s and host coder's share;
+               cli/preprocess's stage 1 (crop) on asp_720p.mp4.
  19. no_pallas — the train phase's step with --no_pallas (run after
                the trainer phase, whose dataset its CLI run reads): the
                same corpus, seeds and weights through a
@@ -3289,8 +3301,10 @@ def preprocess_phase(t0, work: Path):
 MP4_FIXTURE = REPO / "tests" / "data_torch" / "face_mp4v.mp4"
 MP4_STAGES = ("dequant_idct", "motion_compensate", "motion_search",
               "fdct_quant")
+# the Advanced Simple Profile's decode (V1 and V2 in their new forms, V5)
+ASP_STAGES = ("dequant_idct", "motion_compensate", "bidir_compensate")
 MP4_PLAIN = {name: getattr(mpeg4_cuda, name + "_plain")
-             for name in MP4_STAGES}
+             for name in MP4_STAGES + ASP_STAGES}
 # each byte of a 16 x 16 SAD is an absolute difference and an add; the
 # integer units are no faster than the float32 CUDA cores
 MP4_SAD_OPS = 2
@@ -3312,25 +3326,42 @@ def zero_mp4_counts():
         mpeg4_cuda.launches[k] = 0
 
 
-def read_mp4_counts():
-    return dict(mpeg4_cuda.launches)
+def read_mp4_counts(stages=MP4_STAGES):
+    """The launches of `stages` (V1-V4 by default: the mp4v paths)."""
+    return {k: mpeg4_cuda.launches[k] for k in stages}
+
+
+def mp4_form(name, args) -> str:
+    """The form a stage call runs: V1 "mpeg" (MPEG quantisation, "+xvid"
+    with the Xvid IDCT) or "h263"; V2 and V5 "qpel" or "hpel"."""
+    if name == "dequant_idct":
+        form = "mpeg" if len(args) > 4 and args[4] is not None else "h263"
+        return form + ("+xvid" if len(args) > 5 and args[5] else "")
+    if name in ("motion_compensate", "bidir_compensate"):
+        return "qpel" if len(args) > 6 and args[6] else "hpel"
+    return ""
 
 
 class Mp4Calls:
-    """The four stage wrappers of ops/mpeg4_cuda wrapped: with `hold`,
-    each call also runs the plain version on the same inputs (clones of
-    the planes V2 writes in place) and must equal it bit for bit; every
-    call's arguments are kept as that stage's `last`, the largest call's
-    (by its first dimension) as its `largest`."""
+    """The stage wrappers of ops/mpeg4_cuda (`stages`, V1-V4 by default)
+    wrapped: with `hold`, each call also runs the plain version on the
+    same inputs (clones of the planes V2 and V5 write in place) and must
+    equal it bit for bit; the largest call's arguments (by its first
+    dimension) are kept as the stage's `largest`, and of each form
+    (mp4_form) the call with the most work as `largest_form[(stage,
+    form)]`; `held_forms` counts the held calls of each form."""
 
-    def __init__(self, hold: bool):
+    def __init__(self, hold: bool, stages=MP4_STAGES):
         self.hold = hold
-        self.held = {k: 0 for k in MP4_STAGES}
+        self.stages = stages
+        self.held = {k: 0 for k in stages}
+        self.held_forms = {}
         self.largest = {}
-        self.orig = {k: getattr(mpeg4_cuda, k) for k in MP4_STAGES}
+        self.largest_form = {}
+        self.orig = {k: getattr(mpeg4_cuda, k) for k in stages}
 
     def __enter__(self):
-        for name in MP4_STAGES:
+        for name in self.stages:
             setattr(mpeg4_cuda, name, self._wrap(name))
         return self
 
@@ -3339,36 +3370,46 @@ class Mp4Calls:
             setattr(mpeg4_cuda, name, fn)
 
     def _size(self, name, args):
-        """The call's items (V2-V4) or blocks (V1)."""
+        """The call's items (V2-V5) or blocks (V1)."""
         return int(args[{"dequant_idct": 0, "motion_compensate": 3,
-                         "motion_search": 1, "fdct_quant": 3}[name]]
-                   .shape[0])
+                         "motion_search": 1, "fdct_quant": 3,
+                         "bidir_compensate": 3}[name]].shape[0])
 
     def _wrap(self, name):
         fn = self.orig[name]
 
         def run(*args):
             size = self._size(name, args)
+            form = mp4_form(name, args)
             if size >= self.largest.get(name, (0, None))[0]:
                 self.largest[name] = (size, args)
+            # of a form, the call with the most work: V2 and V5 items times
+            # macroblocks
+            work = size * (int(args[1].shape[1]) if name in (
+                "motion_compensate", "bidir_compensate") else 1)
+            if work >= self.largest_form.get((name, form), (0, None))[0]:
+                self.largest_form[(name, form)] = (work, args)
             if not self.hold:
                 return fn(*args)
-            if name == "motion_compensate":
+            if name in ("motion_compensate", "bidir_compensate"):
                 planes = [p.clone() for p in args[0]]
                 MP4_PLAIN[name](planes, *args[1:])
                 out = fn(*args)
                 same = all(torch.equal(a, b) for a, b in zip(args[0], planes))
             elif name == "dequant_idct":
-                want = MP4_PLAIN[name](*args[:3], args[3].clone())
+                want = MP4_PLAIN[name](*args[:3], args[3].clone(), *args[4:])
                 out = fn(*args)
                 same = torch.equal(out, want)
             else:
                 out = fn(*args)
                 same = torch.equal(out, MP4_PLAIN[name](*args))
             if not same:
-                raise AssertionError(f"mp4: kernel {name} differs from its "
-                                     f"plain version at the path's call")
+                raise AssertionError(f"mp4: kernel {name} ({form}) differs "
+                                     f"from its plain version at the path's "
+                                     f"call")
             self.held[name] += 1
+            key = f"{name}:{form}"
+            self.held_forms[key] = self.held_forms.get(key, 0) + 1
             return out
         return run
 
@@ -3381,7 +3422,7 @@ def mp4_bound(name, args) -> tuple:
     for an inter macroblock with a reference, the four vectors; only
     inter macroblocks read the reference (V2) or prediction (V4)."""
     if name == "dequant_idct":
-        blocks, bidx, mb, _ = args
+        blocks, bidx, mb, _ = args[:4]
         nb = blocks.shape[0]
         coded = int(torch.unique(bidx // 6).numel())
         n_bytes = 2 * nb * 64 * 2 + nb * 4 + coded * 2 * 4
@@ -3397,6 +3438,23 @@ def mp4_bound(name, args) -> tuple:
         if res is not None:
             n_bytes += mbs * 6 * 64 * 2
         ops = mbs * area * 8  # four taps, their sum, the residual, a clip
+    elif name == "bidir_compensate":
+        # each macroblock's record, residual and output, and the samples
+        # of each reference it predicts from (one or two)
+        planes, bmb, res, items = args[:4]
+        mbs = items.shape[0] * bmb.shape[1]
+        rec = bmb[items[:, 0].long()]
+        d = rec[..., 3]
+        dirs = int(((d & mpeg4_cuda.B_FWD) != 0).sum()
+                   + ((d & mpeg4_cuda.B_BWD) != 0).sum())
+        area = sum(p[0].numel() for p in planes) // bmb.shape[1]  # 384
+        n_bytes = mbs * (area + mpeg4_cuda.B_FIELDS * 4) + dirs * area
+        if res is not None:
+            n_bytes += mbs * 6 * 64 * 2
+        qpel = len(args) > 6 and args[6]
+        # quarter-pel: two 8-tap passes and two means a sample; half-pel
+        # four taps and their sum
+        ops = dirs * area * (40 if qpel else 8) + mbs * area * 3
     elif name == "motion_search":
         y, items = args[:2]
         g = items.shape[0]
@@ -3420,7 +3478,7 @@ def mp4_wide_share(args) -> dict:
     """The share of a V1 call's blocks, and of their columns, whose column
     pass the kernel runs in 64 bits (some |column input| above
     mpeg4_cuda.COL_SAFE), from the plain row pass."""
-    blocks, bidx, mb, _ = args
+    blocks, bidx, mb, _ = args[:4]
     qp, intra, luma = mpeg4_cuda._block_params(bidx, mb)
     rows = mpeg4_cuda._idct_rows(mpeg4_cuda.dequantize_plain(
         blocks, qp, intra, luma).view(-1, 8, 8))
@@ -3469,8 +3527,8 @@ def mp4_round_trip(frames: torch.Tensor, path: Path, fps: int,
     return {"frames": n, "encode_s": enc_s, "decode_s": dec_s,
             "write_host_s": host.get("write_vops", 0.0)
             - start.get("write_vops", 0.0),
-            "parse_host_s": host.get("parse_vops", 0.0)
-            - start.get("parse_vops", 0.0),
+            "parse_host_s": host.get("parse_batch", 0.0)
+            - start.get("parse_batch", 0.0),
             "bytes": sum(len(x) for x in samples), "psnr_db": float(psnr)}
 
 
@@ -3521,7 +3579,7 @@ def mp4_phase(t0, work: Path, pre: dict):
 
     host = {}
     wrapped = []
-    for name in ("parse_vops", "write_vops"):
+    for name in ("parse_batch", "write_vops"):
         fn, timed = _timed(mpeg4_cuda, name, host)
         wrapped.append((name, fn))
         setattr(mpeg4_cuda, name, timed)
@@ -3665,7 +3723,152 @@ def mp4_phase(t0, work: Path, pre: dict):
             == 2 == len(mp4_clips) and not res["quarantined"]
             and mp4_clips == ["00000.mp4", "00001.mp4"]):
         raise AssertionError(f"mp4 preprocess: {result['preprocess']}")
+    result["asp"] = asp_phase(t0, work)
     return result, counts
+
+
+ASP_DATA = REPO / "tests" / "data_torch"
+ASP_FIXTURES = ("asp_bframes.mp4", "asp_qpel_mpegq.mp4", "asp_xvid.avi",
+                "asp_720p.mp4")
+ASP_720P = "asp_720p.mp4"
+ASP_DECODE_REPS = 7
+ASP_MIN_FRAMES = 8  # stage 1's shortest clip: the 720p fixture has 12
+# the forms each kernel must be held in (mp4_form)
+ASP_FORMS = ("dequant_idct:mpeg", "dequant_idct:mpeg+xvid",
+             "dequant_idct:h263", "motion_compensate:qpel",
+             "motion_compensate:hpel", "bidir_compensate:qpel",
+             "bidir_compensate:hpel")
+# the kernel rows: each stage at the main path's largest call of its new
+# form
+ASP_ROWS = (("dequant_idct", "mpeg"), ("motion_compensate", "qpel"),
+            ("bidir_compensate", "qpel"))
+
+
+def asp_digests(frames: torch.Tensor, name: str) -> bool:
+    """Whether decoded frames equal cv2's decode stored beside the fixture
+    (tools/make_asp_fixture.py): the count and each frame's SHA-256."""
+    z = np.load(ASP_DATA / (name.rsplit(".", 1)[0] + ".npz"))
+    got = frames.cpu().numpy()
+    return (len(got) == int(z["count"]) and all(
+        hashlib.sha256(np.ascontiguousarray(g).tobytes()).hexdigest() == w
+        for g, w in zip(got, z["sha256"])))
+
+
+def asp_phase(t0, work: Path):
+    """Phase 18's Advanced Simple Profile part (module docstring): its
+    results, the ASP decode's launch counts under "launches"."""
+    from faceoff_tpu_torch.cli import preprocess as pre_cli
+
+    result = {}
+    paths = {name: str(ASP_DATA / name) for name in ASP_FIXTURES}
+    host = {}
+    fn, timed = _timed(mpeg4_cuda, "parse_batch", host)
+    mpeg4_cuda.parse_batch = timed
+    try:
+        # the main path: the four fixtures decoded on the card
+        zero_mp4_counts()
+        with Mp4Calls(hold=False, stages=ASP_STAGES) as calls:
+            decoded = {name: read_video_frames(path, device=DEV)
+                       for name, path in paths.items()}
+        counts = read_mp4_counts(ASP_STAGES)
+        n = sum(int(f.shape[0]) for f in decoded.values())
+        say("mp4", t0, f"asp decode of {n} frames, launches "
+            + json.dumps(counts))
+        if not all(counts.values()):
+            raise AssertionError(f"mp4 asp: a kernel did not run on the "
+                                 f"main path: {counts}")
+        checks = {}
+        for name, got in decoded.items():
+            plain = read_video_frames(paths[name], device="cpu")
+            checks[name] = {"frames": int(got.shape[0]),
+                            "equal_cv2": asp_digests(got, name),
+                            "equal_plain_decode": bool(torch.equal(
+                                got.cpu(), plain))}
+        result["fixtures"] = checks
+        say("mp4", t0, "asp fixtures " + json.dumps(checks))
+        if not all(c["equal_cv2"] and c["equal_plain_decode"]
+                   for c in checks.values()):
+            raise AssertionError(f"mp4 asp: a decode differs: {checks}")
+        del decoded
+
+        # each kernel against its plain version at every call
+        with Mp4Calls(hold=True, stages=ASP_STAGES) as held:
+            for path in paths.values():
+                read_video_frames(path, device=DEV)
+        result["held_calls"] = held.held_forms
+        say("mp4", t0, "asp kernels equal their plain versions at "
+            + json.dumps(held.held_forms) + " calls")
+        missing = [f for f in ASP_FORMS if not held.held_forms.get(f)]
+        if missing:
+            raise AssertionError(f"mp4 asp: forms not held: {missing}")
+
+        # the 720p fixture's decode: frames/s and the host coder's share
+        times, shares = [], []
+        for _ in range(ASP_DECODE_REPS):
+            before = host.get("parse_batch", 0.0)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            frames = read_video_frames(paths[ASP_720P], device=DEV)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            times.append(dt)
+            shares.append((host.get("parse_batch", 0.0) - before) / dt)
+        med = statistics.median(times)
+        result["decode_720p"] = {
+            "frames": int(frames.shape[0]), "size": [1280, 720],
+            "frames_per_s": frames.shape[0] / med, "decode_s": med,
+            "host_share": statistics.median(shares),
+            "reps": ASP_DECODE_REPS}
+        say("mp4", t0, "asp 720p decode " + json.dumps(
+            result["decode_720p"]))
+    finally:
+        mpeg4_cuda.parse_batch = fn
+
+    rows = {}
+    for name, form in ASP_ROWS:
+        size, args = calls.largest_form[(name, form)]
+        kernel = getattr(mpeg4_cuda, name)
+        if name == "dequant_idct":
+            want = MP4_PLAIN[name](*args[:3], args[3].clone(), *args[4:])
+            err = int((kernel(*args).int() - want.int()).abs().max())
+        else:
+            planes = [p.clone() for p in args[0]]
+            MP4_PLAIN[name](planes, *args[1:])
+            kernel(*args)
+            err = max(int((a.int() - b.int()).abs().max())
+                      for a, b in zip(args[0], planes))
+        bound, by = mp4_bound(name, args)
+        rows[name] = {
+            "form": form, "work": size, "max_abs_err": err,
+            "kernel_ms": device_ms(lambda: kernel(*args), reps=10, inner=5),
+            "wrapper_ms": cuda_ms(lambda: kernel(*args), reps=5, inner=3),
+            "plain_ms": cuda_ms(lambda: MP4_PLAIN[name](*args), reps=1,
+                                inner=1, warmup=0),
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "launches": counts[name], "launches_per_frame": counts[name] / n}
+        say("mp4", t0, f"asp {name} " + json.dumps(rows[name]))
+        if err:
+            raise AssertionError(f"mp4 asp: {name} differs from its plain "
+                                 f"version by {err}")
+    result["kernels"] = rows
+
+    # preprocessing stage 1 on the 720p fixture
+    raw, clips = work / "asp_raw", work / "asp_clips"
+    raw.mkdir()
+    shutil.copy(paths[ASP_720P], raw / ASP_720P)
+    t = time.perf_counter()
+    res = pre_cli.main(["crop", "--videos", str(raw), "--out", str(clips),
+                        "--resolution", str(TRAIN_SIZE), "--min_frames",
+                        str(ASP_MIN_FRAMES)], device=DEV)
+    torch.cuda.synchronize()
+    result["stage1"] = {"clips": len(res["clips"]),
+                        "seconds": time.perf_counter() - t}
+    say("mp4", t0, "asp stage 1 " + json.dumps(result["stage1"]))
+    if not res["clips"]:
+        raise AssertionError("mp4 asp: stage 1 wrote no clip from "
+                             f"{ASP_720P}")
+    result["launches"] = counts
+    return result
 
 
 # -- phase 17: the postnets over a clip sharded in time -------------------
@@ -4406,7 +4609,10 @@ def main() -> int:
             "encode_frames_per_s", "decode_frames_per_s", "bytes_per_frame",
             "psnr_db")},
         "preprocess_from_mp4": mp4_result["preprocess"],
-        "launches": mp4_counts}))
+        "launches": mp4_counts,
+        "asp_720p_decode": mp4_result["asp"]["decode_720p"],
+        "asp_stage1": mp4_result["asp"]["stage1"],
+        "asp_launches": mp4_result["asp"]["launches"]}))
     # the serving path: the slice phase's sessions and the export phase's
     launches += exported["launches"]["warp"]
     paths = {"serving": {"vq_assign": 0, "vq_stats": 0, "warp": launches,
@@ -4555,6 +4761,26 @@ def main() -> int:
         for key in ("sass_bound_ms", "wide_share"):
             if key in row:
                 kernels[-1][key] = row[key]
+        asp_row = mp4_result["asp"]["kernels"].get(name)
+        if asp_row is not None:
+            # the same kernel's Advanced Simple Profile form at the ASP
+            # decode's largest call (its own main path and launches)
+            kernels[-1]["asp"] = {
+                k: asp_row[k] for k in (
+                    "form", "launches", "max_abs_err", "kernel_ms",
+                    "plain_ms", "bound_ms", "bound_by")}
+    row = mp4_result["asp"]["kernels"]["bidir_compensate"]
+    kernels.append({
+        "name": "bidir_compensate", "route": "cuda",
+        "source": "faceoff_tpu_torch/csrc/mpeg4.cu",
+        # cv2's FFmpeg decoding B-VOPs behind the JAX package's video I/O;
+        # no TPU kernel
+        "replaces": "faceoff_tpu/io/video.py:61",
+        "launches": row["launches"], "max_abs_err": row["max_abs_err"],
+        "ms": row["kernel_ms"], "wrapper_ms": row["wrapper_ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": None})  # no PyTorch call computes it
     print(f"[total] {time.perf_counter() - t_all:.2f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,8 +4,9 @@
 // plain entropy coder, whose VLC tables mpeg4_set_vlc receives).
 //
 //   host   mpeg4_parse / mpeg4_write: VOP bits <-> macroblock records, the
-//          VOPs of a batch spread over threads (each VOP is independent
-//          once the VOL is known)
+//          VOPs of a batch spread over threads (each I- or P-VOP is
+//          independent once the VOL is known; the B-VOPs follow in a
+//          second wave, each reading its future anchor's records)
 //   V1     dequant_idct: H.263 inverse quantisation and the integer
 //          "simple" IDCT of every coded block of a batch, a thread a row,
 //          the column pass in int32 where a bound certifies it
@@ -18,6 +19,9 @@
 //          decision
 //   V4     fdct_quant: integer 8x8 forward DCT (butterflies in registers)
 //          and H.263 quantisation by multiply-high, a thread a block row
+//   V5     bidir_compensate: the B-VOPs' prediction from two anchors
+//          (half- or quarter-pel, rounding 0, (f + b + 1) >> 1 where both
+//          predict) plus the residual, clipped
 //
 // Every stage is integer arithmetic and matches its plain version bit for
 // bit. Without __CUDACC__ only the host coder is compiled (a C++ compiler
@@ -40,14 +44,18 @@
 namespace {
 
 constexpr int MB_FIELDS = 12;
+constexpr int B_FIELDS = 20;
 constexpr int VOP_FIELDS = 6;
-constexpr int VOP_I = 0, VOP_P = 1, VOP_SKIP = 2;
-constexpr int MB_SKIP = 0, MB_INTER = 1, MB_INTRA = 2;
+constexpr int VOP_I = 0, VOP_P = 1, VOP_SKIP = 2, VOP_B = 3;
+constexpr int MB_SKIP = 0, MB_INTER = 1, MB_INTRA = 2, MB_INTER4V = 3;
+constexpr int B_FWD = 1, B_BWD = 2, B_8X8 = 4;
+// mb_type of B-VOPs (Table B-4)
+constexpr int B_DIRECT = 0, B_INTERP = 1, B_BACKWARD = 2, B_FORWARD = 3;
 
 // ---- VLC tables, set from Python ----------------------------------------
 
 enum Table { MCBPC_I = 0, MCBPC_P, CBPY, DC_L, DC_C, MVD, T_INTER, T_INTRA,
-             N_TABLES };
+             MB_B, N_TABLES };
 constexpr int ESC = -1;
 constexpr int MCBPC_I_STUFFING = 8, MCBPC_P_STUFFING = 20;
 
@@ -164,12 +172,15 @@ struct Writer {
 
 // ---- predictors ------------------------------------------------------------
 
+// io/mpeg4.Vol.as_ints: width, height, time resolution, resync markers
+// disabled, quant precision, quarter_sample, quant_type, low_delay
 struct Vol {
-  int width, height, res, resync_disable, qprec;
+  int width, height, res, resync_disable, qprec, qpel, quant_type,
+      low_delay;
   int mbw, mbh, n_mb, tbits, mbbits;
   explicit Vol(const int32_t* v)
       : width(v[0]), height(v[1]), res(v[2]), resync_disable(v[3]),
-        qprec(v[4]) {
+        qprec(v[4]), qpel(v[5]), quant_type(v[6]), low_delay(v[7]) {
     mbw = (width + 15) / 16;
     mbh = (height + 15) / 16;
     n_mb = mbw * mbh;
@@ -358,10 +369,16 @@ int resync_length(Reader& br, int prefix) {
 
 struct ParsedVop {
   int32_t vop[VOP_FIELDS];
-  std::vector<int32_t> mb;
+  std::vector<int32_t> mb;  // MB_FIELDS a macroblock, B_FIELDS for a B-VOP
   std::vector<int16_t> blocks;
   std::vector<int32_t> bidx;
   std::string error;
+};
+
+// What io/mpeg4.plan_stream decided for a VOP: its kind (VOP_SKIP: read
+// the header only) and TRB, TRD of a B-VOP
+struct Step {
+  int kind, trb, trd;
 };
 
 int64_t find_vop(const uint8_t* d, int64_t n) {
@@ -371,11 +388,121 @@ int64_t find_vop(const uint8_t* d, int64_t n) {
   throw Error("sample holds no VOP start code");
 }
 
-void parse_vop(const uint8_t* d, int64_t n, const Vol& vol, ParsedVop& out) {
+// a video packet header at this position: its quant_scale, or -1 where no
+// resync marker stands here
+int packet_header(Reader& br, const Vol& vol, int kind, int prefix, int m) {
+  int k = resync_length(br, prefix);
+  if (!k) return -1;
+  br.pos += k + prefix + 1;
+  int m0 = br.read(vol.mbbits);
+  int qp = br.read(vol.qprec);
+  if (br.read(1)) {
+    while (br.read(1)) {}
+    br.marker();
+    br.read(vol.tbits);
+    br.marker();
+    br.read(2);
+    br.read(3);
+    if (kind != VOP_I) br.read(3);
+    if (kind == VOP_B) br.read(3);
+  }
+  if (m0 != m) throw Error("video packet starts at an unexpected macroblock");
+  return qp;
+}
+
+// the macroblocks of a B-VOP (io/mpeg4._parse_b_mbs)
+void parse_b_mbs(Reader& br, const Vol& vol, int qp, int fcode, int bcode,
+                 const int32_t* col, const Step& st, bool direct_16,
+                 ParsedVop& out) {
+  out.mb.assign((size_t)vol.n_mb * B_FIELDS, 0);
+  const int prefix = 15 + std::max(std::max(fcode, bcode), 2);
+  int pf[2] = {0, 0}, pb[2] = {0, 0};
+  int16_t lv[64];
+  for (int m = 0; m < vol.n_mb; ++m) {
+    if (m % vol.mbw == 0) pf[0] = pf[1] = pb[0] = pb[1] = 0;
+    if (!vol.resync_disable && m > 0) {
+      int q = packet_header(br, vol, VOP_B, prefix, m);
+      if (q >= 0) {
+        qp = q;
+        pf[0] = pf[1] = pb[0] = pb[1] = 0;
+      }
+    }
+    int32_t* row = &out.mb[(size_t)m * B_FIELDS];
+    const int32_t* c = col + (size_t)m * MB_FIELDS;
+    row[0] = MB_INTER;
+    row[1] = qp;
+    if (c[0] == MB_SKIP) {
+      row[3] = B_FWD;
+      continue;
+    }
+    int cbp = 0, mb_type;
+    const bool direct_skip = br.read(1);
+    if (direct_skip) {
+      mb_type = B_DIRECT;
+    } else {
+      const int modb2 = br.read(1);
+      mb_type = br.vlc(g_vlc[MB_B]);
+      if (!modb2) cbp = br.read(6);
+      if (mb_type != B_DIRECT && cbp && br.read(1))
+        qp = std::min(std::max(qp + (br.read(1) ? 4 : 0) - 2, 1), 31);
+      row[1] = qp;
+    }
+    row[2] = cbp;
+    row[3] = mb_type == B_FORWARD ? B_FWD
+                                  : (mb_type == B_BACKWARD ? B_BWD
+                                                           : B_FWD | B_BWD);
+    if (mb_type == B_DIRECT) {
+      int delta[2] = {0, 0};
+      if (!direct_skip) {
+        delta[0] = read_mv(br, 0, 1);
+        delta[1] = read_mv(br, 0, 1);
+      }
+      const bool four = c[0] == MB_INTER4V;
+      // direct_vectors of io/mpeg4.py; C's division truncates toward
+      // zero, as the standard's
+      for (int b = 0; b < 4; ++b) {
+        const int s = four ? b : 0;
+        for (int k = 0; k < 2; ++k) {
+          const int v = c[4 + 2 * s + k], d = delta[k];
+          const int fv = st.trb * v / st.trd + d;
+          row[4 + 2 * b + k] = fv;
+          row[12 + 2 * b + k] = d ? fv - v : (st.trb - st.trd) * v / st.trd;
+        }
+      }
+      if (four || (vol.qpel && !direct_16)) row[3] |= B_8X8;
+    }
+    if (mb_type == B_FORWARD || mb_type == B_INTERP) {
+      pf[0] = read_mv(br, pf[0], fcode);
+      pf[1] = read_mv(br, pf[1], fcode);
+      for (int b = 0; b < 4; ++b) {
+        row[4 + 2 * b] = pf[0];
+        row[5 + 2 * b] = pf[1];
+      }
+    }
+    if (mb_type == B_BACKWARD || mb_type == B_INTERP) {
+      pb[0] = read_mv(br, pb[0], bcode);
+      pb[1] = read_mv(br, pb[1], bcode);
+      for (int b = 0; b < 4; ++b) {
+        row[12 + 2 * b] = pb[0];
+        row[13 + 2 * b] = pb[1];
+      }
+    }
+    for (int b = 0; b < 6; ++b) {
+      if (!((cbp >> (5 - b)) & 1)) continue;
+      std::memset(lv, 0, sizeof(lv));
+      read_levels(br, 0, ZIGZAG, lv, 0);
+      out.blocks.insert(out.blocks.end(), lv, lv + 64);
+      out.bidx.push_back(m * 6 + b);
+    }
+  }
+}
+
+// one VOP; a B-VOP reads `col`, its future anchor's (M, MB_FIELDS) records
+void parse_vop(const uint8_t* d, int64_t n, const Vol& vol, const Step& st,
+               const int32_t* col, bool direct_16, ParsedVop& out) {
   Reader br{d, n * 8, find_vop(d, n)};
   out.mb.assign((size_t)vol.n_mb * MB_FIELDS, 0);
   int kind = br.read(2);
-  if (kind == 2) throw Error("B-VOPs (Advanced Simple Profile)");
   if (kind == 3) throw Error("S-VOPs (sprites or GMC)");
   int modulo = 0;
   while (br.read(1)) {
@@ -384,22 +511,32 @@ void parse_vop(const uint8_t* d, int64_t n, const Vol& vol, ParsedVop& out) {
   br.marker();
   int incr = br.read(vol.tbits);
   br.marker();
-  if (!br.read(1)) {
+  if (st.kind == VOP_SKIP || !br.read(1)) {
     int32_t v[VOP_FIELDS] = {VOP_SKIP, 0, 1, 1, modulo, incr};
     std::memcpy(out.vop, v, sizeof(v));
     return;
   }
+  if (kind == 2) kind = VOP_B;
   int rounding = kind == VOP_P ? br.read(1) : 0;
   int thr = br.read(3);
   int qp = br.read(vol.qprec);
   if (qp == 0) throw Error("vop_quant 0");
-  int fcode = 1;
-  if (kind == VOP_P) {
+  int fcode = 1, bcode = 1;
+  if (kind != VOP_I) {
     fcode = br.read(3);
     if (fcode == 0) throw Error("vop_fcode_forward 0");
   }
+  if (kind == VOP_B) {
+    bcode = br.read(3);
+    if (bcode == 0) throw Error("vop_fcode_backward 0");
+  }
   int32_t v[VOP_FIELDS] = {kind, rounding, qp, fcode, modulo, incr};
   std::memcpy(out.vop, v, sizeof(v));
+  if (kind == VOP_B) {
+    if (!col) throw Error("a B-VOP without its future anchor");
+    parse_b_mbs(br, vol, qp, fcode, bcode, col, st, direct_16, out);
+    return;
+  }
   Pred pred(vol);
   int prefix = kind == VOP_I ? 16 : 15 + fcode;
   int qmax = (1 << vol.qprec) - 1;
@@ -407,22 +544,9 @@ void parse_vop(const uint8_t* d, int64_t n, const Vol& vol, ParsedVop& out) {
   int16_t lv[64];
   while (m < vol.n_mb) {
     if (!vol.resync_disable && m > 0) {
-      int k = resync_length(br, prefix);
-      if (k) {
-        br.pos += k + prefix + 1;
-        int m0 = br.read(vol.mbbits);
-        qp = br.read(vol.qprec);
-        if (br.read(1)) {
-          while (br.read(1)) {}
-          br.marker();
-          br.read(vol.tbits);
-          br.marker();
-          br.read(2);
-          br.read(3);
-          if (kind == VOP_P) br.read(3);
-        }
-        if (m0 != m) throw Error("video packet starts at an unexpected "
-                                 "macroblock");
+      int q = packet_header(br, vol, kind, prefix, m);
+      if (q >= 0) {
+        qp = q;
         pred.start = m;
       }
     }
@@ -467,7 +591,7 @@ void parse_vop(const uint8_t* d, int64_t n, const Vol& vol, ParsedVop& out) {
       }
     }
     pred.set_mvs(m, vec);
-    row[0] = intra ? MB_INTRA : MB_INTER;
+    row[0] = intra ? MB_INTRA : (mb_type == 2 ? MB_INTER4V : MB_INTER);
     row[1] = qp; row[2] = cbp; row[3] = acp;
     for (int i = 0; i < 8; ++i) row[4 + i] = vec[i];
     bool dc_vlc = qp < DC_THR_QP[thr];
@@ -728,6 +852,7 @@ struct Handle {
 
 struct ParseHandle : Handle {
   std::vector<ParsedVop> vops;
+  std::vector<int> kinds;  // the parsed record kind of each VOP
   int n_mb = 0;
 };
 
@@ -802,50 +927,104 @@ int mpeg4_set_vlc(int table, int n, const int32_t* codes,
   return 0;
 }
 
-// Parse n VOPs (sample i at data + offsets[i], sizes[i] bytes). counts[0]
-// gets the coded blocks of the batch. Returns a handle for
-// mpeg4_parse_fetch; a parse error leaves its message in mpeg4_error.
+// Parse n VOPs (sample i at data + offsets[i], sizes[i] bytes) as `plan`
+// (n rows kind, TRB, TRD; io/mpeg4.plan_stream) says: the I- and P-VOPs
+// (and the VOPs only read for their header) on threads, then the B-VOPs,
+// each with the records of the last anchor before it, which must lie in
+// the batch. counts gets the anchors' coded blocks, the B-VOPs' coded
+// blocks and the B-VOPs. Returns a handle for mpeg4_parse_fetch; a parse
+// error leaves its message in mpeg4_error.
 void* mpeg4_parse(const uint8_t* data, const int64_t* offsets,
                   const int64_t* sizes, int n, const int32_t* vol_fields,
-                  int threads, int64_t* counts) {
+                  const int32_t* plan, int direct_16, int threads,
+                  int64_t* counts) {
   auto* h = new ParseHandle();
   Vol vol(vol_fields);
   h->n_mb = vol.n_mb;
   h->vops.resize(n);
-  parallel(n, threads, [&](int i) {
-    try {
-      parse_vop(data + offsets[i], sizes[i], vol, h->vops[i]);
-    } catch (const std::exception& e) {
-      h->vops[i].error = "VOP " + std::to_string(i) + ": " + e.what();
-    }
-  });
-  int64_t nb = 0;
-  for (auto& v : h->vops) {
+  std::vector<Step> steps(n);
+  std::vector<int> anchor(n, -1);  // the last I/P-VOP before each VOP
+  int last = -1;
+  for (int i = 0; i < n; ++i) {
+    steps[i] = Step{plan[3 * i], plan[3 * i + 1], plan[3 * i + 2]};
+    anchor[i] = last;
+    if (steps[i].kind == VOP_I || steps[i].kind == VOP_P) last = i;
+  }
+  for (int wave = 0; wave < 2; ++wave) {
+    std::vector<int> todo;
+    for (int i = 0; i < n; ++i)
+      if ((steps[i].kind == VOP_B) == (wave == 1)) todo.push_back(i);
+    parallel((int)todo.size(), threads, [&](int t) {
+      const int i = todo[t];
+      try {
+        const int a = anchor[i];
+        const int32_t* col = nullptr;
+        if (steps[i].kind == VOP_B) {
+          if (a < 0 || !h->vops[a].error.empty())
+            throw Error("a B-VOP without its future anchor");
+          col = h->vops[a].mb.data();
+        }
+        parse_vop(data + offsets[i], sizes[i], vol, steps[i], col,
+                  direct_16 != 0, h->vops[i]);
+      } catch (const std::exception& e) {
+        h->vops[i].error = "VOP " + std::to_string(i) + ": " + e.what();
+      }
+    });
+  }
+  int64_t nb = 0, nbb = 0, fb = 0;
+  h->kinds.resize(n);
+  for (int i = 0; i < n; ++i) {
+    auto& v = h->vops[i];
     if (!v.error.empty() && h->error.empty()) h->error = v.error;
-    nb += (int64_t)v.bidx.size();
+    h->kinds[i] = v.error.empty() ? v.vop[0] : VOP_SKIP;
+    if (h->kinds[i] == VOP_B) {
+      nbb += (int64_t)v.bidx.size();
+      ++fb;
+    } else {
+      nb += (int64_t)v.bidx.size();
+    }
   }
   counts[0] = nb;
+  counts[1] = nbb;
+  counts[2] = fb;
   return h;
 }
 
+// The records: vop (n, VOP_FIELDS); mb (n, M, MB_FIELDS) (zero for
+// B-VOPs); the anchors' blocks and flat indices; bmb (FB, M, B_FIELDS),
+// the B-VOPs' blocks and flat indices j * M * 6 + m * 6 + b.
 int mpeg4_parse_fetch(void* handle, int32_t* vop, int32_t* mb,
-                      int16_t* blocks, int32_t* bidx) {
+                      int16_t* blocks, int32_t* bidx, int32_t* bmb,
+                      int16_t* bblocks, int32_t* bbidx) {
   auto* h = static_cast<ParseHandle*>(handle);
   if (!h->error.empty()) return 1;
-  int64_t nb = 0;
-  int64_t per = (int64_t)h->n_mb * MB_FIELDS;
+  int64_t nb = 0, nbb = 0, j = 0;
+  const int64_t per = (int64_t)h->n_mb * MB_FIELDS;
+  const int64_t bper = (int64_t)h->n_mb * B_FIELDS;
   for (size_t f = 0; f < h->vops.size(); ++f) {
     const ParsedVop& v = h->vops[f];
     std::memcpy(vop + f * VOP_FIELDS, v.vop, sizeof(v.vop));
-    if (v.mb.empty())
+    if (h->kinds[f] == VOP_B) {
+      std::memset(mb + f * per, 0, per * sizeof(int32_t));
+      std::memcpy(bmb + j * bper, v.mb.data(), bper * sizeof(int32_t));
+      std::memcpy(bblocks + nbb * 64, v.blocks.data(),
+                  v.blocks.size() * sizeof(int16_t));
+      const int32_t base = (int32_t)(j * h->n_mb * 6);
+      for (size_t k = 0; k < v.bidx.size(); ++k)
+        bbidx[nbb + k] = base + v.bidx[k];
+      nbb += (int64_t)v.bidx.size();
+      ++j;
+      continue;
+    }
+    if (h->kinds[f] == VOP_SKIP || v.mb.empty())
       std::memset(mb + f * per, 0, per * sizeof(int32_t));
     else
       std::memcpy(mb + f * per, v.mb.data(), per * sizeof(int32_t));
     std::memcpy(blocks + nb * 64, v.blocks.data(),
                 v.blocks.size() * sizeof(int16_t));
     int32_t base = (int32_t)(f * h->n_mb * 6);
-    for (size_t j = 0; j < v.bidx.size(); ++j)
-      bidx[nb + j] = base + v.bidx[j];
+    for (size_t k = 0; k < v.bidx.size(); ++k)
+      bidx[nb + k] = base + v.bidx[k];
     nb += (int64_t)v.bidx.size();
   }
   return 0;
@@ -1024,7 +1203,116 @@ __device__ __forceinline__ void idct_column(const int (&y)[8], int (&o)[8]) {
   }
 }
 
-template <int BPB, int RPT>
+// MPEG quantisation's matrices (intra, then inter; raster), sent once a
+// VOL by mpeg4_set_matrices
+__constant__ uint16_t kMatrix[128];
+
+// one row r of levels (a 16-byte word) dequantised by MPEG rules
+// (ops/mpeg4_cuda.dequantize_mpeg_plain): F = (2 l + k) W qp / 16,
+// truncated toward zero, k = 0 intra and sign(l) inter, saturated; with
+// `intra_dc`, x[0] is `dc`
+__device__ __forceinline__ void mpeg_row(uint4 lv, int r, int qp, bool intra,
+                                         bool intra_dc, int dc,
+                                         int (&x)[8]) {
+  const unsigned lw[4] = {lv.x, lv.y, lv.z, lv.w};
+  const uint16_t* w = kMatrix + (intra ? 0 : 64) + 8 * r;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const unsigned u = lw[c >> 1];
+    const int l = (c & 1) ? (int)u >> 16 : (int)(int16_t)(u & 0xFFFF);
+    const int a = abs(l);
+    const int mag = min(((2 * a + (intra ? 0 : 1)) * w[c] * qp) >> 4,
+                        l < 0 ? 2048 : 2047);
+    x[c] = l == 0 ? 0 : (l < 0 ? -mag : mag);
+  }
+  if (intra_dc) x[0] = dc;
+}
+
+// the row pass on dequantised values x, DC-only rows by the shortcut
+__device__ __forceinline__ void row_pass(const int (&x)[8], int (&row)[8]) {
+  if ((x[1] | x[2] | x[3] | x[4] | x[5] | x[6] | x[7]) == 0) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) row[c] = x[0] * 8;
+  } else {
+    idct8<int, 11>(x, W4 * x[0] + (1 << 10), row);
+  }
+}
+
+// FFmpeg's Xvid IDCT (ops/mpeg4_cuda.idct_xvid_plain), which decodes
+// Xvid's streams: a row pass with a table and a rounding term a row, in
+// 32-bit wrapping arithmetic as the C code's unsigned sums
+__constant__ int kXvidTab[4][7] = {
+    {22725, 21407, 19266, 16384, 12873, 8867, 4520},
+    {31521, 29692, 26722, 22725, 17855, 12299, 6270},
+    {29692, 27969, 25172, 21407, 16819, 11585, 5906},
+    {26722, 25172, 22654, 19266, 15137, 10426, 5315}};
+__constant__ int kXvidRowTab[8] = {0, 1, 2, 3, 0, 3, 2, 1};
+__constant__ int kXvidRnd[8] = {65536, 3597, 2260, 1203, 0, 120, 512, 512};
+
+__device__ __forceinline__ void xvid_row(const int (&x)[8], int r,
+                                         int (&o)[8]) {
+  const int* c = kXvidTab[kXvidRowTab[r]];
+  const unsigned c1 = c[0], c2 = c[1], c3 = c[2], c4 = c[3], c5 = c[4],
+                 c6 = c[5], c7 = c[6];
+  unsigned u[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) u[i] = (unsigned)x[i];
+  const unsigned k = c4 * u[0] + (unsigned)kXvidRnd[r];
+  const unsigned a0 = k + c2 * u[2] + c4 * u[4] + c6 * u[6];
+  const unsigned a1 = k + c6 * u[2] - c4 * u[4] - c2 * u[6];
+  const unsigned a2 = k - c6 * u[2] - c4 * u[4] + c2 * u[6];
+  const unsigned a3 = k - c2 * u[2] + c4 * u[4] - c6 * u[6];
+  const unsigned b0 = c1 * u[1] + c3 * u[3] + c5 * u[5] + c7 * u[7];
+  const unsigned b1 = c3 * u[1] - c7 * u[3] - c1 * u[5] - c5 * u[7];
+  const unsigned b2 = c5 * u[1] - c1 * u[3] + c7 * u[5] + c3 * u[7];
+  const unsigned b3 = c7 * u[1] - c5 * u[3] + c3 * u[5] - c1 * u[7];
+  o[0] = d_wrap16((int)(a0 + b0) >> 11);
+  o[1] = d_wrap16((int)(a1 + b1) >> 11);
+  o[2] = d_wrap16((int)(a2 + b2) >> 11);
+  o[3] = d_wrap16((int)(a3 + b3) >> 11);
+  o[4] = d_wrap16((int)(a3 - b3) >> 11);
+  o[5] = d_wrap16((int)(a2 - b2) >> 11);
+  o[6] = d_wrap16((int)(a1 - b1) >> 11);
+  o[7] = d_wrap16((int)(a0 - b0) >> 11);
+}
+
+// (int)(c * (unsigned)x) >> 16, the C code's MULT
+__device__ __forceinline__ int xmult(unsigned c, int x) {
+  return (int)(c * (unsigned)x) >> 16;
+}
+
+// the Xvid column pass on one column (rows 0 .. 7 of y)
+__device__ __forceinline__ void xvid_column(const int (&y)[8], int (&o)[8]) {
+  constexpr unsigned TAN1 = 0x32EC, TAN2 = 0x6A0A, TAN3 = 0xAB0E,
+                     SQRT2 = 0x5A82;
+  int m0 = xmult(TAN1, y[7]) + y[1];
+  int m1 = xmult(TAN1, y[1]) - y[7];
+  const int m2 = xmult(TAN3, y[5]) + y[3];
+  const int m3 = xmult(TAN3, y[3]) - y[5];
+  const int m7 = m0 + m2, m4 = m1 - m3;
+  m0 = m0 - m2;
+  m1 = m1 + m3;
+  const int m6 = 2 * xmult(SQRT2, m0 + m1), m5 = 2 * xmult(SQRT2, m0 - m1);
+  const int e3 = xmult(TAN2, y[6]) + y[2], e2 = xmult(TAN2, y[2]) - y[6];
+  const int e0 = y[0] + y[4], e1 = y[0] - y[4];
+  const int t0 = e0 + e3, t3 = e0 - e3, t1 = e1 + e2, t2 = e1 - e2;
+  o[0] = d_wrap16((t0 + m7) >> 6);
+  o[7] = d_wrap16((t0 - m7) >> 6);
+  o[3] = d_wrap16((t3 + m4) >> 6);
+  o[4] = d_wrap16((t3 - m4) >> 6);
+  o[1] = d_wrap16((t1 + m6) >> 6);
+  o[6] = d_wrap16((t1 - m6) >> 6);
+  o[2] = d_wrap16((t2 + m5) >> 6);
+  o[5] = d_wrap16((t2 - m5) >> 6);
+}
+
+// FIELDS is the record's stride (MB_FIELDS for I- and P-VOPs, B_FIELDS
+// for B-VOPs); MPEG selects MPEG quantisation with mismatch control on
+// inter blocks (the sum of a block's values is reduced over its TPB
+// threads by shuffles; the thread of row 7 flips coefficient 63); XVID
+// the Xvid IDCT. (The defaults are the mp4v path's form.)
+template <int BPB, int RPT, int FIELDS = MB_FIELDS, bool MPEG = false,
+          bool XVID = false>
 __global__ void __launch_bounds__(8 / RPT * BPB)
 dequant_idct_kernel(const int16_t* __restrict__ blocks,
                     const int32_t* __restrict__ bidx, int nb,
@@ -1046,20 +1334,63 @@ dequant_idct_kernel(const int16_t* __restrict__ blocks,
     lv[i] = live ? src[r0 + i] : make_uint4(0, 0, 0, 0);
   if (live) idx = bidx[j];
   int qp = 1, dc = 0;
-  bool intra_dc = false;
+  bool intra = false, intra_dc = false;
   if (live) {
     const int2 rec = *reinterpret_cast<const int2*>(
-        mb + (size_t)(idx / 6) * MB_FIELDS);
+        mb + (size_t)(idx / 6) * FIELDS);
     qp = rec.y;
-    intra_dc = r0 == 0 && rec.x == MB_INTRA;
+    intra = rec.x == MB_INTRA;
+    intra_dc = r0 == 0 && intra;
     dc = min(max((int)(int16_t)(lv[0].x & 0xFFFF) *
                      d_dc_scaler(qp, idx % 6 < 4), -2048), 2047);
   }
+  if constexpr (MPEG) {
+    int x[RPT][8];
+    int sum = 0;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    int row[8];
-    dequant_row(lv[i], qp, i == 0 && intra_dc, dc, row);
-    reinterpret_cast<uint4*>(tl)[r0 + i] = pack16(row);
+    for (int i = 0; i < RPT; ++i) {
+      mpeg_row(lv[i], r0 + i, qp, intra, i == 0 && intra_dc, dc, x[i]);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) sum += x[i][c];
+    }
+#pragma unroll
+    for (int off = 1; off < TPB; off <<= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (!intra && r0 + RPT - 1 == 7 && (sum & 1) == 0) x[RPT - 1][7] ^= 1;
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      int row[8];
+      if (XVID)
+        xvid_row(x[i], r0 + i, row);
+      else
+        row_pass(x[i], row);
+      reinterpret_cast<uint4*>(tl)[r0 + i] = pack16(row);
+    }
+  } else if (XVID) {
+    // H.263 dequantisation, the Xvid row pass
+    const int c0 = qp - 1 + (qp & 1);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const unsigned lw[4] = {lv[i].x, lv[i].y, lv[i].z, lv[i].w};
+      int x[8], row[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const unsigned w = lw[c >> 1];
+        const int l = (c & 1) ? (int)w >> 16 : (int)(int16_t)(w & 0xFFFF);
+        const int mag = min(2 * qp * abs(l) + c0, l < 0 ? 2048 : 2047);
+        x[c] = l == 0 ? 0 : (l < 0 ? -mag : mag);
+      }
+      if (i == 0 && intra_dc) x[0] = dc;
+      xvid_row(x, r0 + i, row);
+      reinterpret_cast<uint4*>(tl)[r0 + i] = pack16(row);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      int row[8];
+      dequant_row(lv[i], qp, i == 0 && intra_dc, dc, row);
+      reinterpret_cast<uint4*>(tl)[r0 + i] = pack16(row);
+    }
   }
   __syncwarp();
   // columns r0 .. r0 + RPT - 1 (two read as one word)
@@ -1075,7 +1406,12 @@ dequant_idct_kernel(const int16_t* __restrict__ blocks,
     }
   }
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) idct_column(y[i], o[i]);
+  for (int i = 0; i < RPT; ++i) {
+    if (XVID)
+      xvid_column(y[i], o[i]);
+    else
+      idct_column(y[i], o[i]);
+  }
   __syncwarp();
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
@@ -1306,6 +1642,219 @@ motion_compensate_kernel(uint8_t* __restrict__ Y, uint8_t* __restrict__ U,
     }
     *reinterpret_cast<uint2*>(o + (size_t)i * stride) = v;
   }
+}
+
+// ---- V2 at quarter-pel, and V5: a CUDA block a macroblock -----------------
+//
+// The prediction of one macroblock from one reference, as
+// ops/mpeg4_cuda._predict computes it. Quarter-pel luma: the (S + 1)^2
+// integer samples of each 16 x 16 block (or of each of four 8 x 8 ones)
+// are staged in shared memory, clamped into the edge_w x edge_h picture;
+// the horizontal half samples of every staged row (the 8-tap filter,
+// taps mirrored at the block's edges) and the horizontal quarter means
+// go to a second shared array; each thread then filters its pixel's
+// column of that array and takes the vertical mean (FFmpeg's order of
+// operations). Half-pel luma and all chroma are bilinear samples, a
+// thread a pixel. 256 threads: a luma pixel each, the first 128 a chroma
+// pixel each too. This is the simple first form: it stages every sample
+// once a macroblock and direction, and makes no use of the vectors of
+// neighbouring macroblocks.
+constexpr int GM_THREADS = 256;
+constexpr int GM_FULL = 4 * 81;   // 17 x 17, or four 9 x 9 staged samples
+constexpr int GM_HALF = 4 * 72;   // 17 x 16, or four 9 x 8 half samples
+
+__device__ __forceinline__ int mirror(int k, int size) {
+  return k < 0 ? -1 - k : (k > size ? 2 * size + 1 - k : k);
+}
+
+// the 8-tap filter at half position c (between c and c + 1) over samples
+// at(0 .. size)
+template <typename F>
+__device__ __forceinline__ int lowpass(F at, int c, int size, int rnd) {
+  const int v = 20 * (at(mirror(c, size)) + at(mirror(c + 1, size))) -
+                6 * (at(mirror(c - 1, size)) + at(mirror(c + 2, size))) +
+                3 * (at(mirror(c - 2, size)) + at(mirror(c + 3, size))) -
+                (at(mirror(c - 3, size)) + at(mirror(c + 4, size)));
+  return min(max((v + 16 - rnd) >> 5, 0), 255);
+}
+
+// the half-pel luma vector of a one-vector quarter-pel macroblock's chroma
+// (ops/mpeg4_cuda.qpel_half): v / 2, or FFmpeg's DivX workarounds (rule 2
+// adds (0, 0, 1, 1, 0, 0, 0, 1)[v & 7], the bits of 0x8C)
+__device__ __forceinline__ int qpel_half(int v, int rule) {
+  if (rule == 1) return (v >> 1) | (v & 1);
+  if (rule == 2) return (v >> 1) + ((0x8C >> (v & 7)) & 1);
+  return v / 2;  // truncated toward zero
+}
+
+// the chroma vector (x or y: component k) in half pels
+// (ops/mpeg4_cuda.chroma_vectors)
+__device__ __forceinline__ int chroma_of(const int32_t* vec, int k,
+                                         bool four, bool qpel, int rule) {
+  if (!qpel)
+    return chroma_vector(vec[k] + vec[2 + k] + vec[4 + k] + vec[6 + k]);
+  if (four)
+    return chroma_vector(vec[k] / 2 + vec[2 + k] / 2 + vec[4 + k] / 2 +
+                         vec[6 + k] / 2);
+  return chroma_vector(4 * qpel_half(vec[k], rule));
+}
+
+__device__ __forceinline__ int bilinear(const uint8_t* __restrict__ p,
+                                        int stride, int X, int Y, int w,
+                                        int h, int rnd) {
+  const int x0 = X >> 1, y0 = Y >> 1, fx = X & 1, fy = Y & 1;
+  const int xa = min(max(x0, 0), w - 1), xb = min(max(x0 + 1, 0), w - 1);
+  const int ya = min(max(y0, 0), h - 1), yb = min(max(y0 + 1, 0), h - 1);
+  const int a = p[(size_t)ya * stride + xa], b = p[(size_t)ya * stride + xb];
+  const int c = p[(size_t)yb * stride + xa], d = p[(size_t)yb * stride + xb];
+  if (!fx && !fy) return a;
+  if (!fy) return (a + b + 1 - rnd) >> 1;
+  if (!fx) return (a + c + 1 - rnd) >> 1;
+  return (a + b + c + d + 2 - rnd) >> 2;
+}
+
+// One direction's prediction of macroblock (mx, my) from the reference
+// planes Y, U, V (one slot): `lum` for luma pixel t, `chr` for chroma
+// pixel t < 128 (plane t / 64). Every thread of the block must call it.
+__device__ void predict_mb(const uint8_t* __restrict__ Y,
+                           const uint8_t* __restrict__ U,
+                           const uint8_t* __restrict__ V, int w16, int mx,
+                           int my, const int32_t* vec, bool four, bool qpel,
+                           int rule, int rnd, int ew, int eh, int* full,
+                           int* half, int& lum, int& chr) {
+  const int t = threadIdx.x, py = t >> 4, px = t & 15;
+  if (qpel) {
+    const int S = four ? 8 : 16, NB = four ? 4 : 1;
+    const int FW = S + 1, FS = FW * FW, HS = FW * S;
+    for (int i = t; i < NB * FS; i += GM_THREADS) {
+      const int b = i / FS, k = i - b * FS, r = k / FW, c = k - r * FW;
+      const int bx = mx * 16 + (four ? 8 * (b & 1) : 0) + (vec[2 * b] >> 2);
+      const int by = my * 16 + (four ? 8 * (b >> 1) : 0) +
+                     (vec[2 * b + 1] >> 2);
+      full[i] = Y[(size_t)min(max(by + r, 0), eh - 1) * w16 +
+                  min(max(bx + c, 0), ew - 1)];
+    }
+    __syncthreads();
+    for (int i = t; i < NB * HS; i += GM_THREADS) {
+      const int b = i / HS, k = i - b * HS, r = k / S, c = k - r * S;
+      const int* f = full + b * FS + r * FW;
+      const int fx = vec[2 * b] & 3;
+      const int h = lowpass([&](int q) { return f[q]; }, c, S, rnd);
+      const int g = fx == 3 ? f[c + 1] : f[c];
+      half[i] = fx == 0 ? f[c] : (fx == 2 ? h : (h + g + 1 - rnd) >> 1);
+    }
+    __syncthreads();
+    const int b = four ? ((py >> 3) << 1) | (px >> 3) : 0;
+    const int r = four ? py & 7 : py, c = four ? px & 7 : px;
+    const int* hb = half + b * HS;
+    const int fy = vec[2 * b + 1] & 3;
+    const int v = lowpass([&](int q) { return hb[q * S + c]; }, r, S, rnd);
+    const int g = hb[(fy == 3 ? r + 1 : r) * S + c];
+    lum = fy == 0 ? hb[r * S + c] : (fy == 2 ? v : (g + v + 1 - rnd) >> 1);
+    __syncthreads();  // the arrays are free for the next direction
+  } else {
+    const int b = ((py >> 3) << 1) | (px >> 3);
+    lum = bilinear(Y, w16, 2 * (mx * 16 + px) + vec[2 * b],
+                   2 * (my * 16 + py) + vec[2 * b + 1], ew, eh, rnd);
+  }
+  if (t < 128) {
+    const int q = t & 63;
+    const int cx = chroma_of(vec, 0, four, qpel, rule);
+    const int cy = chroma_of(vec, 1, four, qpel, rule);
+    chr = bilinear(t < 64 ? U : V, w16 >> 1, 2 * (mx * 8 + (q & 7)) + cx,
+                   2 * (my * 8 + (q >> 3)) + cy, ew >> 1, eh >> 1, rnd);
+  }
+}
+
+// the residual of luma pixel t (or chroma pixel t < 128 with `chroma`) of
+// one macroblock's (6, 64) int16 blocks
+__device__ __forceinline__ int residual_of(const int16_t* __restrict__ r,
+                                          int t, bool chroma) {
+  if (!r) return 0;
+  if (chroma) return r[(4 + (t >> 6)) * 64 + (t & 63)];
+  const int py = t >> 4, px = t & 15;
+  return r[(((py >> 3) << 1) | (px >> 3)) * 64 + (py & 7) * 8 + (px & 7)];
+}
+
+__device__ __forceinline__ void store_mb(uint8_t* Y, uint8_t* U, uint8_t* V,
+                                         int w16, int mx, int my, int lum,
+                                         int chr, const int16_t* r) {
+  const int t = threadIdx.x;
+  Y[(size_t)(my * 16 + (t >> 4)) * w16 + mx * 16 + (t & 15)] =
+      (uint8_t)min(max(lum + residual_of(r, t, false), 0), 255);
+  if (t < 128) {
+    const int q = t & 63;
+    (t < 64 ? U : V)[(size_t)(my * 8 + (q >> 3)) * (w16 >> 1) + mx * 8 +
+                     (q & 7)] =
+        (uint8_t)min(max(chr + residual_of(r, t, true), 0), 255);
+  }
+}
+
+// V2 at quarter-pel: items (f, reference slot, output slot, rounding)
+// over records (F, M, MB_FIELDS), a CUDA block a macroblock and item.
+__global__ void __launch_bounds__(GM_THREADS)
+motion_compensate_qpel_kernel(uint8_t* __restrict__ Y, uint8_t* __restrict__ U,
+                              uint8_t* __restrict__ V, int h16, int w16,
+                              const int32_t* __restrict__ mb, int n_mb,
+                              const int16_t* __restrict__ res,
+                              const int32_t* __restrict__ items, int ew,
+                              int eh, int rule) {
+  __shared__ int full[GM_FULL], half[GM_HALF];
+  __shared__ int32_t rec[MB_FIELDS];
+  const int t = threadIdx.x, m = blockIdx.x;
+  const int32_t* it = items + 4 * blockIdx.y;
+  const int f = it[0], ref = it[1], outs = it[2], rnd = it[3];
+  const size_t k = (size_t)f * n_mb + m;
+  if (t < MB_FIELDS) rec[t] = mb[k * MB_FIELDS + t];
+  __syncthreads();
+  const int mbw = w16 >> 4, my = m / mbw, mx = m - my * mbw;
+  const size_t lp = (size_t)h16 * w16, cp = lp >> 2;
+  int lum = 0, chr = 0;
+  if (ref >= 0 && rec[0] != MB_INTRA)
+    predict_mb(Y + ref * lp, U + ref * cp, V + ref * cp, w16, mx, my,
+               rec + 4, rec[0] == MB_INTER4V, true, rule, rnd, ew, eh, full,
+               half, lum, chr);
+  store_mb(Y + outs * lp, U + outs * cp, V + outs * cp, w16, mx, my, lum, chr,
+           res ? res + k * 384 : nullptr);
+}
+
+// V5: the B-VOPs of a batch. Items (j, past slot, future slot, output
+// slot) over records (FB, M, B_FIELDS) and residuals (FB, M, 6, 64); a CUDA
+// block a macroblock and item. It replaces no TPU kernel: cv2's decoding of
+// B-VOPs (faceoff_tpu/io/video.py:61). Bound by bytes: the residual (768),
+// the output (384) and one or two references (384 each, and the margins
+// of the 8-tap filter) a macroblock.
+__global__ void __launch_bounds__(GM_THREADS)
+bidir_compensate_kernel(uint8_t* __restrict__ Y, uint8_t* __restrict__ U,
+                        uint8_t* __restrict__ V, int h16, int w16,
+                        const int32_t* __restrict__ bmb, int n_mb,
+                        const int16_t* __restrict__ res,
+                        const int32_t* __restrict__ items, int ew, int eh,
+                        int qpel, int rule) {
+  __shared__ int full[GM_FULL], half[GM_HALF];
+  __shared__ int32_t rec[B_FIELDS];
+  const int t = threadIdx.x, m = blockIdx.x;
+  const int32_t* it = items + 4 * blockIdx.y;
+  const int j = it[0], past = it[1], future = it[2], outs = it[3];
+  const size_t k = (size_t)j * n_mb + m;
+  if (t < B_FIELDS) rec[t] = bmb[k * B_FIELDS + t];
+  __syncthreads();
+  const int mbw = w16 >> 4, my = m / mbw, mx = m - my * mbw;
+  const size_t lp = (size_t)h16 * w16, cp = lp >> 2;
+  const int dir = rec[3];
+  const bool four = dir & B_8X8;
+  int fl = 0, fc = 0, bl = 0, bc = 0;
+  if (dir & B_FWD)
+    predict_mb(Y + past * lp, U + past * cp, V + past * cp, w16, mx, my,
+               rec + 4, four, qpel, rule, 0, ew, eh, full, half, fl, fc);
+  if (dir & B_BWD)
+    predict_mb(Y + future * lp, U + future * cp, V + future * cp, w16, mx,
+               my, rec + 12, four, qpel, rule, 0, ew, eh, full, half, bl, bc);
+  const bool both = (dir & B_FWD) && (dir & B_BWD);
+  const int lum = both ? (fl + bl + 1) >> 1 : ((dir & B_FWD) ? fl : bl);
+  const int chr = both ? (fc + bc + 1) >> 1 : ((dir & B_FWD) ? fc : bc);
+  store_mb(Y + outs * lp, U + outs * cp, V + outs * cp, w16, mx, my, lum, chr,
+           res ? res + k * 384 : nullptr);
 }
 
 // V3: the full search, then the half-pel step and the intra decision.
@@ -1748,23 +2297,61 @@ fdct_quant_kernel(const uint8_t* __restrict__ sy,
 
 int status(cudaError_t e) { return e == cudaSuccess ? 0 : 1000 + (int)e; }
 
-}  // namespace
-
-extern "C" {
-
-int mpeg4_dequant_idct(const int16_t* blocks, const int32_t* bidx, int nb,
-                       const int32_t* mb, int16_t* out, cudaStream_t stream) {
-  dequant_idct_kernel<V1_BPB, V1_RPT>
+// V1 at the form a call asks for (template arguments of the kernel)
+template <int FIELDS, bool MPEG, bool XVID>
+int launch_v1(const int16_t* blocks, const int32_t* bidx, int nb,
+              const int32_t* mb, int16_t* out, cudaStream_t stream) {
+  dequant_idct_kernel<V1_BPB, V1_RPT, FIELDS, MPEG, XVID>
       <<<(nb + V1_BPB - 1) / V1_BPB, 8 / V1_RPT * V1_BPB, 0, stream>>>(
           blocks, bidx, nb, mb, out);
   return status(cudaGetLastError());
 }
 
+template <int FIELDS>
+int launch_v1(int mpeg, int xvid, const int16_t* blocks, const int32_t* bidx,
+              int nb, const int32_t* mb, int16_t* out, cudaStream_t stream) {
+  if (mpeg)
+    return xvid ? launch_v1<FIELDS, true, true>(blocks, bidx, nb, mb, out,
+                                                stream)
+                : launch_v1<FIELDS, true, false>(blocks, bidx, nb, mb, out,
+                                                 stream);
+  return xvid ? launch_v1<FIELDS, false, true>(blocks, bidx, nb, mb, out,
+                                               stream)
+              : launch_v1<FIELDS, false, false>(blocks, bidx, nb, mb, out,
+                                                stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// fields: the records' stride (MB_FIELDS or B_FIELDS); mpeg: MPEG
+// quantisation with the matrices of mpeg4_set_matrices; xvid: the Xvid
+// IDCT
+int mpeg4_dequant_idct(const int16_t* blocks, const int32_t* bidx, int nb,
+                       const int32_t* mb, int16_t* out, int fields, int mpeg,
+                       int xvid, cudaStream_t stream) {
+  if (fields == MB_FIELDS)
+    return launch_v1<MB_FIELDS>(mpeg, xvid, blocks, bidx, nb, mb, out,
+                                stream);
+  if (fields == B_FIELDS)
+    return launch_v1<B_FIELDS>(mpeg, xvid, blocks, bidx, nb, mb, out,
+                               stream);
+  return 1;
+}
+
+// width, height: the edge at which reference samples are clamped; qpel:
+// quarter-pel vectors (the block-a-macroblock kernel; half-pel takes the
+// row kernel), rule: the quarter-pel chroma rule
 int mpeg4_motion_compensate(uint8_t* y, uint8_t* u, uint8_t* v, int h16,
                             int w16, const int32_t* mb, int n_mb,
                             const int16_t* res, const int32_t* items, int g,
-                            int width, int height, cudaStream_t stream) {
-  if (res) {
+                            int width, int height, int qpel, int rule,
+                            cudaStream_t stream) {
+  if (qpel) {
+    motion_compensate_qpel_kernel<<<dim3(n_mb, g), GM_THREADS, 0, stream>>>(
+        y, u, v, h16, w16, mb, n_mb, res, items, width, height, rule);
+  } else if (res) {
     using S = McShape<MC_RES_ROWS, MC_RES_MBS>;
     motion_compensate_kernel<MC_RES_ROWS, MC_RES_MBS, 1>
         <<<dim3((n_mb + MC_RES_MBS - 1) / MC_RES_MBS, g), S::THREADS, 0,
@@ -1775,6 +2362,16 @@ int mpeg4_motion_compensate(uint8_t* y, uint8_t* u, uint8_t* v, int h16,
         <<<dim3((n_mb + MC_PRED_MBS - 1) / MC_PRED_MBS, g), S::THREADS, 0,
            stream>>>(y, u, v, h16, w16, mb, n_mb, res, items, width, height);
   }
+  return status(cudaGetLastError());
+}
+
+int mpeg4_bidir_compensate(uint8_t* y, uint8_t* u, uint8_t* v, int h16,
+                           int w16, const int32_t* bmb, int n_mb,
+                           const int16_t* res, const int32_t* items, int g,
+                           int width, int height, int qpel, int rule,
+                           cudaStream_t stream) {
+  bidir_compensate_kernel<<<dim3(n_mb, g), GM_THREADS, 0, stream>>>(
+      y, u, v, h16, w16, bmb, n_mb, res, items, width, height, qpel, rule);
   return status(cudaGetLastError());
 }
 
@@ -1802,6 +2399,16 @@ int mpeg4_fdct_quant(const uint8_t* sy, const uint8_t* su, const uint8_t* sv,
                               stream>>>(sy, su, sv, py, pu, pv, h16, w16, mb,
                                         n_mb, total, items, out);
   return status(cudaGetLastError());
+}
+
+// MPEG quantisation's matrices (128 values: intra, inter; raster), into
+// the constant memory of the stream's device; synchronous
+int mpeg4_set_matrices(const uint16_t* table, int n, cudaStream_t stream) {
+  if (n != 128) return 1;
+  cudaError_t e = cudaMemcpyToSymbolAsync(kMatrix, table, sizeof(kMatrix), 0,
+                                          cudaMemcpyHostToDevice, stream);
+  if (e == cudaSuccess) e = cudaStreamSynchronize(stream);
+  return status(e);
 }
 
 // V4's reciprocals (ops/mpeg4_cuda.recip_table), into the constant memory

@@ -1,46 +1,73 @@
-"""The MPEG-4 Part 2 (ISO/IEC 14496-2) Simple Profile bitstream: the
-`mp4v` codec that cv2's `VideoWriter_fourcc(*"mp4v")` writes for the JAX
-package (`faceoff_tpu/io/video.py`), read and written without FFmpeg.
+"""MPEG-4 Part 2 (ISO/IEC 14496-2) video: the `mp4v` codec that cv2's
+`VideoWriter_fourcc(*"mp4v")` writes for the JAX package
+(`faceoff_tpu/io/video.py`), read and written without FFmpeg, and the
+Advanced Simple Profile streams (Xvid, DivX 5, FFmpeg's `mpeg4`) that
+cv2 reads for it, read.
 
 The codec is split into the host half, the bit-level entropy coding, and
-four device stages in integer arithmetic (`ops/mpeg4_cuda.py`):
+five device stages in integer arithmetic (`ops/mpeg4_cuda.py`):
 
     decode: VOP bits -> records (this module, or csrc/mpeg4.cu on the
-            host) -> V1 dequant_idct -> V2 motion_compensate -> YUV -> RGB
+            host) -> V1 dequant_idct -> V2 motion_compensate (anchors, by
+            depth) -> V5 bidir_compensate (B-VOPs) -> YUV -> RGB
     encode: RGB -> YUV -> V3 motion_search -> for each position k of a
             GOP: V2 (prediction) -> V4 fdct_quant -> V1 -> V2 (the
             reconstruction) -> records -> VOP bits
 
 The records of a batch of F VOPs with M macroblocks each:
-  vop (F, VOP_FIELDS) int32: coding type (0 I, 1 P, 2 not coded: a copy of
-      the previous VOP), rounding type, quantiser, forward f_code, modulo
-      time base count and time increment;
-  mb (F, M, MB_FIELDS) int32: mode (0 not coded, 1 inter, 2 intra), qp,
-      cbp (bit 5 - b for block b), ac_pred_flag, then the four luma block
-      vectors (x, y) in half pels (four equal ones for one vector);
+  vop (F, VOP_FIELDS) int32: kind (VOP_I, VOP_P, VOP_B, or VOP_SKIP for a
+      VOP that is not decoded), rounding type, quantiser, forward f_code,
+      modulo time base count and time increment;
+  mb (F, M, MB_FIELDS) int32, the anchors' (zero rows for B-VOPs): mode
+      (0 not coded, 1 inter, 2 intra, 3 inter with four vectors), qp, cbp
+      (bit 5 - b for block b), ac_pred_flag, then the four luma block
+      vectors (x, y) in half or quarter pels (four equal ones for one
+      vector);
   blocks (NB, 64) int16: the quantised levels of each coded block in
       raster order, after DC and AC prediction (the intra DC is its
       level, not yet times the dc_scaler);
-  bidx (NB,) int32: the flat index f * M * 6 + m * 6 + b of each block.
+  bidx (NB,) int32: the flat index f * M * 6 + m * 6 + b of each block;
+  bmb (FB, M, B_FIELDS) int32, the B-VOPs' (in their order): mode, qp,
+      cbp, the directions (B_FWD, B_BWD, B_8X8), the four forward and the
+      four backward block vectors, direct mode's already scaled; their
+      blocks and flat indices j * M * 6 + m * 6 + b apart.
 
 The entropy coder here is the plain (slow, Python) version; on CUDA the
 same records come from the C++ coder of `csrc/mpeg4.cu`, which takes its
 VLC tables from this module.
 
-Decoding takes what the Simple Profile holds: I- and P-VOPs, not-coded
-VOPs, MCBPC/CBPY/DQUANT, the intra DC VLCs and `intra_dc_vlc_thr`, both
-TCOEF tables with the three escape modes, DC prediction by the gradient
-rule and AC prediction with the alternate scans, one or four vectors a
-macroblock with median prediction, video packets (resync markers, with
-the header extension) and not-coded macroblocks. It refuses by name what
-lies beyond: data partitioning and RVLC, quant_type 1, quarter-pel, GMC
-and sprites, interlacing, B-VOPs (Advanced Simple Profile), the short
-video header and shapes other than rectangular. On cv2's files the port's
-frames equal cv2's bit for bit (the same integer IDCT, FFmpeg's fixed-point
-YUV to RGB); cv2's FFmpeg averages the half-pel samples of VOPs with
-rounding type 1 by approximate SIMD (it is exact only when asked), so on
-other streams those VOPs may differ from cv2's by a level or so, where
-the port follows the standard.
+Decoding takes the Simple Profile (I- and P-VOPs, not-coded VOPs,
+MCBPC/CBPY/DQUANT, the intra DC VLCs and `intra_dc_vlc_thr`, both TCOEF
+tables with the three escape modes, DC prediction by the gradient rule
+and AC prediction with the alternate scans, one or four vectors a
+macroblock with median prediction, video packets with the header
+extension, not-coded macroblocks) and the Advanced Simple Profile's
+B-VOPs (low_delay 0; modb, mb_type, cbpb, dbquant; forward and backward
+predictors reset at each row; direct mode from the future anchor's
+vectors scaled by TRB/TRD, counted as FFmpeg counts pp_time and pb_time;
+a B macroblock whose co-located one was not coded is not coded either),
+quant_type 1 (the default matrices, or loaded ones), quarter_sample, and
+in AVI the packed B-frames of DivX 5 and Xvid. It refuses by name what
+lies beyond (ROADMAP.md, Queue 1 item 7b): interlacing, sprites and GMC
+(S-VOPs), data partitioning and RVLC, shapes other than rectangular, bit
+depths other than 8, complexity estimation headers, NEWPRED, reduced
+resolution, scalability and the short video header.
+
+On cv2's files and these streams the port's frames equal cv2's bit for
+bit: it decodes as FFmpeg does where FFmpeg chooses, the choices named
+and tested (tests/test_torch_mpeg4_asp.py). FFmpeg's simple IDCT, and the
+Xvid IDCT for streams whose user data names Xvid; no mismatch control on
+intra blocks (a departure from the standard that FFmpeg's encoder makes
+too; with it every frame of a quarter-pel MPEG-quantised stream differs
+from cv2's by up to 4 levels); references padded from the decoded
+macroblocks (16-aligned), from the VOP's size only for the old encoders
+FFmpeg marks; FFmpeg's rules for packed B-frames, N-VOPs (which show no
+frame, except the last picture again at the end of a stream) and the
+order frames leave in (plan_stream); FFmpeg's fixed-point YUV to RGB.
+cv2's FFmpeg averages the half-pel samples of VOPs with rounding type 1
+by approximate SIMD (it is exact only when asked); on streams where that
+shows, those VOPs may differ from cv2's by a level or so, where the port
+follows the standard.
 
 The encoder writes what cv2's writer does: a GOP of 12 VOPs (I then 11
 P), one half-pel vector a macroblock from a +-16 pixel full search (V3),
@@ -53,6 +80,7 @@ quantiser, no AC prediction, no resync markers, `vop_rounding_type` 0.
 from __future__ import annotations
 
 import contextlib
+import re
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -60,12 +88,17 @@ import numpy as np
 import torch
 
 from faceoff_tpu_torch.ops import mpeg4_cuda as K
-from faceoff_tpu_torch.ops.mpeg4_cuda import (MB_FIELDS, MB_INTER, MB_INTRA,
+from faceoff_tpu_torch.ops.mpeg4_cuda import (B_8X8, B_BWD, B_FIELDS, B_FWD,
+                                              DEFAULT_INTER_MATRIX,
+                                              DEFAULT_INTRA_MATRIX, MB_FIELDS,
+                                              MB_INTER, MB_INTER4V, MB_INTRA,
                                               MB_SKIP)
 
 GOP = 12
 VOP_FIELDS = 6
-VOP_I, VOP_P, VOP_SKIP = 0, 1, 2
+# record kinds of a VOP; VOP_SKIP is a VOP that is not decoded (not coded,
+# or a B-VOP that FFmpeg drops), which shows no frame of its own
+VOP_I, VOP_P, VOP_SKIP, VOP_B = 0, 1, 2, 3
 
 # --- scans (raster position of each scan index) ---------------------------
 
@@ -119,6 +152,10 @@ MVD = ((1, 1), (1, 2), (1, 3), (1, 4), (3, 6), (5, 7), (4, 7), (3, 7),
        (6, 10), (5, 10), (4, 10), (7, 11), (6, 11), (5, 11), (4, 11),
        (3, 11), (2, 11), (3, 12), (2, 12))
 DQUANT = (-1, -2, 1, 2)
+# Table B-4: mb_type of B-VOPs, symbol 0 direct, 1 interpolate (both
+# directions), 2 backward, 3 forward
+MB_TYPE_B = ((1, 1), (1, 2), (1, 3), (1, 4))
+B_DIRECT, B_INTERP, B_BACKWARD, B_FORWARD = 0, 1, 2, 3
 ESCAPE = (0b0000011, 7)
 
 # TCOEF tables: for last = 0 and 1, the largest level of each run, and the
@@ -322,8 +359,8 @@ PROFILE_SIMPLE_L1 = 0x01
 
 def _unsupported(what: str) -> BitstreamError:
     return BitstreamError(
-        f"MPEG-4 Part 2 stream uses {what}, which the port's Simple Profile "
-        f"decoder does not read (ROADMAP.md, Queue 1 item 7b)")
+        f"MPEG-4 Part 2 stream uses {what}, which the port's decoder does "
+        f"not read (ROADMAP.md, Queue 1 item 7b)")
 
 
 def start_codes(data: bytes) -> List[Tuple[int, int]]:
@@ -343,13 +380,23 @@ def _time_bits(resolution: int) -> int:
 
 @dataclass(frozen=True)
 class Vol:
-    """What decoding and encoding need of a video object layer."""
+    """What decoding and encoding need of a video object layer. The
+    fields after quant_precision are the Advanced Simple Profile's: B-VOPs
+    may follow unless `low_delay`; `quant_type` 1 is MPEG quantisation
+    with the two matrices (raster order); `quarter_sample` vectors are in
+    quarter pels. `vol_control` records whether the VOL sent low_delay."""
 
     width: int
     height: int
     time_resolution: int
     resync_marker_disable: bool = True
     quant_precision: int = 5
+    low_delay: bool = True
+    quant_type: int = 0
+    quarter_sample: bool = False
+    intra_matrix: Tuple[int, ...] = DEFAULT_INTRA_MATRIX
+    inter_matrix: Tuple[int, ...] = DEFAULT_INTER_MATRIX
+    vol_control: bool = True
 
     @property
     def mb_width(self) -> int:
@@ -371,16 +418,30 @@ class Vol:
     def mb_num_bits(self) -> int:
         return max((self.n_mb - 1).bit_length(), 1)
 
+    @property
+    def simple(self) -> bool:
+        """Whether the Simple Profile's writer can write this VOL."""
+        return (self.low_delay and not self.quant_type
+                and not self.quarter_sample)
+
+    def matrices(self) -> Optional[np.ndarray]:
+        """(2, 64) int32 (intra, inter) for MPEG quantisation, else None."""
+        if not self.quant_type:
+            return None
+        return np.asarray([self.intra_matrix, self.inter_matrix], np.int32)
+
     def as_ints(self) -> List[int]:
         """The fields the C++ coder takes, in its order."""
         return [self.width, self.height, self.time_resolution,
-                int(self.resync_marker_disable), self.quant_precision]
+                int(self.resync_marker_disable), self.quant_precision,
+                int(self.quarter_sample), self.quant_type,
+                int(self.low_delay)]
 
 
 def parse_vol(data: bytes) -> Vol:
     """The video object layer of a DecoderSpecificInfo (or of any bytes
-    that hold the VOL start code), refusing what the Simple Profile
-    decoder does not take."""
+    that hold the VOL start code), refusing what the decoder does not
+    take."""
     for pos, code in start_codes(data):
         if code == 0xB3 or code == VOP_START:
             break
@@ -389,21 +450,40 @@ def parse_vol(data: bytes) -> Vol:
     raise BitstreamError("no video object layer header")
 
 
+def _read_matrix(br: BitReader, default: Tuple[int, ...]) -> Tuple[int, ...]:
+    """load_*_quant_mat and its matrix: up to 64 values in zigzag order,
+    a 0 ending them early, the last value repeated to the end."""
+    if not br.read(1):
+        return default
+    vals: List[int] = []
+    while len(vals) < 64:
+        v = br.read(8)
+        if v == 0:
+            break
+        vals.append(v)
+    if not vals:
+        raise BitstreamError("a loaded quantiser matrix starts with 0")
+    vals += [vals[-1]] * (64 - len(vals))
+    out = [0] * 64
+    for i, v in enumerate(vals):
+        out[ZIGZAG[i]] = v
+    return tuple(out)
+
+
 def _parse_vol_body(br: BitReader) -> Vol:
     br.read(1)  # random_accessible_vol
-    br.read(8)  # video_object_type_indication
+    vo_type = br.read(8)  # video_object_type_indication
     verid = 1
     if br.read(1):  # is_object_layer_identifier
         verid = br.read(4)
         br.read(3)
     if br.read(4) == 15:  # aspect_ratio_info: extended PAR
         br.read(16)
-    if br.read(1):  # vol_control_parameters
+    vol_control = bool(br.read(1))
+    low_delay = vo_type in (1, 17)  # FFmpeg's guess without the flag
+    if vol_control:
         br.read(2)  # chroma_format
-        low_delay = br.read(1)
-        if not low_delay:
-            raise _unsupported("B-VOPs (low_delay 0, Advanced Simple "
-                               "Profile)")
+        low_delay = bool(br.read(1))
         if br.read(1):  # vbv_parameters
             for n in (15, 1, 15, 1, 15, 1, 3, 11, 1, 15, 1):
                 br.read(n)
@@ -434,10 +514,12 @@ def _parse_vol_body(br: BitReader) -> Vol:
         quant_precision = br.read(4)
         if br.read(4) != 8:
             raise _unsupported("a bit depth other than 8")
-    if br.read(1):
-        raise _unsupported("quant_type 1 (MPEG quantisation)")
-    if verid != 1 and br.read(1):
-        raise _unsupported("quarter-pel motion")
+    quant_type = br.read(1)
+    intra_m, inter_m = DEFAULT_INTRA_MATRIX, DEFAULT_INTER_MATRIX
+    if quant_type:
+        intra_m = _read_matrix(br, intra_m)
+        inter_m = _read_matrix(br, inter_m)
+    quarter = bool(br.read(1)) if verid != 1 else False
     if not br.read(1):
         raise _unsupported("complexity estimation headers")
     resync_disable = br.read(1)
@@ -454,17 +536,37 @@ def _parse_vol_body(br: BitReader) -> Vol:
         raise BitstreamError(f"VOL size {width}x{height}: need even, "
                              f"nonzero sides")
     return Vol(width, height, resolution, bool(resync_disable),
-               quant_precision)
+               quant_precision, low_delay, quant_type, quarter, intra_m,
+               inter_m, vol_control)
+
+
+def _put_matrix(bw: BitWriter, m: Tuple[int, ...],
+                default: Tuple[int, ...]) -> None:
+    if tuple(m) == tuple(default):
+        bw.put(0, 1)
+        return
+    bw.put(1, 1)
+    vals = [m[ZIGZAG[i]] for i in range(64)]
+    n = 64
+    while n > 1 and vals[n - 2] == vals[n - 1]:
+        n -= 1
+    for v in vals[:n]:
+        bw.put(v, 8)
+    if n < 64:
+        bw.put(0, 8)
 
 
 def write_vol_headers(vol: Vol) -> bytes:
     """VOS, VO and VOL headers (the DecoderSpecificInfo), laid out as
-    FFmpeg's mpeg4 encoder writes them: Simple Profile, verid 1, H.263
-    quantisation, low delay, no data partitioning; resync markers as the
-    Vol says."""
+    FFmpeg's mpeg4 encoder writes them: for a Simple Profile Vol, verid
+    1, H.263 quantisation, low delay, no data partitioning, resync
+    markers as the Vol says; for an Advanced Simple one, verid 2 with its
+    low_delay, quant_type (matrices loaded where they differ from the
+    defaults) and quarter_sample."""
+    simple = vol.simple
     bw = BitWriter()
     bw.put(0x1B0, 32)
-    bw.put(PROFILE_SIMPLE_L1, 8)
+    bw.put(PROFILE_SIMPLE_L1 if simple else 0xF1, 8)
     bw.put(0x1B5, 32)
     bw.put(1, 1)      # is_visual_object_identifier
     bw.put(1, 4)      # visual_object_verid
@@ -475,14 +577,14 @@ def write_vol_headers(vol: Vol) -> bytes:
     bw.put(0x100, 32)  # video_object_start_code
     bw.put(0x120, 32)  # video_object_layer_start_code
     bw.put(0, 1)      # random_accessible_vol
-    bw.put(1, 8)      # video_object_type_indication: simple object
+    bw.put(1 if simple else 17, 8)  # simple or advanced simple object
     bw.put(1, 1)      # is_object_layer_identifier
-    bw.put(1, 4)      # verid
+    bw.put(1 if simple else 2, 4)   # verid
     bw.put(1, 3)      # priority
     bw.put(1, 4)      # aspect_ratio_info: square pixels
     bw.put(1, 1)      # vol_control_parameters
     bw.put(1, 2)      # chroma_format 4:2:0
-    bw.put(1, 1)      # low_delay
+    bw.put(int(vol.low_delay), 1)
     bw.put(0, 1)      # vbv_parameters
     bw.put(0, 2)      # rectangular
     bw.put(1, 1)
@@ -496,23 +598,30 @@ def write_vol_headers(vol: Vol) -> bytes:
     bw.put(1, 1)
     bw.put(0, 1)      # interlaced
     bw.put(1, 1)      # obmc_disable
-    bw.put(0, 1)      # sprite_enable
+    bw.put(0, 1 if simple else 2)   # sprite_enable
     bw.put(0, 1)      # not_8_bit
-    bw.put(0, 1)      # quant_type
+    bw.put(vol.quant_type, 1)
+    if vol.quant_type:
+        _put_matrix(bw, vol.intra_matrix, DEFAULT_INTRA_MATRIX)
+        _put_matrix(bw, vol.inter_matrix, DEFAULT_INTER_MATRIX)
+    if not simple:
+        bw.put(int(vol.quarter_sample), 1)
     bw.put(1, 1)      # complexity_estimation_disable
     bw.put(int(vol.resync_marker_disable), 1)
     bw.put(0, 1)      # data_partitioned
+    if not simple:
+        bw.put(0, 1)  # newpred_enable
+        bw.put(0, 1)  # reduced_resolution_vop_enable
     bw.put(0, 1)      # scalability
     bw.stuff()
     return bw.bytes()
 
 
-def _parse_vop_header(br: BitReader, vol: Vol) -> Optional[List[int]]:
-    """The VOP header after its start code: the vop record, or None for a
-    VOP that is not coded (its record is filled by the caller)."""
+def _parse_vop_header(br: BitReader, vol: Vol) -> List[int]:
+    """The VOP header after its start code: [kind, rounding, qp, fcode,
+    modulo, incr, intra_dc_vlc_thr, bcode]; a VOP that is not coded gives
+    the VOP_SKIP record (its first six fields)."""
     kind = br.read(2)
-    if kind == 2:
-        raise _unsupported("B-VOPs (Advanced Simple Profile)")
     if kind == 3:
         raise _unsupported("S-VOPs (sprites or GMC)")
     modulo = 0
@@ -530,12 +639,17 @@ def _parse_vop_header(br: BitReader, vol: Vol) -> Optional[List[int]]:
     qp = br.read(vol.quant_precision)
     if qp == 0:
         raise BitstreamError("vop_quant 0")
-    fcode = 1
-    if kind == VOP_P:
+    fcode = bcode = 1
+    if kind != VOP_I:
         fcode = br.read(3)
         if fcode == 0:
             raise BitstreamError("vop_fcode_forward 0")
-    return [kind, rounding, qp, fcode, modulo, incr, thr]
+    if kind == 2:
+        bcode = br.read(3)
+        if bcode == 0:
+            raise BitstreamError("vop_fcode_backward 0")
+    return [VOP_B if kind == 2 else kind, rounding, qp, fcode, modulo, incr,
+            thr, bcode]
 
 
 def find_vop(sample: bytes) -> int:
@@ -554,6 +668,9 @@ _MCBPC_P_VLC = Vlc(MCBPC_P)
 _CBPY_VLC = Vlc(CBPY)
 _DC_VLC = (Vlc(DC_LUMA), Vlc(DC_CHROMA))
 _MVD_VLC = Vlc(MVD)
+_MB_TYPE_B_VLC = Vlc(MB_TYPE_B)
+_B_DIRS = {B_DIRECT: B_FWD | B_BWD, B_INTERP: B_FWD | B_BWD,
+           B_BACKWARD: B_BWD, B_FORWARD: B_FWD}
 _TCOEF_VLC = {id(t): Vlc(t.codes, t.symbols, ESCAPE)
               for t in (INTER_TCOEF, INTRA_TCOEF)}
 _C_OFF = (2, 1, 1, -1)  # column of the above-right candidate, per block
@@ -741,41 +858,159 @@ def _resync_length(br: BitReader, prefix: int) -> int:
     return n if ok else 0
 
 
-def parse_vop(sample: bytes, vol: Vol):
-    """One VOP's records: (vop row, mb (M, MB_FIELDS) int32, list of
-    (block index m * 6 + b, 64 levels))."""
+def _packet_header(br: BitReader, vol: Vol, kind: int, prefix: int,
+                   m: int) -> Optional[int]:
+    """A video packet header at this position (after a resync marker):
+    its quant_scale, or None where no marker stands here."""
+    n = _resync_length(br, prefix)
+    if not n:
+        return None
+    br.pos += n + prefix + 1
+    m0 = br.read(vol.mb_num_bits)
+    qp = br.read(vol.quant_precision)
+    if br.read(1):  # header_extension_code
+        while br.read(1):
+            pass
+        br.marker()
+        br.read(vol.time_bits)
+        br.marker()
+        br.read(2)
+        br.read(3)
+        if kind != VOP_I:
+            br.read(3)
+        if kind == VOP_B:
+            br.read(3)
+    if m0 != m:
+        raise BitstreamError(f"video packet starts at macroblock {m0}, "
+                             f"expected {m}")
+    return qp
+
+
+def _tdiv(a: int, b: int) -> int:
+    """a / b truncated toward zero (the standard's and C's division)."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b > 0) else -q
+
+
+def direct_vectors(col: Sequence[Tuple[int, int]], delta: Tuple[int, int],
+                   trb: int, trd: int) -> Tuple[List[Tuple[int, int]],
+                                                List[Tuple[int, int]]]:
+    """Direct mode (ISO/IEC 14496-2, 7.6.9.5): the forward and backward
+    vector of each co-located block vector c, MVF = TRB c / TRD + delta,
+    MVB = (TRB - TRD) c / TRD where the delta's component is 0, else
+    MVF - c, component by component."""
+    fwd, bwd = [], []
+    for c in col:
+        f, b = [], []
+        for v, d in zip(c, delta):
+            fv = _tdiv(trb * v, trd) + d
+            f.append(fv)
+            b.append(fv - v if d else _tdiv((trb - trd) * v, trd))
+        fwd.append((f[0], f[1]))
+        bwd.append((b[0], b[1]))
+    return fwd, bwd
+
+
+def _parse_b_mbs(br: BitReader, vol: Vol, hdr: List[int],
+                 colocated: np.ndarray, times: Tuple[int, int],
+                 direct_16: bool):
+    """The macroblocks of a B-VOP: (M, B_FIELDS) records and the coded
+    blocks. `colocated` is the future anchor's (M, MB_FIELDS) records:
+    where its macroblock was not coded, the B macroblock is not coded
+    either (a forward copy at vector 0)."""
+    _, _, qp, fcode, _, _, _, bcode = hdr
+    trb, trd = times
+    n_mb = vol.n_mb
+    rec = np.zeros((n_mb, B_FIELDS), np.int32)
+    blocks: List[Tuple[int, List[int]]] = []
+    prefix = 15 + max(fcode, bcode, 2)
+    pf = pb = (0, 0)
+    for m in range(n_mb):
+        if m % vol.mb_width == 0:
+            pf = pb = (0, 0)
+        if not vol.resync_marker_disable and m > 0:
+            q = _packet_header(br, vol, VOP_B, prefix, m)
+            if q is not None:
+                qp = q
+                pf = pb = (0, 0)
+        row = rec[m]
+        row[0], row[1] = MB_INTER, qp
+        col_mode = int(colocated[m, 0])
+        if col_mode == MB_SKIP:
+            row[3] = B_FWD
+            continue
+        cbp = 0
+        direct_skip = bool(br.read(1))  # modb 1: direct, no delta or blocks
+        if direct_skip:
+            mb_type = B_DIRECT
+        else:
+            modb2 = br.read(1)
+            mb_type = br.vlc(_MB_TYPE_B_VLC)
+            if not modb2:
+                cbp = br.read(6)
+            if mb_type != B_DIRECT and cbp and br.read(1):
+                qp = min(max(qp + (4 if br.read(1) else 0) - 2, 1), 31)
+            row[1] = qp
+        row[2], row[3] = cbp, _B_DIRS[mb_type]
+        if mb_type == B_DIRECT:
+            # the delta vector, coded unless modb was 1 (f_code 1)
+            delta = (0, 0) if direct_skip else (_read_mv(br, 0, 1),
+                                                  _read_mv(br, 0, 1))
+            c = colocated[m, 4:12].reshape(4, 2).tolist()
+            four = col_mode == MB_INTER4V
+            fwd, bwd = direct_vectors(c if four else c[:1], delta, trb,
+                                      trd)
+            if not four:
+                fwd, bwd = fwd * 4, bwd * 4
+            row[4:12] = [v for xy in fwd for v in xy]
+            row[12:20] = [v for xy in bwd for v in xy]
+            if four or (vol.quarter_sample and not direct_16):
+                row[3] |= B_8X8
+        if mb_type in (B_FORWARD, B_INTERP):
+            pf = (_read_mv(br, pf[0], fcode), _read_mv(br, pf[1], fcode))
+            row[4:12] = pf * 4
+        if mb_type in (B_BACKWARD, B_INTERP):
+            pb = (_read_mv(br, pb[0], bcode), _read_mv(br, pb[1], bcode))
+            row[12:20] = pb * 4
+        for b in range(6):
+            if (cbp >> (5 - b)) & 1:
+                levels = [0] * 64
+                _read_levels(br, INTER_TCOEF, ZIGZAG, levels, 0)
+                blocks.append((m * 6 + b, levels))
+    return rec, blocks
+
+
+def parse_vop(sample: bytes, vol: Vol, colocated: Optional[np.ndarray] = None,
+              times: Tuple[int, int] = (1, 2), direct_16: bool = False):
+    """One VOP's records: (vop row, mb (M, MB_FIELDS) int32 (a B-VOP's
+    (M, B_FIELDS)), list of (block index m * 6 + b, 64 levels)). A
+    B-VOP needs `colocated`, its future anchor's records, and `times`,
+    (TRB, TRD) of direct mode; `direct_16` predicts direct macroblocks
+    whose co-located one has one vector as one 16 x 16 block in
+    quarter-pel (FFmpeg's workaround for DivX)."""
     br = BitReader(sample, find_vop(sample))
     hdr = _parse_vop_header(br, vol)
     n_mb = vol.n_mb
-    mb = np.zeros((n_mb, MB_FIELDS), np.int32)
     blocks: List[Tuple[int, List[int]]] = []
     if hdr[0] == VOP_SKIP:
-        return hdr[:VOP_FIELDS], mb, blocks
-    kind, _, qp, fcode, _, _, thr = hdr
+        return hdr[:VOP_FIELDS], np.zeros((n_mb, MB_FIELDS), np.int32), blocks
+    if hdr[0] == VOP_B:
+        if colocated is None:
+            raise BitstreamError("a B-VOP without its future anchor")
+        rec, blocks = _parse_b_mbs(br, vol, hdr, colocated, times,
+                                   direct_16)
+        return hdr[:VOP_FIELDS], rec, blocks
+    mb = np.zeros((n_mb, MB_FIELDS), np.int32)
+    kind, _, qp, fcode, _, _, thr, _ = hdr
     pred = _Prediction(vol)
     prefix = 16 if kind == VOP_I else 15 + fcode
     qmax = (1 << vol.quant_precision) - 1
     m = 0
     while m < n_mb:
         if not vol.resync_marker_disable and m > 0:
-            n = _resync_length(br, prefix)
-            if n:
-                br.pos += n + prefix + 1
-                m0 = br.read(vol.mb_num_bits)
-                qp = br.read(vol.quant_precision)
-                if br.read(1):  # header_extension_code
-                    while br.read(1):
-                        pass
-                    br.marker()
-                    br.read(vol.time_bits)
-                    br.marker()
-                    br.read(2)
-                    br.read(3)
-                    if kind == VOP_P:
-                        br.read(3)
-                if m0 != m:
-                    raise BitstreamError(f"video packet starts at macroblock"
-                                         f" {m0}, expected {m}")
+            q = _packet_header(br, vol, kind, prefix, m)
+            if q is not None:
+                qp = q
                 pred.start = m
         if kind == VOP_P:
             if br.read(1):  # not_coded
@@ -815,7 +1050,8 @@ def parse_vop(sample: bytes, vol: Vol):
             vectors += [vectors[0]] * (4 - len(vectors))
         pred.set_mvs(m, vectors)
         row = mb[m]
-        row[0] = MB_INTRA if intra else MB_INTER
+        row[0] = (MB_INTRA if intra else
+                  (MB_INTER4V if mb_type == 2 else MB_INTER))
         row[1], row[2], row[3] = qp, cbp, acp
         row[4:12] = [c for v in vectors for c in v]
         dc_vlc = qp < _DC_THR_QP[thr]
@@ -857,24 +1093,63 @@ def parse_vop(sample: bytes, vol: Vol):
 
 
 def parse_vops(samples: Sequence[bytes], vol: Vol):
+    """The anchors' records of a batch of VOPs: parse_batch's first four
+    (vop, mb, blocks, bidx)."""
+    return parse_batch(samples, vol)[:4]
+
+
+def parse_batch(samples: Sequence[bytes], vol: Vol,
+                plan: Optional[np.ndarray] = None, direct_16: bool = False):
     """The records of a batch of VOPs (see the module's docstring):
     (vop (F, VOP_FIELDS), mb (F, M, MB_FIELDS), blocks (NB, 64) int16,
-    bidx (NB,) int32)."""
-    vops, mbs, levels, index = [], [], [], []
+    bidx (NB,) int32, bmb (FB, M, B_FIELDS), bblocks, bbidx), the B-VOPs'
+    records (in their order) and blocks (flat index j * M * 6 + m * 6 + b)
+    apart from the anchors'. `plan` (F, 3) int32 rows (kind, TRB, TRD):
+    a VOP planned as VOP_SKIP is not parsed (its header is still read);
+    a B-VOP's future anchor is the last I- or P-VOP before it, which
+    must lie in the batch."""
+    n_mb = vol.n_mb
+    out = {"vop": [], "mb": [], "lv": [], "idx": [], "bmb": [], "blv": [],
+           "bidx": []}
+    anchor = None
     for f, sample in enumerate(samples):
-        vop, mb, blocks = parse_vop(sample, vol)
-        vops.append(vop)
-        mbs.append(mb)
-        base = f * vol.n_mb * 6
+        if plan is not None and plan[f, 0] == VOP_SKIP:
+            br = BitReader(sample, find_vop(sample))
+            hdr = _parse_vop_header(br, vol)
+            out["vop"].append([VOP_SKIP, 0, 1, 1] + hdr[4:6])
+            out["mb"].append(np.zeros((n_mb, MB_FIELDS), np.int32))
+            continue
+        times = ((int(plan[f, 1]), int(plan[f, 2])) if plan is not None
+                 else (1, 2))
+        vop, rec, blocks = parse_vop(sample, vol, anchor, times, direct_16)
+        out["vop"].append(vop)
+        if vop[0] == VOP_B:
+            j = len(out["bmb"])
+            out["bmb"].append(rec)
+            out["mb"].append(np.zeros((n_mb, MB_FIELDS), np.int32))
+            for i, lv in blocks:
+                out["bidx"].append(j * n_mb * 6 + i)
+                out["blv"].append(lv)
+            continue
+        if vop[0] != VOP_SKIP:
+            anchor = rec
+        out["mb"].append(rec)
         for i, lv in blocks:
-            index.append(base + i)
-            levels.append(lv)
-    blocks_arr = (np.asarray(levels, np.int16) if levels
-                  else np.zeros((0, 64), np.int16))
-    return (np.asarray(vops, np.int32).reshape(-1, VOP_FIELDS),
-            np.stack(mbs) if mbs else np.zeros((0, vol.n_mb, MB_FIELDS),
-                                               np.int32),
-            blocks_arr, np.asarray(index, np.int32))
+            out["idx"].append(f * n_mb * 6 + i)
+            out["lv"].append(lv)
+
+    def levels(key):
+        return (np.asarray(out[key], np.int16) if out[key]
+                else np.zeros((0, 64), np.int16))
+
+    def records(key, fields):
+        return (np.stack(out[key]) if out[key]
+                else np.zeros((0, n_mb, fields), np.int32))
+
+    return (np.asarray(out["vop"], np.int32).reshape(-1, VOP_FIELDS),
+            records("mb", MB_FIELDS), levels("lv"),
+            np.asarray(out["idx"], np.int32), records("bmb", B_FIELDS),
+            levels("blv"), np.asarray(out["bidx"], np.int32))
 
 
 # --- colour -------------------------------------------------------------------
@@ -964,15 +1239,217 @@ def batch_vops(vol: Vol) -> int:
     return GOP * max(1, BATCH_BYTES // per_gop)
 
 
-def _depths(kinds: np.ndarray, carried: bool) -> np.ndarray:
-    """Each VOP's distance from its last I-VOP (the carried reference from
-    an earlier batch at depth 0)."""
-    depth = np.zeros(len(kinds), np.int64)
-    prev = 0 if carried else -1
-    for i, k in enumerate(kinds):
-        depth[i] = 0 if k == VOP_I else prev + 1
-        prev = depth[i]
-    return depth
+@dataclass(frozen=True)
+class Quirks:
+    """What FFmpeg infers from a stream's user data (and an AVI's fourcc)
+    and decodes by: DivX 5's and Xvid's packed B-frames (`packed`, the
+    user data "DivX...p"); Xvid's IDCT for Xvid's streams (`xvid_idct`);
+    and its workarounds for old encoders: FF_BUG_DIRECT_BLOCKSIZE
+    (`direct_16`), FF_BUG_QPEL_CHROMA / _CHROMA2 (`qpel_chroma` 1 / 2: the
+    chroma vector of a one-vector quarter-pel macroblock) and FF_BUG_EDGE
+    (`visible_edge`: references end at the VOP's width and height; every
+    other stream's end at its macroblocks', 16-aligned)."""
+
+    packed: bool = False
+    direct_16: bool = False
+    qpel_chroma: int = 0
+    visible_edge: bool = False
+    xvid_idct: bool = False
+
+    def edge(self, vol: "Vol") -> Tuple[int, int]:
+        """(width, height) at which reference samples are clamped."""
+        if self.visible_edge:
+            return vol.width, vol.height
+        return 16 * vol.mb_width, 16 * vol.mb_height
+
+
+_DIVX = re.compile(rb"DivX(\d+)(?:Build|b)(\d+)(p?)")
+_XVID = re.compile(rb"XviD(\d+)")
+_LAVC = re.compile(rb"Lavc(\d+)\.(\d+)\.(\d+)|FFmpe[^b]*b(\d+)")
+# AVI fourccs that FFmpeg takes for Xvid when no user data names the coder
+XVID_FOURCCS = (b"XVID", b"XVIX", b"RMP4", b"ZMP4", b"SIPP")
+
+
+def stream_quirks(headers: bytes, samples: Sequence[bytes],
+                  fourcc: bytes = b"") -> Quirks:
+    """The Quirks of a stream from the user data in its DecoderSpecificInfo
+    and samples, as FFmpeg's decode_user_data and ff_mpeg4_workaround_bugs
+    set them. Xvid's user data voids a DivX one (Xvid writes
+    "DivX503b1393p" only to mark packed B-frames)."""
+    packed, version, build, xvid, lavc = False, -1, -1, -1, -1
+    for data in [headers] + list(samples):
+        i = data.find(b"\0\0\1\xb2")
+        while i >= 0:
+            end = data.find(b"\0\0\1", i + 4)
+            text = data[i + 4: end if end >= 0 else len(data)]
+            m = _DIVX.match(text)
+            if m:
+                version, build = int(m.group(1)), int(m.group(2))
+                packed = m.group(3) == b"p"
+            m = _XVID.match(text)
+            if m:
+                xvid = int(m.group(1))
+            m = _LAVC.match(text)
+            if m:
+                lavc = (int(m.group(4)) if m.group(4) else
+                        (int(m.group(1)) << 16) + (int(m.group(2)) << 8)
+                        + int(m.group(3)))
+            i = data.find(b"\0\0\1\xb2", i + 4)
+    if xvid < 0 and version < 0 and lavc < 0 and fourcc.upper() in \
+            XVID_FOURCCS:
+        xvid = 0
+    if xvid >= 0:
+        version = build = -1
+    qpel_chroma = 0
+    if version > 502 and build < 1814:
+        qpel_chroma = 2
+    elif (version >= 500 and build < 1814) or 0 <= xvid <= 1:
+        qpel_chroma = 1
+    edge = (0 <= xvid <= 12 or 0 <= lavc < 4670 or 0 <= version < 500)
+    return Quirks(packed, version >= 0, qpel_chroma, edge, xvid >= 0)
+
+
+# FFmpeg decodes a stashed packed B-VOP in place of a packet of at most
+# this many bytes (an N-VOP) even where the stream is not marked packed
+MAX_NVOP_SIZE = 19
+
+
+@dataclass
+class Plan:
+    """The decode of a stream as FFmpeg's decoder runs it: one step a
+    sample, `data` the bytes each step decodes (the sample, or a B-VOP
+    that a packed stream stashed from the sample before), `kind` what
+    the step yields (VOP_I, VOP_P, VOP_B, or VOP_SKIP for a VOP that is
+    not coded or a B-VOP that FFmpeg drops), TRB and TRD of each B-VOP,
+    and `show`: (step at which a frame leaves, step whose picture it
+    is) in display order. An anchor leaves when the next anchor is
+    decoded, a B-VOP at once, the last anchor at the end (at once for
+    low-delay streams); a stream that ends with an N-VOP shows its last
+    picture again."""
+
+    data: List[bytes]
+    kind: np.ndarray
+    trb: np.ndarray
+    trd: np.ndarray
+    show: List[Tuple[int, int]]
+    quirks: Quirks
+
+
+def _headers_of(data: bytes, vol: Vol):
+    """(GOV time in seconds or None, kind bits, modulo, increment, coded)
+    of the first VOP in `data` and the GOV before it."""
+    vop = data.find(b"\0\0\1\xb6")
+    if vop < 0:
+        raise BitstreamError("sample holds no VOP start code")
+    gov = None
+    g = data.rfind(b"\0\0\1\xb3", 0, vop)
+    if g >= 0:
+        br = BitReader(data[g + 4: g + 8])
+        hours, minutes = br.read(5), br.read(6)
+        br.read(1)
+        gov = br.read(6) + 60 * (minutes + 60 * hours)
+    # the header's fixed part: 2 + modulo + 1 + time_bits + 2 bits
+    br = BitReader(data[vop + 4: vop + 16 + (vol.time_bits >> 3)])
+    kind = br.read(2)
+    modulo = 0
+    while br.read(1):
+        modulo += 1
+        if modulo > 1 << 16:
+            raise BitstreamError("endless modulo_time_base")
+        if br.left() <= 0:
+            br = BitReader(data[vop + 4:], br.pos)
+    br.marker()
+    incr = br.read(vol.time_bits)
+    br.marker()
+    return gov, kind, modulo, incr, bool(br.read(1))
+
+
+def plan_stream(samples: Sequence[bytes], vol: Vol, headers: bytes = b"",
+                fourcc: bytes = b"") -> Plan:
+    """The Plan of a stream: FFmpeg's packed-bitstream handling (a VOP
+    after the first in a packet, when it is a B- or I-VOP, is decoded at
+    the next packet instead of that packet), its time stamps (GOV time
+    codes, modulo_time_base; TRD is the time between the two anchors, TRB
+    from the past anchor to the B-VOP, counted as FFmpeg's pp_time and
+    pb_time: an N-VOP that is no B-VOP moves the last anchor time), and
+    its output order. `fourcc` is an AVI's (Quirks)."""
+    quirks = stream_quirks(headers, samples, fourcc)
+    n = len(samples)
+    data: List[bytes] = []
+    kind = np.full(n, VOP_SKIP, np.int32)
+    trb = np.zeros(n, np.int32)
+    trd = np.zeros(n, np.int32)
+    show: List[Tuple[int, int]] = []
+    res = vol.time_resolution
+    low_delay = vol.low_delay
+    stash: Optional[bytes] = None
+    time_base = last_time_base = last_non_b = pp = 0
+    anchors = 0
+    pending = last = None
+    skipped_last = False
+    for k, sample in enumerate(samples):
+        if quirks.packed and stash is not None:
+            codes = start_codes(sample)
+            if codes and codes[0][1] == VOS_START:
+                stash = None
+        from_stash = stash is not None and (quirks.packed
+                                            or len(sample) <= MAX_NVOP_SIZE)
+        cur = stash if from_stash else sample
+        stash = None
+        data.append(cur)
+        gov, bits, modulo, incr, coded = _headers_of(cur, vol)
+        if gov is not None:
+            time_base = gov
+        if bits == 2 and low_delay and not vol.vol_control:
+            low_delay = False
+        if bits != 2:
+            last_time_base = time_base
+            time_base += modulo
+            t = time_base * res + incr
+            pp = t - last_non_b
+            last_non_b = t
+        else:
+            t = (last_time_base + modulo) * res + incr
+            pb = pp - (last_non_b - t)
+            if pp <= pb or pp <= pp - pb or pp <= 0:
+                continue  # FFmpeg skips a B-VOP out of order
+            trb[k], trd[k] = pb, pp
+        if not coded:
+            skipped_last = True
+            continue
+        skipped_last = False
+        if bits == 3:
+            raise _unsupported("S-VOPs (sprites or GMC)")
+        if bits == 2:
+            if anchors < 2:
+                continue  # no past anchor yet: FFmpeg drops it
+            kind[k] = VOP_B
+            show.append((k, k))
+        else:
+            kind[k] = bits
+            anchors += 1
+            if low_delay:
+                show.append((k, k))
+            elif pending is not None:
+                show.append((k, pending))
+            pending = k
+        last = k
+        if quirks.packed:
+            # the packet's next VOP start code (from the start where this
+            # step decoded a stashed VOP, else after the first VOP, which
+            # ends on the byte before the next start code): stashed when
+            # it is an I- or B-VOP and more than 7 bytes remain
+            at = 0 if from_stash else sample.find(b"\0\0\1\xb6") + 4
+            i = sample.find(b"\0\0\1\xb6", at)
+            pos = 0 if from_stash else i - 1
+            if (i >= 0 and i + 4 < len(sample) and len(sample) - pos > 7
+                    and not sample[i + 4] & 0x40):
+                stash = sample[pos:]
+    if not low_delay and pending is not None:
+        show.append((n, pending))
+    elif skipped_last and last is not None:
+        show.append((n, last))
+    return Plan(data, kind, trb, trd, show, quirks)
 
 
 def _planes(n: int, vol: Vol, dev) -> List[torch.Tensor]:
@@ -984,77 +1461,160 @@ def _planes(n: int, vol: Vol, dev) -> List[torch.Tensor]:
                         device=dev)]
 
 
-def reconstruct(vop: np.ndarray, mb: torch.Tensor, blocks: torch.Tensor,
-                bidx: torch.Tensor, vol: Vol,
-                carry: Optional[List[torch.Tensor]] = None):
-    """The device half of decoding a batch of records: V1 on every coded
-    block in one launch, then V2 once per depth in the GOPs (every VOP at
-    distance k from its I-VOP in one launch). Returns the Y, U, V planes
-    of slots 1..F (slot 0 holds the carried reference)."""
+def _matrices(vol: Vol) -> Optional[torch.Tensor]:
+    """The VOL's MPEG matrices as a host tensor (V1's kernel takes them
+    into constant memory; its plain version moves them where it runs)."""
+    m = vol.matrices()
+    return None if m is None else torch.from_numpy(m)
+
+
+def reconstruct(recs, vol: Vol, carry: Optional[List[torch.Tensor]] = None,
+                quirks: Quirks = Quirks()):
+    """The device half of decoding a batch of records (parse_batch's
+    seven): V1 on the anchors' coded blocks and V1 on the B-VOPs' in one
+    launch each, then V2 once per depth among the anchors (every anchor
+    at distance k from its I-VOP in one launch, each predicting from the
+    anchor before it), then V5 once for every B-VOP of the batch (from
+    the two anchors around it). Returns the Y, U, V planes of slots 0..F:
+    slot 0 holds the carried anchor, slot f + 1 VOP f."""
+    vop, mb, blocks, bidx, bmb, bblocks, bbidx = recs
     dev = mb.device
     n = len(vop)
+    kinds = vop[:, 0]
+    qpel = vol.quarter_sample
+    mats = _matrices(vol)
     res = torch.zeros((n, vol.n_mb, 6, 64), dtype=torch.int16, device=dev)
-    K.dequant_idct(blocks, bidx, mb, res)
+    K.dequant_idct(blocks, bidx, mb, res, mats, quirks.xvid_idct)
     planes = _planes(n + 1, vol, dev)
     if carry is not None:
         for p, c in zip(planes, carry):
             p[0] = c
-    depth = _depths(vop[:, 0], carry is not None)
-    for k in range(int(depth.max()) + 1 if n else 0):
-        fs = np.nonzero(depth == k)[0]
-        items = np.stack([fs, np.where(vop[fs, 0] == VOP_I, -1, fs),
-                          fs + 1, vop[fs, 1]], 1).astype(np.int32)
-        K.motion_compensate(planes, mb, res,
-                            torch.from_numpy(items).to(dev), vol.width,
-                            vol.height)
-    return [p[1:] for p in planes]
+    # each anchor's reference slot and depth from its I-VOP
+    ref = np.full(n, -1, np.int64)
+    depth = np.full(n, -1, np.int64)
+    prev, prev_depth = (0, 0) if carry is not None else (-1, -1)
+    past = np.full(n, -1, np.int64)
+    future = np.full(n, -1, np.int64)
+    before = prev
+    for f, k in enumerate(kinds):
+        if k in (VOP_I, VOP_P):
+            if k == VOP_P and prev < 0:
+                raise BitstreamError(f"P-VOP {f} of a batch has no "
+                                     f"reference")
+            ref[f] = -1 if k == VOP_I else prev
+            depth[f] = 0 if k == VOP_I else prev_depth + 1
+            before, prev, prev_depth = prev, f + 1, depth[f]
+        elif k == VOP_B:
+            past[f], future[f] = before, prev
+    for d in range(int(depth.max()) + 1 if n else 0):
+        fs = np.nonzero(depth == d)[0]
+        items = np.stack([fs, ref[fs], fs + 1, vop[fs, 1]], 1)
+        K.motion_compensate(planes, mb, res, torch.from_numpy(
+            items.astype(np.int32)).to(dev), *quirks.edge(vol), qpel,
+            quirks.qpel_chroma)
+    bs = np.nonzero(kinds == VOP_B)[0]
+    if len(bs):
+        if (past[bs] < 0).any():
+            raise BitstreamError("a B-VOP of a batch lacks its past anchor")
+        bres = torch.zeros((len(bs), vol.n_mb, 6, 64), dtype=torch.int16,
+                           device=dev)
+        K.dequant_idct(bblocks, bbidx, bmb, bres, mats, quirks.xvid_idct)
+        items = np.stack([np.arange(len(bs)), past[bs], future[bs], bs + 1],
+                         1).astype(np.int32)
+        K.bidir_compensate(planes, bmb, bres, torch.from_numpy(items).to(
+            dev), *quirks.edge(vol), qpel, quirks.qpel_chroma)
+    return planes
 
 
-def entropy_decode(samples: Sequence[bytes], vol: Vol, dev: torch.device):
-    """The records of a batch on `dev`: the C++ coder on CUDA (one copy to
-    the card), the plain Python one on the CPU."""
+def entropy_decode(samples: Sequence[bytes], vol: Vol, dev: torch.device,
+                   plan: Optional[np.ndarray] = None,
+                   quirks: Quirks = Quirks()):
+    """The records of a batch on `dev` (parse_batch's seven): the C++
+    coder on CUDA (one copy to the card), the plain Python one on the
+    CPU."""
     if dev.type == "cuda":
-            return K.parse_vops(samples, vol.as_ints(), vol.n_mb, dev)
-    vop, mb, blocks, bidx = parse_vops(samples, vol)
-    return (vop, torch.from_numpy(mb), torch.from_numpy(blocks),
-            torch.from_numpy(bidx))
+        return K.parse_batch(samples, vol.as_ints(), vol.n_mb, dev, plan,
+                             quirks.direct_16)
+    out = parse_batch(samples, vol, plan, quirks.direct_16)
+    return (out[0],) + tuple(torch.from_numpy(a) for a in out[1:])
 
 
-def batches(n: int, sync: Optional[Sequence[bool]], batch: int
-            ) -> List[Tuple[int, int]]:
+def batches(n: int, sync: Optional[Sequence[bool]], batch: int,
+            kinds: Optional[Sequence[int]] = None) -> List[Tuple[int, int]]:
     """[lo, hi) ranges of at most `batch` VOPs, each ending before a key
-    frame where one lies in reach."""
+    frame where one lies in reach. Given the VOPs' kinds, a batch ends
+    only before an anchor (I or P), so that every B-VOP finds its two
+    anchors in its own batch or the carried one (a longer batch where no
+    anchor lies in reach)."""
     keys = [i for i in range(n) if sync[i]] if sync is not None else []
+    anchors = ([i for i in range(n) if kinds[i] in (VOP_I, VOP_P)]
+               if kinds is not None else None)
     out, lo = [], 0
     while lo < n:
         hi = min(lo + batch, n)
         cuts = [k for k in keys if lo < k <= hi]
         if hi < n and cuts:
             hi = cuts[-1]
+        if anchors is not None and hi < n and hi not in anchors:
+            back = [a for a in anchors if lo < a <= hi]
+            ahead = [a for a in anchors if a > hi]
+            hi = back[-1] if back else (ahead[0] if ahead else n)
         out.append((lo, hi))
         lo = hi
     return out
 
 
 def iter_decode(samples: Sequence[bytes], vol: Vol, dev: torch.device,
-                sync: Optional[Sequence[bool]] = None):
-    """Decode VOPs batch_vops(vol) at a time (the last reconstruction
-    carried between batches): yields (n, H, W, 3) uint8 RGB tensors on
-    `dev`."""
+                sync: Optional[Sequence[bool]] = None, headers: bytes = b"",
+                fourcc: bytes = b""):
+    """Decode VOPs batch_vops(vol) at a time (the last anchor carried
+    between batches): yields (n, H, W, 3) uint8 RGB tensors on `dev`, the
+    frames in display order as FFmpeg shows them (plan_stream); `headers`
+    is the DecoderSpecificInfo, whose user data may mark a packed stream
+    or name its coder, `fourcc` an AVI's (Quirks)."""
+    plan = plan_stream(samples, vol, headers, fourcc)
     carry = None
-    for lo, hi in batches(len(samples), sync, batch_vops(vol)):
+    carried = -1
+    show = plan.show
+    if sync is None:
+        sync = plan.kind == VOP_I
+    for lo, hi in batches(len(samples), sync, batch_vops(vol), plan.kind):
+        rows = np.stack([plan.kind[lo:hi], plan.trb[lo:hi],
+                         plan.trd[lo:hi]], 1)
+        last = hi == len(samples)
         with plain_threads(dev):
-            vop, mb, blocks, bidx = entropy_decode(samples[lo:hi], vol, dev)
-            y, u, v = reconstruct(vop, mb, blocks, bidx, vol, carry)
-            carry = [y[-1], u[-1], v[-1]]
-            rgb = yuv420_to_rgb(y, u, v, vol.height, vol.width)
+            recs = entropy_decode(plan.data[lo:hi], vol, dev, rows,
+                                  plan.quirks)
+            planes = reconstruct(recs, vol, carry, plan.quirks)
+            slots = [0 if u == carried else u - lo + 1
+                     for at, u in show if lo <= at < hi or (last and
+                                                           at >= hi)]
+            anchors = [f for f in range(hi - lo)
+                       if plan.kind[lo + f] in (VOP_I, VOP_P)]
+            if anchors:
+                carry = [p[anchors[-1] + 1] for p in planes]
+                carried = lo + anchors[-1]
+            idx = torch.tensor(slots, dtype=torch.int64, device=dev)
+            rgb = yuv420_to_rgb(*[p[idx] for p in planes], vol.height,
+                                vol.width)
         yield rgb
 
 
 def decode(samples: Sequence[bytes], vol: Vol, dev: torch.device,
-           sync: Optional[Sequence[bool]] = None) -> torch.Tensor:
-    """Decode VOPs into (N, H, W, 3) uint8 RGB frames on `dev`."""
-    out = list(iter_decode(samples, vol, dev, sync))
+           sync: Optional[Sequence[bool]] = None, headers: bytes = b"",
+           max_frames: Optional[int] = None,
+           fourcc: bytes = b"") -> torch.Tensor:
+    """Decode VOPs into (N, H, W, 3) uint8 RGB frames on `dev`, in display
+    order; with `max_frames`, the first that many, decoding the samples
+    those need."""
+    if max_frames is not None:
+        show = plan_stream(samples, vol, headers, fourcc).show[:max_frames]
+        need = max((at for at, _ in show), default=-1) + 1
+        samples = samples[:need]
+        sync = None if sync is None else sync[:need]
+    out = list(iter_decode(samples, vol, dev, sync, headers, fourcc))
+    if max_frames is not None and out:
+        out = [torch.cat(out)[:max_frames]]
     if not out:
         return torch.zeros((0, vol.height, vol.width, 3), dtype=torch.uint8,
                            device=dev)
@@ -1306,6 +1866,9 @@ def encode_gops(yuv: Sequence[torch.Tensor], first: int, vol: Vol,
         mb[idx, :, 4::2] = found[:, :, 1:2].expand(-1, -1, 4)
         mb[idx, :, 5::2] = found[:, :, 2:3].expand(-1, -1, 4)
     planes = _planes(n + 1, vol, dev)
+    # predictions read references clamped into the decoded macroblocks,
+    # as FFmpeg's decoder reads them (Quirks.edge)
+    h16, w16 = 16 * vol.mb_height, 16 * vol.mb_width
     levels = torch.empty((n, vol.n_mb, 6, 64), dtype=torch.int16,
                          device=dev)
     for k in range(GOP):
@@ -1319,15 +1882,14 @@ def encode_gops(yuv: Sequence[torch.Tensor], first: int, vol: Vol,
         ).to(dev)
         fsi = torch.from_numpy(fs).to(dev)
         mb_k = mb[fsi]
-        K.motion_compensate(planes, mb_k, None, items, vol.width,
-                            vol.height)
+        K.motion_compensate(planes, mb_k, None, items, w16, h16)
         q = K.fdct_quant(yuv, planes, mb_k, torch.from_numpy(np.stack(
             [fs, fs + 1], 1).astype(np.int32)).to(dev))
         res = torch.zeros_like(q)
         K.dequant_idct(q.view(-1, 64), torch.arange(
             q.shape[0] * vol.n_mb * 6, dtype=torch.int32, device=dev), mb_k,
             res)
-        K.motion_compensate(planes, mb_k, res, items, vol.width, vol.height)
+        K.motion_compensate(planes, mb_k, res, items, w16, h16)
         levels[fsi] = q
     mv = mb[:, :, 4:12]
     lo = mv.amin((1, 2)).cpu().numpy()

@@ -11,9 +11,13 @@ top-down BGR rows marked by a negative height, padded to four bytes) or
 motion JPEG (`codec="mjpg"`: each frame a JPEG that nvJPEG encodes on the
 card, fourcc MJPG). Every AVI frame is a key frame and the file has an
 idx1 index; ffmpeg and cv2 read both. Readers find the format by content,
-as cv2 does; an MP4 of another codec (H.264, HEVC, ...) raises naming it.
-MJPEG on the CPU (no JPEG codec there) raises. Grids are PNG files
-(`io/image.py`).
+as cv2 does. Besides what the port writes they read MPEG-4 Part 2 in
+either container: the Simple and Advanced Simple Profiles (B-VOPs, MPEG
+quantisation, quarter-pel; in AVI the fourccs of Xvid, DivX and FFmpeg,
+packed B-frames included), frame for frame as cv2 returns them
+(`io/mpeg4.py` says what it still refuses). An MP4 or AVI of another codec
+(H.264, HEVC, ...) raises naming it. MJPEG on the CPU (no JPEG codec
+there) raises. Grids are PNG files (`io/image.py`).
 """
 
 from __future__ import annotations
@@ -34,6 +38,10 @@ from faceoff_tpu_torch.io.image import (decode_jpeg_bytes, encode_jpeg,
 _AVIF_HASINDEX = 0x10
 _AVIIF_KEYFRAME = 0x10
 _MJPG = struct.unpack("<I", b"MJPG")[0]
+# AVI fourccs of MPEG-4 Part 2 video (Xvid, DivX 5, FFmpeg)
+MPEG4_FOURCCS = (b"XVID", b"xvid", b"DIVX", b"divx", b"DX50", b"FMP4",
+                 b"MP4V", b"mp4v")
+_MPEG4 = {struct.unpack("<I", f)[0] for f in MPEG4_FOURCCS}
 CODECS = ("raw", "mjpg")
 _NO_MJPG_CPU = ("motion-JPEG AVI is encoded and decoded by nvJPEG on a "
                 "CUDA device only (ROADMAP.md, Queue 1 item 7b); on the "
@@ -194,34 +202,57 @@ def _walk(data: bytes, start: int, end: int):
 
 
 def read_avi(video_path: str, max_frames: Optional[int] = None):
-    """The coded frames of an AVI: (codec "raw" or "mjpg", width,
-    height, list of each frame's bytes). A raw height below zero marks
-    top-down rows."""
+    """read_avi_stream without the fourcc."""
+    return read_avi_stream(video_path, max_frames)[:4]
+
+
+def read_avi_stream(video_path: str, max_frames: Optional[int] = None):
+    """The coded frames of an AVI: (codec "raw", "mjpg" or "mpeg4",
+    width, height, list of each frame's bytes; an MPEG-4 stream's every
+    chunk, whatever `max_frames`, since its display order needs them,
+    fourcc). A raw height below zero marks top-down rows. MPEG-4 Part 2
+    extra data in `strf` (the VOL, where the file keeps it there) comes
+    before the first frame's bytes, where FFmpeg's decoder reads it
+    too. Another codec raises naming its fourcc."""
     data = Path(video_path).read_bytes()
     if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
         raise ValueError(f"{video_path}: not an AVI file")
     width = height = codec = None
+    extra = fourcc_of = b""
     frames: List[bytes] = []
     for fourcc, lo, hi in _walk(data, 12, len(data)):
         if fourcc == b"strf":
-            _, width, height, _, bits, comp = struct.unpack(
+            size, width, height, _, bits, comp = struct.unpack(
                 "<IiiHHI", data[lo: lo + 20])
+            fourcc_of = struct.pack("<I", comp)
             if comp == _MJPG:
                 codec = "mjpg"
+            elif comp in _MPEG4:
+                codec = "mpeg4"
+                extra = data[lo + 40: min(lo + size, hi)] if size > 40 \
+                    else b""
             elif bits == 24 and comp == 0:
                 codec = "raw"
             else:
-                raise ValueError(f"{video_path}: only uncompressed 24-bit "
-                                 f"and motion-JPEG frames are read")
+                name = struct.pack("<I", comp).decode("latin-1")
+                raise ValueError(
+                    f"{video_path}: AVI video codec {name!r}; the port "
+                    f"reads uncompressed 24-bit, motion JPEG and MPEG-4 "
+                    f"Part 2 ({b', '.join(MPEG4_FOURCCS).decode()}) "
+                    f"frames. Others wait for their own decoder "
+                    f"(ROADMAP.md, Queue 1 item 7b)")
         elif fourcc in (b"00db", b"00dc"):
             if width is None:
                 raise ValueError(f"{video_path}: frames before strf")
-            if max_frames is not None and len(frames) >= max_frames:
+            if (max_frames is not None and len(frames) >= max_frames
+                    and codec != "mpeg4"):
                 break
             frames.append(data[lo:hi])
     if codec is None:
         raise ValueError(f"{video_path}: no video stream format")
-    return codec, width, height, frames
+    if extra and frames:
+        frames[0] = extra + frames[0]
+    return codec, width, height, frames, fourcc_of
 
 
 def _decode_raw(body: bytes, width: int, height: int) -> np.ndarray:
@@ -234,12 +265,26 @@ def _decode_raw(body: bytes, width: int, height: int) -> np.ndarray:
     return np.ascontiguousarray(img[..., ::-1])
 
 
+def _mpeg4_frames(bodies: Sequence[bytes], dev: torch.device,
+                  max_frames: Optional[int] = None,
+                  fourcc: bytes = b"") -> torch.Tensor:
+    """MPEG-4 Part 2 frames of an AVI (the VOL in the first chunk)."""
+    if not bodies:
+        raise ValueError("an MPEG-4 AVI without frames")
+    vol = mpeg4.parse_vol(bodies[0])
+    return mpeg4.decode(bodies, vol, dev, max_frames=max_frames,
+                        fourcc=fourcc)
+
+
 def decode_frames(codec: str, width: int, height: int,
                   bodies: Sequence[bytes], device: DeviceLike = None
                   ) -> Union[List[np.ndarray], torch.Tensor]:
     """Frames of `read_avi`: raw ones as a list of uint8 RGB arrays when
-    no device or the CPU is named, else (and motion JPEG always, through
-    nvJPEG) one (N, H, W, 3) uint8 tensor on the CUDA device."""
+    no device or the CPU is named, else (and motion JPEG and MPEG-4
+    always, decoded on the CUDA device unless the CPU is named) one (N,
+    H, W, 3) uint8 tensor on the device."""
+    if codec == "mpeg4":
+        return _mpeg4_frames(bodies, resolve_device(device))
     if codec == "mjpg":
         dev = resolve_device(device)
         if dev.type != "cuda":
@@ -258,8 +303,8 @@ def decode_frames(codec: str, width: int, height: int,
     return torch.from_numpy(np.stack(frames)).to(dev)
 
 
-def _mp4_track(video_path: str, max_frames: Optional[int] = None):
-    track = mp4.read_mp4(video_path, max_frames)
+def _mp4_track(video_path: str):
+    track = mp4.read_mp4(video_path)
     vol = mpeg4.parse_vol(track.dsi)
     if (vol.width, vol.height) != (track.width, track.height):
         raise ValueError(f"{video_path}: the VOL's {vol.width}x{vol.height}"
@@ -279,17 +324,23 @@ def read_video_frames(
     video_path: str, max_frames: Optional[int] = None,
     device: DeviceLike = None,
 ) -> Union[List[np.ndarray], torch.Tensor]:
-    """Read a video's frames, its format found by content. An MP4 (mp4v)
+    """Read a video's frames (the first `max_frames` in display order),
+    its format found by content. MPEG-4 Part 2, in an MP4 or an AVI,
     decodes on `device` (CUDA unless named) into one (N, H, W, 3) uint8
-    tensor. An AVI: an uncompressed one as a list of uint8 RGB arrays when
-    no device or the CPU is named; with a CUDA device (which motion JPEG
+    tensor. An uncompressed AVI gives a list of uint8 RGB arrays when no
+    device or the CPU is named; with a CUDA device (which motion JPEG
     needs, and takes when none is named) one (N, H, W, 3) uint8 tensor on
     the card."""
     if _is_mp4(video_path):
         dev = resolve_device(device)
-        track, vol = _mp4_track(video_path, max_frames)
-        return mpeg4.decode(track.samples, vol, dev, sync=track.sync)
-    codec, width, height, bodies = read_avi(video_path, max_frames)
+        track, vol = _mp4_track(video_path)
+        return mpeg4.decode(track.samples, vol, dev, sync=track.sync,
+                            headers=track.dsi, max_frames=max_frames)
+    codec, width, height, bodies, fourcc = read_avi_stream(video_path,
+                                                           max_frames)
+    if codec == "mpeg4":
+        return _mpeg4_frames(bodies, resolve_device(device), max_frames,
+                             fourcc)
     return decode_frames(codec, width, height, bodies, device)
 
 
@@ -297,15 +348,23 @@ def video_frame_chunks(video_path: str, chunk_frames: int,
                        device: DeviceLike = None) -> Iterator[torch.Tensor]:
     """A video's frames in chunks of at most `chunk_frames`, each one
     (n, H, W, 3) uint8 tensor on `device` (CUDA unless named), decoded
-    chunk by chunk (an MP4 in batches that start at its key frames where
-    they can, the last reconstruction carried between them)."""
+    chunk by chunk (MPEG-4 in batches that start at its key frames where
+    they can, the last anchor carried between them)."""
     dev = resolve_device(device)
+    parts = None
     if _is_mp4(video_path):
         track, vol = _mp4_track(video_path)
+        parts = mpeg4.iter_decode(track.samples, vol, dev, sync=track.sync,
+                                  headers=track.dsi)
+    else:
+        codec, width, height, bodies, fourcc = read_avi_stream(video_path)
+        if codec == "mpeg4":
+            parts = mpeg4.iter_decode(bodies, mpeg4.parse_vol(bodies[0]),
+                                      dev, fourcc=fourcc)
+    if parts is not None:
         pending: List[torch.Tensor] = []
         held = 0
-        for part in mpeg4.iter_decode(track.samples, vol, dev,
-                                      sync=track.sync):
+        for part in parts:
             pending.append(part)
             held += part.shape[0]
             while held >= chunk_frames:
@@ -315,7 +374,6 @@ def video_frame_chunks(video_path: str, chunk_frames: int,
         if held:
             yield torch.cat(pending)
         return
-    codec, width, height, bodies = read_avi(video_path)
     for lo in range(0, len(bodies), chunk_frames):
         part = decode_frames(codec, width, height,
                              bodies[lo: lo + chunk_frames], dev)

@@ -2,30 +2,39 @@
 entropy coder (`csrc/mpeg4.cu`), with the plain torch version of each
 stage beside its kernel.
 
-    V1 dequant_idct       H.263 inverse quantisation, then the integer
-                          8x8 IDCT, of the coded blocks of a batch of VOPs
-    V2 motion_compensate  the half-pel prediction of the k-th VOP of every
-                          GOP of a batch from its reference, plus the
-                          residual, clipped to 8 bits
+    V1 dequant_idct       inverse quantisation (H.263, or MPEG with the
+                          VOL's matrices and mismatch control), then the
+                          integer 8x8 IDCT, of the coded blocks of a batch
+    V2 motion_compensate  the half- or quarter-pel prediction of the k-th
+                          anchor VOP of every GOP of a batch from its
+                          reference, plus the residual, clipped to 8 bits
     V3 motion_search      the encoder's +-16 pixel full search with
                           half-pel refinement and the intra decision
     V4 fdct_quant         the encoder's integer 8x8 forward DCT and H.263
                           quantisation
+    V5 bidir_compensate   the prediction of every B-VOP of a batch from its
+                          two anchors (forward, backward, their rounded
+                          mean, or direct mode's vector a block), half- or
+                          quarter-pel, plus the residual, clipped
 
 They replace work that the JAX package hands to cv2's FFmpeg on the host;
-no TPU kernel and no PyTorch call computes them. All four are integer
+no TPU kernel and no PyTorch call computes them. All five are integer
 arithmetic, so each kernel equals its plain version bit for bit. The IDCT
 is the integer "simple" IDCT (22725, 21407, 19266, 16383, 12873, 8867,
 4520; rows >> 11, columns >> 20, a DC-only row shortcut), which meets IEEE
-1180 and is the one FFmpeg decodes its own `mp4v` streams with. The
+1180 and is the one FFmpeg decodes its own `mp4v` streams with, or for
+Xvid's streams FFmpeg's port of Xvid's IDCT (idct_xvid_plain). The
 forward DCT is an orthonormal matrix DCT in 13-bit fixed point (rows
-rounded >> 10, columns >> 16).
+rounded >> 10, columns >> 16). Quarter-pel prediction is the standard's
+8-tap half-sample filter (20, -6, 3, -1), taps mirrored at the edges of
+the 16 x 16 or 8 x 8 block, the quarter samples the mean of their two
+neighbours, in FFmpeg's order of operations.
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises (also where a tensor is not aligned for
 the kernel's vector loads: 16 bytes for V1's blocks and output, V2's
-residual and V3's planes, 8 for V1's records and the V2 and V4 planes). `launches` counts the kernel launches of
-each stage. The host coder (`parse_vops`, `write_vops`) spreads the VOPs of
+residual and V3's planes, 8 for V1's records and the V2 and V4 planes).
+`launches` counts the kernel launches of each stage. The host coder (`parse_vops`, `write_vops`) spreads the VOPs of
 a batch over threads in C++ and is called once a batch.
 """
 
@@ -46,14 +55,22 @@ from faceoff_tpu_torch.ops import cuda_build
 SOURCE = cuda_build.CSRC / "mpeg4.cu"
 
 MB_FIELDS = 12
-MB_SKIP, MB_INTER, MB_INTRA = 0, 1, 2
+# modes of an anchor (I/P) macroblock record; MB_INTER4V is inter with
+# four vectors (8 x 8 prediction blocks)
+MB_SKIP, MB_INTER, MB_INTRA, MB_INTER4V = 0, 1, 2, 3
+# A B-VOP macroblock record (B_FIELDS int32): mode (MB_INTER), qp, cbp,
+# B_DIR bits, then the four luma block vectors of the forward prediction
+# (x, y) and those of the backward one, in half or quarter pels
+B_FIELDS = 20
+B_FWD, B_BWD, B_8X8 = 1, 2, 4
 # P-VOP macroblocks go intra where deviation + INTRA_BIAS < best SAD
 INTRA_BIAS = 512
 SEARCH_RANGE = 16
 
 # kernel launches made through the wrappers in this process
 launches: Dict[str, int] = {"dequant_idct": 0, "motion_compensate": 0,
-                            "motion_search": 0, "fdct_quant": 0}
+                            "motion_search": 0, "fdct_quant": 0,
+                            "bidir_compensate": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -142,6 +159,79 @@ def idct_plain(coef: torch.Tensor) -> torch.Tensor:
     return _wrap16(out).reshape(-1, 64).to(torch.int16)
 
 
+# FFmpeg's port of Xvid's IDCT (libavcodec/xvididct.c), which it decodes
+# Xvid's streams with: a row pass with a table and a rounding term for
+# each row (rows >> 11), then a column pass of 16-bit fixed-point tangents
+# (>> 16) and butterflies (>> 6)
+XVID_TABS = ((22725, 21407, 19266, 16384, 12873, 8867, 4520),
+             (31521, 29692, 26722, 22725, 17855, 12299, 6270),
+             (29692, 27969, 25172, 21407, 16819, 11585, 5906),
+             (26722, 25172, 22654, 19266, 15137, 10426, 5315))
+XVID_ROW_TAB = (0, 1, 2, 3, 0, 3, 2, 1)
+XVID_ROW_RND = (65536, 3597, 2260, 1203, 0, 120, 512, 512)
+XVID_TAN1, XVID_TAN2, XVID_TAN3, XVID_SQRT2 = 0x32EC, 0x6A0A, 0xAB0E, 0x5A82
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def _xmult(c: int, x: torch.Tensor) -> torch.Tensor:
+    """(int)(c * (unsigned)x) >> 16, as the C code's MULT."""
+    return _wrap32(c * x) >> 16
+
+
+def idct_xvid_plain(coef: torch.Tensor) -> torch.Tensor:
+    """(N, 64) dequantised coefficients (raster) -> (N, 64) int16 by the
+    Xvid IDCT."""
+    x = coef.to(torch.int64).view(-1, 8, 8)
+    tab = torch.tensor([XVID_TABS[t] for t in XVID_ROW_TAB],
+                       device=x.device).view(1, 8, 7)
+    rnd = torch.tensor(XVID_ROW_RND, device=x.device).view(1, 8)
+    c1, c2, c3, c4, c5, c6, c7 = [tab[..., i] for i in range(7)]
+    i = [x[..., k] for k in range(8)]
+    k = c4 * i[0] + rnd
+    a0 = k + c2 * i[2] + c4 * i[4] + c6 * i[6]
+    a1 = k + c6 * i[2] - c4 * i[4] - c2 * i[6]
+    a2 = k - c6 * i[2] - c4 * i[4] + c2 * i[6]
+    a3 = k - c2 * i[2] + c4 * i[4] - c6 * i[6]
+    b0 = c1 * i[1] + c3 * i[3] + c5 * i[5] + c7 * i[7]
+    b1 = c3 * i[1] - c7 * i[3] - c1 * i[5] - c5 * i[7]
+    b2 = c5 * i[1] - c1 * i[3] + c7 * i[5] + c3 * i[7]
+    b3 = c7 * i[1] - c5 * i[3] + c3 * i[5] - c1 * i[7]
+    r = torch.stack([a0 + b0, a1 + b1, a2 + b2, a3 + b3, a3 - b3, a2 - b2,
+                     a1 - b1, a0 - b0], -1)
+    # (the C code's shortcuts for rows with few coefficients give these
+    # same values)
+    r = _wrap16(_wrap32(r) >> ROW_SHIFT)
+    y = [r[:, k, :] for k in range(8)]   # y[k]: row k, every column
+    # odd part
+    m0 = _xmult(XVID_TAN1, y[7]) + y[1]
+    m1 = _xmult(XVID_TAN1, y[1]) - y[7]
+    m2 = _xmult(XVID_TAN3, y[5]) + y[3]
+    m3 = _xmult(XVID_TAN3, y[3]) - y[5]
+    m7 = m0 + m2
+    m4 = m1 - m3
+    m0 = m0 - m2
+    m1 = m1 + m3
+    m6 = 2 * _xmult(XVID_SQRT2, m0 + m1)
+    m5 = 2 * _xmult(XVID_SQRT2, m0 - m1)
+    # even part
+    e3 = _xmult(XVID_TAN2, y[6]) + y[2]
+    e2 = _xmult(XVID_TAN2, y[2]) - y[6]
+    e0 = y[0] + y[4]
+    e1 = y[0] - y[4]
+    o = [None] * 8
+    t0, t3 = e0 + e3, e0 - e3
+    o[0], o[7] = t0 + m7, t0 - m7
+    o[3], o[4] = t3 + m4, t3 - m4
+    t1, t2 = e1 + e2, e1 - e2
+    o[1], o[6] = t1 + m6, t1 - m6
+    o[2], o[5] = t2 + m5, t2 - m5
+    out = torch.stack([_wrap16(_wrap32(v) >> 6) for v in o], 1)
+    return out.reshape(-1, 64).to(torch.int16)
+
+
 def dequantize_plain(levels: torch.Tensor, qp: torch.Tensor,
                      intra: torch.Tensor, luma: torch.Tensor
                      ) -> torch.Tensor:
@@ -157,23 +247,71 @@ def dequantize_plain(levels: torch.Tensor, qp: torch.Tensor,
     return f.clamp(-2048, 2047)
 
 
+# The default matrices of MPEG quantisation (ISO/IEC 14496-2, 6.3.3), in
+# raster order; a VOL may load others
+DEFAULT_INTRA_MATRIX = (
+    8, 17, 18, 19, 21, 23, 25, 27, 17, 18, 19, 21, 23, 25, 27, 28,
+    20, 21, 22, 23, 24, 26, 28, 30, 21, 22, 23, 24, 26, 28, 30, 32,
+    22, 23, 24, 26, 28, 30, 32, 35, 23, 24, 26, 28, 30, 32, 35, 38,
+    25, 26, 28, 30, 32, 35, 38, 41, 27, 28, 30, 32, 35, 38, 41, 45)
+DEFAULT_INTER_MATRIX = (
+    16, 17, 18, 19, 20, 21, 22, 23, 17, 18, 19, 20, 21, 22, 23, 24,
+    18, 19, 20, 21, 22, 23, 24, 25, 19, 20, 21, 22, 23, 24, 26, 27,
+    20, 21, 22, 23, 25, 26, 27, 28, 21, 22, 23, 24, 26, 27, 28, 30,
+    22, 23, 24, 26, 27, 28, 30, 31, 23, 24, 25, 27, 28, 30, 31, 33)
+
+
+def dequantize_mpeg_plain(levels: torch.Tensor, qp: torch.Tensor,
+                          intra: torch.Tensor, luma: torch.Tensor,
+                          matrices: torch.Tensor) -> torch.Tensor:
+    """MPEG inverse quantisation (ISO/IEC 14496-2, 7.4.4.2, quant_type 1)
+    of (N, 64) levels with `matrices` (2, 64) (intra, inter; raster):
+    F = (2 l + k) W qp / 16, k = 0 for intra blocks and sign(l) for inter
+    ones, the division truncating toward zero; the intra DC is its level
+    times the dc_scaler; all saturated to [-2048, 2047]; then mismatch
+    control on inter blocks: where the sum of the 64 values is even, the
+    last one's least bit flips. Intra blocks take no mismatch control, as
+    FFmpeg decodes them (the standard asks for it; see io/mpeg4.py).
+    (N, 64) int64."""
+    lv = levels.to(torch.int64)
+    q = qp.to(torch.int64).unsqueeze(1)
+    w = matrices.to(lv.device, torch.int64)[
+        torch.where(intra, 0, 1).to(torch.int64)]
+    k = torch.where(intra.unsqueeze(1), torch.zeros_like(lv), torch.sign(lv))
+    num = (2 * lv + k) * w * q
+    f = torch.sign(num) * (num.abs() >> 4)
+    dc = lv[:, 0] * dc_scaler(qp.to(torch.int64), luma)
+    f[:, 0] = torch.where(intra, dc, f[:, 0])
+    f = f.clamp(-2048, 2047)
+    flip = (~intra) & (f.sum(1) % 2 == 0)
+    f[:, 63] = torch.where(flip, f[:, 63] ^ 1, f[:, 63])
+    return f
+
+
 def _block_params(bidx: torch.Tensor, mb: torch.Tensor):
-    n_mb = mb.shape[1]
-    rows = mb.reshape(-1, MB_FIELDS)[(bidx // 6).to(torch.int64)]
+    rows = mb.reshape(-1, mb.shape[-1])[(bidx // 6).to(torch.int64)]
     return (rows[:, 1], rows[:, 0] == MB_INTRA, (bidx % 6) < 4)
 
 
 def dequant_idct_plain(blocks: torch.Tensor, bidx: torch.Tensor,
-                       mb: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+                       mb: torch.Tensor, out: torch.Tensor,
+                       matrices: Optional[torch.Tensor] = None,
+                       xvid: bool = False) -> torch.Tensor:
     """The plain V1: each row of `blocks` (NB, 64) int16 levels,
     dequantised with the qp and mode of its macroblock in `mb` (F, M,
-    MB_FIELDS), inverse transformed into row bidx of `out` (F * M * 6, 64)
-    int16."""
+    MB_FIELDS or B_FIELDS), by H.263 rules or, given `matrices` (2, 64)
+    int32 (intra, inter), by MPEG rules, inverse transformed (by the Xvid
+    IDCT with `xvid`, else the simple IDCT) into row bidx of `out`
+    (F * M * 6, 64) int16."""
     if blocks.shape[0] == 0:
         return out
     qp, intra, luma = _block_params(bidx, mb)
-    res = idct_plain(dequantize_plain(blocks, qp, intra, luma))
-    out.view(-1, 64)[bidx.to(torch.int64)] = res
+    if matrices is None:
+        coef = dequantize_plain(blocks, qp, intra, luma)
+    else:
+        coef = dequantize_mpeg_plain(blocks, qp, intra, luma, matrices)
+    idct = idct_xvid_plain if xvid else idct_plain
+    out.view(-1, 64)[bidx.to(torch.int64)] = idct(coef)
     return out
 
 
@@ -228,52 +366,222 @@ def _residual_planes(res: torch.Tensor, mbw: int, mbh: int):
     return luma.reshape(-1, 256), r[:, 4:].reshape(-1, 2, 64).transpose(0, 1)
 
 
+def _mirror_taps(size: int) -> torch.Tensor:
+    """(size, 8) sample index of taps -3 .. +4 of each half-sample output
+    i (between samples i and i + 1) over samples 0 .. size, mirrored at
+    the block's edges (-1 -> 0, -2 -> 1, size + 1 -> size, ...)."""
+    i = torch.arange(size).unsqueeze(1) + torch.arange(-3, 5).unsqueeze(0)
+    i = torch.where(i < 0, -1 - i, i)
+    return torch.where(i > size, 2 * size + 1 - i, i)
+
+
+def _lowpass(a: torch.Tensor, dim: int, rounding: int) -> torch.Tensor:
+    """The 8-tap half-sample filter along `dim` of `a` (size + 1 samples
+    there): (20 (s0 + s1) - 6 (s-1 + s2) + 3 (s-2 + s3) - (s-3 + s4) + 16 -
+    rounding) >> 5, clipped to [0, 255]; size outputs."""
+    a = a.movedim(dim, -1)
+    t = a[..., _mirror_taps(a.shape[-1] - 1).to(a.device)]
+    v = (20 * (t[..., 3] + t[..., 4]) - 6 * (t[..., 2] + t[..., 5])
+         + 3 * (t[..., 1] + t[..., 6]) - (t[..., 0] + t[..., 7]))
+    return ((v + 16 - rounding) >> 5).clamp(0, 255).movedim(-1, dim)
+
+
+def qpel_block(ref: torch.Tensor, bx: torch.Tensor, by: torch.Tensor,
+               vx: torch.Tensor, vy: torch.Tensor, size: int, width: int,
+               height: int, rounding: int) -> torch.Tensor:
+    """Quarter-pel prediction of N blocks of size x size at block origins
+    (bx, by) with vectors (vx, vy) in quarter pels from `ref` (H, W)
+    int64: (N, size, size) int64. The (size + 1)^2 integer samples from
+    (bx + vx >> 2, by + vy >> 2) are read clamped into the width x height
+    picture; the horizontal half samples are filtered over each row
+    (_lowpass), a quarter position x is the mean of the half sample and
+    its integer neighbour, then the same is done down the columns of that
+    result: FFmpeg's qpel functions, (a + b + 1 - rounding) >> 1 for each
+    mean."""
+    dev = ref.device
+    r = torch.arange(size + 1, device=dev)
+    x0 = (bx + (vx >> 2)).unsqueeze(1) + r
+    y0 = (by + (vy >> 2)).unsqueeze(1) + r
+    full = ref[y0.clamp(0, height - 1).unsqueeze(2),
+               x0.clamp(0, width - 1).unsqueeze(1)]
+    fx = (vx & 3).view(-1, 1, 1)
+    fy = (vy & 3).view(-1, 1, 1)
+    h = _lowpass(full, 2, rounding)
+
+    def mean(a, b):
+        return (a + b + 1 - rounding) >> 1
+
+    half = torch.where(fx == 0, full[:, :, :size], torch.where(
+        fx == 1, mean(h, full[:, :, :size]), torch.where(
+            fx == 2, h, mean(h, full[:, :, 1:]))))
+    v = _lowpass(half, 1, rounding)
+    return torch.where(fy == 0, half[:, :size], torch.where(
+        fy == 1, mean(half[:, :size], v), torch.where(
+            fy == 2, v, mean(half[:, 1:], v))))
+
+
+def _tdiv2(v: torch.Tensor) -> torch.Tensor:
+    """v / 2 truncated toward zero (C's division)."""
+    return torch.sign(v) * (v.abs() >> 1)
+
+
+_QPEL_CHROMA2 = torch.tensor([0, 0, 1, 1, 0, 0, 0, 1])
+
+
+def qpel_half(v: torch.Tensor, rule: int = 0) -> torch.Tensor:
+    """The half-pel luma vector that a one-vector quarter-pel macroblock's
+    chroma derives from: v / 2 truncated toward zero, or by FFmpeg's DivX
+    workarounds (rule 1, FF_BUG_QPEL_CHROMA: (v >> 1) | (v & 1); rule 2,
+    FF_BUG_QPEL_CHROMA2: (v >> 1) + (0, 0, 1, 1, 0, 0, 0, 1)[v & 7])."""
+    if rule == 1:
+        return (v >> 1) | (v & 1)
+    if rule == 2:
+        return (v >> 1) + _QPEL_CHROMA2.to(v.device)[v & 7]
+    return _tdiv2(v)
+
+
+def chroma_vectors(mv: torch.Tensor, four: torch.Tensor, qpel: bool,
+                   rule: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chroma vector (x, y) in half pels of each macroblock from its
+    luma block vectors mv (M, 4, 2): half-pel, the rule of chroma_vector
+    on their sum; quarter-pel as FFmpeg derives it, with four vectors the
+    same rule on the sum of each vector / 2 (truncated toward zero), with
+    one vector h = qpel_half(v, rule), then (h >> 1) | (h & 1)."""
+    if not qpel:
+        s = mv.sum(1)
+    else:
+        s = torch.where(four.view(-1, 1), _tdiv2(mv).sum(1),
+                        4 * qpel_half(mv[:, 0], rule))
+    return chroma_vector(s[:, 0]), chroma_vector(s[:, 1])
+
+
+def _luma_pred(ref: torch.Tensor, mv: torch.Tensor, four: torch.Tensor,
+               qpel: bool, grids, width: int, height: int,
+               rounding: int) -> torch.Tensor:
+    """The luma prediction (M, 256) int64, in each macroblock's pixel
+    order, from `ref` (H, W) int64 and block vectors mv (M, 4, 2):
+    half-pel bilinear samples per pixel, or quarter-pel blocks (one of
+    16 x 16 per macroblock, or four of 8 x 8 where `four`)."""
+    lx, ly, blk = grids[:3]
+    if not qpel:
+        bk = blk.expand(mv.shape[0], -1)
+        mvx = torch.gather(mv[:, :, 0], 1, bk)
+        mvy = torch.gather(mv[:, :, 1], 1, bk)
+        return _interp(ref, 2 * lx + mvx, 2 * ly + mvy, width, height,
+                       rounding)
+    bx, by = lx[:, 0], ly[:, 0]
+    p16 = qpel_block(ref, bx, by, mv[:, 0, 0], mv[:, 0, 1], 16, width,
+                     height, rounding)
+    p8 = torch.stack([qpel_block(ref, bx + 8 * (b & 1), by + 8 * (b >> 1),
+                                 mv[:, b, 0], mv[:, b, 1], 8, width, height,
+                                 rounding) for b in range(4)], 1)
+    p8 = p8.view(-1, 2, 2, 8, 8).permute(0, 1, 3, 2, 4).reshape(-1, 16, 16)
+    return torch.where(four.view(-1, 1, 1), p8, p16).reshape(-1, 256)
+
+
+def _predict(planes, slot: int, mv: torch.Tensor, four: torch.Tensor,
+             qpel: bool, grids, width: int, height: int, rounding: int,
+             rule: int = 0):
+    """Luma (M, 256) and chroma (2, M, 64) int64 predictions of every
+    macroblock of slot `slot` of the planes."""
+    y_pl, u_pl, v_pl = planes
+    cx, cy = grids[3], grids[4]
+    p_l = _luma_pred(y_pl[slot].to(torch.int64), mv, four, qpel, grids,
+                     width, height, rounding)
+    cmx, cmy = chroma_vectors(mv, four, qpel, rule)
+    p_c = torch.stack([_interp(pl[slot].to(torch.int64),
+                               2 * cx + cmx.unsqueeze(1),
+                               2 * cy + cmy.unsqueeze(1), width // 2,
+                               height // 2, rounding)
+                       for pl in (u_pl, v_pl)])
+    return p_l, p_c
+
+
+def _store(planes, out: int, grids, p_l, p_c, r_l, r_c) -> None:
+    y_pl, u_pl, v_pl = planes
+    lx, ly, _, cx, cy = grids
+    y_pl[out][ly, lx] = (p_l + r_l).clamp(0, 255).to(torch.uint8)
+    for c, pl in enumerate((u_pl, v_pl)):
+        pl[out][cy, cx] = (p_c[c] + r_c[c]).clamp(0, 255).to(torch.uint8)
+
+
+def _residual(res: Optional[torch.Tensor], f: int, mbw: int, mbh: int,
+              grids):
+    if res is not None:
+        return _residual_planes(res[f], mbw, mbh)
+    lx, cx = grids[0], grids[3]
+    return (torch.zeros_like(lx),
+            torch.zeros((2,) + cx.shape, dtype=torch.int64,
+                        device=lx.device))
+
+
 def motion_compensate_plain(planes: Sequence[torch.Tensor], mb: torch.Tensor,
                             res: Optional[torch.Tensor], items: torch.Tensor,
-                            width: int, height: int) -> None:
+                            width: int, height: int, qpel: bool = False,
+                            qpel_chroma: int = 0) -> None:
     """The plain V2. planes: Y (S, H16, W16), U, V (S, H16/2, W16/2) uint8
     slots; items (G, 4) int32 rows (f, reference slot, output slot,
     rounding type): macroblocks mb[f] (F, M, MB_FIELDS) and residual
     res[f] (F, M, 6, 64) int16 (None: zero) make output slot from
     reference slot. Intra macroblocks take the residual alone, not-coded
     ones the reference; every reference tap is clamped into the width x
-    height picture. Writes the output slots in place."""
-    y_pl, u_pl, v_pl = planes
-    h16, w16 = y_pl.shape[1:]
+    height picture. Vectors are in half pels, or in quarter pels with
+    `qpel` (MB_INTER4V macroblocks then predict 8 x 8 blocks, others
+    16 x 16; `qpel_chroma` is chroma_vectors' rule). Writes the output
+    slots in place."""
+    h16, w16 = planes[0].shape[1:]
     mbw, mbh = w16 // 16, h16 // 16
-    dev = y_pl.device
-    lx, ly, blk, cx, cy = _mc_grids(mbw, mbh, dev)
+    grids = _mc_grids(mbw, mbh, planes[0].device)
     for f, ref, out, rnd in items.tolist():
         rec = mb[f].to(torch.int64)
-        mode = rec[:, 0:1]
-        mv = rec[:, 4:12].view(-1, 4, 2)
-        bk = blk.expand(mv.shape[0], -1)
-        mvx = torch.gather(mv[:, :, 0], 1, bk)
-        mvy = torch.gather(mv[:, :, 1], 1, bk)
-        cmx = chroma_vector(mv[:, :, 0].sum(1)).unsqueeze(1)
-        cmy = chroma_vector(mv[:, :, 1].sum(1)).unsqueeze(1)
-        if res is None:
-            r_l = torch.zeros_like(lx)
-            r_c = torch.zeros((2,) + cx.shape, dtype=torch.int64, device=dev)
-        else:
-            r_l, r_c = _residual_planes(res[f], mbw, mbh)
-        intra = mode == MB_INTRA
+        intra = rec[:, 0:1] == MB_INTRA
+        r_l, r_c = _residual(res, f, mbw, mbh, grids)
         if ref >= 0:
-            p_l = _interp(y_pl[ref].to(torch.int64), 2 * lx + mvx,
-                          2 * ly + mvy, width, height, rnd)
+            p_l, p_c = _predict(planes, ref, rec[:, 4:12].view(-1, 4, 2),
+                                rec[:, 0] == MB_INTER4V, qpel, grids, width,
+                                height, rnd, qpel_chroma)
+            p_l = torch.where(intra, torch.zeros_like(p_l), p_l)
+            p_c = torch.where(intra.unsqueeze(0), torch.zeros_like(p_c), p_c)
         else:
-            p_l = torch.zeros_like(lx)
-        p_l = torch.where(intra, torch.zeros_like(p_l), p_l)
-        rec_l = (p_l + r_l).clamp(0, 255).to(torch.uint8)
-        y_pl[out][ly, lx] = rec_l
-        for c, pl in enumerate((u_pl, v_pl)):
-            if ref >= 0:
-                p_c = _interp(pl[ref].to(torch.int64), 2 * cx + cmx,
-                              2 * cy + cmy, width // 2, height // 2, rnd)
-            else:
-                p_c = torch.zeros_like(cx)
-            p_c = torch.where(intra, torch.zeros_like(p_c), p_c)
-            pl[out][cy, cx] = (p_c + r_c[c]).clamp(0, 255).to(torch.uint8)
+            p_l = torch.zeros_like(r_l)
+            p_c = torch.zeros_like(r_c)
+        _store(planes, out, grids, p_l, p_c, r_l, r_c)
+
+
+# --- V5: bidirectional prediction --------------------------------------------
+
+def bidir_compensate_plain(planes: Sequence[torch.Tensor], bmb: torch.Tensor,
+                           res: Optional[torch.Tensor], items: torch.Tensor,
+                           width: int, height: int, qpel: bool = False,
+                           qpel_chroma: int = 0) -> None:
+    """The plain V5. items (G, 4) int32 rows (j, past slot, future slot,
+    output slot): the B-VOP macroblocks bmb[j] (FB, M, B_FIELDS) predict
+    from the past slot with their forward vectors (B_FWD), from the
+    future slot with their backward ones (B_BWD), or from both, the two
+    predictions then meeting as (f + b + 1) >> 1; B_8X8 macroblocks
+    predict four 8 x 8 blocks with a vector each (direct mode), others
+    one 16 x 16 block (which differs only in quarter-pel). Always rounding
+    type 0. Plus the residual res[j] (FB, M, 6, 64) int16 (None: zero),
+    clipped to 8 bits, into the output slot."""
+    h16, w16 = planes[0].shape[1:]
+    mbw, mbh = w16 // 16, h16 // 16
+    grids = _mc_grids(mbw, mbh, planes[0].device)
+    for j, past, future, out in items.tolist():
+        rec = bmb[j].to(torch.int64)
+        d = rec[:, 3]
+        four = (d & B_8X8) != 0
+        fwd, bwd = ((d & B_FWD) != 0).view(-1, 1), ((d & B_BWD) != 0).view(
+            -1, 1)
+        f_l, f_c = _predict(planes, past, rec[:, 4:12].view(-1, 4, 2), four,
+                            qpel, grids, width, height, 0, qpel_chroma)
+        b_l, b_c = _predict(planes, future, rec[:, 12:20].view(-1, 4, 2),
+                            four, qpel, grids, width, height, 0, qpel_chroma)
+        p_l = torch.where(fwd & bwd, (f_l + b_l + 1) >> 1,
+                          torch.where(fwd, f_l, b_l))
+        p_c = torch.where((fwd & bwd).unsqueeze(0), (f_c + b_c + 1) >> 1,
+                          torch.where(fwd.unsqueeze(0), f_c, b_c))
+        r_l, r_c = _residual(res, j, mbw, mbh, grids)
+        _store(planes, out, grids, p_l, p_c, r_l, r_c)
 
 
 # --- V3: motion search -------------------------------------------------------
@@ -478,17 +786,20 @@ def load() -> ctypes.CDLL:
             return _lib
         lib = ctypes.CDLL(str(build()))
         sigs = {
-            "mpeg4_dequant_idct": [_P, _P, _I, _P, _P, _P],
+            "mpeg4_dequant_idct": [_P, _P, _I, _P, _P, _I, _I, _I, _P],
             "mpeg4_motion_compensate": [_P, _P, _P, _I, _I, _P, _I, _P, _P,
-                                        _I, _I, _I, _P],
+                                        _I, _I, _I, _I, _I, _P],
+            "mpeg4_set_matrices": [_P, _I, _P],
             "mpeg4_motion_search": [_P, _I, _I, _I, _P, _I, _I, _I, _P,
                                     _P],
             "mpeg4_fdct_quant": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
                                  _P, _P, _I, _P, _P],
             "mpeg4_set_vlc": [_I, _I, _P, _P, _P],
-            "mpeg4_parse": [_P, _P, _P, _I, _P, _I, ctypes.POINTER(
-                ctypes.c_int64)],
-            "mpeg4_parse_fetch": [_P, _P, _P, _P, _P],
+            "mpeg4_bidir_compensate": [_P, _P, _P, _I, _I, _P, _I, _P, _P,
+                                       _I, _I, _I, _I, _I, _P],
+            "mpeg4_parse": [_P, _P, _P, _I, _P, _P, _I, _I,
+                            ctypes.POINTER(ctypes.c_int64)],
+            "mpeg4_parse_fetch": [_P, _P, _P, _P, _P, _P, _P, _P],
             "mpeg4_write": [_P, _P, _P, _I, _P, _I, ctypes.POINTER(
                 ctypes.c_int64)],
             "mpeg4_write_fetch": [_P, _P, _P],
@@ -510,6 +821,29 @@ def load() -> ctypes.CDLL:
 
 
 _recip_sent: set = set()
+_matrices_sent: Dict[Optional[int], bytes] = {}
+
+
+def _send_matrices(lib: ctypes.CDLL, dev: torch.device,
+                   matrices: torch.Tensor) -> None:
+    """MPEG quantisation's matrices (a host tensor) into the constant
+    memory of `dev`, when they differ from those sent last (synchronous:
+    a VOL's matrices are sent once, so a call captured in a CUDA graph
+    sends nothing)."""
+    if matrices.device.type != "cpu":
+        raise ValueError("the MPEG matrices are a host tensor")
+    table = np.ascontiguousarray(matrices.numpy().reshape(-1), np.uint16)
+    key = table.tobytes()
+    with _lock:
+        if _matrices_sent.get(dev.index) == key:
+            return
+        with torch.cuda.device(dev):
+            status = lib.mpeg4_set_matrices(table.ctypes.data, len(table),
+                                            _stream(dev))
+        if status:
+            raise RuntimeError(f"mpeg4_set_matrices failed: cudaError "
+                               f"{status - 1000}")
+        _matrices_sent[dev.index] = key
 
 
 def _load_for(dev: torch.device) -> ctypes.CDLL:
@@ -557,12 +891,14 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def dequant_idct(blocks: torch.Tensor, bidx: torch.Tensor, mb: torch.Tensor,
-                 out: torch.Tensor) -> torch.Tensor:
+                 out: torch.Tensor, matrices: Optional[torch.Tensor] = None,
+                 xvid: bool = False) -> torch.Tensor:
     """V1 into `out` (F, M, 6, 64) int16 (rows not named by bidx keep
-    their values): the kernel on CUDA tensors, the plain version on CPU
-    ones."""
+    their values), H.263 or, with `matrices` ((2, 64), on the host), MPEG
+    inverse quantisation, the simple or (`xvid`) the Xvid IDCT: the
+    kernel on CUDA tensors, the plain version on CPU ones."""
     if blocks.device.type == "cpu":
-        return dequant_idct_plain(blocks, bidx, mb, out)
+        return dequant_idct_plain(blocks, bidx, mb, out, matrices, xvid)
     for t, n in ((blocks, "blocks"), (bidx, "bidx"), (mb, "mb"),
                  (out, "out")):
         _cuda_check(t, n)
@@ -573,23 +909,27 @@ def dequant_idct(blocks: torch.Tensor, bidx: torch.Tensor, mb: torch.Tensor,
                        (mb, "mb", 8)):
         _aligned(t, n, size)
     lib = load()
+    if matrices is not None:
+        _send_matrices(lib, blocks.device, matrices)
     with torch.cuda.device(blocks.device):
         status = lib.mpeg4_dequant_idct(
             blocks.data_ptr(), bidx.contiguous().data_ptr(),
-            blocks.shape[0], mb.data_ptr(), out.data_ptr(),
-            _stream(blocks.device))
+            blocks.shape[0], mb.data_ptr(), out.data_ptr(), mb.shape[-1],
+            int(matrices is not None), int(xvid), _stream(blocks.device))
     _count("dequant_idct", status)
     return out
 
 
 def motion_compensate(planes: Sequence[torch.Tensor], mb: torch.Tensor,
                       res: Optional[torch.Tensor], items: torch.Tensor,
-                      width: int, height: int) -> None:
+                      width: int, height: int, qpel: bool = False,
+                      qpel_chroma: int = 0) -> None:
     """V2 (see motion_compensate_plain), in place on the planes' output
     slots: one launch for every item."""
     y_pl, u_pl, v_pl = planes
     if y_pl.device.type == "cpu":
-        return motion_compensate_plain(planes, mb, res, items, width, height)
+        return motion_compensate_plain(planes, mb, res, items, width, height,
+                                       qpel, qpel_chroma)
     for t, n in ((y_pl, "planes"), (mb, "mb"), (items, "items")):
         _cuda_check(t, n)
     if items.shape[0] == 0:
@@ -606,8 +946,37 @@ def motion_compensate(planes: Sequence[torch.Tensor], mb: torch.Tensor,
             y_pl.data_ptr(), u_pl.data_ptr(), v_pl.data_ptr(), h16, w16,
             mb.contiguous().data_ptr(), mb.shape[1], _ptr(res),
             items.contiguous().data_ptr(), items.shape[0], width, height,
-            _stream(y_pl.device))
+            int(qpel), qpel_chroma, _stream(y_pl.device))
     _count("motion_compensate", status)
+    return None
+
+
+def bidir_compensate(planes: Sequence[torch.Tensor], bmb: torch.Tensor,
+                     res: Optional[torch.Tensor], items: torch.Tensor,
+                     width: int, height: int, qpel: bool = False,
+                     qpel_chroma: int = 0) -> None:
+    """V5 (see bidir_compensate_plain), in place on the planes' output
+    slots: one launch for every B-VOP item."""
+    y_pl, u_pl, v_pl = planes
+    if y_pl.device.type == "cpu":
+        return bidir_compensate_plain(planes, bmb, res, items, width,
+                                      height, qpel, qpel_chroma)
+    for t, n in ((y_pl, "planes"), (bmb, "bmb"), (items, "items")):
+        _cuda_check(t, n)
+    if items.shape[0] == 0:
+        return None
+    if res is not None:
+        res = res.contiguous()
+        _aligned(res, "res", 16)
+    lib = load()
+    h16, w16 = y_pl.shape[1:]
+    with torch.cuda.device(y_pl.device):
+        status = lib.mpeg4_bidir_compensate(
+            y_pl.data_ptr(), u_pl.data_ptr(), v_pl.data_ptr(), h16, w16,
+            bmb.contiguous().data_ptr(), bmb.shape[1], _ptr(res),
+            items.contiguous().data_ptr(), items.shape[0], width, height,
+            int(qpel), qpel_chroma, _stream(y_pl.device))
+    _count("bidir_compensate", status)
     return None
 
 
@@ -680,6 +1049,7 @@ def _send_tables(lib: ctypes.CDLL) -> None:
         syms = [(last << 16) | (run << 8) | level
                 for last, run, level in t.symbols]
         tables.append((list(t.codes) + [M.ESCAPE], syms + [-1]))
+    tables.append((M.MB_TYPE_B, list(range(len(M.MB_TYPE_B)))))
     for i, (codes, syms) in enumerate(tables):
         c = np.asarray([code for code, _ in codes], np.int32)
         n = np.asarray([length for _, length in codes], np.int32)
@@ -702,11 +1072,16 @@ def _align(n: int) -> int:
     return (n + 15) & ~15
 
 
-def parse_vops(samples: Sequence[bytes], vol_fields: Sequence[int],
-               n_mb: int, dev: torch.device):
-    """The C++ parser over a batch of VOPs on host threads, its records
-    packed into one pinned buffer and copied to `dev` in one transfer:
-    (vop numpy (F, 6), mb (F, M, 12), blocks (NB, 64), bidx (NB,))."""
+def parse_batch(samples: Sequence[bytes], vol_fields: Sequence[int],
+                n_mb: int, dev: torch.device,
+                plan: Optional[np.ndarray] = None, direct_16: bool = False):
+    """The C++ parser over a batch of VOPs on host threads (the anchors,
+    then the B-VOPs), its records packed into one pinned buffer and copied
+    to `dev` in one transfer: io/mpeg4.parse_batch's seven (vop numpy
+    (F, 6), mb (F, M, 12), blocks (NB, 64), bidx (NB,), bmb (FB, M, 20),
+    bblocks, bbidx). `plan` (F, 3) int32 rows (kind, TRB, TRD) as
+    io/mpeg4.plan_stream gives them; without it every VOP is parsed as an
+    anchor (a B-VOP then raises)."""
     lib = load()
     n = len(samples)
     sizes = np.asarray([len(s) for s in samples], np.int64)
@@ -714,21 +1089,25 @@ def parse_vops(samples: Sequence[bytes], vol_fields: Sequence[int],
     offsets[1:] = np.cumsum(sizes)[:-1]
     data = b"".join(samples) + b"\0" * 8
     vol = np.asarray(vol_fields, np.int32)
-    count = ctypes.c_int64(0)
+    if plan is None:
+        plan = np.zeros((n, 3), np.int32)
+    plan = np.ascontiguousarray(plan, np.int32)
+    counts = (ctypes.c_int64 * 3)()
     handle = lib.mpeg4_parse(data, offsets.ctypes.data, sizes.ctypes.data, n,
-                             vol.ctypes.data, threads(), ctypes.byref(count))
-    nb = count.value
+                             vol.ctypes.data, plan.ctypes.data,
+                             int(direct_16), threads(), counts)
+    nb, nbb, fb = counts[0], counts[1], counts[2]
     if lib.mpeg4_error(handle):
         raise _host_error(lib, handle, "mp4v parse")
-    parts = [n * 6 * 4, n * n_mb * MB_FIELDS * 4, nb * 4, nb * 64 * 2]
+    parts = [n * 6 * 4, n * n_mb * MB_FIELDS * 4, nb * 4, nb * 64 * 2,
+             fb * n_mb * B_FIELDS * 4, nbb * 4, nbb * 64 * 2]
     starts = np.concatenate([[0], np.cumsum([_align(p) for p in parts])])
     buf = torch.empty(int(starts[-1]), dtype=torch.uint8,
                       pin_memory=dev.type == "cuda")
     base = buf.data_ptr()
-    status = lib.mpeg4_parse_fetch(handle, base + int(starts[0]),
-                                   base + int(starts[1]),
-                                   base + int(starts[3]),
-                                   base + int(starts[2]))
+    at = [base + int(x) for x in starts[:-1]]
+    status = lib.mpeg4_parse_fetch(handle, at[0], at[1], at[3], at[2], at[4],
+                                   at[6], at[5])
     lib.mpeg4_free(handle)
     if status:
         raise ValueError("mp4v parse: fetch failed")
@@ -738,10 +1117,16 @@ def parse_vops(samples: Sequence[bytes], vol_fields: Sequence[int],
     def part(i, dtype):
         return dbuf[int(starts[i]): int(starts[i]) + parts[i]].view(dtype)
 
-    mb = part(1, torch.int32).view(n, n_mb, MB_FIELDS)
-    bidx = part(2, torch.int32)
-    blocks = part(3, torch.int16).view(nb, 64)
-    return vop, mb, blocks, bidx
+    return (vop, part(1, torch.int32).view(n, n_mb, MB_FIELDS),
+            part(3, torch.int16).view(nb, 64), part(2, torch.int32),
+            part(4, torch.int32).view(fb, n_mb, B_FIELDS),
+            part(6, torch.int16).view(nbb, 64), part(5, torch.int32))
+
+
+def parse_vops(samples: Sequence[bytes], vol_fields: Sequence[int],
+               n_mb: int, dev: torch.device):
+    """The anchors' records of a batch (parse_batch's first four)."""
+    return parse_batch(samples, vol_fields, n_mb, dev)[:4]
 
 
 def write_vops(vop: np.ndarray, mb: torch.Tensor, levels: torch.Tensor,

@@ -16,7 +16,10 @@ adversarial inputs
 vectors far outside the picture, residuals at the int16 extremes; ties,
 shifts past the search range, every border clamp, both DC clamps, the
 largest coefficients), and the C++ entropy coder against the Python
-one; kernels A and B at the edges of their designs: components across
+one; the Advanced Simple Profile: V1's MPEG and Xvid forms, V2 at
+quarter-pel and V5 at every call of the fixtures' decodes and on
+adversarial inputs, the C++ coder's B-VOPs against the Python one;
+kernels A and B at the edges of their designs: components across
 tile borders, ragged and odd sizes, full-foreground and serpentine 720p
 frames, an odd mask address; no point, counts of points no multiple of a
 block's, points beyond every border, dropped pyramid levels.
@@ -1523,3 +1526,176 @@ def test_mpeg4_motion_compensate_adversarial(cuda, size, res_kind):
     assert K.launches["motion_compensate"] == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+# -- mp4, Advanced Simple Profile: V1's MPEG and Xvid forms, V2 at
+# quarter-pel, V5, and the C++ coder's B-VOPs ---------------------------------
+
+_ASP = ("asp_bframes.mp4", "asp_qpel_mpegq.mp4", "asp_xvid.avi",
+        "asp_720p.mp4")
+
+
+def _asp_stream(name):
+    from pathlib import Path
+
+    from faceoff_tpu_torch.io import mp4, mpeg4
+    from faceoff_tpu_torch.io import video as tvideo
+
+    path = Path(__file__).resolve().parent / "data_torch" / name
+    if name.endswith(".avi"):
+        _, _, _, bodies, fourcc = tvideo.read_avi_stream(str(path))
+        return path, bodies, mpeg4.parse_vol(bodies[0]), b"", fourcc
+    track = mp4.read_mp4(str(path))
+    return path, track.samples, mpeg4.parse_vol(track.dsi), track.dsi, b""
+
+
+@pytest.mark.parametrize("name", _ASP)
+def test_mpeg4_asp_kernels_equal_plain_at_every_call(cuda, name,
+                                                     monkeypatch):
+    """Each Advanced Simple Profile fixture decoded on the card: V1 (H.263
+    or MPEG quantisation, simple or Xvid IDCT), V2 (half- or quarter-pel)
+    and V5 each held against its plain version at every call, bit for
+    bit; the frames equal cv2's stored decode (its digests)."""
+    import hashlib
+
+    from faceoff_tpu_torch.io import video as tvideo
+    from faceoff_tpu_torch.ops import mpeg4_cuda as K
+
+    held = {}
+
+    def hold(stage):
+        fn, plain = getattr(K, stage), getattr(K, stage + "_plain")
+
+        def run(*args):
+            if stage == "dequant_idct":
+                want = plain(*args[:3], args[3].clone(), *args[4:])
+                out = fn(*args)
+                assert torch.equal(out, want)
+            else:
+                planes = [p.clone() for p in args[0]]
+                plain(planes, *args[1:])
+                out = fn(*args)
+                assert all(torch.equal(a, b)
+                           for a, b in zip(args[0], planes))
+            held[stage] = held.get(stage, 0) + 1
+            return out
+        return run
+
+    for stage in ("dequant_idct", "motion_compensate", "bidir_compensate"):
+        monkeypatch.setattr(K, stage, hold(stage))
+    path = _asp_stream(name)[0]
+    got = tvideo.read_video_frames(str(path), device=cuda).cpu().numpy()
+    z = np.load(path.with_suffix(".npz"))
+    assert len(got) == int(z["count"])
+    assert [hashlib.sha256(np.ascontiguousarray(f).tobytes()).hexdigest()
+            for f in got] == list(z["sha256"])
+    assert held.get("bidir_compensate") and held.get("dequant_idct")
+
+
+@pytest.mark.parametrize("fields,mpeg,xvid", [
+    (12, False, True), (12, True, False), (12, True, True),
+    (20, False, False), (20, False, True), (20, True, False),
+    (20, True, True)])
+def test_mpeg4_dequant_idct_asp_forms_adversarial(cuda, fields, mpeg, xvid):
+    """V1's Advanced Simple Profile forms against dequant_idct_plain bit
+    for bit: anchor (12 fields) and B-VOP (20) records, MPEG quantisation
+    with loaded matrices of 1..255 (mismatch control on inter blocks),
+    the Xvid IDCT; every qp, levels at the clamps, rows that wrap int16."""
+    from faceoff_tpu_torch.ops import mpeg4_cuda as K
+
+    rng = np.random.default_rng(fields + 2 * mpeg + xvid)
+    F, M = 2, 62
+    mb = np.zeros((F, M, fields), np.int32)
+    mb[:, :, 1] = 1 + np.arange(M) % 31
+    mb[:, :, 0] = rng.choice([K.MB_INTRA, K.MB_INTER, K.MB_INTER4V],
+                             (F, M)) if fields == 12 else K.MB_INTER
+    rows = F * M * 6
+    bidx = rng.permutation(rows)[: rows - 40].astype(np.int32)
+    levels = _idct_levels(rng, len(bidx))
+    mats = (torch.from_numpy(rng.integers(1, 256, (2, 64)).astype(np.int32))
+            if mpeg else None)
+    out0 = rng.integers(-32768, 32768, (F, M, 6, 64)).astype(np.int16)
+    cpu = [torch.from_numpy(a) for a in (levels, bidx, mb)]
+    want = K.dequant_idct_plain(*cpu, torch.from_numpy(out0.copy()), mats,
+                                xvid)
+    before = K.launches["dequant_idct"]
+    got = K.dequant_idct(*(t.to(cuda) for t in cpu),
+                         torch.from_numpy(out0).to(cuda), mats, xvid)
+    assert K.launches["dequant_idct"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("qpel,rule", [(True, 0), (True, 1), (True, 2),
+                                       (False, 0)])
+def test_mpeg4_qpel_and_bidir_adversarial(cuda, qpel, rule):
+    """V2 at quarter-pel and V5 against their plain versions bit for bit:
+    skip, inter, four-vector and intra macroblocks (V2), every direction
+    and the 8 x 8 form (V5), every quarter-pel phase, vectors far past
+    every side of a 104 x 104 picture in 112-pixel planes, both rounding
+    types (V2), each quarter-pel chroma rule, residuals at the int16
+    extremes or None."""
+    from faceoff_tpu_torch.ops import mpeg4_cuda as K
+
+    rng = np.random.default_rng(7 + rule + 10 * qpel)
+    h16 = w16 = 112
+    n_mb = 49
+    G = 4
+    slots = 2 * G + 2
+    planes = [rng.integers(0, 256, (slots, h16, w16), dtype=np.uint8),
+              rng.integers(0, 256, (slots, 56, 56), dtype=np.uint8),
+              rng.integers(0, 256, (slots, 56, 56), dtype=np.uint8)]
+    near = rng.integers(-40, 41, (G, n_mb, 16))
+    far = rng.integers(-500, 501, (G, n_mb, 16))
+    vec = np.where(rng.random((G, n_mb, 16)) < 0.2, far, near)
+    res = rng.choice([-32768, 32767, -256, 256, -1, 0, 1, 77],
+                     (G, n_mb, 6, 64)).astype(np.int16)
+    mb = np.zeros((G, n_mb, 12), np.int32)
+    mb[..., 0] = rng.choice([K.MB_SKIP, K.MB_INTER, K.MB_INTER4V,
+                             K.MB_INTRA], (G, n_mb))
+    mb[..., 4:12] = vec[..., :8]
+    bmb = np.zeros((G, n_mb, K.B_FIELDS), np.int32)
+    bmb[..., 0] = K.MB_INTER
+    bmb[..., 3] = rng.choice([1, 2, 3, 5, 6, 7], (G, n_mb))
+    bmb[..., 4:20] = vec
+    for stage, rec, items in (
+            ("motion_compensate", mb,
+             [[0, 0, 2, 0], [1, 1, 3, 1], [2, -1, 4, 0], [3, 0, 5, 1]]),
+            ("bidir_compensate", bmb,
+             [[0, 0, 1, 6], [1, 1, 0, 7], [2, 0, 1, 8], [3, 1, 0, 9]])):
+        for r in (res, None):
+            items_t = torch.tensor(items, dtype=torch.int32)
+            want = [torch.from_numpy(p.copy()) for p in planes]
+            getattr(K, stage + "_plain")(
+                want, torch.from_numpy(rec),
+                None if r is None else torch.from_numpy(r), items_t, 104,
+                104, qpel, rule)
+            got = [torch.from_numpy(p).to(cuda) for p in planes]
+            if stage == "motion_compensate" and not qpel:
+                continue  # the half-pel V2 has its own test above
+            before = K.launches[stage]
+            getattr(K, stage)(got, torch.from_numpy(rec).to(cuda),
+                              None if r is None else
+                              torch.from_numpy(r).to(cuda),
+                              items_t.to(cuda), 104, 104, qpel, rule)
+            assert K.launches[stage] == before + 1
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("name", _ASP)
+def test_mpeg4_host_coder_equals_python_asp(cuda, name):
+    """The C++ parser (anchors, then the B-VOPs reading their future
+    anchor's records) equals the Python one on each fixture, records and
+    blocks, B-VOPs' apart."""
+    from faceoff_tpu_torch.io import mpeg4
+    from faceoff_tpu_torch.ops import mpeg4_cuda as K
+
+    _, samples, vol, headers, fourcc = _asp_stream(name)
+    plan = mpeg4.plan_stream(samples, vol, headers, fourcc)
+    rows = np.stack([plan.kind, plan.trb, plan.trd], 1).astype(np.int32)
+    want = mpeg4.parse_batch(plan.data, vol, rows, plan.quirks.direct_16)
+    got = K.parse_batch(plan.data, vol.as_ints(), vol.n_mb, cuda, rows,
+                        plan.quirks.direct_16)
+    assert np.array_equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert np.array_equal(g.cpu().numpy(), w)

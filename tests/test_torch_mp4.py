@@ -416,8 +416,9 @@ def test_not_coded_vop_repeats_the_previous_frame():
 
 
 def test_refusals_name_the_feature():
-    """A VOL with data partitioning and a B-VOP raise naming what the
-    Simple Profile decoder does not read."""
+    """A VOL with data partitioning and an S-VOP (sprites, GMC) raise
+    naming what the decoder does not read (B-VOPs are read since the
+    Advanced Simple Profile: tests/test_torch_mpeg4_asp.py)."""
     vol = mpeg4.Vol(32, 32, 25)
     dsi = bytearray(mpeg4.write_vol_headers(vol))
     bits = "".join(format(b, "08b") for b in dsi)
@@ -430,6 +431,6 @@ def test_refusals_name_the_feature():
     bad = int(bits, 2).to_bytes(len(dsi), "big")
     with pytest.raises(ValueError, match="data partitioning"):
         mpeg4.parse_vol(bad)
-    bvop = bytes([0, 0, 1, 0xB6, 0b10000000, 0, 0])
-    with pytest.raises(ValueError, match="B-VOPs"):
-        mpeg4.parse_vop(bvop, vol)
+    svop = bytes([0, 0, 1, 0xB6, 0b11000000, 0, 0])
+    with pytest.raises(ValueError, match="S-VOPs"):
+        mpeg4.parse_vop(svop, vol)

@@ -318,8 +318,8 @@ _BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "scipy",
 def test_port_imports_no_jax_no_cv2_no_reference_package():
     """In a fresh interpreter where importing JAX, flax, optax, orbax,
     cv2, scipy, PIL, torchvision, imageio or the faceoff_tpu package
-    raises, every module of the port, chip_smoke and bench_torch (without
-    running them) still import."""
+    raises, every module of the port, chip_smoke, bench_torch and
+    tools/asp_check_torch.py (without running them) still import."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "faceoff_tpu_torch").rglob("*.py")
@@ -340,18 +340,19 @@ def test_port_imports_no_jax_no_cv2_no_reference_package():
             if name.split(".")[0] in blocked:
                 del sys.modules[name]
         sys.meta_path.insert(0, Block())
-        for m in {modules!r} + ["chip_smoke", "bench_torch"]:
+        for m in {modules!r} + ["chip_smoke", "bench_torch",
+                                "tools.asp_check_torch"]:
             importlib.import_module(m)
         loaded = sorted(n for n in sys.modules if n.split(".")[0] in blocked)
         assert not loaded, loaded
-        print("ok", len({modules!r}) + 2)
+        print("ok", len({modules!r}) + 3)
     """)
     proc = subprocess.run(
         [sys.executable, "-c", script], cwd=REPO, capture_output=True,
         text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.strip() == f"ok {len(modules) + 2}"
+    assert proc.stdout.strip() == f"ok {len(modules) + 3}"
     assert "faceoff_tpu_torch.ops.warp_cuda" in modules
     assert {"faceoff_tpu_torch.cli.swap", "faceoff_tpu_torch.cli.evaluate",
             "faceoff_tpu_torch.evaluation.frechet"} <= set(modules)

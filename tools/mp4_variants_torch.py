@@ -185,7 +185,7 @@ def record_calls(frames: torch.Tensor) -> dict:
 
 
 def idct_row(lib, idct_shapes, case, args) -> dict:
-    blocks, bidx, mb, out0 = args
+    blocks, bidx, mb, out0 = args[:4]  # the mp4v path's H.263 form
     want = K.dequant_idct_plain(blocks, bidx, mb, out0.clone())
     out = out0.clone()
 
@@ -223,7 +223,7 @@ def idct_row(lib, idct_shapes, case, args) -> dict:
 
 
 def mc_row(lib, mc_shapes, case, args) -> dict:
-    planes0, mb, res, items, width, height = args
+    planes0, mb, res, items, width, height = args[:6]  # half-pel
     h16, w16 = planes0[0].shape[1:]
     want = [p.clone() for p in planes0]
     K.motion_compensate_plain(want, mb, res, items, width, height)
