@@ -202,7 +202,8 @@ Phases, each printing lines with their seconds:
                quantisation, Xvid IDCT), V2 (quarter-pel) and V5
                (bidir_compensate) against their plain versions at every
                call of those decodes, each form held at least once, then
-               timed at the path's largest call beside its bound; the
+               timed at the path's largest call beside its bound (V5 at
+               quarter- and at half-pel); the
                720p fixture's decode frames/s and host coder's share;
                cli/preprocess's stage 1 (crop) on asp_720p.mp4.
  19. no_pallas — the train phase's step with --no_pallas (run after
@@ -3437,7 +3438,12 @@ def mp4_bound(name, args) -> tuple:
         n_bytes = mbs * (area + 4) + inter * (8 * 4 + area)
         if res is not None:
             n_bytes += mbs * 6 * 64 * 2
-        ops = mbs * area * 8  # four taps, their sum, the residual, a clip
+        if len(args) > 6 and args[6]:
+            # quarter-pel, as V5: two 8-tap passes and two means a sample
+            # of the predicted macroblocks; the residual and a clip
+            ops = inter * area * 40 + mbs * area * 2
+        else:  # four taps, their sum, the residual, a clip
+            ops = mbs * area * 8
     elif name == "bidir_compensate":
         # each macroblock's record, residual and output, and the samples
         # of each reference it predicts from (one or two)
@@ -3739,9 +3745,9 @@ ASP_FORMS = ("dequant_idct:mpeg", "dequant_idct:mpeg+xvid",
              "motion_compensate:hpel", "bidir_compensate:qpel",
              "bidir_compensate:hpel")
 # the kernel rows: each stage at the main path's largest call of its new
-# form
+# form, and V5's half-pel form (keyed "bidir_compensate:hpel")
 ASP_ROWS = (("dequant_idct", "mpeg"), ("motion_compensate", "qpel"),
-            ("bidir_compensate", "qpel"))
+            ("bidir_compensate", "qpel"), ("bidir_compensate", "hpel"))
 
 
 def asp_digests(frames: torch.Tensor, name: str) -> bool:
@@ -3825,7 +3831,8 @@ def asp_phase(t0, work: Path):
         mpeg4_cuda.parse_batch = fn
 
     rows = {}
-    for name, form in ASP_ROWS:
+    for i, (name, form) in enumerate(ASP_ROWS):
+        key = name if i < 3 else f"{name}:{form}"
         size, args = calls.largest_form[(name, form)]
         kernel = getattr(mpeg4_cuda, name)
         if name == "dequant_idct":
@@ -3838,7 +3845,7 @@ def asp_phase(t0, work: Path):
             err = max(int((a.int() - b.int()).abs().max())
                       for a, b in zip(args[0], planes))
         bound, by = mp4_bound(name, args)
-        rows[name] = {
+        rows[key] = {
             "form": form, "work": size, "max_abs_err": err,
             "kernel_ms": device_ms(lambda: kernel(*args), reps=10, inner=5),
             "wrapper_ms": cuda_ms(lambda: kernel(*args), reps=5, inner=3),
@@ -3846,7 +3853,7 @@ def asp_phase(t0, work: Path):
                                 inner=1, warmup=0),
             "bound_ms": bound, "bound_by": by, "library_ms": None,
             "launches": counts[name], "launches_per_frame": counts[name] / n}
-        say("mp4", t0, f"asp {name} " + json.dumps(rows[name]))
+        say("mp4", t0, f"asp {key} " + json.dumps(rows[key]))
         if err:
             raise AssertionError(f"mp4 asp: {name} differs from its plain "
                                  f"version by {err}")
@@ -4781,6 +4788,11 @@ def main() -> int:
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
         "library_ms": None})  # no PyTorch call computes it
+    # the half-pel form at its largest call on the same path
+    kernels[-1]["hpel"] = {
+        k: mp4_result["asp"]["kernels"]["bidir_compensate:hpel"][k] for k in (
+            "work", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+            "bound_by")}
     print(f"[total] {time.perf_counter() - t_all:.2f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,5 @@
 // The MPEG-4 Part 2 (mp4v) codec of the port: the host entropy coder in
-// C++ and the four device stages as CUDA kernels (ops/mpeg4_cuda.py has
+// C++ and the five device stages as CUDA kernels (ops/mpeg4_cuda.py has
 // the plain version of each and the record layout; io/mpeg4.py has the
 // plain entropy coder, whose VLC tables mpeg4_set_vlc receives).
 //
@@ -12,7 +12,8 @@
 //          the column pass in int32 where a bound certifies it
 //   V2     motion_compensate: half-pel prediction (+ residual, clipped),
 //          rows of 8 pixels a thread from word-wide reference rows, every
-//          item (a VOP) of a launch in grid.y
+//          item (a VOP) of a launch in grid.y; quarter-pel (the Advanced
+//          Simple Profile) as V5, a warp a macroblock
 //   V3     motion_search: +-16 pixel full search on the reference window in
 //          shared memory with packed-byte SADs (vabsdiff4), a run of
 //          candidates a thread, then half-pel refinement and the intra
@@ -21,7 +22,9 @@
 //          and H.263 quantisation by multiply-high, a thread a block row
 //   V5     bidir_compensate: the B-VOPs' prediction from two anchors
 //          (half- or quarter-pel, rounding 0, (f + b + 1) >> 1 where both
-//          predict) plus the residual, clipped
+//          predict) plus the residual, clipped: a warp a macroblock, a
+//          lane a row of 8 pixels, the 8-tap passes two pixels a word in
+//          16-bit lanes, both directions in registers
 //
 // Every stage is integer arithmetic and matches its plain version bit for
 // bit. Without __CUDACC__ only the host coder is compiled (a C++ compiler
@@ -1644,39 +1647,56 @@ motion_compensate_kernel(uint8_t* __restrict__ Y, uint8_t* __restrict__ U,
   }
 }
 
-// ---- V2 at quarter-pel, and V5: a CUDA block a macroblock -----------------
+// ---- V2 at quarter-pel, and V5: a warp a macroblock -----------------------
 //
-// The prediction of one macroblock from one reference, as
-// ops/mpeg4_cuda._predict computes it. Quarter-pel luma: the (S + 1)^2
-// integer samples of each 16 x 16 block (or of each of four 8 x 8 ones)
-// are staged in shared memory, clamped into the edge_w x edge_h picture;
-// the horizontal half samples of every staged row (the 8-tap filter,
-// taps mirrored at the block's edges) and the horizontal quarter means
-// go to a second shared array; each thread then filters its pixel's
-// column of that array and takes the vertical mean (FFmpeg's order of
-// operations). Half-pel luma and all chroma are bilinear samples, a
-// thread a pixel. 256 threads: a luma pixel each, the first 128 a chroma
-// pixel each too. This is the simple first form: it stages every sample
-// once a macroblock and direction, and makes no use of the vectors of
-// neighbouring macroblocks.
-constexpr int GM_THREADS = 256;
-constexpr int GM_FULL = 4 * 81;   // 17 x 17, or four 9 x 9 staged samples
-constexpr int GM_HALF = 4 * 72;   // 17 x 16, or four 9 x 8 half samples
-
-__device__ __forceinline__ int mirror(int k, int size) {
-  return k < 0 ? -1 - k : (k > size ? 2 * size + 1 - k : k);
-}
-
-// the 8-tap filter at half position c (between c and c + 1) over samples
-// at(0 .. size)
-template <typename F>
-__device__ __forceinline__ int lowpass(F at, int c, int size, int rnd) {
-  const int v = 20 * (at(mirror(c, size)) + at(mirror(c + 1, size))) -
-                6 * (at(mirror(c - 1, size)) + at(mirror(c + 2, size))) +
-                3 * (at(mirror(c - 2, size)) + at(mirror(c + 3, size))) -
-                (at(mirror(c - 3, size)) + at(mirror(c + 4, size)));
-  return min(max((v + 16 - rnd) >> 5, 0), 255);
-}
+// One macroblock's prediction from one or two references, as
+// ops/mpeg4_cuda._predict computes it, plus the residual, clipped. Bound by
+// bytes on this card. chip_smoke.mp4_bound counts, each byte once, a
+// macroblock's record (V5's 80 bytes; V2's mode, and its vectors where it
+// predicts), its residual (768) and output (384), and 384 reference
+// samples a direction it predicts from; the reads beyond those (a
+// quarter-pel block's (S + 1)-square window, 17 x 17 or four 9 x 9 for
+// 256 pixels, and the half-pel rows' ninth column and row) are not
+// counted, and make luma read up to 1.27x what the bound counts.
+//
+// The first form (a CUDA block a macroblock, samples staged as int through
+// shared memory behind block-wide barriers, a byte load a sample, half the
+// threads idle for chroma) was 13x that bound. Here a warp makes a
+// macroblock, MBS macroblocks a CUDA block, and a lane owns a row of 8
+// output pixels (macroblock row R = lane / 2, half H = lane % 2: block
+// (R / 8) * 2 + H). A warp's work is a dependent chain (item, record,
+// reference rows, arithmetic, store), and in variants timed in turns
+// (tools/mp4_variants_torch.py) its time followed the warps an SM holds:
+// the kernels are capped at 64 registers (MINB). Every global load of a
+// direction is issued before its arithmetic: the record (20 lanes, one
+// request), the residual as 16-byte rows, and the reference rows as
+// aligned chunks, clamped byte by byte only where a block's window crosses
+// the clamp box's left or right edge (rows are clamped whole). A 16 x 16
+// quarter-pel window row is two 16-byte chunks, one a lane of the pair
+// that takes the row's halves, swapped by a shuffle (qpel_load); a 9-byte
+// row is two 8-byte chunks, and a lane takes its second row from the lane
+// below by a shuffle (hpel_rows). Quarter-pel luma runs FFmpeg's two
+// passes in 16-bit lanes (two pixels a 32-bit operation, lowpass2): the
+// horizontal pass a task a lane (a window row's 8 half samples from its 15
+// taps, mirrored at the block's edges by fixed byte orders, qpel_hrow),
+// its rows into an 8-byte tile in shared memory together with their
+// mirror images, the vertical pass a lane its output row from 8
+// consecutive tile rows (qpel_vrow); a pass whose phase is 0 is skipped,
+// and a 16 x 16 block's 17th window row (four 8 x 8 blocks' 9th rows) are
+// extra tasks of lanes 0-1 (0-3). Half-pel luma and all chroma are PR
+// 19's four-tap 16-bit-lane averages (hpel4); chroma takes 2 planes x 8
+// rows of a direction, 16 lanes, so V5's two directions fill the warp and
+// meet by a shuffle. Both predictions, their mean (f + b + 1) >> 1 (a
+// byte-wise rounding average) and the residual (DPX clips, add_clip4) stay
+// in registers. Only the warp synchronises (__syncwarp), except where a
+// block's rows are staged (STAGE): then its warps, which share the stage,
+// meet at a named barrier and store each picture row of their macroblocks
+// from consecutive threads, whole 32-byte sectors where a warp alone
+// would write half ones.
+constexpr int GM_TILE = 60;         // 8-byte half-sample rows a direction:
+                                    // two halves of 17 + 6 mirrored rows, or
+                                    // four blocks of 9 + 6
+constexpr uint32_t QP_BIAS = 3584;  // 112 * 32: keeps lowpass2's lanes >= 0
 
 // the half-pel luma vector of a one-vector quarter-pel macroblock's chroma
 // (ops/mpeg4_cuda.qpel_half): v / 2, or FFmpeg's DivX workarounds (rule 2
@@ -1699,162 +1719,581 @@ __device__ __forceinline__ int chroma_of(const int32_t* vec, int k,
   return chroma_vector(4 * qpel_half(vec[k], rule));
 }
 
-__device__ __forceinline__ int bilinear(const uint8_t* __restrict__ p,
-                                        int stride, int X, int Y, int w,
-                                        int h, int rnd) {
-  const int x0 = X >> 1, y0 = Y >> 1, fx = X & 1, fy = Y & 1;
-  const int xa = min(max(x0, 0), w - 1), xb = min(max(x0 + 1, 0), w - 1);
-  const int ya = min(max(y0, 0), h - 1), yb = min(max(y0 + 1, 0), h - 1);
-  const int a = p[(size_t)ya * stride + xa], b = p[(size_t)ya * stride + xb];
-  const int c = p[(size_t)yb * stride + xa], d = p[(size_t)yb * stride + xb];
-  if (!fx && !fy) return a;
-  if (!fy) return (a + b + 1 - rnd) >> 1;
-  if (!fx) return (a + c + 1 - rnd) >> 1;
-  return (a + b + c + d + 2 - rnd) >> 2;
+// The 8-tap filter of two outputs in the 16-bit lanes of a word, from the
+// lane-wise sums of its taps s0 = t3 + t4, s1 = t2 + t5, s2 = t1 + t6, s3 =
+// t0 + t7 (each below 511): clip((20 s0 - 6 s1 + 3 s2 - s3 + 16 - rnd) >>
+// 5, 0, 255), with k = (QP_BIAS + 16 - rnd) in both lanes. The biased sum
+// stays in [29, 15330] in every lane and the subtrahend below the
+// minuend, so no lane borrows from or carries into the next; the shift's
+// bits from the upper lane are masked off, and the bias (112 after the
+// shift) comes off inside the DPX clip max(min(x - 112, 255), 0).
+__device__ __forceinline__ uint32_t lowpass2(uint32_t s0, uint32_t s1,
+                                             uint32_t s2, uint32_t s3,
+                                             uint32_t k) {
+  const uint32_t u = (s0 * 20u + k + s2 * 3u) - (s1 * 6u + s3);
+  return __viaddmin_s16x2_relu((u >> 5) & 0x07FF07FFu, 0xFF90FF90u,
+                               0x00FF00FFu);
 }
 
-// One direction's prediction of macroblock (mx, my) from the reference
-// planes Y, U, V (one slot): `lum` for luma pixel t, `chr` for chroma
-// pixel t < 128 (plane t / 64). Every thread of the block must call it.
-__device__ void predict_mb(const uint8_t* __restrict__ Y,
-                           const uint8_t* __restrict__ U,
-                           const uint8_t* __restrict__ V, int w16, int mx,
-                           int my, const int32_t* vec, bool four, bool qpel,
-                           int rule, int rnd, int ew, int eh, int* full,
-                           int* half, int& lum, int& chr) {
-  const int t = threadIdx.x, py = t >> 4, px = t & 15;
-  if (qpel) {
-    const int S = four ? 8 : 16, NB = four ? 4 : 1;
-    const int FW = S + 1, FS = FW * FW, HS = FW * S;
-    for (int i = t; i < NB * FS; i += GM_THREADS) {
-      const int b = i / FS, k = i - b * FS, r = k / FW, c = k - r * FW;
-      const int bx = mx * 16 + (four ? 8 * (b & 1) : 0) + (vec[2 * b] >> 2);
-      const int by = my * 16 + (four ? 8 * (b >> 1) : 0) +
-                     (vec[2 * b + 1] >> 2);
-      full[i] = Y[(size_t)min(max(by + r, 0), eh - 1) * w16 +
-                  min(max(bx + c, 0), ew - 1)];
-    }
-    __syncthreads();
-    for (int i = t; i < NB * HS; i += GM_THREADS) {
-      const int b = i / HS, k = i - b * HS, r = k / S, c = k - r * S;
-      const int* f = full + b * FS + r * FW;
-      const int fx = vec[2 * b] & 3;
-      const int h = lowpass([&](int q) { return f[q]; }, c, S, rnd);
-      const int g = fx == 3 ? f[c + 1] : f[c];
-      half[i] = fx == 0 ? f[c] : (fx == 2 ? h : (h + g + 1 - rnd) >> 1);
-    }
-    __syncthreads();
-    const int b = four ? ((py >> 3) << 1) | (px >> 3) : 0;
-    const int r = four ? py & 7 : py, c = four ? px & 7 : px;
-    const int* hb = half + b * HS;
-    const int fy = vec[2 * b + 1] & 3;
-    const int v = lowpass([&](int q) { return hb[q * S + c]; }, r, S, rnd);
-    const int g = hb[(fy == 3 ? r + 1 : r) * S + c];
-    lum = fy == 0 ? hb[r * S + c] : (fy == 2 ? v : (g + v + 1 - rnd) >> 1);
-    __syncthreads();  // the arrays are free for the next direction
+// (a + b + 1 - rnd) >> 1 in both 16-bit lanes (k1 = 1 - rnd in each)
+__device__ __forceinline__ uint32_t mean2(uint32_t a, uint32_t b,
+                                          uint32_t k1) {
+  return ((a + b + k1) >> 1) & 0x00FF00FFu;
+}
+
+// (a + b + 1) >> 1 of each byte
+__device__ __forceinline__ uint32_t avg8(uint32_t a, uint32_t b) {
+  return (a | b) - (((a ^ b) >> 1) & 0x7F7F7F7Fu);
+}
+
+__device__ __forceinline__ uint2 avg8(uint2 a, uint2 b) {
+  return make_uint2(avg8(a.x, b.x), avg8(a.y, b.y));
+}
+
+// 8 predicted bytes plus a row of 8 int16 residuals, clipped
+__device__ __forceinline__ uint2 add_res(uint2 p, uint4 r) {
+  return make_uint2(add_clip4(__byte_perm(p.x, 0, 0x4140),
+                              __byte_perm(p.x, 0, 0x4342), r.x, r.y),
+                    add_clip4(__byte_perm(p.y, 0, 0x4140),
+                              __byte_perm(p.y, 0, 0x4342), r.z, r.w));
+}
+
+// A task of a quarter-pel direction's horizontal pass: window row `row` of
+// block b (0 for a 16 x 16 block) in case c: 0 and 1 the left and right
+// half of a 16 x 16 block's row (window bytes 0-11 and 5-16), 2 an 8 x 8
+// block's row (bytes 0-8). base() is its block's first row in the
+// direction's tile: rows -3 .. S + 3 of the half samples, those outside 0
+// .. S holding their mirror images (-1 -> 0, S + 1 -> S, ...).
+struct QTask {
+  int b, row, c;
+  __device__ int base() const { return c == 2 ? 15 * b : 23 * c; }
+  __device__ int size() const { return c == 2 ? 8 : 16; }
+};
+
+// lane (R, H)'s own task, and the extra task of lanes 0-1 (0-3): the last
+// window row
+__device__ __forceinline__ QTask main_task(int lane, bool four) {
+  const int R = lane >> 1, H = lane & 1;
+  return four ? QTask{(R >> 3) * 2 + H, R & 7, 2} : QTask{0, R, H};
+}
+__device__ __forceinline__ QTask extra_task(int lane, bool four) {
+  return four ? QTask{lane & 3, 8, 2} : QTask{0, 16, lane & 1};
+}
+
+// bytes o .. o + 11 (o <= 20) of the 32 bytes in w as three words: the
+// word o / 4 picked by a select for each of its bits, then a funnel shift
+__device__ __forceinline__ void take12(const uint32_t (&w)[8], int o,
+                                       uint32_t (&v)[3]) {
+  uint32_t s[10];
+#pragma unroll
+  for (int i = 0; i < 10; ++i) s[i] = i < 8 ? w[i] : 0u;
+  const int k = o >> 2;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) s[i] = (k & 1) ? s[i + 1] : s[i];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s[i] = (k & 2) ? s[i + 2] : s[i];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s[i] = (k & 4) ? s[i + 4] : s[i];
+  const int sh = 8 * (o & 3);
+#pragma unroll
+  for (int j = 0; j < 3; ++j) v[j] = __funnelshift_r(s[j], s[j + 1], sh);
+}
+
+// bytes x .. x + n - 1 of a row as three words, each column clamped into
+// [0, ew): the path of windows that cross the clamp box's edge
+__device__ __forceinline__ void clamped_words(const uint8_t* __restrict__ row,
+                                              int x, int n, int ew,
+                                              uint32_t (&w)[3]) {
+  w[0] = w[1] = w[2] = 0;
+#pragma unroll
+  for (int i = 0; i < 12; ++i)
+    if (i < n)
+      w[i >> 2] |= (uint32_t)row[min(max(x + i, 0), ew - 1)] << (8 * (i & 3));
+}
+
+// an 8 x 8 block's task: its window row's 9 bytes from the aligned 16-byte
+// chunk that holds the first and, where they reach past it, the next
+__device__ __forceinline__ void block8_words(const uint8_t* __restrict__ P,
+                                             int w16, int mx, int my,
+                                             const int32_t* vec, QTask t,
+                                             int ew, int eh,
+                                             uint32_t (&v)[3]) {
+  const int bx = mx * 16 + 8 * (t.b & 1) + (vec[2 * t.b] >> 2);
+  const int by = my * 16 + 8 * (t.b >> 1) + (vec[2 * t.b + 1] >> 2);
+  const uint8_t* row = P + (size_t)min(max(by + t.row, 0), eh - 1) * w16;
+  if (bx >= 0 && bx + 9 <= ew) {
+    const uint4* p = reinterpret_cast<const uint4*>(row + (bx & ~15));
+    const uint4 c0 = p[0];
+    const uint4 c1 = (bx & 15) + 9 > 16 ? p[1] : make_uint4(0, 0, 0, 0);
+    const uint32_t w[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+    take12(w, bx & 15, v);
   } else {
-    const int b = ((py >> 3) << 1) | (px >> 3);
-    lum = bilinear(Y, w16, 2 * (mx * 16 + px) + vec[2 * b],
-                   2 * (my * 16 + py) + vec[2 * b + 1], ew, eh, rnd);
-  }
-  if (t < 128) {
-    const int q = t & 63;
-    const int cx = chroma_of(vec, 0, four, qpel, rule);
-    const int cy = chroma_of(vec, 1, four, qpel, rule);
-    chr = bilinear(t < 64 ? U : V, w16 >> 1, 2 * (mx * 8 + (q & 7)) + cx,
-                   2 * (my * 8 + (q >> 3)) + cy, ew >> 1, eh >> 1, rnd);
+    clamped_words(row, bx, 9, ew, v);
   }
 }
 
-// the residual of luma pixel t (or chroma pixel t < 128 with `chroma`) of
-// one macroblock's (6, 64) int16 blocks
-__device__ __forceinline__ int residual_of(const int16_t* __restrict__ r,
-                                          int t, bool chroma) {
-  if (!r) return 0;
-  if (chroma) return r[(4 + (t >> 6)) * 64 + (t & 63)];
-  const int py = t >> 4, px = t & 15;
-  return r[(((py >> 3) << 1) | (px >> 3)) * 64 + (py & 7) * 8 + (px & 7)];
+// The horizontal pass of a task: its 8 half samples (two words of bytes)
+// at phase fx from its window words. t0-t3 hold the 15 taps of the 8
+// outputs (positions -3 .. 11 from the task's first output), mirrored at
+// the block's edges (-1 -> 0, S + 1 -> S, ...): fixed byte orders a case.
+// e[i] = (t[2i], t[2i + 1]) and o[i] = (t[2i + 1], t[2i + 2]) in 16-bit
+// lanes; outputs 2q, 2q + 1 take taps e[q], o[q], ..., o[q + 3].
+__device__ __forceinline__ uint2 qpel_hrow(const uint32_t (&w)[3], int c,
+                                           int fx, uint32_t k, uint32_t k1) {
+  uint32_t t[4];
+  if (c == 1) {  // bytes 5 .. 16, then 16, 15, 14
+    t[0] = w[0];
+    t[1] = w[1];
+    t[2] = w[2];
+    t[3] = __byte_perm(w[2], 0, 0x0123);
+  } else {  // 2, 1, 0, then bytes 0 .. 11 (case 0) or 0 .. 8, 8, 7, 6
+    t[0] = __byte_perm(w[0], 0, 0x0012);
+    t[1] = __byte_perm(w[0], w[1], 0x4321);
+    t[2] = __byte_perm(w[1], w[2], 0x4321);
+    t[3] = c == 0 ? __byte_perm(w[2], 0, 0x0321) : __byte_perm(w[1], w[2],
+                                                              0x0234);
+  }
+  if (fx == 0)  // the integer samples: taps 3 .. 10
+    return make_uint2(__funnelshift_r(t[0], t[1], 24),
+                      __funnelshift_r(t[1], t[2], 24));
+  uint32_t e[8], o[7], p[4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    e[i] = __byte_perm(t[i >> 1], 0, (i & 1) ? 0x4342 : 0x4140);
+#pragma unroll
+  for (int i = 0; i < 7; ++i) o[i] = __funnelshift_r(e[i], e[i + 1], 16);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint32_t h = lowpass2(o[q + 1] + e[q + 2], e[q + 1] + o[q + 2],
+                                o[q] + e[q + 3], e[q] + o[q + 3], k);
+    // the mean with sample c (fx 1) or c + 1 (fx 3)
+    p[q] = (fx & 1) ? mean2(h, fx == 1 ? o[q + 1] : e[q + 2], k1) : h;
+  }
+  return make_uint2(__byte_perm(p[0], p[1], 0x6420),
+                    __byte_perm(p[2], p[3], 0x6420));
 }
 
-__device__ __forceinline__ void store_mb(uint8_t* Y, uint8_t* U, uint8_t* V,
-                                         int w16, int mx, int my, int lum,
-                                         int chr, const int16_t* r) {
-  const int t = threadIdx.x;
-  Y[(size_t)(my * 16 + (t >> 4)) * w16 + mx * 16 + (t & 15)] =
-      (uint8_t)min(max(lum + residual_of(r, t, false), 0), 255);
-  if (t < 128) {
-    const int q = t & 63;
-    (t < 64 ? U : V)[(size_t)(my * 8 + (q >> 3)) * (w16 >> 1) + mx * 8 +
-                     (q & 7)] =
-        (uint8_t)min(max(chr + residual_of(r, t, true), 0), 255);
+// The vertical pass: row r's 8 outputs at phase fy (1 .. 3) from the 8
+// tile rows of its taps r - 3 .. r + 4 (mirrored rows stored as such)
+__device__ __forceinline__ uint2 qpel_vrow(const uint2* taps, int fy,
+                                           uint32_t k, uint32_t k1) {
+  uint32_t c[8][4], p[4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint2 v = taps[i];
+    c[i][0] = __byte_perm(v.x, 0, 0x4140);
+    c[i][1] = __byte_perm(v.x, 0, 0x4342);
+    c[i][2] = __byte_perm(v.y, 0, 0x4140);
+    c[i][3] = __byte_perm(v.y, 0, 0x4342);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t h = lowpass2(c[3][j] + c[4][j], c[2][j] + c[5][j],
+                                c[1][j] + c[6][j], c[0][j] + c[7][j], k);
+    // the mean with half row r (fy 1) or r + 1 (fy 3)
+    p[j] = (fy & 1) ? mean2(h, fy == 1 ? c[3][j] : c[4][j], k1) : h;
+  }
+  return make_uint2(__byte_perm(p[0], p[1], 0x6420),
+                    __byte_perm(p[2], p[3], 0x6420));
+}
+
+// a task's half samples into the tile: row w at base + 3 + w, and where
+// the vertical taps mirror it (w <= 2, w >= S - 2) at its image too
+__device__ __forceinline__ void tile_put(uint2* tile, QTask t, uint2 h) {
+  const int b = t.base(), S = t.size();
+  tile[b + 3 + t.row] = h;
+  if (t.row <= 2) tile[b + 2 - t.row] = h;
+  if (t.row >= S - 2) tile[b + 2 * S + 4 - t.row] = h;
+}
+
+// What a lane loads of one quarter-pel direction: its task's window words
+// and, for lanes 0-1 (0-3), the extra task's
+struct QLoad {
+  uint32_t m[3], x[3];
+};
+
+// whether any block of a quarter-pel direction has a vertical phase (the
+// tile and its extra rows are needed): uniform over the warp
+__device__ __forceinline__ bool qpel_vertical(const int32_t* vec, bool four) {
+  return ((four ? vec[1] | vec[3] | vec[5] | vec[7] : vec[1]) & 3) != 0;
+}
+
+// A quarter-pel direction's loads (every lane of the warp calls it): each
+// task's window bytes (12 from byte 5 in case 1, else from byte 0) as
+// three words, samples clamped into the ew x eh box. Row indices are
+// clamped whole; where a block's window (S + 1 columns from bx) lies
+// inside [0, ew) its rows are read as aligned 16-byte chunks
+// (mpeg4_cuda.qpel_words), else a byte at a time. A 16 x 16 block's row
+// is two chunks, one a lane of the pair (R, 0), (R, 1), swapped by a
+// shuffle, so that one warp-wide load serves 16 rows; an 8 x 8 block's
+// row is read by its own lane.
+__device__ __forceinline__ void qpel_load(const uint8_t* __restrict__ P,
+                                          int w16, int mx, int my,
+                                          const int32_t* vec, bool four,
+                                          int ew, int eh, int lane,
+                                          QLoad& q) {
+  const bool extra = lane < (four ? 4 : 2) && qpel_vertical(vec, four);
+  if (four) {
+    block8_words(P, w16, mx, my, vec, main_task(lane, true), ew, eh, q.m);
+    if (extra)
+      block8_words(P, w16, mx, my, vec, extra_task(lane, true), ew, eh, q.x);
+    return;
+  }
+  const int bx = mx * 16 + (vec[0] >> 2), by = my * 16 + (vec[1] >> 2);
+  const int H = lane & 1;
+  const uint8_t* row =
+      P + (size_t)min(max(by + (lane >> 1), 0), eh - 1) * w16;
+  const uint8_t* last = P + (size_t)min(max(by + 16, 0), eh - 1) * w16;
+  if (bx >= 0 && bx + 17 <= ew) {  // uniform over the warp
+    const uint4 c = reinterpret_cast<const uint4*>(row + (bx & ~15))[H];
+    const uint32_t mine[4] = {c.x, c.y, c.z, c.w};
+    uint32_t w[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t other = __shfl_xor_sync(0xffffffffu, mine[i], 1);
+      w[i] = H ? other : mine[i];
+      w[4 + i] = H ? mine[i] : other;
+    }
+    take12(w, (bx & 15) + 5 * H, q.m);
+    if (extra) {
+      const uint4* p = reinterpret_cast<const uint4*>(last + (bx & ~15));
+      const uint4 c0 = p[0], c1 = p[1];
+      const uint32_t x[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+      take12(x, (bx & 15) + 5 * H, q.x);
+    }
+  } else {
+    clamped_words(row, bx + 5 * H, 12, ew, q.m);
+    if (extra) clamped_words(last, bx + 5 * H, 12, ew, q.x);
+  }
+}
+
+// The lane's 8 predicted luma bytes of a quarter-pel direction. Every lane
+// of the warp calls it (it may __syncwarp).
+__device__ __forceinline__ uint2 qpel_luma(const QLoad& q, const int32_t* vec,
+                                           bool four, int lane, uint2* tile,
+                                           uint32_t k, uint32_t k1) {
+  const QTask mt = main_task(lane, four);
+  const int fy = vec[2 * mt.b + 1] & 3;
+  const uint2 h = qpel_hrow(q.m, mt.c, vec[2 * mt.b] & 3, k, k1);
+  if (!qpel_vertical(vec, four)) return h;
+  tile_put(tile, mt, h);
+  const QTask xt = extra_task(lane, four);
+  if (lane < (four ? 4 : 2) && (vec[2 * xt.b + 1] & 3))
+    tile_put(tile, xt, qpel_hrow(q.x, xt.c, vec[2 * xt.b] & 3, k, k1));
+  __syncwarp();
+  if (fy == 0) return h;  // four vectors: this block has no vertical phase
+  return qpel_vrow(tile + mt.base() + mt.row, fy, k, k1);
+}
+
+// a reference row's bytes x .. x + 8 as ref_row gives them, read as the
+// two aligned 8-byte chunks that hold them where `interior`, else a byte
+// at a time, each column clamped into [0, w)
+__device__ __forceinline__ RefRow ref_row8(const uint8_t* __restrict__ row,
+                                           int x, int w, bool interior) {
+  uint32_t w0, w1, w2;
+  int sh = 0;
+  if (interior) {
+    const uint2* p = reinterpret_cast<const uint2*>(row + (x & ~7));
+    const uint2 c0 = p[0], c1 = p[1];
+    const bool hi = x & 4;
+    w0 = hi ? c0.y : c0.x;
+    w1 = hi ? c1.x : c0.y;
+    w2 = hi ? c1.y : c1.x;
+    sh = 8 * (x & 3);
+  } else {
+    uint32_t b[3] = {0, 0, 0};
+#pragma unroll
+    for (int c = 0; c < 9; ++c)
+      b[c >> 2] |= (uint32_t)row[min(max(x + c, 0), w - 1)] << (8 * (c & 3));
+    w0 = b[0];
+    w1 = b[1];
+    w2 = b[2];
+  }
+  RefRow r;
+  r.a0 = __funnelshift_r(w0, w1, sh);
+  r.a1 = __funnelshift_r(w1, w2, sh);
+  r.b0 = __funnelshift_rc(w0, w1, sh + 8);
+  r.b1 = __funnelshift_rc(w1, w2, sh + 8);
+  return r;
+}
+
+// The two reference rows of a half-pel row prediction of 8 pixels at (px,
+// py) with vector (vx, vy) in the pw x ph picture: y0's, and for an odd Y
+// y0 + 1's (else y0's again). Lanes d apart within segments of `seg` lanes
+// predict consecutive rows with one vector, so a lane's second row is the
+// next one's first (a shuffle); the last d lanes of a segment load their
+// own. `act`: the lane predicts (the others only shuffle). Every lane of
+// the warp calls it.
+__device__ __forceinline__ void hpel_rows(const uint8_t* __restrict__ P,
+                                          int stride, int px, int py, int vx,
+                                          int vy, int pw, int ph, bool act,
+                                          int d, int seg, int lane,
+                                          RefRow& a, RefRow& c) {
+  const int X = 2 * px + vx, Yh = 2 * py + vy, x0 = X >> 1, y0 = Yh >> 1;
+  const bool interior = x0 >= 0 && x0 + 9 <= pw;
+  a = RefRow{0, 0, 0, 0};
+  if (act)
+    a = ref_row8(P + (size_t)min(max(y0, 0), ph - 1) * stride, x0, pw,
+                 interior);
+  RefRow n;
+  n.a0 = __shfl_down_sync(0xffffffffu, a.a0, d, seg);
+  n.a1 = __shfl_down_sync(0xffffffffu, a.a1, d, seg);
+  n.b0 = __shfl_down_sync(0xffffffffu, a.b0, d, seg);
+  n.b1 = __shfl_down_sync(0xffffffffu, a.b1, d, seg);
+  if (!(Yh & 1))
+    c = a;
+  else if (lane % seg < seg - d)
+    c = n;
+  else if (act)
+    c = ref_row8(P + (size_t)min(max(y0 + 1, 0), ph - 1) * stride, x0, pw,
+                 interior);
+}
+
+// the 8 predicted bytes from those rows at x phase fx (kr = 2 - rnd in
+// each 16-bit lane)
+__device__ __forceinline__ uint2 hpel_row(const RefRow& A, const RefRow& C,
+                                          bool fx, uint32_t kr) {
+  uint32_t l0, h0, l1, h1;
+  hpel4(A.a0, fx ? A.b0 : A.a0, C.a0, fx ? C.b0 : C.a0, kr, l0, h0);
+  hpel4(A.a1, fx ? A.b1 : A.a1, C.a1, fx ? C.b1 : C.a1, kr, l1, h1);
+  return make_uint2(__byte_perm(l0, h0, 0x6420), __byte_perm(l1, h1, 0x6420));
+}
+
+// the chroma rows of lane (plane lane / 8 % 2, row lane % 8) of a
+// direction (segments of 8 lanes; every lane of the warp calls it)
+__device__ __forceinline__ void chroma_load(
+    const uint8_t* __restrict__ U, const uint8_t* __restrict__ V, int w16,
+    int mx, int my, int cx, int cy, int ew, int eh, bool act, int lane,
+    RefRow& a, RefRow& c) {
+  hpel_rows((lane & 8) ? V : U, w16 >> 1, mx * 8, my * 8 + (lane & 7), cx,
+            cy, ew >> 1, eh >> 1, act, 1, 8, lane, a, c);
+}
+
+// the lane's luma (16 bytes from R) and chroma (lanes 0-15) residual rows
+__device__ __forceinline__ void residual_rows(const int16_t* __restrict__ r,
+                                              int lane, uint4& rl,
+                                              uint4& rc) {
+  rl = rc = make_uint4(0, 0, 0, 0);
+  if (!r) return;
+  const uint4* v = reinterpret_cast<const uint4*>(r);
+  const int R = lane >> 1;
+  rl = v[((R >> 3) * 2 + (lane & 1)) * 8 + (R & 7)];
+  if (lane < 16) rc = v[32 + lane];
+}
+
+__device__ __forceinline__ void store_rows(uint8_t* Y, uint8_t* U,
+                                           uint8_t* V, int w16, int mx,
+                                           int my, int lane, uint2 lum,
+                                           uint2 chr) {
+  const int R = lane >> 1;
+  *reinterpret_cast<uint2*>(Y + (size_t)(my * 16 + R) * w16 + mx * 16 +
+                            8 * (lane & 1)) = lum;
+  if (lane < 16)
+    *reinterpret_cast<uint2*>(((lane & 8) ? V : U) +
+                              (size_t)(my * 8 + (lane & 7)) * (w16 >> 1) +
+                              mx * 8) = chr;
+}
+
+// The outputs of a CUDA block's MBS macroblocks, staged in shared memory:
+// luma as 16-byte rows (row, macroblock), chroma as 8-byte rows (plane * 8
+// + row, macroblock), so that the block stores each picture row of its
+// macroblocks (consecutive in a macroblock row) from consecutive threads.
+template <int MBS>
+struct GmOut {
+  uint4 lum[16 * MBS];
+  uint2 chr[16 * MBS];
+};
+
+// macroblock wi's lane writes its rows into the stage
+template <int MBS>
+__device__ __forceinline__ void stage_rows(GmOut<MBS>& o, int wi, int lane,
+                                           uint2 lum, uint2 chr) {
+  reinterpret_cast<uint2*>(o.lum)[((lane >> 1) * MBS + wi) * 2 + (lane & 1)] =
+      lum;
+  if (lane < 16) o.chr[lane * MBS + wi] = chr;
+}
+
+// the named barrier of the block's warps (they share the stage)
+template <int MBS>
+__device__ __forceinline__ void block_bar() {
+  asm volatile("bar.sync 1, %0;" ::"r"(32 * MBS) : "memory");
+}
+
+// thread t stores row t / MBS (luma rows 0-15, then the 16 chroma rows) of
+// macroblock m0 + t % MBS: a warp writes whole 32-byte sectors
+template <int MBS>
+__device__ __forceinline__ void store_block(const GmOut<MBS>& o, uint8_t* Y,
+                                            uint8_t* U, uint8_t* V, int w16,
+                                            int m0, int n_mb) {
+  const int t = threadIdx.x, k = t % MBS, u = t / MBS, m = m0 + k;
+  if (m >= n_mb) return;
+  const int mbw = w16 >> 4, my = m / mbw, mx = m - my * mbw;
+  if (u < 16) {
+    *reinterpret_cast<uint4*>(Y + (size_t)(my * 16 + u) * w16 + mx * 16) =
+        o.lum[u * MBS + k];
+  } else {
+    const int pr = u - 16;
+    *reinterpret_cast<uint2*>(((pr & 8) ? V : U) +
+                              (size_t)(my * 8 + (pr & 7)) * (w16 >> 1) +
+                              mx * 8) = o.chr[pr * MBS + k];
   }
 }
 
 // V2 at quarter-pel: items (f, reference slot, output slot, rounding)
-// over records (F, M, MB_FIELDS), a CUDA block a macroblock and item.
-__global__ void __launch_bounds__(GM_THREADS)
+// over records (F, M, MB_FIELDS), a warp a macroblock and item, MBS
+// macroblocks a CUDA block (MINB: the CUDA blocks an SM must hold, which
+// caps the registers; STAGE: the block's rows staged, then stored whole).
+template <int MBS, int MINB, bool STAGE>
+__global__ void __launch_bounds__(32 * MBS, MINB)
 motion_compensate_qpel_kernel(uint8_t* __restrict__ Y, uint8_t* __restrict__ U,
                               uint8_t* __restrict__ V, int h16, int w16,
                               const int32_t* __restrict__ mb, int n_mb,
                               const int16_t* __restrict__ res,
                               const int32_t* __restrict__ items, int ew,
                               int eh, int rule) {
-  __shared__ int full[GM_FULL], half[GM_HALF];
-  __shared__ int32_t rec[MB_FIELDS];
-  const int t = threadIdx.x, m = blockIdx.x;
+  __shared__ int32_t recs[MBS][MB_FIELDS];
+  __shared__ uint2 tiles[MBS][GM_TILE];
+  __shared__ GmOut<STAGE ? MBS : 1> stage;
+  const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
+  const int m0 = blockIdx.x * MBS, m = m0 + wi;
   const int32_t* it = items + 4 * blockIdx.y;
   const int f = it[0], ref = it[1], outs = it[2], rnd = it[3];
-  const size_t k = (size_t)f * n_mb + m;
-  if (t < MB_FIELDS) rec[t] = mb[k * MB_FIELDS + t];
-  __syncthreads();
-  const int mbw = w16 >> 4, my = m / mbw, mx = m - my * mbw;
   const size_t lp = (size_t)h16 * w16, cp = lp >> 2;
-  int lum = 0, chr = 0;
-  if (ref >= 0 && rec[0] != MB_INTRA)
-    predict_mb(Y + ref * lp, U + ref * cp, V + ref * cp, w16, mx, my,
-               rec + 4, rec[0] == MB_INTER4V, true, rule, rnd, ew, eh, full,
-               half, lum, chr);
-  store_mb(Y + outs * lp, U + outs * cp, V + outs * cp, w16, mx, my, lum, chr,
-           res ? res + k * 384 : nullptr);
+  const int mbw = w16 >> 4, my = m / mbw, mx = m - my * mbw;
+  uint2 lum = make_uint2(0, 0), chr = make_uint2(0, 0);
+  if (m < n_mb) {  // uniform over the warp
+    const size_t k = (size_t)f * n_mb + m;
+    int32_t* rec = recs[wi];
+    if (lane < MB_FIELDS) rec[lane] = mb[k * MB_FIELDS + lane];
+    uint4 rl, rc;
+    residual_rows(res ? res + k * 384 : nullptr, lane, rl, rc);
+    __syncwarp();
+    if (ref >= 0 && rec[0] != MB_INTRA) {  // uniform over the warp
+      const int32_t* vec = rec + 4;
+      const bool four = rec[0] == MB_INTER4V;
+      QLoad q;
+      qpel_load(Y + ref * lp, w16, mx, my, vec, four, ew, eh, lane, q);
+      const int cx = chroma_of(vec, 0, four, true, rule);
+      const int cy = chroma_of(vec, 1, four, true, rule);
+      RefRow ca, cc;
+      chroma_load(U + ref * cp, V + ref * cp, w16, mx, my, cx, cy, ew, eh,
+                  lane < 16, lane, ca, cc);
+      lum = qpel_luma(q, vec, four, lane, tiles[wi],
+                      (QP_BIAS + 16 - rnd) * 0x00010001u,
+                      (1 - rnd) * 0x00010001u);
+      if (lane < 16) chr = hpel_row(ca, cc, cx & 1, (2 - rnd) * 0x00010001u);
+    }
+    if (res) {
+      lum = add_res(lum, rl);
+      chr = add_res(chr, rc);
+    }
+    if constexpr (STAGE)
+      stage_rows<MBS>(stage, wi, lane, lum, chr);
+    else
+      store_rows(Y + outs * lp, U + outs * cp, V + outs * cp, w16, mx, my,
+                 lane, lum, chr);
+  }
+  if constexpr (STAGE) {
+    block_bar<MBS>();
+    store_block<MBS>(stage, Y + outs * lp, U + outs * cp, V + outs * cp, w16,
+                     m0, n_mb);
+  }
 }
 
 // V5: the B-VOPs of a batch. Items (j, past slot, future slot, output
-// slot) over records (FB, M, B_FIELDS) and residuals (FB, M, 6, 64); a CUDA
-// block a macroblock and item. It replaces no TPU kernel: cv2's decoding of
-// B-VOPs (faceoff_tpu/io/video.py:61). Bound by bytes: the residual (768),
-// the output (384) and one or two references (384 each, and the margins
-// of the 8-tap filter) a macroblock.
-__global__ void __launch_bounds__(GM_THREADS)
+// slot) over records (FB, M, B_FIELDS) and residuals (FB, M, 6, 64); a warp
+// a macroblock and item, MBS macroblocks a CUDA block (MINB, STAGE as for
+// V2); QPEL: quarter-pel luma vectors. Rounding type 0. A macroblock without B_FWD predicts from
+// the future slot alone (as bidir_compensate_plain does). It replaces no
+// TPU kernel: cv2's decoding of B-VOPs (faceoff_tpu/io/video.py:61).
+template <int MBS, bool QPEL, int MINB, bool STAGE>
+__global__ void __launch_bounds__(32 * MBS, MINB)
 bidir_compensate_kernel(uint8_t* __restrict__ Y, uint8_t* __restrict__ U,
                         uint8_t* __restrict__ V, int h16, int w16,
                         const int32_t* __restrict__ bmb, int n_mb,
                         const int16_t* __restrict__ res,
                         const int32_t* __restrict__ items, int ew, int eh,
-                        int qpel, int rule) {
-  __shared__ int full[GM_FULL], half[GM_HALF];
-  __shared__ int32_t rec[B_FIELDS];
-  const int t = threadIdx.x, m = blockIdx.x;
+                        int rule) {
+  __shared__ int32_t recs[MBS][B_FIELDS];
+  __shared__ uint2 tiles[MBS][2][GM_TILE];
+  __shared__ GmOut<STAGE ? MBS : 1> stage;
+  const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
+  const int m0 = blockIdx.x * MBS, m = m0 + wi;
   const int32_t* it = items + 4 * blockIdx.y;
   const int j = it[0], past = it[1], future = it[2], outs = it[3];
-  const size_t k = (size_t)j * n_mb + m;
-  if (t < B_FIELDS) rec[t] = bmb[k * B_FIELDS + t];
-  __syncthreads();
-  const int mbw = w16 >> 4, my = m / mbw, mx = m - my * mbw;
   const size_t lp = (size_t)h16 * w16, cp = lp >> 2;
-  const int dir = rec[3];
-  const bool four = dir & B_8X8;
-  int fl = 0, fc = 0, bl = 0, bc = 0;
-  if (dir & B_FWD)
-    predict_mb(Y + past * lp, U + past * cp, V + past * cp, w16, mx, my,
-               rec + 4, four, qpel, rule, 0, ew, eh, full, half, fl, fc);
-  if (dir & B_BWD)
-    predict_mb(Y + future * lp, U + future * cp, V + future * cp, w16, mx,
-               my, rec + 12, four, qpel, rule, 0, ew, eh, full, half, bl, bc);
-  const bool both = (dir & B_FWD) && (dir & B_BWD);
-  const int lum = both ? (fl + bl + 1) >> 1 : ((dir & B_FWD) ? fl : bl);
-  const int chr = both ? (fc + bc + 1) >> 1 : ((dir & B_FWD) ? fc : bc);
-  store_mb(Y + outs * lp, U + outs * cp, V + outs * cp, w16, mx, my, lum, chr,
-           res ? res + k * 384 : nullptr);
+  const int mbw = w16 >> 4, my = m / mbw, mx = m - my * mbw;
+  if (m < n_mb) {  // uniform over the warp
+    const size_t k = (size_t)j * n_mb + m;
+    int32_t* rec = recs[wi];
+    if (lane < B_FIELDS) rec[lane] = bmb[k * B_FIELDS + lane];
+    uint4 rl, rc;
+    residual_rows(res ? res + k * 384 : nullptr, lane, rl, rc);
+    __syncwarp();
+    const int dir = rec[3];
+    const bool four = dir & B_8X8;
+    const bool fwd = dir & B_FWD, bwd = (dir & B_BWD) || !fwd;
+    const int32_t* fv = rec + 4;
+    const int32_t* bv = rec + 12;
+    const uint8_t* fy_ = Y + past * lp;
+    const uint8_t* by_ = Y + future * lp;
+    // the loads of both directions first
+    const int R = lane >> 1, H = lane & 1, b = (R >> 3) * 2 + H;
+    QLoad qf, qb;
+    RefRow fa, fc, ba, bc;
+    if (QPEL) {
+      if (fwd) qpel_load(fy_, w16, mx, my, fv, four, ew, eh, lane, qf);
+      if (bwd) qpel_load(by_, w16, mx, my, bv, four, ew, eh, lane, qb);
+    } else {
+      // rows R and R + 1 of a block: lanes 2 apart, 16 lanes a block row
+      const int px = mx * 16 + 8 * H, py = my * 16 + R;
+      if (fwd)
+        hpel_rows(fy_, w16, px, py, fv[2 * b], fv[2 * b + 1], ew, eh, true, 2,
+                  16, lane, fa, fc);
+      if (bwd)
+        hpel_rows(by_, w16, px, py, bv[2 * b], bv[2 * b + 1], ew, eh, true, 2,
+                  16, lane, ba, bc);
+    }
+    // chroma: lanes 0-15 the forward direction, 16-31 the backward one
+    const bool cd = lane >= 16;
+    const int32_t* cvec = cd ? bv : fv;
+    const int cx = chroma_of(cvec, 0, four, QPEL, rule);
+    const int cy = chroma_of(cvec, 1, four, QPEL, rule);
+    const int cslot = cd ? future : past;
+    RefRow ca, cc;
+    chroma_load(U + cslot * cp, V + cslot * cp, w16, mx, my, cx, cy, ew, eh,
+                cd ? bwd : fwd, lane, ca, cc);
+    uint2 fl = make_uint2(0, 0), bl = make_uint2(0, 0);
+    const uint32_t k0 = (QP_BIAS + 16) * 0x00010001u, k1 = 0x00010001u;
+    const uint32_t kr = 2 * 0x00010001u;
+    if (QPEL) {
+      if (fwd) fl = qpel_luma(qf, fv, four, lane, tiles[wi][0], k0, k1);
+      if (bwd) bl = qpel_luma(qb, bv, four, lane, tiles[wi][1], k0, k1);
+    } else {
+      if (fwd) fl = hpel_row(fa, fc, fv[2 * b] & 1, kr);
+      if (bwd) bl = hpel_row(ba, bc, bv[2 * b] & 1, kr);
+    }
+    uint2 c = make_uint2(0, 0);
+    if (cd ? bwd : fwd) c = hpel_row(ca, cc, cx & 1, kr);
+    const uint2 o = make_uint2(__shfl_xor_sync(0xffffffffu, c.x, 16),
+                               __shfl_xor_sync(0xffffffffu, c.y, 16));
+    uint2 lum = fwd && bwd ? avg8(fl, bl) : (fwd ? fl : bl);
+    uint2 chr = fwd && bwd ? avg8(c, o) : (fwd ? c : o);  // lanes 0-15
+    if (res) {
+      lum = add_res(lum, rl);
+      chr = add_res(chr, rc);
+    }
+    if constexpr (STAGE)
+      stage_rows<MBS>(stage, wi, lane, lum, chr);
+    else
+      store_rows(Y + outs * lp, U + outs * cp, V + outs * cp, w16, mx, my,
+                 lane, lum, chr);
+  }
+  if constexpr (STAGE) {
+    block_bar<MBS>();
+    store_block<MBS>(stage, Y + outs * lp, U + outs * cp, V + outs * cp, w16,
+                     m0, n_mb);
+  }
 }
 
 // V3: the full search, then the half-pel step and the intra decision.
@@ -1893,6 +2332,14 @@ constexpr int FQ_MBS = 4;
 constexpr int V1_BPB = 32, V1_RPT = 2;
 constexpr int MC_RES_ROWS = 1, MC_RES_MBS = 4;    // with a residual
 constexpr int MC_PRED_ROWS = 2, MC_PRED_MBS = 4;  // without
+// V2 at quarter-pel and V5: macroblocks (warps) a CUDA block, the CUDA
+// blocks an SM must hold (a cap of 64 registers a thread), and whether the
+// block's rows are staged for whole-sector stores (V2: 8 % faster; V5,
+// whose warps' work varies more, 5 % slower behind the barrier)
+constexpr int MCQ_MBS = 4, MCQ_MINB = 8;
+constexpr bool MCQ_STAGE = true;
+constexpr int BD_MBS = 4, BD_MINB = 8;
+constexpr bool BD_STAGE = false;
 
 template <int R, int D, int MPB>
 struct SearchShape {
@@ -2341,7 +2788,7 @@ int mpeg4_dequant_idct(const int16_t* blocks, const int32_t* bidx, int nb,
 }
 
 // width, height: the edge at which reference samples are clamped; qpel:
-// quarter-pel vectors (the block-a-macroblock kernel; half-pel takes the
+// quarter-pel vectors (the warp-a-macroblock kernel; half-pel takes the
 // row kernel), rule: the quarter-pel chroma rule
 int mpeg4_motion_compensate(uint8_t* y, uint8_t* u, uint8_t* v, int h16,
                             int w16, const int32_t* mb, int n_mb,
@@ -2349,8 +2796,10 @@ int mpeg4_motion_compensate(uint8_t* y, uint8_t* u, uint8_t* v, int h16,
                             int width, int height, int qpel, int rule,
                             cudaStream_t stream) {
   if (qpel) {
-    motion_compensate_qpel_kernel<<<dim3(n_mb, g), GM_THREADS, 0, stream>>>(
-        y, u, v, h16, w16, mb, n_mb, res, items, width, height, rule);
+    motion_compensate_qpel_kernel<MCQ_MBS, MCQ_MINB, MCQ_STAGE>
+        <<<dim3((n_mb + MCQ_MBS - 1) / MCQ_MBS, g), 32 * MCQ_MBS, 0,
+           stream>>>(y, u, v, h16, w16, mb, n_mb, res, items, width, height,
+                     rule);
   } else if (res) {
     using S = McShape<MC_RES_ROWS, MC_RES_MBS>;
     motion_compensate_kernel<MC_RES_ROWS, MC_RES_MBS, 1>
@@ -2370,8 +2819,15 @@ int mpeg4_bidir_compensate(uint8_t* y, uint8_t* u, uint8_t* v, int h16,
                            const int16_t* res, const int32_t* items, int g,
                            int width, int height, int qpel, int rule,
                            cudaStream_t stream) {
-  bidir_compensate_kernel<<<dim3(n_mb, g), GM_THREADS, 0, stream>>>(
-      y, u, v, h16, w16, bmb, n_mb, res, items, width, height, qpel, rule);
+  const dim3 grid((n_mb + BD_MBS - 1) / BD_MBS, g);
+  if (qpel)
+    bidir_compensate_kernel<BD_MBS, true, BD_MINB, BD_STAGE>
+        <<<grid, 32 * BD_MBS, 0, stream>>>(y, u, v, h16, w16, bmb, n_mb, res,
+                                           items, width, height, rule);
+  else
+    bidir_compensate_kernel<BD_MBS, false, BD_MINB, BD_STAGE>
+        <<<grid, 32 * BD_MBS, 0, stream>>>(y, u, v, h16, w16, bmb, n_mb, res,
+                                           items, width, height, rule);
   return status(cudaGetLastError());
 }
 

@@ -32,8 +32,10 @@ neighbours, in FFmpeg's order of operations.
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises (also where a tensor is not aligned for
-the kernel's vector loads: 16 bytes for V1's blocks and output, V2's
-residual and V3's planes, 8 for V1's records and the V2 and V4 planes).
+the kernel's vector loads: 16 bytes for V1's blocks and output, the V2
+and V5 residuals, V3's planes and the luma planes of V2's and V5's
+quarter-pel forms, 8 for V1's records and the other V2, V4 and V5
+planes).
 `launches` counts the kernel launches of each stage. The host coder (`parse_vops`, `write_vops`) spreads the VOPs of
 a batch over threads in C++ and is called once a batch.
 """
@@ -584,6 +586,52 @@ def bidir_compensate_plain(planes: Sequence[torch.Tensor], bmb: torch.Tensor,
         _store(planes, out, grids, p_l, p_c, r_l, r_c)
 
 
+# --- V2 at quarter-pel and V5 on the card --------------------------------------
+
+# macroblocks (warps) a CUDA block of V2's quarter-pel form and of V5
+# (csrc/mpeg4.cu's MCQ_MBS and BD_MBS)
+QPEL_MBS = 4
+BIDIR_MBS = 4
+# the bias that keeps the kernels' 8-tap sums positive in 16-bit lanes
+# (112 after the filter's shift by 5)
+QP_BIAS = 3584
+
+
+def compensate_grid(n_mb: int, items: int,
+                    mbs: int) -> Tuple[Tuple[int, int], int]:
+    """The launch of V2's quarter-pel form or V5 over `items` items of
+    n_mb macroblocks, a warp a macroblock: ((CUDA blocks, items), threads
+    a block). Warp w of block x takes macroblock x * mbs + w; the warps
+    past n_mb return at once."""
+    return ((n_mb + mbs - 1) // mbs, items), 32 * mbs
+
+
+def qpel_task_bytes(case: int) -> Tuple[int, int]:
+    """(first, count): the window bytes a quarter-pel horizontal task
+    reads, case 0 and 1 the left and right half of a 16 x 16 block's row
+    (its outputs 0-7 and 8-15, whose mirrored taps reach bytes 0-11 and
+    5-16), case 2 an 8 x 8 block's row (bytes 0-8)."""
+    return {0: (0, 12), 1: (5, 12), 2: (0, 9)}[case]
+
+
+def qpel_words(bx: int, size: int, ew: int,
+               case: int) -> Tuple[bool, List[int]]:
+    """How the kernels read a task's window bytes in one row, for a block
+    of `size` (16 or 8) whose window starts at column bx, in a picture
+    clamped at ew columns: (wide, columns read). Wide where the window's
+    size + 1 columns lie inside [0, ew): aligned 16-byte chunks from
+    bx & ~15, two for a 16 x 16 block (one a lane of the pair that takes
+    the row's halves, swapped by a shuffle), for an 8 x 8 block one, and
+    the next where the 9 bytes reach into it. Otherwise the task's bytes
+    a column at a time, each clamped into [0, ew). Rows are clamped
+    whole, so no vertical rule is needed."""
+    first, n = qpel_task_bytes(case)
+    if bx >= 0 and bx + size + 1 <= ew:
+        chunks = 2 if size == 16 or (bx & 15) + 9 > 16 else 1
+        return True, list(range(bx & ~15, (bx & ~15) + 16 * chunks))
+    return False, [min(max(bx + first + i, 0), ew - 1) for i in range(n)]
+
+
 # --- V3: motion search -------------------------------------------------------
 
 _HALF_ORDER = ((0, 0), (-1, -1), (0, -1), (1, -1), (-1, 0), (1, 0),
@@ -936,6 +984,8 @@ def motion_compensate(planes: Sequence[torch.Tensor], mb: torch.Tensor,
         return None
     for p in planes:
         _aligned(p, "planes", 8)
+    if qpel:
+        _aligned(y_pl, "the luma planes", 16)
     if res is not None:
         res = res.contiguous()
         _aligned(res, "res", 16)
@@ -965,6 +1015,10 @@ def bidir_compensate(planes: Sequence[torch.Tensor], bmb: torch.Tensor,
         _cuda_check(t, n)
     if items.shape[0] == 0:
         return None
+    for p in planes:
+        _aligned(p, "planes", 8)
+    if qpel:
+        _aligned(y_pl, "the luma planes", 16)
     if res is not None:
         res = res.contiguous()
         _aligned(res, "res", 16)

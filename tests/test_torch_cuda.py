@@ -1625,58 +1625,117 @@ def test_mpeg4_dequant_idct_asp_forms_adversarial(cuda, fields, mpeg, xvid):
     assert torch.equal(got.cpu(), want)
 
 
+def _cross_edges(vec, mbw, mbh, ew, eh, unit, start):
+    """Aim the vectors (G, M, 16) of the macroblocks along each side of
+    the picture so that each block's window (17 or 9 columns from its
+    origin, the vector's unit pels a sample) crosses that edge of the ew x
+    eh clamp box by 1, 2, ... 24 px in turn; the phases stay as drawn."""
+    i = start
+    for g in range(vec.shape[0]):
+        sides = [(0, [r * mbw for r in range(mbh)]),
+                 (1, [r * mbw + mbw - 1 for r in range(mbh)]),
+                 (2, list(range(mbw))),
+                 (3, [(mbh - 1) * mbw + c for c in range(mbw)])]
+        for side, ms in sides:
+            for m in ms:
+                k = 1 + i % 24
+                i += 1
+                my, mx = divmod(m, mbw)
+                for p in range(8):
+                    b = p % 4
+                    size = 16 if b == 0 else 8
+                    o = (mx * 16 + 8 * (b & 1) if side < 2
+                         else my * 16 + 8 * (b >> 1))
+                    edge = ew if side < 2 else eh
+                    t = -k if side in (0, 2) else edge + k - size - 1
+                    c = 2 * p + (side >= 2)
+                    vec[g, m, c] = unit * (t - o) + vec[g, m, c] % unit
+    return i
+
+
+@pytest.mark.parametrize("shape", [
+    (112, 112, 104, 104), (1280, 720, 1280, 720), (208, 144, 201, 137),
+    (96, 64, 95, 63), (128, 96, 113, 81)],
+    ids=["104in112", "720p", "13cols_edge7", "edge1", "edge15"])
 @pytest.mark.parametrize("qpel,rule", [(True, 0), (True, 1), (True, 2),
                                        (False, 0)])
-def test_mpeg4_qpel_and_bidir_adversarial(cuda, qpel, rule):
+def test_mpeg4_qpel_and_bidir_adversarial(cuda, shape, qpel, rule):
     """V2 at quarter-pel and V5 against their plain versions bit for bit:
     skip, inter, four-vector and intra macroblocks (V2), every direction
-    and the 8 x 8 form (V5), every quarter-pel phase, vectors far past
-    every side of a 104 x 104 picture in 112-pixel planes, both rounding
-    types (V2), each quarter-pel chroma rule, residuals at the int16
-    extremes or None."""
+    and the 8 x 8 form (V5), every quarter-pel (fx, fy) phase pair in 16 x
+    16 and 8 x 8 blocks, vectors far past every side of the picture and
+    windows that cross each edge of the clamp box by 1-24 px (where a wide
+    read gives way to clamped bytes), both rounding types (V2), each
+    quarter-pel chroma rule, residuals at the int16 extremes or None. The
+    pictures: 104 x 104 in 112-pixel planes, 1280 x 720, 13 macroblock
+    columns (not a multiple of the macroblocks a CUDA block takes), and
+    clamp boxes 1, 7 and 15 px inside the planes on each side
+    (visible_edge)."""
     from faceoff_tpu_torch.ops import mpeg4_cuda as K
 
-    rng = np.random.default_rng(7 + rule + 10 * qpel)
-    h16 = w16 = 112
-    n_mb = 49
+    w16, h16, ew, eh = shape
+    rng = np.random.default_rng(7 + rule + 10 * qpel + w16 + ew)
+    mbw, mbh = w16 // 16, h16 // 16
+    n_mb = mbw * mbh
+    assert n_mb % K.QPEL_MBS or w16 != 208
     G = 4
     slots = 2 * G + 2
     planes = [rng.integers(0, 256, (slots, h16, w16), dtype=np.uint8),
-              rng.integers(0, 256, (slots, 56, 56), dtype=np.uint8),
-              rng.integers(0, 256, (slots, 56, 56), dtype=np.uint8)]
+              rng.integers(0, 256, (slots, h16 // 2, w16 // 2),
+                           dtype=np.uint8),
+              rng.integers(0, 256, (slots, h16 // 2, w16 // 2),
+                           dtype=np.uint8)]
     near = rng.integers(-40, 41, (G, n_mb, 16))
     far = rng.integers(-500, 501, (G, n_mb, 16))
     vec = np.where(rng.random((G, n_mb, 16)) < 0.2, far, near)
+    # vector pair p of the i-th macroblock at phase (i + 4 p) % 16 (fx the
+    # low two bits): item 0's first 16 one-vector macroblocks and item 1's
+    # first 4 four-vector ones take every phase pair
+    unit = 4 if qpel else 2
+    phase = (np.arange(G * n_mb).reshape(G, n_mb, 1)
+             + 4 * np.arange(8)) % 16
+    vec[..., 0::2] += phase % 4 % unit - vec[..., 0::2] % unit
+    vec[..., 1::2] += phase // 4 % unit - vec[..., 1::2] % unit
+    _cross_edges(vec, mbw, mbh, ew, eh, unit, rule)
     res = rng.choice([-32768, 32767, -256, 256, -1, 0, 1, 77],
                      (G, n_mb, 6, 64)).astype(np.int16)
     mb = np.zeros((G, n_mb, 12), np.int32)
     mb[..., 0] = rng.choice([K.MB_SKIP, K.MB_INTER, K.MB_INTER4V,
                              K.MB_INTRA], (G, n_mb))
+    mb[0, :16, 0] = K.MB_INTER
+    mb[1, :4, 0] = K.MB_INTER4V
     mb[..., 4:12] = vec[..., :8]
     bmb = np.zeros((G, n_mb, K.B_FIELDS), np.int32)
     bmb[..., 0] = K.MB_INTER
     bmb[..., 3] = rng.choice([1, 2, 3, 5, 6, 7], (G, n_mb))
+    bmb[0, :16, 3] = K.B_FWD | K.B_BWD
+    bmb[1, :4, 3] = K.B_FWD | K.B_BWD | K.B_8X8
     bmb[..., 4:20] = vec
+    if qpel:
+        assert len(np.unique((vec[0, :16, 0] & 3) * 4
+                             + (vec[0, :16, 1] & 3))) == 16
+        assert len(np.unique((vec[1, :4, 0:8:2] & 3) * 4
+                             + (vec[1, :4, 1:8:2] & 3))) == 16
     for stage, rec, items in (
             ("motion_compensate", mb,
              [[0, 0, 2, 0], [1, 1, 3, 1], [2, -1, 4, 0], [3, 0, 5, 1]]),
             ("bidir_compensate", bmb,
              [[0, 0, 1, 6], [1, 1, 0, 7], [2, 0, 1, 8], [3, 1, 0, 9]])):
+        if stage == "motion_compensate" and not qpel:
+            continue  # the half-pel V2 has its own test above
         for r in (res, None):
             items_t = torch.tensor(items, dtype=torch.int32)
             want = [torch.from_numpy(p.copy()) for p in planes]
             getattr(K, stage + "_plain")(
                 want, torch.from_numpy(rec),
-                None if r is None else torch.from_numpy(r), items_t, 104,
-                104, qpel, rule)
+                None if r is None else torch.from_numpy(r), items_t, ew,
+                eh, qpel, rule)
             got = [torch.from_numpy(p).to(cuda) for p in planes]
-            if stage == "motion_compensate" and not qpel:
-                continue  # the half-pel V2 has its own test above
             before = K.launches[stage]
             getattr(K, stage)(got, torch.from_numpy(rec).to(cuda),
                               None if r is None else
                               torch.from_numpy(r).to(cuda),
-                              items_t.to(cuda), 104, 104, qpel, rule)
+                              items_t.to(cuda), ew, eh, qpel, rule)
             assert K.launches[stage] == before + 1
             for g, w in zip(got, want):
                 assert torch.equal(g.cpu(), w)

@@ -1,4 +1,4 @@
-"""The arithmetic that kernels V1-V4 of `csrc/mpeg4.cu` do otherwise
+"""The arithmetic that kernels V1-V5 of `csrc/mpeg4.cu` do otherwise
 than their plain versions in `ops/mpeg4_cuda.py`, checked over every value
 it can meet, on the CPU:
 
@@ -10,6 +10,11 @@ it can meet, on the CPU:
   * V2 averages half pels in 16-bit lanes with one four-tap form for all
     four phases and both rounding types, takes the chroma rounding by two
     compares, and adds the residual in those lanes, clamped first;
+  * V2's quarter-pel form and V5 run the 8-tap filter two outputs a word
+    (16-bit lanes, a bias that keeps them positive), as tasks of 8 half
+    samples whose mirrored taps are fixed byte orders, mean the two
+    predictions byte-wise, read a window in aligned words only where it
+    lies inside the clamp box, and launch a warp a macroblock;
 
   * V4 divides by 2 qp and by the intra DC scaler with a multiply-high by
     `RECIP[d]` = ceil(2^32 / d) (sent to the kernel's constant memory):
@@ -421,3 +426,252 @@ def test_chroma_vector_by_compares():
     qs = s & 15
     ours = (qs >= 3).astype(np.int64) + (qs >= 14) + ((s >> 3) & ~1)
     assert np.array_equal(ours, K.chroma_vector(torch.from_numpy(s)).numpy())
+
+
+# -- V2 at quarter-pel and V5 ---------------------------------------------
+
+def _u32(v):
+    return np.asarray(v, np.uint64).astype(np.uint32)
+
+
+def _funnel(lo, hi, sh):
+    """__funnelshift_r for a shift below 32."""
+    v = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+    return (v >> np.uint64(sh)).astype(np.uint32)
+
+
+def _lanes(w):
+    """The two signed 16-bit lanes of words."""
+    return (w & 0xFFFF).astype(np.uint16).view(np.int16).astype(np.int64), \
+        (w >> 16).astype(np.uint16).view(np.int16).astype(np.int64)
+
+
+def _lowpass2(s0, s1, s2, s3, rnd):
+    """csrc/mpeg4.cu lowpass2 in uint32 arithmetic, its DPX clip
+    max(min(x - 112, 255), 0) a 16-bit lane at a time."""
+    k = _u32((K.QP_BIAS + 16 - rnd) * 0x00010001)
+    u = ((s0 * _u32(20) + k + s2 * _u32(3)) - (s1 * _u32(6) + s3))
+    x = (u >> _u32(5)) & _u32(0x07FF07FF)
+    lo, hi = _lanes(x)
+    lo = np.clip(((lo - 112 + 32768) % 65536) - 32768, None, 255).clip(0)
+    hi = np.clip(((hi - 112 + 32768) % 65536) - 32768, None, 255).clip(0)
+    return _u32(lo | (hi << 16))
+
+
+def _mean2(a, b, rnd):
+    return ((a + b + _u32((1 - rnd) * 0x00010001)) >> _u32(1)) \
+        & _u32(0x00FF00FF)
+
+
+def _hrow(w, c, fx, rnd):
+    """csrc/mpeg4.cu qpel_hrow over words w[0..2] (N,): (N, 8) bytes."""
+    z = np.zeros_like(w[0])
+    if c == 1:
+        t = [w[0], w[1], w[2], _byte_perm(w[2], z, 0x0123)]
+    else:
+        t = [_byte_perm(w[0], z, 0x0012), _byte_perm(w[0], w[1], 0x4321),
+             _byte_perm(w[1], w[2], 0x4321),
+             _byte_perm(w[2], z, 0x0321) if c == 0
+             else _byte_perm(w[1], w[2], 0x0234)]
+    if fx == 0:
+        out = [_funnel(t[0], t[1], 24), _funnel(t[1], t[2], 24)]
+    else:
+        e = [_byte_perm(t[i >> 1], z, 0x4342 if i & 1 else 0x4140)
+             for i in range(8)]
+        o = [_funnel(e[i], e[i + 1], 16) for i in range(7)]
+        p = []
+        for q in range(4):
+            h = _lowpass2(o[q + 1] + e[q + 2], e[q + 1] + o[q + 2],
+                          o[q] + e[q + 3], e[q] + o[q + 3], rnd)
+            if fx == 1:
+                h = _mean2(h, o[q + 1], rnd)
+            elif fx == 3:
+                h = _mean2(h, e[q + 2], rnd)
+            p.append(h)
+        out = [_pack(p[0], p[1]), _pack(p[2], p[3])]
+    return np.concatenate([_bytes(v) for v in out], 1)
+
+
+def _vrow(taps, fy, rnd):
+    """csrc/mpeg4.cu qpel_vrow: 8 tap rows (N, 8, 8) bytes -> (N, 8)."""
+    z = np.zeros(taps.shape[0], np.uint32)
+    c = []
+    for i in range(8):
+        x, y = _words(taps[:, i, :4]), _words(taps[:, i, 4:])
+        c.append([_byte_perm(x, z, 0x4140), _byte_perm(x, z, 0x4342),
+                  _byte_perm(y, z, 0x4140), _byte_perm(y, z, 0x4342)])
+    p = []
+    for j in range(4):
+        h = _lowpass2(c[3][j] + c[4][j], c[2][j] + c[5][j],
+                      c[1][j] + c[6][j], c[0][j] + c[7][j], rnd)
+        if fy == 1:
+            h = _mean2(h, c[3][j], rnd)
+        elif fy == 3:
+            h = _mean2(h, c[4][j], rnd)
+        p.append(h)
+    return np.concatenate([_bytes(_pack(p[0], p[1])),
+                           _bytes(_pack(p[2], p[3]))], 1)
+
+
+def _tile_put(tile, row, size, h):
+    """csrc/mpeg4.cu tile_put: row w at 3 + w and at its mirror images."""
+    tile[:, 3 + row] = h
+    if row <= 2:
+        tile[:, 2 - row] = h
+    if row >= size - 2:
+        tile[:, 2 * size + 4 - row] = h
+
+
+def _kernel_qpel(full, size, fx, fy, rnd):
+    """The kernels' quarter-pel block over windows full (N, size + 1,
+    size + 1): every horizontal task (a window row's 8 half samples), the
+    rows into a tile with their mirror images, then every vertical task
+    (an output row of 8 from 8 consecutive tile rows)."""
+    n = full.shape[0]
+    cases = (0, 1) if size == 16 else (2,)
+    tiles = np.zeros((len(cases), n, size + 7, 8), np.int64)
+    half = np.zeros((n, size + 1, size), np.int64)
+    for row in range(size + 1):
+        for i, c in enumerate(cases):
+            first, cnt = K.qpel_task_bytes(c)
+            b = np.zeros((n, 12), np.int64)
+            b[:, :cnt] = full[:, row, first: first + cnt]
+            w = [_words(b[:, 4 * j: 4 * j + 4]) for j in range(3)]
+            h = _hrow(w, c, fx, rnd)
+            _tile_put(tiles[i], row, size, h)
+            half[:, row, 8 * i: 8 * i + 8] = h
+    if fy == 0:
+        return half[:, :size]
+    out = np.zeros((n, size, size), np.int64)
+    for r in range(size):
+        for i in range(len(cases)):
+            out[:, r, 8 * i: 8 * i + 8] = _vrow(tiles[i][:, r: r + 8], fy,
+                                                rnd)
+    return out
+
+
+def test_kernel_bias_and_shapes_are_the_modules():
+    """csrc/mpeg4.cu's QP_BIAS, MCQ_MBS and BD_MBS are the module's, their
+    MINB caps a thread at 64 of the SM's 65536 registers, the launchers
+    take their grids and threads as compensate_grid does, and that grid
+    gives every (item, macroblock) exactly one warp."""
+    assert int(re.search(r"QP_BIAS = (\d+);", SRC).group(1)) == K.QP_BIAS
+    assert K.QP_BIAS % 32 == 0
+    for name, mbs in (("MCQ", K.QPEL_MBS), ("BD", K.BIDIR_MBS)):
+        m = re.search(rf"\b{name}_MBS = (\d+), {name}_MINB = (\d+);", SRC)
+        assert int(m.group(1)) == mbs
+        assert 65536 // (32 * mbs * int(m.group(2))) == 64
+    for name in ("MCQ_MBS", "BD_MBS"):
+        assert re.search(
+            rf"dim3(?: grid)?\(\(n_mb \+ {name} - 1\) / {name}, g\)", SRC)
+        assert len(re.findall(rf"32 \* {name}, 0,", SRC)) >= 1
+    for mbs in (1, 2, 4, 8, 16):
+        for n_mb in list(range(1, 70)) + [3600, 3601]:
+            (blocks, items), threads = K.compensate_grid(n_mb, 3, mbs)
+            assert items == 3 and threads == 32 * mbs <= 1024
+            warps = [x * mbs + w for x in range(blocks) for w in range(mbs)]
+            assert sorted(m for m in warps if m < n_mb) == list(range(n_mb))
+            assert len(warps) - n_mb < mbs
+
+
+@pytest.mark.parametrize("rnd", [0, 1])
+def test_lowpass_lanes_equal_the_plain_filter(rnd):
+    """lowpass2 on two lanes of tap sums in [0, 510] equals _lowpass's
+    clip((20 s0 - 6 s1 + 3 s2 - s3 + 16 - rnd) >> 5, 0, 255) in each lane,
+    at the extremes of every sum and on random ones; no lane disturbs the
+    other."""
+    rng = np.random.default_rng(22 + rnd)
+    ext = np.array(np.meshgrid(*[[0, 1, 509, 510]] * 4, indexing="ij"))
+    s = np.concatenate([ext.reshape(4, -1),
+                        rng.integers(0, 511, (4, 200000))], 1)
+    other = s[:, ::-1][:, np.r_[1:s.shape[1], 0]]
+    packed = [_u32(a | (b << 16)) for a, b in zip(s, other)]
+    got_lo, got_hi = _lanes(_lowpass2(*packed, rnd))
+    for got, v in ((got_lo, s), (got_hi, other)):
+        want = np.clip((20 * v[0] - 6 * v[1] + 3 * v[2] - v[3] + 16 - rnd)
+                       >> 5, 0, 255)
+        assert np.array_equal(got, want)
+        biased = (20 * v[0] + 3 * v[2] + K.QP_BIAS + 16 - rnd
+                  - 6 * v[1] - v[3])
+        assert biased.min() >= 0 and (20 * v[0] + 3 * v[2] + K.QP_BIAS
+                                      + 16).max() < 2 ** 16
+
+
+def test_byte_means_are_the_rounded_means():
+    """mean2 (both rounding types, 16-bit lanes) and avg8 (bytes, rounding
+    up: V5's (f + b + 1) >> 1) over every pair of samples."""
+    a, b = (x.ravel() for x in np.meshgrid(np.arange(256), np.arange(256),
+                                            indexing="ij"))
+    for rnd in (0, 1):
+        got = _lanes(_mean2(_u32(a | (b << 16)), _u32(b | (a << 16)), rnd))
+        assert np.array_equal(got[0], (a + b + 1 - rnd) >> 1)
+        assert np.array_equal(got[1], (a + b + 1 - rnd) >> 1)
+    for pos in range(4):
+        wa, wb = _u32(a << (8 * pos)), _u32(b << (8 * pos))
+        got = (wa | wb) - (((wa ^ wb) >> _u32(1)) & _u32(0x7F7F7F7F))
+        assert np.array_equal(_bytes(_u32(got))[:, pos], (a + b + 1) >> 1)
+
+
+@pytest.mark.parametrize("size", [16, 8])
+@pytest.mark.parametrize("rnd", [0, 1])
+def test_qpel_tasks_equal_qpel_block(size, rnd):
+    """The kernels' quarter-pel block (tasks of 8 half samples from 15
+    mirrored taps in fixed byte orders, a tile, rows of 8 from 8 tile
+    rows, everything in 16-bit lanes) equals qpel_block at every (fx, fy)
+    phase pair, on random windows and on 0/255 patterns that reach the
+    filter's extremes."""
+    rng = np.random.default_rng(size + rnd)
+    h = w = 48
+    refs = [rng.integers(0, 256, (h, w))]
+    yy, xx = np.mgrid[:h, :w]
+    for pat in ((xx + yy) % 2, (xx // 2 + yy // 2) % 2, xx % 3 == 1,
+                (xx % 4 < 2) ^ (yy % 4 < 2)):
+        refs.append(255 * pat.astype(np.int64))
+    n = 40
+    for ref in refs:
+        bx = rng.integers(0, w - size - 1, n)
+        by = rng.integers(0, h - size - 1, n)
+        full = np.stack([ref[y: y + size + 1, x: x + size + 1]
+                         for x, y in zip(bx, by)])
+        for fx in range(4):
+            for fy in range(4):
+                with plain_threads(torch.device("cpu")):
+                    want = K.qpel_block(
+                        torch.from_numpy(ref), torch.from_numpy(bx),
+                        torch.from_numpy(by), torch.full((n,), fx),
+                        torch.full((n,), fy), size, w, h, rnd).numpy()
+                got = _kernel_qpel(full, size, fx, fy, rnd)
+                assert np.array_equal(got, want), (fx, fy)
+
+
+@pytest.mark.parametrize("size", [16, 8])
+def test_window_rule_reads_the_clamped_samples(size):
+    """qpel_words over windows that cross each edge of the clamp box by
+    1-24 px, at clamp widths 1-15 below the plane's: a wide read stays in
+    its row (16-byte chunks below the plane width, a multiple of 16) and
+    needs no clamp; both ways the task's bytes are qpel_block's clamped
+    reads (a reference whose sample is its column)."""
+    w16 = 64
+    for ew in range(w16 - 15, w16 + 1):
+        ref = torch.arange(w16).repeat(4, 1)
+        for bx in list(range(-24 - size, 1)) + list(
+                range(ew - size - 1, ew + 24)):
+            cols = torch.cat([K.qpel_block(
+                ref, torch.tensor([x]), torch.tensor([0]),
+                torch.tensor([0]), torch.tensor([0]), size, ew, 4, 0)[0, 0]
+                for x in (bx, bx + 1)]).tolist()
+            window = cols[:size] + cols[-1:]
+            assert window == [min(max(bx + i, 0), ew - 1)
+                              for i in range(size + 1)]
+            for case in ((0, 1) if size == 16 else (2,)):
+                first, n = K.qpel_task_bytes(case)
+                wide, read = K.qpel_words(bx, size, ew, case)
+                task = window[first: first + n]
+                if wide:
+                    assert 0 <= read[0] and read[-1] < w16
+                    assert len(read) % 16 == 0 and read[0] % 16 == 0
+                    at = bx + first - read[0]
+                    assert read[at: at + n] == task
+                else:
+                    assert read == task
+                assert wide == (0 <= bx and bx + size < ew)

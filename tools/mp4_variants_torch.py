@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time variants of kernels V1 (dequantisation and IDCT), V2 (motion
-compensation), V3 (motion search) and V4 (forward DCT and quantisation)
-on one GPU beside the port's own (`faceoff_tpu_torch/csrc/mpeg4.cu`), to
-find what bounds them and to choose their shapes.
+compensation), V3 (motion search), V4 (forward DCT and quantisation) and
+V5 (bidirectional prediction) on one GPU beside the port's own
+(`faceoff_tpu_torch/csrc/mpeg4.cu`), to find what bounds them and to
+choose their shapes.
 
     python3 tools/mp4_variants_torch.py [--kernels NAME,...] [SASS_DIR]
 
@@ -15,14 +16,23 @@ of each stage: V3's and V4's largest; V1's at the decoder (the coded
 blocks of a batch) and at the encoder (every block of a GOP position);
 V2's at a decoder P depth (with its residual), at the encoder's
 prediction (no residual) and at the decoder's I-VOP depth (no
-reference). At each call it holds every variant that computes the stage
-to the plain version bit for bit (the port's first forms, as
+reference). For V5 and V2's quarter-pel form (`--kernels` names
+`bidir_compensate` and `motion_compensate_qpel`) it decodes the four
+Advanced Simple Profile fixtures (`tests/data_torch/asp_*`, as
+`chip_smoke.asp_phase` does) and keeps the largest call of each form:
+V5 at quarter-pel (the 720p fixture's B-VOPs) and half-pel, V2 at
+quarter-pel (a 720p VOP); their rows also time the copy form's parts
+(without the residual, without the references, the record and stores
+alone, and those with each warp storing its own rows), the shapes at 64
+registers, the port's shape under other register caps, and with its
+block's rows staged for whole-sector stores and without. At each call it holds every variant that computes the
+stage to the plain version bit for bit (the port's first forms, as
 `original`, among them; the `copy` forms, which only move the stage's
 bytes, are timed but not held), then times the variants and the port's
 wrapper as CUDA-graph replays (`chip_smoke.device_ms`), twice: in the
 order given, then reversed. V1's rows also give the share of blocks
 (and columns) whose column pass needs 64 bits. `--kernels` picks the
-stages (default all four). Also prints the instruction rates of
+stages (default all six). Also prints the instruction rates of
 `vabsdiff4`, `__byte_perm`, float32 FMA and integer multiply-add (8
 independent chains a thread, one wave), and what `cuobjdump` shows of
 the port's kernels: their SASS instruction counts by opcode (V1's
@@ -52,6 +62,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke as cs  # noqa: E402
 from faceoff_tpu_torch.data.synthetic import draw_faces, face_landmarks  # noqa: E402
 from faceoff_tpu_torch.io import mpeg4  # noqa: E402
+from faceoff_tpu_torch.io.video import read_video_frames  # noqa: E402
 from faceoff_tpu_torch.ops import cuda_build  # noqa: E402
 from faceoff_tpu_torch.ops import mpeg4_cuda as K  # noqa: E402
 
@@ -59,6 +70,10 @@ PROBE = Path(__file__).resolve().parent / "mpeg4_probe.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SM_COUNT = 132  # H100 SXM
 RATE_KINDS = ("vabsdiff4", "byte_perm", "ffma", "imad")
+# the Advanced Simple Profile's rows: (--kernels name, stage, form)
+ASP_KERNELS = (("bidir_compensate", "bidir_compensate", "qpel"),
+               ("bidir_compensate", "bidir_compensate", "hpel"),
+               ("motion_compensate_qpel", "motion_compensate", "qpel"))
 
 
 def load_probe() -> ctypes.CDLL:
@@ -73,8 +88,13 @@ def load_probe() -> ctypes.CDLL:
     lib.probe_motion_compensate.argtypes = [_I, _P, _P, _P, _I, _I, _P, _I,
                                             _P, _P, _I, _I, _I, _P]
     lib.probe_rate.argtypes = [_I, _I, _I, _I, _P, _P]
+    lib.probe_bidir_compensate.argtypes = [_I, _P, _P, _P, _I, _I, _P, _I,
+                                           _P, _P, _I, _I, _I, _I, _I, _P]
+    lib.probe_mc_qpel.argtypes = [_I, _P, _P, _P, _I, _I, _P, _I, _P, _P,
+                                  _I, _I, _I, _I, _P]
     for name in ("probe_search_shapes", "probe_fdct_shapes",
-                 "probe_idct_shapes", "probe_mc_shapes"):
+                 "probe_idct_shapes", "probe_mc_shapes", "probe_gm_shapes",
+                 "probe_gm_minb"):
         getattr(lib, name).argtypes = [_P, _I]
     lib.mpeg4_set_recip.argtypes = [_P, _I, _P]
     if lib.mpeg4_set_recip(K.RECIP.ctypes.data, len(K.RECIP), stream()):
@@ -97,6 +117,10 @@ def shapes(lib) -> dict:
     n = lib.probe_mc_shapes(buf, 48)
     out["motion_compensate"] = [tuple(buf[2 * i: 2 * i + 2])
                                 for i in range(n)]
+    n = lib.probe_gm_shapes(buf, 96)
+    out["gm"] = [f"mbs{buf[i]}" for i in range(n)]
+    n = lib.probe_gm_minb(buf, 96)
+    out["gm"] += [f"minb{buf[i]}" for i in range(n)]
     return out
 
 
@@ -267,6 +291,71 @@ def mc_row(lib, mc_shapes, case, args) -> dict:
             "device_ms": in_turns(fns)}
 
 
+def record_asp_calls() -> dict:
+    """The largest call of each (stage, form) of V5 and V2 in a decode of
+    the four Advanced Simple Profile fixtures."""
+    with cs.Mp4Calls(hold=False, stages=cs.ASP_STAGES) as rec:
+        for name in cs.ASP_FIXTURES:
+            read_video_frames(str(cs.ASP_DATA / name), device="cuda")
+    return {k: v[1] for k, v in rec.largest_form.items()}
+
+
+def gm_row(lib, gm_shapes, name, form, args) -> dict:
+    """V5 (name "bidir_compensate") or V2 at quarter-pel at one recorded
+    call: PR 21's form, the copy form and the port's shapes held to the
+    plain version and timed in turns beside the port's wrapper."""
+    planes0, rec, res, items, ew, eh = args[:6]
+    qpel = bool(args[6]) if len(args) > 6 else False
+    rule = int(args[7]) if len(args) > 7 else 0
+    h16, w16 = planes0[0].shape[1:]
+    rec, items = rec.contiguous(), items.contiguous()
+    res = None if res is None else res.contiguous()
+    bidir = name == "bidir_compensate"
+    want = [p.clone() for p in planes0]
+    cs.MP4_PLAIN[name](want, rec, res, items, ew, eh, qpel, rule)
+    planes = [p.clone() for p in planes0]
+    fn = lib.probe_bidir_compensate if bidir else lib.probe_mc_qpel
+    tail = (int(qpel), rule) if bidir else (rule,)
+
+    def probe(v):
+        def run():
+            err = fn(v, *(p.data_ptr() for p in planes), h16, w16,
+                     rec.data_ptr(), rec.shape[1],
+                     None if res is None else res.data_ptr(),
+                     items.data_ptr(), items.shape[0], ew, eh, *tail,
+                     stream())
+            if err:
+                raise RuntimeError(f"probe {name} variant {v}: cudaError "
+                                   f"{err}")
+        return run
+
+    names = (["original", "copy", "copy_nores", "copy_noref", "copy_store",
+              "copy_store_unstaged"] + gm_shapes + ["staged", "unstaged"])
+    fns = {label: probe(v) for v, label in enumerate(names)}
+    for label, fn_v in fns.items():
+        if label.startswith("copy"):  # moves bytes, computes nothing
+            continue
+        for p, p0 in zip(planes, planes0):
+            p.copy_(p0)
+        fn_v()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(planes, want)):
+            raise AssertionError(f"{name} ({form}) {label} differs from the "
+                                 f"plain version")
+    mine = [p.clone() for p in planes0]
+    kernel = getattr(K, name)
+    kernel(mine, rec, res, items, ew, eh, qpel, rule)
+    if not all(torch.equal(a, b) for a, b in zip(mine, want)):
+        raise AssertionError(f"{name} ({form}): the port differs from the "
+                             f"plain version")
+    fns["port"] = lambda: kernel(mine, rec, res, items, ew, eh, qpel, rule)
+    bound, by = cs.mp4_bound(name, args)
+    return {"kernel": name, "case": form, "items": int(items.shape[0]),
+            "macroblocks": int(items.shape[0] * rec.shape[1]),
+            "size": [int(w16), int(h16)], "edge": [int(ew), int(eh)],
+            "bound_ms": bound, "bound_by": by, "device_ms": in_turns(fns)}
+
+
 def search_row(lib, search_shapes, case, args) -> dict:
     y, items, width, height = args
     _, h16, w16 = y.shape
@@ -356,7 +445,8 @@ def rates(lib) -> dict:
 
 
 SASS_KERNELS = ("dequant_idct_kernel", "motion_compensate_kernel",
-                "motion_search_kernel", "fdct_quant_kernel")
+                "motion_search_kernel", "fdct_quant_kernel",
+                "motion_compensate_qpel_kernel", "bidir_compensate_kernel")
 # opcodes listed in full: memory accesses (V2's byte loads and stores are
 # the .U8 ones), barriers, shuffles, and V1's 64-bit multiplies
 SASS_WATCH = ("LDG", "STG", "LDS", "STS", "BAR", "SHFL", "IMAD.WIDE",
@@ -407,7 +497,8 @@ def sass(lib_path: Path, dump: Path = None) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("sass_dir", nargs="?", type=Path)
-    ap.add_argument("--kernels", default=",".join(cs.MP4_STAGES))
+    ap.add_argument("--kernels", default=",".join(
+        cs.MP4_STAGES + ("bidir_compensate", "motion_compensate_qpel")))
     args = ap.parse_args(argv)
     kernels = set(args.kernels.split(","))
     if not torch.cuda.is_available():
@@ -418,8 +509,18 @@ def main(argv=None) -> int:
     K.load()
     rows = {"motion_search": search_row, "fdct_quant": fdct_row,
             "dequant_idct": idct_row, "motion_compensate": mc_row}
+    asp = [k for k in ASP_KERNELS if k[0] in kernels]
+    if asp:
+        calls = record_asp_calls()
+        for _, name, form in asp:
+            row = gm_row(lib, probe_shapes["gm"], name, form,
+                         calls[(name, form)])
+            print(json.dumps(row), flush=True)
+        del calls
     for n, h, w in ((72, cs.PRE_H, cs.PRE_W), (48, cs.TRAIN_SIZE,
                                                cs.TRAIN_SIZE)):
+        if not kernels & set(cs.MP4_STAGES):
+            break
         calls = record_calls(clip(n, h, w, seed=100))
         for key in sorted(calls):
             name = next(k for k in cs.MP4_STAGES if key.startswith(k))

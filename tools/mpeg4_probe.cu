@@ -1,11 +1,14 @@
 // Variants of kernels V1 (dequantisation and IDCT), V2 (motion
-// compensation), V3 (motion search) and V4 (forward DCT and quantisation)
-// of faceoff_tpu_torch/csrc/mpeg4.cu, built and timed by
+// compensation, half- and quarter-pel), V3 (motion search), V4 (forward
+// DCT and quantisation) and V5 (bidirectional prediction) of
+// faceoff_tpu_torch/csrc/mpeg4.cu, built and timed by
 // tools/mp4_variants_torch.py beside the port's own kernels to find what
 // bounds them on the card. Not used by the port. The port's source is
 // included, so its templates (dequant_idct_kernel<BPB, RPT>,
 // motion_compensate_kernel<ROWS, MBS, RES>, motion_search_kernel<RUN, DY,
-// MBS>, fdct_quant_kernel<MBS>) are instantiated here at other shapes.
+// MBS>, fdct_quant_kernel<MBS>, motion_compensate_qpel_kernel<MBS>,
+// bidir_compensate_kernel<MBS, QPEL>) are instantiated here at other
+// shapes.
 //
 // V1 variants (probe_dequant_idct):
 //   0 original    the first form of the port: 8 threads a block, 32 blocks
@@ -30,6 +33,24 @@
 //                 access pattern
 //   2..           motion_compensate_kernel<ROWS, MBS, RES> at PROBE_MC's
 //                 shapes, RES 1 for a call with a residual, else 0
+// V2 at quarter-pel (probe_mc_qpel) and V5 (probe_bidir_compensate):
+//   0 original    PR 21's form (asp_original): a CUDA block of 256 threads
+//                 a macroblock, samples staged as int in shared memory
+//                 behind block-wide barriers, a thread a pixel
+//   1 copy        the port's warp-a-macroblock shape doing its loads (the
+//                 record, the residual rows, each direction's window words
+//                 or reference rows, the chroma rows) and 8-byte stores,
+//                 no filtering: the floor of this access pattern
+//   2-4           the copy without the residual, without the references,
+//                 without both (the record and the stores)
+//   5             the record and the stores, each warp storing its own
+//                 rows (16 rows of 16 bytes a warp-wide store)
+//   6..           motion_compensate_qpel_kernel<MBS, MINB, STAGE> and
+//                 bidir_compensate_kernel<MBS, QPEL, MINB, STAGE> at
+//                 PROBE_GM's shapes (64 registers), at the port's MBS with
+//                 PROBE_GM_MINB's CUDA blocks an SM (__launch_bounds__'
+//                 second argument), then at the port's shape with the
+//                 block's rows staged and unstaged
 #include "../faceoff_tpu_torch/csrc/mpeg4.cu"
 
 namespace original {
@@ -735,6 +756,203 @@ second_search(const uint8_t* __restrict__ Y, int h16, int w16,
 
 }  // namespace old
 
+namespace asp_original {
+
+// V2's quarter-pel form and V5 as PR 21 wrote them (a CUDA block a
+// macroblock; its note follows), kept to time the redesign against.
+//
+// The prediction of one macroblock from one reference, as
+// ops/mpeg4_cuda._predict computes it. Quarter-pel luma: the (S + 1)^2
+// integer samples of each 16 x 16 block (or of each of four 8 x 8 ones)
+// are staged in shared memory, clamped into the edge_w x edge_h picture;
+// the horizontal half samples of every staged row (the 8-tap filter,
+// taps mirrored at the block's edges) and the horizontal quarter means
+// go to a second shared array; each thread then filters its pixel's
+// column of that array and takes the vertical mean (FFmpeg's order of
+// operations). Half-pel luma and all chroma are bilinear samples, a
+// thread a pixel. 256 threads: a luma pixel each, the first 128 a chroma
+// pixel each too. This is the simple first form: it stages every sample
+// once a macroblock and direction, and makes no use of the vectors of
+// neighbouring macroblocks.
+constexpr int GM_THREADS = 256;
+constexpr int GM_FULL = 4 * 81;   // 17 x 17, or four 9 x 9 staged samples
+constexpr int GM_HALF = 4 * 72;   // 17 x 16, or four 9 x 8 half samples
+
+__device__ __forceinline__ int mirror(int k, int size) {
+  return k < 0 ? -1 - k : (k > size ? 2 * size + 1 - k : k);
+}
+
+// the 8-tap filter at half position c (between c and c + 1) over samples
+// at(0 .. size)
+template <typename F>
+__device__ __forceinline__ int lowpass(F at, int c, int size, int rnd) {
+  const int v = 20 * (at(mirror(c, size)) + at(mirror(c + 1, size))) -
+                6 * (at(mirror(c - 1, size)) + at(mirror(c + 2, size))) +
+                3 * (at(mirror(c - 2, size)) + at(mirror(c + 3, size))) -
+                (at(mirror(c - 3, size)) + at(mirror(c + 4, size)));
+  return min(max((v + 16 - rnd) >> 5, 0), 255);
+}
+
+__device__ __forceinline__ int bilinear(const uint8_t* __restrict__ p,
+                                        int stride, int X, int Y, int w,
+                                        int h, int rnd) {
+  const int x0 = X >> 1, y0 = Y >> 1, fx = X & 1, fy = Y & 1;
+  const int xa = min(max(x0, 0), w - 1), xb = min(max(x0 + 1, 0), w - 1);
+  const int ya = min(max(y0, 0), h - 1), yb = min(max(y0 + 1, 0), h - 1);
+  const int a = p[(size_t)ya * stride + xa], b = p[(size_t)ya * stride + xb];
+  const int c = p[(size_t)yb * stride + xa], d = p[(size_t)yb * stride + xb];
+  if (!fx && !fy) return a;
+  if (!fy) return (a + b + 1 - rnd) >> 1;
+  if (!fx) return (a + c + 1 - rnd) >> 1;
+  return (a + b + c + d + 2 - rnd) >> 2;
+}
+
+// One direction's prediction of macroblock (mx, my) from the reference
+// planes Y, U, V (one slot): `lum` for luma pixel t, `chr` for chroma
+// pixel t < 128 (plane t / 64). Every thread of the block must call it.
+__device__ void predict_mb(const uint8_t* __restrict__ Y,
+                           const uint8_t* __restrict__ U,
+                           const uint8_t* __restrict__ V, int w16, int mx,
+                           int my, const int32_t* vec, bool four, bool qpel,
+                           int rule, int rnd, int ew, int eh, int* full,
+                           int* half, int& lum, int& chr) {
+  const int t = threadIdx.x, py = t >> 4, px = t & 15;
+  if (qpel) {
+    const int S = four ? 8 : 16, NB = four ? 4 : 1;
+    const int FW = S + 1, FS = FW * FW, HS = FW * S;
+    for (int i = t; i < NB * FS; i += GM_THREADS) {
+      const int b = i / FS, k = i - b * FS, r = k / FW, c = k - r * FW;
+      const int bx = mx * 16 + (four ? 8 * (b & 1) : 0) + (vec[2 * b] >> 2);
+      const int by = my * 16 + (four ? 8 * (b >> 1) : 0) +
+                     (vec[2 * b + 1] >> 2);
+      full[i] = Y[(size_t)min(max(by + r, 0), eh - 1) * w16 +
+                  min(max(bx + c, 0), ew - 1)];
+    }
+    __syncthreads();
+    for (int i = t; i < NB * HS; i += GM_THREADS) {
+      const int b = i / HS, k = i - b * HS, r = k / S, c = k - r * S;
+      const int* f = full + b * FS + r * FW;
+      const int fx = vec[2 * b] & 3;
+      const int h = lowpass([&](int q) { return f[q]; }, c, S, rnd);
+      const int g = fx == 3 ? f[c + 1] : f[c];
+      half[i] = fx == 0 ? f[c] : (fx == 2 ? h : (h + g + 1 - rnd) >> 1);
+    }
+    __syncthreads();
+    const int b = four ? ((py >> 3) << 1) | (px >> 3) : 0;
+    const int r = four ? py & 7 : py, c = four ? px & 7 : px;
+    const int* hb = half + b * HS;
+    const int fy = vec[2 * b + 1] & 3;
+    const int v = lowpass([&](int q) { return hb[q * S + c]; }, r, S, rnd);
+    const int g = hb[(fy == 3 ? r + 1 : r) * S + c];
+    lum = fy == 0 ? hb[r * S + c] : (fy == 2 ? v : (g + v + 1 - rnd) >> 1);
+    __syncthreads();  // the arrays are free for the next direction
+  } else {
+    const int b = ((py >> 3) << 1) | (px >> 3);
+    lum = bilinear(Y, w16, 2 * (mx * 16 + px) + vec[2 * b],
+                   2 * (my * 16 + py) + vec[2 * b + 1], ew, eh, rnd);
+  }
+  if (t < 128) {
+    const int q = t & 63;
+    const int cx = chroma_of(vec, 0, four, qpel, rule);
+    const int cy = chroma_of(vec, 1, four, qpel, rule);
+    chr = bilinear(t < 64 ? U : V, w16 >> 1, 2 * (mx * 8 + (q & 7)) + cx,
+                   2 * (my * 8 + (q >> 3)) + cy, ew >> 1, eh >> 1, rnd);
+  }
+}
+
+// the residual of luma pixel t (or chroma pixel t < 128 with `chroma`) of
+// one macroblock's (6, 64) int16 blocks
+__device__ __forceinline__ int residual_of(const int16_t* __restrict__ r,
+                                          int t, bool chroma) {
+  if (!r) return 0;
+  if (chroma) return r[(4 + (t >> 6)) * 64 + (t & 63)];
+  const int py = t >> 4, px = t & 15;
+  return r[(((py >> 3) << 1) | (px >> 3)) * 64 + (py & 7) * 8 + (px & 7)];
+}
+
+__device__ __forceinline__ void store_mb(uint8_t* Y, uint8_t* U, uint8_t* V,
+                                         int w16, int mx, int my, int lum,
+                                         int chr, const int16_t* r) {
+  const int t = threadIdx.x;
+  Y[(size_t)(my * 16 + (t >> 4)) * w16 + mx * 16 + (t & 15)] =
+      (uint8_t)min(max(lum + residual_of(r, t, false), 0), 255);
+  if (t < 128) {
+    const int q = t & 63;
+    (t < 64 ? U : V)[(size_t)(my * 8 + (q >> 3)) * (w16 >> 1) + mx * 8 +
+                     (q & 7)] =
+        (uint8_t)min(max(chr + residual_of(r, t, true), 0), 255);
+  }
+}
+
+// V2 at quarter-pel: items (f, reference slot, output slot, rounding)
+// over records (F, M, MB_FIELDS), a CUDA block a macroblock and item.
+__global__ void __launch_bounds__(GM_THREADS)
+motion_compensate_qpel_kernel(uint8_t* __restrict__ Y, uint8_t* __restrict__ U,
+                              uint8_t* __restrict__ V, int h16, int w16,
+                              const int32_t* __restrict__ mb, int n_mb,
+                              const int16_t* __restrict__ res,
+                              const int32_t* __restrict__ items, int ew,
+                              int eh, int rule) {
+  __shared__ int full[GM_FULL], half[GM_HALF];
+  __shared__ int32_t rec[MB_FIELDS];
+  const int t = threadIdx.x, m = blockIdx.x;
+  const int32_t* it = items + 4 * blockIdx.y;
+  const int f = it[0], ref = it[1], outs = it[2], rnd = it[3];
+  const size_t k = (size_t)f * n_mb + m;
+  if (t < MB_FIELDS) rec[t] = mb[k * MB_FIELDS + t];
+  __syncthreads();
+  const int mbw = w16 >> 4, my = m / mbw, mx = m - my * mbw;
+  const size_t lp = (size_t)h16 * w16, cp = lp >> 2;
+  int lum = 0, chr = 0;
+  if (ref >= 0 && rec[0] != MB_INTRA)
+    predict_mb(Y + ref * lp, U + ref * cp, V + ref * cp, w16, mx, my,
+               rec + 4, rec[0] == MB_INTER4V, true, rule, rnd, ew, eh, full,
+               half, lum, chr);
+  store_mb(Y + outs * lp, U + outs * cp, V + outs * cp, w16, mx, my, lum, chr,
+           res ? res + k * 384 : nullptr);
+}
+
+// V5: the B-VOPs of a batch. Items (j, past slot, future slot, output
+// slot) over records (FB, M, B_FIELDS) and residuals (FB, M, 6, 64); a CUDA
+// block a macroblock and item. It replaces no TPU kernel: cv2's decoding of
+// B-VOPs (faceoff_tpu/io/video.py:61). Bound by bytes: the residual (768),
+// the output (384) and one or two references (384 each, and the margins
+// of the 8-tap filter) a macroblock.
+__global__ void __launch_bounds__(GM_THREADS)
+bidir_compensate_kernel(uint8_t* __restrict__ Y, uint8_t* __restrict__ U,
+                        uint8_t* __restrict__ V, int h16, int w16,
+                        const int32_t* __restrict__ bmb, int n_mb,
+                        const int16_t* __restrict__ res,
+                        const int32_t* __restrict__ items, int ew, int eh,
+                        int qpel, int rule) {
+  __shared__ int full[GM_FULL], half[GM_HALF];
+  __shared__ int32_t rec[B_FIELDS];
+  const int t = threadIdx.x, m = blockIdx.x;
+  const int32_t* it = items + 4 * blockIdx.y;
+  const int j = it[0], past = it[1], future = it[2], outs = it[3];
+  const size_t k = (size_t)j * n_mb + m;
+  if (t < B_FIELDS) rec[t] = bmb[k * B_FIELDS + t];
+  __syncthreads();
+  const int mbw = w16 >> 4, my = m / mbw, mx = m - my * mbw;
+  const size_t lp = (size_t)h16 * w16, cp = lp >> 2;
+  const int dir = rec[3];
+  const bool four = dir & B_8X8;
+  int fl = 0, fc = 0, bl = 0, bc = 0;
+  if (dir & B_FWD)
+    predict_mb(Y + past * lp, U + past * cp, V + past * cp, w16, mx, my,
+               rec + 4, four, qpel, rule, 0, ew, eh, full, half, fl, fc);
+  if (dir & B_BWD)
+    predict_mb(Y + future * lp, U + future * cp, V + future * cp, w16, mx,
+               my, rec + 12, four, qpel, rule, 0, ew, eh, full, half, bl, bc);
+  const bool both = (dir & B_FWD) && (dir & B_BWD);
+  const int lum = both ? (fl + bl + 1) >> 1 : ((dir & B_FWD) ? fl : bl);
+  const int chr = both ? (fc + bc + 1) >> 1 : ((dir & B_FWD) ? fc : bc);
+  store_mb(Y + outs * lp, U + outs * cp, V + outs * cp, w16, mx, my, lum, chr,
+           res ? res + k * 384 : nullptr);
+}
+
+}  // namespace asp_original
+
 namespace probe {
 
 // the source and prediction rows of block j's row r (see fdct_quant_kernel)
@@ -1035,6 +1253,120 @@ __global__ void rate(int iters, unsigned seed, unsigned* out) {
   out[t] = r;
 }
 
+// gm_copy's work for one macroblock (a warp)
+template <int MBS, bool BIDIR, bool QPEL, int PART, bool STAGE>
+__device__ __forceinline__ void copy_mb(
+    uint8_t* __restrict__ Y, uint8_t* __restrict__ U, uint8_t* __restrict__ V,
+    int h16, int w16, const int32_t* __restrict__ mb, int n_mb,
+    const int16_t* __restrict__ res, const int32_t* it, int ew, int eh,
+    int rule, int32_t* rec, GmOut<STAGE ? MBS : 1>& stage) {
+  constexpr int FIELDS = BIDIR ? B_FIELDS : MB_FIELDS;
+  const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
+  const int m = blockIdx.x * MBS + wi;
+  const size_t k = (size_t)it[0] * n_mb + m;
+  const int outs = it[BIDIR ? 3 : 2];
+  if (lane < FIELDS) rec[lane] = mb[k * FIELDS + lane];
+  uint4 rl, rc;
+  residual_rows(res && !(PART & 1) ? res + k * 384 : nullptr, lane, rl, rc);
+  __syncwarp();
+  const int mbw = w16 >> 4, my = m / mbw, mx = m - my * mbw;
+  const size_t lp = (size_t)h16 * w16, cp = lp >> 2;
+  bool act[2];
+  int slot[2];
+  const int32_t* vec[2] = {rec + 4, rec + 12};
+  bool four;
+  if (BIDIR) {
+    const int dir = rec[3];
+    four = dir & B_8X8;
+    act[0] = dir & B_FWD;
+    act[1] = (dir & B_BWD) || !act[0];
+    slot[0] = it[1];
+    slot[1] = it[2];
+  } else {
+    four = rec[0] == MB_INTER4V;
+    act[0] = it[1] >= 0 && rec[0] != MB_INTRA;
+    act[1] = false;
+    slot[0] = slot[1] = it[1];
+  }
+  if (PART & 2) act[0] = act[1] = false;
+  uint2 lum = make_uint2(rl.x ^ rl.y, rl.z ^ rl.w);
+  uint2 chr = make_uint2(rc.x ^ rc.y, rc.z ^ rc.w);
+  const int R = lane >> 1, H = lane & 1, b = (R >> 3) * 2 + H;
+#pragma unroll
+  for (int d = 0; d < 2; ++d) {
+    if (!act[d]) continue;
+    if (QPEL) {
+      QLoad q = {{0, 0, 0}, {0, 0, 0}};
+      qpel_load(Y + slot[d] * lp, w16, mx, my, vec[d], four, ew, eh, lane, q);
+      lum.x ^= q.m[0] ^ q.x[0] ^ q.x[2];
+      lum.y ^= q.m[1] ^ q.m[2] ^ q.x[1];
+    } else {
+      RefRow a, c;
+      hpel_rows(Y + slot[d] * lp, w16, mx * 16 + 8 * H, my * 16 + R,
+                vec[d][2 * b], vec[d][2 * b + 1], ew, eh, true, 2, 16, lane,
+                a, c);
+      lum.x ^= a.a0 ^ c.b0;
+      lum.y ^= a.a1 ^ c.b1;
+    }
+  }
+  const int cd = BIDIR ? lane >> 4 : 0;
+  const bool cact = (BIDIR || lane < 16) && act[cd];
+  const int cx = chroma_of(vec[cd], 0, four, QPEL, rule);
+  const int cy = chroma_of(vec[cd], 1, four, QPEL, rule);
+  RefRow a, c;
+  chroma_load(U + slot[cd] * cp, V + slot[cd] * cp, w16, mx, my, cx, cy, ew,
+              eh, cact, lane, a, c);
+  if (cact) {
+    chr.x ^= a.a0 ^ c.b0;
+    chr.y ^= a.a1 ^ c.b1;
+  }
+  if (BIDIR) {
+    chr.x ^= __shfl_xor_sync(0xffffffffu, chr.x, 16);
+    chr.y ^= __shfl_xor_sync(0xffffffffu, chr.y, 16);
+  }
+  if constexpr (STAGE)
+    stage_rows<MBS>(stage, wi, lane, lum, chr);
+  else
+    store_rows(Y + outs * lp, U + outs * cp, V + outs * cp, w16, mx, my, lane,
+               lum, chr);
+}
+
+// V2's quarter-pel form's and V5's loads and stores at a shape of the
+// port's (the record, the residual rows, each direction's window words or
+// reference rows, the chroma rows, the chroma shuffle of V5), no
+// filtering: the floor of this access pattern. PART 1 leaves out the
+// residual, 2 the references, 3 both (the record and the stores only);
+// STAGE false stores each warp's rows itself, as run 2's form did.
+template <int MBS, bool BIDIR, bool QPEL, int PART = 0, bool STAGE = true>
+__global__ void __launch_bounds__(32 * MBS)
+gm_copy(uint8_t* __restrict__ Y, uint8_t* __restrict__ U,
+        uint8_t* __restrict__ V, int h16, int w16,
+        const int32_t* __restrict__ mb, int n_mb,
+        const int16_t* __restrict__ res, const int32_t* __restrict__ items,
+        int ew, int eh, int rule) {
+  constexpr int FIELDS = BIDIR ? B_FIELDS : MB_FIELDS;
+  __shared__ int32_t recs[MBS][FIELDS];
+  __shared__ GmOut<STAGE ? MBS : 1> stage;
+  const int wi = threadIdx.x >> 5;
+  const int m0 = blockIdx.x * MBS, m = m0 + wi;
+  const int32_t* it = items + 4 * blockIdx.y;
+  const int outs = it[BIDIR ? 3 : 2];
+  const size_t lp = (size_t)h16 * w16, cp = lp >> 2;
+  if (m < n_mb) copy_mb<MBS, BIDIR, QPEL, PART, STAGE>(
+      Y, U, V, h16, w16, mb, n_mb, res, it, ew, eh, rule, recs[wi], stage);
+  if constexpr (STAGE) {
+    block_bar<MBS>();
+    store_block<MBS>(stage, Y + outs * lp, U + outs * cp, V + outs * cp, w16,
+                     m0, n_mb);
+  }
+}
+
+// the macroblocks a CUDA block tried for V2's quarter-pel form and V5 (at
+// 64 registers: 32 / MBS CUDA blocks an SM), then the CUDA blocks an SM
+// must hold at the port's macroblocks a block (the cap on registers)
+#define PROBE_GM(X) X(1) X(2) X(4) X(8) X(16)
+#define PROBE_GM_MINB(X) X(1) X(6) X(12)
+
 // the V1 blocks a CUDA block tried
 #define PROBE_IDCT(X) X(8, 1) X(16, 1) X(32, 1) X(64, 1) X(16, 2) X(32, 2) \
   X(64, 2)
@@ -1219,6 +1551,164 @@ int probe_fdct_quant(int variant, const uint8_t* sy, const uint8_t* su,
   }                                                                         \
   ++v;
   PROBE_FDCT(LAUNCH)
+#undef LAUNCH
+  return 1;
+}
+
+int probe_gm_shapes(int* out, int n) {
+  int i = 0;
+#define SHAPE(M) if (i < n) out[i] = M; ++i;
+  PROBE_GM(SHAPE)
+#undef SHAPE
+  return i;
+}
+
+int probe_gm_minb(int* out, int n) {
+  int i = 0;
+#define SHAPE(M) if (i < n) out[i] = M; ++i;
+  PROBE_GM_MINB(SHAPE)
+#undef SHAPE
+  return i;
+}
+
+// V5: 0 PR 21's form, 1-5 copy and its parts (at BD_MBS), 6..
+// bidir_compensate_kernel at PROBE_GM's shapes, PROBE_GM_MINB's, staged
+// and unstaged
+int probe_bidir_compensate(int variant, uint8_t* y, uint8_t* u, uint8_t* v_,
+                           int h16, int w16, const int32_t* bmb, int n_mb,
+                           const int16_t* res, const int32_t* items, int g,
+                           int ew, int eh, int qpel, int rule,
+                           cudaStream_t stream) {
+  if (variant == 0) {
+    asp_original::bidir_compensate_kernel<<<dim3(n_mb, g),
+                                            asp_original::GM_THREADS, 0,
+                                            stream>>>(
+        y, u, v_, h16, w16, bmb, n_mb, res, items, ew, eh, qpel, rule);
+    return status(cudaGetLastError());
+  }
+  const dim3 grid((n_mb + BD_MBS - 1) / BD_MBS, g);
+#define COPY(V, P, S)                                                       \
+  if (variant == V) {                                                       \
+    if (qpel)                                                               \
+      probe::gm_copy<BD_MBS, true, true, P, S>                              \
+          <<<grid, 32 * BD_MBS, 0, stream>>>(y, u, v_, h16, w16, bmb, n_mb, \
+                                             res, items, ew, eh, rule);     \
+    else                                                                    \
+      probe::gm_copy<BD_MBS, true, false, P, S>                             \
+          <<<grid, 32 * BD_MBS, 0, stream>>>(y, u, v_, h16, w16, bmb, n_mb, \
+                                             res, items, ew, eh, rule);     \
+    return status(cudaGetLastError());                                      \
+  }
+  COPY(1, 0, true) COPY(2, 1, true) COPY(3, 2, true) COPY(4, 3, true)
+  COPY(5, 3, false)
+#undef COPY
+  int v = 6;
+#define LAUNCH(M)                                                           \
+  if (variant == v) {                                                       \
+    const dim3 grid((n_mb + M - 1) / M, g);                                 \
+    if (qpel)                                                               \
+      bidir_compensate_kernel<M, true, 32 / M, BD_STAGE>                    \
+          <<<grid, 32 * M, 0, stream>>>(y, u, v_, h16, w16, bmb, n_mb, res, \
+                                        items, ew, eh, rule);               \
+    else                                                                    \
+      bidir_compensate_kernel<M, false, 32 / M, BD_STAGE>                   \
+          <<<grid, 32 * M, 0, stream>>>(y, u, v_, h16, w16, bmb, n_mb, res, \
+                                        items, ew, eh, rule);               \
+    return status(cudaGetLastError());                                      \
+  }                                                                         \
+  ++v;
+  PROBE_GM(LAUNCH)
+#undef LAUNCH
+#define LAUNCH(B)                                                           \
+  if (variant == v) {                                                       \
+    const dim3 grid((n_mb + BD_MBS - 1) / BD_MBS, g);                       \
+    if (qpel)                                                               \
+      bidir_compensate_kernel<BD_MBS, true, B, BD_STAGE>                    \
+          <<<grid, 32 * BD_MBS, 0, stream>>>(y, u, v_, h16, w16, bmb, n_mb, \
+                                             res, items, ew, eh, rule);     \
+    else                                                                    \
+      bidir_compensate_kernel<BD_MBS, false, B, BD_STAGE>                   \
+          <<<grid, 32 * BD_MBS, 0, stream>>>(y, u, v_, h16, w16, bmb, n_mb, \
+                                             res, items, ew, eh, rule);     \
+    return status(cudaGetLastError());                                      \
+  }                                                                         \
+  ++v;
+  PROBE_GM_MINB(LAUNCH)
+#undef LAUNCH
+  // the port's shape with its block's rows staged, then unstaged
+#define LAUNCH(S)                                                           \
+  if (variant == v) {                                                       \
+    if (qpel)                                                               \
+      bidir_compensate_kernel<BD_MBS, true, BD_MINB, S>                     \
+          <<<grid, 32 * BD_MBS, 0, stream>>>(y, u, v_, h16, w16, bmb, n_mb, \
+                                             res, items, ew, eh, rule);     \
+    else                                                                    \
+      bidir_compensate_kernel<BD_MBS, false, BD_MINB, S>                    \
+          <<<grid, 32 * BD_MBS, 0, stream>>>(y, u, v_, h16, w16, bmb, n_mb, \
+                                             res, items, ew, eh, rule);     \
+    return status(cudaGetLastError());                                      \
+  }                                                                         \
+  ++v;
+  LAUNCH(true) LAUNCH(false)
+#undef LAUNCH
+  return 1;
+}
+
+// V2 at quarter-pel: 0 PR 21's form, 1-5 copy and its parts (at MCQ_MBS),
+// 6.. motion_compensate_qpel_kernel at PROBE_GM's shapes, PROBE_GM_MINB's,
+// staged and unstaged
+int probe_mc_qpel(int variant, uint8_t* y, uint8_t* u, uint8_t* v_, int h16,
+                  int w16, const int32_t* mb, int n_mb, const int16_t* res,
+                  const int32_t* items, int g, int ew, int eh, int rule,
+                  cudaStream_t stream) {
+  if (variant == 0) {
+    asp_original::motion_compensate_qpel_kernel<<<
+        dim3(n_mb, g), asp_original::GM_THREADS, 0, stream>>>(
+        y, u, v_, h16, w16, mb, n_mb, res, items, ew, eh, rule);
+    return status(cudaGetLastError());
+  }
+  const dim3 grid((n_mb + MCQ_MBS - 1) / MCQ_MBS, g);
+#define COPY(V, P, S)                                                       \
+  if (variant == V) {                                                       \
+    probe::gm_copy<MCQ_MBS, false, true, P, S>                              \
+        <<<grid, 32 * MCQ_MBS, 0, stream>>>(y, u, v_, h16, w16, mb, n_mb,   \
+                                            res, items, ew, eh, rule);      \
+    return status(cudaGetLastError());                                      \
+  }
+  COPY(1, 0, true) COPY(2, 1, true) COPY(3, 2, true) COPY(4, 3, true)
+  COPY(5, 3, false)
+#undef COPY
+  int v = 6;
+#define LAUNCH(M)                                                           \
+  if (variant == v) {                                                       \
+    motion_compensate_qpel_kernel<M, 32 / M, MCQ_STAGE>                     \
+        <<<dim3((n_mb + M - 1) / M, g), 32 * M, 0, stream>>>(               \
+            y, u, v_, h16, w16, mb, n_mb, res, items, ew, eh, rule);        \
+    return status(cudaGetLastError());                                      \
+  }                                                                         \
+  ++v;
+  PROBE_GM(LAUNCH)
+#undef LAUNCH
+#define LAUNCH(B)                                                           \
+  if (variant == v) {                                                       \
+    motion_compensate_qpel_kernel<MCQ_MBS, B, MCQ_STAGE>                    \
+        <<<grid, 32 * MCQ_MBS, 0, stream>>>(y, u, v_, h16, w16, mb, n_mb,   \
+                                            res, items, ew, eh, rule);      \
+    return status(cudaGetLastError());                                      \
+  }                                                                         \
+  ++v;
+  PROBE_GM_MINB(LAUNCH)
+#undef LAUNCH
+  // the port's shape with its block's rows staged, then unstaged
+#define LAUNCH(S)                                                           \
+  if (variant == v) {                                                       \
+    motion_compensate_qpel_kernel<MCQ_MBS, MCQ_MINB, S>                     \
+        <<<grid, 32 * MCQ_MBS, 0, stream>>>(y, u, v_, h16, w16, mb, n_mb,   \
+                                            res, items, ew, eh, rule);      \
+    return status(cudaGetLastError());                                      \
+  }                                                                         \
+  ++v;
+  LAUNCH(true) LAUNCH(false)
 #undef LAUNCH
   return 1;
 }
