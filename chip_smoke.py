@@ -6,10 +6,13 @@
 Phases, each printing lines with their seconds:
 
   1. build   — compile the kernel sources (csrc/warp.cu, csrc/vq.cu,
-               csrc/ccl.cu, csrc/lk.cu, csrc/mpeg4.cu), the nvJPEG shim
-               (csrc/jpeg.cu) and the kernel probe that times kernel B's
-               link (tools/ccl_lk_probe.cu), one nvcc each, started
-               together, into faceoff_tpu_torch/_build/, and load them;
+               csrc/ccl.cu, csrc/lk.cu, csrc/mpeg4.cu, csrc/h264.cu), the
+               nvJPEG shim
+               (csrc/jpeg.cu), the kernel probe that times kernel B's
+               link (tools/ccl_lk_probe.cu) and the one that times H3's
+               and H4's link and row handoff (tools/h264_wave_probe.cu),
+               one nvcc each, started together, into
+               faceoff_tpu_torch/_build/, and load them;
   2. kernel  — the kernel against its plain torch version on the card at
                (1,256,256,3), (16,256,256,3), one case whose output
                grid differs from the source, the training step's own
@@ -230,6 +233,28 @@ Phases, each printing lines with their seconds:
                --size 512 --batch_size 4 --train_frames 8 --remat for 4
                steps on a 512 px PNG dataset (finite records, a
                checkpoint written).
+ 21. h264    — H.264 Constrained Baseline input: the four fixtures
+               tests/data_torch/h264_* (avc1 with three references, two
+               IDRs and intra macroblocks in P pictures; three slices with
+               constrained intra prediction and filter offsets; avc3 with
+               in-band parameter sets, full range and BT.709; 1280x720)
+               decoded on the card through read_video_frames (the main
+               path: counts from 0 just before, read just after), each
+               equal to cv2's stored decode (its digests) and to the CPU
+               plain decode (the 720p fixture's first IDR period), bit for
+               bit; H1-H4 (csrc/h264.cu) against their plain versions at
+               every call of the 104-px decodes and of the 720p fixture's
+               first IDR period, then each timed at the 720p decode's
+               largest call beside its byte bound (H4 restoring its
+               planes before each timed call), H3 and H4 also beside
+               their wavefront's latency bound (the longest dependent
+               path through the call's macroblocks, each link and row
+               handoff on it at the least time that
+               tools/h264_wave_probe.cu measures); the 720p decode's
+               frames/s and the shares
+               of the host parser and of the header scan;
+               cli/preprocess's stage 1 (crop) on
+               h264_720p.mp4.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 {"kernels": [...]}, and last {"ok": true, "device": {...}}. Any failure
@@ -278,7 +303,7 @@ from faceoff_tpu_torch.data.synthetic import (draw_face, draw_faces,
                                               generate_dataset,
                                               synthetic_corpus)
 from faceoff_tpu_torch.io import image as image_io
-from faceoff_tpu_torch.io import mp4, mpeg4
+from faceoff_tpu_torch.io import h264, mp4, mpeg4
 from faceoff_tpu_torch.io.checkpoint import CheckpointManager
 from faceoff_tpu_torch.io.video import (read_video_frames, video_frame_chunks,
                                         write_avi)
@@ -289,7 +314,7 @@ from faceoff_tpu_torch.models.vqvae_b2f import VQVAE_B2F
 from faceoff_tpu_torch.models.discriminators import (MultiscaleDiscriminator2D,
                                                      MultiscaleDiscriminator3D)
 from faceoff_tpu_torch.models.lpips import RematLPIPS, init_lpips
-from faceoff_tpu_torch.ops import (ccl_cuda, cuda_build, lk_cuda,
+from faceoff_tpu_torch.ops import (ccl_cuda, cuda_build, h264_cuda, lk_cuda,
                                    mpeg4_cuda)
 from faceoff_tpu_torch.ops import vq as V
 from faceoff_tpu_torch.ops import vq_cuda
@@ -3878,6 +3903,367 @@ def asp_phase(t0, work: Path):
     return result
 
 
+# -- phase 21: H.264 Constrained Baseline input ----------------------------
+
+H264_FIXTURES = ("h264_cb.mp4", "h264_slices.mp4", "h264_avc3_vui.mp4",
+                 "h264_720p.mp4")
+H264_720P = "h264_720p.mp4"
+H264_STAGES = ("residual", "inter_predict", "intra_reconstruct", "deblock")
+H264_PLAIN = {name: getattr(h264_cuda, name + "_plain")
+              for name in H264_STAGES}
+H264_HOLD_720P = 12  # the 720p fixture's first IDR period
+H264_DECODE_REPS = 5
+H264_MIN_FRAMES = 8
+
+
+def zero_h264_counts():
+    for k in h264_cuda.launches:
+        h264_cuda.launches[k] = 0
+
+
+def h264_work(name, args) -> int:
+    """A stage call's work: H1's macroblocks; the macroblocks H2 predicts
+    (inter), H3 reconstructs (intra) or H4 filters."""
+    if name == "residual":
+        return int(args[1].shape[0] * args[1].shape[1])
+    kind = args[2][:, h264_cuda.F_KIND]
+    if name == "inter_predict":
+        return int((kind <= h264_cuda.H_INTER).sum())
+    if name == "intra_reconstruct":
+        return int((kind >= h264_cuda.H_I4).sum())
+    return int((args[2][:, h264_cuda.F_FILTER] == 0).sum())
+
+
+def h264_run_plain(name, args):
+    """The plain version of a stage call on copies of what the kernel
+    writes: H1's two residual planes, or the planes H2-H4 change in
+    place."""
+    if name == "residual":
+        return H264_PLAIN[name](*args)
+    planes = [p.clone() for p in args[0]]
+    H264_PLAIN[name](planes, *args[1:])
+    return planes
+
+
+def h264_max_err(name, got, want) -> int:
+    return max(int((a.int() - b.int()).abs().max()) if a.numel() else 0
+               for a, b in zip(got, want))
+
+
+class H264Calls:
+    """The stage wrappers of ops/h264_cuda wrapped: with `hold`, each call
+    also runs the plain version on the same inputs and must equal it bit
+    for bit; each stage's call with the most work is kept as `largest`
+    (its arguments, the planes cloned before the call)."""
+
+    def __init__(self, hold: bool):
+        self.hold = hold
+        self.held = {k: 0 for k in H264_STAGES}
+        self.largest = {}
+        self.orig = {k: getattr(h264_cuda, k) for k in H264_STAGES}
+
+    def __enter__(self):
+        for name in H264_STAGES:
+            setattr(h264_cuda, name, self._wrap(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(h264_cuda, name, fn)
+
+    def _wrap(self, name):
+        fn = self.orig[name]
+
+        def run(*args):
+            work = h264_work(name, args)
+            if work >= self.largest.get(name, (0, None))[0]:
+                kept = args if name == "residual" else (
+                    [p.clone() for p in args[0]],) + tuple(args[1:])
+                self.largest[name] = (work, kept)
+            if not self.hold:
+                return fn(*args)
+            want = h264_run_plain(name, args)
+            out = fn(*args)
+            got = out if name == "residual" else args[0]
+            err = h264_max_err(name, got, want)
+            if err:
+                raise AssertionError(f"h264: {name} differs from its plain "
+                                     f"version by {err} at a call of work "
+                                     f"{work}")
+            self.held[name] += 1
+            return out
+        return run
+
+
+def h264_bound(name, args) -> float:
+    """Least ms for a stage call's bytes: each input read once, each
+    output written once, at HBM_BYTES_PER_S. H1: the levels, block map
+    and (kind, QP, chroma offset) of every macroblock in, both residual
+    planes out; H2: the kind of every macroblock, then of each inter one
+    its 16 block records, residual (384 int16), the reference samples
+    under it (384, at least) in and its 384 samples out; H3: the kind of
+    every macroblock, then of each intra one its record (64 bytes), its
+    residual, the neighbouring samples (33 luma, 34 chroma) or I_PCM
+    samples (384) in and 384 samples out; H4: of each filtered
+    macroblock its and its neighbours' records (64 + 256 bytes) and its
+    384 samples in and out."""
+    work = h264_work(name, args)
+    if name == "residual":
+        coef, bmap, _, _ = args
+        n_mb = bmap.shape[0] * bmap.shape[1]
+        total = coef.numel() * 2 + n_mb * (27 * 4 + 12 + 384 * 2)
+    elif name == "inter_predict":
+        total = args[2].shape[0] * 4 + work * (16 * 16 + 768 + 384 + 384)
+    elif name == "intra_reconstruct":
+        total = args[2].shape[0] * 4 + work * (64 + 768 + 67 + 384)
+    else:
+        total = work * (64 + 256 + 2 * 384)
+    return total / HBM_BYTES_PER_S * 1e3
+
+
+# Kernels H3 and H4 are wavefronts: a macroblock waits for those of its
+# neighbours whose samples it reads. tools/h264_wave_probe.cu times the
+# least step of either chain (a link: a store, one barrier and a read
+# back through L2, on one block of the kernels' width) and the least
+# handoff of a row's progress between two blocks; h264_chain_ms counts
+# both on the longest dependent path of a call's macroblocks.
+H264_PROBE = REPO / "tools" / "h264_wave_probe.cu"
+H264_PROBE_LINKS, H264_PROBE_ROUNDS = 20000, 5000
+
+
+def build_h264_probe() -> Path:
+    """Build tools/h264_wave_probe.cu; it includes csrc/h264.cu, whose
+    digest names the library."""
+    digest = hashlib.sha256(h264_cuda.SOURCE.read_bytes()).hexdigest()[:8]
+    return cuda_build.build(H264_PROBE, f"h264_wave_probe_{digest}")
+
+
+def h264_probe_ms() -> dict:
+    """Device ms of one link and of one row handoff (the probes in a CUDA
+    graph)."""
+    lib = ctypes.CDLL(str(build_h264_probe()))
+    for fn in (lib.probe_h264_link, lib.probe_h264_handoff):
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    buf = torch.zeros(48, dtype=torch.uint8, device=DEV)
+    progress = torch.zeros(2, dtype=torch.int32, device=DEV)
+
+    def call(fn, n, t):
+        if fn(n, t.data_ptr(), torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError(f"{fn.__name__} failed")
+    link = device_ms(lambda: call(lib.probe_h264_link, H264_PROBE_LINKS,
+                                  buf), reps=5, inner=3)
+    handoff = device_ms(lambda: call(lib.probe_h264_handoff,
+                                     H264_PROBE_ROUNDS, progress),
+                        reps=5, inner=3)
+    return {"link_ms": link / H264_PROBE_LINKS,
+            "handoff_ms": handoff / (2 * H264_PROBE_ROUNDS)}
+
+
+def h264_chain_ms(name, args, link_ms: float, handoff_ms: float) -> dict:
+    """H3's or H4's latency bound at this call: the longest path through
+    its macroblocks, each adding its links (H3: Intra4x4 16, its 4x4
+    blocks one after another; Intra16x16 1; I_PCM, which reads no
+    neighbour, 0; chroma runs beside luma. H4: a filtered macroblock's 8
+    edges, 4 vertical then 4 horizontal) after the latest of the
+    neighbours it waits for, plus a handoff where that neighbour lies in
+    the row above. H3 waits for its intra neighbours of the same slice
+    (A, B, C, D); H4 for its filtered left, top and top-right ones,
+    whose edges change samples it reads."""
+    mb = args[2].cpu().numpy()
+    mbw = args[-1]
+    mbh = mb.shape[0] // mbw
+    kind = mb[:, h264_cuda.F_KIND].reshape(mbh, mbw)
+    sl = mb[:, h264_cuda.F_SLICE].reshape(mbh, mbw)
+    if name == "intra_reconstruct":
+        links = np.select([kind == h264_cuda.H_I4, kind == h264_cuda.H_I16],
+                          [16, 1], 0)
+        near = ((-1, 0), (-1, -1), (0, -1), (1, -1))
+    else:
+        links = np.where(mb[:, h264_cuda.F_FILTER].reshape(mbh, mbw) == 0,
+                         8, 0)
+        near = ((-1, 0), (0, -1), (1, -1))
+    finish = np.zeros((mbh, mbw))
+    path = np.zeros((mbh, mbw, 2), np.int64)  # links, handoffs on it
+    for y in range(mbh):
+        for x in range(mbw):
+            if links[y, x] == 0:  # nothing to wait for, nothing to do
+                continue
+            start, best = 0.0, (0, 0)
+            for dx, dy in near:
+                nx, ny = x + dx, y + dy
+                if not (0 <= nx < mbw and 0 <= ny < mbh) or \
+                        links[ny, nx] == 0:
+                    continue
+                if name == "intra_reconstruct" and sl[ny, nx] != sl[y, x]:
+                    continue
+                t = finish[ny, nx] + (handoff_ms if dy else 0.0)
+                if t > start:
+                    start = t
+                    best = (path[ny, nx, 0], path[ny, nx, 1] + (dy != 0))
+            finish[y, x] = start + links[y, x] * link_ms
+            path[y, x] = (best[0] + links[y, x], best[1])
+    y, x = np.unravel_index(int(finish.argmax()), finish.shape)
+    return {"link_ms": link_ms, "handoff_ms": handoff_ms,
+            "path_links": int(path[y, x, 0]),
+            "path_handoffs": int(path[y, x, 1]),
+            "latency_bound_ms": float(finish[y, x])}
+
+
+def h264_timing(name, args):
+    """(call, before): the stage's kernel call to time, and what runs
+    before it in each timed unit (None: nothing). H4 filters its planes
+    in place, so each of its calls first restores the out-slot from the
+    planes kept before the path's call; its time is the unit's less the
+    restore's."""
+    kernel = getattr(h264_cuda, name)
+    if name != "deblock":
+        return (lambda: kernel(*args)), None
+    planes, out = args[0], args[1]
+    kept = [p[out].clone() for p in planes]
+
+    def restore():
+        for p, k in zip(planes, kept):
+            p[out].copy_(k)
+
+    def call():
+        restore()
+        kernel(*args)
+    return call, restore
+
+
+def h264_phase(t0, work: Path):
+    """Phase 21 (module docstring): its results, the H.264 decode's launch
+    counts under "launches"."""
+    from faceoff_tpu_torch.cli import preprocess as pre_cli
+
+    result = {}
+    paths = {name: str(ASP_DATA / name) for name in H264_FIXTURES}
+    host = {}
+    fn, timed = _timed(h264_cuda, "parse_batch", host)
+    scan_fn, scan_timed = _timed(h264, "scan", host)
+    h264_cuda.parse_batch = timed
+    h264.scan = scan_timed
+    try:
+        # the main path: the four fixtures decoded on the card
+        zero_h264_counts()
+        with H264Calls(hold=False) as calls:
+            decoded = {name: read_video_frames(path, device=DEV)
+                       for name, path in paths.items()}
+        torch.cuda.synchronize()
+        counts = dict(h264_cuda.launches)
+        n = sum(int(f.shape[0]) for f in decoded.values())
+        say("h264", t0, f"decode of {n} frames, launches "
+            + json.dumps(counts))
+        if not all(counts.values()):
+            raise AssertionError(f"h264: a kernel did not run on the main "
+                                 f"path: {counts}")
+        checks = {}
+        for name, got in decoded.items():
+            keep = H264_HOLD_720P if name == H264_720P else None
+            plain = read_video_frames(paths[name], max_frames=keep,
+                                      device="cpu")
+            checks[name] = {"frames": int(got.shape[0]),
+                            "equal_cv2": asp_digests(got, name),
+                            "plain_frames": int(plain.shape[0]),
+                            "equal_plain_decode": bool(torch.equal(
+                                got[: plain.shape[0]].cpu(), plain))}
+        result["fixtures"] = checks
+        say("h264", t0, "fixtures " + json.dumps(checks))
+        if not all(c["equal_cv2"] and c["equal_plain_decode"]
+                   for c in checks.values()):
+            raise AssertionError(f"h264: a decode differs: {checks}")
+        del decoded
+
+        # each kernel against its plain version at every call
+        with H264Calls(hold=True) as held:
+            for name, path in paths.items():
+                read_video_frames(path, device=DEV, max_frames=(
+                    H264_HOLD_720P if name == H264_720P else None))
+        result["held_calls"] = held.held
+        say("h264", t0, "kernels equal their plain versions at "
+            + json.dumps(held.held) + " calls")
+        if not all(held.held.values()):
+            raise AssertionError(f"h264: a kernel was not held: {held.held}")
+
+        # the 720p fixture's decode: frames/s and the host parser's share
+        times, shares, scans = [], [], []
+        for _ in range(H264_DECODE_REPS):
+            before = host.get("parse_batch", 0.0)
+            before_scan = host.get("scan", 0.0)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            frames = read_video_frames(paths[H264_720P], device=DEV)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            times.append(dt)
+            shares.append((host.get("parse_batch", 0.0) - before) / dt)
+            scans.append((host.get("scan", 0.0) - before_scan) / dt)
+        med = statistics.median(times)
+        result["decode_720p"] = {
+            "frames": int(frames.shape[0]), "size": [1280, 720],
+            "frames_per_s": frames.shape[0] / med, "decode_s": med,
+            "host_parser_share": statistics.median(shares),
+            "host_scan_share": statistics.median(scans),
+            "reps": H264_DECODE_REPS}
+        say("h264", t0, "720p decode " + json.dumps(result["decode_720p"]))
+    finally:
+        h264_cuda.parse_batch = fn
+        h264.scan = scan_fn
+
+    rows = {}
+    probe = h264_probe_ms()
+    say("h264", t0, "wavefront probe " + json.dumps(probe))
+    for name in H264_STAGES:
+        size, args = calls.largest[name]
+        kernel = getattr(h264_cuda, name)
+        want = h264_run_plain(name, args)
+        if name == "residual":
+            got = kernel(*args)
+        else:
+            got = [p.clone() for p in args[0]]
+            kernel(got, *args[1:])
+        err = h264_max_err(name, got, want)
+        call, before = h264_timing(name, args)
+        kernel_ms = device_ms(call, reps=10, inner=5)
+        wrapper_ms = cuda_ms(call, reps=5, inner=3)
+        if before is not None:
+            kernel_ms -= device_ms(before, reps=10, inner=5)
+            wrapper_ms -= cuda_ms(before, reps=5, inner=3)
+            before()  # the plain version too reads the path's planes
+        rows[name] = {
+            "work": size, "max_abs_err": err,
+            "kernel_ms": kernel_ms, "wrapper_ms": wrapper_ms,
+            "plain_ms": cuda_ms(lambda: h264_run_plain(name, args), reps=1,
+                                inner=1, warmup=0),
+            "bound_ms": h264_bound(name, args), "bound_by": "bytes",
+            "library_ms": None, "launches": counts[name],
+            "launches_per_frame": counts[name] / n}
+        if name in ("intra_reconstruct", "deblock"):
+            rows[name].update(h264_chain_ms(name, args, **probe))
+        say("h264", t0, f"{name} " + json.dumps(rows[name]))
+        if err:
+            raise AssertionError(f"h264: {name} differs from its plain "
+                                 f"version by {err}")
+    result["kernels"] = rows
+
+    # preprocessing stage 1 on the 720p fixture
+    raw, clips = work / "h264_raw", work / "h264_clips"
+    raw.mkdir()
+    shutil.copy(paths[H264_720P], raw / H264_720P)
+    t = time.perf_counter()
+    res = pre_cli.main(["crop", "--videos", str(raw), "--out", str(clips),
+                        "--resolution", str(TRAIN_SIZE), "--min_frames",
+                        str(H264_MIN_FRAMES)], device=DEV)
+    torch.cuda.synchronize()
+    result["stage1"] = {"clips": len(res["clips"]),
+                        "seconds": time.perf_counter() - t}
+    say("h264", t0, "stage 1 " + json.dumps(result["stage1"]))
+    if not res["clips"]:
+        raise AssertionError(f"h264: stage 1 wrote no clip from {H264_720P}")
+    result["launches"] = counts
+    return result, counts
+
+
 # -- phase 17: the postnets over a clip sharded in time -------------------
 
 TIME_T, TIME_BLOCKS = 64, 4
@@ -4419,7 +4805,7 @@ def main() -> int:
     t0 = time.perf_counter()
     builds = (warp_cuda.build, vq_cuda.build, image_io.build_jpeg,
               ccl_cuda.build, lk_cuda.build, mpeg4_cuda.build,
-              build_lk_probe)
+              h264_cuda.build, build_lk_probe, build_h264_probe)
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         libs = [f.result() for f in [pool.submit(b) for b in builds]]
     warp_cuda.load()
@@ -4428,6 +4814,7 @@ def main() -> int:
     ccl_cuda.load()
     lk_cuda.load()
     mpeg4_cuda.load()
+    h264_cuda.load()
     say("build", t0, ", ".join(str(p.relative_to(REPO)) for p in libs)
         + " loaded")
 
@@ -4470,6 +4857,8 @@ def main() -> int:
         pre, pre_counts = preprocess_phase(t0, Path(work))
         t0 = time.perf_counter()
         mp4_result, mp4_counts = mp4_phase(t0, Path(work), pre)
+        t0 = time.perf_counter()
+        h264_result, h264_counts = h264_phase(t0, Path(work))
         t0 = time.perf_counter()
         r512, r512_counts = remat512_phase(t0, Path(work))
     t0 = time.perf_counter()
@@ -4620,6 +5009,14 @@ def main() -> int:
         "asp_720p_decode": mp4_result["asp"]["decode_720p"],
         "asp_stage1": mp4_result["asp"]["stage1"],
         "asp_launches": mp4_result["asp"]["launches"]}))
+    say("h264", t_all, json.dumps({
+        "card": card,
+        "720p_decode": h264_result["decode_720p"],
+        "fixtures_equal_cv2": {k: v["equal_cv2"] for k, v in
+                               h264_result["fixtures"].items()},
+        "held_calls": h264_result["held_calls"],
+        "stage1": h264_result["stage1"],
+        "launches": h264_counts}))
     # the serving path: the slice phase's sessions and the export phase's
     launches += exported["launches"]["warp"]
     paths = {"serving": {"vq_assign": 0, "vq_stats": 0, "warp": launches,
@@ -4793,6 +5190,24 @@ def main() -> int:
         k: mp4_result["asp"]["kernels"]["bidir_compensate:hpel"][k] for k in (
             "work", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
             "bound_by")}
+    for name in H264_STAGES:
+        row = h264_result["kernels"][name]
+        kernels.append({
+            "name": "h264_" + name, "route": "cuda",
+            "source": "faceoff_tpu_torch/csrc/h264.cu",
+            # cv2's FFmpeg decoding H.264 behind the JAX package's video
+            # I/O; no TPU kernel
+            "replaces": "faceoff_tpu/io/video.py:64",
+            "launches": h264_counts[name],
+            "launches_per_frame": row["launches_per_frame"],
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["kernel_ms"], "wrapper_ms": row["wrapper_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None})  # no PyTorch call computes it
+        if "latency_bound_ms" in row:
+            # the wavefront: its longest path's links and row handoffs
+            kernels[-1]["latency_bound_ms"] = row["latency_bound_ms"]
     print(f"[total] {time.perf_counter() - t_all:.2f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

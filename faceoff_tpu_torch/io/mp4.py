@@ -5,7 +5,9 @@ Reading walks the boxes wherever `moov` lies (cv2's writer puts it after
 `mdat`), takes the sample table (`stsz`, `stsc`, `stco` or `co64`,
 `stts`, `stss`), the size and timescale (`tkhd`, `mdhd`, the sample entry)
 and the `mp4v` entry's `esds` DecoderSpecificInfo, which holds the
-VOS/VO/VOL headers. Any other sample entry raises naming its codec.
+VOS/VO/VOL headers, or the `avc1`/`avc3` entry's `avcC` record (H.264's
+NAL length size and parameter sets, io/h264.py). Any other sample entry
+raises naming its codec.
 
 Writing lays out `ftyp` (isom), `mdat`, then `moov`: `mvhd`, one `trak`
 with `tkhd` and `mdia` (`mdhd`, `hdlr` vide, `minf` (`vmhd`, `dinf`/`dref`,
@@ -23,19 +25,20 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-_NAMES = {b"avc1": "H.264 (avc1)", b"avc3": "H.264 (avc3)",
-          b"hvc1": "HEVC (hvc1)", b"hev1": "HEVC (hev1)",
+_NAMES = {b"hvc1": "HEVC (hvc1)", b"hev1": "HEVC (hev1)",
           b"av01": "AV1 (av01)", b"vp09": "VP9 (vp09)",
           b"mjpa": "motion JPEG (mjpa)", b"jpeg": "JPEG (jpeg)",
           b"s263": "H.263 (s263)"}
 MP4V_OBJECT_TYPE = 0x20  # MPEG-4 Visual (ISO/IEC 14496-2)
+AVC_ENTRIES = (b"avc1", b"avc3")
 
 
 @dataclass
 class Track:
     """The video track of an MP4: each sample's bytes (in file order),
     the sync (key frame) flags, the size, timescale and sample durations,
-    and the DecoderSpecificInfo."""
+    the DecoderSpecificInfo (mp4v) or avcC record (avc1, avc3), and the
+    sample entry's codec."""
 
     width: int
     height: int
@@ -44,6 +47,7 @@ class Track:
     sync: np.ndarray
     samples: List[bytes]
     dsi: bytes
+    codec: str = "mp4v"
 
 
 def sniff(path: str) -> Optional[str]:
@@ -137,8 +141,8 @@ def _esds_dsi(data: bytes, lo: int, hi: int, where: str) -> bytes:
 
 
 def read_mp4(path: str, max_frames: Optional[int] = None) -> Track:
-    """The `mp4v` video track of an MP4 file. Other codecs raise a
-    ValueError naming them."""
+    """The `mp4v`, `avc1` or `avc3` video track of an MP4 file. Other
+    codecs raise a ValueError naming them."""
     data = Path(path).read_bytes()
     moov = _one(data, 0, len(data), [b"moov"], path)
     track = None
@@ -161,15 +165,23 @@ def read_mp4(path: str, max_frames: Optional[int] = None) -> Track:
         raise ValueError(f"{path}: empty stsd")
     size, kind = struct.unpack(">I4s", data[sb + 8: sb + 16])
     entry = (sb + 16, sb + 8 + size)
-    if kind != b"mp4v":
+    if kind != b"mp4v" and kind not in AVC_ENTRIES:
         name = _NAMES.get(kind, repr(kind.decode("latin-1")))
         raise ValueError(
             f"{path}: video codec {name}; the port reads MPEG-4 Part 2 "
-            f"(mp4v) only. H.264/HEVC input waits for its own decoder "
-            f"(ROADMAP.md, Queue 1 item 7b)")
+            f"(mp4v) and H.264 (avc1, avc3) only. HEVC input waits for "
+            f"its own decoder (ROADMAP.md, Queue 1 item 7b)")
     width, height = struct.unpack(">HH", data[entry[0] + 24: entry[0] + 28])
-    eb, ee = _one(data, entry[0] + 78, entry[1], [b"esds"], path)
-    dsi = _esds_dsi(data, eb, ee, path)
+    if kind == b"mp4v":
+        eb, ee = _one(data, entry[0] + 78, entry[1], [b"esds"], path)
+        dsi = _esds_dsi(data, eb, ee, path)
+    else:
+        found = list(_find(data, entry[0] + 78, entry[1], [b"avcC"]))
+        if not found:
+            raise ValueError(f"{path}: video codec H.264 ({kind.decode()}) "
+                             f"without its avcC box (the decoder "
+                             f"configuration record)")
+        dsi = data[found[0][0]: found[0][1]]
     b, _ = _one(data, *stbl, [b"stsz"], path)
     fixed, n = struct.unpack(">II", data[b + 4: b + 12])
     sizes = (np.full(n, fixed, np.int64) if fixed else
@@ -216,7 +228,7 @@ def read_mp4(path: str, max_frames: Optional[int] = None) -> Track:
     keep = n if max_frames is None else min(n, max_frames)
     samples = [data[o: o + z] for o, z in zip(offsets[:keep], sizes[:keep])]
     return Track(width, height, timescale, durations[:keep], sync[:keep],
-                 samples, dsi)
+                 samples, dsi, kind.decode())
 
 
 def _box(kind: bytes, *parts: bytes) -> bytes:

@@ -1176,28 +1176,54 @@ def rgb_to_yuv420(frames: torch.Tensor, h16: int, w16: int):
 
 
 # FFmpeg's fixed-point YUV -> RGB (its x86 converter, which cv2's reader
-# uses): BT.601 limited-range coefficients times 2^13, applied to samples
-# times 8 by a signed high multiply (>> 16)
-_Y_COEF, _Y_OFF = 9539, 128
-_VR, _UB, _UG, _VG = 13075, 16525, -3209, -6660
+# uses): coefficients times 2^13, applied to samples times 8 by a signed
+# high multiply (>> 16). libswscale's inverse matrices (ff_yuv2rgb_coeffs: crv, cbu, cgu, cgv
+# times 2^16) of BT.601 and BT.709
+_SWS_601 = (104597, 132201, 25675, 53279)
+_SWS_709 = (117489, 138438, 13975, 34925)
+
+
+def rgb_coefficients(matrix: int = 2, full_range: bool = False
+                     ) -> Tuple[int, ...]:
+    """(y coefficient, y offset, vr, ub, ug, vg) of FFmpeg's converter as
+    swscale derives them (ff_yuv2rgb_c_init_tables) for a stream's
+    matrix_coefficients (1 BT.709; any other value BT.601, swscale's
+    default) and range: limited range scales luma by 255/219 from 16,
+    full range scales chroma by 224/255; each then times 2^13, rounded.
+    (2, False) gives the limited BT.601 constants above."""
+    crv, cbu, cgu, cgv = _SWS_709 if matrix == 1 else _SWS_601
+    cy, oy = 1 << 16, 0
+    if full_range:
+        crv, cbu, cgu, cgv = (c * 224 // 255 for c in (crv, cbu, cgu, cgv))
+    else:
+        cy, oy = cy * 255 // 219, 16 << 16
+
+    def r16(v):
+        return (v + (1 << 15)) >> 16
+
+    return (r16(cy << 13), r16(oy << 3), r16(crv << 13), r16(cbu << 13),
+            -r16(cgu << 13), -r16(cgv << 13))
 
 
 def yuv420_to_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                  height: int, width: int) -> torch.Tensor:
+                  height: int, width: int,
+                  coefficients: Optional[Tuple[int, ...]] = None
+                  ) -> torch.Tensor:
     """Y (N, H16, W16), U, V (N, H16/2, W16/2) uint8 -> (N, height, width,
     3) uint8 RGB, each chroma sample repeated over its 2 x 2 block, in
     FFmpeg's fixed point: y' = ((8 Y - 128) * 9539) >> 16, then
     R = y' + (8 (V - 128) * 13075 >> 16), B = y' + (8 (U - 128) * 16525
     >> 16), G = y' + (8 (U - 128) * -3209 >> 16) + (8 (V - 128) * -6660
-    >> 16), saturated. On cv2's own files this gives cv2's RGB bit for
-    bit."""
-    yy = ((y[:, :height, :width].to(torch.int32) * 8 - _Y_OFF) * _Y_COEF
-          ) >> 16
+    >> 16), saturated (BT.601, limited range), or with `coefficients`
+    (rgb_coefficients) another matrix or range. On cv2's own files this
+    gives cv2's RGB bit for bit."""
+    yc, yo, vr, ub, ug, vg = coefficients or rgb_coefficients()
+    yy = ((y[:, :height, :width].to(torch.int32) * 8 - yo) * yc) >> 16
     d, e = [(p.repeat_interleave(2, 1).repeat_interleave(2, 2)
              [:, :height, :width].to(torch.int32) - 128) * 8 for p in (u, v)]
-    rgb = torch.stack([yy + ((e * _VR) >> 16),
-                       yy + ((d * _UG) >> 16) + ((e * _VG) >> 16),
-                       yy + ((d * _UB) >> 16)], -1)
+    rgb = torch.stack([yy + ((e * vr) >> 16),
+                       yy + ((d * ug) >> 16) + ((e * vg) >> 16),
+                       yy + ((d * ub) >> 16)], -1)
     return rgb.clamp(0, 255).to(torch.uint8)
 
 

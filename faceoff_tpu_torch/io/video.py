@@ -15,13 +15,16 @@ as cv2 does. Besides what the port writes they read MPEG-4 Part 2 in
 either container: the Simple and Advanced Simple Profiles (B-VOPs, MPEG
 quantisation, quarter-pel; in AVI the fourccs of Xvid, DivX and FFmpeg,
 packed B-frames included), frame for frame as cv2 returns them
-(`io/mpeg4.py` says what it still refuses). An MP4 or AVI of another codec
-(H.264, HEVC, ...) raises naming it. MJPEG on the CPU (no JPEG codec
-there) raises. Grids are PNG files (`io/image.py`).
+(`io/mpeg4.py` says what it still refuses), and H.264 Constrained
+Baseline in MP4 (`avc1`, `avc3`: io/h264.py, which says what it refuses),
+decoded on `device` (CUDA unless named) as cv2 returns it. An MP4 or AVI
+of another codec (HEVC, H.264 in AVI, ...) raises naming it. MJPEG on the
+CPU (no JPEG codec there) raises. Grids are PNG files (`io/image.py`).
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import struct
 from pathlib import Path
@@ -31,7 +34,7 @@ import numpy as np
 import torch
 
 from faceoff_tpu_torch.device import DeviceLike, resolve_device
-from faceoff_tpu_torch.io import mp4, mpeg4
+from faceoff_tpu_torch.io import h264, mp4, mpeg4
 from faceoff_tpu_torch.io.image import (decode_jpeg_bytes, encode_jpeg,
                                         write_png)
 
@@ -303,14 +306,24 @@ def decode_frames(codec: str, width: int, height: int,
     return torch.from_numpy(np.stack(frames)).to(dev)
 
 
-def _mp4_track(video_path: str):
+def _mp4_decoder(video_path: str):
+    """The decoder of an MP4's video track, chosen by the track's codec:
+    io/mpeg4 for `mp4v` (its VOL checked against the track), io/h264 for
+    `avc1`/`avc3`. Returns (decode, iter_decode) bound to the track, each
+    to be called with the device (decode also with `max_frames`)."""
     track = mp4.read_mp4(video_path)
+    if track.codec != "mp4v":
+        config = h264.parse_avcc(track.dsi)
+        return (functools.partial(h264.decode, track.samples, config),
+                functools.partial(h264.iter_decode, track.samples, config))
     vol = mpeg4.parse_vol(track.dsi)
     if (vol.width, vol.height) != (track.width, track.height):
         raise ValueError(f"{video_path}: the VOL's {vol.width}x{vol.height}"
                          f" differs from the track's {track.width}x"
                          f"{track.height}")
-    return track, vol
+    kw = dict(sync=track.sync, headers=track.dsi)
+    return (functools.partial(mpeg4.decode, track.samples, vol, **kw),
+            functools.partial(mpeg4.iter_decode, track.samples, vol, **kw))
 
 
 def _is_mp4(video_path: str) -> bool:
@@ -325,17 +338,15 @@ def read_video_frames(
     device: DeviceLike = None,
 ) -> Union[List[np.ndarray], torch.Tensor]:
     """Read a video's frames (the first `max_frames` in display order),
-    its format found by content. MPEG-4 Part 2, in an MP4 or an AVI,
-    decodes on `device` (CUDA unless named) into one (N, H, W, 3) uint8
-    tensor. An uncompressed AVI gives a list of uint8 RGB arrays when no
-    device or the CPU is named; with a CUDA device (which motion JPEG
-    needs, and takes when none is named) one (N, H, W, 3) uint8 tensor on
-    the card."""
+    its format found by content. MPEG-4 Part 2, in an MP4 or an AVI, and
+    H.264 in an MP4 decode on `device` (CUDA unless named) into one (N,
+    H, W, 3) uint8 tensor. An uncompressed AVI gives a list of uint8 RGB
+    arrays when no device or the CPU is named; with a CUDA device (which
+    motion JPEG needs, and takes when none is named) one (N, H, W, 3)
+    uint8 tensor on the card."""
     if _is_mp4(video_path):
-        dev = resolve_device(device)
-        track, vol = _mp4_track(video_path)
-        return mpeg4.decode(track.samples, vol, dev, sync=track.sync,
-                            headers=track.dsi, max_frames=max_frames)
+        decode, _ = _mp4_decoder(video_path)
+        return decode(resolve_device(device), max_frames=max_frames)
     codec, width, height, bodies, fourcc = read_avi_stream(video_path,
                                                            max_frames)
     if codec == "mpeg4":
@@ -349,13 +360,13 @@ def video_frame_chunks(video_path: str, chunk_frames: int,
     """A video's frames in chunks of at most `chunk_frames`, each one
     (n, H, W, 3) uint8 tensor on `device` (CUDA unless named), decoded
     chunk by chunk (MPEG-4 in batches that start at its key frames where
-    they can, the last anchor carried between them)."""
+    they can, the last anchor carried between them; H.264 likewise from
+    its IDR pictures, the reference pictures still held carried)."""
     dev = resolve_device(device)
     parts = None
     if _is_mp4(video_path):
-        track, vol = _mp4_track(video_path)
-        parts = mpeg4.iter_decode(track.samples, vol, dev, sync=track.sync,
-                                  headers=track.dsi)
+        _, iter_decode = _mp4_decoder(video_path)
+        parts = iter_decode(dev)
     else:
         codec, width, height, bodies, fourcc = read_avi_stream(video_path)
         if codec == "mpeg4":

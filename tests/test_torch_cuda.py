@@ -22,7 +22,13 @@ adversarial inputs, the C++ coder's B-VOPs against the Python one;
 kernels A and B at the edges of their designs: components across
 tile borders, ragged and odd sizes, full-foreground and serpentine 720p
 frames, an odd mask address; no point, counts of points no multiple of a
-block's, points beyond every border, dropped pyramid levels.
+block's, points beyond every border, dropped pyramid levels; H.264: H1-H4
+(csrc/h264.cu) against their plain versions at every call of the 104-px
+fixtures' decodes and on adversarial inputs (QP 0 and 51 with maximal
+levels; vectors crossing each picture edge by 1-64 px at every
+quarter-pel phase; all-intra and mixed pictures with slices of one
+macroblock; every bS at both QP extremes), and the C++ macroblock parser
+against the Python one on all four fixtures.
 
 Marked `cuda`; each test skips where there is no CUDA device. The file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -1758,3 +1764,201 @@ def test_mpeg4_host_coder_equals_python_asp(cuda, name):
     assert np.array_equal(got[0], want[0])
     for g, w in zip(got[1:], want[1:]):
         assert np.array_equal(g.cpu().numpy(), w)
+
+
+# -- H.264 ----------------------------------------------------------------------
+
+_H264 = ("h264_cb.mp4", "h264_slices.mp4", "h264_avc3_vui.mp4")
+
+
+def _h264_stream(name, max_pictures=None):
+    from pathlib import Path
+    from faceoff_tpu_torch.io import h264, mp4
+    track = mp4.read_mp4(str(Path(__file__).resolve().parent / "data_torch"
+                             / name))
+    return h264.scan(track.samples, h264.parse_avcc(track.dsi), max_pictures)
+
+
+@pytest.mark.parametrize("name", _H264)
+def test_h264_kernels_equal_plain_at_every_call(cuda, name, monkeypatch):
+    """Each 104-px fixture decoded on the card (five pictures a batch, so
+    reference pictures are carried): every H1-H4 call equals its plain
+    version on the same inputs, and the frames equal the CPU decode."""
+    from pathlib import Path
+    from faceoff_tpu_torch.io import h264
+    from faceoff_tpu_torch.io import video as tvideo
+    from faceoff_tpu_torch.ops import h264_cuda as K
+
+    monkeypatch.setattr(h264, "batch_pictures", lambda sps: 5)
+    calls = {}
+    for stage in ("residual", "inter_predict", "intra_reconstruct",
+                  "deblock"):
+        fn, plain = getattr(K, stage), getattr(K, stage + "_plain")
+
+        def run(*args, fn=fn, plain=plain, stage=stage):
+            if stage == "residual":
+                want = plain(*args)
+                got = fn(*args)
+            else:
+                want = [p.clone() for p in args[0]]
+                plain(want, *args[1:])
+                fn(*args)
+                got = args[0]
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), stage
+            calls[stage] = calls.get(stage, 0) + 1
+            return got if stage == "residual" else None
+
+        monkeypatch.setattr(K, stage, run)
+    path = str(Path(__file__).resolve().parent / "data_torch" / name)
+    got = tvideo.read_video_frames(path, device=cuda)
+    want = tvideo.read_video_frames(path, device="cpu")
+    assert torch.equal(got.cpu(), want)
+    assert calls["residual"] >= 3 and calls["inter_predict"] >= 10
+    assert calls["intra_reconstruct"] >= 2
+    if name != "h264_avc3_vui.mp4":
+        assert calls["deblock"] >= 10
+
+
+@pytest.mark.parametrize("name", _H264 + ("h264_720p.mp4",))
+def test_h264_host_parser_equals_python(cuda, name):
+    """The C++ macroblock parser equals the Python one record for record
+    (the 720p fixture's first IDR period)."""
+    from faceoff_tpu_torch.io import h264
+    from faceoff_tpu_torch.ops import h264_cuda as K
+
+    stream = _h264_stream(name, 12 if "720" in name else None)
+    n = len(stream.pictures)
+    slot = {i: i for i in range(n)}
+    got, got_info = K.parse_batch(stream, 0, n, slot, cuda)
+    want, want_info = h264.entropy_decode(stream, 0, n, slot,
+                                          torch.device("cpu"))
+    assert np.array_equal(got_info, want_info)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def _h264_records(rng, n, mbw, mbh, kinds, qps):
+    from faceoff_tpu_torch.ops import h264_cuda as K
+    m = mbw * mbh
+    mb = np.zeros((n, m, K.MB_FIELDS), np.int32)
+    mb[..., K.F_KIND] = rng.choice(kinds, (n, m))
+    mb[..., K.F_QP] = rng.choice(qps, (n, m))
+    mb[..., K.F_QPC] = rng.integers(-12, 13, (n, m))
+    return mb
+
+
+@pytest.mark.parametrize("qps", [(0,), (51,), tuple(range(52))])
+def test_h264_residual_adversarial(cuda, qps):
+    """H1 at QP 0, 51 and all between, levels at the int16 extremes on
+    every block of every kind (the int32 arithmetic wraps alike in both),
+    a 720p batch of two pictures: bit for bit."""
+    from faceoff_tpu_torch.ops import h264_cuda as K
+
+    rng = np.random.default_rng(len(qps))
+    mbw, mbh, n = 80, 45, 2
+    mb = _h264_records(rng, n, mbw, mbh, [K.H_SKIP, K.H_INTER, K.H_I4,
+                                          K.H_I16, K.H_PCM], qps)
+    present = rng.random((n, mbw * mbh, K.NBLK)) < 0.7
+    bmap = np.where(present, np.cumsum(present).reshape(present.shape) - 1,
+                    -1).astype(np.int32)
+    coef = rng.choice([-32768, -32767, -1, 0, 1, 255, 32767],
+                      (int(present.sum()), 16)).astype(np.int16)
+    args = [torch.from_numpy(a).to(cuda) for a in (coef, bmap, mb)]
+    got = K.residual(*args, mbw)
+    want = K.residual_plain(*args, mbw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("mbw,mbh", [(7, 7), (80, 45), (13, 3)])
+def test_h264_inter_predict_adversarial(cuda, mbw, mbh):
+    """H2 with vectors crossing each edge of the coded picture by 1-64 px
+    at every quarter-pel (and eighth-pel chroma) phase, three reference
+    slots, residuals at +-400 and the int16 extremes, intra and skipped
+    macroblocks among the inter ones: bit for bit."""
+    from faceoff_tpu_torch.ops import h264_cuda as K
+
+    rng = np.random.default_rng(mbw)
+    m = mbw * mbh
+    hl, wl = 16 * mbh, 16 * mbw
+    planes = [torch.from_numpy(rng.integers(0, 256, (4, hl // s, wl // s))
+                               .astype(np.uint8)).to(cuda)
+              for s in (1, 2, 2)]
+    mb = _h264_records(rng, 1, mbw, mbh, [K.H_SKIP, K.H_INTER, K.H_INTER,
+                                          K.H_I4], [26])[0]
+    blk = np.zeros((m, 16, 4), np.int32)
+    k = m * 16
+    phase = np.arange(k) % 16
+    over = rng.integers(1, 65, k)
+    edge = rng.integers(0, 4, k)
+    x = np.where(edge == 0, -over - 16, np.where(edge == 1, wl + over,
+                                                 rng.integers(0, wl, k)))
+    y = np.where(edge == 2, -over - 16, np.where(edge == 3, hl + over,
+                                                 rng.integers(0, hl, k)))
+    mbx = (np.arange(k) // 16 % mbw) * 16
+    mby = (np.arange(k) // 16 // mbw) * 16
+    blk[..., 0] = (4 * (x - mbx) + phase // 4).reshape(m, 16)
+    blk[..., 1] = (4 * (y - mby) + phase % 4).reshape(m, 16)
+    blk[..., 2] = rng.integers(0, 3, (m, 16))
+    ry = rng.choice([-32768, -400, -3, 0, 5, 400, 32767], (hl, wl))
+    rc = rng.choice([-32768, -400, -3, 0, 5, 400, 32767],
+                    (2, hl // 2, wl // 2))
+    args = [torch.from_numpy(a.astype(t)).to(cuda) for a, t in (
+        (mb, np.int32), (blk, np.int32), (ry, np.int16), (rc, np.int16))]
+    want = [p.clone() for p in planes]
+    K.inter_predict_plain(want, 3, *args, mbw)
+    K.inter_predict(planes, 3, *args, mbw)
+    for g, w in zip(planes, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("seed,mbw,mbh,cip,slices", [
+    (1, 80, 45, 0, 1), (2, 80, 45, 1, 7), (3, 9, 4, 0, 36), (4, 7, 7, 1, 1)])
+def test_h264_intra_reconstruct_adversarial(cuda, seed, mbw, mbh, cip,
+                                            slices):
+    """H3 on random pictures of every intra mode the neighbours allow,
+    I_PCM, inter macroblocks, slices (36 of one macroblock each: nothing
+    is available) and constrained intra prediction, a 720p picture among
+    them: bit for bit."""
+    from test_torch_h264_kernels import _intra_case
+    from faceoff_tpu_torch.ops import h264_cuda as K
+
+    mb, pcm, planes, ry, rc = _intra_case(seed, mbw, mbh, cip, slices)
+    got = [torch.from_numpy(p).unsqueeze(0).to(cuda) for p in planes]
+    args = [torch.from_numpy(a).to(cuda) for a in (mb, pcm, ry, rc)]
+    want = [p.clone() for p in got]
+    K.intra_reconstruct_plain(want, 0, *args, mbw)
+    K.intra_reconstruct(got, 0, *args, mbw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("qps", [(0,), (51,), (0, 17, 30, 51)])
+def test_h264_deblock_adversarial(cuda, qps):
+    """H4 on a 720p picture of every macroblock kind, every bS, smooth
+    samples (so most lines filter), QP 0 and 51, offsets at +-12,
+    slices that do not filter: bit for bit."""
+    from faceoff_tpu_torch.ops import h264_cuda as K
+
+    rng = np.random.default_rng(len(qps) + qps[0])
+    mbw, mbh = 80, 45
+    m = mbw * mbh
+    mb = _h264_records(rng, 1, mbw, mbh, [K.H_SKIP, K.H_INTER, K.H_INTER,
+                                          K.H_I4, K.H_I16, K.H_PCM], qps)[0]
+    mb[:, K.F_FILTER] = rng.random(m) < 0.1
+    mb[:, K.F_ALPHA] = rng.choice([-12, 0, 12], m)
+    mb[:, K.F_BETA] = rng.choice([-12, 0, 12], m)
+    blk = np.zeros((m, 16, 4), np.int32)
+    blk[..., :2] = rng.integers(-5, 6, (m, 16, 2))
+    blk[..., 2] = rng.integers(0, 2, (m, 16))
+    blk[..., 3] = (rng.random((m, 16)) < 0.2) * 3
+    planes = [torch.from_numpy(np.clip(128 + rng.integers(
+        -10, 11, (1, 16 * mbh // s, 16 * mbw // s)), 0, 255).astype(
+            np.uint8)).to(cuda) for s in (1, 2, 2)]
+    args = [torch.from_numpy(a).to(cuda) for a in (mb, blk)]
+    want = [p.clone() for p in planes]
+    K.deblock_plain(want, 0, *args, mbw)
+    K.deblock(planes, 0, *args, mbw)
+    for g, w in zip(planes, want):
+        assert torch.equal(g, w)

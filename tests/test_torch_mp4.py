@@ -3,7 +3,8 @@ versions of `ops/mpeg4_cuda.py`) against the JAX package's cv2 path
 (`faceoff_tpu/io/video.py`, FFmpeg's `mp4v`), on the CPU:
 
   * the container: a round trip, cv2's layout (`moov` after `mdat`),
-    64-bit chunk offsets, the refusal of an H.264 (avc1) entry;
+    64-bit chunk offsets, the refusal of an H.264 (avc1) entry without
+    its avcC record and of HEVC;
   * the decoder on files that `faceoff_tpu.io.video.save_frames_as_video`
     writes: the port's frames equal cv2's bit for bit. Tolerance 0,
     derived: the I-VOPs already agree exactly (the port converts YUV to
@@ -96,8 +97,9 @@ def test_reads_the_fixture_in_cv2s_layout():
 
 
 def test_refuses_h264_naming_the_codec(tmp_path):
-    """An MP4 whose sample entry is avc1 (a hand-built H.264 moov) raises
-    a ValueError naming the codec, whatever its name."""
+    """An MP4 whose sample entry is avc1 (a hand-built H.264 moov with no
+    avcC record) or hev1 raises a ValueError naming the codec, whatever
+    its name."""
     frames = video_frames(2, 32, seed=1)[0]
     samples, sync, dsi, _ = mpeg4.encode(frames, 25)
     good = str(tmp_path / "g.mp4")
