@@ -10,7 +10,7 @@ Phases, each printing lines with their seconds:
                nvJPEG shim
                (csrc/jpeg.cu), the kernel probe that times kernel B's
                link (tools/ccl_lk_probe.cu) and the one that times H3's
-               and H4's link and row handoff (tools/h264_wave_probe.cu),
+               and H4's links and a row handoff (tools/h264_wave_probe.cu),
                one nvcc each, started together, into
                faceoff_tpu_torch/_build/, and load them;
   2. kernel  — the kernel against its plain torch version on the card at
@@ -245,16 +245,18 @@ Phases, each printing lines with their seconds:
                bit; H1-H4 (csrc/h264.cu) against their plain versions at
                every call of the 104-px decodes and of the 720p fixture's
                first IDR period, then each timed at the 720p decode's
-               largest call beside its byte bound (H4 restoring its
-               planes before each timed call), H3 and H4 also beside
-               their wavefront's latency bound (the longest dependent
-               path through the call's macroblocks, each link and row
-               handoff on it at the least time that
-               tools/h264_wave_probe.cu measures); the 720p decode's
-               frames/s and the shares
-               of the host parser and of the header scan;
-               cli/preprocess's stage 1 (crop) on
-               h264_720p.mp4.
+               first largest call (the I picture for H3 and H4) beside
+               its byte bound (H4 restoring its planes before each timed
+               call), H3 and H4 also at the P picture with the most work
+               and beside their wavefront's latency bound (the longest
+               dependent path through the call's 4x4 blocks or sample
+               lines, each link and row handoff on it at the least time
+               that tools/h264_wave_probe.cu, which shares no code with
+               the port, measures); the 720p decode's
+               frames/s, the shares of the host parser and of the header
+               scan, and its device ms by stage (H1-H4 summed over one
+               decode, torch.profiler); cli/preprocess's stage 1 (crop)
+               on h264_720p.mp4.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 {"kernels": [...]}, and last {"ok": true, "device": {...}}. Any failure
@@ -3934,6 +3936,13 @@ def h264_work(name, args) -> int:
     return int((args[2][:, h264_cuda.F_FILTER] == 0).sum())
 
 
+def h264_on_p(name, args) -> bool:
+    """Whether a stage call of H2-H4 is on a P picture (one with inter
+    macroblocks)."""
+    return name != "residual" and bool(
+        (args[2][:, h264_cuda.F_KIND] <= h264_cuda.H_INTER).any())
+
+
 def h264_run_plain(name, args):
     """The plain version of a stage call on copies of what the kernel
     writes: H1's two residual planes, or the planes H2-H4 change in
@@ -3953,13 +3962,17 @@ def h264_max_err(name, got, want) -> int:
 class H264Calls:
     """The stage wrappers of ops/h264_cuda wrapped: with `hold`, each call
     also runs the plain version on the same inputs and must equal it bit
-    for bit; each stage's call with the most work is kept as `largest`
-    (its arguments, the planes cloned before the call)."""
+    for bit; each stage's first call with the most work is kept as
+    `largest`, and among the calls on P pictures (pictures with inter
+    macroblocks) as `largest_p` (their arguments, the planes cloned
+    before the call). The first, so that H4's `largest` is the 720p
+    fixture's I picture: its P pictures filter as many macroblocks."""
 
     def __init__(self, hold: bool):
         self.hold = hold
         self.held = {k: 0 for k in H264_STAGES}
         self.largest = {}
+        self.largest_p = {}
         self.orig = {k: getattr(h264_cuda, k) for k in H264_STAGES}
 
     def __enter__(self):
@@ -3976,10 +3989,14 @@ class H264Calls:
 
         def run(*args):
             work = h264_work(name, args)
-            if work >= self.largest.get(name, (0, None))[0]:
-                kept = args if name == "residual" else (
-                    [p.clone() for p in args[0]],) + tuple(args[1:])
-                self.largest[name] = (work, kept)
+            kept = None
+            for store, ok in ((self.largest, True),
+                              (self.largest_p, h264_on_p(name, args))):
+                if ok and work > store.get(name, (0, None))[0]:
+                    if kept is None:
+                        kept = args if name == "residual" else (
+                            [p.clone() for p in args[0]],) + tuple(args[1:])
+                    store[name] = (work, kept)
             if not self.hold:
                 return fn(*args)
             want = h264_run_plain(name, args)
@@ -4021,100 +4038,259 @@ def h264_bound(name, args) -> float:
     return total / HBM_BYTES_PER_S * 1e3
 
 
-# Kernels H3 and H4 are wavefronts: a macroblock waits for those of its
-# neighbours whose samples it reads. tools/h264_wave_probe.cu times the
-# least step of either chain (a link: a store, one barrier and a read
-# back through L2, on one block of the kernels' width) and the least
-# handoff of a row's progress between two blocks; h264_chain_ms counts
-# both on the longest dependent path of a call's macroblocks.
+# Kernels H3 and H4 are wavefronts: each step reads samples that earlier
+# steps wrote. tools/h264_wave_probe.cu (which shares no code with the
+# port) times the least step of either chain in one thread: a link of H3
+# (an Intra4x4 4x4 prediction from 13 samples in registers, feeding the
+# next) and of H4 (an edge's filter on 8 samples in registers, feeding
+# the next), and the least handoff of a row's progress, between two
+# warps of one block through shared memory (and, for information,
+# between two blocks through global memory); h264_chain_ms counts them
+# on the longest dependent path of a call's 4x4 blocks (H3) or sample
+# lines (H4).
 H264_PROBE = REPO / "tools" / "h264_wave_probe.cu"
 H264_PROBE_LINKS, H264_PROBE_ROUNDS = 20000, 5000
 
 
 def build_h264_probe() -> Path:
-    """Build tools/h264_wave_probe.cu; it includes csrc/h264.cu, whose
-    digest names the library."""
-    digest = hashlib.sha256(h264_cuda.SOURCE.read_bytes()).hexdigest()[:8]
-    return cuda_build.build(H264_PROBE, f"h264_wave_probe_{digest}")
+    return cuda_build.build(H264_PROBE, "h264_wave_probe")
 
 
 def h264_probe_ms() -> dict:
-    """Device ms of one link and of one row handoff (the probes in a CUDA
-    graph)."""
+    """Device ms of one link of H3 and of H4 and of one row handoff (the
+    probes in a CUDA graph)."""
     lib = ctypes.CDLL(str(build_h264_probe()))
-    for fn in (lib.probe_h264_link, lib.probe_h264_handoff):
+    fns = {"intra_link_ms": lib.probe_h264_intra_link,
+           "deblock_link_ms": lib.probe_h264_deblock_link,
+           "handoff_ms": lib.probe_h264_handoff,
+           "handoff_gpu_ms": lib.probe_h264_handoff_gpu}
+    for fn in fns.values():
         fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    buf = torch.zeros(48, dtype=torch.uint8, device=DEV)
-    progress = torch.zeros(2, dtype=torch.int32, device=DEV)
+    # 13 edge samples and a residual; a smooth line with alpha and beta
+    # 255 and tC0 4, so that every edge filters
+    samples = torch.tensor([100, 104, 98, 110, 120, 111, 117, 99, 95, 101,
+                            107, 112, 118, 140] + [0] * 18,
+                           dtype=torch.uint8, device=DEV)
+    line = torch.tensor([100, 103, 105, 108, 118, 121, 124, 126, 255, 255,
+                         4] + [0] * 21, dtype=torch.uint8, device=DEV)
+    sync = torch.zeros(2, dtype=torch.int32, device=DEV)
+    out = {}
+    for key, fn in fns.items():
+        link = "link" in key
+        n = H264_PROBE_LINKS if link else H264_PROBE_ROUNDS
+        buf = {"intra_link_ms": samples, "deblock_link_ms": line}.get(key,
+                                                                      sync)
 
-    def call(fn, n, t):
-        if fn(n, t.data_ptr(), torch.cuda.current_stream().cuda_stream):
-            raise RuntimeError(f"{fn.__name__} failed")
-    link = device_ms(lambda: call(lib.probe_h264_link, H264_PROBE_LINKS,
-                                  buf), reps=5, inner=3)
-    handoff = device_ms(lambda: call(lib.probe_h264_handoff,
-                                     H264_PROBE_ROUNDS, progress),
-                        reps=5, inner=3)
-    return {"link_ms": link / H264_PROBE_LINKS,
-            "handoff_ms": handoff / (2 * H264_PROBE_ROUNDS)}
+        def call(fn=fn, n=n, buf=buf):
+            if fn(n, buf.data_ptr(), torch.cuda.current_stream().cuda_stream):
+                raise RuntimeError(f"{fn.__name__} failed")
+        out[key] = device_ms(call, reps=5, inner=3) / (n if link else 2 * n)
+    return out
 
 
-def h264_chain_ms(name, args, link_ms: float, handoff_ms: float) -> dict:
-    """H3's or H4's latency bound at this call: the longest path through
-    its macroblocks, each adding its links (H3: Intra4x4 16, its 4x4
-    blocks one after another; Intra16x16 1; I_PCM, which reads no
-    neighbour, 0; chroma runs beside luma. H4: a filtered macroblock's 8
-    edges, 4 vertical then 4 horizontal) after the latest of the
-    neighbours it waits for, plus a handoff where that neighbour lies in
-    the row above. H3 waits for its intra neighbours of the same slice
-    (A, B, C, D); H4 for its filtered left, top and top-right ones,
-    whose edges change samples it reads."""
-    mb = args[2].cpu().numpy()
-    mbw = args[-1]
+# the neighbours an Intra4x4 mode reads (8.3.1.2): A left, B top, C top
+# right, D top left, from the taps' indices into the 13 edge samples
+# (0-3 A, 4 D, 5-8 B, 9-12 C); DC (mode 2) reads A and B where available
+H264_I4_READS = tuple(frozenset(
+    n for n, lo, hi in (("A", 0, 3), ("D", 4, 4), ("B", 5, 8), ("C", 9, 12))
+    if any(lo <= t[i] <= hi and t[3 + i] for t in h264_cuda.INTRA4_TAPS[m]
+           for i in range(3))) for m in range(9))
+# Intra16x16 and chroma modes: what each reads besides DC's A and B
+H264_I16_READS = ({"B"}, {"A"}, set(), {"A", "B", "D"})
+H264_CHROMA_READS = (set(), {"A"}, {"B"}, {"A", "B", "D"})
+
+
+def h264_intra_chain(mb: np.ndarray, mbw: int, link: float,
+                     handoff: float):
+    """H3's longest dependent path: (ms, links, handoffs). A step (a link)
+    is an Intra4x4 4x4 block, an Intra16x16 macroblock's luma or an intra
+    macroblock's chroma; it starts after the latest step that wrote
+    samples it reads (by its mode: the left, top, top-right and top-left
+    blocks, or the macroblock's left column, top row and corner), plus a
+    handoff where that step lies in another macroblock row. It reads
+    only neighbours available to it (the same slice, not inter under
+    constrained_intra_pred; a top-right decoded before it). Inter and
+    I_PCM samples, which read nothing, are final before any step."""
     mbh = mb.shape[0] // mbw
-    kind = mb[:, h264_cuda.F_KIND].reshape(mbh, mbw)
-    sl = mb[:, h264_cuda.F_SLICE].reshape(mbh, mbw)
+    zero = (0.0, 0, 0)
+    luma = [[zero] * (4 * mbw) for _ in range(4 * mbh)]
+    chroma = [[zero] * mbw for _ in range(mbh)]
+    best = zero
+
+    def after(reads, y):
+        """The step's (ms, links, handoffs) after reads [(step, row)]."""
+        t = zero
+        for (ms, n, h), row in reads:
+            if n:
+                cross = row != y
+                if ms + handoff * cross > t[0]:
+                    t = (ms + handoff * cross, n, h + cross)
+        return (t[0] + link, t[1] + 1, t[2])
+
+    for a in range(mb.shape[0]):
+        rec = mb[a]
+        kind = int(rec[h264_cuda.F_KIND])
+        if kind not in (h264_cuda.H_I4, h264_cuda.H_I16):
+            continue
+        x, y = a % mbw, a // mbw
+        av = {}
+        for n, dx, dy in (("A", -1, 0), ("B", 0, -1), ("C", 1, -1),
+                          ("D", -1, -1)):
+            nx, ny = x + dx, y + dy
+            k = mb[ny * mbw + nx] if 0 <= nx < mbw and ny >= 0 else None
+            av[n] = k is not None and (
+                k[h264_cuda.F_SLICE] == rec[h264_cuda.F_SLICE]) and not (
+                rec[h264_cuda.F_CIP]
+                and k[h264_cuda.F_KIND] <= h264_cuda.H_INTER)
+
+        def dc(reads):
+            return reads | {n for n in "AB" if av[n]}
+
+        def blk(gx, gy):
+            return (luma[gy][gx], gy // 4)
+        gx0, gy0 = 4 * x, 4 * y
+        if kind == h264_cuda.H_I16:
+            mode = int(rec[h264_cuda.F_I16])
+            reads = dc(set()) if mode == 2 else H264_I16_READS[mode]
+            deps = []
+            if "A" in reads and av["A"]:
+                deps += [blk(gx0 - 1, gy0 + j) for j in range(4)]
+            if "B" in reads and av["B"]:
+                deps += [blk(gx0 + j, gy0 - 1) for j in range(4)]
+            if "D" in reads and av["D"]:
+                deps.append(blk(gx0 - 1, gy0 - 1))
+            t = after(deps, y)
+            for j in range(16):
+                luma[gy0 + j // 4][gx0 + j % 4] = t
+            best = max(best, t)
+        else:
+            words = [int(rec[h264_cuda.F_MODES]) & 0xffffffff,
+                     int(rec[h264_cuda.F_MODES_HI]) & 0xffffffff]
+            for sw in range(10):  # sub-waves bx + 2by: a decode order
+                for by in range(4):
+                    bx = sw - 2 * by
+                    if not 0 <= bx < 4:
+                        continue
+                    b = 4 * by + bx
+                    mode = (words[b // 8] >> (4 * (b % 8))) & 15
+                    left = bx > 0 or av["A"]
+                    top = by > 0 or av["B"]
+                    if by == 0:
+                        tr = av["C"] if bx == 3 else av["B"]
+                    else:
+                        tr = bool(h264_cuda._TR_INSIDE[b])
+                    tl = True if bx and by else av["A"] if by else \
+                        av["B"] if bx else av["D"]
+                    reads = (({"A"} if left else set())
+                             | ({"B"} if top else set())) if mode == 2 \
+                        else H264_I4_READS[mode]
+                    gx, gy = gx0 + bx, gy0 + by
+                    deps = []
+                    if "A" in reads and left:
+                        deps.append(blk(gx - 1, gy))
+                    if "B" in reads and top:
+                        deps.append(blk(gx, gy - 1))
+                    if "C" in reads and tr:
+                        deps.append(blk(gx + 1, gy - 1))
+                    if "D" in reads and tl:
+                        deps.append(blk(gx - 1, gy - 1))
+                    t = after(deps, y)
+                    luma[gy][gx] = t
+                    best = max(best, t)
+        mode = int(rec[h264_cuda.F_CMODE])
+        reads = dc(set()) if mode == 0 else H264_CHROMA_READS[mode]
+        deps = [(chroma[y + dy][x + dx], y + dy)
+                for n, dx, dy in (("A", -1, 0), ("B", 0, -1), ("D", -1, -1))
+                if n in reads and av[n]]
+        chroma[y][x] = after(deps, y)
+        best = max(best, chroma[y][x])
+    return best
+
+
+def h264_deblock_chain(mb: torch.Tensor, blk: torch.Tensor, mbw: int,
+                       link: float, handoff: float):
+    """H4's longest dependent path: (ms, links, handoffs). A step (a link)
+    is one edge's filter on one line of 8 samples (deblock_lines: the
+    lines with bS > 0, in an order equal to raster order's), left out
+    where alpha or beta is 0 (it changes nothing whatever the samples);
+    it starts after the latest step that last wrote a sample it reads
+    (luma at bS 4 p3-q3, below p2-q2; chroma p1-q1), plus a handoff where
+    that step lies in another macroblock row, and it writes p2-q2, p1-q1
+    or p0-q0 alike."""
+    step, idx, bs, qpav, off_a, off_b, chroma = (
+        t.numpy() for t in h264_cuda.deblock_lines(mb, blk, mbw))
+    ia = np.clip(qpav + off_a, 0, 51)
+    ib = np.clip(qpav + off_b, 0, 51)
+    keep = (np.array(h264_cuda.ALPHA)[ia] > 0) & (np.array(h264_cuda.BETA)[
+        ib] > 0)
+    step, idx, bs, chroma = step[keep], idx[keep], bs[keep], chroma[keep]
+    mbh = mb.shape[0] // mbw
+    hl, wl = 16 * mbh, 16 * mbw
+    q0 = idx[:, 4]
+    row = np.where(q0 < hl * wl, q0 // wl // 16,
+                   (q0 - hl * wl) % (hl * wl // 4) // (wl // 2) // 8)
+    k = np.arange(8)
+    luma4 = ~chroma & (bs == 4)
+    lo = np.where(chroma, 2, np.where(luma4, 0, 1))[:, None]
+    reads = (k >= lo) & (k <= 7 - lo)
+    writes = (k >= lo + 1) & (k <= 6 - lo)
+    n_samples = hl * wl * 3 // 2
+    ms = np.zeros(n_samples)
+    links = np.zeros(n_samples, np.int64)
+    hands = np.zeros(n_samples, np.int64)
+    wrow = np.full(n_samples, -1)
+    best = (0.0, 0, 0)
+    if not step.size:
+        return best
+    bounds = np.flatnonzero(np.diff(step)) + 1
+    for sl in np.split(np.arange(step.size), bounds):
+        i, r = idx[sl], row[sl, None]
+        cross = (wrow[i] >= 0) & (wrow[i] != r)
+        cand = np.where(reads[sl], ms[i] + handoff * cross, -1.0)
+        j = cand.argmax(1)
+        at = (np.arange(sl.size), j)
+        t = cand[at] + link
+        n = links[i][at] + 1
+        h = hands[i][at] + cross[at]
+        w = writes[sl]
+        dst = i[w]
+        rep = w.sum(1)
+        ms[dst] = np.repeat(t, rep)
+        links[dst] = np.repeat(n, rep)
+        hands[dst] = np.repeat(h, rep)
+        wrow[dst] = np.repeat(r[:, 0], rep)
+        top = int(t.argmax())
+        if t[top] > best[0]:
+            best = (float(t[top]), int(n[top]), int(h[top]))
+    return best
+
+
+def h264_chain_ms(name, args, probe: dict) -> dict:
+    """H3's or H4's latency bound at this call: the longest dependent path
+    of its steps (h264_intra_chain, h264_deblock_chain), a link and a
+    handoff at the probe's least times (h264_probe_ms: the link in
+    registers, the handoff between two warps of a block)."""
+    link_ms = probe["intra_link_ms" if name == "intra_reconstruct"
+                    else "deblock_link_ms"]
+    handoff_ms = probe["handoff_ms"]
+    mbw = args[-1]
     if name == "intra_reconstruct":
-        links = np.select([kind == h264_cuda.H_I4, kind == h264_cuda.H_I16],
-                          [16, 1], 0)
-        near = ((-1, 0), (-1, -1), (0, -1), (1, -1))
+        ms, links, hands = h264_intra_chain(args[2].cpu().numpy(), mbw,
+                                            link_ms, handoff_ms)
     else:
-        links = np.where(mb[:, h264_cuda.F_FILTER].reshape(mbh, mbw) == 0,
-                         8, 0)
-        near = ((-1, 0), (0, -1), (1, -1))
-    finish = np.zeros((mbh, mbw))
-    path = np.zeros((mbh, mbw, 2), np.int64)  # links, handoffs on it
-    for y in range(mbh):
-        for x in range(mbw):
-            if links[y, x] == 0:  # nothing to wait for, nothing to do
-                continue
-            start, best = 0.0, (0, 0)
-            for dx, dy in near:
-                nx, ny = x + dx, y + dy
-                if not (0 <= nx < mbw and 0 <= ny < mbh) or \
-                        links[ny, nx] == 0:
-                    continue
-                if name == "intra_reconstruct" and sl[ny, nx] != sl[y, x]:
-                    continue
-                t = finish[ny, nx] + (handoff_ms if dy else 0.0)
-                if t > start:
-                    start = t
-                    best = (path[ny, nx, 0], path[ny, nx, 1] + (dy != 0))
-            finish[y, x] = start + links[y, x] * link_ms
-            path[y, x] = (best[0] + links[y, x], best[1])
-    y, x = np.unravel_index(int(finish.argmax()), finish.shape)
+        ms, links, hands = h264_deblock_chain(args[2].cpu(), args[3].cpu(),
+                                              mbw, link_ms, handoff_ms)
     return {"link_ms": link_ms, "handoff_ms": handoff_ms,
-            "path_links": int(path[y, x, 0]),
-            "path_handoffs": int(path[y, x, 1]),
-            "latency_bound_ms": float(finish[y, x])}
+            "path_links": links, "path_handoffs": hands,
+            "latency_bound_ms": ms}
 
 
 def h264_timing(name, args):
     """(call, before): the stage's kernel call to time, and what runs
     before it in each timed unit (None: nothing). H4 filters its planes
     in place, so each of its calls first restores the out-slot from the
-    planes kept before the path's call; its time is the unit's less the
-    restore's."""
+    planes kept before the path's call; its kernel's time is the unit's
+    less the restore's, both in CUDA graphs."""
     kernel = getattr(h264_cuda, name)
     if name != "deblock":
         return (lambda: kernel(*args)), None
@@ -4129,6 +4305,81 @@ def h264_timing(name, args):
         restore()
         kernel(*args)
     return call, restore
+
+
+def h264_timed_row(name, call, counts, frames, probe) -> dict:
+    """A stage's kernel at one call of the path (its work and arguments):
+    held to its plain version bit for bit, timed in a CUDA graph and
+    eagerly beside its byte bound, H3 and H4 also beside their
+    wavefront's latency bound. H4's wrapper is timed eagerly only with
+    its restore (`wrapper_with_restore_ms`; its `wrapper_ms` is None):
+    the eager restore alone varies by more than the wrapper's own
+    cost."""
+    size, args = call
+    kernel = getattr(h264_cuda, name)
+    want = h264_run_plain(name, args)
+    if name == "residual":
+        got = kernel(*args)
+    else:
+        got = [p.clone() for p in args[0]]
+        kernel(got, *args[1:])
+    err = h264_max_err(name, got, want)
+    if err:
+        raise AssertionError(f"h264: {name} differs from its plain version "
+                             f"by {err} at a call of work {size}")
+    timed, before = h264_timing(name, args)
+    kernel_ms = device_ms(timed, reps=10, inner=5)
+    wrapper_ms = cuda_ms(timed, reps=5, inner=3)
+    extra = {}
+    if before is not None:
+        kernel_ms -= device_ms(before, reps=10, inner=5)
+        extra["wrapper_with_restore_ms"] = wrapper_ms
+        wrapper_ms = None
+        before()  # the plain version too reads the path's planes
+    row = {"work": size, "max_abs_err": err, "kernel_ms": kernel_ms,
+           "wrapper_ms": wrapper_ms, **extra,
+           "plain_ms": cuda_ms(lambda: h264_run_plain(name, args), reps=1,
+                               inner=1, warmup=0),
+           "bound_ms": h264_bound(name, args), "bound_by": "bytes",
+           "library_ms": None, "launches": counts[name],
+           "launches_per_frame": counts[name] / frames}
+    if name in ("intra_reconstruct", "deblock"):
+        row.update(h264_chain_ms(name, args, probe))
+    return row
+
+
+H264_KERNEL_NAMES = {"residual_kernel": "residual",
+                     "inter_kernel": "inter_predict",
+                     "intra_kernel": "intra_reconstruct",
+                     "deblock_kernel": "deblock"}
+
+
+def h264_stage_ms(path) -> dict:
+    """Device ms of each stage's kernels summed over one decode of `path`
+    and their sum, with the kernel launches the trace holds a stage
+    (torch.profiler: one decode as its warm-up step, then the decode it
+    records)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    traced = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.append(p.key_averages())
+                 ) as prof:
+        for _ in range(2):
+            read_video_frames(path, device=DEV)
+            torch.cuda.synchronize()
+            prof.step()
+    out = {k: 0.0 for k in H264_STAGES}
+    events = {k: 0 for k in H264_STAGES}
+    for e in traced[-1]:
+        for kernel, stage in H264_KERNEL_NAMES.items():
+            if kernel in e.key and e.self_device_time_total > 0:
+                out[stage] += e.self_device_time_total / 1e3
+                events[stage] += e.count
+    out["sum"] = sum(out[k] for k in H264_STAGES)
+    out["kernel_events"] = events
+    return out
 
 
 def h264_phase(t0, work: Path):
@@ -4214,37 +4465,20 @@ def h264_phase(t0, work: Path):
     probe = h264_probe_ms()
     say("h264", t0, "wavefront probe " + json.dumps(probe))
     for name in H264_STAGES:
-        size, args = calls.largest[name]
-        kernel = getattr(h264_cuda, name)
-        want = h264_run_plain(name, args)
-        if name == "residual":
-            got = kernel(*args)
-        else:
-            got = [p.clone() for p in args[0]]
-            kernel(got, *args[1:])
-        err = h264_max_err(name, got, want)
-        call, before = h264_timing(name, args)
-        kernel_ms = device_ms(call, reps=10, inner=5)
-        wrapper_ms = cuda_ms(call, reps=5, inner=3)
-        if before is not None:
-            kernel_ms -= device_ms(before, reps=10, inner=5)
-            wrapper_ms -= cuda_ms(before, reps=5, inner=3)
-            before()  # the plain version too reads the path's planes
-        rows[name] = {
-            "work": size, "max_abs_err": err,
-            "kernel_ms": kernel_ms, "wrapper_ms": wrapper_ms,
-            "plain_ms": cuda_ms(lambda: h264_run_plain(name, args), reps=1,
-                                inner=1, warmup=0),
-            "bound_ms": h264_bound(name, args), "bound_by": "bytes",
-            "library_ms": None, "launches": counts[name],
-            "launches_per_frame": counts[name] / n}
+        rows[name] = h264_timed_row(name, calls.largest[name], counts, n,
+                                    probe)
         if name in ("intra_reconstruct", "deblock"):
-            rows[name].update(h264_chain_ms(name, args, **probe))
+            # the same kernel at the P picture with the most work
+            rows[name]["p_picture"] = h264_timed_row(
+                name, calls.largest_p[name], counts, n, probe)
         say("h264", t0, f"{name} " + json.dumps(rows[name]))
-        if err:
-            raise AssertionError(f"h264: {name} differs from its plain "
-                                 f"version by {err}")
     result["kernels"] = rows
+    stage_ms = h264_stage_ms(paths[H264_720P])
+    result["decode_720p"]["device_ms_by_stage"] = stage_ms
+    result["decode_720p"]["device_share"] = (
+        stage_ms["sum"] / 1e3 / result["decode_720p"]["decode_s"])
+    say("h264", t0, "720p decode's device ms by stage "
+        + json.dumps(stage_ms))
 
     # preprocessing stage 1 on the 720p fixture
     raw, clips = work / "h264_raw", work / "h264_clips"
@@ -5206,8 +5440,17 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": None})  # no PyTorch call computes it
         if "latency_bound_ms" in row:
-            # the wavefront: its longest path's links and row handoffs
+            # the wavefront: its longest path's links and row handoffs;
+            # the same kernel at the P picture with the most work
             kernels[-1]["latency_bound_ms"] = row["latency_bound_ms"]
+            kernels[-1]["p_picture"] = {k: row["p_picture"][k] for k in (
+                "work", "max_abs_err", "kernel_ms", "wrapper_ms",
+                "plain_ms", "bound_ms", "latency_bound_ms")}
+            for part, src in ((kernels[-1], row),
+                              (kernels[-1]["p_picture"], row["p_picture"])):
+                if "wrapper_with_restore_ms" in src:  # H4
+                    part["wrapper_with_restore_ms"] = src[
+                        "wrapper_with_restore_ms"]
     print(f"[total] {time.perf_counter() - t_all:.2f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

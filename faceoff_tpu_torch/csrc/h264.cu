@@ -12,16 +12,21 @@
 //                              chroma, plus the residual; a thread block
 //                              a macroblock, a thread a luma sample
 //   H3 h264_intra_reconstruct  the intra macroblocks of one picture, a
-//                              wavefront: a thread block a macroblock row
-//                              (rows claimed by ticket, so no block waits
-//                              on one that has not started), macroblock
+//                              wavefront: a warp a macroblock row,
+//                              WAVE_ROWS rows a thread block (blocks
+//                              claim rows by ticket, so no block waits on
+//                              one that has not started), macroblock
 //                              (x, y) after the row above has finished
-//                              x + 2; Intra4x4's blocks in decoding order
+//                              x + 2; the macroblock built in shared
+//                              memory, Intra4x4's blocks by sub-waves
 //   H4 h264_deblock            the loop filter of one picture, the same
-//                              wavefront
+//                              wavefront, each lane filtering a line in
+//                              registers
 //
-// Sample reads of H3 and H4 go through L2 (__ldcg): other blocks write
-// the rows above while a block runs. Records (see io/h264.py): mb
+// H3 and H4 are bound by their dependent chains (Intra4x4's blocks, the
+// edges of a line, a handoff where the chain crosses a row), not by
+// bytes: see the notes above the kernels. Samples they read from other
+// rows go through L2 (__ldcg). Records (see io/h264.py): mb
 // (M, 16) int32, blk (M, 16, 4) int32, bmap (M, 27) int32, coef (NB, 16)
 // int16, pcm (NP, 384) uint8.
 //
@@ -38,6 +43,7 @@
 #include <vector>
 
 #ifdef __CUDACC__
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 #endif
 
@@ -728,10 +734,6 @@ __constant__ int c_cqp[52];           // Table 8-15
 
 __device__ __forceinline__ int clip1(int x) { return min(max(x, 0), 255); }
 
-__device__ __forceinline__ int ld(const uint8_t* p) {
-  return int(__ldcg(p));
-}
-
 // H1: one thread a 4x4 block (16 luma, 8 chroma a macroblock)
 __global__ void residual_kernel(const int16_t* __restrict__ coef,
                                 const int32_t* __restrict__ bmap,
@@ -932,40 +934,104 @@ __global__ void inter_kernel(uint8_t* __restrict__ yp,
   }
 }
 
-// the wavefront's bookkeeping: row claimed by ticket; wait until the row
-// above has finished `need` macroblocks; publish this row's progress
-__device__ int claim_row(int* ticket) {
-  __shared__ int row;
-  if (threadIdx.x == 0) row = atomicAdd(ticket, 1);
-  __syncthreads();
-  return row;
-}
+// the wavefronts H3 and H4 (8.3, 8.7): macroblock (x, y) after (x - 1, y)
+// and (x + 1, y - 1), the order in which raster decoding gives each
+// macroblock the neighbours it reads. A warp a macroblock row, ROWS rows
+// a CUDA block; blocks claim their rows by ticket, so no block waits on
+// one that has not started, whatever the residency. A row publishes its
+// progress (how many of its first macroblocks are final) to the next row
+// of its block through shared memory and to the first row of the next
+// block through a counter in global memory: release stores, acquire
+// polls by one lane, the value seen kept so that a later wait it covers
+// costs nothing. Samples a warp reads from another row go through L2
+// (__ldcg).
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WAVE_ROWS = 4;  // the port's rows a block (tools/h264_variants)
+constexpr int kMaxChunks = 64;  // 32-macroblock chunks a row: 32768 px
 
-__device__ void wait_row(const int* progress, int y, int need) {
-  if (y > 0) {
-    if (threadIdx.x == 0) {
-      while (atomicAdd(const_cast<int*>(progress + y - 1), 0) < need) {
+template <int ROWS>
+struct Wave {
+  int* progress;  // global: a counter a row of the picture
+  int* flag;      // shared: a counter a row of the block
+  int y, r;       // the warp's row, and its place in the block
+  int seen;       // the row above's progress as last read
+
+  // until row y - 1 has finished `need` macroblocks
+  __device__ void wait(int need) {
+    if (y == 0 || seen >= need) return;
+    int v = 0;
+    if ((threadIdx.x & 31) == 0) {
+      if (r > 0) {
+        cuda::atomic_ref<int, cuda::thread_scope_block> f(flag[r - 1]);
+        while ((v = f.load(cuda::memory_order_acquire)) < need) {
+        }
+      } else {
+        cuda::atomic_ref<int, cuda::thread_scope_device> f(progress[y - 1]);
+        while ((v = f.load(cuda::memory_order_acquire)) < need)
+          __nanosleep(32);
       }
-      __threadfence();
     }
-    __syncthreads();
+    seen = __shfl_sync(FULL, v, 0);
+    __syncwarp();
   }
-}
 
-__device__ void publish(int* progress, int y, int done) {
-  __threadfence();
+  // the row's first `done` macroblocks final, their samples stored
+  __device__ void publish(int done) const {
+    if (r == ROWS - 1) __threadfence();
+    else __threadfence_block();
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) {
+      if (r == ROWS - 1) {
+        cuda::atomic_ref<int, cuda::thread_scope_device>(progress[y]).store(
+            done, cuda::memory_order_release);
+      } else {
+        cuda::atomic_ref<int, cuda::thread_scope_block>(flag[r]).store(
+            done, cuda::memory_order_release);
+      }
+    }
+  }
+};
+
+// the rows of a block: thread 0 takes the next ticket
+__device__ __forceinline__ int claim_rows(int* ticket, int* s_row, int rows) {
+  if (threadIdx.x == 0) *s_row = atomicAdd(ticket, 1) * rows;
   __syncthreads();
-  if (threadIdx.x == 0) atomicExch(progress + y, done);
+  return *s_row + int(threadIdx.x >> 5);
 }
 
-// intra availability of a neighbour macroblock (8.3.1.2 etc.)
-__device__ bool intra_avail(const int32_t* mb, int mbw, int mbh, int x,
-                            int y, int dx, int dy, int slice, int cip) {
-  int nx = x + dx, ny = y + dy;
-  if (nx < 0 || nx >= mbw || ny < 0 || ny >= mbh) return false;
-  const int32_t* n = mb + int64_t(ny * mbw + nx) * MB_FIELDS;
-  if (n[F_SLICE] != slice) return false;
-  return !(cip && n[F_KIND] <= H_INTER);
+// which of a row's macroblocks the kernel works on: `field` of each
+// record (kind or filter flag) tested by `want`, a bit a macroblock,
+// 32 a word of `masks`; loads of 8 chunks in flight at once
+template <class F>
+__device__ void row_masks(const int32_t* mb, int y, int mbw, int field,
+                          F want, unsigned* masks) {
+  const int lane = threadIdx.x & 31, nch = (mbw + 31) >> 5;
+  for (int c0 = 0; c0 < nch; c0 += 8) {
+    int v[8];
+#pragma unroll
+    for (int j = 0; j < 8; j++) {
+      int x = 32 * (c0 + j) + lane;
+      v[j] = x < mbw ? mb[int64_t(y * mbw + x) * MB_FIELDS + field] : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; j++) {
+      unsigned m = __ballot_sync(FULL, v[j] >= 0 && want(v[j]));
+      if (lane == 0 && c0 + j < nch) masks[c0 + j] = m;
+    }
+  }
+  __syncwarp();
+}
+
+// the first macroblock from `from` on that the row works on, else mbw
+__device__ __forceinline__ int next_work(const unsigned* masks, int from,
+                                         int mbw) {
+  const int nch = (mbw + 31) >> 5;
+  for (int c = from >> 5; c < nch; c++) {
+    unsigned m = masks[c];
+    if (c == from >> 5) m &= ~0u << (from & 31);
+    if (m) return 32 * c + __ffs(m) - 1;
+  }
+  return mbw;
 }
 
 __device__ int dc_pred(int st, int sl, bool top, bool left, int n_log2) {
@@ -975,299 +1041,637 @@ __device__ int dc_pred(int st, int sl, bool top, bool left, int n_log2) {
   return 128;
 }
 
-constexpr int WAVE_THREADS = 64;
+// H3's macroblock in shared memory: luma rows -1..15 by columns -1..19
+// (the row above, its top-right, the left column), chroma rows and
+// columns -1..7 a component; 16-byte aligned rows
+constexpr int TS = 48, TC = 16, CS = 16, CC = 8;
+__device__ __forceinline__ int lt(int row, int col) {
+  return (row + 1) * TS + TC + col;
+}
+__device__ __forceinline__ int ct(int row, int col) {
+  return (row + 1) * CS + CC + col;
+}
+// the 4x4 blocks (raster) whose top-right samples inside the macroblock
+// are decoded before them (6.4.11.4)
+constexpr int kTrInside = 0x5750;
 
-// H3: a thread block a macroblock row
-__global__ void intra_kernel(uint8_t* __restrict__ yp,
-                             uint8_t* __restrict__ up,
-                             uint8_t* __restrict__ vp, int h, int w, int out,
-                             const int32_t* __restrict__ mb,
-                             const uint8_t* __restrict__ pcm, int mbw,
-                             const int16_t* __restrict__ ry,
-                             const int16_t* __restrict__ rc, int* ticket,
-                             int* progress) {
-  int mbh = h / 16;
-  int y = claim_row(ticket);
-  int t = threadIdx.x;
-  int hc = h >> 1, wc = w >> 1;
-  uint8_t* Y = yp + int64_t(out) * h * w;
-  uint8_t* P[2] = {up + int64_t(out) * hc * wc, vp + int64_t(out) * hc * wc};
-  __shared__ int edge[2][20];
-  __shared__ int tl_s[2];
-  for (int x = 0; x < mbw; x++) {
-    wait_row(progress, y, min(x + 2, mbw));
-    const int32_t* row = mb + int64_t(y * mbw + x) * MB_FIELDS;
-    int kind = row[F_KIND];
-    if (kind == H_PCM) {
-      const uint8_t* s = pcm + int64_t(row[F_PCM]) * 384;
-      for (int i = t; i < 256; i += WAVE_THREADS)
-        Y[int64_t(16 * y + (i >> 4)) * w + 16 * x + (i & 15)] = s[i];
-      for (int i = t; i < 128; i += WAVE_THREADS) {
-        int c = i >> 6, k = i & 63;
-        P[c][int64_t(8 * y + (k >> 3)) * wc + 8 * x + (k & 7)] =
-            s[256 + i];
+// H3's inputs for one macroblock, loaded a macroblock ahead: its record
+// (lanes 0-15 a field each), the slice and kind of its left, top and
+// top-right neighbours (lanes 16-21), its residual (16 bytes a lane, and
+// chroma's on lanes 0-15) and, where the macroblock before it is not
+// reconstructed here, its left column (lanes 0-15 luma, 16-31 chroma)
+struct IntraIn {
+  int rec;
+  uint4 ry, rc;
+  uint8_t left;
+};
+
+__device__ __forceinline__ IntraIn intra_in(const int32_t* mb, int mbw,
+                                            int mbh, int x, int y,
+                                            const int16_t* ry,
+                                            const int16_t* rc, int w,
+                                            const uint8_t* Y,
+                                            const uint8_t* U,
+                                            const uint8_t* V, bool left) {
+  const int lane = threadIdx.x & 31, hc = 8 * mbh, wc = w >> 1;
+  IntraIn in;
+  const int32_t* row = mb + int64_t(y * mbw + x) * MB_FIELDS;
+  if (lane < 16) {
+    in.rec = row[lane];
+  } else {
+    // left, top, top-right: slice then kind
+    const int k = lane - 16, n = k >> 1;
+    const int dx = n == 0 ? -1 : n - 1, dy = n == 0 ? 0 : -1;
+    const int nx = x + dx, ny = y + dy;
+    in.rec = k < 6 && nx >= 0 && nx < mbw && ny >= 0
+                 ? mb[int64_t(ny * mbw + nx) * MB_FIELDS +
+                      (k & 1 ? F_KIND : F_SLICE)]
+                 : -1;
+  }
+  in.ry = *reinterpret_cast<const uint4*>(
+      ry + int64_t(16 * y + (lane >> 1)) * w + 16 * x + 8 * (lane & 1));
+  in.rc = lane < 16 ? *reinterpret_cast<const uint4*>(
+                          rc + int64_t(lane >> 3) * hc * wc +
+                          int64_t(8 * y + (lane & 7)) * wc + 8 * x)
+                    : make_uint4(0, 0, 0, 0);
+  in.left = 0;
+  if (left && x > 0) {
+    in.left = lane < 16
+                  ? __ldcg(Y + int64_t(16 * y + lane) * w + 16 * x - 1)
+                  : __ldcg(((lane >> 3) & 1 ? V : U) +
+                           int64_t(8 * y + (lane & 7)) * wc + 8 * x - 1);
+  }
+  return in;
+}
+
+// the samples above a macroblock, p[-1..15, -1] (lanes 0-16) and
+// chroma's p[-1..7, -1] (lanes 0-17, component lane / 9), final once the
+// row above has finished the macroblocks x - 1 and x
+__device__ __forceinline__ uint32_t intra_top(const uint8_t* Y,
+                                              const uint8_t* U,
+                                              const uint8_t* V, int x, int y,
+                                              int w) {
+  const int lane = threadIdx.x & 31, wc = w >> 1;
+  uint32_t v = 0;
+  const int c = lane - 1;
+  if (lane < 17 && 16 * x + c >= 0)
+    v = __ldcg(Y + int64_t(16 * y - 1) * w + 16 * x + c);
+  const int cc = lane >= 9, k = lane - 9 * cc - 1;
+  if (lane < 18 && 8 * x + k >= 0)
+    v |= uint32_t(__ldcg((cc ? V : U) + int64_t(8 * y - 1) * wc + 8 * x + k))
+         << 8;
+  return v;
+}
+
+// H3: a warp a macroblock row. From a ballot over the row's kinds it
+// knows the intra and I_PCM macroblocks it reconstructs, and publishes
+// its progress past the others in one store. A macroblock's record, its
+// neighbours' slices and kinds, its residual and (after an inter
+// macroblock) its left column are loaded while the one before it is
+// reconstructed, and the samples above it just after that one is
+// published. It is built in shared memory: the residual staged and each
+// lane's taps resolved to tile offsets before the dependent steps;
+// chroma (4 samples a lane); then Intra4x4 in its 10 sub-waves (the two
+// blocks of a sub-wave on lanes 0-15 and 16-31, a sample a lane,
+// __syncwarp between), or Intra16x16 (8 samples a lane). Only block
+// (3, 0) reads the macroblock above and to the right, so the wait for
+// that one comes after sub-wave 2. The macroblock goes out in 16- and
+// 8-byte rows. What bounds it is its chain: Intra4x4's 10 steps, each a
+// round of shared loads, the arithmetic and a store, and a handoff
+// where the chain crosses a row.
+template <int ROWS>
+__global__ void __launch_bounds__(32 * ROWS)
+    intra_kernel(uint8_t* __restrict__ yp, uint8_t* __restrict__ up,
+                 uint8_t* __restrict__ vp, int h, int w, int out,
+                 const int32_t* __restrict__ mb,
+                 const uint8_t* __restrict__ pcm, int mbw,
+                 const int16_t* __restrict__ ry,
+                 const int16_t* __restrict__ rc, int* ticket,
+                 int* progress) {
+  __shared__ int s_taps[9 * 16];
+  __shared__ int s_flag[ROWS], s_row;
+  __shared__ unsigned s_work[ROWS][kMaxChunks];
+  __shared__ __align__(16) uint8_t s_y[ROWS][17 * TS];
+  __shared__ __align__(16) uint8_t s_c[ROWS][2][9 * CS];
+  __shared__ __align__(16) int16_t s_ry[ROWS][256];
+  __shared__ __align__(16) int16_t s_rc[ROWS][128];
+  const int t = threadIdx.x, lane = t & 31, r = t >> 5;
+  for (int i = t; i < 9 * 16; i += 32 * ROWS) {
+    // indices i0-i2 into the 13 edge samples, weights w0-w2, rounding,
+    // shift
+    const int* tp = c_taps + i * 8;
+    s_taps[i] = tp[0] | tp[1] << 4 | tp[2] << 8 | tp[3] << 12 |
+                tp[4] << 14 | tp[5] << 16 | tp[6] << 18 | tp[7] << 20;
+  }
+  if (t < ROWS) s_flag[t] = 0;
+  const int mbh = h / 16, y = claim_rows(ticket, &s_row, ROWS);
+  if (y >= mbh) return;
+  Wave<ROWS> wave{progress, s_flag, y, r, 0};
+  const int hc = h >> 1, wc = w >> 1;
+  uint8_t* const Y = yp + int64_t(out) * h * w;
+  uint8_t* const U = up + int64_t(out) * hc * wc;
+  uint8_t* const V = vp + int64_t(out) * hc * wc;
+  uint8_t* const ty = s_y[r];
+  unsigned* const work = s_work[r];
+  const int cl = (lane >> 3) & 1, kl = lane & 7;  // lanes 16-31: chroma rows
+  // this lane's sample in a 4x4 block, and its group's block at sub-wave s
+  const int g = lane >> 4, px = lane & 3, py = (lane >> 2) & 3;
+  row_masks(mb, y, mbw, F_KIND, [](int k) { return k >= H_I4; }, work);
+  int x = next_work(work, 0, mbw), last = -2;
+  if (x > 0) wave.publish(x);
+  IntraIn in;
+  if (x < mbw) in = intra_in(mb, mbw, mbh, x, y, ry, rc, w, Y, U, V, true);
+  uint32_t top = 0;
+  bool top_in = false;  // `top` holds the samples above x
+  while (x < mbw) {
+    const int nx = next_work(work, x + 1, mbw);
+    const IntraIn cur = in;
+    if (nx < mbw)
+      in = intra_in(mb, mbw, mbh, nx, y, ry, rc, w, Y, U, V, nx > x + 1);
+    const int kind = __shfl_sync(FULL, cur.rec, F_KIND);
+    const int x0 = 16 * x, y0 = 16 * y;
+    if (kind == H_PCM) {  // reads no neighbour
+      const uint8_t* s =
+          pcm + int64_t(__shfl_sync(FULL, cur.rec, F_PCM)) * 384;
+      for (int i = 0; i < 8; i++) {
+        int k = 8 * lane + i;
+        ty[lt(k >> 4, k & 15)] = s[k];
       }
-    } else if (kind == H_I4 || kind == H_I16) {
-      int slice = row[F_SLICE], cip = row[F_CIP];
-      bool avA = intra_avail(mb, mbw, mbh, x, y, -1, 0, slice, cip);
-      bool avB = intra_avail(mb, mbw, mbh, x, y, 0, -1, slice, cip);
-      bool avC = intra_avail(mb, mbw, mbh, x, y, 1, -1, slice, cip);
-      bool avD = intra_avail(mb, mbw, mbh, x, y, -1, -1, slice, cip);
-      int x0 = 16 * x, y0 = 16 * y;
-      if (kind == H_I16) {
-        __shared__ int top[16], left[16], tl;
-        if (t < 16) {
-          top[t] = ld(Y + int64_t(max(y0 - 1, 0)) * w + x0 + t);
-          left[t] = ld(Y + int64_t(y0 + t) * w + max(x0 - 1, 0));
-        }
-        if (t == 16) tl = ld(Y + int64_t(max(y0 - 1, 0)) * w + max(x0 - 1, 0));
-        __syncthreads();
-        int mode = row[F_I16];
-        int st = 0, sl = 0, hh = 0, vv = 0;
-        for (int i = 0; i < 16; i++) {
-          st += top[i];
-          sl += left[i];
-        }
-        for (int k = 0; k < 8; k++) {
-          int a = 6 - k >= 0 ? top[6 - k] : tl;
-          int c = 6 - k >= 0 ? left[6 - k] : tl;
-          hh += (k + 1) * (top[8 + k] - a);
-          vv += (k + 1) * (left[8 + k] - c);
-        }
-        int dc = dc_pred(st, sl, avB, avA, 4);
-        int pa = 16 * (left[15] + top[15]);
-        int pb = (5 * hh + 32) >> 6, pc = (5 * vv + 32) >> 6;
-        for (int i = t; i < 256; i += WAVE_THREADS) {
-          int xx = i & 15, yy = i >> 4, p;
-          if (mode == 0) p = top[xx];
-          else if (mode == 1) p = left[yy];
-          else if (mode == 2) p = dc;
-          else p = clip1((pa + pb * (xx - 7) + pc * (yy - 7) + 16) >> 5);
-          int64_t at = int64_t(y0 + yy) * w + x0 + xx;
-          Y[at] = uint8_t(clip1(p + ry[at]));
-        }
-        __syncthreads();
-      } else {
-        uint32_t md[2] = {uint32_t(row[F_MODES]), uint32_t(row[F_MODES_HI])};
-        // top-right inside the macroblock decoded before the block (by > 0)
-        const int TR[16] = {0, 0, 0, 0, 1, 0, 1, 0, 1, 1, 1, 0, 1, 0, 1, 0};
-        __shared__ int e[13];
-        for (int k = 0; k < 16; k++) {
-          const int rast[16] = {0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13, 10, 11,
-                                14, 15};
-          int b = rast[k], bx = b & 3, by = b >> 2;
-          int bx0 = x0 + 4 * bx, by0 = y0 + 4 * by;
-          bool left_av = bx > 0 || avA, top_av = by > 0 || avB;
-          bool tr_av = by == 0 ? (bx == 3 ? avC : avB) : TR[b] == 1;
-          if (t < 13) {
-            int v;
-            if (t < 4) {  // p[-1, 3 - t]
-              v = ld(Y + int64_t(by0 + 3 - t) * w + max(bx0 - 1, 0));
-            } else if (t == 4) {
-              v = ld(Y + int64_t(max(by0 - 1, 0)) * w + max(bx0 - 1, 0));
-            } else {
-              int xx = t - 5;
-              if (xx >= 4 && !tr_av) xx = 3;
-              v = ld(Y + int64_t(max(by0 - 1, 0)) * w + min(bx0 + xx, w - 1));
-            }
-            e[t] = v;
-          }
-          __syncthreads();
-          if (t < 16) {
-            int mode = (md[b >> 3] >> (4 * (b & 7))) & 15;
-            int p;
-            if (mode == 2) {
-              int st = e[5] + e[6] + e[7] + e[8], sl = e[0] + e[1] + e[2] + e[3];
-              p = dc_pred(st, sl, top_av, left_av, 2);
-            } else {
-              const int* tp = c_taps + (mode * 16 + t) * 8;
-              p = (e[tp[0]] * tp[3] + e[tp[1]] * tp[4] + e[tp[2]] * tp[5] +
-                   tp[6]) >> tp[7];
-            }
-            int64_t at = int64_t(by0 + (t >> 2)) * w + bx0 + (t & 3);
-            Y[at] = uint8_t(clip1(p + ry[at]));
-          }
-          __threadfence_block();
-          __syncthreads();
-        }
+      for (int i = 0; i < 4; i++) {
+        int k = 4 * lane + i, c = k >> 6;
+        s_c[r][c][ct((k >> 3) & 7, k & 7)] = s[256 + k];
       }
-      // chroma: both components
-      int cx0 = x0 >> 1, cy0 = y0 >> 1;
-      if (t < 34) {
-        int c = t / 17, k = t % 17;
-        const uint8_t* pl = P[c];
-        int v;
-        if (k < 8) v = ld(pl + int64_t(max(cy0 - 1, 0)) * wc + cx0 + k);
-        else if (k < 16) v = ld(pl + int64_t(cy0 + k - 8) * wc + max(cx0 - 1, 0));
-        else v = ld(pl + int64_t(max(cy0 - 1, 0)) * wc + max(cx0 - 1, 0));
-        if (k < 16) edge[c][k] = v;
-        else tl_s[c] = v;
+      __syncwarp();
+    } else {
+      const int slice = __shfl_sync(FULL, cur.rec, F_SLICE);
+      const int cip = __shfl_sync(FULL, cur.rec, F_CIP);
+      const int mode16 = __shfl_sync(FULL, cur.rec, F_I16);
+      const int cmode = __shfl_sync(FULL, cur.rec, F_CMODE);
+      const uint32_t md0 = __shfl_sync(FULL, cur.rec, F_MODES);
+      const uint32_t md1 = __shfl_sync(FULL, cur.rec, F_MODES_HI);
+      bool av[3];  // A, B, C: in the picture and the slice, not inter
+                   // under constrained_intra_pred
+#pragma unroll
+      for (int n = 0; n < 3; n++) {
+        int ns = __shfl_sync(FULL, cur.rec, 16 + 2 * n);
+        int nk = __shfl_sync(FULL, cur.rec, 17 + 2 * n);
+        av[n] = nk >= 0 && ns == slice && !(cip && nk <= H_INTER);
       }
-      __syncthreads();
-      int cmode = row[F_CMODE];
-      for (int i = t; i < 128; i += WAVE_THREADS) {
-        int c = i >> 6, k = i & 63, xx = k & 7, yy = k >> 3;
-        const int* top = edge[c];
-        const int* left = edge[c] + 8;
-        int p;
+      const bool avA = av[0], avB = av[1], avC = av[2];
+      reinterpret_cast<uint4*>(s_ry[r])[lane] = cur.ry;
+      if (lane < 16) reinterpret_cast<uint4*>(s_rc[r])[lane] = cur.rc;
+      // the left column: this warp's last macroblock's, or loaded ahead
+      uint8_t left = cur.left;
+      if (last == x - 1)
+        left = lane < 16 ? ty[lt(lane, 15)] : s_c[r][cl][ct(kl, 7)];
+      if (lane < 16) ty[lt(lane, -1)] = left;
+      else s_c[r][cl][ct(kl, -1)] = left;
+      if (y > 0) {
+        if (!top_in) {
+          wave.wait(x + 1);
+          top = intra_top(Y, U, V, x, y, w);
+        }
+        if (lane < 17) ty[lt(-1, lane - 1)] = uint8_t(top);
+        if (lane < 18) s_c[r][lane >= 9][ct(-1, lane % 9 - 1)] = uint8_t(top >> 8);
+      }
+      // the top-right, p[16..19, -1], now if it is final, else before
+      // sub-wave 3
+      const bool tr_late = kind == H_I4 && avC && wave.seen < x + 2;
+      if (kind == H_I4 && avC && !tr_late && lane < 4)
+        ty[lt(-1, 16 + lane)] = __ldcg(Y + int64_t(y0 - 1) * w + x0 + 16 + lane);
+      __syncwarp();
+      // chroma: lane l, component l >> 4, row (l >> 1) & 7, 4 samples
+      {
+        const int c = lane >> 4, yy = (lane >> 1) & 7, xx0 = 4 * (lane & 1);
+        const uint8_t* T = s_c[r][c];
+        int v = 0, pa = 0, pb = 0, pc = 0;
         if (cmode == 0) {
-          int cbx = xx >> 2, cby = yy >> 2, st = 0, sl = 0;
+          int cbx = lane & 1, cby = yy >> 2, st = 0, sl = 0;
           for (int j = 0; j < 4; j++) {
-            st += top[4 * cbx + j];
-            sl += left[4 * cby + j];
+            st += T[ct(-1, 4 * cbx + j)];
+            sl += T[ct(4 * cby + j, -1)];
           }
-          if (cbx == cby) p = dc_pred(st, sl, avB, avA, 2);
-          else if (cby == 0) p = avB ? (st + 2) >> 2 : avA ? (sl + 2) >> 2 : 128;
-          else p = avA ? (sl + 2) >> 2 : avB ? (st + 2) >> 2 : 128;
-        } else if (cmode == 1) {
-          p = left[yy];
-        } else if (cmode == 2) {
-          p = top[xx];
-        } else {
+          if (cbx == cby) v = dc_pred(st, sl, avB, avA, 2);
+          else if (cby == 0) v = avB ? (st + 2) >> 2 : avA ? (sl + 2) >> 2 : 128;
+          else v = avA ? (sl + 2) >> 2 : avB ? (st + 2) >> 2 : 128;
+        } else if (cmode == 3) {
           int hh = 0, vv = 0;
           for (int j = 0; j < 4; j++) {
-            int a = 2 - j >= 0 ? top[2 - j] : tl_s[c];
-            int b2 = 2 - j >= 0 ? left[2 - j] : tl_s[c];
-            hh += (j + 1) * (top[4 + j] - a);
-            vv += (j + 1) * (left[4 + j] - b2);
+            hh += (j + 1) * (T[ct(-1, 4 + j)] - T[ct(-1, 2 - j)]);
+            vv += (j + 1) * (T[ct(4 + j, -1)] - T[ct(2 - j, -1)]);
           }
-          int pa = 16 * (left[7] + top[7]);
-          int pb = (34 * hh + 32) >> 6, pc = (34 * vv + 32) >> 6;
-          p = clip1((pa + pb * (xx - 3) + pc * (yy - 3) + 16) >> 5);
+          pa = 16 * (T[ct(7, -1)] + T[ct(-1, 7)]);
+          pb = (34 * hh + 32) >> 6;
+          pc = (34 * vv + 32) >> 6;
         }
-        int64_t at = int64_t(cy0 + yy) * wc + cx0 + xx;
-        P[c][at] = uint8_t(clip1(p + rc[int64_t(c) * hc * wc + at]));
+        uint8_t o4[4];
+        for (int i = 0; i < 4; i++) {
+          int xx = xx0 + i, p;
+          if (cmode == 0) p = v;
+          else if (cmode == 1) p = T[ct(yy, -1)];
+          else if (cmode == 2) p = T[ct(-1, xx)];
+          else p = clip1((pa + pb * (xx - 3) + pc * (yy - 3) + 16) >> 5);
+          o4[i] = uint8_t(clip1(p + s_rc[r][c * 64 + yy * 8 + xx]));
+        }
+        for (int i = 0; i < 4; i++) s_c[r][c][ct(yy, xx0 + i)] = o4[i];
+      }
+      if (kind == H_I16) {
+        const int yy = lane >> 1, xx0 = 8 * (lane & 1);
+        int dc = 0, pa = 0, pb = 0, pc = 0;
+        if (mode16 == 2) {
+          int st = 0, sl = 0;
+          for (int i = 0; i < 16; i++) {
+            st += ty[lt(-1, i)];
+            sl += ty[lt(i, -1)];
+          }
+          dc = dc_pred(st, sl, avB, avA, 4);
+        } else if (mode16 == 3) {  // p[-1, -1] sits at row and column -1
+          int hh = 0, vv = 0;
+          for (int k = 0; k < 8; k++) {
+            hh += (k + 1) * (ty[lt(-1, 8 + k)] - ty[lt(-1, 6 - k)]);
+            vv += (k + 1) * (ty[lt(8 + k, -1)] - ty[lt(6 - k, -1)]);
+          }
+          pa = 16 * (ty[lt(15, -1)] + ty[lt(-1, 15)]);
+          pb = (5 * hh + 32) >> 6;
+          pc = (5 * vv + 32) >> 6;
+        }
+        uint8_t o8[8];
+        for (int i = 0; i < 8; i++) {
+          int xx = xx0 + i, p;
+          if (mode16 == 0) p = ty[lt(-1, xx)];
+          else if (mode16 == 1) p = ty[lt(yy, -1)];
+          else if (mode16 == 2) p = dc;
+          else p = clip1((pa + pb * (xx - 7) + pc * (yy - 7) + 16) >> 5);
+          o8[i] = uint8_t(clip1(p + s_ry[r][yy * 16 + xx]));
+        }
+        for (int i = 0; i < 8; i++) ty[lt(yy, xx0 + i)] = o8[i];
+        __syncwarp();
+      } else {
+        // each sub-wave's sample of this lane: its three tile offsets,
+        // weights, rounding, shift and residual, resolved before the
+        // dependent steps
+        int offs[10], wts[10], res[10];
+#pragma unroll
+        for (int s = 0; s < 10; s++) {
+          const int bx = g ? (s & 1) : (s < 4 ? s : 2 + (s & 1));
+          const int by = (s - bx) >> 1, b = 4 * by + bx;
+          const int mode = ((b >> 3 ? md1 : md0) >> (4 * (b & 7))) & 15;
+          const bool tr_av = by == 0 ? (bx == 3 ? avC : avB)
+                                     : ((kTrInside >> b) & 1);
+          const int o = lt(4 * by, 4 * bx);
+          const int tap = s_taps[mode * 16 + py * 4 + px];
+          int off = 0;
+#pragma unroll
+          for (int j = 0; j < 3; j++) {
+            // E[i]: p[-1, 3 - i] (i < 4), p[-1, -1], p[i - 5, -1]; the
+            // top-right p[3, -1] where it is not available
+            int i = (tap >> (4 * j)) & 15;
+            if (i > 8 && !tr_av) i = 8;
+            off |= (o + (i < 4 ? (3 - i) * TS - 1
+                               : (i == 4 ? -TS - 1 : i - 5 - TS)))
+                   << (10 * j);
+          }
+          offs[s] = off;
+          wts[s] = ((tap >> 12) & 1023) | (mode == 2) << 10 |
+                   (by > 0 || avB) << 11 | (bx > 0 || avA) << 12;
+          res[s] = s_ry[r][(4 * by + py) * 16 + 4 * bx + px];
+        }
+#pragma unroll
+        for (int s = 0; s < 10; s++) {
+          if (s == 3 && tr_late) {
+            wave.wait(x + 2);
+            if (lane < 4)
+              ty[lt(-1, 16 + lane)] =
+                  __ldcg(Y + int64_t(y0 - 1) * w + x0 + 16 + lane);
+            __syncwarp();
+          }
+          const int bx = g ? (s & 1) : (s < 4 ? s : 2 + (s & 1));
+          const int by = (s - bx) >> 1;
+          if (g == 0 || (s >= 2 && s <= 7)) {
+            const int o = lt(4 * by, 4 * bx), wt = wts[s];
+            const int a0 = ty[offs[s] & 1023], a1 = ty[(offs[s] >> 10) & 1023];
+            const int a2 = ty[offs[s] >> 20];
+            int st = 0, sl = 0;
+#pragma unroll
+            for (int i = 0; i < 4; i++) {
+              st += ty[o - TS + i];
+              sl += ty[o + i * TS - 1];
+            }
+            const int p = (wt >> 10) & 1
+                ? dc_pred(st, sl, (wt >> 11) & 1, (wt >> 12) & 1, 2)
+                : (a0 * (wt & 3) + a1 * ((wt >> 2) & 3) +
+                   a2 * ((wt >> 4) & 3) + ((wt >> 6) & 3)) >> ((wt >> 8) & 3);
+            ty[o + py * TS + px] = uint8_t(clip1(p + res[s]));
+          }
+          __syncwarp();
+        }
       }
     }
-    publish(progress, y, x + 1);
+    // the macroblock out in whole rows: luma lanes 0-15, chroma 16-31
+    if (lane < 16)
+      *reinterpret_cast<uint4*>(Y + int64_t(y0 + lane) * w + x0) =
+          *reinterpret_cast<const uint4*>(ty + lt(lane, 0));
+    else
+      *reinterpret_cast<uint2*>((cl ? V : U) + int64_t(8 * y + kl) * wc +
+                                8 * x) =
+          *reinterpret_cast<const uint2*>(s_c[r][cl] + ct(kl, 0));
+    wave.publish(nx);
+    last = x;
+    // the samples above the next macroblock, once the row above has
+    // finished it and the one before it
+    top_in = nx == x + 1 && nx < mbw && y > 0 &&
+             __shfl_sync(FULL, in.rec, F_KIND) != H_PCM;
+    if (top_in) {
+      wave.wait(x + 2);
+      top = intra_top(Y, U, V, nx, y, w);
+    }
+    x = nx;
   }
 }
 
-// bS of the edge between 4x4 luma blocks pb (of macroblock pm) and qb (of
-// qm)
-__device__ int bs_of(const int32_t* mb, const int32_t* blk, int pm, int pb,
-                     int qm, int qb, bool mb_edge) {
-  int kp = mb[int64_t(pm) * MB_FIELDS + F_KIND];
-  int kq = mb[int64_t(qm) * MB_FIELDS + F_KIND];
+// bS (8.7.2.1) of the edge between 4x4 luma blocks p and q (records mv x,
+// mv y, reference slot, total_coeff) of macroblocks of kinds kp and kq
+__device__ __forceinline__ int bs_rule(int kp, int kq, int4 p, int4 q,
+                                       bool mb_edge) {
   if (kp >= H_I4 || kq >= H_I4) return mb_edge ? 4 : 3;
-  const int32_t* p = blk + (int64_t(pm) * 16 + pb) * BLK_FIELDS;
-  const int32_t* q = blk + (int64_t(qm) * 16 + qb) * BLK_FIELDS;
-  if (p[3] != 0 || q[3] != 0) return 2;
-  if (p[2] != q[2] || abs(p[0] - q[0]) >= 4 || abs(p[1] - q[1]) >= 4)
-    return 1;
+  if (p.w != 0 || q.w != 0) return 2;
+  if (p.z != q.z || abs(p.x - q.x) >= 4 || abs(p.y - q.y) >= 4) return 1;
   return 0;
 }
 
-// 8.7.2.3-4 on one line of 8 samples at `at`, `step` apart
-__device__ void filter_line(uint8_t* pl, int64_t at, int64_t step, int bs,
-                            int qpav, int off_a, int off_b, bool chroma) {
-  int v[8];
-  for (int i = 0; i < 8; i++) v[i] = ld(pl + at + (i - 4) * step);
-  int p3 = v[0], p2 = v[1], p1 = v[2], p0 = v[3];
-  int q0 = v[4], q1 = v[5], q2 = v[6], q3 = v[7];
-  int ia = min(max(qpav + off_a, 0), 51), ib = min(max(qpav + off_b, 0), 51);
-  int alpha = c_alpha[ia], beta = c_beta[ib];
-  if (!(bs > 0 && abs(p0 - q0) < alpha && abs(p1 - p0) < beta &&
-        abs(q1 - q0) < beta))
-    return;
-  bool ap = !chroma && abs(p2 - p0) < beta;
-  bool aq = !chroma && abs(q2 - q0) < beta;
-  int o[6] = {p2, p1, p0, q0, q1, q2};
-  if (bs < 4) {
-    int tc0 = c_tc0[ia * 3 + bs - 1];
-    int tc = chroma ? tc0 + 1 : tc0 + ap + aq;
-    int delta = min(max((((q0 - p0) << 2) + (p1 - q1) + 4) >> 3, -tc), tc);
-    o[2] = clip1(p0 + delta);
-    o[3] = clip1(q0 - delta);
-    int mid = (p0 + q0 + 1) >> 1;
-    if (ap) o[1] = p1 + min(max((p2 + mid - (p1 << 1)) >> 1, -tc0), tc0);
-    if (aq) o[4] = q1 + min(max((q2 + mid - (q1 << 1)) >> 1, -tc0), tc0);
-  } else {
-    bool small = abs(p0 - q0) < ((alpha >> 2) + 2);
-    if (ap && small) {
-      o[2] = (p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3;
-      o[1] = (p2 + p1 + p0 + q0 + 2) >> 2;
-      o[0] = (2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3;
-    } else {
-      o[2] = (2 * p1 + p0 + q1 + 2) >> 2;
-    }
-    if (aq && small) {
-      o[3] = (p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3;
-      o[4] = (p0 + q0 + q1 + q2 + 2) >> 2;
-      o[5] = (2 * q3 + 3 * q2 + q1 + q0 + p0 + 4) >> 3;
-    } else {
-      o[3] = (2 * q1 + q0 + p1 + 2) >> 2;
-    }
-  }
-  for (int i = 0; i < 6; i++) pl[at + (i - 3) * step] = uint8_t(o[i]);
+__device__ __forceinline__ int4 shfl4(int4 v, int src) {
+  return make_int4(__shfl_sync(FULL, v.x, src), __shfl_sync(FULL, v.y, src),
+                   __shfl_sync(FULL, v.z, src), __shfl_sync(FULL, v.w, src));
 }
 
-// H4: a thread block a macroblock row; per macroblock the vertical edges,
-// then the horizontal ones, luma (threads 0-15, a line each) beside
-// chroma's edges 0 and 4 (threads 16-31: 8 lines of Cb, 8 of Cr)
-__global__ void deblock_kernel(uint8_t* __restrict__ yp,
-                               uint8_t* __restrict__ up,
-                               uint8_t* __restrict__ vp, int h, int w,
-                               int out, const int32_t* __restrict__ mb,
-                               const int32_t* __restrict__ blk, int mbw,
-                               int* ticket, int* progress) {
-  int y = claim_row(ticket);
-  int t = threadIdx.x;
-  int hc = h >> 1, wc = w >> 1;
-  uint8_t* Y = yp + int64_t(out) * h * w;
-  uint8_t* P[2] = {up + int64_t(out) * hc * wc, vp + int64_t(out) * hc * wc};
-  for (int x = 0; x < mbw; x++) {
-    wait_row(progress, y, min(x + 2, mbw));
-    int q = y * mbw + x;
-    const int32_t* row = mb + int64_t(q) * MB_FIELDS;
-    if (row[F_FILTER] == 0) {
-      for (int dir = 0; dir < 2; dir++) {
-        for (int e = 0; e < 4; e++) {
-          if (e == 0 && (dir == 0 ? x == 0 : y == 0)) continue;
-          int pm = e > 0 ? q : (dir == 0 ? q - 1 : q - mbw);
-          const int32_t* prow = mb + int64_t(pm) * MB_FIELDS;
-          int qp_p = prow[F_KIND] == H_PCM ? 0 : prow[F_QP];
-          int qp_q = row[F_KIND] == H_PCM ? 0 : row[F_QP];
-          if (t < 16) {
-            int line = t, pb, qb;
-            if (dir == 0) {
-              qb = (line >> 2) * 4 + e;
-              pb = (line >> 2) * 4 + ((e + 3) & 3);
-            } else {
-              qb = e * 4 + (line >> 2);
-              pb = ((e + 3) & 3) * 4 + (line >> 2);
-            }
-            int bs = bs_of(mb, blk, pm, pb, q, qb, e == 0);
-            int64_t at = dir == 0
-                ? int64_t(16 * y + line) * w + 16 * x + 4 * e
-                : int64_t(16 * y + 4 * e) * w + 16 * x + line;
-            filter_line(Y, at, dir == 0 ? 1 : w, bs, (qp_p + qp_q + 1) >> 1,
-                        row[F_ALPHA], row[F_BETA], false);
-          } else if (t < 32 && (e & 1) == 0) {
-            int c = (t - 16) >> 3, k = (t - 16) & 7;
-            int line = 2 * k, pb, qb;
-            if (dir == 0) {
-              qb = (line >> 2) * 4 + e;
-              pb = (line >> 2) * 4 + ((e + 3) & 3);
-            } else {
-              qb = e * 4 + (line >> 2);
-              pb = ((e + 3) & 3) * 4 + (line >> 2);
-            }
-            int bs = bs_of(mb, blk, pm, pb, q, qb, e == 0);
-            int cp = c_cqp[min(max(qp_p + prow[F_QPC], 0), 51)];
-            int cq = c_cqp[min(max(qp_q + row[F_QPC], 0), 51)];
-            int64_t at = dir == 0
-                ? int64_t(8 * y + k) * wc + 8 * x + 2 * e
-                : int64_t(8 * y + 2 * e) * wc + 8 * x + k;
-            filter_line(P[c], at, dir == 0 ? 1 : wc, bs, (cp + cq + 1) >> 1,
-                        row[F_ALPHA], row[F_BETA], true);
-          }
-          __threadfence_block();
-          __syncthreads();
-        }
-      }
+// an edge's line parameters, packed: alpha, beta, tC0 a byte each, bS
+__device__ __forceinline__ int edge_param(int bs, int qpav, int off_a,
+                                          int off_b, const int* s_alpha,
+                                          const int* s_beta,
+                                          const int* s_tc0) {
+  if (bs == 0) return 0;
+  int ia = min(max(qpav + off_a, 0), 51), ib = min(max(qpav + off_b, 0), 51);
+  int tc0 = bs < 4 ? s_tc0[ia * 3 + bs - 1] : 0;
+  return s_alpha[ia] | s_beta[ib] << 8 | tc0 << 16 | bs << 24;
+}
+
+// 8.7.2.3-4 across the edge between v[P - 1] and v[P] of a line in
+// registers
+template <int P>
+__device__ __forceinline__ void filter_at(int (&v)[20], int prm,
+                                          bool chroma) {
+  const int bs = prm >> 24;
+  if (bs == 0) return;
+  const int alpha = prm & 255, beta = (prm >> 8) & 255,
+            tc0 = (prm >> 16) & 255;
+  const int p3 = v[P - 4], p2 = v[P - 3], p1 = v[P - 2], p0 = v[P - 1];
+  const int q0 = v[P], q1 = v[P + 1], q2 = v[P + 2], q3 = v[P + 3];
+  if (!(abs(p0 - q0) < alpha && abs(p1 - p0) < beta && abs(q1 - q0) < beta))
+    return;
+  const bool ap = !chroma && abs(p2 - p0) < beta;
+  const bool aq = !chroma && abs(q2 - q0) < beta;
+  if (bs < 4) {
+    int tc = chroma ? tc0 + 1 : tc0 + ap + aq;
+    int delta = min(max((((q0 - p0) << 2) + (p1 - q1) + 4) >> 3, -tc), tc);
+    v[P - 1] = clip1(p0 + delta);
+    v[P] = clip1(q0 - delta);
+    int mid = (p0 + q0 + 1) >> 1;
+    if (ap) v[P - 2] = p1 + min(max((p2 + mid - (p1 << 1)) >> 1, -tc0), tc0);
+    if (aq) v[P + 1] = q1 + min(max((q2 + mid - (q1 << 1)) >> 1, -tc0), tc0);
+  } else {
+    const bool small = abs(p0 - q0) < ((alpha >> 2) + 2);
+    if (ap && small) {
+      v[P - 1] = (p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3;
+      v[P - 2] = (p2 + p1 + p0 + q0 + 2) >> 2;
+      v[P - 3] = (2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3;
+    } else {
+      v[P - 1] = (2 * p1 + p0 + q1 + 2) >> 2;
     }
-    publish(progress, y, x + 1);
+    if (aq && small) {
+      v[P] = (p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3;
+      v[P + 1] = (p0 + q0 + q1 + q2 + 2) >> 2;
+      v[P + 2] = (2 * q3 + 3 * q2 + q1 + q0 + p0 + 4) >> 3;
+    } else {
+      v[P] = (2 * q1 + q0 + p1 + 2) >> 2;
+    }
+  }
+}
+
+__device__ __forceinline__ void unpack(uint32_t word, int* v) {
+  for (int i = 0; i < 4; i++) v[i] = (word >> (8 * i)) & 255;
+}
+__device__ __forceinline__ uint32_t pack(const int* v) {
+  return uint32_t(v[0]) | uint32_t(v[1]) << 8 | uint32_t(v[2]) << 16 |
+         uint32_t(v[3]) << 24;
+}
+
+// H4's inputs for one macroblock, loaded a macroblock ahead: its record
+// (lanes 0-15 a field each) and the kind, QP and chroma QP offset of its
+// left and top neighbours (lanes 16-21); the block records of its 4x4
+// blocks (lanes 0-15), of the left one's column 3 (16-19) and of the top
+// one's row 3 (20-23); this lane's line of its samples, and, where the
+// macroblock before it is not filtered here, the 4 samples left of it
+struct DeblockIn {
+  int rec;
+  int4 blk;
+  uint4 own;
+  uint32_t left;
+};
+
+__device__ __forceinline__ DeblockIn deblock_in(const int32_t* mb,
+                                                const int32_t* blk, int mbw,
+                                                int x, int y, uint8_t* own,
+                                                bool chroma, bool left) {
+  const int lane = threadIdx.x & 31, m = y * mbw + x;
+  DeblockIn in;
+  if (lane < 16) {
+    in.rec = mb[int64_t(m) * MB_FIELDS + lane];
+  } else {
+    const int k = lane - 16, n = k < 3 ? m - 1 : m - mbw;
+    const bool ok = k < 6 && (k < 3 ? x > 0 : y > 0);
+    in.rec = ok ? mb[int64_t(n) * MB_FIELDS + (k % 3 == 0 ? F_KIND
+                                               : k % 3 == 1 ? F_QP : F_QPC)]
+                : 0;
+  }
+  int sm = -1, sb = 0;
+  if (lane < 16) sm = m, sb = lane;
+  else if (lane < 20 && x > 0) sm = m - 1, sb = 4 * (lane - 16) + 3;
+  else if (lane >= 20 && lane < 24 && y > 0) sm = m - mbw, sb = 12 + lane - 20;
+  in.blk = sm >= 0 ? __ldg(reinterpret_cast<const int4*>(
+                         blk + (int64_t(sm) * 16 + sb) * BLK_FIELDS))
+                   : make_int4(0, 0, 0, 0);
+  if (chroma) {
+    uint2 b = __ldcg(reinterpret_cast<const uint2*>(own));
+    in.own = make_uint4(b.x, b.y, 0, 0);
+  } else {
+    in.own = __ldcg(reinterpret_cast<const uint4*>(own));
+  }
+  in.left = left && x > 0 ? __ldcg(reinterpret_cast<const uint32_t*>(own - 4))
+                          : 0;
+  return in;
+}
+
+// H4: a warp a macroblock row, the same wavefront. Lane l < 16 holds luma
+// line l, lane 16 + 8c + k chroma line k of component c: first a row (the
+// left macroblock's last 4 samples, then 16 or 8 of its own) for the
+// vertical edges, then, after one transpose through shared memory, a
+// column (the 4 samples above, then its own) for the horizontal ones;
+// each lane filters its edges in order in registers. From a ballot over
+// the row's filter flags it knows the macroblocks it filters and
+// publishes its progress past the others in one store. A macroblock's
+// records, block records and samples are loaded while the one before it
+// is filtered; its edges' parameters come from them before any wait
+// (lanes 0-15 each the bS of its 4x4 block's left and top edges, block
+// records passed by shuffles; each lane then takes its lines' bS, alpha,
+// beta and tC0, the tables in shared memory). The vertical edges read
+// nothing of the row above, so the wait for the macroblocks above (and
+// above and to the right, whose left edge changes samples above this
+// one) comes after them, unless the row above is known to have passed
+// them and the samples above are loaded first. Samples out in 16- and
+// 8-byte rows. What bounds it is its chain: 8 edges a line, two
+// transposes and a handoff where the chain crosses a row.
+template <int ROWS>
+__global__ void __launch_bounds__(32 * ROWS)
+    deblock_kernel(uint8_t* __restrict__ yp, uint8_t* __restrict__ up,
+                   uint8_t* __restrict__ vp, int h, int w, int out,
+                   const int32_t* __restrict__ mb,
+                   const int32_t* __restrict__ blk, int mbw, int* ticket,
+                   int* progress) {
+  __shared__ int s_alpha[52], s_beta[52], s_tc0[52 * 3], s_cqp[52];
+  __shared__ int s_flag[ROWS], s_row;
+  __shared__ unsigned s_work[ROWS][kMaxChunks];
+  __shared__ __align__(16) uint8_t s_t[ROWS][384];
+  const int t = threadIdx.x, lane = t & 31, r = t >> 5;
+  for (int i = t; i < 52 * 3; i += 32 * ROWS) {
+    s_tc0[i] = c_tc0[i];
+    if (i < 52) {
+      s_alpha[i] = c_alpha[i];
+      s_beta[i] = c_beta[i];
+      s_cqp[i] = c_cqp[i];
+    }
+  }
+  if (t < ROWS) s_flag[t] = 0;
+  const int mbh = h / 16, y = claim_rows(ticket, &s_row, ROWS);
+  if (y >= mbh) return;
+  Wave<ROWS> wave{progress, s_flag, y, r, 0};
+  const int hc = h >> 1, wc = w >> 1;
+  const bool chroma = lane >= 16;
+  const int li = lane & 15, c = li >> 3, k = lane & 7;
+  // this lane's plane, and the row and column of its line
+  uint8_t* const pl = chroma ? (c ? vp : up) + int64_t(out) * hc * wc
+                             : yp + int64_t(out) * h * w;
+  const int pw = chroma ? wc : w, n = chroma ? 8 : 16;
+  const int line = chroma ? k : li;
+  uint8_t* const tile = s_t[r] + (chroma ? 256 + 64 * c : 0);
+  unsigned* const work = s_work[r];
+  auto own_at = [&](int xx) { return pl + int64_t(n * y + line) * pw + n * xx; };
+  row_masks(mb, y, mbw, F_FILTER, [](int f) { return f == 0; }, work);
+  int x = next_work(work, 0, mbw), last = -2;
+  if (x > 0) wave.publish(x);
+  DeblockIn in;
+  if (x < mbw) in = deblock_in(mb, blk, mbw, x, y, own_at(x), chroma, true);
+  uint32_t keep = 0;
+  while (x < mbw) {
+    const int nx = next_work(work, x + 1, mbw);
+    const DeblockIn cur = in;
+    if (nx < mbw)
+      in = deblock_in(mb, blk, mbw, nx, y, own_at(nx), chroma, nx > x + 1);
+    // the edges' parameters
+    const int kq = __shfl_sync(FULL, cur.rec, F_KIND);
+    const int qpq = kq == H_PCM ? 0 : __shfl_sync(FULL, cur.rec, F_QP);
+    const int cqq = s_cqp[min(max(qpq + __shfl_sync(FULL, cur.rec, F_QPC), 0), 51)];
+    const int off_a = __shfl_sync(FULL, cur.rec, F_ALPHA);
+    const int off_b = __shfl_sync(FULL, cur.rec, F_BETA);
+    const int kl = __shfl_sync(FULL, cur.rec, 16), kt = __shfl_sync(FULL, cur.rec, 19);
+    const int qpl = kl == H_PCM ? 0 : __shfl_sync(FULL, cur.rec, 17);
+    const int qpt = kt == H_PCM ? 0 : __shfl_sync(FULL, cur.rec, 20);
+    const int cql = s_cqp[min(max(qpl + __shfl_sync(FULL, cur.rec, 18), 0), 51)];
+    const int cqt = s_cqp[min(max(qpt + __shfl_sync(FULL, cur.rec, 21), 0), 51)];
+    const int bx = li & 3, by = li >> 2;
+    const int4 rl = shfl4(cur.blk, bx ? lane - 1 : 16 + by);
+    const int4 rt = shfl4(cur.blk, by ? lane - 4 : 20 + bx);
+    const int bsv = bx == 0 && x == 0 ? 0 : bs_rule(bx ? kq : kl, kq, rl, cur.blk, bx == 0);
+    const int bsh = by == 0 && y == 0 ? 0 : bs_rule(by ? kq : kt, kq, rt, cur.blk, by == 0);
+    const int both = bsv | bsh << 4;
+    int pv[4], ph[4];
+#pragma unroll
+    for (int j = 0; j < 4; j++) {
+      // luma line l: block row l >> 2, edge j; chroma line k: luma line
+      // 2k's edges 0 and 2 (its edges 0 and 4)
+      const int sv = chroma ? 4 * (k >> 1) + 2 * (j & 1) : 4 * (li >> 2) + j;
+      const int sh = chroma ? 8 * (j & 1) + (k >> 1) : 4 * j + (li >> 2);
+      int bv = __shfl_sync(FULL, both, sv) & 15;
+      int bh = (__shfl_sync(FULL, both, sh) >> 4) & 15;
+      if (chroma && j >= 2) bv = bh = 0;
+      const int qv = j ? (chroma ? cqq : qpq)
+                       : chroma ? (cql + cqq + 1) >> 1 : (qpl + qpq + 1) >> 1;
+      const int qh = j ? (chroma ? cqq : qpq)
+                       : chroma ? (cqt + cqq + 1) >> 1 : (qpt + qpq + 1) >> 1;
+      pv[j] = edge_param(bv, qv, off_a, off_b, s_alpha, s_beta, s_tc0);
+      ph[j] = edge_param(bh, qh, off_a, off_b, s_alpha, s_beta, s_tc0);
+    }
+    // the line: the left macroblock's last 4 samples (this warp's, or
+    // loaded ahead), then its own
+    int v[20];
+    unpack(last == x - 1 ? keep : cur.left, v);
+    unpack(cur.own.x, v + 4);
+    unpack(cur.own.y, v + 8);
+    unpack(cur.own.z, v + 12);
+    unpack(cur.own.w, v + 16);
+    uint8_t* const own = own_at(x);
+    // the 4 samples above this lane's column, final once the row above
+    // has finished x + 1 too (its left edge changes columns 13-15,
+    // chroma's 7): loaded now if it has, else after the vertical edges
+    uint32_t above = 0;
+    const uint8_t* const a = pl + int64_t(n * y - 4) * pw + n * x + line;
+    const bool early = y > 0 && wave.seen >= min(x + 2, mbw);
+    if (early)
+      for (int i = 0; i < 4; i++)
+        above |= uint32_t(__ldcg(a + i * pw)) << (8 * i);
+    filter_at<4>(v, pv[0], chroma);
+    filter_at<8>(v, pv[1], chroma);
+    filter_at<12>(v, pv[2], chroma);
+    filter_at<16>(v, pv[3], chroma);
+    if (x > 0) *reinterpret_cast<uint32_t*>(own - 4) = pack(v);
+    // transpose: rows in, columns out
+    if (chroma) {
+      *reinterpret_cast<uint2*>(tile + 8 * line) = make_uint2(pack(v + 4), pack(v + 8));
+    } else {
+      *reinterpret_cast<uint4*>(tile + 16 * line) =
+          make_uint4(pack(v + 4), pack(v + 8), pack(v + 12), pack(v + 16));
+    }
+    __syncwarp();
+    for (int i = 0; i < 16; i++) v[4 + i] = i < n ? tile[n * i + line] : 0;
+    if (y > 0 && !early) {
+      wave.wait(min(x + 2, mbw));
+      for (int i = 0; i < 4; i++)
+        above |= uint32_t(__ldcg(a + i * pw)) << (8 * i);
+    }
+    unpack(above, v);
+    __syncwarp();
+    filter_at<4>(v, ph[0], chroma);
+    filter_at<8>(v, ph[1], chroma);
+    filter_at<12>(v, ph[2], chroma);
+    filter_at<16>(v, ph[3], chroma);
+    if (y > 0) {
+      uint8_t* const b = pl + int64_t(n * y - 3) * pw + n * x + line;
+      for (int i = 0; i < 3; i++) b[i * pw] = uint8_t(v[1 + i]);
+    }
+    for (int i = 0; i < 16; i++)
+      if (i < n) tile[n * i + line] = uint8_t(v[4 + i]);
+    __syncwarp();
+    if (chroma) {
+      uint2 b = *reinterpret_cast<const uint2*>(tile + 8 * line);
+      *reinterpret_cast<uint2*>(own) = b;
+      keep = b.y;
+    } else {
+      uint4 b = *reinterpret_cast<const uint4*>(tile + 16 * line);
+      *reinterpret_cast<uint4*>(own) = b;
+      keep = b.w;
+    }
+    wave.publish(nx);
+    last = x;
+    x = nx;
   }
 }
 
@@ -1315,22 +1719,26 @@ int h264_intra_reconstruct(uint8_t* y, uint8_t* u, uint8_t* v, int h, int w,
                            int out, const int32_t* mb, const uint8_t* pcm,
                            int mbw, const int16_t* ry, const int16_t* rc,
                            int* sync, cudaStream_t stream) {
+  if (mbw > 32 * kMaxChunks) return status(cudaErrorInvalidValue);
   int rows = h / 16;
   cudaError_t e = cudaMemsetAsync(sync, 0, sizeof(int) * (1 + rows), stream);
   if (e != cudaSuccess) return status(e);
-  intra_kernel<<<rows, WAVE_THREADS, 0, stream>>>(y, u, v, h, w, out, mb, pcm,
-                                                  mbw, ry, rc, sync, sync + 1);
+  intra_kernel<WAVE_ROWS>
+      <<<(rows + WAVE_ROWS - 1) / WAVE_ROWS, 32 * WAVE_ROWS, 0, stream>>>(
+          y, u, v, h, w, out, mb, pcm, mbw, ry, rc, sync, sync + 1);
   return status(cudaGetLastError());
 }
 
 int h264_deblock(uint8_t* y, uint8_t* u, uint8_t* v, int h, int w, int out,
                  const int32_t* mb, const int32_t* blk, int mbw, int* sync,
                  cudaStream_t stream) {
+  if (mbw > 32 * kMaxChunks) return status(cudaErrorInvalidValue);
   int rows = h / 16;
   cudaError_t e = cudaMemsetAsync(sync, 0, sizeof(int) * (1 + rows), stream);
   if (e != cudaSuccess) return status(e);
-  deblock_kernel<<<rows, WAVE_THREADS, 0, stream>>>(y, u, v, h, w, out, mb,
-                                                    blk, mbw, sync, sync + 1);
+  deblock_kernel<WAVE_ROWS>
+      <<<(rows + WAVE_ROWS - 1) / WAVE_ROWS, 32 * WAVE_ROWS, 0, stream>>>(
+          y, u, v, h, w, out, mb, blk, mbw, sync, sync + 1);
   return status(cudaGetLastError());
 }
 

@@ -21,12 +21,22 @@ They replace the H.264 decode that the JAX package hands to cv2's FFmpeg
 on the host; no TPU kernel and no PyTorch call computes them. All four
 are integer arithmetic, so each kernel equals its plain version bit for
 bit. H3 and H4 run macroblock (x, y) after (x - 1, y) and (x + 1, y - 1),
-the order in which raster decoding gives each macroblock's neighbours:
-the kernels as one thread block a macroblock row, each row claimed by a
-ticket so that no block waits on one that is not running, and spinning
-on the row above's progress counter; the plain versions by anti-diagonal
-waves x + 2y, and inside a wave Intra4x4's blocks by sub-waves
-bx + 2by.
+the order in which raster decoding gives each macroblock its neighbours.
+The plain versions run that order by anti-diagonal waves x + 2y, and
+inside a wave Intra4x4's blocks by sub-waves bx + 2by. The kernels run a
+warp a macroblock row, `csrc/h264.cu`'s WAVE_ROWS rows a thread block
+(rows claimed by ticket, so that no block waits on one that is not
+running); a row hands its progress to the next through shared memory
+inside a block and through an acquire/release counter in global memory
+between blocks, past each run of macroblocks it has nothing to do for
+in one store. What bounds them is their dependent chain: a macroblock's
+steps in order (Intra4x4's 10 sub-waves, two blocks a step; H4's 8
+edges) and a handoff where the chain crosses a row. So each step stays
+in the warp: H3 builds its macroblock in shared memory (the row above,
+the left column, the residual staged before the wait), H4 filters lines
+held in registers, a row for the vertical edges and, after one transpose
+through shared memory, a column for the horizontal ones; both store
+whole rows of 16 and 8 bytes. The planes must be 16-byte aligned.
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. `launches` counts the kernel launches of
@@ -60,6 +70,10 @@ BLK_FIELDS = 4
 # coded blocks a macroblock: 16 luma, the Intra16x16 DC, two chroma DC,
 # 2 x 4 chroma AC
 NBLK = 27
+
+# the widest picture H3 and H4 take, in macroblocks (csrc/h264.cu's
+# kMaxChunks words of 32 macroblocks a row)
+MAX_MB_WIDTH = 2048
 
 # kernel launches made through the wrappers in this process
 launches: Dict[str, int] = {"residual": 0, "inter_predict": 0,
@@ -873,6 +887,18 @@ def _planes_ok(planes: Sequence[torch.Tensor], what: str) -> None:
             raise ValueError(f"{what}: the kernel takes contiguous planes")
 
 
+def _wave_ok(tensors: Sequence[torch.Tensor], mb_width: int) -> None:
+    """H3 and H4 move 16- and 8-byte rows of the planes, residuals and
+    block records, and keep a bit a macroblock of a row for at most
+    MAX_MB_WIDTH."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the kernel takes 16-byte aligned planes, "
+                         "residuals and block records")
+    if mb_width > MAX_MB_WIDTH:
+        raise ValueError(f"the kernel takes pictures up to {MAX_MB_WIDTH} "
+                         f"macroblocks wide, not {mb_width}")
+
+
 # --- the kernels' wrappers ---------------------------------------------------------
 
 def residual(coef: torch.Tensor, bmap: torch.Tensor, mb: torch.Tensor,
@@ -938,6 +964,8 @@ def intra_reconstruct(planes: Sequence[torch.Tensor], out: int,
     for t, n in ((mb, "mb"), (pcm, "pcm"), (res_y, "res_y"),
                  (res_c, "res_c")):
         _cuda_check(t, n)
+    res_y, res_c = res_y.contiguous(), res_c.contiguous()
+    _wave_ok([*planes, res_y, res_c], mb_width)
     dev = planes[0].device
     lib = _load_for(dev)
     h, w = planes[0].shape[1:]
@@ -946,8 +974,8 @@ def intra_reconstruct(planes: Sequence[torch.Tensor], out: int,
         status = lib.h264_intra_reconstruct(
             *(p.data_ptr() for p in planes), h, w, out,
             mb.contiguous().data_ptr(), pcm.contiguous().data_ptr(),
-            mb_width, res_y.contiguous().data_ptr(),
-            res_c.contiguous().data_ptr(), sync.data_ptr(), _stream(dev))
+            mb_width, res_y.data_ptr(), res_c.data_ptr(), sync.data_ptr(),
+            _stream(dev))
     _count("intra_reconstruct", status)
     return None
 
@@ -960,6 +988,8 @@ def deblock(planes: Sequence[torch.Tensor], out: int, mb: torch.Tensor,
     _planes_ok(planes, "planes")
     for t, n in ((mb, "mb"), (blk, "blk")):
         _cuda_check(t, n)
+    blk = blk.contiguous()
+    _wave_ok([*planes, blk], mb_width)
     dev = planes[0].device
     lib = _load_for(dev)
     h, w = planes[0].shape[1:]
@@ -967,8 +997,8 @@ def deblock(planes: Sequence[torch.Tensor], out: int, mb: torch.Tensor,
     with torch.cuda.device(dev):
         status = lib.h264_deblock(
             *(p.data_ptr() for p in planes), h, w, out,
-            mb.contiguous().data_ptr(), blk.contiguous().data_ptr(),
-            mb_width, sync.data_ptr(), _stream(dev))
+            mb.contiguous().data_ptr(), blk.data_ptr(), mb_width,
+            sync.data_ptr(), _stream(dev))
     _count("deblock", status)
     return None
 

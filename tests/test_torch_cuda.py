@@ -1914,13 +1914,16 @@ def test_h264_inter_predict_adversarial(cuda, mbw, mbh):
 
 
 @pytest.mark.parametrize("seed,mbw,mbh,cip,slices", [
-    (1, 80, 45, 0, 1), (2, 80, 45, 1, 7), (3, 9, 4, 0, 36), (4, 7, 7, 1, 1)])
+    (1, 80, 45, 0, 1), (2, 80, 45, 1, 7), (3, 9, 4, 0, 36), (4, 7, 7, 1, 1),
+    (5, 37, 1, 0, 1), (6, 23, 2, 1, 3), (7, 120, 68, 0, 5),
+    (8, 13, 45, 1, 2)])
 def test_h264_intra_reconstruct_adversarial(cuda, seed, mbw, mbh, cip,
                                             slices):
     """H3 on random pictures of every intra mode the neighbours allow,
     I_PCM, inter macroblocks, slices (36 of one macroblock each: nothing
-    is available) and constrained intra prediction, a 720p picture among
-    them: bit for bit."""
+    is available) and constrained intra prediction, a 720p and a
+    1920x1088 picture among them, and heights of 1, 2 and 45 macroblock
+    rows (not multiples of the rows a thread block): bit for bit."""
     from test_torch_h264_kernels import _intra_case
     from faceoff_tpu_torch.ops import h264_cuda as K
 
@@ -1932,6 +1935,85 @@ def test_h264_intra_reconstruct_adversarial(cuda, seed, mbw, mbh, cip,
     K.intra_reconstruct(got, 0, *args, mbw)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("seed,mbw,mbh,cip", [(1, 80, 45, 0), (2, 80, 45, 1),
+                                             (3, 120, 68, 1), (4, 41, 9, 0),
+                                             (5, 2048, 2, 0)])
+def test_h264_intra_reconstruct_sparse_p(cuda, seed, mbw, mbh, cip):
+    """H3 on P pictures: runs of 20-300 inter and skipped macroblocks
+    (whole rows among them) between single intra or I_PCM ones and short
+    runs of them, with and without constrained intra prediction, rows of
+    MAX_MB_WIDTH = 2048 macroblocks (every word of H3's row masks) among
+    them: bit for bit."""
+    from test_torch_h264_kernels import _intra_case
+    from faceoff_tpu_torch.ops import h264_cuda as K
+
+    rng = np.random.default_rng(100 + seed)
+    m = mbw * mbh
+    kinds = np.empty(m, np.int64)
+    i = 0
+    while i < m:
+        run = int(rng.integers(20, 301))
+        kinds[i: i + run] = rng.choice([K.H_INTER, K.H_SKIP], min(run, m - i))
+        i += run
+        n_intra = int(rng.choice([1, 1, 2, 5]))
+        kinds[i: i + n_intra] = rng.choice([K.H_I4, K.H_I16, K.H_PCM],
+                                           min(n_intra, max(m - i, 0)),
+                                           p=[.6, .3, .1])
+        i += n_intra
+    mb, pcm, planes, ry, rc = _intra_case(seed, mbw, mbh, cip, 1, kinds)
+    assert 0 < (mb[:, K.F_KIND] >= K.H_I4).sum() < m // 10
+    got = [torch.from_numpy(p).unsqueeze(0).to(cuda) for p in planes]
+    args = [torch.from_numpy(a).to(cuda) for a in (mb, pcm, ry, rc)]
+    want = [p.clone() for p in got]
+    K.intra_reconstruct_plain(want, 0, *args, mbw)
+    K.intra_reconstruct(got, 0, *args, mbw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("seed,mbw,mbh,slices,off", [
+    (1, 80, 1, 1, 0.0), (2, 33, 2, 3, 0.3), (3, 80, 45, 9, 0.5),
+    (4, 120, 68, 6, 0.3), (5, 17, 45, 45, 0.6), (6, 2048, 2, 5, 0.4)])
+def test_h264_deblock_slices_and_shapes(cuda, seed, mbw, mbh, slices, off):
+    """H4 on pictures cut into slices, each with its own
+    disable_deblocking_filter_idc (0 or 1, a share `off` of them 1),
+    filter offsets and chroma QP offset, every macroblock kind and bS:
+    heights of 1, 2 and 45 macroblock rows (not multiples of the rows a
+    thread block), a 1920x1088 picture, rows of MAX_MB_WIDTH = 2048
+    macroblocks (every word of H4's row masks), runs of filter-off
+    macroblocks and whole rows of them: bit for bit."""
+    from faceoff_tpu_torch.ops import h264_cuda as K
+
+    rng = np.random.default_rng(seed)
+    m = mbw * mbh
+    mb = _h264_records(rng, 1, mbw, mbh, [K.H_SKIP, K.H_INTER, K.H_INTER,
+                                          K.H_I4, K.H_I16, K.H_PCM],
+                       tuple(range(10, 52)))[0]
+    bounds = np.sort(rng.choice(np.arange(1, m), slices - 1, replace=False))
+    sl = np.searchsorted(bounds, np.arange(m), side="right")
+    per = rng.random(slices) < off
+    mb[:, K.F_SLICE] = sl
+    mb[:, K.F_FILTER] = per[sl]
+    mb[:, K.F_ALPHA] = (2 * rng.integers(-6, 7, slices))[sl]
+    mb[:, K.F_BETA] = (2 * rng.integers(-6, 7, slices))[sl]
+    mb[:, K.F_QPC] = rng.integers(-12, 13, slices)[sl]
+    blk = np.zeros((m, 16, 4), np.int32)
+    blk[..., :2] = rng.integers(-6, 7, (m, 16, 2))
+    blk[..., 2] = rng.integers(0, 3, (m, 16))
+    blk[..., 3] = (rng.random((m, 16)) < 0.2) * rng.integers(1, 16, (m, 16))
+    planes = [torch.from_numpy(np.clip(128 + rng.integers(
+        -12, 13, (2, 16 * mbh // s, 16 * mbw // s)), 0, 255).astype(
+            np.uint8)).to(cuda) for s in (1, 2, 2)]
+    args = [torch.from_numpy(a).to(cuda) for a in (mb, blk)]
+    want = [p.clone() for p in planes]
+    before = planes[0][1].clone()
+    K.deblock_plain(want, 1, *args, mbw)
+    K.deblock(planes, 1, *args, mbw)
+    for g, w in zip(planes, want):
+        assert torch.equal(g, w)
+    assert per.all() or not torch.equal(planes[0][1], before)
 
 
 @pytest.mark.parametrize("qps", [(0,), (51,), (0, 17, 30, 51)])

@@ -23,6 +23,8 @@ Tolerance 0: every stage is integer arithmetic.
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -568,12 +570,16 @@ def _i4_modes(rng, avail_a, avail_b, avail_c, avail_d, cover):
     return modes
 
 
-def _intra_case(seed, mbw, mbh, cip, slices):
+def _intra_case(seed, mbw, mbh, cip, slices, kinds=None):
+    """A random picture for H3 (records, I_PCM rows, planes, residuals):
+    kinds drawn at random unless given, every intra mode chosen among
+    those its available neighbours allow."""
     rng = np.random.default_rng(seed)
     m = mbw * mbh
     mb = np.zeros((m, K.MB_FIELDS), np.int32)
-    kinds = rng.choice([K.H_INTER, K.H_SKIP, K.H_I4, K.H_I16, K.H_PCM], m,
+    drawn = rng.choice([K.H_INTER, K.H_SKIP, K.H_I4, K.H_I16, K.H_PCM], m,
                        p=[.2, .1, .35, .25, .1])
+    kinds = drawn if kinds is None else np.asarray(kinds)
     mb[:, K.F_KIND] = kinds
     mb[:, K.F_CIP] = cip
     bounds = sorted(rng.choice(np.arange(1, m), slices - 1, replace=False)) \
@@ -873,7 +879,259 @@ def test_deblock_waves_equal_the_raster_loop(seed, mbw, mbh):
     assert not np.array_equal(got[0][0].numpy(), planes[0])
 
 
+# -- the kernels' layout (csrc/h264.cu) ------------------------------------------
+
+
+def test_kernel_constants_follow_the_host_tables():
+    """H3's kTrInside in csrc/h264.cu is _TR_INSIDE as a bit mask, its
+    row masks (kMaxChunks words of 32) cover MAX_MB_WIDTH, and every
+    entry of INTRA4_TAPS fits the word H3 packs it into (three 4-bit
+    indices, three 2-bit weights, 2-bit rounding and shift)."""
+    src = K.SOURCE.read_text()
+    mask = int(re.search(r"kTrInside = (0x[0-9a-fA-F]+);", src).group(1), 16)
+    assert [(mask >> b) & 1 for b in range(16)] == list(K._TR_INSIDE)
+    chunks = int(re.search(r"kMaxChunks = (\d+);", src).group(1))
+    assert 32 * chunks == K.MAX_MB_WIDTH
+    t = K.INTRA4_TAPS
+    assert t.min() >= 0 and t[..., :3].max() <= 12 and t[..., 3:].max() <= 3
+
+
+def _lane_bs(kinds, blocks, x, y):
+    """H4's bS gather (deblock_kernel) for macroblock (x, y): lanes 0-15
+    each the bS of their 4x4 block's left and top edges, from the block
+    records of the macroblock and of its left and top neighbours; then
+    each lane's 4 vertical and 4 horizontal slots (luma lane l: line l;
+    lane 16 + 8c + k: chroma line k of component c, slots 0 and 1 its
+    edges 0 and 4)."""
+    kq, kl, kt = kinds
+    q, left, top = blocks
+    both = []
+    for lane in range(16):
+        bx, by = lane & 3, lane >> 2
+        rec = q[lane]
+
+        def bs(kp, p, mb_edge):
+            if kp >= K.H_I4 or kq >= K.H_I4:
+                return 4 if mb_edge else 3
+            if p[3] or rec[3]:
+                return 2
+            return int(p[2] != rec[2] or abs(p[0] - rec[0]) >= 4
+                       or abs(p[1] - rec[1]) >= 4)
+        bsv = 0 if bx == 0 and x == 0 else bs(
+            kq if bx else kl, q[lane - 1] if bx else left[4 * by + 3],
+            bx == 0)
+        bsh = 0 if by == 0 and y == 0 else bs(
+            kq if by else kt, q[lane - 4] if by else top[12 + bx], by == 0)
+        both.append((bsv, bsh))
+    out = []
+    for lane in range(32):
+        li, k = lane & 15, lane & 7
+        slots = []
+        for j in range(4):
+            if lane >= 16:
+                sv, sh = 4 * (k >> 1) + 2 * (j & 1), 8 * (j & 1) + (k >> 1)
+            else:
+                sv, sh = 4 * (li >> 2) + j, 4 * j + (li >> 2)
+            off = lane >= 16 and j >= 2
+            slots.append((0 if off else both[sv][0],
+                          0 if off else both[sh][1]))
+        out.append(slots)
+    return out
+
+
+def test_deblock_lane_bs_equals_the_lines():
+    """The per-lane table of bS that H4's lanes gather by shuffles
+    (_lane_bs) equals boundary_strength's bS of each line and edge as
+    deblock_lines lists them, on random macroblocks of every kind."""
+    rng = np.random.default_rng(7)
+    mbw, mbh = 3, 3
+    m = mbw * mbh
+    mb = np.zeros((m, K.MB_FIELDS), np.int32)
+    mb[:, K.F_KIND] = rng.choice([K.H_SKIP, K.H_INTER, K.H_I4, K.H_PCM], m,
+                                 p=[.3, .5, .1, .1])
+    mb[:, K.F_QP] = 30
+    blk = np.zeros((m, 16, 4), np.int32)
+    blk[..., :2] = rng.integers(-5, 6, (m, 16, 2))
+    blk[..., 2] = rng.integers(0, 2, (m, 16))
+    blk[..., 3] = rng.random((m, 16)) < 0.2
+    step, idx, bs, *_ = K.deblock_lines(torch.from_numpy(mb),
+                                        torch.from_numpy(blk), mbw)
+    hl, wl = 16 * mbh, 16 * mbw
+    want = {}  # (plane, y, x, vertical) of q0 -> bS
+    for st, line, b in zip(step.tolist(), idx.tolist(), bs.tolist()):
+        q0 = line[4]
+        plane = 0 if q0 < hl * wl else 1 + (q0 - hl * wl) // (hl * wl // 4)
+        w = wl if plane == 0 else wl // 2
+        q0 -= 0 if plane == 0 else hl * wl + (plane - 1) * (hl * wl // 4)
+        want[(plane, q0 // w, q0 % w, line[5] - line[4] == 1)] = b
+    for a in range(m):
+        x, y = a % mbw, a // mbw
+        table = _lane_bs((mb[a, K.F_KIND], mb[a - 1, K.F_KIND],
+                          mb[a - mbw, K.F_KIND]),
+                         (blk[a], blk[a - 1], blk[a - mbw]), x, y)
+        for lane in range(32):
+            plane = 0 if lane < 16 else 1 + ((lane >> 3) & 1)
+            n = 16 if plane == 0 else 8
+            line = lane & 15 if plane == 0 else lane & 7
+            for j in range(4 if plane == 0 else 2):
+                for vertical in (True, False):
+                    yy, xx = (n * y + line, n * x + 4 * j) if vertical else (
+                        n * y + 4 * j, n * x + line)
+                    got = table[lane][j][0 if vertical else 1]
+                    assert got == want.get((plane, yy, xx, vertical), 0), (
+                        a, lane, j, vertical)
+
+
+# -- the wavefronts' latency bounds (chip_smoke.py) ---------------------------
+
+LINK, HANDOFF = 1.0, 0.25  # exact in binary: a bound's ms names its path
+
+
+def _chain_records(kinds, mbw, modes=0, i16=0, cmode=2, slices=None,
+                   cip=0):
+    """Intra records for h264_intra_chain: one Intra4x4 mode for all 16
+    blocks, one Intra16x16 and one chroma mode."""
+    m = len(kinds)
+    mb = np.zeros((m, K.MB_FIELDS), np.int32)
+    mb[:, K.F_KIND] = kinds
+    word = np.array([sum(modes << (4 * b) for b in range(8))], np.uint32)
+    mb[:, K.F_MODES] = mb[:, K.F_MODES_HI] = word.view(np.int32)[0]
+    mb[:, K.F_I16] = i16
+    mb[:, K.F_CMODE] = cmode
+    mb[:, K.F_SLICE] = np.arange(m) if slices == "each" else 0
+    mb[:, K.F_CIP] = cip
+    return mb
+
+
+I4, I16 = K.H_I4, K.H_I16
+
+
+@pytest.mark.parametrize("kinds,mbw,opts,want", [
+    # one macroblock: DC reads left and top (bx + by + 1 steps), vertical
+    # only the top, horizontal only the left
+    ([I4], 1, {"modes": 2}, (7.0, 7, 0)),
+    ([I4], 1, {"modes": 0}, (4.0, 4, 0)),
+    ([I4], 1, {"modes": 1}, (4.0, 4, 0)),
+    # horizontal across a row: 4 blocks a macroblock
+    ([I4] * 3, 3, {"modes": 1}, (12.0, 12, 0)),
+    # Intra16x16: a step a macroblock, along the row only where it reads
+    # the left; down a column with a handoff a row
+    ([I16] * 3, 3, {"i16": 1}, (3.0, 3, 0)),
+    ([I16] * 3, 3, {"i16": 0}, (1.0, 1, 0)),
+    ([I16] * 3, 1, {"i16": 0}, (3.5, 3, 2)),
+    # a slice a macroblock: no neighbour is available
+    ([I16] * 3, 3, {"i16": 1, "slices": "each"}, (1.0, 1, 0)),
+    # chroma's own chain (horizontal) beside luma's single steps
+    ([I16] * 3, 3, {"i16": 0, "cmode": 1}, (3.0, 3, 0)),
+    # diagonal down-left (top and top-right) over 2 x 2 macroblocks: 4
+    # steps in the top row (block (1, 1) has no top-right), then block
+    # (0, 0) below after the top-right macroblock's, a handoff, 4 more
+    ([I4] * 4, 2, {"modes": 3}, (8.25, 8, 1)),
+    # inter neighbours are final before any step; under
+    # constrained_intra_pred they are not read at all
+    ([I16, K.H_INTER, I16], 3, {"i16": 1}, (1.0, 1, 0)),
+    ([I16, K.H_INTER, I16], 3, {"i16": 1, "cip": 1}, (1.0, 1, 0)),
+])
+def test_intra_latency_bound_counts_the_block_graph(kinds, mbw, opts,
+                                                   want):
+    """chip_smoke.h264_intra_chain, H3's latency bound, on pictures whose
+    longest dependent path is worked out by hand: (ms, links, handoffs)
+    at a link of 1 and a handoff of 0.25."""
+    import chip_smoke as cs
+
+    mb = _chain_records(kinds, mbw, **opts)
+    assert cs.h264_intra_chain(mb, mbw, LINK, HANDOFF) == want
+
+
+class DeblockChain(DeblockPicture):
+    """DeblockPicture's raster loop with each line's filter replaced by
+    its step on the dependence graph: a sample's time is that of the
+    line that last wrote it; a line (bS > 0, alpha and beta > 0) starts
+    after the latest sample it reads, plus a handoff where that sample's
+    writer lies in another macroblock row, and writes the samples the
+    filter may change."""
+
+    def __init__(self, mb, blk, mbw):
+        mbh = len(mb) // mbw
+        planes = [np.zeros((16 * mbh // s, 16 * mbw // s)) for s in (1, 2, 2)]
+        super().__init__(planes, mb, blk, mbw)
+        self.writer = [np.full(p.shape, -1) for p in planes]
+        self.best = 0.0
+
+    def line(self, plane, size, x, y, e, k, vertical, bs, qpav, off_a,
+             off_b, chroma):
+        if bs == 0 or not (ALPHA[clip3(0, 51, qpav + off_a)]
+                           and BETA[clip3(0, 51, qpav + off_b)]):
+            return
+        writer = self.writer[[id(p) for p in self.planes].index(id(plane))]
+        row, col = (size * y + k, size * x + e) if vertical else (
+            size * y + e, size * x + k)
+
+        def at(side, i):  # p_i (side -1) or q_i (side 1)
+            d = -1 - i if side < 0 else i
+            return (row, col + d) if vertical else (row + d, col)
+        n_read = 2 if chroma else (4 if bs == 4 else 3)
+        n_write = 1 if chroma else (3 if bs == 4 else 2)
+        t = max(plane[at(s, i)] + HANDOFF * (writer[at(s, i)] not in (-1, y))
+                for s in (-1, 1) for i in range(n_read)) + LINK
+        for s in (-1, 1):
+            for i in range(n_write):
+                plane[at(s, i)] = t
+                writer[at(s, i)] = y
+        self.best = max(self.best, t)
+
+
+@pytest.mark.parametrize("seed,mbw,mbh,chroma_only", [
+    (1, 4, 3, False), (2, 3, 4, False), (3, 6, 2, False), (4, 4, 3, True)])
+def test_deblock_latency_bound_equals_the_raster_loop(seed, mbw, mbh,
+                                                      chroma_only):
+    """chip_smoke.h264_deblock_chain, H4's latency bound (lines gathered
+    by step, vectorised), equals the same graph walked by the literal
+    raster-order loop on random pictures of every kind, QPs that do and
+    do not filter, and slices that do not filter; and on one where only
+    chroma filters (luma QP 4, chroma's 16: luma's alpha is 0)."""
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(seed)
+    m = mbw * mbh
+    mb = np.zeros((m, K.MB_FIELDS), np.int32)
+    mb[:, K.F_KIND] = rng.choice([K.H_SKIP, K.H_INTER, K.H_I4, K.H_I16,
+                                  K.H_PCM], m, p=[.25, .35, .15, .15, .1])
+    mb[:, K.F_QP] = rng.integers(10, 52, m)
+    mb[:, K.F_QPC] = rng.integers(-6, 7, m)
+    mb[:, K.F_FILTER] = rng.random(m) < 0.15
+    mb[:, K.F_ALPHA] = 2 * rng.integers(-6, 7, m)
+    mb[:, K.F_BETA] = 2 * rng.integers(-6, 7, m)
+    if chroma_only:
+        mb[:, K.F_KIND] = rng.choice([K.H_I4, K.H_I16], m)
+        mb[:, K.F_QP], mb[:, K.F_QPC] = 4, 12
+        mb[:, K.F_ALPHA], mb[:, K.F_BETA] = 2, 6
+    blk = np.zeros((m, 16, 4), np.int32)
+    blk[..., :2] = rng.integers(-6, 7, (m, 16, 2))
+    blk[..., 2] = rng.integers(0, 2, (m, 16))
+    blk[..., 3] = (rng.random((m, 16)) < 0.3) * rng.integers(1, 16, (m, 16))
+    ref = DeblockChain(mb, blk, mbw)
+    ref.run()
+    got = cs.h264_deblock_chain(torch.from_numpy(mb), torch.from_numpy(blk),
+                                mbw, LINK, HANDOFF)
+    assert ref.best > 2 * LINK
+    assert got[0] == ref.best
+    assert got[1] * LINK + got[2] * HANDOFF == got[0]
+
+
 # -- the wrappers --------------------------------------------------------------
+
+
+def test_wavefront_kernels_refuse_what_they_cannot_take():
+    """H3 and H4 move 16-byte rows and keep a bit a macroblock of a row:
+    a tensor off a 16-byte boundary, or a picture wider than
+    MAX_MB_WIDTH macroblocks, is refused before any launch."""
+    buf = torch.zeros(64, dtype=torch.uint8)
+    K._wave_ok([buf[16:]], K.MAX_MB_WIDTH)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K._wave_ok([buf[16:], buf[1:]], 4)
+    with pytest.raises(ValueError, match="macroblocks wide"):
+        K._wave_ok([buf], K.MAX_MB_WIDTH + 1)
 
 
 def test_wrappers_refuse_tensors_off_the_card():
